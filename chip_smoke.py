@@ -30,6 +30,29 @@ Phases, each fatal on failure (exit 1, no result line):
              equal where |p - 0.5| >= 1e-5), and checks that the served
              forwards launched 3 depthwise, 59 BN+act and 1 sigmoid-mask
              kernels each.
+5. backward — captures the three ASPP depthwise calls (input, filter, rate
+             and the output gradient) from one full-width training forward
+             and backward at batch 64, and holds the dx and dw kernels
+             against the plain backward there and on an odd sweep (C=72,
+             5x5, rate 3, B=1): dx atol 1e-5; dw rtol 1e-4 with atol
+             1e-4·max|dw_plain| (each entry sums B·H·W products in another
+             order); dw bitwise equal across two launches. Times as in 3,
+             summed per train step; library: aten.convolution_backward.
+6. train   — writes a TGS-layout dataset from the seed (256 images of
+             101x101, a third of the masks empty) and runs Trainer.train
+             on the full-width model, batch 64, 2 folds of 20 steps,
+             checkpoints and evals every 10 steps; checks every fold's
+             checkpoints and best export, finite metrics, exactly 3/3/3
+             depthwise forward/dx/dw and 0 BN+act and 0 sigmoid-mask
+             launches per train step (3 depthwise and 59 BN+act per eval
+             forward), and that a re-run is a no-op resume. Then 10 steps
+             on one fixed batch must lower the loss (ms per step, images/s);
+             torch.profiler over 3 steps gives the device idle share; one
+             step from one state with the kernels and with the plain
+             versions agrees (loss 1e-5; every gradient leaf to
+             1e-4·max|g_leaf| + 1e-6; the plain run launches nothing); and
+             the exported best fold serves, through the engine at bucket 4,
+             what the trainer's eval-mode forward gives (1e-6).
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -62,15 +85,31 @@ TOL_PROBS = 1e-5
 PKG = "tensorflowdistributedlearning_tpu_torch"
 REPLACES = {
     "depthwise_conv2d": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:138",
+    "depthwise_conv2d_dx": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:170",
+    "depthwise_conv2d_dw": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:172",
     "fused_bn_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:398",
     "fused_sigmoid_mask": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:573",
 }
 SOURCES = {
     "depthwise_conv2d": f"{PKG}/csrc/depthwise.cu",
+    "depthwise_conv2d_dx": f"{PKG}/csrc/depthwise.cu",
+    "depthwise_conv2d_dw": f"{PKG}/csrc/depthwise_dw.cu",
     "fused_bn_act": f"{PKG}/csrc/bn_act.cu",
     "fused_sigmoid_mask": f"{PKG}/csrc/sigmoid_mask.cu",
 }
 PER_FORWARD = {"depthwise_conv2d": 3, "fused_bn_act": 59, "fused_sigmoid_mask": 1}
+# launches per training step, and per eval-mode forward of the trainer
+PER_TRAIN_STEP = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3,
+                  "fused_bn_act": 0, "fused_sigmoid_mask": 0}
+PER_EVAL_FORWARD = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
+                    "fused_bn_act": 59, "fused_sigmoid_mask": 0}
+TRAIN_BATCH = 64
+TRAIN_IMAGES = 256
+TRAIN_FOLDS = 2
+TRAIN_STEPS = 20
+TOL_DX = 1e-5
+TOL_DW_REL = 1e-4
+TOL_LOSS = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -493,6 +532,330 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
     return results
 
 
+# -- training -------------------------------------------------------------------
+
+
+def write_salt_dataset(root: str, n: int, size: int, seed: int) -> list:
+    """A TGS-layout dataset from ``seed``: ``{root}/images/*.png`` and
+    ``{root}/masks/*.png``, 8-bit grey, one disk of salt per mask and every
+    third mask empty; the image is noise plus a brighter disk."""
+    from tensorflowdistributedlearning_tpu_torch.data.png import write_png_gray
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "masks"), exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size]
+    ids = []
+    for i in range(n):
+        if i % 3 == 0:
+            mask = np.zeros((size, size), bool)
+        else:
+            cy, cx = rng.uniform(0.2, 0.8, 2) * size
+            r = rng.uniform(0.1, 0.35) * size
+            mask = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
+        image = np.clip(rng.normal(110, 30, (size, size)) + 60 * mask, 0, 255).astype(np.uint8)
+        name = f"s{i:04d}"
+        write_png_gray(os.path.join(root, "images", f"{name}.png"), image)
+        write_png_gray(os.path.join(root, "masks", f"{name}.png"), (mask * 255).astype(np.uint8))
+        ids.append(name)
+    return ids
+
+
+def capture_train_calls(torch, model, images, labels):
+    """One training-mode forward and backward of the Lovász loss with hooks
+    recording each depthwise call's input, filter, rate and output gradient."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import DepthwiseConv2D
+    from tensorflowdistributedlearning_tpu_torch.train.step import SegmentationTask
+
+    calls = []
+
+    def hook(module, args, out):
+        entry = {"x": args[0].detach().contiguous(), "w": module.weight.detach().contiguous(), "rate": module.rate}
+        calls.append(entry)
+        out.register_hook(lambda g: entry.__setitem__("g", g.detach().contiguous()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, DepthwiseConv2D)]
+    try:
+        model.train()
+        logits = model(images)
+        SegmentationTask().loss(logits, {"labels": labels}).backward()
+    finally:
+        for h in handles:
+            h.remove()
+    model.zero_grad(set_to_none=True)
+    return calls
+
+
+def backward_phase(torch, calls, timer, card: str):
+    """dx and dw kernels against the plain backward at the train path's
+    shapes, plus an odd sweep; times per train step."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    aten = torch.ops.aten
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    odd_x = torch.randn(1, 17, 23, 72, device="cuda", generator=gen)
+    odd = [{"x": odd_x, "w": torch.randn(5, 5, 72, device="cuda", generator=gen), "rate": 3,
+            "g": torch.randn_like(odd_x)}]
+    rows = {}
+    for name in ("depthwise_conv2d_dx", "depthwise_conv2d_dw"):
+        rows[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0)
+    with torch.no_grad():
+        for i, c in enumerate(list(calls) + odd):
+            on_path = i < len(calls)
+            x, w, g, rate = c["x"], c["w"], c["g"], c["rate"]
+            kh, kw, ch = w.shape
+            dx = kernels.depthwise_conv2d_dx(g, w, rate)
+            dw = kernels.depthwise_conv2d_dw(x, g, (kh, kw), rate)
+            dw_again = kernels.depthwise_conv2d_dw(x, g, (kh, kw), rate)
+            pdx, pdw = kernels.depthwise_conv2d_backward_plain(x, w, g, rate)
+            torch.cuda.synchronize()
+            e_dx = (dx - pdx).abs().max().item()
+            e_dw = (dw - pdw).abs().max().item()
+            dx_scale, dw_scale = pdx.abs().max().item(), pdw.abs().max().item()
+            what = f"{tuple(x.shape)} {kh}x{kw} rate {rate}"
+            check(e_dx <= TOL_DX, f"dx {what}: max|err| {e_dx} > {TOL_DX} (max|dx| {dx_scale})")
+            check(bool(((dw - pdw).abs() <= TOL_DW_REL * pdw.abs() + TOL_DW_REL * dw_scale).all()),
+                  f"dw {what}: max|err| {e_dw} beyond rtol {TOL_DW_REL} + {TOL_DW_REL}·max|dw| ({dw_scale})")
+            check(torch.equal(dw, dw_again), f"dw {what}: two launches differ (the kernel must be bitwise repeatable)")
+            rows["depthwise_conv2d_dx"]["max_abs_err"] = max(rows["depthwise_conv2d_dx"]["max_abs_err"], e_dx)
+            rows["depthwise_conv2d_dw"]["max_abs_err"] = max(rows["depthwise_conv2d_dw"]["max_abs_err"], e_dw)
+            log(f"backward {what}{'' if on_path else ' (sweep)'}: dx max|err| {e_dx:.3g} (max|dx| {dx_scale:.3g}), "
+                f"dw max|err| {e_dw:.3g} (max|dw| {dw_scale:.3g}), dw bitwise repeatable")
+            if not on_path:
+                continue
+            b, h, wd, _ = x.shape
+            xv, gv = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            wt = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+            pad = [rate * (kh - 1) // 2, rate * (kw - 1) // 2]
+
+            def library(mask):
+                return aten.convolution_backward(gv, xv, wt, None, [1, 1], pad, [rate, rate], False, [0, 0], ch,
+                                                 mask)
+
+            flops = 2 * b * ch * depthwise_valid_taps(h, wd, kh, rate)
+            rx, rw = rows["depthwise_conv2d_dx"], rows["depthwise_conv2d_dw"]
+            rx["ms"] += timer.ms(lambda: kernels.depthwise_conv2d_dx(g, w, rate))
+            rx["plain_ms"] += timer.ms(lambda: kernels._dx_plain(g, w, rate))
+            rx["library_ms"] += timer.ms(lambda: library([True, False, False]))
+            rx["nbytes"] += 4 * (2 * g.numel() + w.numel())
+            rx["flops"] += flops
+            rw["ms"] += timer.ms(lambda: kernels.depthwise_conv2d_dw(x, g, (kh, kw), rate))
+            rw["plain_ms"] += timer.ms(lambda: kernels._dw_plain(x, g, kh, kw, rate))
+            rw["library_ms"] += timer.ms(lambda: library([False, True, False]))
+            rw["nbytes"] += 4 * (x.numel() + g.numel() + w.numel())
+            rw["flops"] += flops
+    for name, r in rows.items():
+        nbytes, flops = r.pop("nbytes"), r.pop("flops")
+        r.update(bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
+        log(f"{name}: {r['ms']:.4f} ms per train step at batch {TRAIN_BATCH} (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+    return rows
+
+
+class LaunchLedger:
+    """Wraps the trainer's step builders so that each train step's and each
+    eval forward's kernel launches are recorded as deltas of the counts."""
+
+    def __init__(self, kernels, step_lib):
+        self.kernels, self.step_lib = kernels, step_lib
+        self.train, self.eval = [], []
+
+    def _wrap(self, make, sink):
+        kernels = self.kernels
+
+        def maker(*args, **kwargs):
+            inner = make(*args, **kwargs)
+
+            def step(*a, **kw):
+                before = kernels.launch_counts()
+                out = inner(*a, **kw)
+                after = kernels.launch_counts()
+                sink.append({k: after[k] - before[k] for k in after})
+                return out
+
+            return step
+
+        return maker
+
+    def patch(self):
+        return mock.patch.multiple(
+            self.step_lib,
+            make_train_step=self._wrap(self.step_lib.make_train_step, self.train),
+            make_eval_step=self._wrap(self.step_lib.make_eval_step, self.eval),
+        )
+
+
+def fold_files(model_dir: str, fold: int):
+    """{kind: {step: mtime}} of a fold's checkpoints and best exports."""
+    out = {}
+    for kind, sub in (("checkpoints", "checkpoints"), ("best", os.path.join("export", "best"))):
+        root = os.path.join(model_dir, f"fold{fold}", sub)
+        steps = sorted(int(d) for d in os.listdir(root) if d.isdigit()) if os.path.isdir(root) else []
+        out[kind] = {s: os.path.getmtime(os.path.join(root, str(s), "state.pt")) for s in steps}
+    return out
+
+
+def profile_steps(torch, step, state, batch, reps: int = 3):
+    """torch.profiler over ``reps`` train steps: wall and device-kernel time
+    per step, the device idle share, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels_us = {}
+    for evt in prof.events():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            kernels_us[evt.name] = kernels_us.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    device_ms = sum(kernels_us.values()) / 1e3 / reps
+    if device_ms <= 0:
+        return [f"train step: wall {wall_ms:.3f} ms; device time not measured (the profiler recorded no CUDA kernels)"]
+    lines = [f"train step at batch {batch['images'].shape[0]}: wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} "
+             f"ms, device idle {max(0.0, 1 - device_ms / wall_ms):.3f} of the wall time"]
+    for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]:
+        lines.append(f"  {us / 1e3 / reps:9.3f} ms  {name[:110]}")
+    return lines
+
+
+def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
+                size: int = 101, batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS, every: int = 10):
+    """Trainer.train on the full-width model (the main training path), then
+    the learning, profile, kernel-vs-plain and serve checks."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True)
+    cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+    tcfg = TrainConfig(n_folds=TRAIN_FOLDS, seed=SEED % 1000, checkpoint_every_steps=every, eval_every_steps=every,
+                       save_best=2)
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as root:
+        data, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
+        t0 = time.perf_counter()
+        ids = write_salt_dataset(data, n_images, size, SEED + 11)
+        log(f"train: wrote {len(ids)} {size}x{size} TGS-layout images in {time.perf_counter() - t0:.3f} s")
+
+        # the main path: counts from 0 just before, read just after
+        ledger = LaunchLedger(kernels, step_lib)
+        trainer = Trainer(model_dir, data, train_config=tcfg, device=device,
+                          input_shape=(size, size), **model_kwargs)
+        with ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            folds = trainer.train(ids, batch_size=batch, steps=steps)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        log(f"train: Trainer.train, {TRAIN_FOLDS} folds x {steps} steps at batch {batch}, {train_s:.3f} s "
+            f"(data, augmentation, eval, checkpoints included) [{card}]")
+        for fold, metrics in enumerate(folds):
+            log(f"train: fold {fold} final eval {json.dumps(metrics)}")
+            check(all(np.isfinite(v) for v in metrics.values()), f"fold {fold}: non-finite metrics {metrics}")
+            files = fold_files(model_dir, fold)
+            check(sorted(files["checkpoints"]) == list(range(every, steps + 1, every)),
+                  f"fold {fold}: checkpoints at {sorted(files['checkpoints'])}")
+            check(len(files["best"]) >= 1, f"fold {fold}: no best export")
+        check(len(ledger.train) == TRAIN_FOLDS * steps, f"{len(ledger.train)} train steps recorded")
+        for i, delta in enumerate(ledger.train):
+            check(delta == PER_TRAIN_STEP, f"train step {i}: launches {delta}, expected {PER_TRAIN_STEP}")
+        eval_forwards = len(ledger.eval)
+        for i, delta in enumerate(ledger.eval):
+            check(delta == PER_EVAL_FORWARD, f"eval forward {i}: launches {delta}, expected {PER_EVAL_FORWARD}")
+        want = {k: PER_TRAIN_STEP[k] * len(ledger.train) + PER_EVAL_FORWARD[k] * eval_forwards for k in counts}
+        check(counts == want, f"train path launches {counts}, expected {want}")
+        log(f"train: {len(ledger.train)} train steps launched {PER_TRAIN_STEP} each; {eval_forwards} eval forwards "
+            f"launched {PER_EVAL_FORWARD} each; totals {counts}")
+        results["launches"] = counts
+
+        # a re-run is a no-op resume: no step trains, no checkpoint changes
+        before = {f: fold_files(model_dir, f) for f in range(TRAIN_FOLDS)}
+        kernels.reset_launch_counts()
+        again = Trainer(model_dir, data, train_config=tcfg, device=device, input_shape=(size, size),
+                        **model_kwargs).train(ids, batch_size=batch, steps=steps)
+        rerun = kernels.launch_counts()
+        check(rerun["depthwise_conv2d_dx"] == 0 and rerun["depthwise_conv2d_dw"] == 0, f"the re-run trained: {rerun}")
+        check({f: fold_files(model_dir, f) for f in range(TRAIN_FOLDS)} == before, "the re-run rewrote checkpoints")
+        for a, b in zip(again, folds):
+            check(all(abs(a[k] - b[k]) <= 1e-6 for k in b), f"re-run eval {a} != {b}")
+        log(f"train: re-run is a no-op resume (launches {rerun}, checkpoints untouched, same eval)")
+
+        # the train step learns: 10 steps on one fixed batch from a fresh state
+        dataset = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids[:batch])
+        placed = pipeline_lib.to_device({"images": dataset.images, "masks": dataset.masks}, torch.device(device))
+        fixed = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
+        state = create_train_state(cfg, tcfg, device, generator=torch.Generator().manual_seed(SEED))
+        train_step = step_lib.make_train_step(step_lib.SegmentationTask())
+        losses, times = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, fixed)
+            losses.append(step_lib.compute_metrics(metrics)["loss"])  # the host copy waits for the step
+            times.append(time.perf_counter() - t0)
+        check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+        check(losses[-1] < losses[0], f"10 steps on one batch did not lower the loss: {losses}")
+        ms = statistics.median(times[2:]) * 1e3
+        results.update(step_ms=ms, images_per_s=batch / ms * 1e3, losses=losses)
+        log(f"train: fixed-batch losses {[round(v, 5) for v in losses]}")
+        log(f"train: {ms:.3f} ms per step (median of steps 3-10), {batch / ms * 1e3:.3f} images/s at batch {batch} "
+            f"[{card}]")
+        if device == "cuda":
+            for line in profile_steps(torch, train_step, state, fixed):
+                log(f"profile: {line} [{card}]")
+
+        # kernel path vs plain path: one step from one state and batch
+        snapshot = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        task = step_lib.SegmentationTask()
+        kernels.reset_launch_counts()
+        loss_k, _ = step_lib.forward_backward(state, task, fixed)
+        grads_k = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        check(kernels.launch_counts() == PER_TRAIN_STEP, f"kernel step launches {kernels.launch_counts()}")
+        state.model.load_state_dict(snapshot)
+        plain = {"depthwise_conv2d": kernels.depthwise_conv2d_plain, "bn_act_folded": kernels.bn_act_folded_plain,
+                 "fused_sigmoid_mask": kernels.fused_sigmoid_mask_plain}
+        with mock.patch.multiple(kernels, **plain):
+            kernels.reset_launch_counts()
+            loss_p, _ = step_lib.forward_backward(state, task, fixed)
+            check(sum(kernels.launch_counts().values()) == 0, f"the plain step launched {kernels.launch_counts()}")
+        state.model.load_state_dict(snapshot)
+        d_loss = abs(float(loss_k) - float(loss_p))
+        check(d_loss <= TOL_LOSS, f"kernel vs plain loss {float(loss_k)} vs {float(loss_p)}")
+        worst, worst_name = 0.0, ""
+        for n, p in state.model.named_parameters():
+            gp, gk = p.grad, grads_k[n]
+            err = (gk - gp).abs().max().item()
+            tol = 1e-4 * gp.abs().max().item() + 1e-6
+            check(err <= tol, f"gradient {n}: kernel vs plain max|err| {err} > {tol}")
+            if err / tol > worst:
+                worst, worst_name = err / tol, n
+        log(f"train: kernel vs plain step: |dloss| {d_loss:.3g}; every gradient leaf within 1e-4·max|g|+1e-6 "
+            f"(worst {worst_name} at {worst:.3f} of its tolerance)")
+
+        # serve the trained model
+        manifest = trainer.export_serving(0)
+        engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device=device, buckets=(1, 4))
+        x4 = make_instances(torch, 4, SEED + 21)
+        served = engine.infer(x4)["probabilities"]
+        best = trainer.restore_fold(0).model.eval()
+        with torch.no_grad():
+            direct = torch.sigmoid(best(torch.from_numpy(x4).to(device))).cpu().numpy()
+        d_serve = float(np.abs(served - direct).max())
+        check(d_serve <= 1e-6, f"served probabilities differ from the eval-mode forward by {d_serve}")
+        log(f"train: exported fold 0 serves through the engine at bucket 4, max|dprobs| vs eval forward {d_serve:.3g}")
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -524,15 +887,38 @@ def main() -> int:
                 f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
         served = serve_phase(torch, model, cfg, card)
+        del model
+        torch.cuda.empty_cache()
+
+        from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_segmentation_batch
+
+        train_model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(SEED + 3)).cuda()
+        images = torch.from_numpy(make_instances(torch, TRAIN_BATCH, SEED + 4)).cuda()
+        labels = synthetic_segmentation_batch(np.random.default_rng(SEED + 4), TRAIN_BATCH)["labels"]
+        calls = capture_train_calls(torch, train_model, images, torch.from_numpy(labels).cuda())
+        check(len(calls) == 3 and all("g" in c for c in calls), f"captured {len(calls)} depthwise calls with gradients")
+        del train_model, images
+        torch.cuda.empty_cache()
+        rows.update(backward_phase(torch, calls, timer, card))
+        del calls
+        torch.cuda.empty_cache()
+        trained = train_phase(torch, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    paths = {"serve": served["launches"], "train": trained["launches"]}
     table = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": served["launches"][name], **rows[name]}
+         "launches": sum(p.get(name, 0) for p in paths.values()),
+         "launches_by_path": {path: p.get(name, 0) for path, p in paths.items()}, **rows[name]}
         for name in SOURCES
     ]
-    print(json.dumps({"kernels": table, "card": card}))
+    missing = [r["name"] for r in table if r["launches"] == 0]
+    if missing:
+        print(f"FAIL: launched no time on the main paths: {missing}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": table, "card": card,
+                      "train": {k: trained[k] for k in ("step_ms", "images_per_s")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

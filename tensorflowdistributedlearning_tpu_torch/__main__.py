@@ -1,6 +1,8 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
-``cli.py``; this slice carries ``serve`` and ``convert``).
+``cli.py``; the port carries ``train``, ``serve`` and ``convert``).
 
+    python -m tensorflowdistributedlearning_tpu_torch train \\
+        --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000
     python -m tensorflowdistributedlearning_tpu_torch convert \\
         --params flax_vars.npz --config cfg.json --out ARTIFACT_DIR
     python -m tensorflowdistributedlearning_tpu_torch serve \\
@@ -11,8 +13,54 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
+
+
+def _best_fold(results: List[dict]) -> int:
+    """The fold a deployment would serve: highest mean IoU."""
+    return max(range(len(results)), key=lambda i: results[i].get("metrics/mean_iou", float("-inf")))
+
+
+def cmd_train(args) -> int:
+    """K-fold training on one device; prints one JSON line with the folds'
+    final eval metrics and ``n_params`` (and the exported artifact with
+    ``--export-serving``)."""
+    from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    ids = pipeline_lib.discover_ids(args.data_dir)
+    if not ids:
+        print(f"No images found under {args.data_dir}/images", file=sys.stderr)
+        return 1
+    tcfg = TrainConfig(
+        lr=args.lr,
+        n_folds=args.n_fold,
+        seed=args.seed,
+        save_best=args.save_best,
+        checkpoint_every_steps=args.checkpoint_every,
+        eval_throttle_secs=args.eval_throttle_secs,
+    )
+    trainer = Trainer(
+        args.model_dir,
+        args.data_dir,
+        train_config=tcfg,
+        device=args.device,
+        input_shape=tuple(args.input_shape),
+        n_blocks=tuple(args.n_blocks),
+        base_depth=args.base_depth,
+        use_pallas_depthwise=args.use_pallas_depthwise,
+    )
+    results = trainer.train(ids, batch_size=args.batch_size, steps=args.steps)
+    out = {"folds": results, "n_params": trainer.params}
+    if args.export_serving and results:
+        fold = _best_fold(results)
+        out["serving_fold"] = fold
+        out["serving_artifact"] = os.path.dirname(trainer.export_serving(fold))
+    print(json.dumps(out))
+    return 0
 
 
 def cmd_convert(args) -> int:
@@ -71,6 +119,27 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tensorflowdistributedlearning_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="K-fold cross-validated training on one device")
+    t.add_argument("--data-dir", required=True, help="directory with images/*.png and masks/*.png")
+    t.add_argument("--model-dir", required=True)
+    t.add_argument("--batch-size", type=int, default=64)
+    t.add_argument("--n-fold", type=int, default=5)
+    t.add_argument("--seed", type=int, default=42)
+    t.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
+    t.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
+    t.add_argument("--base-depth", type=int, default=256)
+    t.add_argument("--lr", type=float, default=0.001)
+    t.add_argument("--steps", type=int, default=10_000)
+    t.add_argument("--save-best", type=int, default=5)
+    t.add_argument("--checkpoint-every", type=int, default=500)
+    t.add_argument("--eval-throttle-secs", type=int, default=300)
+    t.add_argument("--export-serving", action="store_true",
+                   help="after training, export the best fold's serving artifact ({fold_dir}/export/serving)")
+    t.add_argument("--use-pallas-depthwise", action="store_true",
+                   help="route the depthwise convs through the hand-written kernels (forward, dx, dw)")
+    t.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
+    t.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("serve", help="serve an exported artifact over HTTP")
     s.add_argument("--artifact-dir", required=True)

@@ -1,12 +1,13 @@
 """Typed model configuration (counterpart of
 ``tensorflowdistributedlearning_tpu/config.py``).
 
-``ModelConfig`` mirrors the JAX package's field for field, with the same
-defaults and the same ``__post_init__`` checks, so one JSON config drives
-both packages. ``TrainConfig`` arrives with the training slice. This slice
-serves the ResNet segmentation family in float32; the knobs it does not run
-yet are rejected by :func:`require_supported` with the queue item that will
-bring them.
+``ModelConfig`` and ``TrainConfig`` mirror the JAX package's field for
+field, with the same defaults and the same ``__post_init__`` checks, so one
+JSON config drives both packages. The port serves and trains the ResNet
+segmentation family in float32 on one device; the knobs it does not run yet
+are rejected by :func:`require_supported` and
+:func:`require_supported_training` with the queue item that will bring
+them.
 """
 
 from __future__ import annotations
@@ -123,13 +124,13 @@ class ModelConfig:
 # knobs of the JAX package that later slices of the port bring, with the
 # ROADMAP queue item that brings each
 _LATER = (
-    (lambda c: c.backbone == "xception", "backbone='xception' (queue A 12)"),
-    (lambda c: c.backbone == "vit", "backbone='vit' (queue A 12, queue B 7)"),
-    (lambda c: c.num_classes is not None, "the classification head (queue A 12)"),
-    (lambda c: c.dtype == "bfloat16", "dtype='bfloat16' (queue A 11)"),
-    (lambda c: c.stem_space_to_depth, "stem_space_to_depth (queue A 3)"),
-    (lambda c: c.block_type == "basic_block", "block_type='basic_block' (queue A 3)"),
-    (lambda c: c.block_layout == "classic", "block_layout='classic' (queue A 3)"),
+    (lambda c: c.backbone == "xception", "backbone='xception' (queue A 11)"),
+    (lambda c: c.backbone == "vit", "backbone='vit' (queue A 11, queue B 7)"),
+    (lambda c: c.num_classes is not None, "the classification head (queue A 4)"),
+    (lambda c: c.dtype == "bfloat16", "dtype='bfloat16' (queue A 4)"),
+    (lambda c: c.stem_space_to_depth, "stem_space_to_depth (queue A 4)"),
+    (lambda c: c.block_type == "basic_block", "block_type='basic_block' (queue A 4)"),
+    (lambda c: c.block_layout == "classic", "block_layout='classic' (queue A 4)"),
 )
 
 
@@ -141,4 +142,190 @@ def require_supported(config: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported yet; this slice serves the float32 "
                 "ResNet segmentation model (see ROADMAP.md)"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyperparameters (see the JAX package's ``TrainConfig``
+    for the provenance and meaning of each field and default: Adam under the
+    reference's continuous exponential decay, checkpoints every 500 steps,
+    eval throttled to >= 300 s).
+
+    Fields that only shape the JAX package's own orchestration are accepted
+    and have no effect here: ``telemetry``, ``telemetry_memory_every_windows``,
+    ``health_monitors`` and ``train_log_every_steps`` (the port logs through
+    ``logging``; the ledger is queue A 13), ``dispatch_ahead_steps`` (eager
+    PyTorch already runs ahead of the device), ``async_checkpointing`` (saves
+    are synchronous), ``data_service_workers`` (the trainer feeds the
+    in-memory stream; the streaming service is queue A 14), and the
+    ``fit()``-only ``augmentation``, ``label_smoothing`` and
+    ``eval_holdout_fraction``. The knobs that would change what a run does
+    raise in :func:`require_supported_training`."""
+
+    data_format: str = "NHWC"
+    optimizer: str = "adam"  # "adam" | "sgd" (Nesterov) | "lars"
+    sgd_momentum: float = 0.9
+    weight_decay: float = 0.0
+    ema_decay: float = 0.0
+    grad_clip_norm: float = 0.0
+    grad_accum_steps: int = 1
+    label_smoothing: float = 0.0
+    augmentation: str = "flip_crop"
+    lr: float = 0.001
+    lr_schedule: str = "exponential"  # "exponential" | "cosine"
+    lr_decay_steps: int = 10_000
+    lr_decay_rate: float = 0.5
+    lr_warmup_steps: int = 0
+    n_devices: Optional[int] = None
+    parallelism: str = "explicit"
+    hbm_budget_gb: Optional[float] = None
+    sequence_parallel: int = 1
+    model_parallel: int = 1
+    pipeline_parallel: int = 1
+    pipeline_microbatches: Optional[int] = None
+    expert_parallel: int = 1
+    weight_update_sharding: bool = False
+    sync_batch_norm: bool = False
+    n_folds: int = 5
+    seed: int = 42
+    save_best: int = 5
+    checkpoint_every_steps: int = 500
+    eval_throttle_secs: int = 300
+    eval_every_steps: Optional[int] = None
+    train_log_every_steps: int = 20
+    telemetry: bool = True
+    compile_cache_dir: Optional[str] = None
+    telemetry_memory_every_windows: int = 5
+    trace_sample_rate: float = 0.0
+    profile_every_windows: int = 0
+    health_monitors: bool = True
+    nan_guard: str = "warn"
+    async_checkpointing: bool = False
+    prefetch_depth: int = 2
+    dispatch_ahead_steps: int = 2
+    data_service_workers: int = 2
+    eval_holdout_fraction: float = 0.0
+
+    def __post_init__(self):
+        if self.data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"Unknown data format {self.data_format}. Has to be either NCHW or NHWC")
+        if self.parallelism not in ("explicit", "auto"):
+            raise ValueError(f"parallelism must be 'explicit' or 'auto', got {self.parallelism!r}")
+        if self.hbm_budget_gb is not None and self.hbm_budget_gb <= 0:
+            raise ValueError(f"hbm_budget_gb must be positive, got {self.hbm_budget_gb}")
+        for name in ("sequence_parallel", "model_parallel", "pipeline_parallel", "expert_parallel"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.model_parallel > 1 and self.sequence_parallel > 1:
+            raise ValueError("model_parallel and sequence_parallel cannot both exceed 1")
+        if self.pipeline_parallel > 1 and (self.model_parallel > 1 or self.sequence_parallel > 1):
+            raise ValueError("pipeline_parallel cannot combine with model_parallel or sequence_parallel")
+        if self.pipeline_microbatches is not None and (
+            self.pipeline_microbatches < self.pipeline_parallel or self.pipeline_parallel == 1
+        ):
+            raise ValueError(
+                "pipeline_microbatches requires pipeline_parallel > 1 and at least one microbatch per "
+                f"stage (got microbatches={self.pipeline_microbatches}, stages={self.pipeline_parallel})"
+            )
+        if self.weight_update_sharding and self.pipeline_parallel > 1:
+            raise ValueError("weight_update_sharding cannot combine with pipeline_parallel")
+        if self.sync_batch_norm and self.pipeline_parallel > 1:
+            raise ValueError("sync_batch_norm cannot combine with pipeline_parallel")
+        if self.expert_parallel > 1 and (
+            self.model_parallel > 1 or self.sequence_parallel > 1 or self.pipeline_parallel > 1
+        ):
+            raise ValueError(
+                "expert_parallel cannot combine with model_parallel, sequence_parallel, or pipeline_parallel"
+            )
+        if self.augmentation not in ("flip_crop", "crop", "none", "mixup", "cutmix"):
+            raise ValueError(f"Unknown augmentation {self.augmentation!r}")
+        if self.augmentation in ("mixup", "cutmix") and (self.sequence_parallel > 1 or self.pipeline_parallel > 1):
+            raise ValueError(f"augmentation={self.augmentation!r} needs the data/tensor-parallel step")
+        if self.lr_schedule not in ("exponential", "cosine"):
+            raise ValueError(f"Unknown lr_schedule {self.lr_schedule!r}")
+        if self.optimizer not in ("adam", "sgd", "lars"):
+            raise ValueError(f"Unknown optimizer {self.optimizer!r}")
+        if self.weight_decay < 0:
+            raise ValueError(f"weight_decay must be >= 0, got {self.weight_decay}")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in [0, 1), got {self.ema_decay}")
+        if self.grad_clip_norm < 0:
+            raise ValueError(f"grad_clip_norm must be >= 0, got {self.grad_clip_norm}")
+        if self.grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
+        if self.grad_accum_steps > 1 and (self.model_parallel > 1 or self.pipeline_parallel > 1):
+            raise ValueError("grad_accum_steps > 1 runs inside the data/spatial-parallel step only")
+        for name in ("train_log_every_steps", "checkpoint_every_steps"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.eval_every_steps is not None and self.eval_every_steps < 1:
+            raise ValueError(
+                "eval_every_steps must be >= 1 (or None for the checkpoint-coupled default), "
+                f"got {self.eval_every_steps}"
+            )
+        if self.eval_throttle_secs < 0:
+            raise ValueError(f"eval_throttle_secs must be >= 0, got {self.eval_throttle_secs}")
+        if self.prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.data_service_workers < 0:
+            raise ValueError(f"data_service_workers must be >= 0, got {self.data_service_workers}")
+        if self.dispatch_ahead_steps < 0:
+            raise ValueError(f"dispatch_ahead_steps must be >= 0, got {self.dispatch_ahead_steps}")
+        if self.telemetry_memory_every_windows < 1:
+            raise ValueError(
+                f"telemetry_memory_every_windows must be >= 1, got {self.telemetry_memory_every_windows}"
+            )
+        if not 0.0 <= self.trace_sample_rate <= 1.0:
+            raise ValueError(f"trace_sample_rate must be in [0, 1], got {self.trace_sample_rate}")
+        if self.profile_every_windows < 0:
+            raise ValueError(f"profile_every_windows must be >= 0, got {self.profile_every_windows}")
+        if self.nan_guard not in ("warn", "abort", "off"):
+            raise ValueError(f"nan_guard must be one of ('warn', 'abort', 'off'), got {self.nan_guard!r}")
+        if not 0.0 <= self.eval_holdout_fraction < 1.0:
+            raise ValueError(f"eval_holdout_fraction must be in [0, 1), got {self.eval_holdout_fraction}")
+
+
+def validate_training_data_format(cfg: TrainConfig) -> None:
+    """Reject NCHW at the training boundary, as the JAX package does: the
+    input pipeline feeds NHWC by construction; NCHW is honored where arrays
+    cross the serving/predict boundary."""
+    if cfg.data_format == "NCHW":
+        raise ValueError(
+            "data_format='NCHW' applies to the serving/predict boundary only; training input is "
+            "NHWC by construction. Train with NHWC, then serve with data_format='NCHW'."
+        )
+
+
+# training knobs of the JAX package that later slices of the port bring,
+# with the ROADMAP queue item that brings each
+_LATER_TRAINING = (
+    (lambda c: c.optimizer == "lars", "optimizer='lars' (queue A 4)"),
+    (lambda c: c.grad_accum_steps > 1, "grad_accum_steps > 1 (queue A 4)"),
+    (lambda c: c.n_devices not in (None, 1), "n_devices > 1, the data-parallel step (queue A 2)"),
+    (lambda c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
+    (
+        lambda c: max(c.sequence_parallel, c.model_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
+        "sequence/model/pipeline/expert parallelism (queue A 12)",
+    ),
+    (lambda c: c.sync_batch_norm, "sync_batch_norm (queue A 2)"),
+    (lambda c: c.weight_update_sharding, "weight_update_sharding, ZeRO-1 (queue A 12)"),
+    (lambda c: c.nan_guard == "abort", "nan_guard='abort', the health monitors (queue A 13)"),
+    (lambda c: c.trace_sample_rate > 0, "trace_sample_rate > 0, tracing (queue A 13)"),
+    (lambda c: c.profile_every_windows > 0, "profile_every_windows > 0, the profiler (queue A 13)"),
+    (lambda c: c.compile_cache_dir is not None, "compile_cache_dir (no compile cache in eager PyTorch)"),
+)
+
+
+def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for a model or training configuration
+    this slice does not train yet (one device, float32, the ResNet
+    segmenter), naming the ROADMAP item that brings it."""
+    require_supported(model_config)
+    if model_config.remat:
+        raise NotImplementedError("remat=True in training is not ported yet (queue A 4, see ROADMAP.md)")
+    for test, what in _LATER_TRAINING:
+        if test(train_config):
+            raise NotImplementedError(
+                f"{what} is not ported yet; this slice trains on one device (see ROADMAP.md)"
             )

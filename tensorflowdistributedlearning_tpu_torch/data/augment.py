@@ -1,10 +1,25 @@
-"""Serving-side preprocessing (counterpart of the JAX package's
-``data/augment.py:normalize``, ``laplacian`` and ``add_laplace_channel``).
-The training augmentations arrive with the training slice. Tensors are
-NHWC, as in the JAX package.
+"""On-device batched augmentation and preprocessing (counterpart of
+``tensorflowdistributedlearning_tpu/data/augment.py``). Tensors are NHWC, as
+in the JAX package, and every function runs on the device of its input.
+
+Training augmentation is the reference's transform list: REFLECT pad 40 px,
+random transpose (p=0.5), optional brightness jitter, horizontal and
+vertical flips (p=0.5 each), rotation U(±rotate_range°), shifts
+U(±range)·height, optional zoom-crop, one composed inverse affine warp per
+image (bilinear for the image, nearest for the mask, zero fill outside), the
+central crop back to the input size, and the Laplacian second channel.
+
+Randomness comes from an explicit ``torch.Generator`` (on the device of the
+batch); it cannot reproduce ``jax.random``'s bits, so the two packages agree
+on the warp given one matrix and on the distribution of the sampled
+matrices, not on the draws.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +34,23 @@ _LAPLACE_KERNEL = (
     (1.0, -6.0, 1.0),
     (0.5, 1.0, 0.5),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Knob set of the reference's ``read_and_preprocess``, same defaults."""
+
+    horizontal_flip: bool = True
+    vertical_flip: bool = True
+    rotate_range: float = 10.0  # degrees
+    crop_probability: float = 0.5  # the trainer passes 0, as the reference did
+    crop_min_percent: float = 0.9
+    crop_max_percent: float = 1.1
+    height_shift_range: float = 0.2
+    width_shift_range: float = 0.2
+    brightness_range: float = 0.0
+    pad: int = 40  # REFLECT padding before warping
+    transpose_probability: float = 0.5
 
 
 def normalize(image: torch.Tensor) -> torch.Tensor:
@@ -38,3 +70,235 @@ def laplacian(images: torch.Tensor) -> torch.Tensor:
 def add_laplace_channel(images: torch.Tensor) -> torch.Tensor:
     """Concatenate the Laplacian as extra channels: [B,H,W,C] -> [B,H,W,2C]."""
     return torch.cat([images, laplacian(images)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Affine machinery. Matrices are 3x3 INVERSE warps: out-pixel (x, y) samples
+# in-pixel M @ (x, y, 1)^T. Applying A then B composes as M_A @ M_B. The
+# builders take [B] tensors and return [B, 3, 3] float32 stacks.
+# ---------------------------------------------------------------------------
+
+
+def _eye(n: int, device) -> torch.Tensor:
+    return torch.eye(3, dtype=torch.float32, device=device).expand(n, 3, 3).clone()
+
+
+def _stack_rows(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _hflip(width: float, n: int = 1, device=None) -> torch.Tensor:
+    m = _eye(n, device)
+    m[:, 0, 0] = -1.0
+    m[:, 0, 2] = width - 1.0
+    return m
+
+
+def _vflip(height: float, n: int = 1, device=None) -> torch.Tensor:
+    m = _eye(n, device)
+    m[:, 1, 1] = -1.0
+    m[:, 1, 2] = height - 1.0
+    return m
+
+
+def _rotation(angle: torch.Tensor, height: float, width: float) -> torch.Tensor:
+    """Rotation about the image center by ``angle`` [B] radians."""
+    angle = angle.float()
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    cx, cy = (width - 1.0) / 2.0, (height - 1.0) / 2.0
+    zero, one = torch.zeros_like(angle), torch.ones_like(angle)
+    return _stack_rows(
+        [
+            [cos, -sin, cx - cos * cx + sin * cy],
+            [sin, cos, cy - sin * cx - cos * cy],
+            [zero, zero, one],
+        ]
+    )
+
+
+def _translation(tx: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
+    tx, ty = tx.float(), ty.float()
+    zero, one = torch.zeros_like(tx), torch.ones_like(tx)
+    return _stack_rows([[one, zero, tx], [zero, one, ty], [zero, zero, one]])
+
+
+def _zoom_crop(pct: torch.Tensor, off_x: torch.Tensor, off_y: torch.Tensor) -> torch.Tensor:
+    pct = pct.float()
+    zero, one = torch.zeros_like(pct), torch.ones_like(pct)
+    return _stack_rows([[pct, zero, off_x.float()], [zero, pct, off_y.float()], [zero, zero, one]])
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """``lax.round``'s default rounding (half away from zero)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def _warp_batch(
+    images: torch.Tensor, matrices: torch.Tensor, order: int, out_hw: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
+    """Inverse-warp [B, H, W, C] by [B, 3, 3] with
+    ``jax.scipy.ndimage.map_coordinates(mode="constant", cval=0)``
+    semantics: ``order=1`` bilinear over the four neighbours, each zero when
+    outside; ``order=0`` nearest with half-away-from-zero rounding. With
+    ``out_hw`` only the central ``out_hw`` window of the warped image is
+    computed (what ``central_crop`` of the full warp returns)."""
+    b, h, w, c = images.shape
+    oh, ow = (h, w) if out_hw is None else out_hw
+    top, left = (h - oh) // 2, (w - ow) // 2
+    dev = images.device
+    ys = torch.arange(top, top + oh, dtype=torch.float32, device=dev)[:, None].expand(oh, ow)
+    xs = torch.arange(left, left + ow, dtype=torch.float32, device=dev)[None, :].expand(oh, ow)
+    m = matrices.float()[:, :, :, None, None]  # [B, 3, 3, 1, 1]
+    in_x = m[:, 0, 0] * xs + m[:, 0, 1] * ys + m[:, 0, 2]  # [B, oh, ow]
+    in_y = m[:, 1, 0] * xs + m[:, 1, 1] * ys + m[:, 1, 2]
+    flat = images.reshape(b, h * w, c)
+
+    def sample(iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+        valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+        index = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(b, oh * ow, 1).expand(b, oh * ow, c)
+        values = torch.gather(flat, 1, index).reshape(b, oh, ow, c)
+        return torch.where(valid[..., None], values, torch.zeros((), dtype=values.dtype, device=dev))
+
+    if order == 0:
+        return sample(_round_half_away(in_y).long(), _round_half_away(in_x).long())
+    if order != 1:
+        raise NotImplementedError("order must be 0 (nearest) or 1 (bilinear)")
+    y0, x0 = torch.floor(in_y), torch.floor(in_x)
+    wy1, wx1 = in_y - y0, in_x - x0
+    wy0, wx0 = 1 - wy1, 1 - wx1
+    y0, x0 = y0.long(), x0.long()
+    # map_coordinates' product order: (y0,x0), (y0,x1), (y1,x0), (y1,x1)
+    out = (wy0 * wx0)[..., None] * sample(y0, x0)
+    out = out + (wy0 * wx1)[..., None] * sample(y0, x0 + 1)
+    out = out + (wy1 * wx0)[..., None] * sample(y0 + 1, x0)
+    out = out + (wy1 * wx1)[..., None] * sample(y0 + 1, x0 + 1)
+    return out.to(images.dtype)
+
+
+def _apply_warp(image: torch.Tensor, matrix: torch.Tensor, order: int) -> torch.Tensor:
+    """Inverse-warp one [H, W, C] image by a 3x3 affine matrix (``order=1``
+    bilinear, ``order=0`` nearest, zero fill)."""
+    return _warp_batch(image[None], matrix.reshape(1, 3, 3), order)[0]
+
+
+def central_crop(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Static central crop of [..., H, W, C]."""
+    h, w = x.shape[-3], x.shape[-2]
+    th, tw = out_hw
+    top, left = (h - th) // 2, (w - tw) // 2
+    return x[..., top : top + th, left : left + tw, :]
+
+
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Source indices of numpy/jnp ``mode="reflect"`` padding (edge not
+    repeated), for any ``pad`` including pads wider than ``n``."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j < n, j, period - j)
+
+
+def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """REFLECT-pad the spatial axes of [B, H, W, C] by ``pad``."""
+    if pad == 0:
+        return x
+    x = x.index_select(1, _reflect_index(x.shape[1], pad, x.device))
+    return x.index_select(2, _reflect_index(x.shape[2], pad, x.device))
+
+
+def _uniform(generator: torch.Generator, n: int, low: float, high, device) -> torch.Tensor:
+    u = torch.rand(n, generator=generator, device=device)
+    return low + u * (high - low)
+
+
+def _sample_affine(
+    generator: torch.Generator, n: int, cfg: AugmentConfig, height: float, width: float, device=None
+) -> torch.Tensor:
+    """[n, 3, 3] per-image affines (flips ∘ rotation ∘ shift ∘ crop), the
+    reference's transform list, drawn from ``generator``."""
+    eye = _eye(n, device)
+    m = eye
+    if cfg.horizontal_flip:
+        coin = torch.rand(n, generator=generator, device=device) < 0.5
+        m = m @ torch.where(coin[:, None, None], _hflip(width, n, device), eye)
+    if cfg.vertical_flip:
+        coin = torch.rand(n, generator=generator, device=device) < 0.5
+        m = m @ torch.where(coin[:, None, None], _vflip(height, n, device), eye)
+    if cfg.rotate_range:
+        max_rad = cfg.rotate_range / 180.0 * math.pi
+        m = m @ _rotation(_uniform(generator, n, -max_rad, max_rad, device), height, width)
+    # per-image shifts, both scaled by the height as in the reference
+    zero = torch.zeros(n, device=device)
+    tx = (
+        _uniform(generator, n, -cfg.width_shift_range, cfg.width_shift_range, device) * height
+        if cfg.width_shift_range
+        else zero
+    )
+    ty = (
+        _uniform(generator, n, -cfg.height_shift_range, cfg.height_shift_range, device) * height
+        if cfg.height_shift_range
+        else zero
+    )
+    m = m @ _translation(tx, ty)
+    if cfg.crop_probability > 0:
+        pct = _uniform(generator, n, cfg.crop_min_percent, cfg.crop_max_percent, device)
+        off_x = torch.rand(n, generator=generator, device=device) * (width * torch.abs(1.0 - pct))
+        off_y = torch.rand(n, generator=generator, device=device) * (height * torch.abs(1.0 - pct))
+        coin = torch.rand(n, generator=generator, device=device) < cfg.crop_probability
+        m = m @ torch.where(coin[:, None, None], _zoom_crop(pct, off_x, off_y), eye)
+    return m
+
+
+def _augment(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    masks: torch.Tensor,
+    cfg: AugmentConfig,
+    out_hw: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Augment [B, H, W, 1] square image/mask pairs (the JAX package's
+    ``_augment_one``, batched)."""
+    n, dev = images.shape[0], images.device
+    images = _reflect_pad(images, cfg.pad)
+    masks = _reflect_pad(masks, cfg.pad)
+    do_t = (torch.rand(n, generator=generator, device=dev) < cfg.transpose_probability)[:, None, None, None]
+    images = torch.where(do_t, images.transpose(1, 2), images)
+    masks = torch.where(do_t, masks.transpose(1, 2), masks)
+    if cfg.brightness_range > 0:
+        delta = _uniform(generator, n, -cfg.brightness_range, cfg.brightness_range, dev)
+        images = images + delta[:, None, None, None]
+    h, w = images.shape[1], images.shape[2]
+    matrices = _sample_affine(generator, n, cfg, float(h), float(w), dev)
+    images = _warp_batch(images, matrices, order=1, out_hw=out_hw)
+    masks = _warp_batch(masks, matrices, order=0, out_hw=out_hw)
+    return images, masks
+
+
+def _augment_one(
+    generator: torch.Generator, image: torch.Tensor, mask: torch.Tensor, cfg: AugmentConfig, out_hw: Tuple[int, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Augment one [H, W, 1] image/mask pair."""
+    images, masks = _augment(generator, image[None], mask[None], cfg, out_hw)
+    return images[0], masks[0]
+
+
+def augment_batch(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    masks: torch.Tensor,
+    cfg: AugmentConfig = AugmentConfig(),
+    out_hw: Optional[Tuple[int, int]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Batched augmentation + Laplacian channel: [B, H, W, 1] normalized
+    images and binary masks -> {'images': [B, h, w, 2], 'labels': [B, h, w, 1]}."""
+    if out_hw is None:
+        out_hw = (images.shape[1], images.shape[2])
+    aug_images, aug_masks = _augment(generator, images, masks, cfg, tuple(out_hw))
+    return {"images": add_laplace_channel(aug_images), "labels": aug_masks}
+
+
+def prepare_eval_batch(images: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Eval preparation: no geometry, just the Laplacian channel."""
+    return {"images": add_laplace_channel(images), "labels": masks}

@@ -1,0 +1,116 @@
+"""A small PNG codec for the TGS-salt layout, on ``zlib`` and numpy alone.
+
+The JAX package decodes with its native reader or PIL; neither is a
+dependency of the port (the GPU host has no PIL). The TGS images and masks
+are 8-bit PNGs: this reads 8-bit grey, grey+alpha, RGB and RGBA images
+(non-interlaced, any of the five row filters) and converts colour to grey
+with PIL's ``convert("L")`` integer formula, so a file decodes to the bytes
+PIL gives. It writes 8-bit grey PNGs.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _chunks(data: bytes, path: str):
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        yield kind, data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int, path: str) -> np.ndarray:
+    rows = np.frombuffer(raw, np.uint8)
+    if rows.size != height * (stride + 1):
+        raise ValueError(f"{path}: image data has {rows.size} bytes, expected {height * (stride + 1)}")
+    rows = rows.reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(height):
+        kind, line = rows[y, 0], rows[y, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:  # Sub: running sum per byte lane, mod 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur = line + prev
+        elif kind in (3, 4):  # Average, Paeth: sequential along the row
+            cur = line.astype(np.int64)
+            up = prev.astype(np.int64)
+            for i in range(stride):
+                left = cur[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    pred = (left + up[i]) // 2
+                else:
+                    upleft = up[i - bpp] if i >= bpp else 0
+                    p = left + up[i] - upleft
+                    pa, pb, pc = abs(p - left), abs(p - up[i]), abs(p - upleft)
+                    pred = left if (pa <= pb and pa <= pc) else (up[i] if pb <= pc else upleft)
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = cur.astype(np.uint8)
+        else:
+            raise ValueError(f"{path}: unknown PNG row filter {kind}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """Decode an 8-bit PNG to a [H, W] uint8 grey image."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header = None
+    idat = []
+    for kind, body in _chunks(data, path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in _CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{path}: only 8-bit, non-interlaced grey/grey+alpha/RGB/RGBA PNGs are read "
+            f"(bit depth {depth}, colour type {colour}, interlace {interlace})"
+        )
+    bpp = _CHANNELS[colour]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp, bpp, path)
+    pixels = pixels.reshape(height, width, bpp)
+    if colour in (0, 4):
+        return np.ascontiguousarray(pixels[:, :, 0])
+    r, g, b = (pixels[:, :, i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def write_png_gray(path: str, image: np.ndarray) -> None:
+    """Encode a [H, W] uint8 image as an 8-bit grey PNG (row filter 0)."""
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim != 2:
+        raise ValueError(f"write_png_gray expects [H, W] uint8, got shape {image.shape}")
+    height, width = image.shape
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), image], axis=1).tobytes()
+    body = (
+        _SIGNATURE
+        + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 0, 0, 0, 0))
+        + _chunk(b"IDAT", zlib.compress(raw, 6))
+        + _chunk(b"IEND", b"")
+    )
+    with open(path, "wb") as f:
+        f.write(body)

@@ -13,8 +13,9 @@ Padding follows flax's ``"SAME"`` rule exactly, including its uneven split
 ``torch``'s symmetric ``padding=`` cannot express; such pads are applied
 explicitly with ``F.pad``.
 
-Inference only in this slice: a module in training mode raises
-``NotImplementedError`` (training is a later slice of the port).
+Training mode follows flax: BatchNorm normalises with the batch mean and
+the biased batch variance and moves its running statistics by the decay;
+eval mode folds the running statistics into the fused BN+act kernel.
 """
 
 from __future__ import annotations
@@ -118,25 +119,26 @@ def upsample(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)[:, 2:-2, 2:-2, :]
 
 
-def _inference_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} in training mode: the port serves in "
-            "this slice; training (batch statistics, backward kernels) is "
-            "ROADMAP queue A's next slice. Call .eval() first."
-        )
-
-
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with a fused activation (and optional residual),
-    through :func:`kernels.bn_act_folded`. Parameters ``weight``/``bias``
-    and buffers ``running_mean``/``running_var`` mirror flax's
-    ``scale``/``bias`` and ``mean``/``var``. The f32 fold into ``m, b`` is
-    cached and recomputed whenever a parameter or buffer changes."""
+    """flax ``nn.BatchNorm`` with a fused activation (and optional residual).
+    Parameters ``weight``/``bias`` and buffers ``running_mean``/
+    ``running_var`` mirror flax's ``scale``/``bias`` and ``mean``/``var``.
 
-    def __init__(self, num_features: int, eps: float = 1e-3, scale: bool = True):
+    Training mode (:meth:`train`): flax's statistics exactly — the batch mean
+    and ``max(E[x²] − E[x]², 0)`` (the biased variance, flax's fast form)
+    over (B, H, W) in f32, ``y = (x − mean) · (rsqrt(var + eps) · scale) +
+    bias``, and ``running = decay · running + (1 − decay) · batch`` with the
+    biased variance (``F.batch_norm`` would store the unbiased one). Plain
+    differentiable ops; the activation follows.
+
+    Eval mode: through :func:`kernels.bn_act_folded`; the f32 fold into
+    ``m, b`` is cached and recomputed whenever a parameter or buffer
+    changes."""
+
+    def __init__(self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99):
         super().__init__()
         self.eps = float(eps)
+        self.decay = float(decay)
         self.weight = nn.Parameter(torch.ones(num_features)) if scale else None
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -154,8 +156,24 @@ class BatchNorm(nn.Module):
             self._fold_key = key
         return self._fold
 
+    def _batch_normalize(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
+            self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        return (xf - mean) * mul + self.bias
+
     def forward(self, x: torch.Tensor, act: str = "relu", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _inference_only(self)
+        if self.training:
+            y = self._batch_normalize(x)
+            if residual is not None:
+                y = y + residual
+            return kernels.activate(y, act)
         m, b = self.folded()
         return kernels.bn_act_folded(x.contiguous(), m, b, act, residual)
 
@@ -166,12 +184,12 @@ class ConvBN(nn.Module):
 
     def __init__(
         self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
-        rate: int = 1, bn_epsilon: float = 1e-3, bn_scale: bool = True,
+        rate: int = 1, bn_epsilon: float = 1e-3, bn_scale: bool = True, bn_decay: float = 0.99,
     ):
         super().__init__()
         self.stride, self.rate = stride, rate
         self.conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride, dilation=rate, bias=False)
-        self.bn = BatchNorm(features, bn_epsilon, bn_scale)
+        self.bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d_same(x, self.conv.weight, None, self.stride, self.rate)
@@ -182,7 +200,8 @@ class DepthwiseConv2D(nn.Module):
     """Stride-1 SAME depthwise conv + bias. ``weight`` is ``[kh, kw, C]``,
     the kernel's layout (flax's ``[kh, kw, 1, C]`` without its unit axis).
     ``use_kernel=True`` takes :func:`kernels.depthwise_conv2d` (the CUDA
-    kernel on a CUDA tensor); False the grouped-conv plain version."""
+    kernels, forward and backward, on a CUDA tensor); False the grouped-conv
+    plain version."""
 
     def __init__(self, channels: int, kernel_size: int = 3, rate: int = 1, use_kernel: bool = False):
         super().__init__()
@@ -194,7 +213,6 @@ class DepthwiseConv2D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _inference_only(self)
         dw = kernels.depthwise_conv2d if self.use_kernel else kernels.depthwise_conv2d_plain
         return dw(x.contiguous(), self.weight, self.rate) + self.bias
 
@@ -206,12 +224,12 @@ class SplitSeparableConv2D(nn.Module):
 
     def __init__(
         self, in_channels: int, features: int, kernel_size: int = 3, rate: int = 1,
-        bn_epsilon: float = 1e-3, bn_scale: bool = True, use_kernel: bool = False,
+        bn_epsilon: float = 1e-3, bn_scale: bool = True, use_kernel: bool = False, bn_decay: float = 0.99,
     ):
         super().__init__()
         self.depthwise = DepthwiseConv2D(in_channels, kernel_size, rate, use_kernel)
         self.pointwise = nn.Conv2d(in_channels, features, 1, bias=False)
-        self.pointwise_bn = BatchNorm(features, bn_epsilon, bn_scale)
+        self.pointwise_bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.depthwise(x))

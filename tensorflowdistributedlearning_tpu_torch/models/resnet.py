@@ -1,5 +1,7 @@
 """ResNet-v2-beta backbone with the DeepLabV3+ segmentation head (counterpart
-of ``tensorflowdistributedlearning_tpu/models/resnet.py``), inference only.
+of ``tensorflowdistributedlearning_tpu/models/resnet.py``). Training mode
+(``model.train()``) is the JAX ``train=True`` forward: the same graph, with
+BatchNorm on batch statistics.
 
 Module and parameter names mirror the flax tree (``backbone.block1_unit1.
 conv2.bn.running_var`` is flax's ``batch_stats/backbone/block1_unit1/conv2/
@@ -113,11 +115,14 @@ class BottleneckUnit(nn.Module):
     the subsampled input or a 1x1 conv of the preactivation. Returns
     ``(relu(shortcut + residual), residual)``."""
 
-    def __init__(self, in_channels: int, spec: UnitSpec, rate: int = 1, bn_epsilon: float = 1e-3, bn_scale: bool = True):
+    def __init__(
+        self, in_channels: int, spec: UnitSpec, rate: int = 1, bn_epsilon: float = 1e-3,
+        bn_scale: bool = True, bn_decay: float = 0.99,
+    ):
         super().__init__()
         self.spec = spec
-        common = dict(bn_epsilon=bn_epsilon, bn_scale=bn_scale)
-        self.preact = BatchNorm(in_channels, bn_epsilon, bn_scale)
+        common = dict(bn_epsilon=bn_epsilon, bn_scale=bn_scale, bn_decay=bn_decay)
+        self.preact = BatchNorm(in_channels, bn_epsilon, bn_scale, bn_decay)
         self.shortcut = (
             nn.Conv2d(in_channels, spec.depth, 1, stride=spec.stride)
             if spec.depth != in_channels
@@ -152,12 +157,14 @@ class ResNetBackbone(nn.Module):
         require_supported(config)
         cfg = config
         wm = cfg.width_multiplier
-        common = dict(bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale)
+        common = dict(
+            bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale, bn_decay=cfg.batch_norm_decay
+        )
         c1, c3 = scaled_width(64, wm), scaled_width(128, wm)
         self.conv1_1 = ConvBN(cfg.input_channels, c1, 3, stride=2, **common)
         self.conv1_2 = ConvBN(c1, c1, 3, **common)
         self.conv1_3 = ConvBN(c1, c3, 3, **common)
-        self.postnorm = BatchNorm(c3, cfg.batch_norm_epsilon, cfg.batch_norm_scale)
+        self.postnorm = BatchNorm(c3, cfg.batch_norm_epsilon, cfg.batch_norm_scale, cfg.batch_norm_decay)
         self.unit_names = []
         self.block_ends: Dict[str, str] = {}
         channels = c3
@@ -197,7 +204,9 @@ class ASPP(nn.Module):
         super().__init__()
         cfg = config
         depth = cfg.base_depth
-        common = dict(bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale)
+        common = dict(
+            bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale, bn_decay=cfg.batch_norm_decay
+        )
         sep = dict(common, use_kernel=cfg.use_pallas_depthwise)
         self.conv_1x1 = ConvBN(in_channels, depth, 1, **common)
         self.conv_3x3_1 = SplitSeparableConv2D(in_channels, depth, 3, rate=2, **sep)
@@ -229,12 +238,20 @@ class ResNetSegmentation(nn.Module):
         require_supported(config)
         self.config = config
         self.backbone = ResNetBackbone(config, SEGMENTATION_MULTI_GRID)
-        common = dict(bn_epsilon=config.batch_norm_epsilon, bn_scale=config.batch_norm_scale)
+        common = dict(
+            bn_epsilon=config.batch_norm_epsilon, bn_scale=config.batch_norm_scale,
+            bn_decay=config.batch_norm_decay,
+        )
         self.aspp = ASPP(config, self.backbone.out_channels)
         self.decoder_conv_1x1 = ConvBN(self.backbone.skip_channels, config.base_depth, 1, **common)
         self.decoder_conv_3x3 = nn.Conv2d(2 * config.base_depth, 1, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.config.remat:
+            raise NotImplementedError(
+                "remat=True in training is not ported yet (recomputing a unit would move "
+                "BatchNorm's running statistics twice; queue A 4, see ROADMAP.md)"
+            )
         end_points = self.backbone(x.float())
         return deeplab_head(self, end_points["features"], end_points["block1_unit1_residual"])
 

@@ -1,13 +1,15 @@
-"""The serve path's kernels, each with its plain PyTorch version.
+"""The port's kernels, each with its plain PyTorch version.
 
 Counterpart of ``tensorflowdistributedlearning_tpu/ops/pallas_kernels.py``.
 The Pallas TPU kernels become hand-written CUDA kernels for Hopper
 (``csrc/*.cu``, built by ``ops/_build.py``):
 
-- :func:`depthwise_conv2d` — stride-1 SAME depthwise conv with atrous rate
-  (``csrc/depthwise.cu``), forward only;
+- :func:`depthwise_conv2d` — stride-1 SAME depthwise conv with atrous rate,
+  differentiable (:class:`DepthwiseConv2dFunction`, the custom VJP's
+  counterpart): forward ``csrc/depthwise.cu``; dx the same kernel on the
+  spatially flipped filter; dw ``csrc/depthwise_dw.cu``;
 - :func:`fused_bn_act` — inference BN + activation (+ residual)
-  (``csrc/bn_act.cu``);
+  (``csrc/bn_act.cu``), inference-only as the TPU kernel is;
 - :func:`fused_sigmoid_mask` — the segmentation serve head
   (``csrc/sigmoid_mask.cu``), bit-identical to its plain version.
 
@@ -31,6 +33,8 @@ from tensorflowdistributedlearning_tpu_torch.ops import _build
 # kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES: Dict[str, int] = {
     "depthwise_conv2d": 0,
+    "depthwise_conv2d_dx": 0,
+    "depthwise_conv2d_dw": 0,
     "fused_bn_act": 0,
     "fused_sigmoid_mask": 0,
 }
@@ -43,6 +47,10 @@ _signatures = {
     "depthwise": (
         "tfdl_depthwise_conv2d_f32",
         [_c_void, _c_void, _c_void] + [ctypes.c_int] * 7 + [_c_void],
+    ),
+    "depthwise_dw": (
+        "tfdl_depthwise_dw_f32",
+        [_c_void] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
     ),
     "bn_act": (
         "tfdl_bn_act_f32",
@@ -96,7 +104,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _use_plain(t: torch.Tensor) -> bool:
+    """The dispatch rule: a CPU tensor takes the plain version; any other
+    device launches the kernel (and raises where it cannot)."""
+    return t.device.type == "cpu"
+
+
 # -- depthwise conv -----------------------------------------------------------
+
+# pixels of (b, y, x) per block of the dw kernel: 128 rows spread over its 8
+# lanes, with the tile count held under the grid's y limit
+_DW_TILE_ROWS = 128
+_DW_MAX_TILES = 65535
+_DW_MAX_SIDE = 7
 
 
 def _check_depthwise(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -112,7 +132,7 @@ def _check_depthwise(x: torch.Tensor, w: torch.Tensor) -> None:
 def depthwise_conv2d_plain(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
     """Plain version: grouped convolution on the NCHW view, the counterpart
     of ``depthwise_conv2d_reference``. ``x`` [B,H,W,C], ``w`` [kh,kw,C];
-    returns [B,H,W,C]."""
+    returns [B,H,W,C]. Differentiable through PyTorch's own autograd."""
     _check_depthwise(x, w)
     kh, kw, c = w.shape
     weight = w.permute(2, 0, 1).unsqueeze(1)  # [C, 1, kh, kw]
@@ -121,22 +141,134 @@ def depthwise_conv2d_plain(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> t
     return out.permute(0, 2, 3, 1)
 
 
-def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
-    """Stride-1 SAME depthwise conv; ``x`` [B,H,W,C], ``w`` [kh,kw,C],
-    ``rate`` the atrous dilation. CPU: plain version; CUDA: the kernel."""
+def _dx_plain(g: torch.Tensor, w: torch.Tensor, rate: int) -> torch.Tensor:
+    return depthwise_conv2d_plain(g, w.flip(0, 1), rate)
+
+
+def _dw_plain(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int, rate: int) -> torch.Tensor:
+    h, wd = x.shape[1], x.shape[2]
+    ph, pw = rate * (kh - 1) // 2, rate * (kw - 1) // 2
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    rows = []
+    for i in range(kh):
+        row = []
+        for j in range(kw):
+            tap = xp[:, i * rate : i * rate + h, j * rate : j * rate + wd, :]
+            row.append((tap * g).sum(dim=(0, 1, 2)))
+        rows.append(torch.stack(row))
+    return torch.stack(rows)
+
+
+def depthwise_conv2d_backward_plain(
+    x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, rate: int = 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain ``(dx, dw)`` of :func:`depthwise_conv2d`, written as the JAX
+    VJP (``_dw_bwd``) writes it: dx is the grouped conv of ``g`` with the
+    spatially flipped filter (stride-1 SAME, symmetric padding, odd sides);
+    dw[i, j, c] is the sum over (B, H, W) of ``g`` times ``x`` shifted by
+    tap (i, j), zero outside."""
     _check_depthwise(x, w)
-    if x.device.type == "cpu":
-        return depthwise_conv2d_plain(x, w, rate)
-    _require_cuda_f32("depthwise_conv2d", x, w)
+    kh, kw, _ = w.shape
+    return _dx_plain(g, w, rate), _dw_plain(x, g, kh, kw, rate).to(w.dtype)
+
+
+def _launch_depthwise(x: torch.Tensor, w: torch.Tensor, rate: int, name: str) -> torch.Tensor:
+    _require_cuda_f32(name, x, w)
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
     out = torch.empty_like(x)
     lib, fn = _entry("depthwise")
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, int(rate), _stream(x))
-    _build.check(lib, code, "depthwise_conv2d")
-    LAUNCHES["depthwise_conv2d"] += 1
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def depthwise_conv2d_forward(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
+    """The forward pass alone, without autograd. CPU: plain version; CUDA:
+    ``csrc/depthwise.cu``."""
+    _check_depthwise(x, w)
+    if _use_plain(x):
+        with torch.no_grad():
+            return depthwise_conv2d_plain(x, w, rate)
+    return _launch_depthwise(x, w, rate, "depthwise_conv2d")
+
+
+def depthwise_conv2d_dx(g: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
+    """Input gradient: the forward kernel launched on ``w`` flipped in space
+    (exact for stride-1 SAME with symmetric padding and odd sides, which
+    ``_check_depthwise`` enforces). CPU: plain version; CUDA: the kernel."""
+    _check_depthwise(g, w)
+    if _use_plain(g):
+        with torch.no_grad():
+            return _dx_plain(g, w, rate)
+    return _launch_depthwise(g, w.flip(0, 1).contiguous(), rate, "depthwise_conv2d_dx")
+
+
+def depthwise_conv2d_dw(
+    x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1
+) -> torch.Tensor:
+    """Filter gradient ``[kh, kw, C]`` of the conv of ``x`` whose output
+    gradient is ``g`` (both [B,H,W,C]). CPU: plain version; CUDA:
+    ``csrc/depthwise_dw.cu`` (odd sides up to 7; bit-reproducible)."""
+    kh, kw = int(kernel_size[0]), int(kernel_size[1])
+    if x.dim() != 4 or g.shape != x.shape:
+        raise ValueError(f"depthwise_conv2d_dw expects x and g of one [B,H,W,C] shape, got {tuple(x.shape)}, {tuple(g.shape)}")
+    if kh % 2 != 1 or kw % 2 != 1:
+        raise ValueError(f"depthwise_conv2d requires odd kernel dims, got {kh}x{kw}")
+    if _use_plain(x):
+        with torch.no_grad():
+            return _dw_plain(x, g, kh, kw, rate)
+    _require_cuda_f32("depthwise_conv2d_dw", x, g)
+    if kh > _DW_MAX_SIDE or kw > _DW_MAX_SIDE:
+        raise ValueError(f"depthwise_conv2d_dw: the CUDA kernel takes sides up to {_DW_MAX_SIDE}, got {kh}x{kw}")
+    b, h, wd, c = x.shape
+    pixels = b * h * wd
+    tile_rows = max(_DW_TILE_ROWS, -(-pixels // _DW_MAX_TILES))
+    tiles = max(1, -(-pixels // tile_rows))
+    partial = torch.empty((tiles, kh * kw, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((kh, kw, c), dtype=torch.float32, device=x.device)
+    lib, fn = _entry("depthwise_dw")
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw,
+            int(rate), tiles, tile_rows, _stream(x),
+        )
+    _build.check(lib, code, "depthwise_conv2d_dw")
+    LAUNCHES["depthwise_conv2d_dw"] += 1
+    return dw
+
+
+class DepthwiseConv2dFunction(torch.autograd.Function):
+    """Autograd of the depthwise conv, the counterpart of the JAX package's
+    ``jax.custom_vjp`` (``pallas_kernels.py:155-200``): the forward kernel,
+    then dx (forward kernel, flipped filter) and dw (``depthwise_dw.cu``).
+    Each arm follows its tensor's device, so CPU tensors train through the
+    plain versions and CUDA tensors through the kernels."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, rate: int) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.rate = int(rate)
+        return depthwise_conv2d_forward(x, w, rate)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = depthwise_conv2d_dx(g, w, ctx.rate) if ctx.needs_input_grad[0] else None
+        dw = depthwise_conv2d_dw(x, g, w.shape[:2], ctx.rate) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
+    """Stride-1 SAME depthwise conv; ``x`` [B,H,W,C], ``w`` [kh,kw,C],
+    ``rate`` the atrous dilation. Differentiable in ``x`` and ``w``. CPU:
+    plain versions; CUDA: the kernels."""
+    _check_depthwise(x, w)
+    return DepthwiseConv2dFunction.apply(x, w, int(rate))
 
 
 # -- fused inference BN + activation (+ residual) ------------------------------
@@ -153,7 +285,7 @@ def fold_bn(
     return m, b
 
 
-def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
+def activate(y: torch.Tensor, act: str) -> torch.Tensor:
     if act == "none":
         return y
     if act == "relu":
@@ -189,7 +321,7 @@ def bn_act_folded_plain(
     y = x * m + b
     if residual is not None:
         y = y + residual
-    return _activate(y, act)
+    return activate(y, act)
 
 
 def bn_act_folded(
@@ -198,10 +330,16 @@ def bn_act_folded(
 ) -> torch.Tensor:
     """``act(x*m + b [+ residual])`` over NHWC ``x`` with already-folded
     [C] vectors — what a module with a cached fold calls. CPU: plain
-    version; CUDA: the kernel."""
+    version; CUDA: the kernel, which refuses inputs that need a gradient."""
     _check_bn_act(x, m, b, act, residual)
-    if x.device.type == "cpu":
+    if _use_plain(x):
         return bn_act_folded_plain(x, m, b, act, residual)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, m, b, residual)):
+        raise RuntimeError(
+            "fused_bn_act: the CUDA kernel is inference-only, as the TPU kernel is, and has "
+            "no backward; call it under torch.no_grad() (eval), or train the model in "
+            "training mode, whose BatchNorm uses batch statistics in plain ops"
+        )
     _require_cuda_f32("fused_bn_act", x, m, b, residual)
     out = torch.empty_like(x)
     lib, fn = _entry("bn_act")
@@ -249,7 +387,7 @@ def fused_sigmoid_mask_plain(logits: torch.Tensor, threshold: float) -> Tuple[to
 def fused_sigmoid_mask(logits: torch.Tensor, threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sigmoid(logits), (sigmoid(logits) > threshold).float32)`` from one
     read of the logits. CPU: plain version; CUDA: the kernel."""
-    if logits.device.type == "cpu":
+    if _use_plain(logits):
         return fused_sigmoid_mask_plain(logits, threshold)
     _require_cuda_f32("fused_sigmoid_mask", logits)
     probs = torch.empty_like(logits)

@@ -1,0 +1,136 @@
+"""Training state (counterpart of the JAX package's ``train/state.py``).
+
+The JAX ``TrainState`` is an immutable pytree of (step, params,
+batch_stats, opt_state); here it is the model (parameters and BN running
+statistics), its ``torch.optim`` optimizer, the host-side update count, the
+lr schedule, and the optional parameter EMA. Steps update it in place.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+    grad_clip_norm: float = 0.0
+    ema_decay: float = 0.0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+    def apply_gradients(self) -> None:
+        """One optimizer update from the gradients in ``.grad``: optional
+        global-norm clip, lr = ``schedule(step)``, the update, the EMA, and
+        ``step += 1``."""
+        from tensorflowdistributedlearning_tpu_torch.train.step import clip_by_global_norm
+
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        if self.grad_clip_norm:
+            clip_by_global_norm(params, self.grad_clip_norm)
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        if self.ema is not None:
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    e = self.ema[name]
+                    e.copy_(e * self.ema_decay + p * (1.0 - self.ema_decay))
+        self.step += 1
+
+    @contextlib.contextmanager
+    def eval_params(self):
+        """The eval/export view: the EMA parameters swapped in for the
+        duration when an EMA is tracked, the live ones otherwise."""
+        if self.ema is None:
+            yield self.model
+            return
+        live = {}
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                live[name] = p.detach().clone()
+                p.copy_(self.ema[name])
+        try:
+            yield self.model
+        finally:
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    p.copy_(live[name])
+
+    def state_dict(self) -> Dict:
+        out = {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "optimizer_type": type(self.optimizer).__name__,
+            "optimizer": self.optimizer.state_dict(),
+        }
+        if self.ema is not None:
+            out["ema"] = self.ema
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Strict restore of a :meth:`state_dict` (raises on a mismatch)."""
+        if state.get("optimizer_type") != type(self.optimizer).__name__:
+            raise KeyError(
+                f"the checkpoint holds {state.get('optimizer_type')} state, the run uses {type(self.optimizer).__name__}"
+            )
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        if (self.ema is None) != ("ema" not in state):
+            raise KeyError("checkpoint and state disagree on whether a parameter EMA is tracked")
+        if self.ema is not None:
+            missing = set(self.ema) ^ set(state["ema"])
+            if missing:
+                raise KeyError(f"EMA entries differ: {sorted(missing)[:5]}")
+            with torch.no_grad():
+                for name, e in self.ema.items():
+                    e.copy_(state["ema"][name])
+        self.step = int(state["step"])
+
+
+def create_train_state(
+    model_config: ModelConfig,
+    train_config: TrainConfig,
+    device: DeviceLike = None,
+    *,
+    generator: Optional[torch.Generator] = None,
+    state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    step: int = 0,
+) -> TrainState:
+    """A fresh training state on ``device`` (CUDA when None; raises without
+    it): the model built from ``generator`` (or loaded strictly from
+    ``state_dict``, e.g. ``utils.convert.from_flax``), in training mode, with
+    the configured optimizer at update count ``step``."""
+    from tensorflowdistributedlearning_tpu_torch.config import require_supported_training
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.train.step import make_lr_schedule, make_optimizer
+
+    require_supported_training(model_config, train_config)
+    device = resolve_device(device)
+    model = build_model(model_config, device, generator=generator)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model.train()
+    ema = None
+    if train_config.ema_decay:
+        ema = {name: p.detach().clone() for name, p in model.named_parameters()}
+    return TrainState(
+        model=model,
+        optimizer=make_optimizer(train_config, model),
+        schedule=make_lr_schedule(train_config),
+        step=int(step),
+        grad_clip_norm=train_config.grad_clip_norm,
+        ema_decay=train_config.ema_decay,
+        ema=ema,
+    )

@@ -1,23 +1,63 @@
-"""Task heads (counterpart of the JAX package's ``train/step.py``). This slice
-carries the segmentation task's prediction heads; losses, metrics and the
-train/eval steps arrive with the training slice."""
+"""Task heads, optimizers and the single-device train, eval and predict
+steps (counterpart of the JAX package's ``train/step.py``).
+
+The JAX step is one jitted SPMD function of (state, batch); here a step is
+eager PyTorch on one device that updates the :class:`TrainState` in place
+and returns its metric contributions as device-resident ``Mean`` states, so
+the loop never waits on the device until it reads them.
+
+Semantics kept from the JAX package:
+
+- the objective is the per-image Lovász hinge alone: ``weight_decay`` is
+  passed but ``apply_weight_decay`` stays False, as the reference declared an
+  l2 regularizer and never minimized it;
+- update k uses the learning rate ``schedule(k)``, k = 0, 1, ... (optax
+  evaluates its schedule at the pre-increment count);
+- ``adam`` is ``torch.optim.Adam`` (optax's eps outside the square root,
+  eps_root 0), ``weight_decay > 0`` makes it AdamW with decay on the
+  convolution kernels only (:func:`kernel_decay_mask`), ``sgd`` is Nesterov
+  momentum (decay before momentum), ``grad_clip_norm`` clips the global norm
+  the way ``optax.clip_by_global_norm`` does, and ``ema_decay`` tracks an
+  exponential moving average of the parameters for eval and export.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import math
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn as nn
 
+from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
+from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
+from tensorflowdistributedlearning_tpu_torch.ops import metrics as metrics_lib
+
+Metrics = Dict[str, metrics_lib.Mean]
 
 
 @dataclasses.dataclass(frozen=True)
 class SegmentationTask:
-    """Binary segmentation: per-pixel sigmoid probabilities and the mask
-    thresholded at ``threshold``."""
+    """Binary segmentation: per-image Lovász hinge on the logits; thresholded
+    mIoU and pixel accuracy on ``sigmoid(logits) > threshold``."""
 
     threshold: float = 0.5
+
+    def loss(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return losses_lib.lovasz_loss(batch["labels"], logits, "NHWC")
+
+    def loss_per_example(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return losses_lib.lovasz_hinge_per_image(logits.squeeze(-1).float(), batch["labels"].squeeze(-1))
+
+    def metric_scores(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        predicted = (torch.sigmoid(logits) > self.threshold).float()
+        labels = batch["labels"]
+        return {
+            "metrics/mean_iou": metrics_lib.iou_scores(labels, predicted),
+            "metrics/mean_acc": metrics_lib.mean_accuracy_scores(labels, predicted),
+        }
 
     def predictions(self, logits: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The unfused head: ``sigmoid``, then ``probs > threshold``."""
@@ -30,3 +70,200 @@ class SegmentationTask:
         (bit-identical by contract)."""
         probs, mask = kernels.fused_sigmoid_mask(logits, self.threshold)
         return {"probabilities": probs, "mask": mask}
+
+
+# -- learning rate -----------------------------------------------------------
+
+
+def make_host_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """The configured schedule as a host function of the update count:
+    ``exponential`` (lr · rate^(step / decay_steps), continuous) or
+    ``cosine`` (optional linear warmup, then cosine decay to 0)."""
+    lr = float(cfg.lr)
+    if cfg.lr_schedule == "cosine":
+        warmup = cfg.lr_warmup_steps
+        if warmup == 0:
+            decay_steps = max(cfg.lr_decay_steps, 1)
+
+            def sched(step: int) -> float:
+                frac = min(max(step, 0), decay_steps) / decay_steps
+                return lr * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+            return sched
+        decay_steps = max(cfg.lr_decay_steps, warmup + 1)
+
+        def sched(step: int) -> float:
+            if step < warmup:
+                return lr * max(step, 0) / warmup
+            frac = min(step - warmup, decay_steps - warmup) / (decay_steps - warmup)
+            return lr * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+        return sched
+    transition, rate = cfg.lr_decay_steps, cfg.lr_decay_rate
+
+    def sched(step: int) -> float:
+        return lr * rate ** (step / transition)
+
+    return sched
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """The schedule the optimizer follows. Eager PyTorch sets each update's
+    lr from the host, so this is :func:`make_host_lr_schedule`."""
+    return make_host_lr_schedule(cfg)
+
+
+# -- optimizer ---------------------------------------------------------------
+
+
+def kernel_decay_mask(model: nn.Module) -> Dict[str, bool]:
+    """``{parameter name: decayed}``: True only for convolution kernels
+    (``nn.Conv2d`` and depthwise weights, flax's ``kernel`` leaves); BN scale
+    and bias and every bias stay undecayed."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import DepthwiseConv2D
+
+    mask = {}
+    for mod_name, module in model.named_modules():
+        for name, _ in module.named_parameters(recurse=False):
+            full = f"{mod_name}.{name}" if mod_name else name
+            mask[full] = name == "weight" and isinstance(module, (nn.Conv2d, DepthwiseConv2D))
+    return mask
+
+
+def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
+    """The configured optimizer over ``model``'s parameters, in two param
+    groups (decayed kernels first, then the rest) when ``weight_decay > 0``.
+    The lr is set per update by :meth:`TrainState.apply_gradients`."""
+    if cfg.optimizer == "lars":
+        raise NotImplementedError("optimizer='lars' is not ported yet (queue A 4, see ROADMAP.md)")
+    named = list(model.named_parameters())
+    if cfg.weight_decay:
+        mask = kernel_decay_mask(model)
+        groups = [
+            {"params": [p for n, p in named if mask[n]], "weight_decay": cfg.weight_decay},
+            {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
+        ]
+    else:
+        groups = [{"params": [p for _, p in named], "weight_decay": 0.0}]
+    lr = make_lr_schedule(cfg)(0)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(groups, lr=lr, momentum=cfg.sgd_momentum, nesterov=True)
+    if cfg.weight_decay:
+        return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place: gradients unchanged when their
+    global l2 norm is below ``max_norm``, else ``g / norm * max_norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+# -- metrics -----------------------------------------------------------------
+
+
+def _l2_penalty(model: nn.Module) -> torch.Tensor:
+    """slim-style l2: sum(w²)/2 over the convolution kernels only."""
+    mask = kernel_decay_mask(model)
+    total = None
+    for name, p in model.named_parameters():
+        if mask[name]:
+            term = 0.5 * torch.sum(p.float() * p.float())
+            total = term if total is None else total + term
+    return total if total is not None else torch.zeros(())
+
+
+def _metric_deltas(
+    scores: Dict[str, torch.Tensor], loss: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> Metrics:
+    """Per-step metric contributions as ``Mean`` states. ``weights`` ([B]
+    0/1) excludes padded eval examples; ``loss`` is then per-example [B]."""
+    device = loss.device
+    out: Metrics = {name: metrics_lib.Mean.empty(device).update(s, weights) for name, s in scores.items()}
+    out["loss"] = metrics_lib.Mean.empty(device).update(
+        loss if loss.dim() else loss[None], weights if loss.dim() else None
+    )
+    return out
+
+
+def merge_metrics(acc: Optional[Metrics], new: Metrics) -> Metrics:
+    """Accumulate per-step metric states across steps."""
+    if acc is None:
+        return new
+    return {k: acc[k].merge(v) for k, v in new.items()}
+
+
+def compute_metrics(acc: Metrics) -> Dict[str, float]:
+    """The accumulated means as host floats (one device-to-host copy)."""
+    names = list(acc)
+    values = torch.stack([acc[k].compute() for k in names]).cpu().tolist()
+    return dict(zip(names, values))
+
+
+# -- steps -------------------------------------------------------------------
+
+
+def forward_backward(
+    state, task, batch: Dict[str, torch.Tensor], *, weight_decay: float = 0.0, apply_weight_decay: bool = False
+):
+    """The training-mode forward and backward of one batch: gradients land in
+    the parameters' ``.grad``, BN running statistics move; returns the loss
+    and the (detached) logits. The optimizer is not touched."""
+    model = state.model
+    model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    logits = model(batch["images"])
+    loss = task.loss(logits, batch)
+    if apply_weight_decay and weight_decay:
+        loss = loss + weight_decay * _l2_penalty(model)
+    loss.backward()
+    return loss.detach(), logits.detach()
+
+
+def make_train_step(task, *, weight_decay: float = 0.0, apply_weight_decay: bool = False):
+    """``step(state, batch) -> (state, metrics)``: forward and backward in
+    training mode, one optimizer update, metric contributions computed from
+    the pre-update logits (as the JAX step computes them)."""
+
+    def step(state, batch: Dict[str, torch.Tensor]):
+        loss, logits = forward_backward(
+            state, task, batch, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
+        )
+        state.apply_gradients()
+        with torch.no_grad():
+            metrics = _metric_deltas(task.metric_scores(logits, batch), loss)
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(task):
+    """``step(model, batch) -> metrics``: inference-mode forward (BN on its
+    running statistics) and per-example losses, weighted by ``batch['valid']``
+    when present."""
+
+    def step(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Metrics:
+        model.eval()
+        with torch.no_grad():
+            logits = model(batch["images"])
+            loss = task.loss_per_example(logits, batch)
+            return _metric_deltas(task.metric_scores(logits, batch), loss, batch.get("valid"))
+
+    return step
+
+
+def make_predict_step(task):
+    """``step(model, batch) -> predictions`` in inference mode."""
+
+    def step(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with torch.no_grad():
+            return task.predictions(model(batch["images"]))
+
+    return step

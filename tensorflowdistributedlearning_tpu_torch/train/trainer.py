@@ -1,0 +1,255 @@
+"""K-fold trainer on one device (counterpart of the JAX package's
+``train/trainer.py``: ``Trainer.train`` :289, ``_train_fold`` :388,
+``_evaluate`` :737, ``export_serving`` :998).
+
+Per fold: stratified index manifests (``folds.json``, written once) →
+auto-resume from the fold's latest checkpoint → the train loop (shuffled
+in-memory batches, pinned-memory prefetch to the device, on-device
+augmentation + Laplacian channel, training-mode forward, per-image Lovász
+hinge, backward, optimizer update) → periodic checkpoints every
+``checkpoint_every_steps`` → eval every ``eval_every_steps`` (or, without
+it, when a checkpoint lands and ``eval_throttle_secs`` have passed) with
+best-k export on ``metrics/mean_iou`` → the final checkpoint, eval and
+export. A fold already trained to ``steps`` is evaluated and not trained
+again.
+
+Not in this slice, each a named ROADMAP item: the data-parallel step (queue
+A 2), ``predict`` with the fold × TTA ensemble (queue A 3), the telemetry
+ledger, health monitors and TensorBoard image summaries (queue A 13), the
+async host loop, the streaming data service, fault injection and
+preemption handling (queue A 14). ``TrainConfig.data_service_workers`` is
+accepted whatever its value: the trainer always feeds the in-memory stream
+(``pipeline.train_batches``, with the resume step folded into its seed, the
+JAX package's ``data_service_workers=0`` path).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tensorflowdistributedlearning_tpu_torch.config import (
+    ModelConfig,
+    TrainConfig,
+    require_supported_training,
+    validate_training_data_format,
+)
+from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+from tensorflowdistributedlearning_tpu_torch.data import folds as folds_lib
+from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
+from tensorflowdistributedlearning_tpu_torch.train.state import TrainState, create_train_state
+from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
+
+logger = logging.getLogger(__name__)
+
+_MODEL_FIELDS = {f.name for f in dataclasses.fields(ModelConfig)}
+
+
+def augment_seed(seed: int, fold: int, step: int) -> int:
+    """The augmentation generator's seed for one train step: a pure function
+    of (seed + fold, step), so a resumed fold draws what the uninterrupted
+    run drew at the same step."""
+    return int(np.random.SeedSequence([seed + fold, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
+class Trainer:
+    """K-fold cross-validated trainer for the segmentation task on one
+    device. ``**kwargs`` takes every ``ModelConfig`` field (unknown keys
+    raise); ``device`` is CUDA unless the caller asks for the CPU."""
+
+    def __init__(
+        self,
+        model_dir: str,
+        data_directory: str,
+        data_format: str = "NHWC",
+        lr: float = 0.001,
+        n_devices: Optional[int] = None,
+        n_fold: int = 5,
+        seed: int = 42,
+        save_best: int = 5,
+        train_config: Optional[TrainConfig] = None,
+        augment_config: Optional[augment_lib.AugmentConfig] = None,
+        device: DeviceLike = None,
+        **kwargs,
+    ):
+        unknown = set(kwargs) - _MODEL_FIELDS
+        if unknown:
+            raise ValueError(f"Unknown model config keys: {sorted(unknown)}")
+        self.model_dir = model_dir
+        self.data_directory = data_directory
+        self.model_config = ModelConfig(**kwargs)
+        self.train_config = train_config or TrainConfig(
+            data_format=data_format, lr=lr, n_devices=n_devices, n_folds=n_fold, seed=seed, save_best=save_best
+        )
+        # the reference trainer passed crop_probability=0
+        self.augment_config = augment_config or augment_lib.AugmentConfig(crop_probability=0.0)
+        require_supported_training(self.model_config, self.train_config)
+        self.device = resolve_device(device)
+        self.task = step_lib.SegmentationTask()
+        self._n_params: Optional[int] = None
+        os.makedirs(model_dir, exist_ok=True)
+
+    @property
+    def params(self) -> int:
+        """Total trainable parameter count, known once a state was built."""
+        if self._n_params is None:
+            raise AttributeError("Parameter count unknown — train() must build the model first")
+        return self._n_params
+
+    def _fold_dir(self, fold: int) -> str:
+        return os.path.join(self.model_dir, f"fold{fold}")
+
+    def _init_state(self) -> TrainState:
+        generator = torch.Generator().manual_seed(self.train_config.seed)
+        state = create_train_state(self.model_config, self.train_config, self.device, generator=generator)
+        self._n_params = sum(p.numel() for p in state.model.parameters())
+        return state
+
+    def _checkpointer(self, fold: int) -> CheckpointManager:
+        tcfg = self.train_config
+        return CheckpointManager(
+            self._fold_dir(fold), save_every_steps=tcfg.checkpoint_every_steps, save_best=tcfg.save_best
+        )
+
+    # -- training ---------------------------------------------------------
+
+    def train(
+        self, X: Sequence[str], y: Optional[Sequence[int]] = None, batch_size: int = 64, steps: int = 10_000
+    ) -> List[Dict[str, float]]:
+        """Train every fold; returns each fold's final eval metrics. ``X``:
+        example ids under ``{data_directory}/images``; ``y``: stratification
+        classes (from mask coverage when omitted)."""
+        validate_training_data_format(self.train_config)
+        dataset = pipeline_lib.InMemoryDataset.from_directory(self.data_directory, ids=list(X))
+        if y is None:
+            y = folds_lib.coverage_to_class(pipeline_lib.mask_coverage(dataset.masks))
+        manifests = folds_lib.write_fold_manifests(
+            self.model_dir, list(X), list(np.asarray(y)), self.train_config.n_folds, self.train_config.seed
+        )
+        results = []
+        for fold, manifest in enumerate(manifests):
+            logger.info("Processing fold %d", fold)
+            results.append(self._train_fold(fold, dataset, manifest, batch_size, steps))
+            logger.info("Finished training fold %d", fold)
+        return results
+
+    def _train_fold(
+        self,
+        fold: int,
+        dataset: pipeline_lib.InMemoryDataset,
+        manifest: Dict[str, List[str]],
+        batch_size: int,
+        steps: int,
+    ) -> Dict[str, float]:
+        tcfg = self.train_config
+        train_ds = dataset.select(manifest["train"])
+        eval_ds = dataset.select(manifest["eval"])
+        ckpt = self._checkpointer(fold)
+        state = ckpt.restore_latest(self._init_state())
+        start_step = state.step
+        if start_step >= steps:
+            logger.info("fold %d already trained to step %d", fold, start_step)
+            return self._evaluate(state, eval_ds, batch_size, fold)
+        if start_step > 0:
+            logger.info("fold %d resumes at step %d", fold, start_step)
+
+        train_step = step_lib.make_train_step(self.task, weight_decay=self.model_config.weight_decay)
+        batches = pipeline_lib.train_batches(
+            train_ds, batch_size, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step
+        )
+        batches = pipeline_lib.device_prefetch(
+            batches, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth
+        )
+        lr_sched = step_lib.make_host_lr_schedule(tcfg)
+        last_eval_time = 0.0
+        last_eval_step = -1
+        final_metrics: Dict[str, float] = {}
+        window = None
+        step_no = start_step
+        for raw in batches:
+            batch = self._prepare_train(fold, step_no, raw)
+            state, metrics = train_step(state, batch)
+            window = step_lib.merge_metrics(window, metrics)
+            step_no += 1
+            if step_no % tcfg.train_log_every_steps == 0:
+                logger.info(
+                    "fold %d step %d: %s lr %.6g", fold, step_no, step_lib.compute_metrics(window), lr_sched(step_no)
+                )
+                window = None
+            saved = ckpt.maybe_save(state, step=step_no)
+            if tcfg.eval_every_steps:
+                due = step_no % tcfg.eval_every_steps == 0
+            else:
+                due = saved and time.time() - last_eval_time >= tcfg.eval_throttle_secs
+            if due:
+                last_eval_time = time.time()
+                last_eval_step = step_no
+                final_metrics = self._evaluate(state, eval_ds, batch_size, fold)
+                ckpt.export_best(state, final_metrics)
+        ckpt.save(state)
+        if last_eval_step != step_no:
+            final_metrics = self._evaluate(state, eval_ds, batch_size, fold)
+            ckpt.export_best(state, final_metrics)
+        return final_metrics
+
+    def _prepare_train(self, fold: int, step: int, raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """On-device augmentation + Laplacian channel: {'images', 'masks'} ->
+        {'images', 'labels'}, drawn from the step's own generator."""
+        gen = torch.Generator(device=self.device).manual_seed(augment_seed(self.train_config.seed, fold, step))
+        return augment_lib.augment_batch(gen, raw["images"], raw["masks"], self.augment_config)
+
+    def _evaluate(
+        self, state: TrainState, eval_ds: pipeline_lib.InMemoryDataset, batch_size: int, fold: int
+    ) -> Dict[str, float]:
+        """One full eval pass with streaming metrics (EMA parameters when
+        tracked); one device-to-host copy per pass."""
+        eval_step = step_lib.make_eval_step(self.task)
+        acc = None
+        t0 = time.perf_counter()
+        with state.eval_params() as model:
+            for raw in pipeline_lib.eval_batches(eval_ds, batch_size):
+                placed = pipeline_lib.to_device(raw, self.device)
+                batch = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
+                batch["valid"] = placed["valid"]
+                acc = step_lib.merge_metrics(acc, eval_step(model, batch))
+        state.model.train()
+        result = step_lib.compute_metrics(acc)
+        logger.info("fold %d eval @ %d (%.3f s): %s", fold, state.step, time.perf_counter() - t0, result)
+        return result
+
+    # -- serving ------------------------------------------------------------
+
+    def restore_fold(self, fold: int) -> TrainState:
+        """The fold's best exported state (falling back to its latest
+        periodic checkpoint); raises if the fold was never trained."""
+        return self._checkpointer(fold).restore_best_or_raise(
+            self._init_state(), hint=f"train fold {fold} first"
+        )
+
+    def export_serving(self, fold: int, directory: Optional[str] = None) -> str:
+        """Write the serving artifact of the fold's best state (default
+        ``{fold_dir}/export/serving``), the artifact ``serve`` and
+        ``InferenceEngine.from_artifact`` load; returns its manifest path."""
+        from tensorflowdistributedlearning_tpu_torch.train.serving import export_serving_artifact
+
+        directory = directory or os.path.join(self._fold_dir(fold), "export", "serving")
+        state = self.restore_fold(fold)
+        return export_serving_artifact(
+            state.model,
+            self.model_config,
+            directory,
+            data_format=self.train_config.data_format,
+            metadata={"fold": fold, "step": state.step},
+        )
+
+
+# The reference exposed this as ``class Model``.
+Model = Trainer

@@ -9,7 +9,9 @@ port's ``state_dict`` by name (the port's modules mirror the flax tree):
   ``mean``/``var`` -> ``running_mean``/``running_var``.
 
 Strict both ways: a flax leaf the port does not use, a port tensor left
-unfilled, or a shape that disagrees raises. Inputs are nested dicts of numpy
+unfilled, or a shape that disagrees raises. :func:`from_flax_train_state`
+carries a whole JAX ``TrainState`` across (params, batch_stats and the
+step), so both packages can train on from one state. Inputs are nested dicts of numpy
 arrays or flat ``"a/b/c"``-keyed mappings (what :func:`load_flax_npz` reads
 from an ``.npz`` that holds ``flatten_dict({"params": ..., "batch_stats":
 ...}, sep="/")``).
@@ -120,3 +122,13 @@ def from_flax(params, batch_stats, config: ModelConfig) -> Dict[str, torch.Tenso
     if missing:
         raise ValueError(f"port tensors left unfilled: {missing[:10]}")
     return state
+
+
+def from_flax_train_state(train_state, config: ModelConfig) -> Tuple[Dict[str, torch.Tensor], int]:
+    """``(state_dict, step)`` of a JAX ``TrainState`` (anything with
+    ``params``, ``batch_stats`` and ``step``): pass them to
+    ``train.state.create_train_state(..., state_dict=, step=)``. The
+    optimizer moments are not carried: a state with ``step > 0`` restarts
+    its moments from zero."""
+    step = int(np.asarray(train_state.step))
+    return from_flax(train_state.params, train_state.batch_stats, config), step

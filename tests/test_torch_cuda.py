@@ -84,10 +84,55 @@ def test_cuda_model_forward_goes_through_the_kernels(cuda_device):
     out = make_serving_fn(model, cuda_device)(x)
     torch.cuda.synchronize()
     # root 4 + 6 units x 3 + ASPP 6 + decoder 1 BN+act sites at n_blocks=(1,1,1)
-    assert tk.launch_counts() == {"depthwise_conv2d": 3, "fused_bn_act": 29, "fused_sigmoid_mask": 1}
+    assert tk.launch_counts() == {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
+                                  "fused_bn_act": 29, "fused_sigmoid_mask": 1}
     plain = {"depthwise_conv2d": tk.depthwise_conv2d_plain, "bn_act_folded": tk.bn_act_folded_plain,
              "fused_sigmoid_mask": tk.fused_sigmoid_mask_plain}
     with mock.patch.multiple(tk, **plain):
         ref = make_serving_fn(model, cuda_device)(x)
     torch.testing.assert_close(out["probabilities"], ref["probabilities"], atol=1e-5, rtol=0)
     assert torch.equal(out["mask"], (out["probabilities"] > 0.5).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,rate", [((4, 13, 13, 256), 3, 2), ((4, 13, 13, 256), 3, 8), ((1, 17, 23, 72), 5, 3),
+                                          ((2, 9, 7, 40), 7, 1)])
+def test_cuda_depthwise_backward_kernels_match_plain(cuda_device, shape, k, rate):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(k * 10 + rate)
+    x = torch.randn(*shape, device=cuda_device, generator=g)
+    w = torch.randn(k, k, shape[-1], device=cuda_device, generator=g)
+    gy = torch.randn(*shape, device=cuda_device, generator=g)
+    dx = tk.depthwise_conv2d_dx(gy, w, rate)
+    dw = tk.depthwise_conv2d_dw(x, gy, (k, k), rate)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["depthwise_conv2d_dx"] == 1 and tk.launch_counts()["depthwise_conv2d_dw"] == 1
+    pdx, pdw = tk.depthwise_conv2d_backward_plain(x, w, gy, rate)
+    torch.testing.assert_close(dx, pdx, atol=1e-5, rtol=0)
+    # dw sums B*H*W products per entry in another order than the plain version
+    torch.testing.assert_close(dw, pdw, rtol=1e-4, atol=1e-4 * float(pdw.abs().max()))
+    assert torch.equal(dw, tk.depthwise_conv2d_dw(x, gy, (k, k), rate))  # no atomics: bitwise repeatable
+
+
+@pytest.mark.cuda
+def test_cuda_depthwise_autograd_goes_through_the_kernels(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(2, 13, 13, 64, device=cuda_device, generator=g, requires_grad=True)
+    w = torch.randn(3, 3, 64, device=cuda_device, generator=g, requires_grad=True)
+    (tk.depthwise_conv2d(x, w, 4) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {**{n: 0 for n in tk.LAUNCHES}, "depthwise_conv2d": 1,
+                                  "depthwise_conv2d_dx": 1, "depthwise_conv2d_dw": 1}
+    xp, wp = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    (tk.depthwise_conv2d_plain(xp, wp, 4) ** 2).sum().backward()
+    torch.testing.assert_close(x.grad, xp.grad, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(w.grad, wp.grad, rtol=1e-4, atol=1e-4 * float(wp.grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_bn_act_kernel_refuses_gradients(cuda_device):
+    x = torch.randn(1, 4, 4, 8, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        tk.bn_act_folded(x, torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device))
+    with torch.no_grad():
+        tk.bn_act_folded(x, torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device))

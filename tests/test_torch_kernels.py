@@ -156,8 +156,10 @@ def test_sigmoid_mask_plain_is_the_unfused_head():
         lambda d: tk.depthwise_conv2d(torch.zeros(1, 4, 4, 2, device=d), torch.zeros(3, 3, 2, device=d)),
         lambda d: tk.bn_act_folded(torch.zeros(1, 4, 4, 2, device=d), torch.ones(2, device=d), torch.zeros(2, device=d)),
         lambda d: tk.fused_sigmoid_mask(torch.zeros(1, 4, 4, 1, device=d), 0.5),
+        lambda d: tk.depthwise_conv2d_dx(torch.zeros(1, 4, 4, 2, device=d), torch.zeros(3, 3, 2, device=d)),
+        lambda d: tk.depthwise_conv2d_dw(torch.zeros(1, 4, 4, 2, device=d), torch.zeros(1, 4, 4, 2, device=d), (3, 3)),
     ],
-    ids=["depthwise", "bn_act", "sigmoid_mask"],
+    ids=["depthwise", "bn_act", "sigmoid_mask", "depthwise_dx", "depthwise_dw"],
 )
 def test_non_cpu_tensors_never_take_the_plain_version(call):
     # a tensor that is neither on the CPU nor on CUDA: no plain fallback
@@ -168,7 +170,8 @@ def test_non_cpu_tensors_never_take_the_plain_version(call):
 
 def test_build_knows_every_kernel_source():
     names = set(_build.sources())
-    assert names == {"depthwise", "bn_act", "sigmoid_mask"}
+    assert names == {"depthwise", "depthwise_dw", "bn_act", "sigmoid_mask"}
+    assert names == set(tk._signatures)  # every source has its ctypes binding
     for name in names:
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")

@@ -1,0 +1,185 @@
+"""The port's K-fold trainer end to end on the CPU, on a tiny TGS-layout
+dataset: every fold trains, checkpoints on its cadence, evaluates, exports
+its best state; a re-run is a no-op resume; a shorter run resumes to a
+longer one; an unreadable checkpoint falls back; the best fold exports a
+serving artifact the serve engine loads; and the ``train`` command line does
+all of it and prints one JSON line. The fold manifests are the JAX
+package's, byte for byte.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tensorflowdistributedlearning_tpu.data import folds as jfolds
+from tensorflowdistributedlearning_tpu.data import pipeline as jpipe
+from tensorflowdistributedlearning_tpu_torch.__main__ import main as cli_main
+from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+from tensorflowdistributedlearning_tpu_torch.ops import kernels as tk
+from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager, CheckpointStructureError
+from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer, augment_seed
+from tests.conftest import make_salt_dataset
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(n_blocks=(1, 1, 1), input_shape=(32, 32), base_depth=16, width_multiplier=0.125, use_pallas_depthwise=True)
+
+
+def _trainer(model_dir, data, **tcfg):
+    cfg = dict(n_folds=2, seed=0, checkpoint_every_steps=2, eval_throttle_secs=0, save_best=2)
+    cfg.update(tcfg)
+    return Trainer(model_dir, data, train_config=TrainConfig(**cfg), device="cpu", **TINY)
+
+
+def _steps(path):
+    return sorted(int(d) for d in os.listdir(path) if d.isdigit())
+
+
+@pytest.fixture(scope="module")
+def salt(tmp_path_factory):
+    data, _, ids = make_salt_dataset(tmp_path_factory.mktemp("salt"), n_images=16, shape=(32, 32))
+    return data, ids
+
+
+@pytest.fixture(scope="module")
+def trained(salt, tmp_path_factory):
+    data, ids = salt
+    model_dir = str(tmp_path_factory.mktemp("model"))
+    trainer = _trainer(model_dir, data)
+    tk.reset_launch_counts()
+    results = trainer.train(ids, batch_size=4, steps=4)
+    return dict(trainer=trainer, results=results, model_dir=model_dir, data=data, ids=ids)
+
+
+def test_every_fold_trains_checkpoints_and_exports(trained):
+    results, model_dir = trained["results"], trained["model_dir"]
+    assert len(results) == 2
+    for fold, metrics in enumerate(results):
+        assert set(metrics) == {"metrics/mean_iou", "metrics/mean_acc", "loss"}
+        assert all(np.isfinite(v) for v in metrics.values())
+        fold_dir = os.path.join(model_dir, f"fold{fold}")
+        assert _steps(os.path.join(fold_dir, "checkpoints")) == [2, 4]
+        best = _steps(os.path.join(fold_dir, "export", "best"))
+        assert 1 <= len(best) <= 2 and set(best) <= {2, 4}
+        with open(os.path.join(fold_dir, "export", "best", str(best[0]), "metrics.json")) as f:
+            assert "metrics/mean_iou" in json.load(f)
+    assert trained["trainer"].params == sum(
+        p.numel() for p in create_train_state(trained["trainer"].model_config, TrainConfig(), "cpu").model.parameters()
+    )
+    assert tk.launch_counts() == {k: 0 for k in tk.LAUNCHES}  # CPU: the plain arms only
+
+
+def test_fold_manifests_are_the_jax_packages(trained):
+    data, ids = trained["data"], trained["ids"]
+    with open(os.path.join(trained["model_dir"], "folds.json")) as f:
+        ours = json.load(f)
+    masks = jpipe.InMemoryDataset.from_directory(data, ids=ids).masks
+    y = jfolds.coverage_to_class(jpipe.mask_coverage(masks))
+    assert ours == jfolds.build_fold_manifests(ids, list(y), 2, 0)
+
+
+def test_rerun_is_a_noop_resume(trained):
+    model_dir = trained["model_dir"]
+    before = {f: _steps(os.path.join(model_dir, f"fold{f}", "checkpoints")) for f in (0, 1)}
+    mtimes = os.path.getmtime(os.path.join(model_dir, "fold0", "checkpoints", "4", "state.pt"))
+    again = _trainer(model_dir, trained["data"]).train(trained["ids"], batch_size=4, steps=4)
+    assert again == trained["results"]  # the same final state, evaluated again
+    assert {f: _steps(os.path.join(model_dir, f"fold{f}", "checkpoints")) for f in (0, 1)} == before
+    assert os.path.getmtime(os.path.join(model_dir, "fold0", "checkpoints", "4", "state.pt")) == mtimes
+
+
+def test_shorter_run_resumes_to_longer(salt, tmp_path):
+    data, ids = salt
+    model_dir = str(tmp_path / "m")
+    _trainer(model_dir, data, n_folds=2).train(ids, batch_size=4, steps=2)
+    assert _steps(os.path.join(model_dir, "fold0", "checkpoints")) == [2]
+    trainer = _trainer(model_dir, data, n_folds=2)
+    trainer.train(ids, batch_size=4, steps=4)
+    assert _steps(os.path.join(model_dir, "fold0", "checkpoints")) == [2, 4]
+    state = CheckpointManager(os.path.join(model_dir, "fold0")).restore_latest(trainer._init_state())
+    assert state.step == 4
+
+
+def test_unreadable_checkpoint_falls_back_and_config_change_raises(trained, tmp_path):
+    import shutil
+
+    fold_dir = str(tmp_path / "fold0")
+    shutil.copytree(os.path.join(trained["model_dir"], "fold0"), fold_dir)
+    with open(os.path.join(fold_dir, "checkpoints", "4", "state.pt"), "wb") as f:
+        f.write(b"truncated")
+    trainer = trained["trainer"]
+    ckpt = CheckpointManager(fold_dir)
+    assert ckpt.restore_latest(trainer._init_state()).step == 2
+    assert _steps(os.path.join(fold_dir, "checkpoints")) == [2]  # the unreadable step is gone
+    sgd = create_train_state(trainer.model_config, TrainConfig(optimizer="sgd"), "cpu")
+    with pytest.raises(CheckpointStructureError, match="configuration changed"):
+        ckpt.restore_latest(sgd)
+
+
+def test_export_serving_loads_in_the_engine(trained, tmp_path):
+    trainer = trained["trainer"]
+    manifest = trainer.export_serving(0, str(tmp_path / "art"))
+    engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device="cpu", buckets=(1, 4))
+    x = np.random.default_rng(0).normal(size=(3, 32, 32, 2)).astype(np.float32)
+    got = engine.infer(x)
+    best = trainer.restore_fold(0).model.eval()
+    with torch.no_grad():
+        want = torch.sigmoid(best(torch.from_numpy(x))).numpy()
+    np.testing.assert_allclose(got["probabilities"], want, atol=1e-6, rtol=0)
+    with open(manifest) as f:
+        assert json.load(f)["fold"] == 0
+
+
+def test_augment_seed_is_a_function_of_fold_and_step():
+    assert augment_seed(42, 0, 7) == augment_seed(42, 0, 7)
+    assert len({augment_seed(42, f, s) for f in range(3) for s in range(50)}) == 150
+    assert 0 <= augment_seed(42, 1, 1) < 2 ** 63
+
+
+def test_trainer_rejects_what_the_slice_does_not_run(salt, tmp_path):
+    data, _ = salt
+    for kw in (dict(grad_accum_steps=2), dict(n_devices=2), dict(sync_batch_norm=True),
+               dict(weight_update_sharding=True), dict(optimizer="lars")):
+        with pytest.raises(NotImplementedError, match="ROADMAP|queue"):
+            _trainer(str(tmp_path), data, **kw)
+    with pytest.raises(ValueError, match="NCHW"):
+        _trainer(str(tmp_path), data, data_format="NCHW").train(["im00"], batch_size=2, steps=1)
+
+
+def test_train_cli_end_to_end(salt, tmp_path, capsys):
+    data, _ = salt
+    model_dir = str(tmp_path / "cli")
+    args = ["train", "--data-dir", data, "--model-dir", model_dir, "--batch-size", "4", "--steps", "2",
+            "--n-fold", "2", "--input-shape", "32", "32", "--n-blocks", "1", "1", "1", "--base-depth", "8",
+            "--checkpoint-every", "2", "--eval-throttle-secs", "0", "--use-pallas-depthwise"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "tensorflowdistributedlearning_tpu_torch", *args, "--device", "cpu",
+         "--export-serving"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert len(out["folds"]) == 2 and out["n_params"] > 0
+    assert os.path.isfile(os.path.join(out["serving_artifact"], "manifest.json"))
+    for fold in (0, 1):
+        assert _steps(os.path.join(model_dir, f"fold{fold}", "checkpoints")) == [2]
+        assert _steps(os.path.join(model_dir, f"fold{fold}", "export", "best")) == [2]
+    # a re-run is a no-op: the same metrics, no new checkpoint
+    assert cli_main([*args, "--device", "cpu"]) == 0
+    again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert again["folds"] == out["folds"]
+    assert _steps(os.path.join(model_dir, "fold0", "checkpoints")) == [2]
+    # without --device the command wants CUDA, and raises without it
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli_main(args)
