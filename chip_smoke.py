@@ -30,7 +30,26 @@ Phases, each fatal on failure (exit 1, no result line):
              equal where |p - 0.5| >= 1e-5), and checks that the served
              forwards launched 3 depthwise, 59 BN+act and 1 sigmoid-mask
              kernels each.
-5. backward — captures the three ASPP depthwise calls (input, filter, rate
+5. int8    — exports float32 and int8-compute artifacts of the same model
+             and serves the latter through the engine (buckets 1/4/16/64)
+             and over HTTP; checks 52 int8_conv2d, 3 depthwise, 59 BN+act
+             BN+act with bf16 parameters and 1 sigmoid-mask launches per
+             forward, and the served probabilities against the plain
+             int8-compute forward (1e-5);
+             prints quantize-check's record against float32 (printed, not
+             asserted: the weights are random); holds each of the 52 int8
+             conv calls of a bucket-64 forward and an odd sweep against the
+             plain version bitwise, the 59 BN calls (bf16 parameters)
+             bitwise, int8_matmul (ViT-S/16 MLP shapes and odd ones) and
+             fused_bias_act (every act, f32 and bf16) bitwise where the act
+             is exact and to the BN+act tolerance (or one bf16 step) for sigmoid
+             and gelu.
+             Times: int8 kernels alone on the quantized input, beside the
+             bound (bytes over 3.35 TB/s or int8 operations over 1979 TOPS),
+             the plain version, and library yardsticks (torch._int_mm on the
+             1x1 GEMMs, F.conv2d in float32 on the kxk shapes: torch has no
+             int8 conv).
+6. backward — captures the three ASPP depthwise calls (input, filter, rate
              and the output gradient) from one full-width training forward
              and backward at batch 64, and holds the dx and dw kernels
              against the plain backward there and on an odd sweep (C=72,
@@ -38,7 +57,7 @@ Phases, each fatal on failure (exit 1, no result line):
              1e-4·max|dw_plain| (each entry sums B·H·W products in another
              order); dw bitwise equal across two launches. Times as in 3,
              summed per train step; library: aten.convolution_backward.
-6. train   — writes a TGS-layout dataset from the seed (256 images of
+7. train   — writes a TGS-layout dataset from the seed (256 images of
              101x101, a third of the masks empty) and runs Trainer.train
              on the full-width model, batch 64, 2 folds of 20 steps,
              checkpoints and evals every 10 steps; checks every fold's
@@ -78,6 +97,7 @@ import numpy as np
 SEED = 20261016
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOP_S = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_INT8_OPS_S = 1979e12  # H100 SXM int8 tensor cores, dense
 BUCKET = 64
 TOL_DEPTHWISE = 1e-5
 TOL_BN = 1e-6
@@ -88,21 +108,39 @@ REPLACES = {
     "depthwise_conv2d_dx": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:170",
     "depthwise_conv2d_dw": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:172",
     "fused_bn_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:398",
+    "fused_bn_act_bf16": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:398",
     "fused_sigmoid_mask": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:573",
+    "fused_bias_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:504",
+    "int8_conv2d": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:432",
+    "int8_matmul": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
 }
 SOURCES = {
     "depthwise_conv2d": f"{PKG}/csrc/depthwise.cu",
     "depthwise_conv2d_dx": f"{PKG}/csrc/depthwise.cu",
     "depthwise_conv2d_dw": f"{PKG}/csrc/depthwise_dw.cu",
     "fused_bn_act": f"{PKG}/csrc/bn_act.cu",
+    "fused_bn_act_bf16": f"{PKG}/csrc/bn_act.cu",
     "fused_sigmoid_mask": f"{PKG}/csrc/sigmoid_mask.cu",
+    "fused_bias_act": f"{PKG}/csrc/bias_act.cu",
+    "int8_conv2d": f"{PKG}/csrc/int8_conv.cu",
+    "int8_matmul": f"{PKG}/csrc/int8_conv.cu",
 }
+# kernels no main path calls (the JAX package has no caller of either on the
+# segmenter's paths): held directly against their plain versions
+OFF_PATH = ("fused_bias_act", "int8_matmul")
+_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_matmul": 0}
 PER_FORWARD = {"depthwise_conv2d": 3, "fused_bn_act": 59, "fused_sigmoid_mask": 1}
 # launches per training step, and per eval-mode forward of the trainer
 PER_TRAIN_STEP = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3,
-                  "fused_bn_act": 0, "fused_sigmoid_mask": 0}
+                  "fused_bn_act": 0, "fused_sigmoid_mask": 0, **_NO_QUANT}
 PER_EVAL_FORWARD = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
-                    "fused_bn_act": 59, "fused_sigmoid_mask": 0}
+                    "fused_bn_act": 59, "fused_sigmoid_mask": 0, **_NO_QUANT}
+# launches per int8-compute serve forward of the full-width model: every one
+# of its 63 convs that the int8 rule takes (52); every BN with bf16 parameters
+PER_INT8_FORWARD = {"int8_conv2d": 52, "depthwise_conv2d": 3, "fused_bn_act": 0, "fused_bn_act_bf16": 59,
+                    "fused_sigmoid_mask": 1, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
+                    "fused_bias_act": 0, "int8_matmul": 0}
+VIT_MLP = (64 * 197, 384, 1536)  # ViT-S/16 MLP at batch 64: M tokens, K width, N hidden
 TRAIN_BATCH = 64
 TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
@@ -159,6 +197,19 @@ def bound_by(nbytes: float, flops: float) -> str:
     return "bytes" if nbytes / PEAK_BYTES_S >= flops / PEAK_F32_FLOP_S else "operations"
 
 
+def int8_bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by) of int8 tensor-core work: bytes over 3.35 TB/s
+    or int8 operations over 1979 TOPS, the larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_INT8_OPS_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def same(torch, a, b) -> bool:
+    """Bitwise agreement of two results: one dtype, one shape, equal values
+    (torch.equal: +0 and -0 count equal, NaN never)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
 def depthwise_valid_taps(h: int, w: int, k: int, rate: int) -> int:
     """Taps inside the image summed over output pixels (SAME, stride 1)."""
     pad = rate * (k - 1) // 2
@@ -191,8 +242,8 @@ def build():
     t0 = time.perf_counter()
     paths = _build.build_all()
     built = time.perf_counter() - t0
-    for name in paths:
-        kernels._entry(name)
+    for fn_name in kernels._signatures:
+        kernels._entry(fn_name)
     log(f"build: {len(paths)} kernel libraries, nvcc in parallel {built:.3f} s, "
         f"loaded in {time.perf_counter() - t0:.3f} s")
 
@@ -209,6 +260,19 @@ def randomize_bn(torch, model, generator) -> None:
                 m.bias.copy_(torch.empty(c).normal_(0.0, 0.1, generator=generator))
                 m.running_mean.copy_(torch.empty(c).normal_(0.0, 0.1, generator=generator))
                 m.running_var.copy_(torch.empty(c).uniform_(0.5, 1.5, generator=generator))
+
+
+def calibrate_head(torch, model, x) -> None:
+    """Scale and shift the last conv (decoder_conv_3x3) so the logits of
+    ``x`` have mean 0 and std 2: random deep weights otherwise saturate the
+    sigmoid (every probability 1.0), and comparisons of probabilities would
+    say nothing."""
+    with torch.inference_mode():
+        logits = model(x)
+        mean, std = logits.mean(), logits.std()
+        conv = model.decoder_conv_3x3
+        conv.weight.mul_(2.0 / std)
+        conv.bias.sub_(mean).mul_(2.0 / std)
 
 
 def make_instances(torch, n: int, seed: int):
@@ -530,6 +594,369 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
                   f"{name}: {counts[name]} launches for {forwards} forwards, expected {per} each")
         results["launches"] = counts
     return results
+
+
+# -- int8-compute serving --------------------------------------------------------
+
+
+def capture_int8_calls(torch, model, x):
+    """One forward of an int8-compute model with hooks recording each
+    QuantConv2d's and BatchNorm's inputs (and counting the depthwise calls)."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, DepthwiseConv2D
+    from tensorflowdistributedlearning_tpu_torch.ops.quant_kernels import QuantConv2d
+
+    calls = {"int8": [], "bn": [], "dw": 0}
+
+    def conv_hook(module, args):
+        calls["int8"].append((args[0].contiguous(), module))
+
+    def bn_hook(module, args, kwargs):
+        calls["bn"].append((args[0].contiguous(), module.unfolded(), kwargs.get("act", "relu")))
+
+    def dw_hook(module, args):
+        calls["dw"] += 1
+
+    handles = []
+    for mod in model.modules():
+        if isinstance(mod, QuantConv2d):
+            handles.append(mod.register_forward_pre_hook(conv_hook))
+        elif isinstance(mod, BatchNorm):
+            handles.append(mod.register_forward_pre_hook(bn_hook, with_kwargs=True))
+        elif isinstance(mod, DepthwiseConv2D):
+            handles.append(mod.register_forward_pre_hook(dw_hook))
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def int_mm_ms(torch, timer, a, b_t):
+    """Time of torch._int_mm of int8 ``a`` [M, K] with int8 [K, N] given as
+    ``b_t`` [N, K]: a yardstick only (no quantization, no epilogue, int32
+    out). cuBLASLt takes the column-major [K, N] view; a copy otherwise."""
+    b = b_t.t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        b = b.contiguous()
+    return timer.ms(lambda: torch._int_mm(a, b))
+
+
+def int8_conv_checks(torch, calls, timer, card):
+    """The 52 path calls of int8_conv2d: kernel against plain bitwise, times
+    summed per bucket-64 forward; then the odd sweep."""
+    import torch.nn.functional as F
+
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    nbytes = ops = quant_ms = quant_bytes = lib_1x1 = lib_kxk = 0.0
+    with torch.inference_mode():
+        for i, (x, mod) in enumerate(calls):
+            wk, ws, bias, pads = mod.weight_q, mod.w_scale, mod.bias, mod.pads
+            got = qk.int8_conv2d_ohwi(x, wk, ws, pads, bias=bias, out_dtype=torch.bfloat16)
+            want = qk.int8_conv2d_ohwi_plain(x, wk, ws, pads, bias=bias, out_dtype=torch.bfloat16)
+            check(same(torch, got, want), f"int8_conv2d path call {i} {tuple(x.shape)} x {tuple(wk.shape)}: kernel "
+                  f"!= plain ({int((got != want).sum())} elements differ)")
+            cout, kh, kw, cin = wk.shape
+            b, h, w, _ = x.shape
+            m = b * got.shape[1] * got.shape[2]
+            xq, xs = qk.quantize_activations(x)
+            out = torch.empty_like(got)
+            dims = (b, h, w, cin, cout, kh, kw)
+            row["ms"] += timer.ms(lambda: qk._launch("int8_conv2d", xq, xs, wk, ws, bias, out, dims, pads, "none"))
+            row["plain_ms"] += timer.ms(
+                lambda: qk._epilogue_plain(qk._conv_acc_plain(xq, wk, pads), xs, ws, bias, "none", torch.bfloat16),
+                reps=5, warmup=1,
+            )
+            quant_ms += timer.ms(lambda: qk.quantize_activations(x))
+            quant_bytes += x.numel() * (x.element_size() + 1)
+            if kh == kw == 1:
+                lib_1x1 += int_mm_ms(torch, timer, xq.view(m, cin), wk.view(cout, cin))
+            else:
+                (pt, pb), (pl, pr) = pads
+                xf = F.pad(x.float().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+                wf = (wk.float() * ws.view(-1, 1, 1, 1)).permute(0, 3, 1, 2).contiguous()
+                lib_kxk += timer.ms(lambda: F.conv2d(xf, wf))
+            nbytes += x.numel() + wk.numel() + 2 * m * cout + 8 * cout
+            ops += 2.0 * m * cout * kh * kw * cin
+    row["library_ms"] = lib_1x1 + lib_kxk
+    row["bound_ms"], row["bound_by"] = int8_bound(nbytes, ops)
+    log(f"int8_conv2d: {len(calls)} path calls bitwise equal to the plain version; per bucket-{BUCKET} forward: "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} ({nbytes / 1e9:.4f} GB, {ops / 1e12:.4f} T int8 ops); library yardsticks: "
+        f"torch._int_mm on the 1x1 GEMMs {lib_1x1:.4f} ms + F.conv2d in float32 on the kxk shapes {lib_kxk:.4f} ms "
+        f"(torch has no int8 conv); the quantize pass before the kernel {quant_ms:.4f} ms "
+        f"({quant_bytes / 1e9:.4f} GB) [{card}]")
+
+    # the odd sweep: Cin 3 and 5, Cout 1, 5x5, explicit pads, B=1 at 17x23,
+    # an all-zero input, a zero filter channel, a bf16 input; bf16 and f32
+    # out, with and without bias, the acts whose arithmetic is exact
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    cases = [
+        (1, 17, 23, 3, 5, 3, "SAME"), (2, 9, 7, 5, 1, 5, "SAME"), (1, 17, 23, 64, 1, 3, "SAME"),
+        (3, 11, 13, 16, 70, 5, ((2, 0), (1, 3))), (2, 8, 9, 5, 6, 3, "VALID"), (1, 17, 23, 48, 40, 1, "SAME"),
+        (2, 6, 5, 32, 72, 3, ((0, 2), (3, 0))),
+    ]
+    n = 0
+    with torch.inference_mode():
+        for b, h, w, cin, cout, k, padding in cases:
+            x = 2 * torch.randn(b, h, w, cin, device="cuda", generator=gen)
+            wq = torch.randint(-127, 128, (k, k, cin, cout), device="cuda", generator=gen, dtype=torch.int8)
+            wq[..., 0] = 0  # a zero filter channel
+            ws = torch.rand(cout, device="cuda", generator=gen) * 1e-2 + 1e-3
+            bias = torch.randn(cout, device="cuda", generator=gen)
+            for xin in (x, torch.zeros_like(x), x.to(torch.bfloat16)):
+                for out_dtype, act, bb in ((torch.bfloat16, "none", None), (torch.float32, "relu", bias),
+                                           (torch.bfloat16, "relu6", bias)):
+                    got = qk.int8_conv2d(xin, wq, ws, padding=padding, bias=bb, act=act, out_dtype=out_dtype)
+                    want = qk.int8_conv2d_plain(xin, wq, ws, padding=padding, bias=bb, act=act, out_dtype=out_dtype)
+                    check(same(torch, got, want), f"int8_conv2d sweep {(b, h, w, cin, cout, k, padding)} {act} "
+                          f"{out_dtype}: kernel != plain ({int((got != want).sum())} differ)")
+                    n += 1
+    log(f"int8_conv2d: odd sweep, {n} cases bitwise equal to the plain version")
+    return row
+
+
+def held_close(torch, got, want, act: str, what: str) -> float:
+    """Bitwise for the acts with exact arithmetic; sigmoid and gelu (libm)
+    within the fused BN+act tolerance in float32, or one bf16 step."""
+    if act in ("none", "relu", "relu6"):
+        check(same(torch, got, want), f"{what}: kernel != plain")
+    elif got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL_BN, atol=TOL_BN, msg=lambda m: f"{what}: {m}")
+    else:  # one bf16 step: 2^-7 relative just above a power of two
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=TOL_BN, msg=lambda m: f"{what}: {m}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def int8_matmul_checks(torch, timer, card):
+    """int8_matmul held directly: ViT-S/16 MLP shapes and odd M, K, N."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    err = 0.0
+    with torch.inference_mode():
+        for m, k, n in (VIT_MLP, (37, 70, 24), (1, 5, 3), (300, 33, 17), (129, 384, 1)):
+            x = torch.randn(m, k, device="cuda", generator=gen)
+            wq = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+            ws = torch.rand(n, device="cuda", generator=gen) * 1e-2 + 1e-3
+            bias = torch.randn(n, device="cuda", generator=gen)
+            for act in kernels.ACTIVATIONS:
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    got = qk.int8_matmul(x, wq, ws, bias=bias, act=act, out_dtype=out_dtype)
+                    want = qk.int8_matmul_plain(x, wq, ws, bias=bias, act=act, out_dtype=out_dtype)
+                    err = max(err, held_close(torch, got, want, act, f"int8_matmul {(m, k, n)} {act} {out_dtype}"))
+        m, k, n = VIT_MLP
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        wq = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+        ws = torch.rand(n, device="cuda", generator=gen) * 1e-2 + 1e-3
+        xq, xs = qk.quantize_activations(x)
+        wk = wq.t().contiguous()
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        ms = timer.ms(lambda: qk._launch("int8_matmul", xq.view(1, 1, m, k), xs, wk, ws, None, out,
+                                         (1, 1, m, k, n, 1, 1), ((0, 0), (0, 0)), "none"))
+        plain = timer.ms(lambda: qk._epilogue_plain((xq.double() @ wq.double()).to(torch.int32), xs, ws, None,
+                                                    "none", torch.bfloat16), reps=5, warmup=1)
+        lib = int_mm_ms(torch, timer, xq, wk)
+    bound, by = int8_bound(m * k + k * n + 2 * m * n + 4 * n, 2.0 * m * n * k)
+    log(f"int8_matmul: bitwise equal to the plain version (sigmoid/gelu within tolerance) at {VIT_MLP} and odd "
+        f"shapes, max|err| {err:.3g}; at {VIT_MLP}, bf16 out: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch._int_mm {lib:.4f} ms, bound {bound:.4f} ms by {by} [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+
+
+def fused_bias_act_checks(torch, timer, card):
+    """fused_bias_act held directly: every act, f32 and bf16, with and
+    without bias, at the ViT MLP hidden shape and an odd one; timed on the
+    hidden shape in bf16 with gelu (the MLP's epilogue)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    m, _, n = VIT_MLP
+    err = 0.0
+    with torch.inference_mode():
+        for shape in ((m, n), (3, 7, 5, 33)):
+            x = 3 * torch.randn(shape, device="cuda", generator=gen)
+            bias = torch.randn(shape[-1], device="cuda", generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                for act in kernels.ACTIVATIONS:
+                    for bb in (bias, None):
+                        got = kernels.fused_bias_act(x.to(dtype), bb, act)
+                        want = kernels.fused_bias_act_plain(x.to(dtype), bb, act)
+                        err = max(err, held_close(torch, got, want, act, f"fused_bias_act {shape} {dtype} {act}"))
+        xb = (3 * torch.randn(m, n, device="cuda", generator=gen)).to(torch.bfloat16)
+        bias = torch.randn(n, device="cuda", generator=gen)
+        ms = timer.ms(lambda: kernels.fused_bias_act(xb, bias, "gelu"))
+        plain = timer.ms(lambda: kernels.fused_bias_act_plain(xb, bias, "gelu"))
+    nbytes, flops = 2 * 2 * xb.numel() + 4 * n, 12 * xb.numel()
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms(nbytes, flops),
+               bound_by=bound_by(nbytes, flops))
+    log(f"fused_bias_act: every act, f32 and bf16, with and without bias, max|err| {err:.3g}; at {(m, n)} bf16 "
+        f"gelu: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"[{card}]")
+    return row
+
+
+def bn_unfolded_checks(torch, calls, timer, card):
+    """The BN calls of an int8-compute forward (bf16 parameters, flax's
+    unfolded order): kernel against plain bitwise, times summed per bucket-64
+    forward. Bytes: x in its own dtype (bf16 after an int8 conv, f32 after a
+    float conv), f32 out, the three f32 vectors; operations: subtract,
+    multiply, add per element."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    ms = plain = nbytes = flops = 0.0
+    n_bf16 = 0
+    with torch.inference_mode():
+        for xin, (mean, mul, bias), act in calls:
+            got = kernels.bn_act_unfolded(xin, mean, mul, bias, act)
+            want = kernels.bn_act_unfolded_plain(xin, mean, mul, bias, act)
+            check(same(torch, got, want), f"unfolded BN+act {tuple(xin.shape)} {xin.dtype}: kernel != plain")
+            ms += timer.ms(lambda: kernels.bn_act_unfolded(xin, mean, mul, bias, act))
+            plain += timer.ms(lambda: kernels.bn_act_unfolded_plain(xin, mean, mul, bias, act))
+            nbytes += xin.element_size() * xin.numel() + 4 * got.numel() + 4 * 3 * mean.numel()
+            flops += 3 * xin.numel()
+            n_bf16 += xin.dtype == torch.bfloat16
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms(nbytes, flops),
+               bound_by=bound_by(nbytes, flops))
+    log(f"fused_bn_act_bf16: {len(calls)} int8-path calls ({n_bf16} with bf16 input) bitwise equal to the plain "
+        f"version; {ms:.4f} ms per bucket-{BUCKET} forward (plain {plain:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+    return row
+
+
+def int8_phase(torch, model, cfg, card: str, timer=None, device: str = "cuda"):
+    """int8-compute serving of the full-width model (the main path of this
+    phase): export float32 and int8-compute artifacts from the same weights,
+    serve the latter through the engine and over HTTP with launch counts per
+    forward; then hold every int8 conv call of a bucket-64 forward, an odd
+    sweep, the unfolded BN calls, int8_matmul and fused_bias_act against
+    their plain versions, compare the served probabilities with the plain
+    forward, and print quantize-check's record against float32."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+    from tensorflowdistributedlearning_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, ServingServer, bind_ephemeral,
+    )
+    from tensorflowdistributedlearning_tpu_torch.serve.quant_check import run_quant_check
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-int8-") as root:
+        arts, nbytes = {}, {}
+        for spec in ("float32", "int8-compute"):
+            arts[spec] = os.path.join(root, spec)
+            t0 = time.perf_counter()
+            serving.export_serving_artifact(model, cfg, arts[spec], serving_dtype=spec)
+            nbytes[spec] = os.path.getsize(os.path.join(arts[spec], serving.WEIGHTS_NAME))
+            log(f"int8: exported the {spec} artifact in {time.perf_counter() - t0:.3f} s, weights {nbytes[spec]} bytes")
+        check(nbytes["int8-compute"] <= 0.3 * nbytes["float32"], f"int8 artifact bytes {nbytes}")
+        engine = InferenceEngine.from_artifact(arts["int8-compute"], device=device)
+        qmodel = serving.load_model(arts["int8-compute"], device)
+        n_quant = sum(isinstance(m, qk.QuantConv2d) for m in qmodel.modules())
+        check(n_quant == PER_INT8_FORWARD["int8_conv2d"], f"{n_quant} int8 convs in the loaded model")
+        warm = engine.warmup()
+        log(f"int8: engine warmup s per bucket {json.dumps({str(b): round(s, 4) for b, s in warm.items()})}")
+        batcher = MicroBatcher(engine, max_wait_ms=5.0, max_queue=256)
+        server = ServingServer(engine, batcher, sock=bind_ephemeral("127.0.0.1", 0)).start()
+        url = server.url + "/v1/predict"
+        batches = []
+        try:
+            # the main path: counts from 0 just before, read just after
+            kernels.reset_launch_counts()
+            serve_fn = engine.serve_fn
+
+            def recording(x):
+                out = serve_fn(x)
+                batches.append((np.array(x, copy=True), {k: v.cpu().numpy() for k, v in out.items()}))
+                return out
+
+            engine.serve_fn = recording
+            sizes = [1, 3, 16, 7, 2, 12]
+            inst = {i: make_instances(torch, n, SEED + 61 + i) for i, n in enumerate(sizes)}
+            with ThreadPoolExecutor(max_workers=6) as pool:
+                answered = dict(pool.map(lambda i: (i, post(url, {"instances": inst[i].tolist()})), range(len(sizes))))
+            engine.serve_fn = serve_fn
+            per_bucket, engine_ms = {}, {}
+            for b in engine.buckets:
+                x = make_instances(torch, b, SEED + 70 + b)
+                lat = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    status, _ = post(url, {"instances": x.tolist()})
+                    lat.append(time.perf_counter() - t0)
+                    check(status == 200, f"int8 bucket {b} request: HTTP {status}")
+                per_bucket[b] = statistics.median(lat) * 1e3
+                lat = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    engine.infer(x)
+                    lat.append(time.perf_counter() - t0)
+                engine_ms[b] = statistics.median(lat) * 1e3
+            profile = profile_forward(torch, engine, make_instances(torch, BUCKET, SEED + 80)) if device == "cuda" else []
+            counts = kernels.launch_counts()
+            forwards = sum(engine.bucket_hits.values())
+        finally:
+            server.shutdown()
+        log(f"int8: {forwards} forwards, bucket hits {engine.bucket_hits}, launches {counts}")
+        for b in engine.buckets:
+            log(f"int8: bucket {b} p50 request latency {per_bucket[b]:.3f} ms over HTTP, engine forward "
+                f"{engine_ms[b]:.3f} ms (pad, H2D, forward, D2H) [{card}]")
+        for line in profile:
+            log(f"profile int8-compute: {line} [{card}]")
+        for name, per in PER_INT8_FORWARD.items():
+            check(counts[name] == per * forwards,
+                  f"int8 path: {name} launched {counts[name]} times in {forwards} forwards, expected {per} each")
+        for i, (status, body) in answered.items():
+            check(status == 200 and body["n"] == sizes[i], f"int8 request {i}: HTTP {status}")
+            p = np.asarray(body["predictions"]["probabilities"], np.float32)
+            check(p.shape == (sizes[i], 101, 101, 1) and bool(np.isfinite(p).all()), f"int8 request {i}: {p.shape}")
+            check(np.array_equal(np.asarray(body["predictions"]["mask"], np.float32), (p > 0.5).astype(np.float32)),
+                  f"int8 request {i}: mask != (probs > 0.5)")
+
+        # each served batch against the int8-compute forward through the plain versions
+        plain = {"depthwise_conv2d": kernels.depthwise_conv2d_plain, "bn_act_folded": kernels.bn_act_folded_plain,
+                 "bn_act_unfolded": kernels.bn_act_unfolded_plain, "fused_sigmoid_mask": kernels.fused_sigmoid_mask_plain}
+        with mock.patch.multiple(kernels, **plain), mock.patch.object(qk, "int8_conv2d_ohwi", qk.int8_conv2d_ohwi_plain):
+            ref_serve = serving.make_serving_fn(qmodel, device, act_dtype=torch.bfloat16)
+            before = kernels.launch_counts()
+            worst = 0.0
+            for bx, bout in batches:
+                ref = ref_serve(bx)["probabilities"].cpu().numpy()
+                d = float(np.abs(bout["probabilities"] - ref).max())
+                worst = max(worst, d)
+                check(d <= TOL_PROBS, f"int8 batch of {bx.shape[0]}: probs differ from the plain forward by {d}")
+            x64 = torch.from_numpy(make_instances(torch, BUCKET, SEED + 90)).to(device, torch.bfloat16)
+            with torch.inference_mode():
+                ref_logits = qmodel(x64)
+            check(kernels.launch_counts() == before, "the plain int8-compute forward launched a kernel")
+        with torch.inference_mode():
+            logits = qmodel(x64)
+        d_logits = (logits - ref_logits).abs().max().item()
+        check(d_logits <= TOL_PROBS * max(1.0, ref_logits.abs().max().item()),
+              f"int8 bucket-64 logits differ from the plain forward by {d_logits}")
+        log(f"int8: {len(batches)} served batches agree with the plain int8-compute forward, max|dprobs| {worst:.3g}; "
+            f"bucket-64 logits (std {ref_logits.std().item():.3f}) max|dlogits| {d_logits:.3g}")
+
+        record = run_quant_check(arts["float32"], arts["int8-compute"], device=device)
+        log(f"int8: quantize-check of int8-compute against float32 (random weights: printed, not asserted): "
+            f"{json.dumps(record)}")
+        if device != "cuda":
+            return counts, rows
+        calls = capture_int8_calls(torch, qmodel, x64)
+        check(len(calls["int8"]) == PER_INT8_FORWARD["int8_conv2d"], f"{len(calls['int8'])} int8 conv calls")
+        check(len(calls["bn"]) == PER_INT8_FORWARD["fused_bn_act_bf16"], f"{len(calls['bn'])} BN calls")
+        check(calls["dw"] == PER_INT8_FORWARD["depthwise_conv2d"], f"{calls['dw']} depthwise calls")
+        rows["int8_conv2d"] = int8_conv_checks(torch, calls["int8"], timer, card)
+        rows["fused_bn_act_bf16"] = bn_unfolded_checks(torch, calls["bn"], timer, card)
+        rows["int8_matmul"] = int8_matmul_checks(torch, timer, card)
+        rows["fused_bias_act"] = fused_bias_act_checks(torch, timer, card)
+    return counts, rows
 
 
 # -- training -------------------------------------------------------------------
@@ -857,6 +1284,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -878,6 +1306,7 @@ def main() -> int:
         model = build_model(cfg, "cpu", generator=gen)
         randomize_bn(torch, model, gen)
         model = model.cuda().eval()
+        calibrate_head(torch, model, torch.from_numpy(make_instances(torch, 16, SEED + 2)).cuda())
         n_params = sum(p.numel() for p in model.parameters())
         log(f"model: full-width ResNet-v2 + DeepLabV3+, {n_params} parameters, built in {time.perf_counter() - t0:.3f} s")
         timer = Timer(torch)
@@ -887,6 +1316,8 @@ def main() -> int:
                 f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
         served = serve_phase(torch, model, cfg, card)
+        int8_counts, int8_rows = int8_phase(torch, model, cfg, card, timer)
+        rows.update(int8_rows)
         del model
         torch.cuda.empty_cache()
 
@@ -906,14 +1337,15 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    paths = {"serve": served["launches"], "train": trained["launches"]}
+    paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"]}
     table = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": sum(p.get(name, 0) for p in paths.values()),
          "launches_by_path": {path: p.get(name, 0) for path, p in paths.items()}, **rows[name]}
         for name in SOURCES
     ]
-    missing = [r["name"] for r in table if r["launches"] == 0]
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    missing = [r["name"] for r in table if r["launches"] == 0 and r["name"] not in OFF_PATH]
     if missing:
         print(f"FAIL: launched no time on the main paths: {missing}", file=sys.stderr)
         return 1

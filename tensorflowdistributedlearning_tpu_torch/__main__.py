@@ -1,12 +1,16 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
-``cli.py``; the port carries ``train``, ``serve`` and ``convert``).
+``cli.py``; the port carries ``train``, ``serve``, ``convert`` and
+``quantize-check``).
 
     python -m tensorflowdistributedlearning_tpu_torch train \\
-        --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000
+        --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
+        --export-serving --serving-dtype int8-compute
     python -m tensorflowdistributedlearning_tpu_torch convert \\
-        --params flax_vars.npz --config cfg.json --out ARTIFACT_DIR
+        --params flax_vars.npz --config cfg.json --out ARTIFACT_DIR --serving-dtype int8-compute
     python -m tensorflowdistributedlearning_tpu_torch serve \\
         --artifact-dir ARTIFACT_DIR --port 8500 --buckets 1 4 16 64
+    python -m tensorflowdistributedlearning_tpu_torch quantize-check \\
+        --reference-dir F32_ARTIFACT --candidate-dir INT8_ARTIFACT
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import json
 import os
 import sys
 from typing import List, Optional
+
+from tensorflowdistributedlearning_tpu_torch.train.quantize import SERVING_SPECS
 
 
 def _best_fold(results: List[dict]) -> int:
@@ -58,7 +64,8 @@ def cmd_train(args) -> int:
     if args.export_serving and results:
         fold = _best_fold(results)
         out["serving_fold"] = fold
-        out["serving_artifact"] = os.path.dirname(trainer.export_serving(fold))
+        out["serving_artifact"] = os.path.dirname(trainer.export_serving(fold, serving_dtype=args.serving_dtype))
+        out["serving_dtype"] = args.serving_dtype
     print(json.dumps(out))
     return 0
 
@@ -80,9 +87,35 @@ def cmd_convert(args) -> int:
     with torch.device("meta"):
         model = ResNetSegmentation(config)
     model.load_state_dict(state, strict=True, assign=True)
-    path = export_serving_artifact(model, config, args.out, data_format=args.data_format)
-    print(json.dumps({"artifact": args.out, "manifest": path, "tensors": len(state)}))
+    path = export_serving_artifact(
+        model, config, args.out, data_format=args.data_format, serving_dtype=args.serving_dtype
+    )
+    print(json.dumps({"artifact": args.out, "manifest": path, "tensors": len(state),
+                      "serving_dtype": args.serving_dtype}))
     return 0
+
+
+def cmd_quantize_check(args) -> int:
+    """The float32-vs-quantized accuracy gate (serve/quant_check.py): prints
+    the verdict record as one JSON line; the exit status is the gate."""
+    from tensorflowdistributedlearning_tpu_torch.serve.quant_check import run_quant_check
+
+    result = run_quant_check(
+        args.reference_dir,
+        args.candidate_dir,
+        batch_size=args.batch_size,
+        seed=args.seed,
+        thresholds={
+            "max_abs_delta": args.max_abs_delta,
+            "mean_abs_delta": args.mean_abs_delta,
+            "min_iou": args.min_iou,
+            "max_disagree": args.max_disagree,
+        },
+        allow_fingerprint_mismatch=args.allow_fingerprint_mismatch,
+        device=args.device,
+    )
+    print(json.dumps(result))
+    return 0 if result["passed"] else 1
 
 
 def cmd_serve(args) -> int:
@@ -136,6 +169,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--eval-throttle-secs", type=int, default=300)
     t.add_argument("--export-serving", action="store_true",
                    help="after training, export the best fold's serving artifact ({fold_dir}/export/serving)")
+    t.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",
+                   help="post-training precision spec of --export-serving (train/quantize.py): bfloat16 casts "
+                   "the weights, int8 stores conv filters as int8 with per-channel symmetric scales, "
+                   "int8-compute stores the same bytes and runs eligible convs in int8 arithmetic; "
+                   "quantized specs export to {fold_dir}/export/serving-{spec}")
     t.add_argument("--use-pallas-depthwise", action="store_true",
                    help="route the depthwise convs through the hand-written kernels (forward, dx, dw)")
     t.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
@@ -156,7 +194,34 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--config", required=True, help="ModelConfig as JSON")
     c.add_argument("--out", required=True, help="artifact directory to write")
     c.add_argument("--data-format", default="NHWC", choices=["NHWC", "NCHW"])
+    c.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",
+                   help="post-training precision spec of the artifact (train/quantize.py)")
     c.set_defaults(fn=cmd_convert)
+
+    q = sub.add_parser(
+        "quantize-check",
+        help="accuracy gate between a float32 serving artifact and a quantized sibling: pinned eval "
+        "batch, per-precision delta thresholds; prints the verdict, exit 1 on failure",
+    )
+    q.add_argument("--reference-dir", required=True, help="the float32 reference artifact directory")
+    q.add_argument("--candidate-dir", required=True,
+                   help="the quantized candidate artifact directory (its manifest quantization section "
+                   "selects the threshold set)")
+    q.add_argument("--batch-size", type=int, default=16,
+                   help="pinned eval batch size (fixed-batch artifacts pin their own)")
+    q.add_argument("--seed", type=int, default=0, help="seed of the pinned eval batch")
+    q.add_argument("--max-abs-delta", type=float, default=None,
+                   help="override the precision's max |delta| budget on float outputs")
+    q.add_argument("--mean-abs-delta", type=float, default=None,
+                   help="override the precision's mean |delta| budget")
+    q.add_argument("--min-iou", type=float, default=None, help="override the precision's minimum mask IoU")
+    q.add_argument("--max-disagree", type=float, default=None,
+                   help="override the precision's max class-disagreement fraction")
+    q.add_argument("--allow-fingerprint-mismatch", action="store_true",
+                   help="compare artifacts whose manifests carry different source fingerprints "
+                   "(normally a hard fail: the pair derives from different weights)")
+    q.add_argument("--device", default=None, help="torch device; default cuda (no CPU fallback)")
+    q.set_defaults(fn=cmd_quantize_check)
     return p
 
 

@@ -16,6 +16,14 @@ explicitly with ``F.pad``.
 Training mode follows flax: BatchNorm normalises with the batch mean and
 the biased batch variance and moves its running statistics by the decay;
 eval mode folds the running statistics into the fused BN+act kernel.
+
+Dtypes follow flax's promotion with the model's ``dtype=float32``: every
+conv, depthwise conv and BN computes in float32 whatever its input's dtype,
+except that a BatchNorm whose parameters are bfloat16 (the quantized
+serving specs, ``train/quantize.py``) computes as flax does in the promoted
+dtype of its input and its bf16 statistics (bf16 for a bf16 input) and
+returns float32. Convolutions are called through their modules, so the
+int8-compute serving path can swap a module (``ops/quant_kernels.py``).
 """
 
 from __future__ import annotations
@@ -119,6 +127,17 @@ def upsample(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)[:, 2:-2, 2:-2, :]
 
 
+class Conv2dSame(nn.Conv2d):
+    """``flax.linen.Conv(padding="SAME", dtype=float32)`` on NHWC input: the
+    input is promoted to float32 (a bf16 input from an int8-compute layer),
+    then :func:`conv2d_same`. Parameters as ``nn.Conv2d``'s (OIHW)."""
+
+    same_padding = "SAME"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0])
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` with a fused activation (and optional residual).
     Parameters ``weight``/``bias`` and buffers ``running_mean``/
@@ -131,9 +150,11 @@ class BatchNorm(nn.Module):
     biased variance (``F.batch_norm`` would store the unbiased one). Plain
     differentiable ops; the activation follows.
 
-    Eval mode: through :func:`kernels.bn_act_folded`; the f32 fold into
-    ``m, b`` is cached and recomputed whenever a parameter or buffer
-    changes."""
+    Eval mode: through :func:`kernels.bn_act_folded` (an input that is not
+    float32 is promoted first); the f32 fold into ``m, b`` is cached and
+    recomputed whenever a parameter or buffer changes. With bfloat16
+    parameters and statistics (the quantized serving specs) it is flax's
+    unfolded form instead (:func:`kernels.bn_act_unfolded`, float32 out)."""
 
     def __init__(self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99):
         super().__init__()
@@ -146,15 +167,33 @@ class BatchNorm(nn.Module):
         self._fold_key = None
         self._fold = None
 
-    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    @property
+    def bf16_params(self) -> bool:
+        return self.running_var.dtype == torch.bfloat16
+
+    def _cached(self, kind: str, compute):
         tensors = [t for t in (self.weight, self.bias, self.running_mean, self.running_var) if t is not None]
-        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        key = (kind,) + tuple((t.data_ptr(), t._version) for t in tensors)
         if key != self._fold_key:
-            scale = self.weight if self.weight is not None else torch.ones_like(self.bias)
             with torch.no_grad():
-                self._fold = kernels.fold_bn(scale, self.bias, self.running_mean, self.running_var, self.eps)
+                self._fold = compute()
             self._fold_key = key
         return self._fold
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The f32 fold ``(m, b)`` of float32 parameters."""
+        scale = self.weight if self.weight is not None else torch.ones_like(self.bias)
+        return self._cached(
+            "folded", lambda: kernels.fold_bn(scale, self.bias, self.running_mean, self.running_var, self.eps)
+        )
+
+    def unfolded(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """flax's ``(mean, mul, bias)`` of bfloat16 parameters
+        (:func:`kernels.unfold_bn_bf16`)."""
+        return self._cached(
+            "unfolded",
+            lambda: kernels.unfold_bn_bf16(self.weight, self.bias, self.running_mean, self.running_var, self.eps),
+        )
 
     def _batch_normalize(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -174,8 +213,13 @@ class BatchNorm(nn.Module):
             if residual is not None:
                 y = y + residual
             return kernels.activate(y, act)
+        if self.bf16_params:
+            if residual is not None:
+                raise NotImplementedError("BatchNorm with bfloat16 parameters takes no residual")
+            mean, mul, bias = self.unfolded()
+            return kernels.bn_act_unfolded(x.contiguous(), mean, mul, bias, act)
         m, b = self.folded()
-        return kernels.bn_act_folded(x.contiguous(), m, b, act, residual)
+        return kernels.bn_act_folded(x.float().contiguous(), m, b, act, residual)
 
 
 class ConvBN(nn.Module):
@@ -188,12 +232,11 @@ class ConvBN(nn.Module):
     ):
         super().__init__()
         self.stride, self.rate = stride, rate
-        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride, dilation=rate, bias=False)
+        self.conv = Conv2dSame(in_channels, features, kernel_size, stride=stride, dilation=rate, bias=False)
         self.bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_same(x, self.conv.weight, None, self.stride, self.rate)
-        return self.bn(y, act="relu")
+        return self.bn(self.conv(x), act="relu")
 
 
 class DepthwiseConv2D(nn.Module):
@@ -214,7 +257,7 @@ class DepthwiseConv2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dw = kernels.depthwise_conv2d if self.use_kernel else kernels.depthwise_conv2d_plain
-        return dw(x.contiguous(), self.weight, self.rate) + self.bias
+        return dw(x.float().contiguous(), self.weight, self.rate) + self.bias
 
 
 class SplitSeparableConv2D(nn.Module):
@@ -228,10 +271,9 @@ class SplitSeparableConv2D(nn.Module):
     ):
         super().__init__()
         self.depthwise = DepthwiseConv2D(in_channels, kernel_size, rate, use_kernel)
-        self.pointwise = nn.Conv2d(in_channels, features, 1, bias=False)
+        self.pointwise = Conv2dSame(in_channels, features, 1, bias=False)
         self.pointwise_bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.depthwise(x))
-        x = conv2d_same(x, self.pointwise.weight)
-        return self.pointwise_bn(x, act="relu")
+        return self.pointwise_bn(self.pointwise(x), act="relu")

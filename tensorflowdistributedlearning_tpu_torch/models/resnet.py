@@ -21,9 +21,9 @@ import torch.nn as nn
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, require_supported
 from tensorflowdistributedlearning_tpu_torch.models.layers import (
     BatchNorm,
+    Conv2dSame,
     ConvBN,
     SplitSeparableConv2D,
-    conv2d_same,
     max_pool_same,
     scaled_width,
     subsample,
@@ -113,7 +113,9 @@ class BottleneckUnit(nn.Module):
     """Pre-activation bottleneck unit: preact BN+relu -> 1x1 reduce (BN+relu)
     -> 3x3 atrous (BN+relu, stride fused) -> 1x1 expand (bias); shortcut is
     the subsampled input or a 1x1 conv of the preactivation. Returns
-    ``(relu(shortcut + residual), residual)``."""
+    ``(relu(shortcut + residual), residual)``: under int8-compute both terms
+    leave int8 convs in bf16, so the add and the residual stream are bf16,
+    as in flax."""
 
     def __init__(
         self, in_channels: int, spec: UnitSpec, rate: int = 1, bn_epsilon: float = 1e-3,
@@ -124,7 +126,7 @@ class BottleneckUnit(nn.Module):
         common = dict(bn_epsilon=bn_epsilon, bn_scale=bn_scale, bn_decay=bn_decay)
         self.preact = BatchNorm(in_channels, bn_epsilon, bn_scale, bn_decay)
         self.shortcut = (
-            nn.Conv2d(in_channels, spec.depth, 1, stride=spec.stride)
+            Conv2dSame(in_channels, spec.depth, 1, stride=spec.stride)
             if spec.depth != in_channels
             else None
         )
@@ -133,16 +135,15 @@ class BottleneckUnit(nn.Module):
             spec.depth_bottleneck, spec.depth_bottleneck, 3, stride=spec.stride,
             rate=rate * spec.unit_rate, **common,
         )
-        self.conv3 = nn.Conv2d(spec.depth_bottleneck, spec.depth, 1)
+        self.conv3 = Conv2dSame(spec.depth_bottleneck, spec.depth, 1)
 
     def forward(self, x: torch.Tensor):
         preact = self.preact(x, act="relu")
         if self.shortcut is None:
             shortcut = subsample(x, self.spec.stride)
         else:
-            shortcut = conv2d_same(preact, self.shortcut.weight, self.shortcut.bias, self.spec.stride)
-        residual = self.conv2(self.conv1(preact))
-        residual = conv2d_same(residual, self.conv3.weight, self.conv3.bias)
+            shortcut = self.shortcut(preact)
+        residual = self.conv3(self.conv2(self.conv1(preact)))
         return torch.relu(shortcut + residual), residual
 
 
@@ -221,7 +222,8 @@ class ASPP(nn.Module):
         a2 = self.conv_3x3_1(x)
         a3 = self.conv_3x3_2(x)
         a4 = self.conv_3x3_3(x)
-        pooled = self.pool_conv_1x1(x.mean(dim=(1, 2), keepdim=True))
+        # jnp.mean: f32 sum and division, result in x's dtype
+        pooled = self.pool_conv_1x1(x.float().mean(dim=(1, 2), keepdim=True).to(x.dtype))
         a5 = upsample(pooled, out_size)
         return self.project(torch.cat([a1, a2, a3, a4, a5], dim=-1))
 
@@ -244,7 +246,7 @@ class ResNetSegmentation(nn.Module):
         )
         self.aspp = ASPP(config, self.backbone.out_channels)
         self.decoder_conv_1x1 = ConvBN(self.backbone.skip_channels, config.base_depth, 1, **common)
-        self.decoder_conv_3x3 = nn.Conv2d(2 * config.base_depth, 1, 3)
+        self.decoder_conv_3x3 = Conv2dSame(2 * config.base_depth, 1, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.config.remat:
@@ -264,5 +266,5 @@ def deeplab_head(net: nn.Module, features: torch.Tensor, skip: torch.Tensor) -> 
     aspp = net.aspp(features)
     aspp_up = upsample(aspp, skip.shape[1:3])
     decoder = torch.cat([net.decoder_conv_1x1(skip), aspp_up], dim=-1)
-    decoder = conv2d_same(decoder, net.decoder_conv_3x3.weight, net.decoder_conv_3x3.bias)
+    decoder = net.decoder_conv_3x3(decoder)
     return upsample(decoder.float(), net.config.input_shape).contiguous()

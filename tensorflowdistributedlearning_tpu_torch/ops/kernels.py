@@ -9,7 +9,12 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   counterpart): forward ``csrc/depthwise.cu``; dx the same kernel on the
   spatially flipped filter; dw ``csrc/depthwise_dw.cu``;
 - :func:`fused_bn_act` — inference BN + activation (+ residual)
-  (``csrc/bn_act.cu``), inference-only as the TPU kernel is;
+  (``csrc/bn_act.cu``), inference-only as the TPU kernel is; with
+  bfloat16 parameters (the quantized serving specs) :func:`bn_act_unfolded`
+  repeats flax's own order and roundings;
+- :func:`fused_bias_act` — per-channel bias + activation over the last axis
+  (``csrc/bias_act.cu``), the standalone face of the epilogue that the int8
+  kernels (``ops/quant_kernels.py``) share through ``csrc/epilogue.cuh``;
 - :func:`fused_sigmoid_mask` — the segmentation serve head
   (``csrc/sigmoid_mask.cu``), bit-identical to its plain version.
 
@@ -36,30 +41,31 @@ LAUNCHES: Dict[str, int] = {
     "depthwise_conv2d_dx": 0,
     "depthwise_conv2d_dw": 0,
     "fused_bn_act": 0,
+    "fused_bn_act_bf16": 0,
+    "fused_bias_act": 0,
     "fused_sigmoid_mask": 0,
+    "int8_conv2d": 0,
+    "int8_matmul": 0,
 }
 
-# activation codes shared with csrc/bn_act.cu
+# activation codes shared with csrc/epilogue.cuh
 ACTIVATIONS = {"none": 0, "relu": 1, "relu6": 2, "sigmoid": 3, "gelu": 4}
 
 _c_void = ctypes.c_void_p
+_c_int = ctypes.c_int
+# C entry point -> (library = csrc/{library}.cu, argtypes)
 _signatures = {
-    "depthwise": (
-        "tfdl_depthwise_conv2d_f32",
-        [_c_void, _c_void, _c_void] + [ctypes.c_int] * 7 + [_c_void],
+    "tfdl_depthwise_conv2d_f32": ("depthwise", [_c_void] * 3 + [_c_int] * 7 + [_c_void]),
+    "tfdl_depthwise_dw_f32": (
+        "depthwise_dw", [_c_void] * 4 + [_c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
     ),
-    "depthwise_dw": (
-        "tfdl_depthwise_dw_f32",
-        [_c_void] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
+    "tfdl_bn_act_f32": ("bn_act", [_c_void] * 5 + [ctypes.c_int64, _c_int, _c_int, _c_void]),
+    "tfdl_bn_act_unfolded": (
+        "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_void],
     ),
-    "bn_act": (
-        "tfdl_bn_act_f32",
-        [_c_void] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, _c_void],
-    ),
-    "sigmoid_mask": (
-        "tfdl_sigmoid_mask_f32",
-        [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void],
-    ),
+    "tfdl_bias_act": ("bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64, _c_int, _c_int, _c_void]),
+    "tfdl_sigmoid_mask_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void]),
+    "tfdl_int8_conv2d": ("int8_conv", [_c_void] * 6 + [_c_int] * 14 + [_c_void]),
 }
 
 
@@ -72,11 +78,11 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
-def _entry(lib_name: str):
-    """The C entry point of ``csrc/{lib_name}.cu`` with argtypes set (every
-    pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
+def _entry(fn_name: str):
+    """``(library, C entry point)`` with argtypes set (every pointer and the
+    stream as ``c_void_p``, so none is cut to 32 bits)."""
+    lib_name, argtypes = _signatures[fn_name]
     lib = _build.library(lib_name)
-    fn_name, argtypes = _signatures[lib_name]
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -85,6 +91,13 @@ def _entry(lib_name: str):
 
 
 def _require_cuda_f32(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    _require_cuda(name, *tensors, dtypes=(torch.float32,))
+
+
+def _require_cuda(name: str, *tensors: Optional[torch.Tensor], dtypes: Tuple[torch.dtype, ...]) -> None:
+    """Every tensor on one CUDA device, contiguous and of one of ``dtypes``
+    (the kernel's own types: each wrapper widens this only as far as its
+    kernel goes)."""
     device = None
     for t in tensors:
         if t is None:
@@ -94,8 +107,8 @@ def _require_cuda_f32(name: str, *tensors: Optional[torch.Tensor]) -> None:
         if device is not None and t.device != device:
             raise ValueError(f"{name}: tensors on {device} and {t.device}")
         device = t.device
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only in this port, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the kernel takes {[str(d) for d in dtypes]}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors (NHWC), got strides {t.stride()}")
 
@@ -177,7 +190,7 @@ def _launch_depthwise(x: torch.Tensor, w: torch.Tensor, rate: int, name: str) ->
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
     out = torch.empty_like(x)
-    lib, fn = _entry("depthwise")
+    lib, fn = _entry("tfdl_depthwise_conv2d_f32")
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, int(rate), _stream(x))
     _build.check(lib, code, name)
@@ -229,7 +242,7 @@ def depthwise_conv2d_dw(
     tiles = max(1, -(-pixels // tile_rows))
     partial = torch.empty((tiles, kh * kw, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((kh, kw, c), dtype=torch.float32, device=x.device)
-    lib, fn = _entry("depthwise_dw")
+    lib, fn = _entry("tfdl_depthwise_dw_f32")
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw,
@@ -342,7 +355,7 @@ def bn_act_folded(
         )
     _require_cuda_f32("fused_bn_act", x, m, b, residual)
     out = torch.empty_like(x)
-    lib, fn = _entry("bn_act")
+    lib, fn = _entry("tfdl_bn_act_f32")
     r_ptr = residual.data_ptr() if residual is not None else None
     with torch.cuda.device(x.device):
         code = fn(
@@ -373,6 +386,118 @@ def fused_bn_act(
     return bn_act_folded(x, m, b, act, residual)
 
 
+def unfold_bn_bf16(
+    scale: Optional[torch.Tensor], bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """flax's inference BN vectors for bfloat16 parameters and statistics:
+    ``mul = rsqrt(var + eps) [* scale]`` computed in bf16 (eps rounded to
+    bf16, every op rounded to bf16, as ``flax.linen.normalization._normalize``
+    does), returned with ``mean`` and ``bias`` as float32 tensors that hold
+    bf16 values exactly: ``(mean, mul, bias)``."""
+    bf16 = torch.bfloat16
+    # rsqrt in f32, rounded once (XLA's bf16 rsqrt; PyTorch's own bf16
+    # rsqrt on the CPU rounds twice)
+    mul = torch.rsqrt((var.to(bf16) + torch.tensor(eps, dtype=bf16, device=var.device)).float()).to(bf16)
+    if scale is not None:
+        mul = mul * scale.to(bf16)
+    return mean.to(bf16).float(), mul.float(), bias.to(bf16).float()
+
+
+def _check_unfolded(x, mean, mul, bias, act) -> None:
+    if act not in ACTIVATIONS:
+        raise ValueError(f"act {act!r} not in {sorted(ACTIVATIONS)}")
+    c = x.shape[-1]
+    for name, v in (("mean", mean), ("mul", mul), ("bias", bias)):
+        if tuple(v.shape) != (c,):
+            raise ValueError(f"{name} must be [{c}] to match x's channels, got {tuple(v.shape)}")
+
+
+def bn_act_unfolded_plain(
+    x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor, act: str = "relu"
+) -> torch.Tensor:
+    """Plain version of the unfolded kernel: flax's ``((x - mean) * mul) +
+    bias`` in the promoted dtype of ``x`` and the bf16 vectors (bf16 for a
+    bf16 ``x``, every op rounded; f32 for an f32 ``x``), then the activation
+    on the float32 result."""
+    _check_unfolded(x, mean, mul, bias, act)
+    cdt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    y = x.to(cdt) - mean.to(cdt)
+    y = y * mul.to(cdt)
+    y = y + bias.to(cdt)
+    return activate(y.float(), act)
+
+
+def bn_act_unfolded(
+    x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor, act: str = "relu"
+) -> torch.Tensor:
+    """Inference BN + act for bf16 parameters (:func:`unfold_bn_bf16`'s
+    vectors) over NHWC ``x`` (bf16 or f32); float32 out. CPU: plain version;
+    CUDA: ``tfdl_bn_act_unfolded`` in ``csrc/bn_act.cu``, counted as
+    ``fused_bn_act_bf16``."""
+    _check_unfolded(x, mean, mul, bias, act)
+    if _use_plain(x):
+        return bn_act_unfolded_plain(x, mean, mul, bias, act)
+    _require_cuda("fused_bn_act_bf16", x, dtypes=(torch.float32, torch.bfloat16))
+    _require_cuda_f32("fused_bn_act_bf16", mean, mul, bias)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    lib, fn = _entry("tfdl_bn_act_unfolded")
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), mean.data_ptr(), mul.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), x.numel(), x.shape[-1], ACTIVATIONS[act], _stream(x),
+        )
+    _build.check(lib, code, "fused_bn_act_bf16")
+    LAUNCHES["fused_bn_act_bf16"] += 1
+    return out
+
+
+# -- fused bias + activation ----------------------------------------------------
+
+
+def _check_bias_act(x, bias, act) -> None:
+    if act not in ACTIVATIONS:
+        raise ValueError(f"act {act!r} not in {sorted(ACTIVATIONS)}")
+    if x.dim() < 1:
+        raise ValueError("fused_bias_act expects [..., C]")
+    if bias is not None and tuple(bias.shape) != (x.shape[-1],):
+        raise ValueError(f"bias must be [{x.shape[-1]}] to match x's last axis, got {tuple(bias.shape)}")
+
+
+def fused_bias_act_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None, act: str = "none") -> torch.Tensor:
+    """Plain version (counterpart of ``fused_bias_act_reference``):
+    ``act(x + bias)`` in float32, returned in ``x``'s dtype."""
+    _check_bias_act(x, bias, act)
+    y = x.float()
+    if bias is not None:
+        y = y + bias.float()
+    return activate(y, act).to(x.dtype)
+
+
+def fused_bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None, act: str = "none") -> torch.Tensor:
+    """Per-channel bias + activation over the last axis of ``x`` [..., C]
+    (float32 or bfloat16), f32 math, output in ``x``'s dtype; ``bias`` [C]
+    or None. Inference-only, as the TPU kernel is. CPU: plain version;
+    CUDA: ``csrc/bias_act.cu``."""
+    _check_bias_act(x, bias, act)
+    if _use_plain(x):
+        return fused_bias_act_plain(x, bias, act)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, bias)):
+        raise RuntimeError("fused_bias_act: the CUDA kernel is inference-only, as the TPU kernel is")
+    _require_cuda("fused_bias_act", x, dtypes=(torch.float32, torch.bfloat16))
+    b32 = None if bias is None else bias.float().contiguous()
+    _require_cuda_f32("fused_bias_act", b32)
+    out = torch.empty_like(x)
+    lib, fn = _entry("tfdl_bias_act")
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), b32.data_ptr() if b32 is not None else None,
+            out.data_ptr(), x.numel(), x.shape[-1], ACTIVATIONS[act], _stream(x),
+        )
+    _build.check(lib, code, "fused_bias_act")
+    LAUNCHES["fused_bias_act"] += 1
+    return out
+
+
 # -- fused sigmoid + threshold mask head ----------------------------------------
 
 
@@ -392,7 +517,7 @@ def fused_sigmoid_mask(logits: torch.Tensor, threshold: float) -> Tuple[torch.Te
     _require_cuda_f32("fused_sigmoid_mask", logits)
     probs = torch.empty_like(logits)
     mask = torch.empty_like(logits)
-    lib, fn = _entry("sigmoid_mask")
+    lib, fn = _entry("tfdl_sigmoid_mask_f32")
     with torch.cuda.device(logits.device):
         code = fn(
             logits.data_ptr(), probs.data_ptr(), mask.data_ptr(), logits.numel(),

@@ -234,13 +234,39 @@ class Trainer:
             self._init_state(), hint=f"train fold {fold} first"
         )
 
-    def export_serving(self, fold: int, directory: Optional[str] = None) -> str:
-        """Write the serving artifact of the fold's best state (default
-        ``{fold_dir}/export/serving``), the artifact ``serve`` and
-        ``InferenceEngine.from_artifact`` load; returns its manifest path."""
+    def serving_fn(self, fold: int, serving_dtype: str = "float32"):
+        """``serve(images) -> {"probabilities", "mask"}`` of the fold's best
+        state under the serving spec ``serving_dtype`` (``float32``,
+        ``bfloat16``, ``int8`` or ``int8-compute``; see
+        ``train/quantize.py``), on the trainer's device. Wire contract for
+        every spec: float32 in, float32 out. The closure carries its
+        manifest ``quantization`` section as ``serve.quantization``."""
+        from tensorflowdistributedlearning_tpu_torch.train import quantize, serving
+
+        state = self.restore_fold(fold)
+        weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        qstate, section = quantize.quantize_state(weights, serving_dtype, self.model_config)
+        model = serving.serving_model(self.model_config, qstate, section, self.device)
+        serve = serving.make_serving_fn(
+            model, self.device, data_format=self.train_config.data_format,
+            act_dtype=quantize.compute_dtype(serving_dtype),
+        )
+        serve.quantization = section
+        return serve
+
+    def export_serving(self, fold: int, directory: Optional[str] = None, serving_dtype: str = "float32") -> str:
+        """Write the serving artifact of the fold's best state under the
+        spec ``serving_dtype`` (default ``{fold_dir}/export/serving``, or
+        ``serving-{spec}`` for the quantized specs, so the float32 reference
+        and its candidates sit side by side for quantize-check), the
+        artifact ``serve`` and ``InferenceEngine.from_artifact`` load;
+        returns its manifest path."""
+        from tensorflowdistributedlearning_tpu_torch.train import quantize
         from tensorflowdistributedlearning_tpu_torch.train.serving import export_serving_artifact
 
-        directory = directory or os.path.join(self._fold_dir(fold), "export", "serving")
+        quantize.check_serving_spec(serving_dtype)
+        suffix = "serving" if serving_dtype == "float32" else f"serving-{serving_dtype}"
+        directory = directory or os.path.join(self._fold_dir(fold), "export", suffix)
         state = self.restore_fold(fold)
         return export_serving_artifact(
             state.model,
@@ -248,6 +274,7 @@ class Trainer:
             directory,
             data_format=self.train_config.data_format,
             metadata={"fold": fold, "step": state.step},
+            serving_dtype=serving_dtype,
         )
 
 

@@ -89,6 +89,22 @@ def _squeeze_depthwise(a: np.ndarray, path: str) -> np.ndarray:
     return a[:, :, 0, :]
 
 
+def kernel_leaves(config: ModelConfig) -> Dict[str, Tuple[str, int]]:
+    """``{port tensor: (flax params path, output-channel axis)}`` of every
+    conv and depthwise filter of ``build_model(config)``: the leaves flax
+    names ``kernel`` (``backbone.conv1_2.conv.weight`` ->
+    ``backbone/conv1_2/conv/kernel``). The output channels are axis 0 of an
+    OIHW conv filter and the last axis of a ``[kh, kw, C]`` depthwise one."""
+    with torch.device("meta"):
+        template = ResNetSegmentation(config)
+    out: Dict[str, Tuple[str, int]] = {}
+    for mod_path, module in template.named_modules():
+        for name, coll, leaf, _ in _sources(module, mod_path.replace(".", "/")):
+            if coll == "params" and leaf.endswith("/kernel"):
+                out[f"{mod_path}.{name}"] = (leaf, 0 if isinstance(module, nn.Conv2d) else -1)
+    return out
+
+
 def from_flax(params, batch_stats, config: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (CPU float32 tensors) for the flax
     ``params``/``batch_stats`` of ``build_model(config)``."""

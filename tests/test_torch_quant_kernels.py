@@ -1,0 +1,415 @@
+"""The port's int8 kernels' plain versions and the fused bias+act against
+the JAX package, on the CPU.
+
+Inputs are made with numpy from seeds and given to both packages. Where
+the JAX function reaches its Pallas kernel it runs as the JAX package's own
+tests run it here: ``interpret=True`` (the real integer kernel body), or
+its XLA reference. Tolerances:
+
+- activation and weight quantization: bitwise (q and scale);
+- integer accumulators: equal (run with unit scales, so the output is the
+  accumulator);
+- int8 matmul/conv outputs against the interpreted kernel and against
+  ``int8_matmul_xla``: within 1 ulp of the output dtype (the same integer
+  sums and the same epilogue ops), except float32 output against the
+  interpreted kernel, whose XLA contracts ``acc * s + b`` into an FMA: there
+  1 ulp of the output plus 1 ulp of the product;
+- int8 conv against ``int8_conv2d_reference`` (dequantize, then an f32
+  conv, whose sums round): 2e-2 · max|out| + 1 bf16 ulp;
+- fused bias+act: 1 ulp of the output dtype;
+- wherever the act is sigmoid or gelu, 1e-6 absolute more (two libms, and
+  gelu's tanh form written out differently), the fused BN+act tolerance.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as jnn
+
+from tensorflowdistributedlearning_tpu.ops import pallas_kernels as jpk
+from tensorflowdistributedlearning_tpu.ops import quant_kernels as jqk
+from tensorflowdistributedlearning_tpu.train import quantize as jq
+from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+from tensorflowdistributedlearning_tpu_torch.models.resnet import ResNetSegmentation
+from tensorflowdistributedlearning_tpu_torch.ops import kernels as tk
+from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+from tensorflowdistributedlearning_tpu_torch.train import quantize as tq
+
+ACTS = ["none", "relu", "relu6", "sigmoid", "gelu"]
+
+
+@pytest.fixture(autouse=True)
+def _zero_counts():
+    tk.reset_launch_counts()
+    yield
+    assert sum(tk.launch_counts().values()) == 0  # CPU tensors launch nothing
+
+
+def _ordered(a: np.ndarray, dtype) -> np.ndarray:
+    """Monotone integer image of float values, one step per ulp of ``dtype``."""
+    a = np.asarray(a, np.float32)
+    bits = a.view(np.int32).astype(np.int64)
+    if dtype == "bfloat16":
+        bits = bits >> 16
+        neg = np.int64(-(1 << 15))
+    else:
+        neg = np.int64(-(1 << 31))
+    return np.where(bits < 0, neg - bits, bits)
+
+
+def ulps(a, b, dtype) -> int:
+    return int(np.abs(_ordered(a, dtype) - _ordered(b, dtype)).max())
+
+
+def close(a, b, dtype, act) -> bool:
+    """Within 1 ulp of ``dtype``; sigmoid and gelu (two libms, and gelu's
+    tanh form written out differently) also get 1e-6 absolute, the fused BN+act
+    tolerance."""
+    if act not in ("sigmoid", "gelu"):
+        return ulps(a, b, dtype) <= 1
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    step = np.spacing(np.abs(b)) * (2.0 ** 16 if dtype == "bfloat16" else 1.0)
+    return bool((np.abs(a - b) <= step + 1e-6).all())
+
+
+def _np(t) -> np.ndarray:
+    if torch.is_tensor(t):
+        return t.float().numpy()
+    return np.asarray(jnp.asarray(t, jnp.float32))
+
+
+# -- activation quantization ------------------------------------------------------
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 37.5, 1e4])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (64, 9)])
+def test_quantize_activations_bitwise(shape, scale):
+    x = (np.random.default_rng(int(scale * 10) + len(shape)).standard_normal(shape) * scale).astype(np.float32)
+    jq_, js = jqk.quantize_activations(jnp.asarray(x))
+    q, s = qk.quantize_activations(torch.from_numpy(x))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32 and s.dim() == 0
+    assert np.float32(s.item()).tobytes() == np.asarray(js, np.float32).tobytes()
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq_))
+
+
+def test_quantize_activations_half_steps_round_to_even():
+    # max|x| = 127 gives scale 1: the .5 values must round half to even
+    x = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5], np.float32)
+    q, s = qk.quantize_activations(torch.from_numpy(x))
+    assert s.item() == 1.0
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jqk.quantize_activations(jnp.asarray(x))[0]))
+    np.testing.assert_array_equal(q.numpy(), [127, 0, 2, 2, 0, -2, -2, 126])
+
+
+def test_quantize_activations_all_zero_and_bf16():
+    q, s = qk.quantize_activations(torch.zeros(3, 4, 4, 2))
+    assert s.item() == 1.0 and int(q.abs().max()) == 0
+    x = np.random.default_rng(1).standard_normal((4, 6, 6, 8)).astype(np.float32) * 3
+    xb = jnp.asarray(x, jnp.bfloat16)
+    jq_, js = jqk.quantize_activations(xb)
+    q, s = qk.quantize_activations(torch.from_numpy(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16))
+    assert s.item() == float(js)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq_))
+
+
+def test_quantize_activations_padding_invariance():
+    x = np.random.default_rng(2).standard_normal((3, 5, 5, 4)).astype(np.float32)
+    padded = np.concatenate([x, np.zeros((13, 5, 5, 4), np.float32)])
+    q, s = qk.quantize_activations(torch.from_numpy(x))
+    qp, sp = qk.quantize_activations(torch.from_numpy(padded))
+    assert s.item() == sp.item()
+    assert torch.equal(qp[:3], q) and int(qp[3:].abs().max()) == 0
+
+
+# -- per-channel weight quantization --------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 5, 7), (1, 1, 16, 4), (5, 5, 3, 1)])
+def test_weight_quantizer_matches_jax_on_conv_filters(shape):
+    w = np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32) * 0.2
+    w[..., 0] = 0.0  # a zero output channel keeps scale 1
+    want = jq._quantize_leaf_int8(w)
+    rec = tq.quantize_leaf_int8(torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))), axis=0)
+    assert rec["scale"].numpy().tobytes() == want["scale"].tobytes()
+    assert rec["scale"][0].item() == 1.0
+    np.testing.assert_array_equal(rec["q"].numpy(), want["q"].transpose(3, 2, 0, 1))
+    assert rec["q"].dtype == torch.int8 and rec["q"].is_contiguous()
+
+
+def test_weight_quantizer_matches_jax_on_depthwise_filters():
+    w = np.random.default_rng(7).standard_normal((3, 3, 1, 24)).astype(np.float32)
+    w[:, :, :, 5] = 0.0
+    want = jq._quantize_leaf_int8(w)
+    rec = tq.quantize_leaf_int8(torch.from_numpy(w[:, :, 0, :]), axis=-1)
+    assert rec["scale"].numpy().tobytes() == want["scale"].tobytes()
+    np.testing.assert_array_equal(rec["q"].numpy(), want["q"][:, :, 0, :])
+    # dequantization in bf16, as dequantize_pytree
+    got = tq.dequantize({"w": rec})["w"]
+    want_deq = jq.dequantize_pytree({"w": {"__int8__": True, **want}})["w"]
+    np.testing.assert_array_equal(got.float().numpy(), _np(want_deq)[:, :, 0, :])
+
+
+# -- int8 matmul ----------------------------------------------------------------------
+
+
+def _matmul_case(seed, m, k, n, unit=False):
+    rng = np.random.default_rng(seed)
+    if unit:
+        x = rng.integers(-127, 128, (m, k)).astype(np.float32)
+        x[0, 0] = 127.0  # max|x| = 127: activation scale exactly 1
+        ws = np.ones(n, np.float32)
+    else:
+        x = rng.standard_normal((m, k)).astype(np.float32) * 2
+        ws = rng.uniform(1e-3, 2e-2, n).astype(np.float32)
+    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    bias = rng.standard_normal(n).astype(np.float32)
+    return x, wq, ws, bias
+
+
+@pytest.mark.parametrize("mkn", [(7, 33, 5), (64, 48, 16), (1, 300, 3)])
+def test_int8_matmul_accumulator_is_xlas(mkn):
+    x, wq, ws, _ = _matmul_case(sum(mkn), *mkn, unit=True)
+    got = qk.int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(ws),
+                               out_dtype=torch.float32)
+    want = jqk.int8_matmul_xla(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws), out_dtype=jnp.float32)
+    exact = (x.astype(np.int64) @ wq.astype(np.int64)).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(), exact)
+    np.testing.assert_array_equal(np.asarray(want), exact)
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ACTS)
+def test_int8_matmul_plain_matches_jax(act, out_dtype):
+    x, wq, ws, bias = _matmul_case(11, 37, 70, 24)
+    tdt, jdt = getattr(torch, out_dtype), getattr(jnp, out_dtype)
+    got = qk.int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(ws),
+                               bias=torch.from_numpy(bias), act=act, out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (37, 24)
+    kwargs = dict(bias=jnp.asarray(bias), act=act, out_dtype=jdt)
+    xla = jqk.int8_matmul_xla(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws), **kwargs)
+    interp = jqk.int8_matmul(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws), interpret=True, **kwargs)
+    assert close(_np(got), _np(xla), out_dtype, act)
+    if out_dtype == "bfloat16":
+        assert close(_np(got), _np(interp), out_dtype, act)
+    else:
+        # the interpreted kernel's XLA contracts acc*s + b into one FMA: the
+        # port rounds the product on its own (as the CUDA kernel does), so
+        # the two differ by up to the product's rounding, then the act's
+        xq, xs = qk.quantize_activations(torch.from_numpy(x))
+        prod = (xq.double() @ torch.from_numpy(wq).double()).float() * (xs * torch.from_numpy(ws))
+        tol = np.spacing(np.abs(_np(got))) + np.spacing(np.abs(prod.numpy()))
+        if act in ("sigmoid", "gelu"):
+            tol = tol + 1e-6
+        assert (np.abs(_np(got) - _np(interp)) <= tol).all()
+
+
+def test_int8_matmul_keeps_leading_dims_and_no_bias():
+    x, wq, ws, _ = _matmul_case(3, 2 * 3 * 5, 16, 8)
+    x3 = x.reshape(2, 3, 5, 16)
+    got = qk.int8_matmul(torch.from_numpy(x3), torch.from_numpy(wq), torch.from_numpy(ws))
+    want = qk.int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(ws))
+    assert got.shape == (2, 3, 5, 8) and got.dtype == torch.float32
+    assert torch.equal(got.reshape(30, 8), want)
+
+
+# -- int8 conv2d ----------------------------------------------------------------------
+
+CONV_CASES = [
+    # (B, H, W, Cin, Cout, k, padding, bias)
+    (2, 9, 7, 16, 8, 1, "SAME", True),
+    (2, 9, 7, 5, 6, 3, "SAME", False),
+    (1, 11, 13, 3, 4, 5, "SAME", True),
+    (2, 8, 9, 6, 5, 3, "VALID", True),
+    (1, 10, 7, 4, 3, 3, ((2, 0), (1, 3)), False),
+    (3, 7, 7, 32, 1, 3, "SAME", True),
+]
+
+
+def _conv_case(case, seed):
+    b, h, w, cin, cout, k, padding, with_bias = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32) * 1.5
+    wq = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    ws = rng.uniform(1e-3, 1e-2, cout).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32) if with_bias else None
+    return x, wq, ws, padding, bias
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: f"{c[5]}x{c[5]}-{c[6] if isinstance(c[6], str) else 'pads'}-"
+                         f"cin{c[3]}-cout{c[4]}-{'bias' if c[7] else 'nobias'}")
+def test_int8_conv2d_plain_matches_the_interpreted_kernel(case):
+    x, wq, ws, padding, bias = _conv_case(case, sum(case[:5]))
+    tb = None if bias is None else torch.from_numpy(bias)
+    got = qk.int8_conv2d_plain(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(ws), padding=padding,
+                               bias=tb, out_dtype=torch.bfloat16)
+    jb = None if bias is None else jnp.asarray(bias)
+    want = jqk.int8_conv2d(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws), padding=padding, bias=jb,
+                           out_dtype=jnp.bfloat16, interpret=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    assert ulps(_np(got), _np(want), "bfloat16") <= 1
+    # the dequantize-then-f32 oracle rounds its sums: a tolerance
+    ref = _np(jqk.int8_conv2d_reference(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws), padding=padding, bias=jb,
+                                        out_dtype=jnp.float32))
+    tol = 2e-2 * np.abs(ref).max() + np.abs(ref) * 2.0 ** -8
+    assert (np.abs(_np(got) - ref) <= tol).all()
+
+
+def test_int8_conv2d_kernel_layout_is_the_jax_layout_transposed():
+    x, wq, ws, padding, bias = _conv_case(CONV_CASES[2], 5)
+    a = qk.int8_conv2d(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(ws), padding=padding,
+                       bias=torch.from_numpy(bias), act="relu")
+    wk = torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 0, 1, 2)))
+    b = qk.int8_conv2d_ohwi(torch.from_numpy(x), wk, torch.from_numpy(ws), ((2, 2), (2, 2)),
+                            bias=torch.from_numpy(bias), act="relu")
+    assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("padding", ["SAME", "VALID", ((0, 1), (2, 0)), "CIRCULAR", ((1,), (1, 1)), ((-1, 0), (0, 0))])
+def test_conv_pads_is_the_jax_rule(padding):
+    assert qk._conv_pads(padding, 3, 4) == jqk._conv_pads(padding, 3, 4)
+
+
+def test_int8_conv2d_rejects_bad_arguments():
+    x = torch.zeros(1, 5, 5, 3)
+    wq = torch.zeros(3, 3, 3, 2, dtype=torch.int8)
+    ws = torch.ones(2)
+    with pytest.raises(ValueError, match="int8"):
+        qk.int8_conv2d(x, wq.float(), ws)
+    with pytest.raises(ValueError, match="channels"):
+        qk.int8_conv2d(torch.zeros(1, 5, 5, 4), wq, ws)
+    with pytest.raises(ValueError, match="w_scale"):
+        qk.int8_conv2d(x, wq, torch.ones(3))
+    with pytest.raises(ValueError, match="padding"):
+        qk.int8_conv2d(x, wq, ws, padding="CIRCULAR")
+    with pytest.raises(ValueError, match="empty output"):
+        qk.int8_conv2d(torch.zeros(1, 1, 1, 3), wq, ws, padding="VALID")
+
+
+# -- fused bias + act ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_fused_bias_act_plain_matches_jax(act, dtype):
+    rng = np.random.default_rng(len(act))
+    x = (rng.standard_normal((3, 5, 7, 33)) * 4).astype(np.float32)
+    bias = rng.standard_normal(33).astype(np.float32)
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    xt = torch.from_numpy(_np(xj)).to(getattr(torch, dtype))
+    for b in (bias, None):
+        got = tk.fused_bias_act(xt, None if b is None else torch.from_numpy(b), act)
+        want = jpk.fused_bias_act_reference(xj, None if b is None else jnp.asarray(b), act=act)
+        assert got.dtype == xt.dtype and got.shape == xt.shape
+        assert close(_np(got), _np(want), dtype, act)
+
+
+def test_fused_bias_act_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="bias"):
+        tk.fused_bias_act(torch.zeros(2, 3), torch.zeros(2))
+    with pytest.raises(ValueError, match="act"):
+        tk.fused_bias_act(torch.zeros(2, 3), act="tanh")
+
+
+# -- BatchNorm with bf16 parameters: flax's own order ------------------------------------
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_bn_act_unfolded_is_flax_batchnorm_with_bf16_statistics(x_dtype):
+    rng = np.random.default_rng(4)
+    c = 40
+    x = (rng.standard_normal((2, 5, 6, c)) * 3).astype(np.float32)
+    vec = dict(scale=rng.uniform(0.5, 1.5, c), bias=rng.standard_normal(c), mean=rng.standard_normal(c),
+               var=rng.uniform(0.2, 3.0, c))
+    v = {k: jnp.asarray(a.astype(np.float32), jnp.bfloat16) for k, a in vec.items()}
+    bn = jnn.BatchNorm(use_running_average=True, epsilon=1e-3, dtype=jnp.float32)
+    xj = jnp.asarray(x, getattr(jnp, x_dtype))
+    want = jax.nn.relu(bn.apply({"params": {"scale": v["scale"], "bias": v["bias"]},
+                                 "batch_stats": {"mean": v["mean"], "var": v["var"]}}, xj))
+    t = {k: torch.from_numpy(_np(a)).to(torch.bfloat16) for k, a in v.items()}
+    mean, mul, bias = tk.unfold_bn_bf16(t["scale"], t["bias"], t["mean"], t["var"], 1e-3)
+    got = tk.bn_act_unfolded(torch.from_numpy(_np(xj)).to(getattr(torch, x_dtype)), mean, mul, bias, "relu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- dispatch and the module swap ---------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda d: qk.int8_conv2d(torch.zeros(1, 4, 4, 2, device=d), torch.zeros(3, 3, 2, 2, dtype=torch.int8, device=d),
+                                 torch.ones(2, device=d)),
+        lambda d: qk.int8_matmul(torch.zeros(3, 4, device=d), torch.zeros(4, 2, dtype=torch.int8, device=d),
+                                 torch.ones(2, device=d)),
+        lambda d: tk.fused_bias_act(torch.zeros(2, 3, device=d), torch.zeros(3, device=d)),
+        lambda d: tk.bn_act_unfolded(torch.zeros(1, 2, 2, 3, device=d), *[torch.ones(3, device=d)] * 3),
+    ],
+    ids=["int8_conv2d", "int8_matmul", "fused_bias_act", "bn_act_unfolded"],
+)
+def test_non_cpu_tensors_never_take_the_plain_version(call):
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        call("meta")
+
+
+def jax_int8_eligible(mod) -> bool:
+    """``make_int8_interceptor``'s rule for a flax module."""
+    if not isinstance(mod, jnn.Conv):
+        return False
+    kh, kw = mod.kernel_size
+    return (mod.feature_group_count == 1 and jqk._norm_pair(mod.strides) == (1, 1)
+            and jqk._norm_pair(mod.kernel_dilation) == (1, 1) and jqk._conv_pads(mod.padding, kh, kw) is not None)
+
+
+def _count_jax_int8_convs(cfg_kwargs, shape) -> int:
+    """Eligible ``nn.Conv`` calls of the JAX model under
+    ``make_int8_interceptor``'s rule, counted at trace time (no compute)."""
+    from tensorflowdistributedlearning_tpu import config as jconfig
+    from tensorflowdistributedlearning_tpu.models import build_model as jbuild
+
+    jm = jbuild(jconfig.ModelConfig(**cfg_kwargs))
+    x = jax.ShapeDtypeStruct(shape, jnp.float32)
+    variables = jax.eval_shape(lambda a: jm.init(jax.random.key(0), a, train=False), x)
+    count = [0]
+
+    def intercept(next_fun, args, kwargs, context):
+        if context.method_name == "__call__" and jax_int8_eligible(context.module):
+            count[0] += 1
+        return next_fun(*args, **kwargs)
+
+    def apply(v, a):
+        with jnn.intercept_methods(intercept):
+            return jm.apply(v, a, train=False)
+
+    jax.eval_shape(apply, variables, x)
+    return count[0]
+
+
+@pytest.mark.parametrize("cfg_kwargs", [dict(), dict(n_blocks=(1, 1, 1), width_multiplier=0.125, base_depth=16)],
+                         ids=["full-width", "tiny"])
+def test_eligible_convs_are_the_interceptors(cfg_kwargs):
+    with torch.device("meta"):
+        model = ResNetSegmentation(ModelConfig(**cfg_kwargs))
+    ours = sum(qk.int8_eligible(m) for m in model.modules())
+    jax_count = _count_jax_int8_convs(cfg_kwargs, (1, 101, 101, 2))
+    assert ours == jax_count
+    if not cfg_kwargs:
+        assert ours == 52  # of the full-width model's 63 convs
+
+
+def test_quant_conv_module_runs_the_int8_conv():
+    x, wq, ws, _, bias = _conv_case(CONV_CASES[1], 9)
+    q_oihw = torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 2, 0, 1)))
+    mod = qk.QuantConv2d(q_oihw, torch.from_numpy(ws), None, ((1, 1), (1, 1)))
+    got = mod(torch.from_numpy(x))
+    want = qk.int8_conv2d_plain(torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(ws),
+                                out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    jax_fn = functools.partial(jqk.int8_conv2d, out_dtype=jnp.bfloat16, interpret=True)
+    assert ulps(_np(got), _np(jax_fn(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws))), "bfloat16") <= 1
