@@ -40,15 +40,42 @@ Phases, each fatal on failure (exit 1, no result line):
              asserted: the weights are random); holds each of the 52 int8
              conv calls of a bucket-64 forward and an odd sweep against the
              plain version bitwise, the 59 BN calls (bf16 parameters)
-             bitwise, int8_matmul (ViT-S/16 MLP shapes and odd ones) and
-             fused_bias_act (every act, f32 and bf16) bitwise where the act
-             is exact and to the BN+act tolerance (or one bf16 step) for sigmoid
-             and gelu.
+             bitwise, and fused_bias_act (every act, f32 and bf16) bitwise
+             where the act is exact and to the BN+act tolerance (or one bf16
+             step) for sigmoid and gelu.
              Times: int8 kernels alone on the quantized input, beside the
              bound (bytes over 3.35 TB/s or int8 operations over 1979 TOPS),
              the plain version, and library yardsticks (torch._int_mm on the
              1x1 GEMMs, F.conv2d in float32 on the kxk shapes: torch has no
              int8 conv).
+   vit     — serves the vit_s16_imagenet preset (ViT-S/16: 224x224x3, 196
+             tokens, embed 384, 6 heads of 64, 12 layers, 1000 classes, bf16
+             compute, fused attention; 22 049 896 seeded random parameters,
+             the logits calibrated to std 3), full width and depth: the
+             float32 and int8-compute specs, and the float32 spec of a
+             float32-compute variant, each through the engine at buckets
+             1/4/16/64 and over HTTP at 1/4/16 instances; the bfloat16 and
+             int8 storage specs through the engine at bucket 64. Checks the
+             manifest, shapes, class == argmax(probabilities), 12
+             flash_attention launches per forward (plus 49 int8_matmul under
+             int8-compute) and none of the segmenter's kernels, and each
+             served batch against the same batch through the plain versions
+             on the card (max |dprobs| 1e-5 in float32 compute, 2e-2 in bf16
+             compute and under int8-compute, classes equal where the top two
+             are further apart; under int8-compute, also bit for bit equal
+             with only the int8 matmul made plain). Holds flash_attention
+             against its plain version at the 12 calls of a bucket-64
+             forward in float32 (rtol 2e-5, atol 2e-6·max(1, max|v|): the
+             JAX tolerance, its absolute part scaled to the values) and in
+             bf16 (one bf16 step beyond that), and on an
+             odd sweep (causal, T = 1/197/257/300, D = 16/32/128, B·H = 1,
+             strided and contiguous); times it summed over the bf16
+             forward's calls beside its bound, the plain version and
+             F.scaled_dot_product_attention (a yardstick the port never
+             calls); holds the 49 int8_matmul calls of an int8-compute
+             forward bitwise against the plain version (M = 64·196 and 64)
+             and an odd sweep; profiles the bucket-64 bf16, int8-compute and
+             float32-compute forwards.
 6. backward — captures the three ASPP depthwise calls (input, filter, rate
              and the output gradient) from one full-width training forward
              and backward at batch 64, and holds the dx and dw kernels
@@ -79,6 +106,7 @@ Prints the kernel table as one JSON line, then the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -113,6 +141,7 @@ REPLACES = {
     "fused_bias_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:504",
     "int8_conv2d": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:432",
     "int8_matmul": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
+    "flash_attention": "tensorflowdistributedlearning_tpu/ops/flash_attention.py:97",
 }
 SOURCES = {
     "depthwise_conv2d": f"{PKG}/csrc/depthwise.cu",
@@ -124,11 +153,12 @@ SOURCES = {
     "fused_bias_act": f"{PKG}/csrc/bias_act.cu",
     "int8_conv2d": f"{PKG}/csrc/int8_conv.cu",
     "int8_matmul": f"{PKG}/csrc/int8_conv.cu",
+    "flash_attention": f"{PKG}/csrc/flash_attention.cu",
 }
-# kernels no main path calls (the JAX package has no caller of either on the
-# segmenter's paths): held directly against their plain versions
-OFF_PATH = ("fused_bias_act", "int8_matmul")
-_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_matmul": 0}
+# the kernel no main path calls (the JAX package has no caller of it): held
+# directly against its plain version
+OFF_PATH = ("fused_bias_act",)
+_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_matmul": 0, "flash_attention": 0}
 PER_FORWARD = {"depthwise_conv2d": 3, "fused_bn_act": 59, "fused_sigmoid_mask": 1}
 # launches per training step, and per eval-mode forward of the trainer
 PER_TRAIN_STEP = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3,
@@ -139,8 +169,27 @@ PER_EVAL_FORWARD = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 0, "depthwise_
 # of its 63 convs that the int8 rule takes (52); every BN with bf16 parameters
 PER_INT8_FORWARD = {"int8_conv2d": 52, "depthwise_conv2d": 3, "fused_bn_act": 0, "fused_bn_act_bf16": 59,
                     "fused_sigmoid_mask": 1, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
-                    "fused_bias_act": 0, "int8_matmul": 0}
-VIT_MLP = (64 * 197, 384, 1536)  # ViT-S/16 MLP at batch 64: M tokens, K width, N hidden
+                    "fused_bias_act": 0, "int8_matmul": 0, "flash_attention": 0}
+VIT_MLP = (64 * 196, 384, 1536)  # ViT-S/16 MLP at batch 64 (196 patch tokens, no cls): M, K width, N hidden
+VIT_PRESET = "vit_s16_imagenet"
+_NO_SEGMENTER = {"depthwise_conv2d": 0, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0, "fused_bn_act": 0,
+                 "fused_bn_act_bf16": 0, "fused_bias_act": 0, "fused_sigmoid_mask": 0, "int8_conv2d": 0}
+# launches per ViT-S/16 serve forward: one attention kernel per block, and
+# under int8-compute one int8 matmul per Dense (4 per block and the logits)
+PER_VIT_FORWARD = {**_NO_SEGMENTER, "int8_matmul": 0, "flash_attention": 12}
+PER_VIT_INT8_FORWARD = {**_NO_SEGMENTER, "int8_matmul": 49, "flash_attention": 12}
+# float32: the JAX package's kernel-vs-oracle tolerance, set there on values
+# of unit scale; the output is a convex combination of v's rows summed in
+# another order, so the absolute part scales with max|v| (attention_atol)
+TOL_ATTN_RTOL, TOL_ATTN_ATOL = 2e-5, 2e-6
+PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# served ViT probabilities against the same forward through the plain versions
+# on the card: tight where the model computes in float32; in bf16 (and under
+# int8-compute) an attention output one bf16 step apart moves the next
+# layer's rounding and quantization, so the bound is on the probabilities
+# (calibrated logits, std 3) plus equal classes where the top two are apart
+TOL_VIT_F32 = 1e-5
+TOL_VIT_BF16 = 2e-2
 TRAIN_BATCH = 64
 TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
@@ -733,13 +782,46 @@ def held_close(torch, got, want, act: str, what: str) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def int8_matmul_checks(torch, timer, card):
-    """int8_matmul held directly: ViT-S/16 MLP shapes and odd M, K, N."""
+def int8_matmul_checks(torch, calls, timer, card):
+    """int8_matmul at the ViT's int8-compute path calls (each QuantLinear's
+    input and layer from one bucket-64 forward): kernel against plain
+    bitwise, times summed per forward; then an odd sweep of M, K, N with
+    every act, held directly."""
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
     from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
 
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    nbytes = ops = quant_ms = 0.0
+    shapes = {}
+    with torch.inference_mode():
+        for i, (x, mod) in enumerate(calls):
+            wk, ws, bias, odt = mod.weight_q, mod.w_scale, mod.bias, mod.out_dtype
+            got = qk.int8_matmul_nk(x, wk, ws, bias=bias, out_dtype=odt)
+            want = qk.int8_matmul_plain(x, wk.t(), ws, bias=bias, out_dtype=odt)
+            check(same(torch, got, want), f"int8_matmul path call {i} {tuple(x.shape)} x {tuple(wk.shape)}: kernel "
+                  f"!= plain ({int((got != want).sum())} elements differ)")
+            n, k = wk.shape
+            m = x.numel() // k
+            shapes[(m, k, n)] = shapes.get((m, k, n), 0) + 1
+            xq, xs = qk.quantize_activations(x)
+            out = torch.empty(m, n, dtype=odt, device=x.device)
+            row["ms"] += timer.ms(lambda: qk._launch("int8_matmul", xq.view(1, 1, m, k), xs, wk, ws, bias, out,
+                                                     (1, 1, m, k, n, 1, 1), ((0, 0), (0, 0)), "none"))
+            row["plain_ms"] += timer.ms(
+                lambda: qk._epilogue_plain((xq.view(m, k).double() @ wk.t().double()).to(torch.int32), xs, ws, bias,
+                                           "none", odt), reps=5, warmup=1)
+            row["library_ms"] += int_mm_ms(torch, timer, xq.view(m, k), wk)
+            quant_ms += timer.ms(lambda: qk.quantize_activations(x))
+            nbytes += m * k + n * k + m * n * out.element_size() + 8 * n
+            ops += 2.0 * m * n * k
+    row["bound_ms"], row["bound_by"] = int8_bound(nbytes, ops)
+    log(f"int8_matmul: {len(calls)} ViT path calls bitwise equal to the plain version (M, K, N: {shapes}); per "
+        f"bucket-{BUCKET} forward: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch._int_mm (no "
+        f"quantize, no epilogue) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+        f"({nbytes / 1e9:.4f} GB, {ops / 1e12:.4f} T int8 ops); the quantize pass before the kernel "
+        f"{quant_ms:.4f} ms [{card}]")
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
-    err = 0.0
     with torch.inference_mode():
         for m, k, n in (VIT_MLP, (37, 70, 24), (1, 5, 3), (300, 33, 17), (129, 384, 1)):
             x = torch.randn(m, k, device="cuda", generator=gen)
@@ -750,24 +832,11 @@ def int8_matmul_checks(torch, timer, card):
                 for out_dtype in (torch.bfloat16, torch.float32):
                     got = qk.int8_matmul(x, wq, ws, bias=bias, act=act, out_dtype=out_dtype)
                     want = qk.int8_matmul_plain(x, wq, ws, bias=bias, act=act, out_dtype=out_dtype)
-                    err = max(err, held_close(torch, got, want, act, f"int8_matmul {(m, k, n)} {act} {out_dtype}"))
-        m, k, n = VIT_MLP
-        x = torch.randn(m, k, device="cuda", generator=gen)
-        wq = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
-        ws = torch.rand(n, device="cuda", generator=gen) * 1e-2 + 1e-3
-        xq, xs = qk.quantize_activations(x)
-        wk = wq.t().contiguous()
-        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-        ms = timer.ms(lambda: qk._launch("int8_matmul", xq.view(1, 1, m, k), xs, wk, ws, None, out,
-                                         (1, 1, m, k, n, 1, 1), ((0, 0), (0, 0)), "none"))
-        plain = timer.ms(lambda: qk._epilogue_plain((xq.double() @ wq.double()).to(torch.int32), xs, ws, None,
-                                                    "none", torch.bfloat16), reps=5, warmup=1)
-        lib = int_mm_ms(torch, timer, xq, wk)
-    bound, by = int8_bound(m * k + k * n + 2 * m * n + 4 * n, 2.0 * m * n * k)
-    log(f"int8_matmul: bitwise equal to the plain version (sigmoid/gelu within tolerance) at {VIT_MLP} and odd "
-        f"shapes, max|err| {err:.3g}; at {VIT_MLP}, bf16 out: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"torch._int_mm {lib:.4f} ms, bound {bound:.4f} ms by {by} [{card}]")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+                    e = held_close(torch, got, want, act, f"int8_matmul {(m, k, n)} {act} {out_dtype}")
+                    row["max_abs_err"] = max(row["max_abs_err"], e)
+    log(f"int8_matmul: odd sweep bitwise equal to the plain version (sigmoid/gelu within tolerance), max|err| "
+        f"{row['max_abs_err']:.3g}")
+    return row
 
 
 def fused_bias_act_checks(torch, timer, card):
@@ -835,8 +904,8 @@ def int8_phase(torch, model, cfg, card: str, timer=None, device: str = "cuda"):
     phase): export float32 and int8-compute artifacts from the same weights,
     serve the latter through the engine and over HTTP with launch counts per
     forward; then hold every int8 conv call of a bucket-64 forward, an odd
-    sweep, the unfolded BN calls, int8_matmul and fused_bias_act against
-    their plain versions, compare the served probabilities with the plain
+    sweep, the unfolded BN calls and fused_bias_act against their plain
+    versions, compare the served probabilities with the plain
     forward, and print quantize-check's record against float32."""
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
     from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
@@ -954,9 +1023,380 @@ def int8_phase(torch, model, cfg, card: str, timer=None, device: str = "cuda"):
         check(calls["dw"] == PER_INT8_FORWARD["depthwise_conv2d"], f"{calls['dw']} depthwise calls")
         rows["int8_conv2d"] = int8_conv_checks(torch, calls["int8"], timer, card)
         rows["fused_bn_act_bf16"] = bn_unfolded_checks(torch, calls["bn"], timer, card)
-        rows["int8_matmul"] = int8_matmul_checks(torch, timer, card)
         rows["fused_bias_act"] = fused_bias_act_checks(torch, timer, card)
     return counts, rows
+
+
+# -- the ViT-S/16 classifier ------------------------------------------------------
+
+
+def attention_atol(v) -> float:
+    return TOL_ATTN_ATOL * max(1.0, v.abs().max().item())
+
+
+def bf16_step_apart(torch, got, want, atol: float):
+    """How far two bf16 results of one float32 computation may be apart,
+    and are: each is its float32 value rounded once to bf16, and the two
+    float32 values agree to the float32 tolerance (rtol 2e-5, atol),
+    so they may differ by that plus one bf16 step (the spacing at the larger
+    magnitude). ``atol`` is :func:`attention_atol` of the inputs. Returns
+    (within, worst index, got, want) for the message."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    step = torch.ldexp(torch.ones_like(g), (e - 8).clamp_min(-133))
+    excess = (g - w).abs() - (step + TOL_ATTN_RTOL * w.abs() + atol)
+    i = int(excess.flatten().argmax())
+    return bool((excess <= 0).all()), i, g.flatten()[i].item(), w.flatten()[i].item()
+
+
+def check_bf16_step(torch, got, want, atol: float, what: str) -> None:
+    ok, i, g, w = bf16_step_apart(torch, got, want, atol)
+    check(got.dtype == torch.bfloat16 and ok,
+          f"{what}: kernel and plain more than one bf16 step beyond the float32 tolerance apart "
+          f"(element {i}: kernel {g!r}, plain {w!r})")
+
+
+def make_vit_instances(n: int, seed: int, shape=(224, 224, 3)):
+    """Seeded float32 images (224x224x3 for the preset), standard normal:
+    what an ImageNet pipeline hands the model after its normalization."""
+    return np.random.default_rng(seed).normal(size=(n, *shape)).astype(np.float32)
+
+
+def calibrate_vit_head(torch, model, x) -> None:
+    """Scale the ``logits`` Dense so the logits of ``x`` have std 3: random
+    weights otherwise give near-uniform probabilities over 1000 classes,
+    and comparisons of them would say little."""
+    with torch.inference_mode():
+        std = model(x).float().std()
+        model.logits.weight.mul_(3.0 / std)
+
+
+def attention_flops(shape, causal: bool = False) -> float:
+    b, t, h, d = shape
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return 4.0 * b * h * pairs * d
+
+
+def capture_attention_calls(torch, model, x):
+    """One forward with every ``flash_attention`` call's q, k, v recorded
+    (the strided views the model hands the kernel)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    real = fa.flash_attention
+
+    def recording(q, k, v, *, causal=False):
+        calls.append((q, k, v))
+        return real(q, k, v, causal=causal)
+
+    with mock.patch.object(fa, "flash_attention", recording), torch.inference_mode():
+        model(x)
+    return calls
+
+
+def attention_checks(torch, bf16_calls, f32_calls, timer, card):
+    """The kernel against its plain version at the 12 path calls of a
+    bucket-64 forward (bf16, the preset; float32, the float32-compute
+    variant) and on an odd sweep; times summed over the bf16 forward's 12
+    calls beside the bound and SDPA on the same tensors."""
+    import torch.nn.functional as F
+
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    err = 0.0
+    with torch.inference_mode():
+        for dtype, calls in (("bf16", bf16_calls), ("f32", f32_calls)):
+            for i, (q, k, v) in enumerate(calls):
+                got, want = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
+                what = f"flash_attention path call {i} {dtype} {tuple(q.shape)} strides {q.stride()}"
+                if dtype == "f32":
+                    torch.testing.assert_close(got, want, rtol=TOL_ATTN_RTOL, atol=attention_atol(v),
+                                               msg=lambda m: f"{what}: {m}")
+                else:
+                    check_bf16_step(torch, got, want, attention_atol(v), what)
+                err = max(err, (got.float() - want.float()).abs().max().item())
+        log(f"flash_attention: {len(bf16_calls)} bf16 and {len(f32_calls)} float32 path calls held against the "
+            f"plain version (float32 rtol {TOL_ATTN_RTOL} atol {TOL_ATTN_ATOL}·max(1, max|v|); bf16 one bf16 step "
+            f"beyond that), "
+            f"max|err| {err:.3g}")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+        sweep = [(2, 196, 6, 64, True), (3, 1, 2, 64, False), (1, 1, 1, 64, True), (2, 197, 6, 64, False),
+                 (2, 197, 3, 64, True), (1, 300, 2, 64, False), (2, 300, 1, 64, True), (2, 196, 4, 32, False),
+                 (1, 300, 2, 32, True), (2, 196, 2, 128, False), (1, 257, 2, 128, True), (1, 196, 1, 64, False),
+                 (1, 300, 1, 16, True)]
+        n = 0
+        for b, t, h, d, causal in sweep:
+            qkv = 2 * torch.randn(b, t, 3, h, d, device="cuda", generator=gen)
+            for dt in (torch.float32, torch.bfloat16):
+                x = qkv.to(dt)
+                for q, k, v in ((x[:, :, 0], x[:, :, 1], x[:, :, 2]),
+                                tuple(x[:, :, j].contiguous() for j in range(3))):
+                    got, want = fa.flash_attention(q, k, v, causal=causal), fa.flash_attention_plain(q, k, v, causal=causal)
+                    what = f"flash_attention sweep {(b, t, h, d)} causal={causal} {dt} contiguous={q.is_contiguous()}"
+                    if dt == torch.float32:
+                        torch.testing.assert_close(got, want, rtol=TOL_ATTN_RTOL, atol=attention_atol(v),
+                                                   msg=lambda m: f"{what}: {m}")
+                    else:
+                        check_bf16_step(torch, got, want, attention_atol(v), what)
+                    err = max(err, (got.float() - want.float()).abs().max().item())
+                    n += 1
+        log(f"flash_attention: odd sweep (causal, T = 1, 197, 257, 300, D = 16, 32, 128, B·H = 1; strided and "
+            f"contiguous), {n} cases within tolerance")
+
+        ms = plain = lib = nbytes = flops = 0.0
+        for q, k, v in bf16_calls:
+            ms += timer.ms(lambda: fa.flash_attention(q, k, v))
+            plain += timer.ms(lambda: fa.flash_attention_plain(q, k, v))
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            lib += timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            nbytes += 4 * q.numel() * q.element_size()
+            flops += attention_flops(q.shape)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"flash_attention: per bucket-{BUCKET} bf16 forward ({len(bf16_calls)} calls, {tuple(bf16_calls[0][0].shape)}): "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']} ({nbytes / 1e9:.4f} GB over 3.35 TB/s, {flops / 1e9:.2f} GFLOP over 989 TFLOP/s bf16); "
+        f"the float32 bound of the kernel's FMAs is {flops / PEAK_F32_FLOP_S * 1e3:.4f} ms at 67 TFLOP/s; "
+        f"the kernel reaches {flops / ms / 1e9:.2f} TFLOP/s [{card}]")
+    return row
+
+
+def vit_plain_serve(torch, model, device, act_dtype):
+    """The serving closure of ``model`` with the attention and int8 matmul
+    kernels replaced by their plain versions (a context manager's worth of
+    patches, returned with the closure)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    def plain_nk(x, wk, w_scale, **kw):
+        return qk.int8_matmul_plain(x, wk.t(), w_scale, **kw)
+
+    patches = [mock.patch.object(fa, "flash_attention", fa.flash_attention_plain),
+               mock.patch.object(qk, "int8_matmul_nk", plain_nk)]
+    return serving.make_serving_fn(model, device, act_dtype=act_dtype), patches
+
+
+def check_classes(p, cls, what: str) -> None:
+    """``class`` is an argmax of ``probabilities`` on every row."""
+    check(cls.dtype == np.int32 and cls.shape == p.shape[:1], f"{what}: class {cls.dtype} {cls.shape}")
+    check(bool(np.isfinite(p).all()), f"{what}: non-finite probabilities")
+    check(np.array_equal(p[np.arange(p.shape[0]), cls], p.max(-1)), f"{what}: class is not the argmax")
+
+
+def compare_with_plain(torch, batches, model, device, act_dtype, tol, what):
+    """Each served batch (padded engine input, outputs) against the same
+    batch through the plain versions; returns the largest difference."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    ref_serve, patches = vit_plain_serve(torch, model, device, act_dtype)
+    worst = 0.0
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        before = kernels.launch_counts()
+        for bx, bout in batches:
+            ref = {k: v.cpu().numpy() for k, v in ref_serve(bx).items()}
+            d = float(np.abs(bout["probabilities"] - ref["probabilities"]).max())
+            worst = max(worst, d)
+            check(d <= tol, f"{what}: a batch of {bx.shape[0]} differs from the plain forward by {d} > {tol}")
+            top2 = np.sort(ref["probabilities"], axis=-1)[:, -2:]
+            apart = top2[:, 1] - top2[:, 0] > 2 * tol
+            check(np.array_equal(bout["class"][apart], ref["class"][apart]), f"{what}: class differs from plain")
+        check(kernels.launch_counts() == before, f"{what}: the plain forward launched a kernel")
+    return worst
+
+
+def int8_swap_is_bitwise(torch, batches, model, device, act_dtype) -> int:
+    """Each served int8-compute batch again with only the int8 matmul
+    replaced by its plain version (the attention kernel kept): the outputs
+    must be bit for bit the served ones. Returns the batches compared."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    def plain_nk(x, wk, w_scale, **kw):
+        return qk.int8_matmul_plain(x, wk.t(), w_scale, **kw)
+
+    serve = serving.make_serving_fn(model, device, act_dtype=act_dtype)
+    with mock.patch.object(qk, "int8_matmul_nk", plain_nk):
+        kernels.reset_launch_counts()
+        for bx, bout in batches:
+            out = {k: v.cpu().numpy() for k, v in serve(bx).items()}
+            for k in bout:
+                check(np.array_equal(out[k], bout[k]), f"int8-compute batch of {bx.shape[0]}: {k} with the plain int8 "
+                      "matmul differs from the served one")
+        counts = kernels.launch_counts()
+    check(counts["int8_matmul"] == 0 and counts["flash_attention"] == 12 * len(batches),
+          f"the plain-int8 forward launched {counts}")
+    return len(batches)
+
+
+def serve_vit_spec(torch, model, cfg, spec, card, root, buckets, http_sizes, seed, device="cuda"):
+    """Export ``model`` under ``spec``, serve it through the engine (and,
+    when ``http_sizes``, over HTTP): the main path, counts from 0 just
+    before and read just after. Returns the launch counts, the forwards,
+    the recorded engine batches and the loaded model."""
+    shape = (*cfg.input_shape, cfg.input_channels)
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, ServingServer, bind_ephemeral,
+    )
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    art = os.path.join(root, f"{cfg.dtype}-{spec}")
+    t0 = time.perf_counter()
+    serving.export_serving_artifact(model, cfg, art, serving_dtype=spec)
+    size = os.path.getsize(os.path.join(art, serving.WEIGHTS_NAME))
+    manifest = serving.read_manifest(art)
+    check(manifest["task"] == "classification" and manifest["num_classes"] == cfg.num_classes
+          and manifest["outputs"]["class"]["dtype"] == "int32", f"vit {spec}: manifest {manifest['outputs']}")
+    engine = InferenceEngine.from_artifact(art, device=device, buckets=buckets)
+    warm = engine.warmup()
+    tag = f"vit {cfg.dtype}-compute {spec}"
+    log(f"{tag}: exported in {time.perf_counter() - t0:.3f} s, weights {size} bytes; warmup s per bucket "
+        f"{json.dumps({str(b): round(s, 4) for b, s in warm.items()})}")
+    batches, lat_http, lat_engine = [], {}, {}
+    serve_fn = engine.serve_fn
+
+    def recording(x):
+        out = serve_fn(x)
+        batches.append((np.array(x, copy=True), {k: v.cpu().numpy() for k, v in out.items()}))
+        return out
+
+    server = None
+    if http_sizes:
+        batcher = MicroBatcher(engine, max_wait_ms=5.0, max_queue=64)
+        server = ServingServer(engine, batcher, sock=bind_ephemeral("127.0.0.1", 0)).start()
+    try:
+        kernels.reset_launch_counts()
+        engine.serve_fn = recording
+        for b in http_sizes:
+            x = make_vit_instances(b, seed + b, shape)
+            lat = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                status, body = post(server.url + "/v1/predict", {"instances": x.tolist()})
+                lat.append(time.perf_counter() - t0)
+                check(status == 200 and body["n"] == b, f"{tag}: {b} instances over HTTP: {status}")
+            p = np.asarray(body["predictions"]["probabilities"], np.float32)
+            cls = np.asarray(body["predictions"]["class"])
+            check(p.shape == (b, cfg.num_classes) and cls.shape == (b,), f"{tag}: HTTP shapes {p.shape} {cls.shape}")
+            check_classes(p, cls.astype(np.int32), f"{tag} HTTP {b}")
+            lat_http[b] = statistics.median(lat) * 1e3
+        for b in buckets:
+            x = make_vit_instances(b, seed + 100 + b, shape)
+            lat = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = engine.infer(x)
+                lat.append(time.perf_counter() - t0)
+            check(out["probabilities"].shape == (b, cfg.num_classes), f"{tag}: engine shape {out['probabilities'].shape}")
+            check_classes(out["probabilities"], out["class"], f"{tag} engine bucket {b}")
+            lat_engine[b] = statistics.median(lat) * 1e3
+        counts = kernels.launch_counts()
+        forwards = sum(engine.bucket_hits.values())
+    finally:
+        engine.serve_fn = serve_fn
+        if server is not None:
+            server.shutdown()
+    for b, ms in lat_http.items():
+        log(f"{tag}: {b} instances p50 request latency {ms:.3f} ms over HTTP [{card}]")
+    for b, ms in lat_engine.items():
+        log(f"{tag}: engine bucket {b} p50 forward {ms:.3f} ms (pad, H2D, forward, D2H), "
+            f"{b / ms * 1e3:.1f} images/s [{card}]")
+    return dict(art=art, counts=counts, forwards=forwards, batches=batches, engine=engine,
+                model=serving.load_model(art, device), act_dtype=serving.quantize.compute_dtype(spec))
+
+
+def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
+    """Serving of the vit_s16_imagenet preset (full width and depth, bf16
+    compute, fused attention; seeded random weights, the logits calibrated
+    to std 3): the main paths are the float32 and int8-compute specs of the
+    preset and the float32 spec of a float32-compute variant, each exported
+    and served through the engine at buckets 1/4/16/64 and over HTTP at
+    1/4/16 instances, with 12 flash_attention launches per forward (plus 49
+    int8_matmul under int8-compute) and no segmenter kernel; the preset's
+    bfloat16 and int8 storage specs are served at bucket 64. Served
+    probabilities are held against the plain forward on the card; the
+    kernels against their plain versions at the path's calls; the
+    bucket-64 forwards of the three main paths are profiled. ``cfg`` (default the preset) and
+    ``device="cpu"`` rehearse the serving part on the CPU at a small size;
+    the kernel checks and profiles need the card."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+
+    preset = cfg is None
+    cfg = get_preset(VIT_PRESET).model if preset else cfg
+    shape = (*cfg.input_shape, cfg.input_channels)
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(SEED + 60)).to(device).eval()
+    calibrate_vit_head(torch, model, torch.from_numpy(make_vit_instances(16, SEED + 62, shape)).to(device))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"vit: {VIT_PRESET if preset else cfg} (embed {cfg.embed_dim}, {cfg.vit_layers} layers, {cfg.num_heads} "
+        f"heads, patch {cfg.patch_size}, {cfg.dtype}, fused attention {cfg.use_fused_attention}), {n_params} "
+        f"parameters, built in {time.perf_counter() - t0:.3f} s")
+    check(not preset or n_params == 22_049_896, f"vit parameters {n_params}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32, "cpu").to(device).eval()
+    model32.load_state_dict(model.state_dict())
+
+    paths, rows = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-vit-") as root:
+        runs = {}
+        for key, m, c, spec, buckets, http, tol in (
+            ("vit", model, cfg, "float32", (1, 4, 16, 64), (1, 4, 16), TOL_VIT_BF16),
+            ("vit-int8-compute", model, cfg, "int8-compute", (1, 4, 16, 64), (1, 4, 16), TOL_VIT_BF16),
+            ("vit-f32", model32, cfg32, "float32", (1, 4, 16, 64), (1, 4, 16), TOL_VIT_F32),
+            ("vit-bfloat16", model, cfg, "bfloat16", (64,), (), TOL_VIT_BF16),
+            ("vit-int8", model, cfg, "int8", (64,), (), TOL_VIT_BF16),
+        ):
+            run = serve_vit_spec(torch, m, c, spec, card, root, buckets, http, SEED + 70 + 1000 * len(runs), device)
+            per = PER_VIT_INT8_FORWARD if spec == "int8-compute" else PER_VIT_FORWARD
+            for name, n in per.items():
+                check(run["counts"][name] == n * run["forwards"],
+                      f"{key}: {name} launched {run['counts'][name]} times in {run['forwards']} forwards, "
+                      f"expected {n} each")
+            worst = compare_with_plain(torch, run["batches"], run["model"], device, run["act_dtype"], tol, key)
+            log(f"{key}: {run['forwards']} forwards launched {run['counts']}; {len(run['batches'])} served batches "
+                f"agree with the plain forward on the card, max|dprobs| {worst:.3g} (bound {tol})")
+            if spec == "int8-compute" and device == "cuda":
+                n = int8_swap_is_bitwise(torch, run["batches"], run["model"], device, run["act_dtype"])
+                log(f"{key}: {n} served batches bit for bit equal with the int8 matmul's plain version in place of "
+                    f"the kernel")
+            runs[key] = run
+            paths[key] = run["counts"]
+
+        if device != "cuda":
+            return paths, rows
+        for key in ("vit", "vit-int8-compute", "vit-f32"):
+            for line in profile_forward(torch, runs[key]["engine"], make_vit_instances(BUCKET, SEED + 95, shape)):
+                log(f"profile {key}: {line} [{card}]")
+
+        x64 = torch.from_numpy(make_vit_instances(BUCKET, SEED + 96, shape)).to(device)
+        bf16_calls = capture_attention_calls(torch, model, x64)
+        f32_calls = capture_attention_calls(torch, model32, x64)
+        check(len(bf16_calls) == len(f32_calls) == 12, f"attention calls {len(bf16_calls)}, {len(f32_calls)}")
+        rows["flash_attention"] = attention_checks(torch, bf16_calls, f32_calls, timer, card)
+        del bf16_calls, f32_calls
+
+        qmodel = runs["vit-int8-compute"]["model"]
+        int8_calls = []
+        handles = [mod.register_forward_pre_hook(lambda mod, args: int8_calls.append((args[0].contiguous(), mod)))
+                   for mod in qmodel.modules() if isinstance(mod, qk.QuantLinear)]
+        try:
+            with torch.inference_mode():
+                qmodel(x64.to(torch.bfloat16))
+        finally:
+            for h in handles:
+                h.remove()
+        check(len(int8_calls) == PER_VIT_INT8_FORWARD["int8_matmul"], f"{len(int8_calls)} int8 matmul calls")
+        rows["int8_matmul"] = int8_matmul_checks(torch, int8_calls, timer, card)
+    return paths, rows
 
 
 # -- training -------------------------------------------------------------------
@@ -1320,6 +1760,9 @@ def main() -> int:
         rows.update(int8_rows)
         del model
         torch.cuda.empty_cache()
+        vit_paths, vit_rows = vit_phase(torch, card, timer)
+        rows.update(vit_rows)
+        torch.cuda.empty_cache()
 
         from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_segmentation_batch
 
@@ -1337,7 +1780,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"]}
+    paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"], **vit_paths}
     table = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": sum(p.get(name, 0) for p in paths.values()),

@@ -7,6 +7,8 @@
         --export-serving --serving-dtype int8-compute
     python -m tensorflowdistributedlearning_tpu_torch convert \\
         --params flax_vars.npz --config cfg.json --out ARTIFACT_DIR --serving-dtype int8-compute
+    python -m tensorflowdistributedlearning_tpu_torch convert \\
+        --params vit_vars.npz --preset vit_s16_imagenet --out VIT_ARTIFACT_DIR
     python -m tensorflowdistributedlearning_tpu_torch serve \\
         --artifact-dir ARTIFACT_DIR --port 8500 --buckets 1 4 16 64
     python -m tensorflowdistributedlearning_tpu_torch quantize-check \\
@@ -72,20 +74,28 @@ def cmd_train(args) -> int:
 
 def cmd_convert(args) -> int:
     """Flax variables (.npz of ``params/...`` and ``batch_stats/...``) plus a
-    ModelConfig JSON -> a serving artifact of the port."""
+    ModelConfig (a JSON file, or a preset's model) -> a serving artifact of
+    the port: the segmenter or the ViT classifier."""
     import torch
 
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
-    from tensorflowdistributedlearning_tpu_torch.models.resnet import ResNetSegmentation
+    from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+    from tensorflowdistributedlearning_tpu_torch.models import model_for
     from tensorflowdistributedlearning_tpu_torch.train.serving import export_serving_artifact
     from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, load_flax_npz
 
-    with open(args.config) as f:
-        config = ModelConfig.from_json(f.read())
+    if (args.config is None) == (args.preset is None):
+        print("convert: give exactly one of --config and --preset", file=sys.stderr)
+        return 2
+    if args.preset is not None:
+        config = get_preset(args.preset).model
+    else:
+        with open(args.config) as f:
+            config = ModelConfig.from_json(f.read())
     params, stats = load_flax_npz(args.params)
     state = from_flax(params, stats, config)
     with torch.device("meta"):
-        model = ResNetSegmentation(config)
+        model = model_for(config)
     model.load_state_dict(state, strict=True, assign=True)
     path = export_serving_artifact(
         model, config, args.out, data_format=args.data_format, serving_dtype=args.serving_dtype
@@ -189,9 +199,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default=None, help="torch device; default cuda (no CPU fallback)")
     s.set_defaults(fn=cmd_serve)
 
-    c = sub.add_parser("convert", help="flax variables .npz + config JSON -> serving artifact")
+    c = sub.add_parser("convert", help="flax variables .npz + config JSON (or a preset) -> serving artifact")
     c.add_argument("--params", required=True, help=".npz of flatten_dict({'params','batch_stats'}, sep='/')")
-    c.add_argument("--config", required=True, help="ModelConfig as JSON")
+    c.add_argument("--config", default=None, help="ModelConfig as JSON")
+    c.add_argument("--preset", default=None,
+                   help="a preset's ModelConfig instead of --config (configs.py), e.g. vit_s16_imagenet")
     c.add_argument("--out", required=True, help="artifact directory to write")
     c.add_argument("--data-format", default="NHWC", choices=["NHWC", "NCHW"])
     c.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",

@@ -4,10 +4,10 @@
 ``ModelConfig`` and ``TrainConfig`` mirror the JAX package's field for
 field, with the same defaults and the same ``__post_init__`` checks, so one
 JSON config drives both packages. The port serves and trains the ResNet
-segmentation family in float32 on one device; the knobs it does not run yet
-are rejected by :func:`require_supported` and
-:func:`require_supported_training` with the queue item that will bring
-them.
+segmentation family in float32 on one device and serves the ViT classifier
+in float32 or bfloat16; the knobs it does not run yet are rejected by
+:func:`require_supported` and :func:`require_supported_training` with the
+queue item that will bring them.
 """
 
 from __future__ import annotations
@@ -125,9 +125,9 @@ class ModelConfig:
 # ROADMAP queue item that brings each
 _LATER = (
     (lambda c: c.backbone == "xception", "backbone='xception' (queue A 11)"),
-    (lambda c: c.backbone == "vit", "backbone='vit' (queue A 11, queue B 7)"),
-    (lambda c: c.num_classes is not None, "the classification head (queue A 4)"),
-    (lambda c: c.dtype == "bfloat16", "dtype='bfloat16' (queue A 4)"),
+    (lambda c: c.moe_experts > 0, "moe_experts > 0, the Switch-MoE ViT (queue A 12)"),
+    (lambda c: c.backbone == "resnet" and c.num_classes is not None, "the ResNet classification head (queue A 4)"),
+    (lambda c: c.backbone == "resnet" and c.dtype == "bfloat16", "ResNet dtype='bfloat16' (queue A 4)"),
     (lambda c: c.stem_space_to_depth, "stem_space_to_depth (queue A 4)"),
     (lambda c: c.block_type == "basic_block", "block_type='basic_block' (queue A 4)"),
     (lambda c: c.block_layout == "classic", "block_layout='classic' (queue A 4)"),
@@ -135,13 +135,17 @@ _LATER = (
 
 
 def require_supported(config: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this slice of the
-    port does not run yet, naming the ROADMAP item that brings it."""
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    run yet, naming the ROADMAP item that brings it. It runs the ResNet
+    segmenter in float32 and the ViT classifier (``backbone="vit"``) in
+    float32 or bfloat16, with or without ``use_fused_attention``; a ViT
+    without ``num_classes`` raises ``ValueError`` when it is built, as the
+    JAX model does when it is applied."""
     for test, what in _LATER:
         if test(config):
             raise NotImplementedError(
-                f"{what} is not ported yet; this slice serves the float32 "
-                "ResNet segmentation model (see ROADMAP.md)"
+                f"{what} is not ported yet; the port runs the float32 ResNet segmentation "
+                "model and the ViT classifier (see ROADMAP.md)"
             )
 
 
@@ -319,9 +323,14 @@ _LATER_TRAINING = (
 
 def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a model or training configuration
-    this slice does not train yet (one device, float32, the ResNet
+    the port does not train yet (one device, float32, the ResNet
     segmenter), naming the ROADMAP item that brings it."""
     require_supported(model_config)
+    if model_config.backbone == "vit":
+        raise NotImplementedError(
+            "training backbone='vit' is not ported yet (ViT training: queue A 1, see ROADMAP.md); "
+            "the port serves the ViT classifier"
+        )
     if model_config.remat:
         raise NotImplementedError("remat=True in training is not ported yet (queue A 4, see ROADMAP.md)")
     for test, what in _LATER_TRAINING:

@@ -1,4 +1,5 @@
-"""Model factory (counterpart of ``tensorflowdistributedlearning_tpu/models``)."""
+"""Model factory (counterpart of ``tensorflowdistributedlearning_tpu/models``):
+the ResNet segmenter and the ViT classifier."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from tensorflowdistributedlearning_tpu_torch.models.resnet import (
     ResNetBackbone,
     ResNetSegmentation,
 )
+from tensorflowdistributedlearning_tpu_torch.models.vit import Dense, LayerNorm, PatchEmbed, ViTClassifier
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 # flax's truncated_normal initializers cut at +-2 stddev; variance_scaling's
@@ -61,17 +63,48 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def init_vit_weights(model: ViTClassifier, generator: torch.Generator) -> nn.Module:
+    """flax's initializers for the ViT, drawn from ``generator``: Dense and
+    patch-conv kernels lecun-normal (variance_scaling(1.0, fan_in,
+    truncated_normal)), biases zero, LayerNorm scale one / bias zero,
+    ``pos_embedding`` normal with stddev 0.02."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Dense, PatchEmbed)):
+                fan_in = m.weight[0].numel()
+                _trunc_normal(m.weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD, generator)
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        model.pos_embedding.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def model_for(config: ModelConfig) -> nn.Module:
+    """The uninitialised network of ``config`` on the current default device
+    (``torch.device("meta")`` builds a template without memory): the ViT
+    classifier for ``backbone="vit"``, the segmentation network otherwise."""
+    require_supported(config)
+    if config.backbone == "vit":
+        return ViTClassifier(config)
+    return ResNetSegmentation(config)
+
+
 def build_model(
     config: ModelConfig, device: DeviceLike = None, *, generator: Optional[torch.Generator] = None
 ) -> nn.Module:
-    """The segmentation network for ``config``, initialised from
+    """The network for ``config`` (:func:`model_for`), initialised from
     ``generator`` (seed 0 when None), in eval mode on ``device`` (CUDA when
     None; raises without it)."""
     device = resolve_device(device)
-    require_supported(config)
+    model = model_for(config)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = init_weights(ResNetSegmentation(config), generator)
+    if isinstance(model, ViTClassifier):
+        model = init_vit_weights(model, generator)
+    else:
+        model = init_weights(model, generator)
     return model.to(device).eval()
 
 
@@ -80,9 +113,12 @@ __all__ = [
     "ResNetBackbone",
     "ResNetSegmentation",
     "SplitSeparableConv2D",
+    "ViTClassifier",
     "build_model",
     "fixed_padding",
+    "init_vit_weights",
     "init_weights",
+    "model_for",
     "subsample",
     "upsample",
 ]

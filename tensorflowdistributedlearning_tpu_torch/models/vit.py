@@ -1,0 +1,205 @@
+"""Vision Transformer classifier (counterpart of
+``tensorflowdistributedlearning_tpu/models/vit.py``), eval-mode.
+
+A pre-LN ViT: patch embedding (a VALID stride-p conv), learned position
+embeddings, N transformer blocks, a final LayerNorm, a float32 mean pool
+over the tokens (no cls token) and the ``logits`` Dense. Module names
+mirror the flax tree (``patch_embed``, ``pos_embedding``, ``block{i}`` with
+``ln1``, ``attn.qkv``, ``attn.proj``, ``ln2``, ``mlp_in``, ``mlp_out``,
+``ln_final``, ``logits``), so ``utils.convert.from_flax`` maps by path.
+Inputs are NHWC, as in the JAX package.
+
+The dtype flow repeats flax's under ``ModelConfig.dtype``:
+
+- parameters are float32; each Dense, the patch conv and each LayerNorm
+  computes in the compute dtype (bf16 under ``dtype="bfloat16"``), its
+  parameters cast to it at the call;
+- a Dense is the product, then the bias added on its own (two roundings in
+  bf16, as flax's ``dot_general`` then ``+= bias``);
+- LayerNorm is flax's: statistics in float32 with the fast variance
+  ``E[x^2] - E[x]^2`` clipped at 0, epsilon 1e-6 (PyTorch's default is
+  1e-5), ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32,
+  then cast to the compute dtype;
+- ``gelu`` is jax's default tanh approximation;
+- ``pos_embedding`` is cast to the compute dtype before the add; the pool
+  is a float32 mean; the ``logits`` Dense has no dtype, so it computes in
+  float32 from the float32 pool.
+
+Attention is :func:`ops.flash_attention.flash_attention` under
+``use_fused_attention`` (the hand-written kernel on CUDA) and its plain
+version otherwise; both keep float32 math and return the compute dtype.
+The patch conv and the Dense products stay ``torch.matmul``, as the JAX
+package leaves them to XLA. Under ``int8-compute`` the Dense layers become
+``ops.quant_kernels.QuantLinear`` at load time.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+from tensorflowdistributedlearning_tpu_torch.models.layers import scaled_width
+from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+def compute_dtype(config: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+def _promote(x: torch.Tensor, dtype) -> torch.dtype:
+    """flax's ``promote_dtype``: the given dtype, or (None) the result type
+    of the input and the float32 parameters."""
+    return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with ``dtype``: ``weight`` [out, in] (flax's
+    ``kernel`` transposed), product then bias add in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=None):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _promote(x, self.dtype)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        return y + self.bias.to(dt)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=...)`` over the last axis (see the module
+    note): ``weight`` is flax's ``scale``."""
+
+    def __init__(self, features: int, dtype=None, eps: float = LAYER_NORM_EPS):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        mean2 = (xf * xf).mean(dim=-1, keepdim=True)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean) * mul + self.bias.float()
+        return y.to(_promote(x, self.dtype))
+
+
+class PatchEmbed(nn.Conv2d):
+    """flax ``nn.Conv(embed, (p, p), strides=p, padding="VALID")`` over NHWC
+    input, returning tokens ``[B, (H/p)(W/p), E]`` in row-major patch order.
+    ``weight`` is OIHW (flax's HWIO ``kernel`` transposed). Computed as one
+    product of the patches with the filter flattened in (kh, kw, c) order,
+    then the bias added."""
+
+    def __init__(self, in_channels: int, embed: int, patch: int, dtype=None):
+        super().__init__(in_channels, embed, patch, stride=patch)
+        self.patch = patch
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        p = self.patch
+        dt = _promote(x, self.dtype)
+        patches = x.to(dt).reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(b, (h // p) * (w // p), p * p * c)
+        kernel = self.weight.to(dt).permute(2, 3, 1, 0).reshape(p * p * c, -1)
+        return torch.matmul(patches, kernel) + self.bias.to(dt)
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """QKV projection, softmax attention, output projection. The qkv output
+    is laid out ``[B, T, 3, H, hd]``; q, k and v are strided views of it,
+    which the kernel reads in place."""
+
+    def __init__(self, embed: int, num_heads: int, dtype=None, use_fused: bool = False,
+                 num_prefix_tokens: int = 0):
+        super().__init__()
+        self.embed = embed
+        self.num_heads = num_heads
+        self.use_fused = use_fused
+        # auxiliary tokens before the patch tokens (0 here: mean-pool head);
+        # kept for the model's structure, it gates nothing in the port
+        self.num_prefix_tokens = num_prefix_tokens
+        self.qkv = Dense(embed, 3 * embed, dtype)
+        self.proj = Dense(embed, embed, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, self.embed // self.num_heads)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attend = fa.flash_attention if self.use_fused else fa.flash_attention_plain
+        out = attend(q, k, v)
+        return self.proj(out.reshape(b, t, self.embed))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+
+    def __init__(self, embed: int, num_heads: int, mlp_dim: int, dtype=None, use_fused: bool = False):
+        super().__init__()
+        self.ln1 = LayerNorm(embed, dtype)
+        self.attn = MultiHeadSelfAttention(embed, num_heads, dtype, use_fused)
+        self.ln2 = LayerNorm(embed, dtype)
+        self.mlp_in = Dense(embed, mlp_dim, dtype)
+        self.mlp_out = Dense(mlp_dim, embed, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
+        return x + self.mlp_out(h)
+
+
+class ViTClassifier(nn.Module):
+    """``[B, H, W, C] -> [B, num_classes]`` logits (float32, or the int8
+    kernel's bf16 under ``int8-compute``)."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        if config.num_classes is None:
+            raise ValueError("backbone='vit' supports the classification head only (set num_classes)")
+        embed = scaled_width(config.embed_dim, config.width_multiplier)
+        if embed % config.num_heads != 0:
+            raise ValueError(f"scaled embed_dim {embed} not divisible by num_heads {config.num_heads}")
+        p = config.patch_size
+        h, w = config.input_shape
+        if h % p or w % p:
+            raise ValueError(f"input_shape {config.input_shape} not divisible by patch_size {p}")
+        self.config = config
+        self.embed = embed
+        dtype = compute_dtype(config)
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(config.input_channels, embed, p, dtype)
+        self.pos_embedding = nn.Parameter(torch.zeros((h // p) * (w // p), embed))
+        mlp_dim = int(embed * config.mlp_ratio)
+        for i in range(config.vit_layers):
+            self.add_module(
+                f"block{i + 1}",
+                TransformerBlock(embed, config.num_heads, mlp_dim, dtype, config.use_fused_attention),
+            )
+        self.ln_final = LayerNorm(embed, dtype)
+        self.logits = Dense(embed, config.num_classes, None)
+
+    def blocks(self):
+        return [getattr(self, f"block{i + 1}") for i in range(self.config.vit_layers)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = self.config.input_shape
+        if x.dim() != 4 or x.shape[1] != h or x.shape[2] != w:
+            raise ValueError(
+                f"input {tuple(x.shape)} does not match the configured input_shape {self.config.input_shape} (NHWC)"
+            )
+        x = x.to(self.dtype)
+        tokens = self.patch_embed(x)
+        tokens = tokens + self.pos_embedding.to(self.dtype)[None]
+        for block in self.blocks():
+            tokens = block(tokens)
+        tokens = self.ln_final(tokens)
+        pooled = tokens.float().mean(dim=1)
+        return self.logits(pooled)

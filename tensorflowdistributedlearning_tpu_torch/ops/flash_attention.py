@@ -1,0 +1,114 @@
+"""Softmax attention: the hand-written online-softmax kernel and its plain
+version (counterpart of ``tensorflowdistributedlearning_tpu/ops/
+flash_attention.py``).
+
+:func:`flash_attention` keeps the JAX contract: ``q``, ``k``, ``v`` of one
+shape ``[B, T, H, D]``, scale ``1/sqrt(D)``, float32 math whatever the
+input dtype, masked scores at ``-1e30`` under ``causal``, the row sum
+floored at ``1e-30``, the output in ``q``'s dtype.
+
+Dispatch, as in ``ops/kernels.py``: a CPU tensor takes
+:func:`flash_attention_plain`; a CUDA tensor launches ``csrc/
+flash_attention.cu`` or raises, and each launch adds one to
+``kernels.LAUNCHES["flash_attention"]``. The kernel reads ``q``, ``k`` and
+``v`` in place through their strides (in the ViT they are slices of the
+qkv projection), so the three transposed copies the JAX wrapper makes are
+not made. It is forward-only: the CUDA arm raises when a gradient is
+wanted; the JAX package's backward (``_flash_bwd``, plain XLA) comes with
+ViT training.
+
+Not carried over: ``_VMEM_KV_LIMIT_BYTES``, the TPU kernel's VMEM budget
+above which its wrapper fell back to XLA, and the ViT's ``_FUSED_MAX_SEQ``
+(a ceiling measured on a TPU). An online softmax over K/V tiles holds no
+score row whole, so it has no such ceiling: with ``use_fused_attention`` the
+kernel runs at every sequence length. ``MultiHeadSelfAttention`` keeps its
+``num_prefix_tokens`` field for the structure of the model only.
+``kv_mask`` and ``segment_ids`` of ``attention_reference`` come with ring
+attention.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tensorflowdistributedlearning_tpu_torch.ops import _build
+from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+# the JAX package's mask value: -inf would poison a row whose every key is
+# masked (exp(-inf - -inf) = nan)
+MASK_VALUE = -1e30
+# head widths the kernel is instantiated for
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(
+            f"flash_attention expects q, k, v of one [B, T, H, D] shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _scale(d: int) -> float:
+    return 1.0 / (d ** 0.5)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    """Plain version (counterpart of ``attention_reference``): the full
+    float32 score matrix, masked at ``-1e30`` above the diagonal under
+    ``causal``, ``exp(s - max)`` weights, their sum floored at ``1e-30``;
+    ``[B, T, H, D]`` out in ``q``'s dtype."""
+    _check(q, k, v)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * _scale(q.shape[-1])
+    if causal:
+        t = q.shape[1]
+        visible = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(visible, s, torch.full_like(s, MASK_VALUE))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1).clamp_min(1e-30)  # [B, H, T]
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / denom.transpose(1, 2)[..., None]
+    return o.to(q.dtype)
+
+
+def _strides(x: torch.Tensor, name: str):
+    if x.stride(3) != 1:
+        raise ValueError(f"flash_attention: {name} must have a contiguous last axis, got strides {x.stride()}")
+    return x.stride(0), x.stride(1), x.stride(2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    """Softmax attention on ``[B, T, H, D]`` (float32 or bfloat16), float32
+    math, output ``[B, T, H, D]`` contiguous in ``q``'s dtype. CPU: plain
+    version; CUDA: ``csrc/flash_attention.cu`` (head widths 16, 32, 64 and
+    128, any sequence length, inputs read through their strides), which
+    refuses inputs that need a gradient."""
+    _check(q, k, v)
+    if kernels._use_plain(q):
+        return flash_attention_plain(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel is forward-only; its backward comes with ViT training "
+            "(see ROADMAP.md). Call it under torch.no_grad() or torch.inference_mode()"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}; q, k, v must share one CUDA device")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"flash_attention: the kernel takes float32 or bfloat16, got {t.dtype}")
+    b, t, h, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head widths {KERNEL_HEAD_DIMS}, got {d}")
+    strides = [s for name, x in (("q", q), ("k", k), ("v", v)) for s in _strides(x, name)]
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib, fn = kernels._entry("tfdl_flash_attention")
+    with torch.cuda.device(q.device):
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
+            b, t, h, d, *strides, int(bool(causal)), _scale(d), kernels._stream(q),
+        )
+    _build.check(lib, code, "flash_attention")
+    kernels.LAUNCHES["flash_attention"] += 1
+    return out

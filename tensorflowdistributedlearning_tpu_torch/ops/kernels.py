@@ -18,6 +18,10 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
 - :func:`fused_sigmoid_mask` — the segmentation serve head
   (``csrc/sigmoid_mask.cu``), bit-identical to its plain version.
 
+The int8 kernels' wrappers live in ``ops/quant_kernels.py`` and the
+attention kernel's in ``ops/flash_attention.py``; their counters and C
+entry points are registered here with the others.
+
 Dispatch: the tensor's device picks the arm and nothing else does. A CPU
 tensor takes the plain version (``*_plain``); a CUDA tensor launches the
 kernel or raises. Public functions keep the JAX layout (NHWC activations,
@@ -46,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_sigmoid_mask": 0,
     "int8_conv2d": 0,
     "int8_matmul": 0,
+    "flash_attention": 0,
 }
 
 # activation codes shared with csrc/epilogue.cuh
@@ -66,6 +71,9 @@ _signatures = {
     "tfdl_bias_act": ("bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64, _c_int, _c_int, _c_void]),
     "tfdl_sigmoid_mask_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void]),
     "tfdl_int8_conv2d": ("int8_conv", [_c_void] * 6 + [_c_int] * 14 + [_c_void]),
+    "tfdl_flash_attention": (
+        "flash_attention", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
+    ),
 }
 
 

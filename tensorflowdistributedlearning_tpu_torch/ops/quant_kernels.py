@@ -14,7 +14,8 @@ convolution through :func:`int8_conv2d`, which
    (``csrc/epilogue.cuh``, shared with :func:`ops.kernels.fused_bias_act`),
    cast to the activation dtype (bf16).
 
-:func:`int8_matmul` is the same kernel as a 1x1 conv over ``[1, 1, M, K]``.
+:func:`int8_matmul` is the same kernel as a 1x1 conv over ``[1, 1, M, K]``;
+the ViT's Dense layers reach it through :class:`QuantLinear`.
 
 Plain versions (``*_plain``) compute the same function as the kernel:
 exact integer accumulation (float64 sums of int8 products, exact while
@@ -28,10 +29,14 @@ CUDA tensor launches the kernel or raises, and each launch adds one to
 ``kernels.LAUNCHES["int8_conv2d"]`` / ``["int8_matmul"]``.
 
 The JAX package's ``int8_intercept`` (a flax method interceptor at trace
-time) becomes a module swap at load time: :func:`swap_int8_convs` replaces
+time) becomes a module swap at load time: :func:`swap_int8_layers` replaces
 every eligible :class:`models.layers.Conv2dSame` by a :class:`QuantConv2d`
 that holds the int8 filter in the kernel's layout, under the eligibility
-rule of ``make_int8_interceptor`` (:func:`int8_eligible`).
+rule of ``make_int8_interceptor`` (:func:`int8_eligible`), and every
+``nn.Linear`` with a record by a :class:`QuantLinear` (the rule's
+``nn.Dense`` arm). The ViT's patch conv (stride 16) is no ``Conv2dSame``
+and keeps the dequantized float path, as the interceptor's stride rule
+leaves it in JAX.
 """
 
 from __future__ import annotations
@@ -253,19 +258,30 @@ def int8_matmul(x, wq, w_scale, *, bias=None, act: str = "none", out_dtype=None)
     """Quantized-compute dense layer: ``x`` [..., K] float, ``wq`` [K, N]
     int8, ``w_scale`` [N] f32, ``bias`` [N] or None; [..., N] in
     ``out_dtype`` (default ``x.dtype``). CPU: plain version; CUDA: the conv
-    kernel as a 1x1 conv over [1, 1, M, K], counted as ``int8_matmul``."""
+    kernel as a 1x1 conv over [1, 1, M, K], counted as ``int8_matmul`` (the
+    weight is transposed to the kernel's [N, K] per call;
+    :class:`QuantLinear` keeps it transposed)."""
     _check_matmul(x, wq, w_scale, bias, act)
-    out_dtype = x.dtype if out_dtype is None else out_dtype
     if kernels._use_plain(x):
         return int8_matmul_plain(x, wq, w_scale, bias=bias, act=act, out_dtype=out_dtype)
-    k, n = wq.shape
+    return int8_matmul_nk(x, wq.t().contiguous(), w_scale, bias=bias, act=act, out_dtype=out_dtype)
+
+
+def int8_matmul_nk(x, wk, w_scale, *, bias=None, act: str = "none", out_dtype=None) -> torch.Tensor:
+    """:func:`int8_matmul` with the weight in the kernel's layout ``wk``
+    [N, K] (K contiguous per output feature: the layout of an
+    ``nn.Linear`` weight). CPU: plain version; CUDA: the kernel."""
+    _check_matmul(x, wk.t(), w_scale, bias, act)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if kernels._use_plain(x):
+        return int8_matmul_plain(x, wk.t(), w_scale, bias=bias, act=act, out_dtype=out_dtype)
+    n, k = wk.shape
     lead = x.shape[:-1]
     m = 1
     for d in lead:
         m *= d
     xq, xs = quantize_activations(x)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    wk = wq.t().contiguous()  # [N, K]: K contiguous per output feature
     _launch("int8_matmul", xq.reshape(1, 1, m, k), xs, wk, w_scale, bias, out, (1, 1, m, k, n, 1, 1),
             ((0, 0), (0, 0)), act)
     return out.reshape(*lead, n)
@@ -309,24 +325,57 @@ class QuantConv2d(nn.Module):
                                 out_dtype=self.out_dtype)
 
 
-def swap_int8_convs(model: nn.Module, records: Dict[str, Dict[str, torch.Tensor]],
-                    biases: Dict[str, torch.Tensor], act_dtype: torch.dtype = torch.bfloat16) -> int:
-    """Replace every eligible conv of ``model`` by a :class:`QuantConv2d`
-    built from its ``{"q", "scale"}`` record (keyed ``{module}.weight``, the
-    filter in the port's OIHW layout, the record's f32 scale) and its bias
-    from ``biases`` (keyed ``{module}.bias``; the bf16 leaf, used as f32).
-    Convs outside the rule keep their dequantized float path. Returns the
-    number of convs swapped."""
+class QuantLinear(nn.Module):
+    """An int8-compute dense layer: the int8 weight [out, in] (the kernel's
+    [N, K] layout), its f32 per-output-feature scale and the f32 bias (or
+    none); ``[..., in]`` in, ``[..., out]`` in ``out_dtype`` (bf16) out
+    through :func:`int8_matmul_nk`, the bias fused into the epilogue, no
+    activation (the interceptor's ``nn.Dense`` rule)."""
+
+    def __init__(self, q_nk: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+                 out_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if q_nk.dtype != torch.int8 or q_nk.dim() != 2:
+            raise ValueError(f"QuantLinear expects an int8 [out, in] weight, got {q_nk.dtype} {tuple(q_nk.shape)}")
+        self.register_buffer("weight_q", q_nk.contiguous())
+        self.register_buffer("w_scale", scale.float().contiguous())
+        self.register_buffer("bias", None if bias is None else bias.float().contiguous())
+        self.out_dtype = out_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_matmul_nk(x, self.weight_q, self.w_scale, bias=self.bias, act="none", out_dtype=self.out_dtype)
+
+
+def swap_int8_layers(model: nn.Module, records: Dict[str, Dict[str, torch.Tensor]],
+                     biases: Dict[str, torch.Tensor], act_dtype: torch.dtype = torch.bfloat16) -> int:
+    """The interceptor's rule as a module swap: every layer of ``model``
+    with a ``{"q", "scale"}`` record (keyed ``{module}.weight``, the weight
+    in the port's layout, the record's f32 scale) and its bias from
+    ``biases`` (keyed ``{module}.bias``; the bf16 leaf, used as f32) becomes
+
+    - a :class:`QuantConv2d` when it is an eligible conv
+      (:func:`int8_eligible`, the filter OIHW);
+    - a :class:`QuantLinear` when it is an ``nn.Linear`` (the weight
+      [out, in]): every ``nn.Dense`` with a record goes through
+      ``int8_matmul``, the classifier's ``logits`` included.
+
+    Both return ``act_dtype``. Other layers keep their dequantized float
+    path. Returns the number of layers swapped."""
     swapped = 0
     for name, module in list(model.named_modules()):
         for child_name, child in list(module.named_children()):
             path = f"{name}.{child_name}" if name else child_name
             rec = records.get(f"{path}.weight")
-            if rec is None or not int8_eligible(child):
+            if rec is None:
                 continue
-            kh, kw = child.kernel_size
             bias = biases.get(f"{path}.bias") if child.bias is not None else None
-            quant = QuantConv2d(rec["q"], rec["scale"], bias, _conv_pads(child.same_padding, kh, kw), act_dtype)
+            if isinstance(child, nn.Linear):
+                quant = QuantLinear(rec["q"], rec["scale"], bias, act_dtype)
+            elif int8_eligible(child):
+                kh, kw = child.kernel_size
+                quant = QuantConv2d(rec["q"], rec["scale"], bias, _conv_pads(child.same_padding, kh, kw), act_dtype)
+            else:
+                continue
             setattr(module, child_name, quant.to(child.weight.device))
             swapped += 1
     return swapped

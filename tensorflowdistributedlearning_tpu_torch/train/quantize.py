@@ -5,13 +5,16 @@ Serving specs, as in the JAX package:
 
 - ``float32``: the model as trained, bit for bit;
 - ``bfloat16``: every float tensor stored in bf16; the model computes in
-  float32 (``ModelConfig.dtype``), so bf16 weights are promoted, except in
-  BatchNorm, which computes flax's way with bf16 statistics;
-- ``int8``: conv and depthwise filters (flax's ``kernel`` leaves) stored as
-  int8 with per-output-channel symmetric scales, everything else in bf16;
-  the filters are dequantized to bf16 (``q * scale`` in bf16) at load;
+  its ``ModelConfig.dtype``, so bf16 weights are promoted (or, in a bf16
+  ViT, used as they are), except in BatchNorm, which computes flax's way
+  with bf16 statistics;
+- ``int8``: conv, depthwise and Dense filters (flax's ``kernel`` leaves)
+  stored as int8 with per-output-channel symmetric scales, everything else
+  in bf16; the filters are dequantized to bf16 (``q * scale`` in bf16) at
+  load;
 - ``int8-compute``: the same bytes as ``int8``; at load every eligible conv
-  becomes an int8-arithmetic :class:`ops.quant_kernels.QuantConv2d`.
+  becomes an int8-arithmetic :class:`ops.quant_kernels.QuantConv2d` and
+  every Dense a :class:`ops.quant_kernels.QuantLinear`.
 
 :func:`quantize_state` works on the port's ``state_dict``. Its manifest
 ``quantization`` section keys the int8 ``scales`` by flax path, so it equals

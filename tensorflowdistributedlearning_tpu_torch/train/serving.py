@@ -1,6 +1,13 @@
 """The serving closure and standalone serving artifacts (counterpart of the
-JAX package's ``Trainer.serving_fn`` at ``train/trainer.py:929-996`` and of
-``train/serving.py``).
+JAX package's ``Trainer.serving_fn`` at ``train/trainer.py:929-996``,
+``ClassifierTrainer.serving_fn`` / ``export_serving`` at
+``train/fit.py:1016-1102``, and of ``train/serving.py``).
+
+The task follows the config: a model with ``num_classes`` (the ViT
+classifier) serves ``{"probabilities" [B, num_classes] float32, "class" [B]
+int32}`` and its manifest carries the JAX classifier's metadata keys
+(``task``, ``num_classes``, ``backbone``); the segmenter serves
+``{"probabilities", "mask"}`` and its manifest is what it was.
 
 An artifact directory holds:
 
@@ -32,7 +39,7 @@ import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
 from tensorflowdistributedlearning_tpu_torch.train import quantize
-from tensorflowdistributedlearning_tpu_torch.train.step import SegmentationTask
+from tensorflowdistributedlearning_tpu_torch.train.step import task_for
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 MANIFEST_NAME = "manifest.json"
@@ -52,7 +59,12 @@ def serving_model(config: ModelConfig, qstate: Mapping[str, Any], section: Mappi
       and bias holds its bf16 (int8: dequantized ``q * scale`` in bf16)
       value in float32, the promotion flax applies at each call;
     - ``int8-compute`` (``compute_dtype`` int8): then every eligible conv
-      becomes an int8-arithmetic ``QuantConv2d`` from its record."""
+      becomes an int8-arithmetic ``QuantConv2d`` and every Dense a
+      ``QuantLinear`` from its record, returning bf16.
+
+    The ViT has no BatchNorm: its parameters hold their bf16 (int8:
+    dequantized) values in float32, which is what flax computes with once
+    it promotes or casts them at each call."""
     from tensorflowdistributedlearning_tpu_torch.models import build_model
     from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
     from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels
@@ -67,7 +79,7 @@ def serving_model(config: ModelConfig, qstate: Mapping[str, Any], section: Mappi
     model.load_state_dict(dense, strict=True)
     if section.get("compute_dtype") == "int8":
         records = {k: v for k, v in qstate.items() if quantize.is_record(v)}
-        quant_kernels.swap_int8_convs(model, records, dense)
+        quant_kernels.swap_int8_layers(model, records, dense)
     return model.eval()
 
 
@@ -76,21 +88,23 @@ def make_serving_fn(
     device: DeviceLike = None,
     *,
     data_format: str = "NHWC",
-    task: Optional[SegmentationTask] = None,
+    task=None,
     act_dtype: torch.dtype = torch.float32,
 ) -> Callable:
-    """``serve(images) -> {"probabilities", "mask"}`` for the preprocessed
-    batch (normalized + Laplacian channel). ``images`` is a numpy array or a
-    tensor, NHWC — or NCHW with ``data_format="NCHW"``, in which case the
-    outputs come back ``[B, 1, H, W]``. The images enter the model in
-    ``act_dtype`` (``quantize.compute_dtype`` of the spec). Outputs are
-    float32 tensors on ``device``; the head is the fused sigmoid-mask
-    kernel."""
+    """``serve(images) -> outputs`` for the preprocessed batch: the task's
+    serving head (``task_for(model.config)`` when ``task`` is None). The
+    segmenter answers ``{"probabilities", "mask"}`` through the fused
+    sigmoid-mask kernel, the classifier ``{"probabilities", "class"}``.
+    ``images`` is a numpy array or a tensor, NHWC — or NCHW with
+    ``data_format="NCHW"``, in which case per-pixel outputs come back
+    ``[B, 1, H, W]``. The images enter the model in ``act_dtype``
+    (``quantize.compute_dtype`` of the spec). Float outputs are float32
+    tensors on ``device``; ``class`` stays int32."""
     if data_format not in ("NHWC", "NCHW"):
         raise ValueError(f"Unknown data format {data_format}. Has to be either NCHW or NHWC")
     device = resolve_device(device)
     model = model.to(device).eval()
-    task = task or SegmentationTask()
+    task = task or task_for(model.config)
     nchw = data_format == "NCHW"
 
     def serve(images) -> Dict[str, torch.Tensor]:
@@ -102,13 +116,18 @@ def make_serving_fn(
             logits = model(x.to(act_dtype).contiguous())
             out = quantize.cast_outputs_float32(task.serve_predictions(logits))
             if nchw:
-                out = {k: v.permute(0, 3, 1, 2) for k, v in out.items()}
+                out = {k: v.permute(0, 3, 1, 2) if v.dim() == 4 else v for k, v in out.items()}
             return out
 
     return serve
 
 
 def _output_signature(config: ModelConfig, data_format: str) -> Dict[str, Dict]:
+    if config.num_classes is not None:
+        return {
+            "probabilities": {"shape": [None, config.num_classes], "dtype": "float32"},
+            "class": {"shape": [None], "dtype": "int32"},
+        }
     h, w = config.input_shape
     shape = [None, 1, h, w] if data_format == "NCHW" else [None, h, w, 1]
     return {name: {"shape": shape, "dtype": "float32"} for name in ("probabilities", "mask")}
@@ -141,6 +160,7 @@ def export_serving_artifact(
         "outputs": _output_signature(config, data_format),
         "format": ARTIFACT_FORMAT,
         "platforms": ["cuda"],
+        **({"task": "classification", "num_classes": config.num_classes} if config.num_classes is not None else {}),
         "backbone": config.backbone,
         "data_format": data_format,
         "quantization": section,

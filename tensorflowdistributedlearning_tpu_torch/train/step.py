@@ -72,6 +72,33 @@ class SegmentationTask:
         return {"probabilities": probs, "mask": mask}
 
 
+@dataclasses.dataclass(frozen=True)
+class ClassificationTask:
+    """Image classification heads (the JAX package's ``ClassificationTask``,
+    ``train/step.py:381-389``): softmax probabilities and the argmax class.
+    Its loss and metrics come with ViT training (ROADMAP queue A 1)."""
+
+    def predictions(self, logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``probabilities``: the softmax over the last axis in the logits'
+        dtype, as ``jax.nn.softmax`` writes it (``exp(x - max)`` over its
+        sum); ``class``: the argmax of the logits as int32 (jnp.argmax's
+        dtype), first index on ties."""
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        probs = e / e.sum(dim=-1, keepdim=True)
+        return {"probabilities": probs, "class": torch.argmax(logits, dim=-1).to(torch.int32)}
+
+    def serve_predictions(self, logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The serving head: :meth:`predictions` (softmax and argmax have no
+        fused kernel in the JAX package either)."""
+        return self.predictions(logits)
+
+
+def task_for(config) -> "SegmentationTask | ClassificationTask":
+    """The task of a ``ModelConfig``: classification when it has
+    ``num_classes``, segmentation otherwise."""
+    return ClassificationTask() if config.num_classes is not None else SegmentationTask()
+
+
 # -- learning rate -----------------------------------------------------------
 
 

@@ -6,7 +6,10 @@ port's ``state_dict`` by name (the port's modules mirror the flax tree):
 - conv kernels HWIO -> OIHW, conv biases as they are;
 - depthwise kernels ``[kh, kw, 1, C]`` -> the kernel's ``[kh, kw, C]``;
 - BN ``scale``/``bias`` -> ``weight``/``bias`` and batch stats
-  ``mean``/``var`` -> ``running_mean``/``running_var``.
+  ``mean``/``var`` -> ``running_mean``/``running_var``;
+- for the ViT: Dense ``kernel [in, out]`` -> ``weight [out, in]``, LayerNorm
+  ``scale``/``bias`` -> ``weight``/``bias``, ``pos_embedding`` as it is,
+  the patch conv as any conv; its ``batch_stats`` are empty.
 
 Strict both ways: a flax leaf the port does not use, a port tensor left
 unfilled, or a shape that disagrees raises. :func:`from_flax_train_state`
@@ -27,8 +30,9 @@ import torch
 import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+from tensorflowdistributedlearning_tpu_torch.models import model_for
+from tensorflowdistributedlearning_tpu_torch.models import vit
 from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, DepthwiseConv2D
-from tensorflowdistributedlearning_tpu_torch.models.resnet import ResNetSegmentation
 
 
 def flatten(tree) -> Dict[str, np.ndarray]:
@@ -72,6 +76,14 @@ def _sources(module: nn.Module, path: str):
         yield "weight", "params", f"{path}/kernel", lambda a: a.transpose(3, 2, 0, 1)
         if module.bias is not None:
             yield "bias", "params", f"{path}/bias", None
+    elif isinstance(module, nn.Linear):
+        yield "weight", "params", f"{path}/kernel", lambda a: a.T
+        yield "bias", "params", f"{path}/bias", None
+    elif isinstance(module, vit.LayerNorm):
+        yield "weight", "params", f"{path}/scale", None
+        yield "bias", "params", f"{path}/bias", None
+    elif isinstance(module, vit.ViTClassifier):
+        yield "pos_embedding", "params", "pos_embedding", None
     elif isinstance(module, DepthwiseConv2D):
         yield "weight", "params", f"{path}/kernel", lambda a: _squeeze_depthwise(a, path)
         yield "bias", "params", f"{path}/bias", None
@@ -89,29 +101,32 @@ def _squeeze_depthwise(a: np.ndarray, path: str) -> np.ndarray:
     return a[:, :, 0, :]
 
 
+def _template(config: ModelConfig) -> nn.Module:
+    with torch.device("meta"):
+        return model_for(config)
+
+
 def kernel_leaves(config: ModelConfig) -> Dict[str, Tuple[str, int]]:
     """``{port tensor: (flax params path, output-channel axis)}`` of every
-    conv and depthwise filter of ``build_model(config)``: the leaves flax
-    names ``kernel`` (``backbone.conv1_2.conv.weight`` ->
+    conv, depthwise and Dense filter of ``build_model(config)``: the leaves
+    flax names ``kernel`` (``backbone.conv1_2.conv.weight`` ->
     ``backbone/conv1_2/conv/kernel``). The output channels are axis 0 of an
-    OIHW conv filter and the last axis of a ``[kh, kw, C]`` depthwise one."""
-    with torch.device("meta"):
-        template = ResNetSegmentation(config)
+    OIHW conv filter and of a Dense ``[out, in]`` weight, and the last axis
+    of a ``[kh, kw, C]`` depthwise one."""
     out: Dict[str, Tuple[str, int]] = {}
-    for mod_path, module in template.named_modules():
+    for mod_path, module in _template(config).named_modules():
         for name, coll, leaf, _ in _sources(module, mod_path.replace(".", "/")):
             if coll == "params" and leaf.endswith("/kernel"):
-                out[f"{mod_path}.{name}"] = (leaf, 0 if isinstance(module, nn.Conv2d) else -1)
+                out[f"{mod_path}.{name}"] = (leaf, 0 if isinstance(module, (nn.Conv2d, nn.Linear)) else -1)
     return out
 
 
 def from_flax(params, batch_stats, config: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (CPU float32 tensors) for the flax
     ``params``/``batch_stats`` of ``build_model(config)``."""
-    flat = {"params": flatten(params), "batch_stats": flatten(batch_stats)}
+    flat = {"params": flatten(params), "batch_stats": flatten(batch_stats or {})}
     used = {"params": set(), "batch_stats": set()}
-    with torch.device("meta"):
-        template = ResNetSegmentation(config)
+    template = _template(config)
     expected = template.state_dict()
     state: Dict[str, torch.Tensor] = {}
     for mod_path, module in template.named_modules():

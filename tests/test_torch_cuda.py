@@ -136,3 +136,53 @@ def test_cuda_bn_act_kernel_refuses_gradients(cuda_device):
         tk.bn_act_folded(x, torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device))
     with torch.no_grad():
         tk.bn_act_folded(x, torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((4, 196, 6, 64), False), ((2, 197, 3, 64), True), ((1, 300, 2, 32), True),
+                                          ((2, 130, 2, 128), False), ((1, 1, 1, 16), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_kernel_matches_plain(cuda_device, shape, causal, dtype):
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(t + d)
+    qkv = torch.randn(b, t, 3, h, d, device=cuda_device, generator=g).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, read in place
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention"] == 1 and got.dtype == dtype and got.is_contiguous()
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+    else:  # each rounds its float32 result to bf16: one bf16 step beyond the float32 tolerance
+        gf, wf = got.float(), want.float()
+        step = torch.ldexp(torch.ones_like(gf), torch.frexp(torch.maximum(gf.abs(), wf.abs()))[1] - 8)
+        assert bool(((gf - wf).abs() <= step + 2e-5 * wf.abs() + 2e-6).all())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_gradients_and_odd_head_widths(cuda_device):
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn(1, 8, 2, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_attention(q, q, q)
+    odd = torch.randn(1, 8, 2, 24, device=cuda_device)
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_attention(odd, odd, odd)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_linear_is_bitwise_plain(cuda_device):
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(4, 196, 384, device=cuda_device, generator=g).to(torch.bfloat16)
+    wk = torch.randint(-127, 128, (1152, 384), device=cuda_device, generator=g, dtype=torch.int8)
+    ws = torch.rand(1152, device=cuda_device, generator=g) * 1e-2 + 1e-3
+    bias = torch.randn(1152, device=cuda_device, generator=g)
+    got = qk.QuantLinear(wk, ws, bias)(x)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["int8_matmul"] == 1 and got.shape == (4, 196, 1152) and got.dtype == torch.bfloat16
+    assert torch.equal(got, qk.int8_matmul_plain(x, wk.t(), ws, bias=bias, out_dtype=torch.bfloat16))

@@ -304,8 +304,8 @@ def test_model_config_rejects_what_jax_rejects(kwargs):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"backbone": "xception"}, {"backbone": "vit"}, {"num_classes": 10}, {"dtype": "bfloat16"},
-     {"stem_space_to_depth": True, "input_shape": (100, 100)}, {"block_type": "basic_block"},
+    [{"backbone": "xception"}, {"backbone": "vit", "num_classes": 10, "moe_experts": 2}, {"num_classes": 10},
+     {"dtype": "bfloat16"}, {"stem_space_to_depth": True, "input_shape": (100, 100)}, {"block_type": "basic_block"},
      {"block_layout": "classic", "n_blocks": (3, 4, 6, 3)}],
 )
 def test_later_slices_raise_not_implemented(kwargs):
@@ -313,6 +313,13 @@ def test_later_slices_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         require_supported(cfg)
     with pytest.raises(NotImplementedError):
+        build_model(cfg, "cpu")
+
+
+def test_vit_without_num_classes_raises_value_error_at_build():
+    cfg = ModelConfig(backbone="vit")
+    require_supported(cfg)
+    with pytest.raises(ValueError, match="set num_classes"):
         build_model(cfg, "cpu")
 
 
