@@ -18,7 +18,9 @@ Phases, each fatal on failure (exit 1, no result line):
              that may differ by an ulp); depthwise atol 1e-5 (summation order
              differs from the grouped conv). TF32 is off for convs and
              matmuls. Times are medians of CUDA-event timings with the 50 MB
-             L2 flushed before every launch; per kernel they are summed over
+             L2 flushed before every launch (and a 0.1 ms device spin after
+             the flush, so that the host's launch path is not timed); per
+             kernel they are summed over
              the calls of one forward at bucket 64, beside the bound (bytes
              over 3.35 TB/s or f32 operations over 67 TFLOP/s, the larger).
 4. serve   — exports an artifact, serves it through the port's engine,
@@ -57,8 +59,10 @@ Phases, each fatal on failure (exit 1, no result line):
              1/4/16/64 and over HTTP at 1/4/16 instances; the bfloat16 and
              int8 storage specs through the engine at bucket 64. Checks the
              manifest, shapes, class == argmax(probabilities), 12
-             flash_attention launches per forward (plus 49 int8_matmul under
-             int8-compute) and none of the segmenter's kernels, and each
+             flash_attention launches per forward, all 12 through the
+             tensor-core arm in bf16 compute and none in float32 compute
+             (plus 49 int8_matmul under int8-compute, all 49 through the
+             TMA + wgmma GEMM) and none of the segmenter's kernels, and each
              served batch against the same batch through the plain versions
              on the card (max |dprobs| 1e-5 in float32 compute, 2e-2 in bf16
              compute and under int8-compute, classes equal where the top two
@@ -69,13 +73,16 @@ Phases, each fatal on failure (exit 1, no result line):
              JAX tolerance, its absolute part scaled to the values) and in
              bf16 (one bf16 step beyond that), and on an
              odd sweep (causal, T = 1/197/257/300, D = 16/32/128, B·H = 1,
-             strided and contiguous); times it summed over the bf16
-             forward's calls beside its bound, the plain version and
+             strided and contiguous); times each arm summed over its
+             forward's 12 calls beside its bound, the plain version and
              F.scaled_dot_product_attention (a yardstick the port never
-             calls); holds the 49 int8_matmul calls of an int8-compute
-             forward bitwise against the plain version (M = 64·196 and 64)
-             and an odd sweep; profiles the bucket-64 bf16, int8-compute and
-             float32-compute forwards.
+             calls), and the bf16 arm's earlier kernel (the CUDA-core one)
+             on the same inputs; holds the 49 int8_matmul calls of an
+             int8-compute forward bitwise against the plain version (M =
+             64·196 and 64) and an odd sweep (K = 70/33/5 take the conv
+             route), timing the GEMM and, as the earlier kernel, the conv
+             route at the path's shapes; profiles the bucket-64 bf16,
+             int8-compute and float32-compute forwards.
 6. backward — captures the three ASPP depthwise calls (input, filter, rate
              and the output gradient) from one full-width training forward
              and backward at batch 64, and holds the dx and dw kernels
@@ -141,7 +148,9 @@ REPLACES = {
     "fused_bias_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:504",
     "int8_conv2d": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:432",
     "int8_matmul": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
+    "int8_matmul_conv": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
     "flash_attention": "tensorflowdistributedlearning_tpu/ops/flash_attention.py:97",
+    "flash_attention_f32": "tensorflowdistributedlearning_tpu/ops/flash_attention.py:97",
 }
 SOURCES = {
     "depthwise_conv2d": f"{PKG}/csrc/depthwise.cu",
@@ -152,13 +161,25 @@ SOURCES = {
     "fused_sigmoid_mask": f"{PKG}/csrc/sigmoid_mask.cu",
     "fused_bias_act": f"{PKG}/csrc/bias_act.cu",
     "int8_conv2d": f"{PKG}/csrc/int8_conv.cu",
-    "int8_matmul": f"{PKG}/csrc/int8_conv.cu",
-    "flash_attention": f"{PKG}/csrc/flash_attention.cu",
+    "int8_matmul": f"{PKG}/csrc/int8_gemm.cu",
+    "int8_matmul_conv": f"{PKG}/csrc/int8_conv.cu",
+    "flash_attention": f"{PKG}/csrc/flash_attention_tc.cu",
+    "flash_attention_f32": f"{PKG}/csrc/flash_attention.cu",
 }
-# the kernel no main path calls (the JAX package has no caller of it): held
-# directly against its plain version
-OFF_PATH = ("fused_bias_act",)
-_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_matmul": 0, "flash_attention": 0}
+# rows of the kernels line that are one arm of a wrapper with two kernels:
+# their launches from the wrapper's counters (all launches, one arm's apart)
+ARM_LAUNCHES = {
+    "int8_matmul": lambda c: c["int8_matmul_gemm"],
+    "int8_matmul_conv": lambda c: c["int8_matmul"] - c["int8_matmul_gemm"],
+    "flash_attention": lambda c: c["flash_attention_tc"],
+    "flash_attention_f32": lambda c: c["flash_attention"] - c["flash_attention_tc"],
+}
+# the kernels no main path calls, held directly against their plain
+# versions: fused_bias_act (the JAX package has no caller of it) and
+# int8_matmul's conv route (the path's K are all multiples of 16)
+OFF_PATH = ("fused_bias_act", "int8_matmul_conv")
+_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_matmul": 0, "int8_matmul_gemm": 0,
+             "flash_attention": 0, "flash_attention_tc": 0}
 PER_FORWARD = {"depthwise_conv2d": 3, "fused_bn_act": 59, "fused_sigmoid_mask": 1}
 # launches per training step, and per eval-mode forward of the trainer
 PER_TRAIN_STEP = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3,
@@ -169,15 +190,20 @@ PER_EVAL_FORWARD = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 0, "depthwise_
 # of its 63 convs that the int8 rule takes (52); every BN with bf16 parameters
 PER_INT8_FORWARD = {"int8_conv2d": 52, "depthwise_conv2d": 3, "fused_bn_act": 0, "fused_bn_act_bf16": 59,
                     "fused_sigmoid_mask": 1, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
-                    "fused_bias_act": 0, "int8_matmul": 0, "flash_attention": 0}
+                    "fused_bias_act": 0, "int8_matmul": 0, "int8_matmul_gemm": 0, "flash_attention": 0,
+                    "flash_attention_tc": 0}
 VIT_MLP = (64 * 196, 384, 1536)  # ViT-S/16 MLP at batch 64 (196 patch tokens, no cls): M, K width, N hidden
 VIT_PRESET = "vit_s16_imagenet"
 _NO_SEGMENTER = {"depthwise_conv2d": 0, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0, "fused_bn_act": 0,
                  "fused_bn_act_bf16": 0, "fused_bias_act": 0, "fused_sigmoid_mask": 0, "int8_conv2d": 0}
-# launches per ViT-S/16 serve forward: one attention kernel per block, and
-# under int8-compute one int8 matmul per Dense (4 per block and the logits)
-PER_VIT_FORWARD = {**_NO_SEGMENTER, "int8_matmul": 0, "flash_attention": 12}
-PER_VIT_INT8_FORWARD = {**_NO_SEGMENTER, "int8_matmul": 49, "flash_attention": 12}
+# launches per ViT-S/16 serve forward: one attention kernel per block (the
+# tensor-core arm in bf16 compute, the CUDA-core arm in float32 compute),
+# and under int8-compute one int8 matmul per Dense (4 per block and the
+# logits), every one through the GEMM route
+PER_VIT_FORWARD = {**_NO_SEGMENTER, "int8_matmul": 0, "int8_matmul_gemm": 0, "flash_attention": 12,
+                   "flash_attention_tc": 12}
+PER_VIT_INT8_FORWARD = {**PER_VIT_FORWARD, "int8_matmul": 49, "int8_matmul_gemm": 49}
+PER_VIT_F32_FORWARD = {**PER_VIT_FORWARD, "flash_attention_tc": 0}
 # float32: the JAX package's kernel-vs-oracle tolerance, set there on values
 # of unit scale; the output is a convex combination of v's rows summed in
 # another order, so the absolute part scales with max|v| (attention_atol)
@@ -216,7 +242,13 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each launch."""
+    """Median CUDA-event time of one call, L2 flushed before each launch.
+    After the flush the device spins for about 0.1 ms (``torch.cuda._sleep``)
+    so that the host has enqueued the call before the device reaches the
+    start event: the time is the device's, without the host's launch path
+    (a short kernel behind a Python wrapper otherwise counts the wrapper)."""
+
+    LEAD_CYCLES = 200_000  # about 0.1 ms at the H100's clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -231,6 +263,7 @@ class Timer:
         ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
         for s, e in zip(starts, ends):
             self.flush.zero_()
+            torch.cuda._sleep(self.LEAD_CYCLES)
             s.record()
             fn()
             e.record()
@@ -785,15 +818,20 @@ def held_close(torch, got, want, act: str, what: str) -> float:
 def int8_matmul_checks(torch, calls, timer, card):
     """int8_matmul at the ViT's int8-compute path calls (each QuantLinear's
     input and layer from one bucket-64 forward): kernel against plain
-    bitwise, times summed per forward; then an odd sweep of M, K, N with
-    every act, held directly."""
+    bitwise, every call through the GEMM route, times summed per forward
+    through the wrapper's route and, as the earlier kernel, through the
+    conv route at the same shapes; then an odd sweep of M, K, N with every
+    act, held directly, whose K = 70, 33 and 5 take the conv route. Returns
+    the rows of the two routes."""
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
     from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
 
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    conv = dict(max_abs_err=0.0, ms=0.0)
     nbytes = ops = quant_ms = 0.0
     shapes = {}
     with torch.inference_mode():
+        before = kernels.launch_counts()
         for i, (x, mod) in enumerate(calls):
             wk, ws, bias, odt = mod.weight_q, mod.w_scale, mod.bias, mod.out_dtype
             got = qk.int8_matmul_nk(x, wk, ws, bias=bias, out_dtype=odt)
@@ -803,40 +841,57 @@ def int8_matmul_checks(torch, calls, timer, card):
             n, k = wk.shape
             m = x.numel() // k
             shapes[(m, k, n)] = shapes.get((m, k, n), 0) + 1
+        gemm = kernels.launch_counts()["int8_matmul_gemm"] - before["int8_matmul_gemm"]
+        check(gemm == len(calls), f"int8_matmul: {gemm} of the {len(calls)} path calls took the GEMM route")
+        for x, mod in calls:
+            wk, ws, bias, odt = mod.weight_q, mod.w_scale, mod.bias, mod.out_dtype
+            n, k = wk.shape
+            m = x.numel() // k
             xq, xs = qk.quantize_activations(x)
+            xq = xq.view(m, k)
             out = torch.empty(m, n, dtype=odt, device=x.device)
-            row["ms"] += timer.ms(lambda: qk._launch("int8_matmul", xq.view(1, 1, m, k), xs, wk, ws, bias, out,
-                                                     (1, 1, m, k, n, 1, 1), ((0, 0), (0, 0)), "none"))
+            row["ms"] += timer.ms(lambda: qk._launch_matmul(xq, xs, wk, ws, bias, out, "none"))
+            conv["ms"] += timer.ms(lambda: qk._launch("int8_matmul", xq.view(1, 1, m, k), xs, wk, ws, bias, out,
+                                                      (1, 1, m, k, n, 1, 1), ((0, 0), (0, 0)), "none"))
             row["plain_ms"] += timer.ms(
-                lambda: qk._epilogue_plain((xq.view(m, k).double() @ wk.t().double()).to(torch.int32), xs, ws, bias,
+                lambda: qk._epilogue_plain((xq.double() @ wk.t().double()).to(torch.int32), xs, ws, bias,
                                            "none", odt), reps=5, warmup=1)
-            row["library_ms"] += int_mm_ms(torch, timer, xq.view(m, k), wk)
+            row["library_ms"] += int_mm_ms(torch, timer, xq, wk)
             quant_ms += timer.ms(lambda: qk.quantize_activations(x))
             nbytes += m * k + n * k + m * n * out.element_size() + 8 * n
             ops += 2.0 * m * n * k
     row["bound_ms"], row["bound_by"] = int8_bound(nbytes, ops)
-    log(f"int8_matmul: {len(calls)} ViT path calls bitwise equal to the plain version (M, K, N: {shapes}); per "
-        f"bucket-{BUCKET} forward: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch._int_mm (no "
-        f"quantize, no epilogue) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+    row["earlier_ms"] = conv["ms"]
+    log(f"int8_matmul: {len(calls)} ViT path calls bitwise equal to the plain version, all through the GEMM route "
+        f"(M, K, N: {shapes}); per bucket-{BUCKET} forward: GEMM {row['ms']:.4f} ms, the conv route (the earlier "
+        f"kernel) {conv['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch._int_mm (no quantize, no epilogue, "
+        f"int32 out) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
         f"({nbytes / 1e9:.4f} GB, {ops / 1e12:.4f} T int8 ops); the quantize pass before the kernel "
         f"{quant_ms:.4f} ms [{card}]")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    routes = {}
     with torch.inference_mode():
-        for m, k, n in (VIT_MLP, (37, 70, 24), (1, 5, 3), (300, 33, 17), (129, 384, 1)):
+        for m, k, n in (VIT_MLP, (37, 70, 24), (1, 5, 3), (300, 33, 17), (129, 384, 1), (64, 384, 1000)):
             x = torch.randn(m, k, device="cuda", generator=gen)
             wq = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
             ws = torch.rand(n, device="cuda", generator=gen) * 1e-2 + 1e-3
             bias = torch.randn(n, device="cuda", generator=gen)
+            route = qk.matmul_route(k)
+            routes[(m, k, n)] = route
             for act in kernels.ACTIVATIONS:
                 for out_dtype in (torch.bfloat16, torch.float32):
                     got = qk.int8_matmul(x, wq, ws, bias=bias, act=act, out_dtype=out_dtype)
                     want = qk.int8_matmul_plain(x, wq, ws, bias=bias, act=act, out_dtype=out_dtype)
-                    e = held_close(torch, got, want, act, f"int8_matmul {(m, k, n)} {act} {out_dtype}")
-                    row["max_abs_err"] = max(row["max_abs_err"], e)
-    log(f"int8_matmul: odd sweep bitwise equal to the plain version (sigmoid/gelu within tolerance), max|err| "
-        f"{row['max_abs_err']:.3g}")
-    return row
+                    e = held_close(torch, got, want, act, f"int8_matmul {(m, k, n)} {act} {out_dtype} ({route})")
+                    r = row if route == "gemm" else conv
+                    r["max_abs_err"] = max(r["max_abs_err"], e)
+    check(sorted(set(routes.values())) == ["conv", "gemm"], f"int8_matmul sweep routes {routes}")
+    log(f"int8_matmul: odd sweep bitwise equal to the plain version (sigmoid/gelu within tolerance), routes "
+        f"{routes}, max|err| GEMM {row['max_abs_err']:.3g}, conv route {conv['max_abs_err']:.3g}")
+    conv_row = dict(max_abs_err=conv["max_abs_err"], ms=conv["ms"], plain_ms=row["plain_ms"],
+                    library_ms=row["library_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+    return row, conv_row
 
 
 def fused_bias_act_checks(torch, timer, card):
@@ -1095,17 +1150,22 @@ def capture_attention_calls(torch, model, x):
 
 
 def attention_checks(torch, bf16_calls, f32_calls, timer, card):
-    """The kernel against its plain version at the 12 path calls of a
-    bucket-64 forward (bf16, the preset; float32, the float32-compute
-    variant) and on an odd sweep; times summed over the bf16 forward's 12
-    calls beside the bound and SDPA on the same tensors."""
+    """The kernels against their plain version at the 12 path calls of a
+    bucket-64 forward (bf16, the preset, through the tensor-core arm;
+    float32, the float32-compute variant, through the CUDA-core arm) and on
+    an odd sweep; each arm timed summed over its forward's 12 calls beside
+    its bound and SDPA on the same tensors. The bf16 arm's earlier kernel
+    (the CUDA-core kernel on bf16 inputs, which the wrapper no longer
+    picks) is timed beside it. Returns the two rows."""
     import torch.nn.functional as F
 
     from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
 
     err = 0.0
     with torch.inference_mode():
         for dtype, calls in (("bf16", bf16_calls), ("f32", f32_calls)):
+            before = kernels.launch_counts()
             for i, (q, k, v) in enumerate(calls):
                 got, want = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
                 what = f"flash_attention path call {i} {dtype} {tuple(q.shape)} strides {q.stride()}"
@@ -1115,9 +1175,12 @@ def attention_checks(torch, bf16_calls, f32_calls, timer, card):
                 else:
                     check_bf16_step(torch, got, want, attention_atol(v), what)
                 err = max(err, (got.float() - want.float()).abs().max().item())
-        log(f"flash_attention: {len(bf16_calls)} bf16 and {len(f32_calls)} float32 path calls held against the "
-            f"plain version (float32 rtol {TOL_ATTN_RTOL} atol {TOL_ATTN_ATOL}·max(1, max|v|); bf16 one bf16 step "
-            f"beyond that), "
+            tc = kernels.launch_counts()["flash_attention_tc"] - before["flash_attention_tc"]
+            check(tc == (len(calls) if dtype == "bf16" else 0),
+                  f"flash_attention: {tc} of the {len(calls)} {dtype} path calls took the tensor-core arm")
+        log(f"flash_attention: {len(bf16_calls)} bf16 path calls (all through the tensor-core arm) and "
+            f"{len(f32_calls)} float32 path calls (the CUDA-core arm) held against the plain version (float32 "
+            f"rtol {TOL_ATTN_RTOL} atol {TOL_ATTN_ATOL}·max(1, max|v|); bf16 one bf16 step beyond that), "
             f"max|err| {err:.3g}")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
         sweep = [(2, 196, 6, 64, True), (3, 1, 2, 64, False), (1, 1, 1, 64, True), (2, 197, 6, 64, False),
@@ -1141,25 +1204,35 @@ def attention_checks(torch, bf16_calls, f32_calls, timer, card):
                     err = max(err, (got.float() - want.float()).abs().max().item())
                     n += 1
         log(f"flash_attention: odd sweep (causal, T = 1, 197, 257, 300, D = 16, 32, 128, B·H = 1; strided and "
-            f"contiguous), {n} cases within tolerance")
+            f"contiguous; both arms), {n} cases within tolerance")
 
-        ms = plain = lib = nbytes = flops = 0.0
-        for q, k, v in bf16_calls:
-            ms += timer.ms(lambda: fa.flash_attention(q, k, v))
-            plain += timer.ms(lambda: fa.flash_attention_plain(q, k, v))
-            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            lib += timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            nbytes += 4 * q.numel() * q.element_size()
-            flops += attention_flops(q.shape)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"flash_attention: per bucket-{BUCKET} bf16 forward ({len(bf16_calls)} calls, {tuple(bf16_calls[0][0].shape)}): "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms; bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']} ({nbytes / 1e9:.4f} GB over 3.35 TB/s, {flops / 1e9:.2f} GFLOP over 989 TFLOP/s bf16); "
-        f"the float32 bound of the kernel's FMAs is {flops / PEAK_F32_FLOP_S * 1e3:.4f} ms at 67 TFLOP/s; "
-        f"the kernel reaches {flops / ms / 1e9:.2f} TFLOP/s [{card}]")
-    return row
+        rows = {}
+        for arm, calls, peak, peak_name in (("bf16", bf16_calls, PEAK_BF16_FLOP_S, "989 TFLOP/s bf16"),
+                                            ("f32", f32_calls, PEAK_F32_FLOP_S, "67 TFLOP/s f32")):
+            ms = plain = lib = earlier = nbytes = flops = 0.0
+            for q, k, v in calls:
+                ms += timer.ms(lambda: fa.flash_attention(q, k, v))
+                plain += timer.ms(lambda: fa.flash_attention_plain(q, k, v))
+                qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+                lib += timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                if arm == "bf16":
+                    earlier += timer.ms(lambda: fa._launch("tfdl_flash_attention", q, k, v, False))
+                nbytes += 4 * q.numel() * q.element_size()
+                flops += attention_flops(q.shape)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+            rows[arm] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations")
+            extra = ""
+            if arm == "bf16":
+                rows[arm]["earlier_ms"] = earlier
+                extra = (f", the earlier CUDA-core kernel on the same bf16 inputs {earlier:.4f} ms; the float32 bound "
+                         f"of FMAs on the CUDA cores would be {flops / PEAK_F32_FLOP_S * 1e3:.4f} ms")
+            log(f"flash_attention {arm} arm: per bucket-{BUCKET} forward ({len(calls)} calls, "
+                f"{tuple(calls[0][0].shape)} {calls[0][0].dtype}): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+                f"{lib:.4f} ms; bound {rows[arm]['bound_ms']:.4f} ms by {rows[arm]['bound_by']} ({nbytes / 1e9:.4f} GB "
+                f"over 3.35 TB/s, {flops / 1e9:.2f} GFLOP over {peak_name}); the kernel reaches "
+                f"{flops / ms / 1e9:.2f} TFLOP/s{extra} [{card}]")
+    return rows["bf16"], rows["f32"]
 
 
 def vit_plain_serve(torch, model, device, act_dtype):
@@ -1228,7 +1301,7 @@ def int8_swap_is_bitwise(torch, batches, model, device, act_dtype) -> int:
                 check(np.array_equal(out[k], bout[k]), f"int8-compute batch of {bx.shape[0]}: {k} with the plain int8 "
                       "matmul differs from the served one")
         counts = kernels.launch_counts()
-    check(counts["int8_matmul"] == 0 and counts["flash_attention"] == 12 * len(batches),
+    check(counts["int8_matmul"] == 0 and counts["flash_attention"] == counts["flash_attention_tc"] == 12 * len(batches),
           f"the plain-int8 forward launched {counts}")
     return len(batches)
 
@@ -1356,7 +1429,8 @@ def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
             ("vit-int8", model, cfg, "int8", (64,), (), TOL_VIT_BF16),
         ):
             run = serve_vit_spec(torch, m, c, spec, card, root, buckets, http, SEED + 70 + 1000 * len(runs), device)
-            per = PER_VIT_INT8_FORWARD if spec == "int8-compute" else PER_VIT_FORWARD
+            per = (PER_VIT_INT8_FORWARD if spec == "int8-compute"
+                   else PER_VIT_F32_FORWARD if c.dtype == "float32" else PER_VIT_FORWARD)
             for name, n in per.items():
                 check(run["counts"][name] == n * run["forwards"],
                       f"{key}: {name} launched {run['counts'][name]} times in {run['forwards']} forwards, "
@@ -1381,7 +1455,8 @@ def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
         bf16_calls = capture_attention_calls(torch, model, x64)
         f32_calls = capture_attention_calls(torch, model32, x64)
         check(len(bf16_calls) == len(f32_calls) == 12, f"attention calls {len(bf16_calls)}, {len(f32_calls)}")
-        rows["flash_attention"] = attention_checks(torch, bf16_calls, f32_calls, timer, card)
+        rows["flash_attention"], rows["flash_attention_f32"] = attention_checks(torch, bf16_calls, f32_calls, timer,
+                                                                                 card)
         del bf16_calls, f32_calls
 
         qmodel = runs["vit-int8-compute"]["model"]
@@ -1395,7 +1470,7 @@ def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
             for h in handles:
                 h.remove()
         check(len(int8_calls) == PER_VIT_INT8_FORWARD["int8_matmul"], f"{len(int8_calls)} int8 matmul calls")
-        rows["int8_matmul"] = int8_matmul_checks(torch, int8_calls, timer, card)
+        rows["int8_matmul"], rows["int8_matmul_conv"] = int8_matmul_checks(torch, int8_calls, timer, card)
     return paths, rows
 
 
@@ -1781,10 +1856,13 @@ def main() -> int:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"], **vit_paths}
+    def launches(name, counts):
+        return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
+
     table = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": sum(p.get(name, 0) for p in paths.values()),
-         "launches_by_path": {path: p.get(name, 0) for path, p in paths.items()}, **rows[name]}
+         "launches": sum(launches(name, p) for p in paths.values()),
+         "launches_by_path": {path: launches(name, p) for path, p in paths.items()}, **rows[name]}
         for name in SOURCES
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,10 @@
 // Softmax attention with an online softmax over K/V tiles (flash attention,
-// forward only).
+// forward only) on the CUDA cores.
+//
+// The wrapper (ops/flash_attention.py) sends float32 inputs here and
+// bfloat16 inputs to the tensor-core kernel of flash_attention_tc.cu. The
+// bfloat16 instantiation below is that kernel's predecessor: chip_smoke.py
+// times it beside the tensor-core kernel on the same inputs.
 //
 // Replaces: tensorflowdistributedlearning_tpu/ops/flash_attention.py
 //   flash_attention (kernel body _attn_kernel via _flash_forward). The TPU

@@ -3,7 +3,8 @@
 //
 // Replaces: tensorflowdistributedlearning_tpu/ops/quant_kernels.py
 //   int8_conv2d (kernel body _qconv_kernel: one pre-padded image per grid
-//   step in VMEM, shift-and-matmul over the kh*kw taps on the MXU) and
+//   step in VMEM, shift-and-matmul over the kh*kw taps on the MXU) and,
+//   for the shapes int8_gemm.cu's TMA loads cannot describe (K % 16 != 0),
 //   int8_matmul (kernel body _qmm_kernel: whole-K row blocks in VMEM). Here
 //   both are one implicit GEMM; a matmul [M,K]x[K,N] is the 1x1 conv over a
 //   [1, 1, M, K] image.

@@ -8,12 +8,18 @@ input dtype, masked scores at ``-1e30`` under ``causal``, the row sum
 floored at ``1e-30``, the output in ``q``'s dtype.
 
 Dispatch, as in ``ops/kernels.py``: a CPU tensor takes
-:func:`flash_attention_plain`; a CUDA tensor launches ``csrc/
-flash_attention.cu`` or raises, and each launch adds one to
-``kernels.LAUNCHES["flash_attention"]``. The kernel reads ``q``, ``k`` and
-``v`` in place through their strides (in the ViT they are slices of the
-qkv projection), so the three transposed copies the JAX wrapper makes are
-not made. It is forward-only: the CUDA arm raises when a gradient is
+:func:`flash_attention_plain`; a CUDA tensor launches a kernel or raises.
+The input dtype alone picks the kernel: bfloat16 goes to the tensor-core
+kernel ``csrc/flash_attention_tc.cu`` (``mma.sync`` bf16 products, float32
+softmax and sums, P split into two bf16 terms), float32 to the CUDA-core
+kernel ``csrc/flash_attention.cu``. Each launch adds one to
+``kernels.LAUNCHES["flash_attention"]``, and a tensor-core launch also to
+``["flash_attention_tc"]``. Both kernels read ``q``, ``k`` and ``v`` in
+place through their strides (in the ViT they are slices of the qkv
+projection), so the three transposed copies the JAX wrapper makes are not
+made; the tensor-core kernel copies in 16-byte pieces, and an input whose
+base or strides are not 16-byte aligned is first copied to a contiguous
+tensor. Both are forward-only: the CUDA arm raises when a gradient is
 wanted; the JAX package's backward (``_flash_bwd``, plain XLA) comes with
 ViT training.
 
@@ -79,12 +85,42 @@ def _strides(x: torch.Tensor, name: str):
     return x.stride(0), x.stride(1), x.stride(2)
 
 
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if its base and its b, t, h strides are 16-byte aligned (what
+    the tensor-core kernel's 16-byte copies need), else a contiguous copy."""
+    nbytes = x.element_size()
+    if x.data_ptr() % 16 == 0 and all((s * nbytes) % 16 == 0 for s in x.stride()[:3]) and x.stride(3) == 1:
+        return x
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+
+
+# C entry point of each arm, by input dtype; both take one argument list
+ENTRIES = {torch.bfloat16: "tfdl_flash_attention_tc", torch.float32: "tfdl_flash_attention"}
+
+
+def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """One launch of the C entry ``entry`` on checked CUDA inputs; returns
+    the output. Counts nothing: :func:`flash_attention` counts its launches."""
+    b, t, h, d = q.shape
+    strides = [s for name, x in (("q", q), ("k", k), ("v", v)) for s in _strides(x, name)]
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib, fn = kernels._entry(entry)
+    with torch.cuda.device(q.device):
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
+            b, t, h, d, *strides, int(bool(causal)), _scale(d), kernels._stream(q),
+        )
+    _build.check(lib, code, "flash_attention")
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
     """Softmax attention on ``[B, T, H, D]`` (float32 or bfloat16), float32
     math, output ``[B, T, H, D]`` contiguous in ``q``'s dtype. CPU: plain
-    version; CUDA: ``csrc/flash_attention.cu`` (head widths 16, 32, 64 and
-    128, any sequence length, inputs read through their strides), which
-    refuses inputs that need a gradient."""
+    version; CUDA: ``csrc/flash_attention_tc.cu`` for bfloat16 inputs,
+    ``csrc/flash_attention.cu`` for float32 (head widths 16, 32, 64 and 128,
+    any sequence length, inputs read through their strides), which refuse
+    inputs that need a gradient."""
     _check(q, k, v)
     if kernels._use_plain(q):
         return flash_attention_plain(q, k, v, causal=causal)
@@ -96,19 +132,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}; q, k, v must share one CUDA device")
-        if t.dtype not in (torch.float32, torch.bfloat16):
+        if t.dtype not in ENTRIES:
             raise TypeError(f"flash_attention: the kernel takes float32 or bfloat16, got {t.dtype}")
-    b, t, h, d = q.shape
+    d = q.shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: the CUDA kernel takes head widths {KERNEL_HEAD_DIMS}, got {d}")
-    strides = [s for name, x in (("q", q), ("k", k), ("v", v)) for s in _strides(x, name)]
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lib, fn = kernels._entry("tfdl_flash_attention")
-    with torch.cuda.device(q.device):
-        code = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-            b, t, h, d, *strides, int(bool(causal)), _scale(d), kernels._stream(q),
-        )
-    _build.check(lib, code, "flash_attention")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        q, k, v = (_aligned16(x) for x in (q, k, v))
+    out = _launch(ENTRIES[q.dtype], q, k, v, causal)
     kernels.LAUNCHES["flash_attention"] += 1
+    if tensor_cores:
+        kernels.LAUNCHES["flash_attention_tc"] += 1
     return out

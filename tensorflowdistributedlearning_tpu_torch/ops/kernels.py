@@ -19,7 +19,7 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   (``csrc/sigmoid_mask.cu``), bit-identical to its plain version.
 
 The int8 kernels' wrappers live in ``ops/quant_kernels.py`` and the
-attention kernel's in ``ops/flash_attention.py``; their counters and C
+attention kernels' in ``ops/flash_attention.py``; their counters and C
 entry points are registered here with the others.
 
 Dispatch: the tensor's device picks the arm and nothing else does. A CPU
@@ -39,7 +39,10 @@ import torch.nn.functional as F
 
 from tensorflowdistributedlearning_tpu_torch.ops import _build
 
-# kernel launches since the last reset_launch_counts(), by wrapper name
+# kernel launches since the last reset_launch_counts(), by wrapper name; a
+# wrapper with two kernels counts all its launches under its own name and
+# one arm's again apart (flash_attention_tc: the bf16 tensor-core arm;
+# int8_matmul_gemm: the GEMM route, the rest went through int8_conv.cu)
 LAUNCHES: Dict[str, int] = {
     "depthwise_conv2d": 0,
     "depthwise_conv2d_dx": 0,
@@ -50,7 +53,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_sigmoid_mask": 0,
     "int8_conv2d": 0,
     "int8_matmul": 0,
+    "int8_matmul_gemm": 0,
     "flash_attention": 0,
+    "flash_attention_tc": 0,
 }
 
 # activation codes shared with csrc/epilogue.cuh
@@ -71,8 +76,12 @@ _signatures = {
     "tfdl_bias_act": ("bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64, _c_int, _c_int, _c_void]),
     "tfdl_sigmoid_mask_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void]),
     "tfdl_int8_conv2d": ("int8_conv", [_c_void] * 6 + [_c_int] * 14 + [_c_void]),
+    "tfdl_int8_gemm": ("int8_gemm", [_c_void] * 6 + [_c_int] * 5 + [_c_void]),
     "tfdl_flash_attention": (
         "flash_attention", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
+    ),
+    "tfdl_flash_attention_tc": (
+        "flash_attention_tc", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
     ),
 }
 

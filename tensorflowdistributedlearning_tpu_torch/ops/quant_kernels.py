@@ -14,8 +14,11 @@ convolution through :func:`int8_conv2d`, which
    (``csrc/epilogue.cuh``, shared with :func:`ops.kernels.fused_bias_act`),
    cast to the activation dtype (bf16).
 
-:func:`int8_matmul` is the same kernel as a 1x1 conv over ``[1, 1, M, K]``;
-the ViT's Dense layers reach it through :class:`QuantLinear`.
+:func:`int8_matmul` runs ``csrc/int8_gemm.cu``, a Hopper GEMM (TMA loads,
+``wgmma`` s8.s8.s32, the same epilogue), wherever TMA can describe the
+operands (:func:`matmul_route`: K a multiple of 16); other shapes take the
+conv kernel as a 1x1 conv over ``[1, 1, M, K]``. The ViT's Dense layers
+reach it through :class:`QuantLinear`.
 
 Plain versions (``*_plain``) compute the same function as the kernel:
 exact integer accumulation (float64 sums of int8 products, exact while
@@ -26,7 +29,8 @@ round in f32); the tests hold the port to it only with a tolerance.
 
 Dispatch as in ``ops/kernels.py``: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises, and each launch adds one to
-``kernels.LAUNCHES["int8_conv2d"]`` / ``["int8_matmul"]``.
+``kernels.LAUNCHES["int8_conv2d"]`` / ``["int8_matmul"]`` (and a GEMM
+launch also to ``["int8_matmul_gemm"]``).
 
 The JAX package's ``int8_intercept`` (a flax method interceptor at trace
 time) becomes a module swap at load time: :func:`swap_int8_layers` replaces
@@ -235,6 +239,51 @@ def int8_conv2d(x, wq, w_scale, *, padding="SAME", bias=None, act: str = "none",
 
 # -- int8 matmul --------------------------------------------------------------
 
+# TMA describes a row-major int8 operand only when its rows are a multiple
+# of 16 bytes apart
+GEMM_K_MULTIPLE = 16
+
+
+def matmul_route(k: int) -> str:
+    """The kernel :func:`int8_matmul` launches for reduction width ``k``,
+    chosen from the shape before any launch: ``"gemm"`` (``csrc/
+    int8_gemm.cu``) when TMA can describe the [M, K] and [N, K] operands,
+    else ``"conv"`` (``csrc/int8_conv.cu`` as a 1x1 conv). Both give the
+    same bits."""
+    return "gemm" if k % GEMM_K_MULTIPLE == 0 else "conv"
+
+
+def _launch_gemm(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: torch.Tensor, act: str) -> None:
+    """One launch of ``csrc/int8_gemm.cu``: ``xq`` [M, K], ``wk`` [N, K]
+    (copied when its base is not 16-byte aligned), ``out`` [M, N]."""
+    kernels._require_cuda("int8_matmul", xq, wk, dtypes=(torch.int8,))
+    kernels._require_cuda_f32("int8_matmul", xs, w_scale, bias)
+    kernels._require_cuda("int8_matmul", out, dtypes=(torch.float32, torch.bfloat16))
+    if wk.data_ptr() % 16:
+        wk = wk.clone()
+    (m, k), n = xq.shape, wk.shape[0]
+    lib, fn = kernels._entry("tfdl_int8_gemm")
+    with torch.cuda.device(xq.device):
+        code = fn(
+            xq.data_ptr(), wk.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            m, n, k, kernels.ACTIVATIONS[act], int(out.dtype == torch.bfloat16), kernels._stream(xq),
+        )
+    _build.check(lib, code, "int8_matmul")
+
+
+def _launch_matmul(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: torch.Tensor, act: str) -> None:
+    """``out`` [M, N] = the int8 product of ``xq`` [M, K] and ``wk`` [N, K]
+    with the epilogue, through the kernel :func:`matmul_route` picks."""
+    (m, k), n = xq.shape, wk.shape[0]
+    if matmul_route(k) == "gemm":
+        _launch_gemm(xq, xs, wk, w_scale, bias, out, act)
+        kernels.LAUNCHES["int8_matmul_gemm"] += 1
+        kernels.LAUNCHES["int8_matmul"] += 1
+    else:
+        _launch("int8_matmul", xq.reshape(1, 1, m, k), xs, wk, w_scale, bias, out, (1, 1, m, k, n, 1, 1),
+                ((0, 0), (0, 0)), act)
+
 
 def _check_matmul(x, wq, w_scale, bias, act) -> None:
     if wq.dtype != torch.int8:
@@ -257,9 +306,9 @@ def int8_matmul_plain(x, wq, w_scale, *, bias=None, act: str = "none", out_dtype
 def int8_matmul(x, wq, w_scale, *, bias=None, act: str = "none", out_dtype=None) -> torch.Tensor:
     """Quantized-compute dense layer: ``x`` [..., K] float, ``wq`` [K, N]
     int8, ``w_scale`` [N] f32, ``bias`` [N] or None; [..., N] in
-    ``out_dtype`` (default ``x.dtype``). CPU: plain version; CUDA: the conv
-    kernel as a 1x1 conv over [1, 1, M, K], counted as ``int8_matmul`` (the
-    weight is transposed to the kernel's [N, K] per call;
+    ``out_dtype`` (default ``x.dtype``). CPU: plain version; CUDA: the
+    kernel :func:`matmul_route` picks, counted as ``int8_matmul`` (the
+    weight is transposed to the kernels' [N, K] per call;
     :class:`QuantLinear` keeps it transposed)."""
     _check_matmul(x, wq, w_scale, bias, act)
     if kernels._use_plain(x):
@@ -270,7 +319,8 @@ def int8_matmul(x, wq, w_scale, *, bias=None, act: str = "none", out_dtype=None)
 def int8_matmul_nk(x, wk, w_scale, *, bias=None, act: str = "none", out_dtype=None) -> torch.Tensor:
     """:func:`int8_matmul` with the weight in the kernel's layout ``wk``
     [N, K] (K contiguous per output feature: the layout of an
-    ``nn.Linear`` weight). CPU: plain version; CUDA: the kernel."""
+    ``nn.Linear`` weight). CPU: plain version; CUDA: the kernel
+    :func:`matmul_route` picks."""
     _check_matmul(x, wk.t(), w_scale, bias, act)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if kernels._use_plain(x):
@@ -282,8 +332,7 @@ def int8_matmul_nk(x, wk, w_scale, *, bias=None, act: str = "none", out_dtype=No
         m *= d
     xq, xs = quantize_activations(x)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    _launch("int8_matmul", xq.reshape(1, 1, m, k), xs, wk, w_scale, bias, out, (1, 1, m, k, n, 1, 1),
-            ((0, 0), (0, 0)), act)
+    _launch_matmul(xq.reshape(m, k), xs, wk, w_scale, bias, out, act)
     return out.reshape(*lead, n)
 
 

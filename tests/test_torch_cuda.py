@@ -152,6 +152,8 @@ def test_cuda_flash_attention_kernel_matches_plain(cuda_device, shape, causal, d
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tk.launch_counts()["flash_attention"] == 1 and got.dtype == dtype and got.is_contiguous()
+    # the dtype picks the arm: bf16 through the tensor cores, float32 on the CUDA cores
+    assert tk.launch_counts()["flash_attention_tc"] == int(dtype == torch.bfloat16)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
@@ -186,3 +188,43 @@ def test_cuda_quant_linear_is_bitwise_plain(cuda_device):
     torch.cuda.synchronize()
     assert tk.launch_counts()["int8_matmul"] == 1 and got.shape == (4, 196, 1152) and got.dtype == torch.bfloat16
     assert torch.equal(got, qk.int8_matmul_plain(x, wk.t(), ws, bias=bias, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_tc_copies_unaligned_inputs(cuda_device):
+    """The tensor-core kernel copies 16 bytes at a time: a view whose base is
+    not 16-byte aligned is copied first, and the result is the same."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    shape = (2, 37, 3, 64)
+    n = 2 * 37 * 3 * 64
+    buf = torch.randn(3 * n + 1, device=cuda_device, generator=g).to(torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention(*(x.clone() for x in (q, k, v)), causal=True)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention_tc"] == 2 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(12544, 384, 1152), (12544, 1536, 384), (64, 384, 1000), (300, 70, 24), (37, 33, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_int8_matmul_routes_are_bitwise_plain(cuda_device, mkn):
+    """K % 16 == 0 goes through the TMA + wgmma GEMM, other K through the
+    conv kernel; both equal the plain version bit for bit."""
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+
+    m, k, n = mkn
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=cuda_device, generator=g).to(torch.bfloat16)
+    wk = torch.randint(-127, 128, (n, k), device=cuda_device, generator=g, dtype=torch.int8)
+    ws = torch.rand(n, device=cuda_device, generator=g) * 1e-2 + 1e-3
+    bias = torch.randn(n, device=cuda_device, generator=g)
+    for act, out_dtype in (("none", torch.bfloat16), ("relu", torch.float32)):
+        got = qk.int8_matmul_nk(x, wk, ws, bias=bias, act=act, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qk.int8_matmul_plain(x, wk.t(), ws, bias=bias, act=act, out_dtype=out_dtype))
+    gemm = 2 if qk.matmul_route(k) == "gemm" else 0
+    assert tk.launch_counts()["int8_matmul"] == 2 and tk.launch_counts()["int8_matmul_gemm"] == gemm

@@ -413,3 +413,51 @@ def test_quant_conv_module_runs_the_int8_conv():
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
     jax_fn = functools.partial(jqk.int8_conv2d, out_dtype=jnp.bfloat16, interpret=True)
     assert ulps(_np(got), _np(jax_fn(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws))), "bfloat16") <= 1
+
+
+# -- the route int8_matmul takes, and the C entry points' argument lists -------------------
+
+# (M, K, N) of the ViT-S/16 int8-compute path at bucket 64: the four Dense
+# shapes of a block (qkv, proj, fc1, fc2) and the logits
+VIT_PATH_MKN = [(12544, 384, 1152), (12544, 384, 384), (12544, 384, 1536), (12544, 1536, 384), (64, 384, 1000)]
+
+
+@pytest.mark.parametrize("mkn", VIT_PATH_MKN, ids=lambda s: "x".join(map(str, s)))
+def test_vit_path_shapes_take_the_gemm(mkn):
+    assert qk.matmul_route(mkn[1]) == "gemm"
+
+
+@pytest.mark.parametrize("k", [70, 33, 5])
+def test_shapes_tma_cannot_describe_take_the_conv_kernel(k):
+    """K % 16 != 0: the [M, K] rows are not 16-byte aligned, which TMA's
+    tensor maps need; the odd sweep of the card's checks has these K."""
+    assert qk.matmul_route(k) == "conv"
+
+
+def _c_entries():
+    """``{name: (source stem, argument count)}`` of every ``extern "C" int``
+    entry point in ``csrc/*.cu``."""
+    import re
+
+    from tensorflowdistributedlearning_tpu_torch.ops import _build
+
+    entries = {}
+    for stem, path in _build.sources().items():
+        with open(path) as f:
+            text = f.read()
+        for name, args in re.findall(r'extern "C" int (tfdl_\w+)\s*\(([^)]*)\)', text):
+            entries[name] = (stem, len([a for a in args.split(",") if a.strip()]))
+    return entries
+
+
+@pytest.mark.parametrize("entry", sorted(tk._signatures))
+def test_c_entry_points_match_their_ctypes_signatures(entry):
+    """A binding with the wrong argument count would only show on the card
+    (ctypes passes what it is told): each entry's C definition has as many
+    parameters as its ``_signatures`` argtypes, in the library it names."""
+    lib, argtypes = tk._signatures[entry]
+    assert _c_entries()[entry] == (lib, len(argtypes))
+
+
+def test_every_c_entry_point_has_a_binding():
+    assert set(_c_entries()) == set(tk._signatures)
