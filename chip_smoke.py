@@ -16,7 +16,11 @@ Phases, each fatal on failure (exit 1, no result line):
              inputs and on extra sweeps. Tolerances: sigmoid-mask bitwise;
              fused BN+act rtol 1e-6, atol 1e-6 (sigmoid/gelu are libm calls
              that may differ by an ulp); depthwise atol 1e-5 (summation order
-             differs from the grouped conv). TF32 is off for convs and
+             differs from the grouped conv) and bit for bit the earlier
+             depthwise kernel, on the path's three calls and a sweep (C = 72
+             and 6, 5x5 at rate 3, 7x7, B = 1, H = W = 1, a halo too large
+             to stage), the earlier kernel timed beside it (earlier_ms).
+             TF32 is off for convs and
              matmuls. Times are medians of CUDA-event timings with the 50 MB
              L2 flushed before every launch (and a 0.1 ms device spin after
              the flush, so that the host's launch path is not timed); per
@@ -72,11 +76,12 @@ Phases, each fatal on failure (exit 1, no result line):
              forward in float32 (rtol 2e-5, atol 2e-6·max(1, max|v|): the
              JAX tolerance, its absolute part scaled to the values) and in
              bf16 (one bf16 step beyond that), and on an
-             odd sweep (causal, T = 1/197/257/300, D = 16/32/128, B·H = 1,
-             strided and contiguous); times each arm summed over its
+             odd sweep (causal and not, T = 1/63/65/196/197/257/300, D = 16
+             to 128 in steps of 16, B·H = 1, strided, contiguous and an
+             unaligned base); times each arm summed over its
              forward's 12 calls beside its bound, the plain version and
              F.scaled_dot_product_attention (a yardstick the port never
-             calls), and the bf16 arm's earlier kernel (the CUDA-core one)
+             calls), and the earlier CUDA-core kernel (flash_attention.cu)
              on the same inputs; holds the 49 int8_matmul calls of an
              int8-compute forward bitwise against the plain version (M =
              64·196 and 64) and an odd sweep (K = 70/33/5 take the conv
@@ -87,10 +92,13 @@ Phases, each fatal on failure (exit 1, no result line):
              and the output gradient) from one full-width training forward
              and backward at batch 64, and holds the dx and dw kernels
              against the plain backward there and on an odd sweep (C=72,
-             5x5, rate 3, B=1): dx atol 1e-5; dw rtol 1e-4 with atol
+             5x5, rate 3, B=1): dx atol 1e-5 and, with the forward, bit for
+             bit the earlier kernel there and on the forward's sweep; dx
+             is one launch that allocates only its output; dw rtol 1e-4 with atol
              1e-4·max|dw_plain| (each entry sums B·H·W products in another
              order); dw bitwise equal across two launches. Times as in 3,
-             summed per train step; library: aten.convolution_backward.
+             summed per train step, dx beside the earlier kernel on a
+             flipped copy; library: aten.convolution_backward.
 7. train   — writes a TGS-layout dataset from the seed (256 images of
              101x101, a third of the masks empty) and runs Trainer.train
              on the full-width model, batch 64, 2 folds of 20 steps,
@@ -164,7 +172,7 @@ SOURCES = {
     "int8_matmul": f"{PKG}/csrc/int8_gemm.cu",
     "int8_matmul_conv": f"{PKG}/csrc/int8_conv.cu",
     "flash_attention": f"{PKG}/csrc/flash_attention_tc.cu",
-    "flash_attention_f32": f"{PKG}/csrc/flash_attention.cu",
+    "flash_attention_f32": f"{PKG}/csrc/flash_attention_f32.cu",
 }
 # rows of the kernels line that are one arm of a wrapper with two kernels:
 # their launches from the wrapper's counters (all launches, one arm's apart)
@@ -302,6 +310,36 @@ def depthwise_valid_taps(h: int, w: int, k: int, rate: int) -> int:
     return per_axis(h) * per_axis(w)
 
 
+def depthwise_sweep(torch, gen):
+    """(x, w, rate) off the paths' shapes: C = 72 and C = 6 (not a multiple
+    of 4), 5x5 at rate 3, 7x7, B = 1, H = W = 1, and a rate whose halo no
+    tile can stage."""
+    cases = [((5, 17, 23, 72), 3, 2), ((3, 9, 11, 6), 3, 2), ((1, 17, 23, 72), 5, 3), ((2, 9, 7, 40), 7, 1),
+             ((1, 13, 13, 1024), 3, 4), ((2, 1, 1, 8), 3, 1), ((1, 40, 40, 256), 7, 12)]
+    for shape, k, rate in cases:
+        yield (torch.randn(*shape, device="cuda", generator=gen),
+               torch.randn(k, k, shape[-1], device="cuda", generator=gen), rate)
+
+
+def depthwise_agreement(torch, x, w, rate: int, dx: bool, what: str) -> float:
+    """The tiled depthwise kernel (forward, or dx: the flip an index) bit
+    for bit against the earlier kernel (dx on a flipped copy), and within
+    TOL_DEPTHWISE of the plain version; returns max|kernel - plain|."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    got = kernels.depthwise_conv2d_dx(x, w, rate) if dx else kernels.depthwise_conv2d_forward(x, w, rate)
+    earlier = kernels._earlier_depthwise(x, w, rate, dx)
+    want = kernels._dx_plain(x, w, rate) if dx else kernels.depthwise_conv2d_plain(x, w, rate)
+    name = "dx" if dx else "forward"
+    if not same(torch, got, earlier):
+        n = int((got != earlier).sum())
+        raise SmokeFailure(f"depthwise {name} {what}: {n} elements differ from the earlier kernel "
+                           f"(max {(got - earlier).abs().max().item()})")
+    e = (got - want).abs().max().item()
+    check(e <= TOL_DEPTHWISE, f"depthwise {name} {what}: max|err| {e} > {TOL_DEPTHWISE} against the plain version")
+    return e
+
+
 # -- phases -------------------------------------------------------------------
 
 
@@ -407,19 +445,17 @@ def kernel_phase(torch, model, timer):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
 
-    # depthwise: the path's three ASPP calls, plus one odd shape
+    # depthwise: the path's three ASPP calls, timed beside the earlier kernel,
+    # then the sweep; each bitwise the earlier kernel and within 1e-5 of plain
     err = 0.0
-    ms = plain = lib = nbytes = flops = 0.0
+    ms = plain = lib = earlier = nbytes = flops = 0.0
     with torch.inference_mode():
         for xin, w, rate in calls["dw"]:
-            got = kernels.depthwise_conv2d(xin, w, rate)
-            want = kernels.depthwise_conv2d_plain(xin, w, rate)
-            e = (got - want).abs().max().item()
-            check(e <= TOL_DEPTHWISE, f"depthwise rate {rate} {tuple(xin.shape)}: max|err| {e} > {TOL_DEPTHWISE}")
-            err = max(err, e)
+            err = max(err, depthwise_agreement(torch, xin, w, rate, False, f"serve path {tuple(xin.shape)} rate {rate}"))
             b, h, wd, c = xin.shape
             k = w.shape[0]
             ms += timer.ms(lambda: kernels.depthwise_conv2d(xin, w, rate))
+            earlier += timer.ms(lambda: kernels._earlier_depthwise(xin, w, rate, False))
             plain += timer.ms(lambda: kernels.depthwise_conv2d_plain(xin, w, rate))
             xv = xin.permute(0, 3, 1, 2)
             wt = w.permute(2, 0, 1).unsqueeze(1).contiguous()
@@ -427,13 +463,15 @@ def kernel_phase(torch, model, timer):
             lib += timer.ms(lambda: F.conv2d(xv, wt, padding=pad, dilation=rate, groups=c))
             nbytes += 4 * (2 * xin.numel() + w.numel())
             flops += 2 * b * c * depthwise_valid_taps(h, wd, k, rate)
-            log(f"depthwise {tuple(xin.shape)} rate {rate}: max|err| {e:.3g}")
-        xo = torch.randn(5, 17, 23, 72, device="cuda", generator=gen)
-        wo = torch.randn(5, 5, 72, device="cuda", generator=gen)
-        e = (kernels.depthwise_conv2d(xo, wo, 3) - kernels.depthwise_conv2d_plain(xo, wo, 3)).abs().max().item()
-        check(e <= TOL_DEPTHWISE, f"depthwise odd shape: max|err| {e}")
-        err = max(err, e)
-    rows["depthwise_conv2d"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            log(f"depthwise {tuple(xin.shape)} rate {rate}: bitwise the earlier kernel")
+        n = 0
+        for xo, wo, rate in depthwise_sweep(torch, gen):
+            err = max(err, depthwise_agreement(torch, xo, wo, rate, False, f"sweep {tuple(xo.shape)} "
+                                               f"{wo.shape[0]}x{wo.shape[1]} rate {rate}"))
+            n += 1
+    log(f"depthwise forward: {len(calls['dw'])} path calls and {n} sweep cases bitwise the earlier kernel, within "
+        f"{TOL_DEPTHWISE} of plain (max|err| {err:.3g})")
+    rows["depthwise_conv2d"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, earlier_ms=earlier,
                                     bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
 
     # BN + act: the path's 59 calls, then every act with and without a residual
@@ -1154,15 +1192,16 @@ def attention_checks(torch, bf16_calls, f32_calls, timer, card):
     bucket-64 forward (bf16, the preset, through the tensor-core arm;
     float32, the float32-compute variant, through the CUDA-core arm) and on
     an odd sweep; each arm timed summed over its forward's 12 calls beside
-    its bound and SDPA on the same tensors. The bf16 arm's earlier kernel
-    (the CUDA-core kernel on bf16 inputs, which the wrapper no longer
-    picks) is timed beside it. Returns the two rows."""
+    its bound and SDPA on the same tensors. The earlier CUDA-core kernel
+    (``flash_attention.cu``, which the wrapper no longer picks for either
+    dtype) is timed beside each arm on the same inputs. Returns the two
+    rows."""
     import torch.nn.functional as F
 
     from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
 
-    err = 0.0
+    err = {"bf16": 0.0, "f32": 0.0}  # max |kernel - plain| per arm, path and sweep
     with torch.inference_mode():
         for dtype, calls in (("bf16", bf16_calls), ("f32", f32_calls)):
             before = kernels.launch_counts()
@@ -1174,37 +1213,46 @@ def attention_checks(torch, bf16_calls, f32_calls, timer, card):
                                                msg=lambda m: f"{what}: {m}")
                 else:
                     check_bf16_step(torch, got, want, attention_atol(v), what)
-                err = max(err, (got.float() - want.float()).abs().max().item())
+                err[dtype] = max(err[dtype], (got.float() - want.float()).abs().max().item())
             tc = kernels.launch_counts()["flash_attention_tc"] - before["flash_attention_tc"]
             check(tc == (len(calls) if dtype == "bf16" else 0),
                   f"flash_attention: {tc} of the {len(calls)} {dtype} path calls took the tensor-core arm")
         log(f"flash_attention: {len(bf16_calls)} bf16 path calls (all through the tensor-core arm) and "
             f"{len(f32_calls)} float32 path calls (the CUDA-core arm) held against the plain version (float32 "
             f"rtol {TOL_ATTN_RTOL} atol {TOL_ATTN_ATOL}·max(1, max|v|); bf16 one bf16 step beyond that), "
-            f"max|err| {err:.3g}")
+            f"max|err| bf16 {err['bf16']:.3g}, float32 {err['f32']:.3g}")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
         sweep = [(2, 196, 6, 64, True), (3, 1, 2, 64, False), (1, 1, 1, 64, True), (2, 197, 6, 64, False),
                  (2, 197, 3, 64, True), (1, 300, 2, 64, False), (2, 300, 1, 64, True), (2, 196, 4, 32, False),
                  (1, 300, 2, 32, True), (2, 196, 2, 128, False), (1, 257, 2, 128, True), (1, 196, 1, 64, False),
                  (1, 300, 1, 16, True)]
+        # T around the 32-row query tiles and 16-key chunks, both maskings
+        sweep += [(2, t, 3, 64, causal) for t in (1, 63, 65, 196, 257) for causal in (False, True)]
+        # the head widths between 16 and 128 that are not powers of two
+        sweep += [(2, 150, 2, d, causal) for d in (48, 80, 96, 112) for causal in (False, True)]
         n = 0
         for b, t, h, d, causal in sweep:
             qkv = 2 * torch.randn(b, t, 3, h, d, device="cuda", generator=gen)
+            flat = 2 * torch.randn(b * t * h * d + 1, device="cuda", generator=gen)
             for dt in (torch.float32, torch.bfloat16):
                 x = qkv.to(dt)
+                unaligned = flat.to(dt)[1:].view(b, t, h, d)  # base 4 (2) bytes past 16-byte alignment
                 for q, k, v in ((x[:, :, 0], x[:, :, 1], x[:, :, 2]),
-                                tuple(x[:, :, j].contiguous() for j in range(3))):
+                                tuple(x[:, :, j].contiguous() for j in range(3)),
+                                (unaligned, x[:, :, 1], x[:, :, 2])):
                     got, want = fa.flash_attention(q, k, v, causal=causal), fa.flash_attention_plain(q, k, v, causal=causal)
-                    what = f"flash_attention sweep {(b, t, h, d)} causal={causal} {dt} contiguous={q.is_contiguous()}"
+                    what = (f"flash_attention sweep {(b, t, h, d)} causal={causal} {dt} contiguous={q.is_contiguous()} "
+                            f"base%16={q.data_ptr() % 16}")
                     if dt == torch.float32:
                         torch.testing.assert_close(got, want, rtol=TOL_ATTN_RTOL, atol=attention_atol(v),
                                                    msg=lambda m: f"{what}: {m}")
                     else:
                         check_bf16_step(torch, got, want, attention_atol(v), what)
-                    err = max(err, (got.float() - want.float()).abs().max().item())
+                    arm = "f32" if dt == torch.float32 else "bf16"
+                    err[arm] = max(err[arm], (got.float() - want.float()).abs().max().item())
                     n += 1
-        log(f"flash_attention: odd sweep (causal, T = 1, 197, 257, 300, D = 16, 32, 128, B·H = 1; strided and "
-            f"contiguous; both arms), {n} cases within tolerance")
+        log(f"flash_attention: odd sweep (causal and not; T = 1, 63, 65, 196, 197, 257, 300; D = 16 to 128 in steps "
+            f"of 16; B·H = 1; strided, contiguous and an unaligned base; both arms), {n} cases within tolerance")
 
         rows = {}
         for arm, calls, peak, peak_name in (("bf16", bf16_calls, PEAK_BF16_FLOP_S, "989 TFLOP/s bf16"),
@@ -1215,18 +1263,16 @@ def attention_checks(torch, bf16_calls, f32_calls, timer, card):
                 plain += timer.ms(lambda: fa.flash_attention_plain(q, k, v))
                 qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
                 lib += timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-                if arm == "bf16":
-                    earlier += timer.ms(lambda: fa._launch("tfdl_flash_attention", q, k, v, False))
+                # the earlier CUDA-core kernel (flash_attention.cu) on the same inputs
+                earlier += timer.ms(lambda: fa._launch("tfdl_flash_attention", q, k, v, False))
                 nbytes += 4 * q.numel() * q.element_size()
                 flops += attention_flops(q.shape)
             t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
-            rows[arm] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            rows[arm] = dict(max_abs_err=err[arm], ms=ms, plain_ms=plain, library_ms=lib, earlier_ms=earlier,
                              bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations")
-            extra = ""
+            extra = f", the earlier CUDA-core kernel (flash_attention.cu) on the same {arm} inputs {earlier:.4f} ms"
             if arm == "bf16":
-                rows[arm]["earlier_ms"] = earlier
-                extra = (f", the earlier CUDA-core kernel on the same bf16 inputs {earlier:.4f} ms; the float32 bound "
-                         f"of FMAs on the CUDA cores would be {flops / PEAK_F32_FLOP_S * 1e3:.4f} ms")
+                extra += f"; the float32 bound of FMAs on the CUDA cores would be {flops / PEAK_F32_FLOP_S * 1e3:.4f} ms"
             log(f"flash_attention {arm} arm: per bucket-{BUCKET} forward ({len(calls)} calls, "
                 f"{tuple(calls[0][0].shape)} {calls[0][0].dtype}): kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
                 f"{lib:.4f} ms; bound {rows[arm]['bound_ms']:.4f} ms by {rows[arm]['bound_by']} ({nbytes / 1e9:.4f} GB "
@@ -1541,7 +1587,30 @@ def backward_phase(torch, calls, timer, card: str):
     rows = {}
     for name in ("depthwise_conv2d_dx", "depthwise_conv2d_dw"):
         rows[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0)
+    rows["depthwise_conv2d_dx"]["earlier_ms"] = 0.0
     with torch.no_grad():
+        # dx (and the forward) bitwise the earlier kernel on the train path's
+        # calls and the sweep; dx one launch, no flip copy
+        n = 0
+        for c in calls:
+            what = f"train path {tuple(c['x'].shape)} rate {c['rate']}"
+            depthwise_agreement(torch, c["x"], c["w"], c["rate"], False, what)
+            depthwise_agreement(torch, c["g"], c["w"], c["rate"], True, what)
+        for xo, wo, rate in depthwise_sweep(torch, gen):
+            depthwise_agreement(torch, xo, wo, rate, True, f"sweep {tuple(xo.shape)} {wo.shape[0]}x{wo.shape[1]} "
+                                f"rate {rate}")
+            n += 1
+        g0, w0, r0 = calls[0]["g"], calls[0]["w"], calls[0]["rate"]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+        kernels.depthwise_conv2d_dx(g0, w0, r0)
+        torch.cuda.synchronize()
+        check(torch.cuda.memory_stats()["allocation.all.allocated"] - allocated == 1
+              and sum(kernels.launch_counts().values()) == kernels.launch_counts()["depthwise_conv2d_dx"] == 1,
+              f"dx is not one launch with its output the only allocation: {kernels.launch_counts()}")
+        log(f"depthwise: forward and dx bitwise the earlier kernel on the {len(calls)} train path calls, dx on "
+            f"{n} sweep cases; dx is one launch and allocates only its output")
         for i, c in enumerate(list(calls) + odd):
             on_path = i < len(calls)
             x, w, g, rate = c["x"], c["w"], c["g"], c["rate"]
@@ -1577,6 +1646,7 @@ def backward_phase(torch, calls, timer, card: str):
             flops = 2 * b * ch * depthwise_valid_taps(h, wd, kh, rate)
             rx, rw = rows["depthwise_conv2d_dx"], rows["depthwise_conv2d_dw"]
             rx["ms"] += timer.ms(lambda: kernels.depthwise_conv2d_dx(g, w, rate))
+            rx["earlier_ms"] += timer.ms(lambda: kernels._earlier_depthwise(g, w, rate, True))
             rx["plain_ms"] += timer.ms(lambda: kernels._dx_plain(g, w, rate))
             rx["library_ms"] += timer.ms(lambda: library([True, False, False]))
             rx["nbytes"] += 4 * (2 * g.numel() + w.numel())
@@ -1589,8 +1659,10 @@ def backward_phase(torch, calls, timer, card: str):
     for name, r in rows.items():
         nbytes, flops = r.pop("nbytes"), r.pop("flops")
         r.update(bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
+        earlier = f", earlier kernel {r['earlier_ms']:.4f} ms" if "earlier_ms" in r else ""
         log(f"{name}: {r['ms']:.4f} ms per train step at batch {TRAIN_BATCH} (plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+            f"{r['library_ms']:.4f} ms{earlier}, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB) [{card}]")
     return rows
 
 
@@ -1827,8 +1899,9 @@ def main() -> int:
         timer = Timer(torch)
         rows = kernel_phase(torch, model, timer)
         for name, r in rows.items():
+            earlier = f", earlier kernel {r['earlier_ms']:.4f} ms" if "earlier_ms" in r else ""
             log(f"{name}: {r['ms']:.4f} ms per forward at bucket {BUCKET} (plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+                f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms{earlier}, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
         served = serve_phase(torch, model, cfg, card)
         int8_counts, int8_rows = int8_phase(torch, model, cfg, card, timer)

@@ -140,13 +140,40 @@ def require_supported(config: ModelConfig) -> None:
     segmenter in float32 and the ViT classifier (``backbone="vit"``) in
     float32 or bfloat16, with or without ``use_fused_attention``; a ViT
     without ``num_classes`` raises ``ValueError`` when it is built, as the
-    JAX model does when it is applied."""
+    JAX model does when it is applied. A fused-attention ViT must have a
+    head width that the attention kernels are built for."""
     for test, what in _LATER:
         if test(config):
             raise NotImplementedError(
                 f"{what} is not ported yet; the port runs the float32 ResNet segmentation "
                 "model and the ViT classifier (see ROADMAP.md)"
             )
+    if config.backbone == "vit" and config.use_fused_attention:
+        _require_kernel_head_dim(config)
+
+
+def _require_kernel_head_dim(config: ModelConfig) -> None:
+    """A fused-attention ViT's head width must be one that every attention
+    kernel it can reach is built for (``KERNEL_HEAD_DIMS`` by input dtype):
+    a bfloat16-compute ViT feeds the bf16 kernel only; a float32-compute one
+    feeds the float32 kernel under the ``float32`` spec and the bf16 kernel
+    under ``int8-compute``, whose int8 matmuls return bf16. Refused here, at
+    the config check, and not at the first forward on the card."""
+    import torch
+
+    from tensorflowdistributedlearning_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    if config.embed_dim % config.num_heads:
+        return  # the model's build refuses this geometry with its own error
+    d = config.embed_dim // config.num_heads
+    dtypes = (torch.bfloat16,) if config.dtype == "bfloat16" else (torch.float32, torch.bfloat16)
+    allowed = sorted(set.intersection(*(set(KERNEL_HEAD_DIMS[t]) for t in dtypes)))
+    if d not in allowed:
+        raise NotImplementedError(
+            f"use_fused_attention with head width embed_dim / num_heads = {config.embed_dim} / "
+            f"{config.num_heads}: the attention kernels take head widths {allowed} (queue C 2 of "
+            "ROADMAP.md); use one of them or use_fused_attention=False"
+        )
 
 
 @dataclasses.dataclass(frozen=True)

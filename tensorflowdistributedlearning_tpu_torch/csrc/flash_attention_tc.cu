@@ -381,7 +381,8 @@ static int tfdl_ft_launch(const void* q, const void* k, const void* v,
 
 // q, k, v: bf16 [B, T, H, D] with element strides (sb, st, sh) each, d
 // contiguous, bases and strides 16-byte aligned; out: contiguous bf16
-// [B, T, H, D]; D in {16, 32, 64, 128}. The argument list is that of
+// [B, T, H, D]; D a multiple of 16 up to 128 (the k16 steps of Q.K^T and
+// the 16-wide V fragment pairs of P.V). The argument list is that of
 // tfdl_flash_attention (flash_attention.cu); `bf16` must be 1.
 extern "C" int tfdl_flash_attention_tc(const void* q, const void* k,
                                        const void* v, void* out, int bf16,
@@ -402,8 +403,16 @@ extern "C" int tfdl_flash_attention_tc(const void* q, const void* k,
       return tfdl_ft_launch<16>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
     case 32:
       return tfdl_ft_launch<32>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
+    case 48:
+      return tfdl_ft_launch<48>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
     case 64:
       return tfdl_ft_launch<64>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
+    case 80:
+      return tfdl_ft_launch<80>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
+    case 96:
+      return tfdl_ft_launch<96>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
+    case 112:
+      return tfdl_ft_launch<112>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
     case 128:
       return tfdl_ft_launch<128>(q, k, v, out, B, T, H, qs, ks, vs, causal, scale, st);
     default:

@@ -11,17 +11,20 @@ Dispatch, as in ``ops/kernels.py``: a CPU tensor takes
 :func:`flash_attention_plain`; a CUDA tensor launches a kernel or raises.
 The input dtype alone picks the kernel: bfloat16 goes to the tensor-core
 kernel ``csrc/flash_attention_tc.cu`` (``mma.sync`` bf16 products, float32
-softmax and sums, P split into two bf16 terms), float32 to the CUDA-core
-kernel ``csrc/flash_attention.cu``. Each launch adds one to
-``kernels.LAUNCHES["flash_attention"]``, and a tensor-core launch also to
-``["flash_attention_tc"]``. Both kernels read ``q``, ``k`` and ``v`` in
-place through their strides (in the ViT they are slices of the qkv
-projection), so the three transposed copies the JAX wrapper makes are not
-made; the tensor-core kernel copies in 16-byte pieces, and an input whose
+softmax and sums, P split into three bf16 terms), float32 to the CUDA-core
+kernel ``csrc/flash_attention_f32.cu`` (IEEE float32 FMAs, no TF32). Each
+launch adds one to ``kernels.LAUNCHES["flash_attention"]``, and a
+tensor-core launch also to ``["flash_attention_tc"]``. Both kernels read
+``q``, ``k`` and ``v`` in place through their strides (in the ViT they are
+slices of the qkv projection), so the three transposed copies the JAX
+wrapper makes are not made; both copy in 16-byte pieces, and an input whose
 base or strides are not 16-byte aligned is first copied to a contiguous
-tensor. Both are forward-only: the CUDA arm raises when a gradient is
-wanted; the JAX package's backward (``_flash_bwd``, plain XLA) comes with
-ViT training.
+tensor. Each takes the head widths of :data:`KERNEL_HEAD_DIMS` for its
+dtype and raises on any other (``config.require_supported`` refuses such a
+fused ViT before it reaches the card). ``csrc/flash_attention.cu``, the
+earlier CUDA-core kernel, is built but no path calls it. Both are
+forward-only: the CUDA arm raises when a gradient is wanted; the JAX
+package's backward (``_flash_bwd``, plain XLA) comes with ViT training.
 
 Not carried over: ``_VMEM_KV_LIMIT_BYTES``, the TPU kernel's VMEM budget
 above which its wrapper fell back to XLA, and the ViT's ``_FUSED_MAX_SEQ``
@@ -43,8 +46,15 @@ from tensorflowdistributedlearning_tpu_torch.ops import kernels
 # the JAX package's mask value: -inf would poison a row whose every key is
 # masked (exp(-inf - -inf) = nan)
 MASK_VALUE = -1e30
-# head widths the kernel is instantiated for
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# head widths each kernel is instantiated for, by input dtype: the
+# tensor-core arm steps d by 16 (m16n8k16); the float32 arm, whose 16-byte
+# copies need d % 4 == 0, is built for the same widths, since a
+# float32-compute ViT reaches the bf16 arm too (under int8-compute).
+# config.require_supported refuses a fused ViT with any other width
+KERNEL_HEAD_DIMS = {
+    torch.bfloat16: tuple(range(16, 129, 16)),
+    torch.float32: tuple(range(16, 129, 16)),
+}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -95,7 +105,7 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
 
 
 # C entry point of each arm, by input dtype; both take one argument list
-ENTRIES = {torch.bfloat16: "tfdl_flash_attention_tc", torch.float32: "tfdl_flash_attention"}
+ENTRIES = {torch.bfloat16: "tfdl_flash_attention_tc", torch.float32: "tfdl_flash_attention_f32"}
 
 
 def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -118,9 +128,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """Softmax attention on ``[B, T, H, D]`` (float32 or bfloat16), float32
     math, output ``[B, T, H, D]`` contiguous in ``q``'s dtype. CPU: plain
     version; CUDA: ``csrc/flash_attention_tc.cu`` for bfloat16 inputs,
-    ``csrc/flash_attention.cu`` for float32 (head widths 16, 32, 64 and 128,
-    any sequence length, inputs read through their strides), which refuse
-    inputs that need a gradient."""
+    ``csrc/flash_attention_f32.cu`` for float32 (head widths of
+    :data:`KERNEL_HEAD_DIMS`, any sequence length, inputs read through their
+    strides), which refuse inputs that need a gradient."""
     _check(q, k, v)
     if kernels._use_plain(q):
         return flash_attention_plain(q, k, v, causal=causal)
@@ -135,11 +145,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         if t.dtype not in ENTRIES:
             raise TypeError(f"flash_attention: the kernel takes float32 or bfloat16, got {t.dtype}")
     d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head widths {KERNEL_HEAD_DIMS}, got {d}")
+    if d not in KERNEL_HEAD_DIMS[q.dtype]:
+        raise ValueError(
+            f"flash_attention: the {q.dtype} kernel takes head widths {KERNEL_HEAD_DIMS[q.dtype]}, got {d}"
+        )
     tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores:
-        q, k, v = (_aligned16(x) for x in (q, k, v))
+    q, k, v = (_aligned16(x) for x in (q, k, v))
     out = _launch(ENTRIES[q.dtype], q, k, v, causal)
     kernels.LAUNCHES["flash_attention"] += 1
     if tensor_cores:

@@ -6,8 +6,9 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
 
 - :func:`depthwise_conv2d` — stride-1 SAME depthwise conv with atrous rate,
   differentiable (:class:`DepthwiseConv2dFunction`, the custom VJP's
-  counterpart): forward ``csrc/depthwise.cu``; dx the same kernel on the
-  spatially flipped filter; dw ``csrc/depthwise_dw.cu``;
+  counterpart): forward ``csrc/depthwise.cu``'s tiled kernel; dx the same
+  kernel with the filter flipped in space by index; dw
+  ``csrc/depthwise_dw.cu``;
 - :func:`fused_bn_act` — inference BN + activation (+ residual)
   (``csrc/bn_act.cu``), inference-only as the TPU kernel is; with
   bfloat16 parameters (the quantized serving specs) :func:`bn_act_unfolded`
@@ -65,6 +66,7 @@ _c_void = ctypes.c_void_p
 _c_int = ctypes.c_int
 # C entry point -> (library = csrc/{library}.cu, argtypes)
 _signatures = {
+    "tfdl_depthwise_tiled_f32": ("depthwise", [_c_void] * 3 + [_c_int] * 8 + [_c_void]),
     "tfdl_depthwise_conv2d_f32": ("depthwise", [_c_void] * 3 + [_c_int] * 7 + [_c_void]),
     "tfdl_depthwise_dw_f32": (
         "depthwise_dw", [_c_void] * 4 + [_c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
@@ -79,6 +81,9 @@ _signatures = {
     "tfdl_int8_gemm": ("int8_gemm", [_c_void] * 6 + [_c_int] * 5 + [_c_void]),
     "tfdl_flash_attention": (
         "flash_attention", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
+    ),
+    "tfdl_flash_attention_f32": (
+        "flash_attention_f32", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
     ),
     "tfdl_flash_attention_tc": (
         "flash_attention_tc", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
@@ -202,16 +207,38 @@ def depthwise_conv2d_backward_plain(
     return _dx_plain(g, w, rate), _dw_plain(x, g, kh, kw, rate).to(w.dtype)
 
 
-def _launch_depthwise(x: torch.Tensor, w: torch.Tensor, rate: int, name: str) -> torch.Tensor:
+def _launch_depthwise(x: torch.Tensor, w: torch.Tensor, rate: int, flip: bool, name: str) -> torch.Tensor:
+    """One launch of ``csrc/depthwise.cu``'s tiled kernel: the conv of
+    ``x`` with ``w``, or with ``w`` flipped in space when ``flip`` (dx),
+    the flip an index in the kernel. Counts one launch under ``name``."""
     _require_cuda_f32(name, x, w)
+    b, h, wd, c = x.shape
+    kh, kw, _ = w.shape
+    out = torch.empty_like(x)
+    lib, fn = _entry("tfdl_depthwise_tiled_f32")
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, int(rate), int(flip), _stream(x))
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _earlier_depthwise(x: torch.Tensor, w: torch.Tensor, rate: int, flip: bool) -> torch.Tensor:
+    """The earlier depthwise kernel (``tfdl_depthwise_kernel`` of
+    ``csrc/depthwise.cu``), launched as the wrappers launched it before the
+    tiled kernel: dx on a flipped copy of ``w``. Kept to be timed and held
+    bit for bit beside the tiled kernel; no path calls it, and it counts
+    nothing."""
+    _require_cuda_f32("depthwise_conv2d (earlier kernel)", x, w)
+    if flip:
+        w = w.flip(0, 1).contiguous()
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
     out = torch.empty_like(x)
     lib, fn = _entry("tfdl_depthwise_conv2d_f32")
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, int(rate), _stream(x))
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    _build.check(lib, code, "depthwise_conv2d (earlier kernel)")
     return out
 
 
@@ -222,18 +249,19 @@ def depthwise_conv2d_forward(x: torch.Tensor, w: torch.Tensor, rate: int = 1) ->
     if _use_plain(x):
         with torch.no_grad():
             return depthwise_conv2d_plain(x, w, rate)
-    return _launch_depthwise(x, w, rate, "depthwise_conv2d")
+    return _launch_depthwise(x, w, rate, False, "depthwise_conv2d")
 
 
 def depthwise_conv2d_dx(g: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
-    """Input gradient: the forward kernel launched on ``w`` flipped in space
-    (exact for stride-1 SAME with symmetric padding and odd sides, which
-    ``_check_depthwise`` enforces). CPU: plain version; CUDA: the kernel."""
+    """Input gradient: the forward kernel on ``w`` flipped in space, one
+    launch with the flip as an index (exact for stride-1 SAME with symmetric
+    padding and odd sides, which ``_check_depthwise`` enforces). CPU: plain
+    version; CUDA: the kernel."""
     _check_depthwise(g, w)
     if _use_plain(g):
         with torch.no_grad():
             return _dx_plain(g, w, rate)
-    return _launch_depthwise(g, w.flip(0, 1).contiguous(), rate, "depthwise_conv2d_dx")
+    return _launch_depthwise(g, w, rate, True, "depthwise_conv2d_dx")
 
 
 def depthwise_conv2d_dw(
@@ -273,7 +301,8 @@ def depthwise_conv2d_dw(
 class DepthwiseConv2dFunction(torch.autograd.Function):
     """Autograd of the depthwise conv, the counterpart of the JAX package's
     ``jax.custom_vjp`` (``pallas_kernels.py:155-200``): the forward kernel,
-    then dx (forward kernel, flipped filter) and dw (``depthwise_dw.cu``).
+    then dx (forward kernel, filter flipped by index) and dw
+    (``depthwise_dw.cu``).
     Each arm follows its tensor's device, so CPU tensors train through the
     plain versions and CUDA tensors through the kernels."""
 

@@ -180,7 +180,10 @@ class CheckpointManager:
 
     def restore_best(self, state: TrainState) -> TrainState:
         """Load the best export's model (and step) into ``state``; falls back
-        to the latest periodic checkpoint, then leaves ``state`` as it is."""
+        to the latest periodic checkpoint, then leaves ``state`` as it is.
+        A best export holds the eval view, so a tracked EMA is set to its
+        parameters: ``state.eval_params()`` is then the export itself, and
+        after a fallback it is the checkpoint's EMA."""
         step = self.best_step()
         if step is None:
             return self.restore_latest(state)
@@ -191,6 +194,10 @@ class CheckpointManager:
             raise CheckpointStructureError(
                 f"best export at step {step} under {self.directory} does not match the model: {str(e)[:300]}"
             ) from e
+        if state.ema is not None:
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    state.ema[name].copy_(p)
         state.step = int(payload["step"])
         return state
 

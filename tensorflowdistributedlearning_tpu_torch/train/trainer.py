@@ -244,7 +244,10 @@ class Trainer:
         from tensorflowdistributedlearning_tpu_torch.train import quantize, serving
 
         state = self.restore_fold(fold)
-        weights = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        # the EMA parameters, even when the restore fell back to a periodic
+        # (live-trajectory) checkpoint; a best export already holds them
+        with state.eval_params() as eval_model:
+            weights = {k: v.detach().cpu().clone() for k, v in eval_model.state_dict().items()}
         qstate, section = quantize.quantize_state(weights, serving_dtype, self.model_config)
         model = serving.serving_model(self.model_config, qstate, section, self.device)
         serve = serving.make_serving_fn(
@@ -268,14 +271,15 @@ class Trainer:
         suffix = "serving" if serving_dtype == "float32" else f"serving-{serving_dtype}"
         directory = directory or os.path.join(self._fold_dir(fold), "export", suffix)
         state = self.restore_fold(fold)
-        return export_serving_artifact(
-            state.model,
-            self.model_config,
-            directory,
-            data_format=self.train_config.data_format,
-            metadata={"fold": fold, "step": state.step},
-            serving_dtype=serving_dtype,
-        )
+        with state.eval_params() as eval_model:
+            return export_serving_artifact(
+                eval_model,
+                self.model_config,
+                directory,
+                data_format=self.train_config.data_format,
+                metadata={"fold": fold, "step": state.step},
+                serving_dtype=serving_dtype,
+            )
 
 
 # The reference exposed this as ``class Model``.

@@ -170,9 +170,13 @@ def test_cuda_flash_attention_refuses_gradients_and_odd_head_widths(cuda_device)
     q = torch.randn(1, 8, 2, 64, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_attention(q, q, q)
-    odd = torch.randn(1, 8, 2, 24, device=cuda_device)
-    with pytest.raises(ValueError, match="head widths"):
-        fa.flash_attention(odd, odd, odd)
+    # 24 is no multiple of 16 and 144 is past 128: no kernel takes them, in either dtype
+    for d in (24, 144):
+        for dtype in (torch.float32, torch.bfloat16):
+            odd = torch.randn(1, 8, 2, d, device=cuda_device).to(dtype)
+            with pytest.raises(ValueError, match="head widths"):
+                fa.flash_attention(odd, odd, odd)
+    assert tk.launch_counts()["flash_attention"] == 0
 
 
 @pytest.mark.cuda
@@ -228,3 +232,103 @@ def test_cuda_int8_matmul_routes_are_bitwise_plain(cuda_device, mkn):
         assert torch.equal(got, qk.int8_matmul_plain(x, wk.t(), ws, bias=bias, act=act, out_dtype=out_dtype))
     gemm = 2 if qk.matmul_route(k) == "gemm" else 0
     assert tk.launch_counts()["int8_matmul"] == 2 and tk.launch_counts()["int8_matmul_gemm"] == gemm
+
+
+# -- the tiled depthwise kernel against the earlier one, bit for bit -------------------
+
+# (x shape, side, rate): the ASPP calls of the train and serve paths, then a
+# sweep: C = 72 and C = 6 (not a multiple of 4), 5x5 at rate 3, 7x7, B = 1,
+# H = W = 1, and a rate whose halo no tile can stage
+DEPTHWISE_SWEEP = [((8, 13, 13, 1024), 3, 2), ((8, 13, 13, 1024), 3, 4), ((8, 13, 13, 1024), 3, 8),
+                   ((2, 17, 23, 72), 3, 1), ((3, 9, 11, 6), 3, 2), ((1, 17, 23, 72), 5, 3), ((2, 9, 7, 40), 7, 1),
+                   ((1, 13, 13, 64), 3, 4), ((2, 1, 1, 8), 3, 1), ((1, 40, 40, 256), 7, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,rate", DEPTHWISE_SWEEP)
+@pytest.mark.parametrize("flip", [False, True], ids=["fwd", "dx"])
+def test_cuda_depthwise_tiled_kernel_is_bitwise_the_earlier_kernel(cuda_device, shape, k, rate, flip):
+    """Both sum one fmaf chain from 0 in tap order (i, j) over the taps
+    inside the image (for dx over the flipped indices), so they agree bit
+    for bit; and both stay within 1e-5 of the plain version."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + k + rate)
+    x = torch.randn(*shape, device=cuda_device, generator=g)
+    w = torch.randn(k, k, shape[-1], device=cuda_device, generator=g)
+    got = tk.depthwise_conv2d_dx(x, w, rate) if flip else tk.depthwise_conv2d_forward(x, w, rate)
+    earlier = tk._earlier_depthwise(x, w, rate, flip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, earlier)
+    want = tk._dx_plain(x, w, rate) if flip else tk.depthwise_conv2d_plain(x, w, rate)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_depthwise_dx_is_one_launch_without_a_flip_copy(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    gy = torch.randn(4, 13, 13, 256, device=cuda_device, generator=g)
+    w = torch.randn(3, 3, 256, device=cuda_device, generator=g)
+    tk.depthwise_conv2d_dx(gy, w, 2)  # built and loaded
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    dx = tk.depthwise_conv2d_dx(gy, w, 2)
+    torch.cuda.synchronize()
+    # one allocation: the output; the flip is an index in the kernel
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    assert tk.launch_counts() == {**{n: 0 for n in tk.LAUNCHES}, "depthwise_conv2d_dx": 1}
+    assert dx.shape == gy.shape
+
+
+# -- the float32 attention arm (csrc/flash_attention_f32.cu) -----------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 65, 196, 257])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_cuda_flash_attention_f32_sweep(cuda_device, t, causal):
+    """Strided views of one qkv tensor, their contiguous copies and an
+    unaligned base (copied to an aligned tensor first) against the plain
+    version at the JAX tolerance, its absolute part scaled to max|v|."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    b, h, d = 2, 3, 64
+    g = torch.Generator(device=cuda_device).manual_seed(t * 2 + causal)
+    qkv = 2 * torch.randn(b, t, 3, h, d, device=cuda_device, generator=g)
+    flat = torch.randn(b * t * h * d + 1, device=cuda_device, generator=g)
+    unaligned = flat[1:].view(b, t, h, d)
+    assert unaligned.data_ptr() % 16 != 0
+    cases = [(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]), tuple(qkv[:, :, j].contiguous() for j in range(3)),
+             (unaligned, qkv[:, :, 1], qkv[:, :, 2])]
+    for q, k, v in cases:
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        atol = 2e-6 * max(1.0, float(v.abs().max()))
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=atol)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention"] == 3 and tk.launch_counts()["flash_attention_tc"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 80, 96, 112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_newly_admitted_head_widths(cuda_device, d, dtype):
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    assert d in fa.KERNEL_HEAD_DIMS[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    qkv = torch.randn(2, 150, 3, 2, d, device=cuda_device, generator=g).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    for causal in (False, True):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        atol = 2e-6 * max(1.0, float(v.float().abs().max()))
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=atol)
+        else:  # one bf16 step beyond the float32 tolerance
+            gf, wf = got.float(), want.float()
+            step = torch.ldexp(torch.ones_like(gf), torch.frexp(torch.maximum(gf.abs(), wf.abs()))[1] - 8)
+            assert bool(((gf - wf).abs() <= step + 2e-5 * wf.abs() + atol).all())
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention"] == 2
+    assert tk.launch_counts()["flash_attention_tc"] == (2 if dtype == torch.bfloat16 else 0)

@@ -40,8 +40,9 @@ def _port(q, k, v, causal, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", [(2, 64, 2, 16), (1, 300, 1, 8), (3, 37, 2, 32), (1, 1, 1, 16)],
-                         ids=["t64", "ragged300", "odd37", "t1"])
+@pytest.mark.parametrize("shape", [(2, 64, 2, 16), (1, 300, 1, 8), (3, 37, 2, 32), (1, 1, 1, 16), (2, 40, 2, 48),
+                                   (1, 33, 2, 80)],
+                         ids=["t64", "ragged300", "odd37", "t1", "d48", "d80"])
 def test_plain_matches_jax_kernel_and_reference(causal, shape):
     b, t, h, d = shape
     q, k, v = _qkv(sum(shape) + causal, b, t, h, d)
@@ -203,8 +204,20 @@ def test_three_terms_hold_p_to_float32_precision():
 
 
 def test_dtype_picks_the_kernel():
-    """bf16 inputs go to the tensor-core kernel, float32 to the CUDA-core
-    one; both entries take one argument list."""
-    assert fa.ENTRIES == {torch.bfloat16: "tfdl_flash_attention_tc", torch.float32: "tfdl_flash_attention"}
-    assert kernels._signatures["tfdl_flash_attention_tc"][1] == kernels._signatures["tfdl_flash_attention"][1]
+    """bf16 inputs go to the tensor-core kernel, float32 to the redesigned
+    CUDA-core one; the three entries (the earlier CUDA-core kernel too) take
+    one argument list."""
+    assert fa.ENTRIES == {torch.bfloat16: "tfdl_flash_attention_tc", torch.float32: "tfdl_flash_attention_f32"}
+    for entry in ("tfdl_flash_attention_tc", "tfdl_flash_attention_f32"):
+        assert kernels._signatures[entry][1] == kernels._signatures["tfdl_flash_attention"][1]
     assert kernels._signatures["tfdl_flash_attention_tc"][0] == "flash_attention_tc"
+    assert kernels._signatures["tfdl_flash_attention_f32"][0] == "flash_attention_f32"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_widths_per_dtype_follow_each_kernels_tiling(dtype):
+    """Both kernels take d in steps of 16 up to 128: the tensor-core arm by
+    its m16n8k16 k-steps, the float32 arm the same widths, since a
+    float32-compute ViT reaches both arms."""
+    assert fa.KERNEL_HEAD_DIMS[dtype] == (16, 32, 48, 64, 80, 96, 112, 128)
+    assert set(fa.KERNEL_HEAD_DIMS) == set(fa.ENTRIES)

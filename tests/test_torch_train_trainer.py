@@ -183,3 +183,65 @@ def test_train_cli_end_to_end(salt, tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli_main(args)
+
+
+@pytest.fixture(scope="module")
+def trained_ema(salt, tmp_path_factory):
+    """2 folds x 4 steps with an EMA of decay 0.5, then fold 0's best
+    exports removed, so its restore falls back to the latest checkpoint."""
+    import shutil
+
+    data, ids = salt
+    model_dir = str(tmp_path_factory.mktemp("model_ema"))
+    trainer = _trainer(model_dir, data, ema_decay=0.5)
+    trainer.train(ids, batch_size=4, steps=4)
+    shutil.rmtree(os.path.join(model_dir, "fold0", "export", "best"))
+    return trainer, model_dir
+
+
+def _forward_probs(trainer, weights, x):
+    """Eval-mode probabilities of the fold model holding ``weights`` (a full
+    ``state_dict``: parameters and BN statistics)."""
+    model = trainer._init_state().model
+    model.load_state_dict(weights, strict=True)
+    with torch.no_grad():
+        return torch.sigmoid(model.eval()(torch.from_numpy(x))).numpy()
+
+
+def test_served_fold_is_its_ema_after_a_restore_fallback(trained_ema, tmp_path):
+    """The JAX package swaps the EMA in after the restore even when it fell
+    back to a periodic checkpoint (``train/trainer.py:959-961`` there), and
+    ``export_serving`` goes through ``serving_fn`` (``:1023``); the port
+    serves and exports the same eval view."""
+    trainer, model_dir = trained_ema
+    ckpt = CheckpointManager(os.path.join(model_dir, "fold0"))
+    assert ckpt.best_step() is None and ckpt.latest_step() == 4
+    state = ckpt.restore_latest(trainer._init_state())
+    live = {k: v.clone() for k, v in state.model.state_dict().items()}
+    ema = {**live, **{k: v.clone() for k, v in state.ema.items()}}
+    x = np.random.default_rng(3).normal(size=(3, 32, 32, 2)).astype(np.float32)
+    want, live_probs = _forward_probs(trainer, ema, x), _forward_probs(trainer, live, x)
+    assert np.abs(want - live_probs).max() > 1e-3  # the two views are apart
+
+    served = trainer.serving_fn(0)(x)["probabilities"].cpu().numpy()
+    np.testing.assert_allclose(served, want, atol=1e-6, rtol=0)
+    manifest = trainer.export_serving(0, str(tmp_path / "art"))
+    engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device="cpu", buckets=(4,))
+    np.testing.assert_allclose(engine.infer(x)["probabilities"], want, atol=1e-6, rtol=0)
+
+
+def test_served_fold_with_a_best_export_is_that_export(trained_ema):
+    """With a best export present nothing changes: the export already holds
+    the EMA view, and the restored state's EMA is set to it."""
+    trainer, model_dir = trained_ema
+    ckpt = CheckpointManager(os.path.join(model_dir, "fold1"))
+    step = ckpt.best_step()
+    assert step is not None
+    payload = torch.load(os.path.join(model_dir, "fold1", "export", "best", str(step), "state.pt"), weights_only=True)
+    x = np.random.default_rng(4).normal(size=(2, 32, 32, 2)).astype(np.float32)
+    want = _forward_probs(trainer, payload["model"], x)
+    served = trainer.serving_fn(1)(x)["probabilities"].cpu().numpy()
+    np.testing.assert_allclose(served, want, atol=1e-6, rtol=0)
+    restored = trainer.restore_fold(1)
+    for name, p in restored.model.named_parameters():
+        assert torch.equal(restored.ema[name], p.detach())

@@ -52,9 +52,10 @@ TOL_BF16 = 0.03
 VIT_S16_PARAMS = 22_049_896
 
 
-def tiny_vit_pair(dtype="float32", fused=True, seed=0, batch=3):
-    """JAX model, perturbed flax params, the port's config, state and input."""
-    kw = dict(TINY_VIT, dtype=dtype, use_fused_attention=fused)
+def tiny_vit_pair(dtype="float32", fused=True, seed=0, batch=3, **over):
+    """JAX model, perturbed flax params, the port's config, state and input
+    (``over`` replaces fields of the tiny ViT)."""
+    kw = dict(TINY_VIT, **over, dtype=dtype, use_fused_attention=fused)
     jm = jbuild(jconfig.ModelConfig(**kw))
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(batch, 32, 32, 3)).astype(np.float32)
@@ -126,6 +127,50 @@ def test_vit_rejects_inputs_of_another_shape():
         model(torch.zeros(1, 32, 40, 3))
 
 
+# -- head widths of the fused attention (queue C 2) ---------------------------------------
+
+
+def _fused_vit(d, dtype="float32", heads=2):
+    return ModelConfig(**dict(TINY_VIT, embed_dim=d * heads, num_heads=heads), dtype=dtype, use_fused_attention=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 24, 40, 144])
+def test_fused_vit_with_a_head_width_no_kernel_takes_is_refused(dtype, d):
+    """Refused when the config is checked, naming the queue item, and not at
+    the first forward on the card; the same ViT without the fused path runs."""
+    with pytest.raises(NotImplementedError, match="queue C 2"):
+        require_supported(_fused_vit(d, dtype))
+    with pytest.raises(NotImplementedError, match="queue C 2"):
+        build_model(_fused_vit(d, dtype), "cpu")
+    require_supported(dataclasses.replace(_fused_vit(d, dtype), use_fused_attention=False))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_vit_with_head_width_48_is_accepted(dtype):
+    cfg = _fused_vit(48, dtype)
+    assert (cfg.embed_dim, cfg.num_heads) == (96, 2)
+    require_supported(cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_width_tuples_and_require_supported_agree(dtype):
+    """A fused ViT is admitted exactly when every attention kernel it can
+    reach takes its head width: a bfloat16-compute ViT reaches the bf16
+    kernel only; a float32-compute one the float32 kernel and, under
+    int8-compute (bf16 out of the int8 matmuls), the bf16 kernel."""
+    from tensorflowdistributedlearning_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    reached = (torch.bfloat16,) if dtype == "bfloat16" else (torch.float32, torch.bfloat16)
+    for d in range(4, 261, 4):
+        try:
+            require_supported(_fused_vit(d, dtype))
+            admitted = True
+        except NotImplementedError:
+            admitted = False
+        assert admitted == all(d in KERNEL_HEAD_DIMS[t] for t in reached), d
+
+
 # -- the forward against flax ----------------------------------------------------------
 
 
@@ -135,6 +180,16 @@ def test_float32_logits_match_flax(fused_jax, fused):
     want = np.asarray(pair["jm"].apply({"params": pair["params"]}, jnp.asarray(pair["x"]), train=False))
     got = _port_logits(pair)
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32, atol=TOL_F32)
+
+
+def test_head_width_48_fused_logits_match_flax(fused_jax):
+    """A newly admitted width (embed 96, 2 heads of 48): the fused path's
+    CPU forward against flax on the same converted weights."""
+    pair = tiny_vit_pair("float32", True, embed_dim=96, num_heads=2)
+    require_supported(pair["cfg"])
+    want = np.asarray(pair["jm"].apply({"params": pair["params"]}, jnp.asarray(pair["x"]), train=False))
+    got = _port_logits(pair)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32, atol=TOL_F32)
 
 
