@@ -15,7 +15,11 @@ Phases, each fatal on failure (exit 1, no result line):
              and holds each kernel against its plain PyTorch version on those
              inputs and on extra sweeps. Tolerances: sigmoid-mask bitwise;
              fused BN+act rtol 1e-6, atol 1e-6 (sigmoid/gelu are libm calls
-             that may differ by an ulp); depthwise atol 1e-5 (summation order
+             that may differ by an ulp) and bit for bit its earlier kernel
+             (one thread per element) on the 59 path calls and a sweep (every
+             act with and without a residual, C = 33, a base that is not
+             16-byte aligned), the earlier kernel timed beside it
+             (earlier_ms); depthwise atol 1e-5 (summation order
              differs from the grouped conv) and bit for bit the earlier
              depthwise kernel, on the path's three calls and a sweep (C = 72
              and 6, 5x5 at rate 3, 7x7, B = 1, H = W = 1, a halo too large
@@ -43,17 +47,24 @@ Phases, each fatal on failure (exit 1, no result line):
              forward, and the served probabilities against the plain
              int8-compute forward (1e-5);
              prints quantize-check's record against float32 (printed, not
-             asserted: the weights are random); holds each of the 52 int8
-             conv calls of a bucket-64 forward and an odd sweep against the
-             plain version bitwise, the 59 BN calls (bf16 parameters)
-             bitwise, and fused_bias_act (every act, f32 and bf16) bitwise
-             where the act is exact and to the BN+act tolerance (or one bf16
-             step) for sigmoid and gelu.
-             Times: int8 kernels alone on the quantized input, beside the
-             bound (bytes over 3.35 TB/s or int8 operations over 1979 TOPS),
-             the plain version, and library yardsticks (torch._int_mm on the
-             1x1 GEMMs, F.conv2d in float32 on the kxk shapes: torch has no
-             int8 conv).
+             asserted: the weights are random); checks that 43 of the 52 int8
+             convs (the 1x1 ones) launch the TMA + wgmma GEMM (int8_gemm.cu)
+             and the 9 k x k ones the im2col implicit GEMM (int8_conv_tc.cu);
+             holds each of the 52 int8 conv calls of a bucket-64 forward and
+             an odd sweep (every route: Cin 3 to 512, Cout 1 and 70, 1x1 to
+             7x7, explicit asymmetric pads, B = 1, 51x51 and 13x13) bitwise
+             against the plain version and the earlier kernel (int8_conv.cu
+             for every shape), the 59 BN calls (bf16 parameters) and a sweep
+             bitwise against the plain version and their earlier kernel, and
+             fused_bias_act (every act, f32 and bf16) bitwise where the act
+             is exact and to the BN+act tolerance (or one bf16 step) for
+             sigmoid and gelu.
+             Times: int8 kernels alone on the quantized input, per route,
+             beside the earlier kernel on the same inputs, the bound (bytes
+             over 3.35 TB/s or int8 operations over 1979 TOPS), the plain
+             version, and library yardsticks (torch._int_mm on the 1x1
+             GEMMs, F.conv2d in float32 on the kxk shapes: torch has no int8
+             conv).
    vit     — serves the vit_s16_imagenet preset (ViT-S/16: 224x224x3, 196
              tokens, embed 384, 6 heads of 64, 12 layers, 1000 classes, bf16
              compute, fused attention; 22 049 896 seeded random parameters,
@@ -155,6 +166,8 @@ REPLACES = {
     "fused_sigmoid_mask": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:573",
     "fused_bias_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:504",
     "int8_conv2d": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:432",
+    "int8_conv2d_gemm": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:432",
+    "int8_conv2d_conv": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:432",
     "int8_matmul": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
     "int8_matmul_conv": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
     "flash_attention": "tensorflowdistributedlearning_tpu/ops/flash_attention.py:97",
@@ -168,7 +181,9 @@ SOURCES = {
     "fused_bn_act_bf16": f"{PKG}/csrc/bn_act.cu",
     "fused_sigmoid_mask": f"{PKG}/csrc/sigmoid_mask.cu",
     "fused_bias_act": f"{PKG}/csrc/bias_act.cu",
-    "int8_conv2d": f"{PKG}/csrc/int8_conv.cu",
+    "int8_conv2d": f"{PKG}/csrc/int8_conv_tc.cu",
+    "int8_conv2d_gemm": f"{PKG}/csrc/int8_gemm.cu",
+    "int8_conv2d_conv": f"{PKG}/csrc/int8_conv.cu",
     "int8_matmul": f"{PKG}/csrc/int8_gemm.cu",
     "int8_matmul_conv": f"{PKG}/csrc/int8_conv.cu",
     "flash_attention": f"{PKG}/csrc/flash_attention_tc.cu",
@@ -177,16 +192,21 @@ SOURCES = {
 # rows of the kernels line that are one arm of a wrapper with two kernels:
 # their launches from the wrapper's counters (all launches, one arm's apart)
 ARM_LAUNCHES = {
+    "int8_conv2d": lambda c: c["int8_conv2d_tc"],
+    "int8_conv2d_gemm": lambda c: c["int8_conv2d_gemm"],
+    "int8_conv2d_conv": lambda c: c["int8_conv2d"] - c["int8_conv2d_gemm"] - c["int8_conv2d_tc"],
     "int8_matmul": lambda c: c["int8_matmul_gemm"],
     "int8_matmul_conv": lambda c: c["int8_matmul"] - c["int8_matmul_gemm"],
     "flash_attention": lambda c: c["flash_attention_tc"],
     "flash_attention_f32": lambda c: c["flash_attention"] - c["flash_attention_tc"],
 }
 # the kernels no main path calls, held directly against their plain
-# versions: fused_bias_act (the JAX package has no caller of it) and
-# int8_matmul's conv route (the path's K are all multiples of 16)
-OFF_PATH = ("fused_bias_act", "int8_matmul_conv")
-_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_matmul": 0, "int8_matmul_gemm": 0,
+# versions: fused_bias_act (the JAX package has no caller of it),
+# int8_matmul's conv route (the path's K are all multiples of 16) and
+# int8_conv2d's (every path conv has Cin a multiple of 32)
+OFF_PATH = ("fused_bias_act", "int8_matmul_conv", "int8_conv2d_conv")
+_NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_conv2d_gemm": 0,
+             "int8_conv2d_tc": 0, "int8_matmul": 0, "int8_matmul_gemm": 0,
              "flash_attention": 0, "flash_attention_tc": 0}
 PER_FORWARD = {"depthwise_conv2d": 3, "fused_bn_act": 59, "fused_sigmoid_mask": 1}
 # launches per training step, and per eval-mode forward of the trainer
@@ -195,15 +215,19 @@ PER_TRAIN_STEP = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 3, "depthwise_co
 PER_EVAL_FORWARD = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
                     "fused_bn_act": 59, "fused_sigmoid_mask": 0, **_NO_QUANT}
 # launches per int8-compute serve forward of the full-width model: every one
-# of its 63 convs that the int8 rule takes (52); every BN with bf16 parameters
-PER_INT8_FORWARD = {"int8_conv2d": 52, "depthwise_conv2d": 3, "fused_bn_act": 0, "fused_bn_act_bf16": 59,
+# of its 63 convs that the int8 rule takes (52: the 43 1x1 ones through the
+# GEMM, the 9 k x k ones through the im2col kernel); every BN with bf16
+# parameters
+PER_INT8_FORWARD = {"int8_conv2d": 52, "int8_conv2d_gemm": 43, "int8_conv2d_tc": 9, "depthwise_conv2d": 3,
+                    "fused_bn_act": 0, "fused_bn_act_bf16": 59,
                     "fused_sigmoid_mask": 1, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
                     "fused_bias_act": 0, "int8_matmul": 0, "int8_matmul_gemm": 0, "flash_attention": 0,
                     "flash_attention_tc": 0}
 VIT_MLP = (64 * 196, 384, 1536)  # ViT-S/16 MLP at batch 64 (196 patch tokens, no cls): M, K width, N hidden
 VIT_PRESET = "vit_s16_imagenet"
 _NO_SEGMENTER = {"depthwise_conv2d": 0, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0, "fused_bn_act": 0,
-                 "fused_bn_act_bf16": 0, "fused_bias_act": 0, "fused_sigmoid_mask": 0, "int8_conv2d": 0}
+                 "fused_bn_act_bf16": 0, "fused_bias_act": 0, "fused_sigmoid_mask": 0, "int8_conv2d": 0,
+                 "int8_conv2d_gemm": 0, "int8_conv2d_tc": 0}
 # launches per ViT-S/16 serve forward: one attention kernel per block (the
 # tensor-core arm in bf16 compute, the CUDA-core arm in float32 compute),
 # and under int8-compute one int8 matmul per Dense (4 per block and the
@@ -433,7 +457,26 @@ def capture_path_calls(torch, model, x):
     return calls, logits
 
 
-def kernel_phase(torch, model, timer):
+def bn_sweep(torch, path_shapes, gen, dtype: str):
+    """BN + act sweep inputs ``(x, (scale, bias, mean, var), residual)``:
+    the largest and smallest path shapes, C = 33 with an odd total (the
+    row kernels' scalar arm), and a 13x13x256 view whose base is one
+    element past a 16-byte boundary (the scalar arm for an unaligned base); ``x``
+    in ``dtype`` (float32 or bfloat16), times 3."""
+    shapes = sorted(set(path_shapes), key=lambda sh: -np.prod(sh))
+    cases = []
+    for shape, offset in ((shapes[0], 0), (shapes[-1], 0), ((3, 7, 5, 33), 0), ((2, 13, 13, 256), 1)):
+        c, n = shape[-1], int(np.prod(shape))
+        flat = 3 * torch.randn(n + offset, device="cuda", generator=gen)
+        x = flat.to(getattr(torch, dtype))[offset:].view(shape)
+        res = torch.randn(n + offset, device="cuda", generator=gen)[offset:].view(shape)
+        vecs = (torch.rand(c, device="cuda", generator=gen) + 0.5, torch.randn(c, device="cuda", generator=gen),
+                torch.randn(c, device="cuda", generator=gen), torch.rand(c, device="cuda", generator=gen) + 0.5)
+        cases.append((x, vecs, res))
+    return cases
+
+
+def kernel_phase(torch, model, timer, card: str):
     import torch.nn.functional as F
 
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
@@ -474,37 +517,40 @@ def kernel_phase(torch, model, timer):
     rows["depthwise_conv2d"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, earlier_ms=earlier,
                                     bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
 
-    # BN + act: the path's 59 calls, then every act with and without a residual
+    # BN + act: the path's 59 calls, then every act with and without a
+    # residual; each bit for bit the earlier kernel, within TOL_BN of plain
     err = 0.0
-    ms = plain = nbytes = flops = 0.0
+    ms = plain = earlier = nbytes = flops = 0.0
     with torch.inference_mode():
         for xin, m, b, act, res in calls["bn"]:
             got = kernels.bn_act_folded(xin, m, b, act, res)
+            check(same(torch, got, kernels._earlier_bn_act(xin, m, b, act, res)),
+                  f"fused_bn_act path call {tuple(xin.shape)}: not bitwise the earlier kernel")
             want = kernels.bn_act_folded_plain(xin, m, b, act, res)
             torch.testing.assert_close(got, want, rtol=TOL_BN, atol=TOL_BN)
             err = max(err, (got - want).abs().max().item())
             ms += timer.ms(lambda: kernels.bn_act_folded(xin, m, b, act, res))
+            earlier += timer.ms(lambda: kernels._earlier_bn_act(xin, m, b, act, res))
             plain += timer.ms(lambda: kernels.bn_act_folded_plain(xin, m, b, act, res))
             nbytes += 4 * (2 * xin.numel() + 2 * m.numel() + (res.numel() if res is not None else 0))
             flops += 3 * xin.numel()
-        shapes = sorted({tuple(c[0].shape) for c in calls["bn"]}, key=lambda s: -np.prod(s))
-        for shape in (shapes[0], shapes[-1], (3, 7, 5, 33)):
-            c = shape[-1]
-            xs = 3 * torch.randn(shape, device="cuda", generator=gen)
-            rs = torch.randn(shape, device="cuda", generator=gen)
-            vecs = (torch.rand(c, device="cuda", generator=gen) + 0.5,
-                    torch.randn(c, device="cuda", generator=gen),
-                    torch.randn(c, device="cuda", generator=gen),
-                    torch.rand(c, device="cuda", generator=gen) + 0.5)
+        n = 0
+        for x, vecs, res in bn_sweep(torch, [tuple(c[0].shape) for c in calls["bn"]], gen, "float32"):
+            m, b = kernels.fold_bn(*vecs, 1e-3)
             for act in kernels.ACTIVATIONS:
-                for res in (None, rs):
-                    got = kernels.fused_bn_act(xs, *vecs, act=act, residual=res)
-                    want = kernels.fused_bn_act_plain(xs, *vecs, act=act, residual=res)
-                    torch.testing.assert_close(got, want, rtol=TOL_BN, atol=TOL_BN,
-                                               msg=lambda m: f"bn_act {shape} {act} res={res is not None}: {m}")
+                for r in (None, res):
+                    what = f"fused_bn_act sweep {tuple(x.shape)} {act} res={r is not None} base%16={x.data_ptr() % 16}"
+                    got = kernels.bn_act_folded(x, m, b, act, r)
+                    check(same(torch, got, kernels._earlier_bn_act(x, m, b, act, r)),
+                          f"{what}: not bitwise the earlier kernel")
+                    want = kernels.bn_act_folded_plain(x, m, b, act, r)
+                    torch.testing.assert_close(got, want, rtol=TOL_BN, atol=TOL_BN, msg=lambda e: f"{what}: {e}")
                     err = max(err, (got - want).abs().max().item())
-    log(f"fused_bn_act: {len(calls['bn'])} path calls + sweep, max|err| {err:.3g}")
-    rows["fused_bn_act"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                    n += 1
+    log(f"fused_bn_act: {len(calls['bn'])} path calls and {n} sweep cases bitwise the earlier kernel, within "
+        f"{TOL_BN} of plain (max|err| {err:.3g}); per bucket-{BUCKET} forward {ms:.4f} ms, earlier kernel "
+        f"{earlier:.4f} ms [{card}]")
+    rows["fused_bn_act"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, earlier_ms=earlier,
                                 bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
 
     # sigmoid-mask: the path's logits, then an edge sweep; bitwise
@@ -766,62 +812,108 @@ def int_mm_ms(torch, timer, a, b_t):
 
 
 def int8_conv_checks(torch, calls, timer, card):
-    """The 52 path calls of int8_conv2d: kernel against plain bitwise, times
-    summed per bucket-64 forward; then the odd sweep."""
+    """The 52 path calls of int8_conv2d: each through the route
+    ``conv_route`` picks, bitwise against the plain version and against the
+    earlier kernel (int8_conv.cu) on the same inputs; times per route summed
+    per bucket-64 forward, each beside the earlier kernel's on the same
+    calls; then the odd sweep, which meets every route and its edges.
+    Returns the rows of the three routes: ``int8_conv2d`` (k x k,
+    int8_conv_tc.cu), ``int8_conv2d_gemm`` (1x1, int8_gemm.cu) and
+    ``int8_conv2d_conv`` (int8_conv.cu, which no path call takes, timed at
+    the path's 52 calls)."""
     import torch.nn.functional as F
 
     from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
 
-    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    nbytes = ops = quant_ms = quant_bytes = lib_1x1 = lib_kxk = 0.0
+    keys = ("ms", "earlier_ms", "plain_ms", "library_ms", "nbytes", "ops", "calls")
+    acc = {route: dict.fromkeys(keys, 0.0) for route in ("tc", "gemm", "conv")}
+    forced = dict.fromkeys(keys, 0.0)  # every path call through int8_conv.cu
+    quant_ms = quant_bytes = 0.0
     with torch.inference_mode():
         for i, (x, mod) in enumerate(calls):
             wk, ws, bias, pads = mod.weight_q, mod.w_scale, mod.bias, mod.pads
             got = qk.int8_conv2d_ohwi(x, wk, ws, pads, bias=bias, out_dtype=torch.bfloat16)
             want = qk.int8_conv2d_ohwi_plain(x, wk, ws, pads, bias=bias, out_dtype=torch.bfloat16)
-            check(same(torch, got, want), f"int8_conv2d path call {i} {tuple(x.shape)} x {tuple(wk.shape)}: kernel "
-                  f"!= plain ({int((got != want).sum())} elements differ)")
+            xq, xs = qk.quantize_activations(x)
+            old = torch.empty_like(got)
+            qk._earlier_int8_conv(xq, xs, wk, ws, bias, old, pads, "none")
             cout, kh, kw, cin = wk.shape
+            route = qk.conv_route(kh, kw, cin, pads)
+            check(same(torch, got, want) and same(torch, old, want),
+                  f"int8_conv2d path call {i} {tuple(x.shape)} x {tuple(wk.shape)} ({route}): kernel != plain "
+                  f"({int((got != want).sum())} elements differ) or earlier kernel != plain "
+                  f"({int((old != want).sum())} differ)")
             b, h, w, _ = x.shape
             m = b * got.shape[1] * got.shape[2]
-            xq, xs = qk.quantize_activations(x)
             out = torch.empty_like(got)
-            dims = (b, h, w, cin, cout, kh, kw)
-            row["ms"] += timer.ms(lambda: qk._launch("int8_conv2d", xq, xs, wk, ws, bias, out, dims, pads, "none"))
-            row["plain_ms"] += timer.ms(
+            a = acc[route]
+            ms = timer.ms(lambda: qk._launch_conv(xq, xs, wk, ws, bias, out, pads, "none"))
+            a["ms"] += ms
+            earlier = timer.ms(lambda: qk._earlier_int8_conv(xq, xs, wk, ws, bias, out, pads, "none"))
+            plain = timer.ms(
                 lambda: qk._epilogue_plain(qk._conv_acc_plain(xq, wk, pads), xs, ws, bias, "none", torch.bfloat16),
                 reps=5, warmup=1,
             )
-            quant_ms += timer.ms(lambda: qk.quantize_activations(x))
-            quant_bytes += x.numel() * (x.element_size() + 1)
             if kh == kw == 1:
-                lib_1x1 += int_mm_ms(torch, timer, xq.view(m, cin), wk.view(cout, cin))
+                lib = int_mm_ms(torch, timer, xq.view(m, cin), wk.view(cout, cin))
             else:
                 (pt, pb), (pl, pr) = pads
                 xf = F.pad(x.float().permute(0, 3, 1, 2), (pl, pr, pt, pb))
                 wf = (wk.float() * ws.view(-1, 1, 1, 1)).permute(0, 3, 1, 2).contiguous()
-                lib_kxk += timer.ms(lambda: F.conv2d(xf, wf))
-            nbytes += x.numel() + wk.numel() + 2 * m * cout + 8 * cout
-            ops += 2.0 * m * cout * kh * kw * cin
-    row["library_ms"] = lib_1x1 + lib_kxk
-    row["bound_ms"], row["bound_by"] = int8_bound(nbytes, ops)
-    log(f"int8_conv2d: {len(calls)} path calls bitwise equal to the plain version; per bucket-{BUCKET} forward: "
-        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']} ({nbytes / 1e9:.4f} GB, {ops / 1e12:.4f} T int8 ops); library yardsticks: "
-        f"torch._int_mm on the 1x1 GEMMs {lib_1x1:.4f} ms + F.conv2d in float32 on the kxk shapes {lib_kxk:.4f} ms "
-        f"(torch has no int8 conv); the quantize pass before the kernel {quant_ms:.4f} ms "
-        f"({quant_bytes / 1e9:.4f} GB) [{card}]")
+                lib = timer.ms(lambda: F.conv2d(xf, wf))
+            nbytes = x.numel() + wk.numel() + 2 * m * cout + 8 * cout
+            ops = 2.0 * m * cout * kh * kw * cin
+            log(f"int8_conv2d path call {i}: {tuple(x.shape)} x {kh}x{kw}x{cout} ({route}) {ms:.4f} ms, earlier "
+                f"kernel {earlier:.4f} ms, library {lib:.4f} ms, bound {int8_bound(nbytes, ops)[0]:.4f} ms [{card}]")
+            for r in (a, forced):
+                r["earlier_ms"] += earlier
+                r["plain_ms"] += plain
+                r["library_ms"] += lib
+                r["nbytes"] += nbytes
+                r["ops"] += ops
+                r["calls"] += 1
+            quant_ms += timer.ms(lambda: qk.quantize_activations(x))
+            quant_bytes += x.numel() * (x.element_size() + 1)
+    # the conv route's row: int8_conv.cu timed at all the path's calls (the
+    # earlier kernel's time there), since the path sends it none
+    forced["ms"] = forced.pop("earlier_ms")
+    rows = {}
+    for route, name, a in (("tc", "int8_conv2d", acc["tc"]), ("gemm", "int8_conv2d_gemm", acc["gemm"]),
+                           ("conv", "int8_conv2d_conv", forced)):
+        bound, by = int8_bound(a["nbytes"], a["ops"])
+        rows[name] = dict(max_abs_err=0.0, ms=a["ms"], plain_ms=a["plain_ms"], library_ms=a["library_ms"],
+                          bound_ms=bound, bound_by=by)
+        if "earlier_ms" in a:
+            rows[name]["earlier_ms"] = a["earlier_ms"]
+        log(f"int8_conv2d route {route} ({SOURCES[name]}): {int(acc[route]['calls'])} path calls; per "
+            f"bucket-{BUCKET} forward {a['ms']:.4f} ms" + (
+                f", the earlier kernel on the same calls {a['earlier_ms']:.4f} ms" if "earlier_ms" in a
+                else f" (all {int(a['calls'])} path calls through this route)")
+            + f", plain {a['plain_ms']:.4f} ms, library {a['library_ms']:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({a['nbytes'] / 1e9:.4f} GB, {a['ops'] / 1e12:.4f} T int8 ops) [{card}]")
+    new = acc["tc"]["ms"] + acc["gemm"]["ms"]
+    log(f"int8_conv2d: {len(calls)} path calls bitwise equal to the plain version and the earlier kernel; "
+        f"per bucket-{BUCKET} forward {new:.4f} ms through the routes, the earlier kernel {forced['ms']:.4f} ms "
+        f"(1x1 {acc['gemm']['earlier_ms']:.4f} + k x k {acc['tc']['earlier_ms']:.4f}); library yardsticks "
+        f"torch._int_mm on the 1x1 GEMMs {acc['gemm']['library_ms']:.4f} ms + F.conv2d in float32 on the kxk "
+        f"shapes {acc['tc']['library_ms']:.4f} ms (torch has no int8 conv); the quantize pass before the kernel "
+        f"{quant_ms:.4f} ms ({quant_bytes / 1e9:.4f} GB) [{card}]")
 
-    # the odd sweep: Cin 3 and 5, Cout 1, 5x5, explicit pads, B=1 at 17x23,
-    # an all-zero input, a zero filter channel, a bf16 input; bf16 and f32
-    # out, with and without bias, the acts whose arithmetic is exact
+    # the odd sweep, every route and its edges: Cin 3, 5, 16, 48, 64, 96, 128,
+    # 512; Cout 1, 5, 40, 70, 72, 130; 1x1 to 7x7; explicit asymmetric pads
+    # (also on a 1x1); B = 1 at 51x51 and 17x23, 13x13; M never a multiple
+    # of 128; an all-zero input, a zero filter channel, a bf16 input; bf16
+    # and f32 out, with and without bias, the acts whose arithmetic is exact
     gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
     cases = [
         (1, 17, 23, 3, 5, 3, "SAME"), (2, 9, 7, 5, 1, 5, "SAME"), (1, 17, 23, 64, 1, 3, "SAME"),
         (3, 11, 13, 16, 70, 5, ((2, 0), (1, 3))), (2, 8, 9, 5, 6, 3, "VALID"), (1, 17, 23, 48, 40, 1, "SAME"),
-        (2, 6, 5, 32, 72, 3, ((0, 2), (3, 0))),
+        (2, 6, 5, 32, 72, 3, ((0, 2), (3, 0))), (3, 11, 13, 64, 70, 5, ((2, 0), (1, 3))),
+        (2, 13, 13, 128, 70, 3, "SAME"), (1, 51, 51, 64, 64, 3, "SAME"), (2, 13, 13, 512, 1, 3, "SAME"),
+        (1, 13, 13, 512, 256, 1, "SAME"), (1, 9, 7, 5, 24, 1, "SAME"), (2, 7, 9, 96, 33, 1, ((1, 0), (0, 2))),
+        (1, 3, 4, 64, 130, 7, "SAME"),
     ]
-    n = 0
+    n, routes = 0, {}
     with torch.inference_mode():
         for b, h, w, cin, cout, k, padding in cases:
             x = 2 * torch.randn(b, h, w, cin, device="cuda", generator=gen)
@@ -829,16 +921,27 @@ def int8_conv_checks(torch, calls, timer, card):
             wq[..., 0] = 0  # a zero filter channel
             ws = torch.rand(cout, device="cuda", generator=gen) * 1e-2 + 1e-3
             bias = torch.randn(cout, device="cuda", generator=gen)
+            pads = qk._pads_or_raise(padding, wq)
+            route = qk.conv_route(k, k, cin, pads)
+            routes[(b, h, w, cin, cout, k, str(padding))] = route
+            wk = qk._hwio_to_ohwi(wq)
             for xin in (x, torch.zeros_like(x), x.to(torch.bfloat16)):
+                xq, xs = qk.quantize_activations(xin)
                 for out_dtype, act, bb in ((torch.bfloat16, "none", None), (torch.float32, "relu", bias),
                                            (torch.bfloat16, "relu6", bias)):
                     got = qk.int8_conv2d(xin, wq, ws, padding=padding, bias=bb, act=act, out_dtype=out_dtype)
                     want = qk.int8_conv2d_plain(xin, wq, ws, padding=padding, bias=bb, act=act, out_dtype=out_dtype)
-                    check(same(torch, got, want), f"int8_conv2d sweep {(b, h, w, cin, cout, k, padding)} {act} "
-                          f"{out_dtype}: kernel != plain ({int((got != want).sum())} differ)")
+                    old = torch.empty_like(want)
+                    qk._earlier_int8_conv(xq, xs, wk, ws, bb, old, pads, act)
+                    check(same(torch, got, want) and same(torch, old, want),
+                          f"int8_conv2d sweep {(b, h, w, cin, cout, k, padding)} ({route}) {act} {out_dtype}: kernel "
+                          f"!= plain ({int((got != want).sum())} differ) or earlier kernel != plain "
+                          f"({int((old != want).sum())} differ)")
                     n += 1
-    log(f"int8_conv2d: odd sweep, {n} cases bitwise equal to the plain version")
-    return row
+    check(sorted(set(routes.values())) == ["conv", "gemm", "tc"], f"int8_conv2d sweep routes {routes}")
+    log(f"int8_conv2d: odd sweep, {n} cases bitwise equal to the plain version and the earlier kernel; routes "
+        f"{routes}")
+    return rows
 
 
 def held_close(torch, got, want, act: str, what: str) -> float:
@@ -966,29 +1069,48 @@ def fused_bias_act_checks(torch, timer, card):
 
 def bn_unfolded_checks(torch, calls, timer, card):
     """The BN calls of an int8-compute forward (bf16 parameters, flax's
-    unfolded order): kernel against plain bitwise, times summed per bucket-64
-    forward. Bytes: x in its own dtype (bf16 after an int8 conv, f32 after a
-    float conv), f32 out, the three f32 vectors; operations: subtract,
-    multiply, add per element."""
+    unfolded order): kernel against plain and against the earlier kernel
+    bitwise, times summed per bucket-64 forward beside the earlier kernel's;
+    then a sweep (every act, bf16 and f32 input, C = 33, an unaligned base),
+    bitwise the earlier kernel, and bitwise the plain version where the act
+    is exact (sigmoid and gelu within the BN+act tolerance). Bytes: x in its
+    own dtype (bf16 after an int8 conv, f32 after a float conv), f32 out, the
+    three f32 vectors; operations: subtract, multiply, add per element."""
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
 
-    ms = plain = nbytes = flops = 0.0
-    n_bf16 = 0
+    ms = plain = earlier = nbytes = flops = err = 0.0
+    n_bf16 = n = 0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 57)
     with torch.inference_mode():
         for xin, (mean, mul, bias), act in calls:
             got = kernels.bn_act_unfolded(xin, mean, mul, bias, act)
             want = kernels.bn_act_unfolded_plain(xin, mean, mul, bias, act)
             check(same(torch, got, want), f"unfolded BN+act {tuple(xin.shape)} {xin.dtype}: kernel != plain")
+            check(same(torch, got, kernels._earlier_bn_act_unfolded(xin, mean, mul, bias, act)),
+                  f"unfolded BN+act {tuple(xin.shape)} {xin.dtype}: not bitwise the earlier kernel")
             ms += timer.ms(lambda: kernels.bn_act_unfolded(xin, mean, mul, bias, act))
+            earlier += timer.ms(lambda: kernels._earlier_bn_act_unfolded(xin, mean, mul, bias, act))
             plain += timer.ms(lambda: kernels.bn_act_unfolded_plain(xin, mean, mul, bias, act))
             nbytes += xin.element_size() * xin.numel() + 4 * got.numel() + 4 * 3 * mean.numel()
             flops += 3 * xin.numel()
             n_bf16 += xin.dtype == torch.bfloat16
-    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms(nbytes, flops),
-               bound_by=bound_by(nbytes, flops))
+        shapes = [tuple(c[0].shape) for c in calls]
+        for dtype in ("bfloat16", "float32"):
+            for x, (scale, bias, mean, var), _ in bn_sweep(torch, shapes, gen, dtype):
+                vecs = kernels.unfold_bn_bf16(scale, bias, mean, var, 1e-3)
+                for act in kernels.ACTIVATIONS:
+                    what = f"fused_bn_act_bf16 sweep {tuple(x.shape)} {x.dtype} {act} base%16={x.data_ptr() % 16}"
+                    got = kernels.bn_act_unfolded(x, *vecs, act)
+                    check(same(torch, got, kernels._earlier_bn_act_unfolded(x, *vecs, act)),
+                          f"{what}: not bitwise the earlier kernel")
+                    err = max(err, held_close(torch, got, kernels.bn_act_unfolded_plain(x, *vecs, act), act, what))
+                    n += 1
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, earlier_ms=earlier,
+               bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
     log(f"fused_bn_act_bf16: {len(calls)} int8-path calls ({n_bf16} with bf16 input) bitwise equal to the plain "
-        f"version; {ms:.4f} ms per bucket-{BUCKET} forward (plain {plain:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
+        f"version and to the earlier kernel, {n} sweep cases bitwise the earlier kernel (max|err| against plain "
+        f"{err:.3g}); {ms:.4f} ms per bucket-{BUCKET} forward (earlier kernel {earlier:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {nbytes / 1e6:.1f} MB) [{card}]")
     return row
 
 
@@ -1114,7 +1236,7 @@ def int8_phase(torch, model, cfg, card: str, timer=None, device: str = "cuda"):
         check(len(calls["int8"]) == PER_INT8_FORWARD["int8_conv2d"], f"{len(calls['int8'])} int8 conv calls")
         check(len(calls["bn"]) == PER_INT8_FORWARD["fused_bn_act_bf16"], f"{len(calls['bn'])} BN calls")
         check(calls["dw"] == PER_INT8_FORWARD["depthwise_conv2d"], f"{calls['dw']} depthwise calls")
-        rows["int8_conv2d"] = int8_conv_checks(torch, calls["int8"], timer, card)
+        rows.update(int8_conv_checks(torch, calls["int8"], timer, card))
         rows["fused_bn_act_bf16"] = bn_unfolded_checks(torch, calls["bn"], timer, card)
         rows["fused_bias_act"] = fused_bias_act_checks(torch, timer, card)
     return counts, rows
@@ -1897,7 +2019,7 @@ def main() -> int:
         n_params = sum(p.numel() for p in model.parameters())
         log(f"model: full-width ResNet-v2 + DeepLabV3+, {n_params} parameters, built in {time.perf_counter() - t0:.3f} s")
         timer = Timer(torch)
-        rows = kernel_phase(torch, model, timer)
+        rows = kernel_phase(torch, model, timer, card)
         for name, r in rows.items():
             earlier = f", earlier kernel {r['earlier_ms']:.4f} ms" if "earlier_ms" in r else ""
             log(f"{name}: {r['ms']:.4f} ms per forward at bucket {BUCKET} (plain {r['plain_ms']:.4f} ms, "

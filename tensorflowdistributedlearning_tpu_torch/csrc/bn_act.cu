@@ -4,29 +4,88 @@
 //   fused_bn_act (kernel bodies _bn_act_kernel and _bn_act_res_kernel; the
 //   fold _fold_bn stays outside the kernel, in f32 torch ops on [C] vectors).
 //
-// Two entry points:
-// - tfdl_bn_act_f32: out = act(x * m[c] + b[c] (+ r)), c = index % C, for
-//   NHWC float32 x with the folded f32 vectors (float32 parameters);
-// - tfdl_bn_act_unfolded: flax's own order for bfloat16 parameters (the
-//   quantized serving specs), out = act(((x - mean[c]) * mul[c]) + bias[c])
-//   with every step rounded to bf16 when x is bf16 (flax computes in the
-//   promoted dtype of x and the bf16 statistics) and to f32 when x is f32;
-//   out is always f32 (the BN module's dtype).
+// Two entry points, each with its earlier kernel kept beside it (timed
+// against it and held to it bit for bit; no path calls the earlier ones):
+// - tfdl_bn_act_rows_f32 (earlier: tfdl_bn_act_f32): out = act(x * m[c] +
+//   b[c] (+ r)) for NHWC float32 x with the folded f32 vectors (float32
+//   parameters);
+// - tfdl_bn_act_rows_unfolded (earlier: tfdl_bn_act_unfolded): flax's own
+//   order for bfloat16 parameters (the quantized serving specs), out =
+//   act(((x - mean[c]) * mul[c]) + bias[c]) with every step rounded to bf16
+//   when x is bf16 (flax computes in the promoted dtype of x and the bf16
+//   statistics) and to f32 when x is f32; out is always f32 (the BN
+//   module's dtype).
 // act: see epilogue.cuh.
 //
 // What bounds it on an H100: memory. One read of x (and r), one f32 write
 // of out, and a handful of flops per element; the [C] vectors stay in
-// L1/L2. At the serve path's shapes the pass is bytes / 3.35 TB/s.
+// registers. At the serve path's shapes (59 calls per bucket-64 forward,
+// 51x51x128 down to 13x13x256 at batch 64) the pass is bytes / 3.35 TB/s.
 //
-// Design: one thread per element with C fastest, so a warp's loads and
-// stores are contiguous lines. Every multiply and add is rounded on its own
-// (__fmul_rn, __fadd_rn, __fsub_rn) so the kernel repeats the plain PyTorch
-// version's arithmetic exactly and is not contracted into an FMA.
+// Design: x is a [P, C] matrix of P = B*H*W pixel rows. A thread owns VEC
+// consecutive channels of one channel group (its group is its index modulo
+// C / VEC, taken once), loads its vectors once into registers, and walks
+// the pixel rows p, p + rows, ... two at a time, where rows = the launch's
+// threads / (C / VEC): no division or modulo per element. VEC = 4 takes
+// 16-byte loads and stores (8-byte loads for bf16 x); VEC = 1 (C % 4 != 0
+// or a base not 16-byte aligned: the wrapper decides from shape and
+// alignment) takes scalar ones. The launch holds as many threads as the
+// card keeps resident (SMs x threads per SM), so even the 13x13x256 calls
+// (2.77 M elements) fill every SM. Every multiply and add is rounded on its
+// own (__fmul_rn, __fadd_rn, __fsub_rn), as in the earlier kernels, so the
+// kernels repeat the plain PyTorch version's arithmetic exactly and are not
+// contracted into an FMA.
+//
+// The earlier kernels: one thread per element with C fastest, the channel
+// as a 64-bit index modulo C per element, scalar loads.
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 #include "epilogue.cuh"
+
+__device__ __forceinline__ float tfdl_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// VEC consecutive floats at p (16-byte aligned when VEC is 4)
+template <int VEC>
+__device__ __forceinline__ void tfdl_ld(const float* __restrict__ p, float (&v)[VEC]) {
+  if (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2 % VEC] = q.z;
+    v[3 % VEC] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void tfdl_st(float* __restrict__ p, const float (&v)[VEC]) {
+  if (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1 % VEC], v[2 % VEC], v[3 % VEC]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// VEC consecutive bf16 at p (8-byte aligned when VEC is 4), widened to f32
+template <int VEC>
+__device__ __forceinline__ void tfdl_ld(const __nv_bfloat16* __restrict__ p, float (&v)[VEC]) {
+  if (VEC == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    v[0] = __low2float(lo);
+    v[1 % VEC] = __high2float(lo);
+    v[2 % VEC] = __low2float(hi);
+    v[3 % VEC] = __high2float(hi);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
 
 __global__ void tfdl_bn_act_kernel(const float* __restrict__ x,
                                    const float* __restrict__ m,
@@ -43,9 +102,6 @@ __global__ void tfdl_bn_act_kernel(const float* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ float tfdl_round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <bool BF16>
 __global__ void tfdl_bn_act_unfolded_kernel(const void* __restrict__ x,
@@ -98,6 +154,166 @@ extern "C" int tfdl_bn_act_unfolded(const void* x, int x_bf16,
         <<<tfdl_blocks(total), TFDL_THREADS, 0, (cudaStream_t)stream>>>(
             x, (const float*)mean, (const float*)mul, (const float*)bias,
             (float*)out, total, C, act);
+  }
+  return (int)cudaGetLastError();
+}
+
+// -- the row kernels ----------------------------------------------------------
+
+// folded: out = act(x * m[c] + b[c] (+ r)); see the header for the walk
+template <int VEC>
+__global__ void __launch_bounds__(TFDL_THREADS)
+    tfdl_bn_act_rows_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                            const float* __restrict__ b, const float* __restrict__ r,
+                            float* __restrict__ out, int64_t P, int C, int64_t rows, int act) {
+  const int G = C / VEC;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * G) return;
+  const int c = (int)(t % G) * VEC;
+  float mv[VEC], bv[VEC];
+  tfdl_ld<VEC>(m + c, mv);
+  tfdl_ld<VEC>(b + c, bv);
+  for (int64_t p = t / G; p < P; p += 2 * rows) {
+    // two rows in flight: both loads issue before either row is computed
+    const bool two = p + rows < P;
+    float xv[2][VEC], rv[2][VEC];
+    tfdl_ld<VEC>(x + p * C + c, xv[0]);
+    if (two) tfdl_ld<VEC>(x + (p + rows) * C + c, xv[1]);
+    if (r != nullptr) {
+      tfdl_ld<VEC>(r + p * C + c, rv[0]);
+      if (two) tfdl_ld<VEC>(r + (p + rows) * C + c, rv[1]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
+      float y[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = __fadd_rn(__fmul_rn(xv[u][e], mv[e]), bv[e]);
+        if (r != nullptr) v = __fadd_rn(v, rv[u][e]);
+        y[e] = tfdl_act(v, act);
+      }
+      tfdl_st<VEC>(out + (p + u * rows) * C + c, y);
+    }
+  }
+}
+
+// unfolded: out = act(((x - mean[c]) * mul[c]) + bias[c]), each step
+// rounded to bf16 for bf16 x
+template <int VEC, typename XT>
+__global__ void __launch_bounds__(TFDL_THREADS)
+    tfdl_bn_act_rows_unfolded_kernel(const XT* __restrict__ x, const float* __restrict__ mean,
+                                     const float* __restrict__ mul, const float* __restrict__ bias,
+                                     float* __restrict__ out, int64_t P, int C, int64_t rows, int act) {
+  constexpr bool BF16 = sizeof(XT) == 2;
+  const int G = C / VEC;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * G) return;
+  const int c = (int)(t % G) * VEC;
+  float mv[VEC], kv[VEC], bv[VEC];
+  tfdl_ld<VEC>(mean + c, mv);
+  tfdl_ld<VEC>(mul + c, kv);
+  tfdl_ld<VEC>(bias + c, bv);
+  for (int64_t p = t / G; p < P; p += 2 * rows) {
+    const bool two = p + rows < P;
+    float xv[2][VEC];
+    tfdl_ld<VEC>(x + p * C + c, xv[0]);
+    if (two) tfdl_ld<VEC>(x + (p + rows) * C + c, xv[1]);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
+      float y[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = xv[u][e];
+        if (BF16) {
+          v = tfdl_round_bf16(__fsub_rn(v, mv[e]));
+          v = tfdl_round_bf16(__fmul_rn(v, kv[e]));
+          v = tfdl_round_bf16(__fadd_rn(v, bv[e]));
+        } else {
+          v = __fadd_rn(__fmul_rn(__fsub_rn(v, mv[e]), kv[e]), bv[e]);
+        }
+        y[e] = tfdl_act(v, act);
+      }
+      tfdl_st<VEC>(out + (p + u * rows) * C + c, y);
+    }
+  }
+}
+
+// Pixel rows walked at once: as many threads as the card keeps resident
+// (looked up once per device), over C / vec channel groups, at most P.
+static int tfdl_bn_rows(int64_t P, int groups, int64_t* rows) {
+  static int cached_device = -1;
+  static int64_t resident = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != cached_device) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, device);
+    if (err != cudaSuccess) return (int)err;
+    resident = (int64_t)sms * per_sm;
+    cached_device = device;
+  }
+  int64_t n = (resident + groups - 1) / groups;
+  *rows = n < 1 ? 1 : (n > P ? P : n);
+  return (int)cudaSuccess;
+}
+
+// x, r (may be null), out: f32 [P, C]; m, b: f32 [C]; vec = 1 takes the
+// 16-byte path (C % 4 == 0 and every base 16-byte aligned), 0 the scalar one
+extern "C" int tfdl_bn_act_rows_f32(const void* x, const void* m, const void* b, const void* r, void* out,
+                                    int64_t P, int C, int act, int vec, void* stream) {
+  if (P <= 0 || C <= 0) return (int)cudaSuccess;
+  if (vec && C % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int groups = vec ? C / 4 : C;
+  int64_t rows = 0;
+  const int code = tfdl_bn_rows(P, groups, &rows);
+  if (code != 0) return code;
+  const unsigned int blocks = (unsigned int)((rows * groups + TFDL_THREADS - 1) / TFDL_THREADS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    tfdl_bn_act_rows_kernel<4><<<blocks, TFDL_THREADS, 0, st>>>(
+        (const float*)x, (const float*)m, (const float*)b, (const float*)r, (float*)out, P, C, rows, act);
+  } else {
+    tfdl_bn_act_rows_kernel<1><<<blocks, TFDL_THREADS, 0, st>>>(
+        (const float*)x, (const float*)m, (const float*)b, (const float*)r, (float*)out, P, C, rows, act);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x: bf16 (x_bf16) or f32 [P, C]; mean, mul, bias: f32 [C]; out: f32
+// [P, C]; vec as for tfdl_bn_act_rows_f32
+extern "C" int tfdl_bn_act_rows_unfolded(const void* x, int x_bf16, const void* mean, const void* mul,
+                                         const void* bias, void* out, int64_t P, int C, int act, int vec,
+                                         void* stream) {
+  if (P <= 0 || C <= 0) return (int)cudaSuccess;
+  if (vec && C % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int groups = vec ? C / 4 : C;
+  int64_t rows = 0;
+  const int code = tfdl_bn_rows(P, groups, &rows);
+  if (code != 0) return code;
+  const unsigned int blocks = (unsigned int)((rows * groups + TFDL_THREADS - 1) / TFDL_THREADS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* mn = (const float*)mean;
+  const float* ml = (const float*)mul;
+  const float* bs = (const float*)bias;
+  float* o = (float*)out;
+  if (x_bf16) {
+    const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+    if (vec) {
+      tfdl_bn_act_rows_unfolded_kernel<4, __nv_bfloat16><<<blocks, TFDL_THREADS, 0, st>>>(xb, mn, ml, bs, o, P, C, rows, act);
+    } else {
+      tfdl_bn_act_rows_unfolded_kernel<1, __nv_bfloat16><<<blocks, TFDL_THREADS, 0, st>>>(xb, mn, ml, bs, o, P, C, rows, act);
+    }
+  } else {
+    const float* xf = (const float*)x;
+    if (vec) {
+      tfdl_bn_act_rows_unfolded_kernel<4, float><<<blocks, TFDL_THREADS, 0, st>>>(xf, mn, ml, bs, o, P, C, rows, act);
+    } else {
+      tfdl_bn_act_rows_unfolded_kernel<1, float><<<blocks, TFDL_THREADS, 0, st>>>(xf, mn, ml, bs, o, P, C, rows, act);
+    }
   }
   return (int)cudaGetLastError();
 }

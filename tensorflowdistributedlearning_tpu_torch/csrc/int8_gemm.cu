@@ -4,8 +4,10 @@
 // Replaces: tensorflowdistributedlearning_tpu/ops/quant_kernels.py
 //   int8_matmul (kernel body _qmm_kernel: the whole [M, K] activation and a
 //   [K, nt] weight column block in VMEM, one MXU product, the epilogue in
-//   the same grid step). int8_conv.cu keeps int8_conv2d and the matmul
-//   shapes TMA cannot describe (K % 16 != 0).
+//   the same grid step), and int8_conv2d's stride-1 1x1 convs without pads
+//   (kernel body _qconv_kernel with one tap): over NHWC rows such a conv is
+//   this GEMM, [B*H*W, Cin] x [Cout, Cin]^T. int8_conv_tc.cu takes the k x k
+//   convs; int8_conv.cu keeps the shapes TMA cannot describe (K % 16 != 0).
 //
 // Computes, for xq int8 [M, K] (the activation, already quantized per
 // tensor, its f32 scale xs on the device) and wk int8 [N, K] (the weight,
@@ -40,8 +42,9 @@
 // to device memory in 16-byte coalesced stores, because at these shapes the
 // output bytes are most of the bound. The tensor maps are encoded on the
 // host with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
-// (no -lcuda), and passed as __grid_constant__ parameters. TMA needs
-// 16-byte aligned bases and row strides: the wrapper routes K % 16 != 0 to
+// (no -lcuda), and passed as __grid_constant__ parameters; the barrier, TMA
+// and wgmma helpers are csrc/hopper.cuh. TMA needs 16-byte aligned bases
+// and row strides: the wrapper routes K % 16 != 0 to
 // int8_conv.cu before it launches.
 
 #include <cuda.h>
@@ -52,6 +55,7 @@
 
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "hopper.cuh"
 
 #define TFDL_G_WGS 2  // consumer warpgroups, 64 tile rows each
 #define TFDL_G_BM (64 * TFDL_G_WGS)
@@ -62,108 +66,6 @@
 #define TFDL_G_THREADS (TFDL_G_CONSUMERS + 32)  // the consumers + 1 producer warp
 #define TFDL_G_A_BYTES (TFDL_G_BM * TFDL_G_BK)  // A bytes per stage
 #define TFDL_G_B_BYTES (TFDL_G_BN * TFDL_G_BK)  // B bytes per stage
-
-__device__ __forceinline__ uint32_t tfdl_g_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void tfdl_mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tfdl_g_smem(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Spin until the phase of `parity` completes. A wait that never ends (a lost
-// TMA completion) traps after about 2^26 tries instead of hanging the card.
-__device__ __forceinline__ void tfdl_mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done, tries = 0;
-  do {
-    if (++tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(tfdl_g_smem(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tfdl_mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tfdl_g_smem(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void tfdl_mbar_expect_tx(uint64_t* bar,
-                                                    uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tfdl_g_smem(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// one TMA tile of a 2-D map at (inner coordinate c0, row c1) into `dst`
-__device__ __forceinline__ void tfdl_tma_load(void* dst, const CUtensorMap* map,
-                                              int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(tfdl_g_smem(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(tfdl_g_smem(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), start address in
-// 16-byte units; the tile base is 1024-byte aligned, so a k32 step is +32
-// bytes on the start address
-__device__ __forceinline__ uint64_t tfdl_desc_sw128(const void* p) {
-  const uint64_t addr = tfdl_g_smem(p);
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void tfdl_wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tfdl_wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d[64] += A (64 x 32 bytes) . B (128 x 32 bytes)^T, both from shared memory
-__device__ __forceinline__ void tfdl_wgmma_s8(int (&d)[64], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // shared memory of one block: the 1024-byte alignment slack, the ring, the
 // output staging tile (rows padded by 16 bytes) and the barriers
@@ -303,37 +205,6 @@ __global__ void __launch_bounds__(TFDL_G_THREADS, 2)
       }
     }
   }
-}
-
-typedef CUresult (*TfdlEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, or null.
-static TfdlEncodeTiled tfdl_encode_fn() {
-  static TfdlEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<TfdlEncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// [rows, K] int8, K contiguous, as box_rows x 128-byte boxes with 128-byte
-// swizzle; reads past the edges return zeros
-static bool tfdl_map_kmajor(CUtensorMap* map, TfdlEncodeTiled encode, const void* base, int rows, int K,
-                            int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {TFDL_G_BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool OUT_BF16, int ACT>

@@ -10,9 +10,10 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   kernel with the filter flipped in space by index; dw
   ``csrc/depthwise_dw.cu``;
 - :func:`fused_bn_act` — inference BN + activation (+ residual)
-  (``csrc/bn_act.cu``), inference-only as the TPU kernel is; with
-  bfloat16 parameters (the quantized serving specs) :func:`bn_act_unfolded`
-  repeats flax's own order and roundings;
+  (``csrc/bn_act.cu``'s row kernel: 16-byte loads, no division per
+  element), inference-only as the TPU kernel is; with bfloat16 parameters
+  (the quantized serving specs) :func:`bn_act_unfolded` repeats flax's own
+  order and roundings;
 - :func:`fused_bias_act` — per-channel bias + activation over the last axis
   (``csrc/bias_act.cu``), the standalone face of the epilogue that the int8
   kernels (``ops/quant_kernels.py``) share through ``csrc/epilogue.cuh``;
@@ -43,7 +44,9 @@ from tensorflowdistributedlearning_tpu_torch.ops import _build
 # kernel launches since the last reset_launch_counts(), by wrapper name; a
 # wrapper with two kernels counts all its launches under its own name and
 # one arm's again apart (flash_attention_tc: the bf16 tensor-core arm;
-# int8_matmul_gemm: the GEMM route, the rest went through int8_conv.cu)
+# int8_matmul_gemm: the GEMM route, the rest went through int8_conv.cu;
+# int8_conv2d_gemm / int8_conv2d_tc: the 1x1 convs through int8_gemm.cu and
+# the k x k convs through int8_conv_tc.cu, the rest through int8_conv.cu)
 LAUNCHES: Dict[str, int] = {
     "depthwise_conv2d": 0,
     "depthwise_conv2d_dx": 0,
@@ -53,6 +56,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_bias_act": 0,
     "fused_sigmoid_mask": 0,
     "int8_conv2d": 0,
+    "int8_conv2d_gemm": 0,
+    "int8_conv2d_tc": 0,
     "int8_matmul": 0,
     "int8_matmul_gemm": 0,
     "flash_attention": 0,
@@ -75,9 +80,14 @@ _signatures = {
     "tfdl_bn_act_unfolded": (
         "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_void],
     ),
+    "tfdl_bn_act_rows_f32": ("bn_act", [_c_void] * 5 + [ctypes.c_int64, _c_int, _c_int, _c_int, _c_void]),
+    "tfdl_bn_act_rows_unfolded": (
+        "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_int, _c_void],
+    ),
     "tfdl_bias_act": ("bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64, _c_int, _c_int, _c_void]),
     "tfdl_sigmoid_mask_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void]),
     "tfdl_int8_conv2d": ("int8_conv", [_c_void] * 6 + [_c_int] * 14 + [_c_void]),
+    "tfdl_int8_conv2d_tc": ("int8_conv_tc", [_c_void] * 6 + [_c_int] * 13 + [_c_void]),
     "tfdl_int8_gemm": ("int8_gemm", [_c_void] * 6 + [_c_int] * 5 + [_c_void]),
     "tfdl_flash_attention": (
         "flash_attention", [_c_void] * 4 + [_c_int] * 5 + [ctypes.c_int64] * 9 + [_c_int, ctypes.c_float, _c_void],
@@ -371,6 +381,21 @@ def _check_bn_act(x, m, b, act, residual) -> None:
         raise ValueError(f"residual shape {tuple(residual.shape)} != x shape {tuple(x.shape)}")
 
 
+# the row kernels' 16-byte arm: a thread's four channels are one 16-byte
+# word of every row (8 bytes of a bf16 row), so the channels come in fours
+# and every base is 16-byte aligned
+BN_VEC_CHANNELS = 4
+BN_VEC_ALIGN = 16
+
+
+def bn_act_vectorized(c: int, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether the BN + act row kernels take their 16-byte arm for ``c``
+    channels and these tensors (None entries ignored), chosen from shape
+    and alignment before the launch; else their scalar arm. Same bits
+    either way."""
+    return c % BN_VEC_CHANNELS == 0 and all(t is None or t.data_ptr() % BN_VEC_ALIGN == 0 for t in tensors)
+
+
 def bn_act_folded_plain(
     x: torch.Tensor, m: torch.Tensor, b: torch.Tensor, act: str = "relu",
     residual: Optional[torch.Tensor] = None,
@@ -401,6 +426,29 @@ def bn_act_folded(
         )
     _require_cuda_f32("fused_bn_act", x, m, b, residual)
     out = torch.empty_like(x)
+    c = x.shape[-1]
+    lib, fn = _entry("tfdl_bn_act_rows_f32")
+    r_ptr = residual.data_ptr() if residual is not None else None
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), m.data_ptr(), b.data_ptr(), r_ptr, out.data_ptr(), x.numel() // max(c, 1), c,
+            ACTIVATIONS[act], int(bn_act_vectorized(c, x, m, b, residual, out)), _stream(x),
+        )
+    _build.check(lib, code, "fused_bn_act")
+    LAUNCHES["fused_bn_act"] += 1
+    return out
+
+
+def _earlier_bn_act(
+    x: torch.Tensor, m: torch.Tensor, b: torch.Tensor, act: str = "relu", residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The earlier kernel of :func:`bn_act_folded` (``tfdl_bn_act_f32``:
+    one thread per element, the channel a 64-bit modulo). Kept to be timed
+    and held bit for bit beside the row kernel; no path calls it, and it
+    counts nothing."""
+    _check_bn_act(x, m, b, act, residual)
+    _require_cuda_f32("fused_bn_act (earlier kernel)", x, m, b, residual)
+    out = torch.empty_like(x)
     lib, fn = _entry("tfdl_bn_act_f32")
     r_ptr = residual.data_ptr() if residual is not None else None
     with torch.cuda.device(x.device):
@@ -408,8 +456,7 @@ def bn_act_folded(
             x.data_ptr(), m.data_ptr(), b.data_ptr(), r_ptr, out.data_ptr(),
             x.numel(), x.shape[-1], ACTIVATIONS[act], _stream(x),
         )
-    _build.check(lib, code, "fused_bn_act")
-    LAUNCHES["fused_bn_act"] += 1
+    _build.check(lib, code, "fused_bn_act (earlier kernel)")
     return out
 
 
@@ -478,7 +525,7 @@ def bn_act_unfolded(
 ) -> torch.Tensor:
     """Inference BN + act for bf16 parameters (:func:`unfold_bn_bf16`'s
     vectors) over NHWC ``x`` (bf16 or f32); float32 out. CPU: plain version;
-    CUDA: ``tfdl_bn_act_unfolded`` in ``csrc/bn_act.cu``, counted as
+    CUDA: ``tfdl_bn_act_rows_unfolded`` in ``csrc/bn_act.cu``, counted as
     ``fused_bn_act_bf16``."""
     _check_unfolded(x, mean, mul, bias, act)
     if _use_plain(x):
@@ -486,14 +533,37 @@ def bn_act_unfolded(
     _require_cuda("fused_bn_act_bf16", x, dtypes=(torch.float32, torch.bfloat16))
     _require_cuda_f32("fused_bn_act_bf16", mean, mul, bias)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    c = x.shape[-1]
+    lib, fn = _entry("tfdl_bn_act_rows_unfolded")
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), mean.data_ptr(), mul.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), x.numel() // max(c, 1), c, ACTIVATIONS[act],
+            int(bn_act_vectorized(c, x, mean, mul, bias, out)), _stream(x),
+        )
+    _build.check(lib, code, "fused_bn_act_bf16")
+    LAUNCHES["fused_bn_act_bf16"] += 1
+    return out
+
+
+def _earlier_bn_act_unfolded(
+    x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor, act: str = "relu"
+) -> torch.Tensor:
+    """The earlier kernel of :func:`bn_act_unfolded`
+    (``tfdl_bn_act_unfolded``: one thread per element). Kept to be timed
+    and held bit for bit beside the row kernel; no path calls it, and it
+    counts nothing."""
+    _check_unfolded(x, mean, mul, bias, act)
+    _require_cuda("fused_bn_act_bf16 (earlier kernel)", x, dtypes=(torch.float32, torch.bfloat16))
+    _require_cuda_f32("fused_bn_act_bf16 (earlier kernel)", mean, mul, bias)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     lib, fn = _entry("tfdl_bn_act_unfolded")
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), mean.data_ptr(), mul.data_ptr(), bias.data_ptr(),
             out.data_ptr(), x.numel(), x.shape[-1], ACTIVATIONS[act], _stream(x),
         )
-    _build.check(lib, code, "fused_bn_act_bf16")
-    LAUNCHES["fused_bn_act_bf16"] += 1
+    _build.check(lib, code, "fused_bn_act_bf16 (earlier kernel)")
     return out
 
 

@@ -8,8 +8,12 @@ convolution through :func:`int8_conv2d`, which
    ``scale = max|x|/127``, zero-point 0, so a bucket's zero rows stay zero
    and cannot move the scale), in PyTorch ops, as the JAX package does it in
    XLA outside its kernel;
-2. runs the convolution as int8 x int8 -> int32 (``csrc/int8_conv.cu``: an
-   implicit GEMM on the tensor cores, ``mma.sync`` s8.s8.s32);
+2. runs the convolution as int8 x int8 -> int32 on the tensor cores,
+   through the kernel :func:`conv_route` picks from the shape: a 1x1 conv
+   without pads is the GEMM ``[B*H*W, Cin] x [Cout, Cin]^T`` of
+   ``csrc/int8_gemm.cu``; a k x k conv with Cin a multiple of 32 is the
+   Hopper implicit GEMM of ``csrc/int8_conv_tc.cu`` (TMA im2col loads,
+   ``wgmma``); the rest takes ``csrc/int8_conv.cu`` (``mma.sync``);
 3. ends in the fused epilogue ``act(f32(acc) * (xs * w_scale[n]) + bias[n])``
    (``csrc/epilogue.cuh``, shared with :func:`ops.kernels.fused_bias_act`),
    cast to the activation dtype (bf16).
@@ -29,8 +33,9 @@ round in f32); the tests hold the port to it only with a tolerance.
 
 Dispatch as in ``ops/kernels.py``: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises, and each launch adds one to
-``kernels.LAUNCHES["int8_conv2d"]`` / ``["int8_matmul"]`` (and a GEMM
-launch also to ``["int8_matmul_gemm"]``).
+``kernels.LAUNCHES["int8_conv2d"]`` / ``["int8_matmul"]`` (and a launch
+of a route other than ``int8_conv.cu`` also to ``["int8_conv2d_gemm"]``,
+``["int8_conv2d_tc"]`` or ``["int8_matmul_gemm"]``).
 
 The JAX package's ``int8_intercept`` (a flax method interceptor at trace
 time) becomes a module swap at load time: :func:`swap_int8_layers` replaces
@@ -114,7 +119,8 @@ def _check_epilogue_args(n: int, w_scale, bias, act: str) -> None:
 
 def _launch(name: str, xq, xs, wk, w_scale, bias, out, dims, pads: Pads, act: str) -> None:
     """One launch of ``csrc/int8_conv.cu``: ``dims`` = (B, H, W, Cin, Cout,
-    kh, kw), ``wk`` the [Cout, kh, kw, Cin] filter."""
+    kh, kw), ``wk`` the [Cout, kh, kw, Cin] filter. Counts nothing: the
+    callers count under their own names."""
     kernels._require_cuda(name, xq, wk, dtypes=(torch.int8,))
     kernels._require_cuda_f32(name, xs, w_scale, bias)
     kernels._require_cuda(name, out, dtypes=(torch.float32, torch.bfloat16))
@@ -131,10 +137,91 @@ def _launch(name: str, xq, xs, wk, w_scale, bias, out, dims, pads: Pads, act: st
             int(out.dtype == torch.bfloat16), vec, kernels._stream(xq),
         )
     _build.check(lib, code, name)
-    kernels.LAUNCHES[name] += 1
 
 
 # -- int8 conv2d (stride-1, undilated) -----------------------------------------
+
+# int8_conv_tc.cu loads one tap's channel slice of 128, 64 or 32 bytes (a
+# wgmma swizzle row) per TMA im2col box, so Cin comes in multiples of 32;
+# the box's corners (-pad, pad - (side - 1)) are signed bytes
+TC_CIN_MULTIPLE = 32
+TC_MAX_CORNER = 127
+
+
+def conv_route(kh: int, kw: int, cin: int, pads: Pads, aligned: bool = True) -> str:
+    """The kernel :func:`int8_conv2d_ohwi` launches for a stride-1 conv
+    with a ``kh`` x ``kw`` filter over ``cin`` channels and ``pads``,
+    chosen from the shape and the operands' alignment before any launch:
+
+    - ``"gemm"`` (``csrc/int8_gemm.cu``): a 1x1 conv without pads, the
+      GEMM [B*H*W, Cin] x [Cout, Cin]^T, when TMA can describe its rows
+      (Cin a multiple of 16, bases 16-byte aligned);
+    - ``"tc"`` (``csrc/int8_conv_tc.cu``, TMA im2col + ``wgmma``): the
+      other convs with Cin a multiple of 32, aligned bases and pads the
+      im2col box can hold;
+    - ``"conv"`` (``csrc/int8_conv.cu``): the rest.
+
+    All three give the same bits."""
+    (pt, pb), (pl, pr) = pads
+    if not aligned:
+        return "conv"
+    if kh == kw == 1 and pt == pb == pl == pr == 0 and cin % GEMM_K_MULTIPLE == 0:
+        return "gemm"
+    corners = (pt, pl, pb - (kh - 1), pr - (kw - 1))
+    if cin % TC_CIN_MULTIPLE == 0 and max(abs(c) for c in corners) <= TC_MAX_CORNER:
+        return "tc"
+    return "conv"
+
+
+def _launch_tc(xq, xs, wk, w_scale, bias, out, pads: Pads, act: str) -> None:
+    """One launch of ``csrc/int8_conv_tc.cu`` on ``xq`` [B, H, W, Cin] and
+    ``wk`` [Cout, kh, kw, Cin] (both 16-byte aligned, Cin % 32 == 0)."""
+    kernels._require_cuda("int8_conv2d", xq, wk, dtypes=(torch.int8,))
+    kernels._require_cuda_f32("int8_conv2d", xs, w_scale, bias)
+    kernels._require_cuda("int8_conv2d", out, dtypes=(torch.float32, torch.bfloat16))
+    b, h, w, cin = xq.shape
+    cout, kh, kw, _ = wk.shape
+    (pt, pb), (pl, pr) = pads
+    lib, fn = kernels._entry("tfdl_int8_conv2d_tc")
+    with torch.cuda.device(xq.device):
+        code = fn(
+            xq.data_ptr(), wk.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            b, h, w, cin, cout, kh, kw, pt, pb, pl, pr, kernels.ACTIVATIONS[act],
+            int(out.dtype == torch.bfloat16), kernels._stream(xq),
+        )
+    _build.check(lib, code, "int8_conv2d")
+
+
+def _launch_conv(xq, xs, wk, w_scale, bias, out, pads: Pads, act: str) -> str:
+    """``out`` [B, Ho, Wo, Cout] = the int8 conv of ``xq`` [B, H, W, Cin]
+    with ``wk`` [Cout, kh, kw, Cin] and the epilogue, through the kernel
+    :func:`conv_route` picks; counts the launch as ``int8_conv2d`` and,
+    off ``int8_conv.cu``, as ``int8_conv2d_{route}``. Returns the route."""
+    b, h, w, cin = xq.shape
+    cout, kh, kw, _ = wk.shape
+    aligned = xq.data_ptr() % 16 == 0 and wk.data_ptr() % 16 == 0
+    route = conv_route(kh, kw, cin, pads, aligned)
+    if route == "gemm":
+        _launch_gemm(xq.view(-1, cin), xs, wk.view(cout, cin), w_scale, bias, out.view(-1, cout), act, "int8_conv2d")
+    elif route == "tc":
+        _launch_tc(xq, xs, wk, w_scale, bias, out, pads, act)
+    else:
+        _launch("int8_conv2d", xq, xs, wk, w_scale, bias, out, (b, h, w, cin, cout, kh, kw), pads, act)
+    kernels.LAUNCHES["int8_conv2d"] += 1
+    if route != "conv":
+        kernels.LAUNCHES[f"int8_conv2d_{route}"] += 1
+    return route
+
+
+def _earlier_int8_conv(xq, xs, wk, w_scale, bias, out, pads: Pads, act: str) -> None:
+    """The earlier kernel of every conv route (``tfdl_int8_conv2d`` of
+    ``csrc/int8_conv.cu``) on the same quantized operands. Kept to be timed
+    and held bit for bit beside the routes; no path calls it, and it counts
+    nothing."""
+    b, h, w, cin = xq.shape
+    cout, kh, kw, _ = wk.shape
+    _launch("int8_conv2d (earlier kernel)", xq, xs, wk, w_scale, bias, out, (b, h, w, cin, cout, kh, kw), pads, act)
 
 
 def _conv_out_hw(x: torch.Tensor, kh: int, kw: int, pads: Pads) -> Tuple[int, int]:
@@ -192,7 +279,8 @@ def int8_conv2d_ohwi(
     """The conv in the kernel's filter layout: ``x`` [B,H,W,Cin] float,
     ``wk`` [Cout, kh, kw, Cin] int8, ``w_scale`` [Cout] f32, ``pads``
     ((top, bottom), (left, right)); returns [B,Ho,Wo,Cout] in ``out_dtype``
-    (default ``x.dtype``). CPU: plain version; CUDA: ``csrc/int8_conv.cu``."""
+    (default ``x.dtype``). CPU: plain version; CUDA: the kernel
+    :func:`conv_route` picks."""
     _check_conv(x, wk, w_scale, bias, act)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if kernels._use_plain(x):
@@ -201,8 +289,7 @@ def int8_conv2d_ohwi(
     ho, wo = _conv_out_hw(x, kh, kw, pads)
     xq, xs = quantize_activations(x)
     out = torch.empty((x.shape[0], ho, wo, cout), dtype=out_dtype, device=x.device)
-    b, h, w, _ = x.shape
-    _launch("int8_conv2d", xq, xs, wk, w_scale, bias, out, (b, h, w, cin, cout, kh, kw), pads, act)
+    _launch_conv(xq, xs, wk, w_scale, bias, out, pads, act)
     return out
 
 
@@ -253,12 +340,14 @@ def matmul_route(k: int) -> str:
     return "gemm" if k % GEMM_K_MULTIPLE == 0 else "conv"
 
 
-def _launch_gemm(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: torch.Tensor, act: str) -> None:
+def _launch_gemm(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: torch.Tensor, act: str,
+                 name: str = "int8_matmul") -> None:
     """One launch of ``csrc/int8_gemm.cu``: ``xq`` [M, K], ``wk`` [N, K]
-    (copied when its base is not 16-byte aligned), ``out`` [M, N]."""
-    kernels._require_cuda("int8_matmul", xq, wk, dtypes=(torch.int8,))
-    kernels._require_cuda_f32("int8_matmul", xs, w_scale, bias)
-    kernels._require_cuda("int8_matmul", out, dtypes=(torch.float32, torch.bfloat16))
+    (copied when its base is not 16-byte aligned), ``out`` [M, N]; errors
+    name the wrapper ``name``."""
+    kernels._require_cuda(name, xq, wk, dtypes=(torch.int8,))
+    kernels._require_cuda_f32(name, xs, w_scale, bias)
+    kernels._require_cuda(name, out, dtypes=(torch.float32, torch.bfloat16))
     if wk.data_ptr() % 16:
         wk = wk.clone()
     (m, k), n = xq.shape, wk.shape[0]
@@ -269,7 +358,7 @@ def _launch_gemm(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: tor
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             m, n, k, kernels.ACTIVATIONS[act], int(out.dtype == torch.bfloat16), kernels._stream(xq),
         )
-    _build.check(lib, code, "int8_matmul")
+    _build.check(lib, code, name)
 
 
 def _launch_matmul(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: torch.Tensor, act: str) -> None:
@@ -283,6 +372,7 @@ def _launch_matmul(xq: torch.Tensor, xs, wk: torch.Tensor, w_scale, bias, out: t
     else:
         _launch("int8_matmul", xq.reshape(1, 1, m, k), xs, wk, w_scale, bias, out, (1, 1, m, k, n, 1, 1),
                 ((0, 0), (0, 0)), act)
+        kernels.LAUNCHES["int8_matmul"] += 1
 
 
 def _check_matmul(x, wq, w_scale, bias, act) -> None:

@@ -332,3 +332,108 @@ def test_cuda_flash_attention_newly_admitted_head_widths(cuda_device, d, dtype):
     torch.cuda.synchronize()
     assert tk.launch_counts()["flash_attention"] == 2
     assert tk.launch_counts()["flash_attention_tc"] == (2 if dtype == torch.bfloat16 else 0)
+
+
+# -- int8_conv2d's routes: the 1x1 GEMM, the im2col implicit GEMM, int8_conv.cu ---------
+
+# (B, H, W, Cin, Cout, side, padding): the path's shapes at a small batch and
+# a sweep of every route's edges (Cin 64/128/512 at 3x3, Cout 1 and 70, 5x5
+# with asymmetric explicit pads, B = 1, M never a multiple of 128, 51x51 and
+# 13x13, a 1x1 with Cin 48 and one with Cin 5)
+INT8_CONV_SWEEP = [
+    (2, 51, 51, 64, 128, 3, "SAME"), (2, 26, 26, 128, 512, 1, "SAME"), (2, 13, 13, 256, 256, 3, "SAME"),
+    (2, 26, 26, 512, 1, 3, "SAME"), (1, 13, 13, 2048, 512, 1, "SAME"), (2, 13, 13, 128, 70, 3, "SAME"),
+    (1, 51, 51, 64, 64, 3, "SAME"), (3, 11, 13, 64, 70, 5, ((2, 0), (1, 3))), (2, 6, 5, 32, 72, 3, ((0, 2), (3, 0))),
+    (1, 17, 23, 48, 40, 1, "SAME"), (1, 9, 7, 5, 24, 1, "SAME"), (2, 9, 7, 5, 1, 5, "SAME"),
+    (2, 7, 9, 96, 33, 1, ((1, 0), (0, 2))), (1, 3, 4, 64, 130, 7, "SAME"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CONV_SWEEP, ids=lambda c: "-".join(map(str, c[:6])) + f"-{c[6]}")
+def test_cuda_int8_conv_routes_are_bitwise_plain_and_the_earlier_kernel(cuda_device, case):
+    """Every route sums the same integers exactly and ends in the same
+    epilogue: the kernel conv_route picks, the earlier kernel
+    (int8_conv.cu) and the plain version agree bit for bit."""
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+
+    b, h, w, cin, cout, k, padding = case
+    g = torch.Generator(device=cuda_device).manual_seed(sum(case[:6]))
+    x = (2 * torch.randn(b, h, w, cin, device=cuda_device, generator=g)).to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (k, k, cin, cout), device=cuda_device, generator=g, dtype=torch.int8)
+    ws = torch.rand(cout, device=cuda_device, generator=g) * 1e-2 + 1e-3
+    bias = torch.randn(cout, device=cuda_device, generator=g)
+    pads = qk._pads_or_raise(padding, wq)
+    route = qk.conv_route(k, k, cin, pads)
+    xq, xs = qk.quantize_activations(x)
+    for act, out_dtype, bb in (("none", torch.bfloat16, None), ("relu", torch.float32, bias)):
+        got = qk.int8_conv2d(x, wq, ws, padding=padding, bias=bb, act=act, out_dtype=out_dtype)
+        want = qk.int8_conv2d_plain(x, wq, ws, padding=padding, bias=bb, act=act, out_dtype=out_dtype)
+        earlier = torch.empty_like(want)
+        qk._earlier_int8_conv(xq, xs, qk._hwio_to_ohwi(wq), ws, bb, earlier, pads, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(earlier, want), route
+    counts = tk.launch_counts()
+    assert counts["int8_conv2d"] == 2
+    assert counts["int8_conv2d_gemm"] == (2 if route == "gemm" else 0)
+    assert counts["int8_conv2d_tc"] == (2 if route == "tc" else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_compute_forward_takes_43_gemm_and_9_im2col_launches(cuda_device, tmp_path):
+    """A full-width int8-compute forward: 52 int8_conv2d launches, the 43
+    1x1 convs through int8_gemm.cu and the 9 k x k through int8_conv_tc.cu,
+    the answer bit for bit the forward with the plain int8 conv."""
+    from unittest import mock
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    cfg = ModelConfig(use_pallas_depthwise=True)
+    model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0)).eval()
+    serving.export_serving_artifact(model, cfg, str(tmp_path), serving_dtype="int8-compute")
+    qmodel = serving.load_model(str(tmp_path), cuda_device)
+    x = torch.randn(2, 101, 101, 2, generator=torch.Generator().manual_seed(1))
+    serve = serving.make_serving_fn(qmodel, cuda_device, act_dtype=torch.bfloat16)
+    tk.reset_launch_counts()
+    out = serve(x)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert (counts["int8_conv2d"], counts["int8_conv2d_gemm"], counts["int8_conv2d_tc"]) == (52, 43, 9)
+    with mock.patch.object(qk, "int8_conv2d_ohwi", qk.int8_conv2d_ohwi_plain):
+        ref = serving.make_serving_fn(qmodel, cuda_device, act_dtype=torch.bfloat16)(x)
+    assert torch.equal(out["probabilities"], ref["probabilities"])
+
+
+# -- fused_bn_act's row kernels against the earlier kernels, bit for bit -------------------
+
+# the 11 BN input shapes of a bucket-64 segmenter forward, C = 33 (the scalar
+# arm) and a base 4 bytes past a 16-byte boundary (the scalar arm)
+BN_PATH_SHAPES = [(64, 51, 51, 64), (64, 51, 51, 128), (64, 26, 26, 128), (64, 26, 26, 512), (64, 13, 13, 128),
+                  (64, 13, 13, 512), (64, 13, 13, 256), (64, 13, 13, 1024), (64, 13, 13, 2048), (64, 1, 1, 256),
+                  (64, 26, 26, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "relu", "relu6", "sigmoid", "gelu"])
+def test_cuda_bn_act_row_kernels_are_bitwise_the_earlier_kernels(cuda_device, act):
+    g = torch.Generator(device=cuda_device).manual_seed(len(act))
+    for shape, offset in [(s, 0) for s in BN_PATH_SHAPES] + [((3, 7, 5, 33), 0), ((2, 13, 13, 256), 1)]:
+        c, n = shape[-1], 1
+        for d in shape:
+            n *= d
+        x = (3 * torch.randn(n + offset, device=cuda_device, generator=g))[offset:].view(shape)
+        r = torch.randn(n + offset, device=cuda_device, generator=g)[offset:].view(shape)
+        m, b = torch.rand(c, device=cuda_device, generator=g) + 0.5, torch.randn(c, device=cuda_device, generator=g)
+        assert tk.bn_act_vectorized(c, x, r) == (offset == 0 and c % 4 == 0)
+        for res in (None, r):
+            assert torch.equal(tk.bn_act_folded(x, m, b, act, res), tk._earlier_bn_act(x, m, b, act, res)), shape
+        mean, mul, bias = (torch.randn(c, device=cuda_device, generator=g).to(torch.bfloat16).float() for _ in range(3))
+        for xx in (x, x.to(torch.bfloat16) if offset == 0 else
+                   (3 * torch.randn(n + 1, device=cuda_device, generator=g)).to(torch.bfloat16)[1:].view(shape)):
+            got = tk.bn_act_unfolded(xx, mean, mul, bias, act)
+            assert torch.equal(got, tk._earlier_bn_act_unfolded(xx, mean, mul, bias, act)), (shape, xx.dtype)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["fused_bn_act"] == 26 and tk.launch_counts()["fused_bn_act_bf16"] == 26

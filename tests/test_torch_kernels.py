@@ -171,7 +171,7 @@ def test_non_cpu_tensors_never_take_the_plain_version(call):
 def test_build_knows_every_kernel_source():
     names = set(_build.sources())
     assert names == {"depthwise", "depthwise_dw", "bn_act", "bias_act", "sigmoid_mask", "int8_conv",
-                     "int8_gemm", "flash_attention", "flash_attention_tc", "flash_attention_f32"}
+                     "int8_gemm", "int8_conv_tc", "flash_attention", "flash_attention_tc", "flash_attention_f32"}
     # every source has its ctypes bindings, and every binding its source
     assert names == {lib for lib, _ in tk._signatures.values()}
     for name in names:

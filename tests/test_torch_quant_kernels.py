@@ -350,8 +350,12 @@ def test_bn_act_unfolded_is_flax_batchnorm_with_bf16_statistics(x_dtype):
                                  torch.ones(2, device=d)),
         lambda d: tk.fused_bias_act(torch.zeros(2, 3, device=d), torch.zeros(3, device=d)),
         lambda d: tk.bn_act_unfolded(torch.zeros(1, 2, 2, 3, device=d), *[torch.ones(3, device=d)] * 3),
+        lambda d: qk.int8_conv2d(torch.zeros(1, 4, 4, 16, device=d), torch.zeros(1, 1, 16, 2, dtype=torch.int8, device=d),
+                                 torch.ones(2, device=d)),
+        lambda d: qk.int8_conv2d(torch.zeros(1, 4, 4, 32, device=d), torch.zeros(3, 3, 32, 2, dtype=torch.int8, device=d),
+                                 torch.ones(2, device=d)),
     ],
-    ids=["int8_conv2d", "int8_matmul", "fused_bias_act", "bn_act_unfolded"],
+    ids=["int8_conv2d", "int8_matmul", "fused_bias_act", "bn_act_unfolded", "int8_conv2d_1x1", "int8_conv2d_3x3_cin32"],
 )
 def test_non_cpu_tensors_never_take_the_plain_version(call):
     with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
@@ -461,3 +465,111 @@ def test_c_entry_points_match_their_ctypes_signatures(entry):
 
 def test_every_c_entry_point_has_a_binding():
     assert set(_c_entries()) == set(tk._signatures)
+
+
+# -- the route int8_conv2d takes --------------------------------------------------------
+
+
+def _full_width_conv_routes():
+    """``{layer: route}`` of the full-width segmenter's int8-eligible convs,
+    from their shapes alone (no forward)."""
+    with torch.device("meta"):
+        model = ResNetSegmentation(ModelConfig())
+    routes = {}
+    for name, mod in model.named_modules():
+        if qk.int8_eligible(mod):
+            kh, kw = mod.kernel_size
+            routes[name] = qk.conv_route(kh, kw, mod.in_channels, qk._conv_pads(mod.same_padding, kh, kw))
+    return routes
+
+
+def test_full_width_convs_route_43_to_the_gemm_and_9_to_the_im2col_kernel():
+    """The 52 int8 convs of ``ModelConfig()``: every 1x1 (Cin 128 to 2048)
+    through int8_gemm.cu, every 3x3 (Cin 64, 128, 256, 512; the decoder's
+    Cout 1 included) through int8_conv_tc.cu, none through int8_conv.cu."""
+    routes = _full_width_conv_routes()
+    assert len(routes) == 52
+    kxk = sorted(name for name, route in routes.items() if route == "tc")
+    assert sum(route == "gemm" for route in routes.values()) == 43
+    assert kxk == sorted(["backbone.conv1_2.conv", "backbone.conv1_3.conv", "backbone.block1_unit1.conv2.conv",
+                          "backbone.block1_unit2.conv2.conv", "backbone.block2_unit1.conv2.conv",
+                          "backbone.block2_unit2.conv2.conv", "backbone.block2_unit3.conv2.conv",
+                          "backbone.block2_unit4.conv2.conv", "decoder_conv_3x3"])
+
+
+SAME3, ZERO = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+
+
+@pytest.mark.parametrize(
+    "kh,kw,cin,pads,aligned,route",
+    [
+        (1, 1, 128, ZERO, True, "gemm"),  # the path's 1x1 convs
+        (1, 1, 48, ZERO, True, "gemm"),  # Cin a multiple of 16 is a TMA row
+        (1, 1, 5, ZERO, True, "conv"),  # rows TMA cannot describe
+        (1, 1, 96, ((1, 0), (0, 2)), True, "tc"),  # a 1x1 with pads is no plain GEMM
+        (1, 1, 48, ((1, 0), (0, 0)), True, "conv"),  # ... and Cin 48 is no whole swizzle row
+        (3, 3, 64, SAME3, True, "tc"),  # 64-byte slices
+        (3, 3, 512, SAME3, True, "tc"),  # 128-byte slices
+        (3, 3, 96, SAME3, True, "tc"),  # 32-byte slices
+        (3, 3, 16, SAME3, True, "conv"),
+        (3, 3, 3, SAME3, True, "conv"),
+        (5, 5, 64, ((2, 0), (1, 3)), True, "tc"),  # asymmetric explicit pads
+        (3, 3, 64, ((200, 0), (0, 0)), True, "conv"),  # a corner past a signed byte
+        (1, 1, 128, ZERO, False, "conv"),  # an unaligned base
+        (3, 3, 64, SAME3, False, "conv"),
+    ],
+)
+def test_conv_route_branches(kh, kw, cin, pads, aligned, route):
+    assert qk.conv_route(kh, kw, cin, pads, aligned) == route
+
+
+# -- the BN + act row kernels' two arms --------------------------------------------------
+
+
+def test_bn_act_vectorized_needs_channels_in_fours_and_aligned_bases():
+    x = torch.zeros(2, 3, 3, 8)
+    vec = torch.zeros(8)
+    assert tk.bn_act_vectorized(8, x, vec, vec, None, x)
+    assert not tk.bn_act_vectorized(33, torch.zeros(2, 3, 3, 33))
+    assert not tk.bn_act_vectorized(6, torch.zeros(2, 3, 3, 6))
+    flat = torch.zeros(2 * 3 * 3 * 8 + 1)
+    unaligned = flat[1:].view(2, 3, 3, 8)
+    assert unaligned.data_ptr() % 16 != 0
+    assert not tk.bn_act_vectorized(8, x, unaligned)
+    bf = torch.zeros(2 * 3 * 3 * 8 + 1, dtype=torch.bfloat16)[1:].view(2, 3, 3, 8)
+    assert not tk.bn_act_vectorized(8, bf, vec)
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: tk._earlier_bn_act(torch.zeros(1, 2, 2, 4), torch.ones(4), torch.zeros(4)),
+        lambda: tk._earlier_bn_act_unfolded(torch.zeros(1, 2, 2, 4), *[torch.ones(4)] * 3),
+        lambda: qk._earlier_int8_conv(torch.zeros(1, 4, 4, 16, dtype=torch.int8), torch.ones(()),
+                                      torch.zeros(2, 3, 3, 16, dtype=torch.int8), torch.ones(2), None,
+                                      torch.zeros(1, 4, 4, 2), SAME3, "none"),
+    ],
+    ids=["bn_act", "bn_act_unfolded", "int8_conv2d"],
+)
+def test_earlier_kernels_take_only_cuda_tensors(call):
+    """The earlier kernels are kept to be timed beside the new ones on the
+    card; they have no plain arm."""
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+
+
+@pytest.mark.parametrize(
+    "args,match",
+    [
+        ((torch.zeros(1, 2, 2, 4), torch.ones(4), torch.zeros(5)), "b must be"),
+        ((torch.zeros(2, 2, 4), torch.ones(4), torch.zeros(4)), "B, H, W, C"),
+    ],
+)
+def test_bn_act_folded_rejects_bad_arguments(args, match):
+    with pytest.raises(ValueError, match=match):
+        tk.bn_act_folded(*args)
+
+
+def test_bn_act_unfolded_rejects_vectors_of_another_width():
+    with pytest.raises(ValueError, match="mul must be"):
+        tk.bn_act_unfolded(torch.zeros(1, 2, 2, 4), torch.ones(4), torch.ones(3), torch.ones(4))
