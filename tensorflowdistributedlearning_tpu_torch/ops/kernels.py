@@ -8,7 +8,8 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   differentiable (:class:`DepthwiseConv2dFunction`, the custom VJP's
   counterpart): forward ``csrc/depthwise.cu``'s tiled kernel; dx the same
   kernel with the filter flipped in space by index; dw
-  ``csrc/depthwise_dw.cu``;
+  ``csrc/depthwise_dw.cu``'s band kernel, planned on the host by
+  :func:`dw_plan` (other shapes: the earlier tile kernel);
 - :func:`fused_bn_act` — inference BN + activation (+ residual)
   (``csrc/bn_act.cu``'s row kernel: 16-byte loads, no division per
   element), inference-only as the TPU kernel is; with bfloat16 parameters
@@ -18,7 +19,8 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   (``csrc/bias_act.cu``), the standalone face of the epilogue that the int8
   kernels (``ops/quant_kernels.py``) share through ``csrc/epilogue.cuh``;
 - :func:`fused_sigmoid_mask` — the segmentation serve head
-  (``csrc/sigmoid_mask.cu``), bit-identical to its plain version.
+  (``csrc/sigmoid_mask.cu``: float4 loads and stores where every base is
+  16-byte aligned), bit-identical to its plain version.
 
 The int8 kernels' wrappers live in ``ops/quant_kernels.py`` and the
 attention kernels' in ``ops/flash_attention.py``; their counters and C
@@ -34,6 +36,7 @@ kernel or raises. Public functions keep the JAX layout (NHWC activations,
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,12 +48,15 @@ from tensorflowdistributedlearning_tpu_torch.ops import _build
 # wrapper with two kernels counts all its launches under its own name and
 # one arm's again apart (flash_attention_tc: the bf16 tensor-core arm;
 # int8_matmul_gemm: the GEMM route, the rest went through int8_conv.cu;
+# depthwise_conv2d_dw_band: dw through the band kernel, the rest through the
+# earlier tile kernel;
 # int8_conv2d_gemm / int8_conv2d_tc: the 1x1 convs through int8_gemm.cu and
 # the k x k convs through int8_conv_tc.cu, the rest through int8_conv.cu)
 LAUNCHES: Dict[str, int] = {
     "depthwise_conv2d": 0,
     "depthwise_conv2d_dx": 0,
     "depthwise_conv2d_dw": 0,
+    "depthwise_conv2d_dw_band": 0,
     "fused_bn_act": 0,
     "fused_bn_act_bf16": 0,
     "fused_bias_act": 0,
@@ -76,6 +82,7 @@ _signatures = {
     "tfdl_depthwise_dw_f32": (
         "depthwise_dw", [_c_void] * 4 + [_c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
     ),
+    "tfdl_depthwise_dw_band_f32": ("depthwise_dw", [_c_void] * 4 + [_c_int] * 11 + [_c_void]),
     "tfdl_bn_act_f32": ("bn_act", [_c_void] * 5 + [ctypes.c_int64, _c_int, _c_int, _c_void]),
     "tfdl_bn_act_unfolded": (
         "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_void],
@@ -86,6 +93,7 @@ _signatures = {
     ),
     "tfdl_bias_act": ("bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64, _c_int, _c_int, _c_void]),
     "tfdl_sigmoid_mask_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void]),
+    "tfdl_sigmoid_mask_vec_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_int, _c_void]),
     "tfdl_int8_conv2d": ("int8_conv", [_c_void] * 6 + [_c_int] * 14 + [_c_void]),
     "tfdl_int8_conv2d_tc": ("int8_conv_tc", [_c_void] * 6 + [_c_int] * 13 + [_c_void]),
     "tfdl_int8_gemm": ("int8_gemm", [_c_void] * 6 + [_c_int] * 5 + [_c_void]),
@@ -157,11 +165,101 @@ def _use_plain(t: torch.Tensor) -> bool:
 
 # -- depthwise conv -----------------------------------------------------------
 
-# pixels of (b, y, x) per block of the dw kernel: 128 rows spread over its 8
-# lanes, with the tile count held under the grid's y limit
+# pixels of (b, y, x) per block of the earlier dw kernel: 128 rows spread over
+# its 8 lanes, with the tile count held under the grid's y limit
 _DW_TILE_ROWS = 128
 _DW_MAX_TILES = 65535
 _DW_MAX_SIDE = 7
+
+# the dw band kernel's block (csrc/depthwise_dw.cu) and the H100 limits its
+# plan is made for
+DW_BAND_THREADS = 256
+DW_BAND_WARPS = DW_BAND_THREADS // 32
+DW_BAND_CHANNELS = (32, 16, 8, 4)  # channels a block, widest first
+H100_SMS = 132
+H100_SMEM_BLOCK = 232448  # 227 KB: the most shared memory one block may use
+H100_SMEM_SM = 233472  # 228 KB an SM holds, 1 KB of it reserved per block
+H100_THREADS_SM = 2048
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """How the dw band kernel cuts its work: a block owns ``channels``
+    channels (of ``slices``), one band of ``band_rows`` rows (of ``bands``)
+    and ``images`` consecutive images (of ``groups`` groups), staged
+    ``stages`` at a time in ``smem_bytes`` of shared memory."""
+
+    channels: int
+    slices: int
+    band_rows: int
+    bands: int
+    images: int
+    groups: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        """Partial sums per channel: one per (image group, band)."""
+        return self.groups * self.bands
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.slices
+
+
+def dw_band_smem(h: int, w: int, kh: int, kw: int, rate: int, channels: int, band_rows: int, stages: int) -> int:
+    """Shared-memory bytes of the band kernel, as its C entry computes them:
+    ``stages`` copies of a band of g and its x rows with the halo clipped to
+    the image, or the warps' tap sums, whichever is larger."""
+    ph = rate * (kh - 1) // 2
+    stage = (min(h, band_rows + 2 * ph) + band_rows) * w * channels
+    return 4 * max(stages * stage, DW_BAND_WARPS * kh * kw * channels)
+
+
+def dw_plan(b: int, h: int, w: int, c: int, kh: int, kw: int, rate: int, aligned: bool) -> Optional[DwPlan]:
+    """The band kernel's plan for dw of x, g [b, h, w, c] with a kh x kw
+    filter at ``rate``, or None where the earlier tile kernel takes the call
+    (c % 4 != 0, a base of x or g not 16-byte aligned, an empty tensor, or
+    no band of one row that fits in shared memory).
+
+    The widest channel slice and the tallest band that fill the 132 SMs
+    with one image a block (else the fitting pair with the most blocks);
+    then images a block in two stages, so that the blocks make about one
+    wave of what the SMs hold at once."""
+    if c % 4 or not aligned or b * h * w * c == 0:
+        return None
+    widest = 4
+    while widest < min(c, DW_BAND_CHANNELS[0]):
+        widest *= 2
+    best = None  # (blocks, channels, band_rows)
+    for channels in (cs for cs in DW_BAND_CHANNELS if cs <= widest):
+        slices = -(-c // channels)
+        for band_rows in sorted({-(-h // n) for n in range(1, h + 1)}, reverse=True):
+            if dw_band_smem(h, w, kh, kw, rate, channels, band_rows, 1) > H100_SMEM_BLOCK:
+                continue
+            blocks = b * -(-h // band_rows) * slices
+            if best is None or blocks > best[0]:
+                best = (blocks, channels, band_rows)
+            if blocks >= H100_SMS:
+                break
+        if best is not None and best[0] >= H100_SMS:
+            break
+    if best is None:
+        return None
+    _, channels, band_rows = best
+    slices, bands = -(-c // channels), -(-h // band_rows)
+    for stages in (2, 1):
+        smem = dw_band_smem(h, w, kh, kw, rate, channels, band_rows, stages)
+        if smem > H100_SMEM_BLOCK:
+            continue
+        per_sm = min(H100_THREADS_SM // DW_BAND_THREADS, H100_SMEM_SM // (smem + 1024))
+        images = min(b, -(-(b * bands * slices) // (H100_SMS * per_sm)))
+        groups = -(-b // images)
+        images = -(-b // groups)
+        if images > 1 or stages == 1:
+            break
+    return DwPlan(channels, slices, band_rows, bands, images, groups, stages, smem)
 
 
 def _check_depthwise(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -274,23 +372,13 @@ def depthwise_conv2d_dx(g: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torc
     return _launch_depthwise(g, w, rate, True, "depthwise_conv2d_dx")
 
 
-def depthwise_conv2d_dw(
-    x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1
-) -> torch.Tensor:
-    """Filter gradient ``[kh, kw, C]`` of the conv of ``x`` whose output
-    gradient is ``g`` (both [B,H,W,C]). CPU: plain version; CUDA:
-    ``csrc/depthwise_dw.cu`` (odd sides up to 7; bit-reproducible)."""
-    kh, kw = int(kernel_size[0]), int(kernel_size[1])
-    if x.dim() != 4 or g.shape != x.shape:
-        raise ValueError(f"depthwise_conv2d_dw expects x and g of one [B,H,W,C] shape, got {tuple(x.shape)}, {tuple(g.shape)}")
-    if kh % 2 != 1 or kw % 2 != 1:
-        raise ValueError(f"depthwise_conv2d requires odd kernel dims, got {kh}x{kw}")
-    if _use_plain(x):
-        with torch.no_grad():
-            return _dw_plain(x, g, kh, kw, rate)
-    _require_cuda_f32("depthwise_conv2d_dw", x, g)
-    if kh > _DW_MAX_SIDE or kw > _DW_MAX_SIDE:
-        raise ValueError(f"depthwise_conv2d_dw: the CUDA kernel takes sides up to {_DW_MAX_SIDE}, got {kh}x{kw}")
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_dw_tiles(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int, rate: int, name: str) -> torch.Tensor:
+    """One call of the earlier dw kernel (``tfdl_depthwise_dw_partial_kernel``
+    and its tile sum), at any shape; counts nothing."""
     b, h, wd, c = x.shape
     pixels = b * h * wd
     tile_rows = max(_DW_TILE_ROWS, -(-pixels // _DW_MAX_TILES))
@@ -303,16 +391,83 @@ def depthwise_conv2d_dw(
             x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw,
             int(rate), tiles, tile_rows, _stream(x),
         )
+    _build.check(lib, code, name)
+    return dw
+
+
+def _check_dw(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int]) -> Tuple[int, int]:
+    kh, kw = int(kernel_size[0]), int(kernel_size[1])
+    if x.dim() != 4 or g.shape != x.shape:
+        raise ValueError(f"depthwise_conv2d_dw expects x and g of one [B,H,W,C] shape, got {tuple(x.shape)}, {tuple(g.shape)}")
+    if kh % 2 != 1 or kw % 2 != 1:
+        raise ValueError(f"depthwise_conv2d requires odd kernel dims, got {kh}x{kw}")
+    return kh, kw
+
+
+def _require_dw_cuda(name: str, x: torch.Tensor, g: torch.Tensor, kh: int, kw: int) -> None:
+    _require_cuda_f32(name, x, g)
+    if kh > _DW_MAX_SIDE or kw > _DW_MAX_SIDE:
+        raise ValueError(f"{name}: the CUDA kernels take sides up to {_DW_MAX_SIDE}, got {kh}x{kw}")
+
+
+def dw_route(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1) -> Optional[DwPlan]:
+    """The band kernel's plan for this call, or None for the earlier tile
+    kernel: chosen from the shape and the bases' alignment, before any
+    launch."""
+    b, h, wd, c = x.shape
+    return dw_plan(b, h, wd, c, int(kernel_size[0]), int(kernel_size[1]), int(rate), _aligned(x, g))
+
+
+def depthwise_conv2d_dw(
+    x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1
+) -> torch.Tensor:
+    """Filter gradient ``[kh, kw, C]`` of the conv of ``x`` whose output
+    gradient is ``g`` (both [B,H,W,C]). CPU: plain version; CUDA:
+    ``csrc/depthwise_dw.cu`` (odd sides up to 7; bit-reproducible), the band
+    kernel where :func:`dw_route` plans one (counted again as
+    ``depthwise_conv2d_dw_band``), else the earlier tile kernel."""
+    kh, kw = _check_dw(x, g, kernel_size)
+    if _use_plain(x):
+        with torch.no_grad():
+            return _dw_plain(x, g, kh, kw, rate)
+    _require_dw_cuda("depthwise_conv2d_dw", x, g, kh, kw)
+    plan = dw_route(x, g, (kh, kw), rate)
+    if plan is None:
+        dw = _launch_dw_tiles(x, g, kh, kw, rate, "depthwise_conv2d_dw")
+        LAUNCHES["depthwise_conv2d_dw"] += 1
+        return dw
+    b, h, wd, c = x.shape
+    partial = torch.empty((plan.tiles, kh * kw, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((kh, kw, c), dtype=torch.float32, device=x.device)
+    lib, fn = _entry("tfdl_depthwise_dw_band_f32")
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw, int(rate),
+            plan.channels, plan.band_rows, plan.images, plan.stages, _stream(x),
+        )
     _build.check(lib, code, "depthwise_conv2d_dw")
     LAUNCHES["depthwise_conv2d_dw"] += 1
+    LAUNCHES["depthwise_conv2d_dw_band"] += 1
     return dw
+
+
+def _earlier_depthwise_dw(
+    x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1
+) -> torch.Tensor:
+    """The earlier dw kernel (``tfdl_depthwise_dw_partial_kernel`` of
+    ``csrc/depthwise_dw.cu``) at every shape, as the wrapper launched it
+    before the band kernel. Kept to be timed beside the band kernel; no path
+    calls it, and it counts nothing."""
+    kh, kw = _check_dw(x, g, kernel_size)
+    _require_dw_cuda("depthwise_conv2d_dw (earlier kernel)", x, g, kh, kw)
+    return _launch_dw_tiles(x, g, kh, kw, rate, "depthwise_conv2d_dw (earlier kernel)")
 
 
 class DepthwiseConv2dFunction(torch.autograd.Function):
     """Autograd of the depthwise conv, the counterpart of the JAX package's
     ``jax.custom_vjp`` (``pallas_kernels.py:155-200``): the forward kernel,
     then dx (forward kernel, filter flipped by index) and dw
-    (``depthwise_dw.cu``).
+    (``depthwise_dw.cu``'s band kernel, or its earlier tile kernel).
     Each arm follows its tensor's device, so CPU tensors train through the
     plain versions and CUDA tensors through the kernels."""
 
@@ -625,20 +780,44 @@ def fused_sigmoid_mask_plain(logits: torch.Tensor, threshold: float) -> Tuple[to
     return probs, (probs > threshold).float()
 
 
+def sigmoid_mask_vectorized(*tensors: torch.Tensor) -> bool:
+    """Whether the sigmoid-mask kernel takes its float4 arm: every base
+    16-byte aligned (the n % 4 tail is computed inside it); else its scalar
+    arm. Chosen from the pointers before the launch; same bits either way."""
+    return _aligned(*tensors)
+
+
 def fused_sigmoid_mask(logits: torch.Tensor, threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sigmoid(logits), (sigmoid(logits) > threshold).float32)`` from one
-    read of the logits. CPU: plain version; CUDA: the kernel."""
+    read of the logits. CPU: plain version; CUDA: the kernel, its float4 arm
+    where :func:`sigmoid_mask_vectorized`."""
     if _use_plain(logits):
         return fused_sigmoid_mask_plain(logits, threshold)
     _require_cuda_f32("fused_sigmoid_mask", logits)
     probs = torch.empty_like(logits)
     mask = torch.empty_like(logits)
-    lib, fn = _entry("tfdl_sigmoid_mask_f32")
+    lib, fn = _entry("tfdl_sigmoid_mask_vec_f32")
     with torch.cuda.device(logits.device):
         code = fn(
-            logits.data_ptr(), probs.data_ptr(), mask.data_ptr(), logits.numel(),
-            float(threshold), _stream(logits),
+            logits.data_ptr(), probs.data_ptr(), mask.data_ptr(), logits.numel(), float(threshold),
+            int(sigmoid_mask_vectorized(logits, probs, mask)), _stream(logits),
         )
     _build.check(lib, code, "fused_sigmoid_mask")
     LAUNCHES["fused_sigmoid_mask"] += 1
+    return probs, mask
+
+
+def _earlier_fused_sigmoid_mask(logits: torch.Tensor, threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The earlier sigmoid-mask kernel (``tfdl_sigmoid_mask_kernel``: one
+    thread per element). Kept to be timed and held bit for bit beside the
+    float4 kernel; no path calls it, and it counts nothing."""
+    _require_cuda_f32("fused_sigmoid_mask (earlier kernel)", logits)
+    probs = torch.empty_like(logits)
+    mask = torch.empty_like(logits)
+    lib, fn = _entry("tfdl_sigmoid_mask_f32")
+    with torch.cuda.device(logits.device):
+        code = fn(
+            logits.data_ptr(), probs.data_ptr(), mask.data_ptr(), logits.numel(), float(threshold), _stream(logits),
+        )
+    _build.check(lib, code, "fused_sigmoid_mask (earlier kernel)")
     return probs, mask

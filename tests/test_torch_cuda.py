@@ -122,7 +122,7 @@ def test_cuda_depthwise_autograd_goes_through_the_kernels(cuda_device):
     (tk.depthwise_conv2d(x, w, 4) ** 2).sum().backward()
     torch.cuda.synchronize()
     assert tk.launch_counts() == {**{n: 0 for n in tk.LAUNCHES}, "depthwise_conv2d": 1,
-                                  "depthwise_conv2d_dx": 1, "depthwise_conv2d_dw": 1}
+                                  "depthwise_conv2d_dx": 1, "depthwise_conv2d_dw": 1, "depthwise_conv2d_dw_band": 1}
     xp, wp = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
     (tk.depthwise_conv2d_plain(xp, wp, 4) ** 2).sum().backward()
     torch.testing.assert_close(x.grad, xp.grad, atol=1e-4, rtol=1e-5)
@@ -437,3 +437,60 @@ def test_cuda_bn_act_row_kernels_are_bitwise_the_earlier_kernels(cuda_device, ac
             assert torch.equal(got, tk._earlier_bn_act_unfolded(xx, mean, mul, bias, act)), (shape, xx.dtype)
     torch.cuda.synchronize()
     assert tk.launch_counts()["fused_bn_act"] == 26 and tk.launch_counts()["fused_bn_act_bf16"] == 26
+
+
+# -- the dw band kernel and the float4 sigmoid-mask kernel --------------------------------
+
+# (x shape, (kh, kw), rate, route): the ASPP calls at a smaller batch, then the
+# smoke's dw sweep: C = 6 and 33 and a base 4 bytes off take the earlier tile
+# kernel; H = W = 1, 7x7 at rate 3, 1x3, 3x1, 5x5 at rate 3, a halo larger than
+# the image and B = 1 at 101x101x64 the band kernel
+DW_SWEEP = [((8, 13, 13, 1024), (3, 3), 2, "band"), ((8, 13, 13, 1024), (3, 3), 8, "band"),
+            ((3, 9, 11, 6), (3, 3), 2, "tile"), ((2, 9, 11, 33), (3, 3), 1, "tile"), ((2, 9, 11, 16), (3, 3), 2, "offset"),
+            ((2, 1, 1, 8), (3, 3), 1, "band"), ((2, 15, 17, 40), (7, 7), 3, "band"), ((2, 13, 13, 64), (1, 3), 2, "band"),
+            ((2, 13, 13, 64), (3, 1), 2, "band"), ((1, 17, 23, 72), (5, 5), 3, "band"), ((2, 5, 6, 16), (5, 5), 4, "band"),
+            ((1, 101, 101, 64), (3, 3), 1, "band")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,rate,route", DW_SWEEP)
+def test_cuda_dw_routes_match_plain_and_repeat_bitwise(cuda_device, shape, k, rate, route):
+    """dw to rtol 1e-4 + 1e-4·max|dw| of the plain version (each entry sums
+    B·H·W products in another order), bitwise equal across two launches, one
+    launch each, on the stated route; the earlier kernel to the same bound."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + rate)
+    n = 1
+    for d in shape:
+        n *= d
+    offset = int(route == "offset")
+    x = torch.randn(n + offset, device=cuda_device, generator=g)[offset:].view(shape)
+    gy = torch.randn(*shape, device=cuda_device, generator=g)
+    plan = tk.dw_route(x, gy, k, rate)
+    assert (plan is not None) == (route == "band")
+    dw = tk.depthwise_conv2d_dw(x, gy, k, rate)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["depthwise_conv2d_dw"] == 1
+    assert tk.launch_counts()["depthwise_conv2d_dw_band"] == int(route == "band")
+    assert torch.equal(dw, tk.depthwise_conv2d_dw(x, gy, k, rate))
+    want = tk._dw_plain(x, gy, *k, rate)
+    bound = 1e-4 * float(want.abs().max())
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=bound)
+    torch.testing.assert_close(tk._earlier_depthwise_dw(x, gy, k, rate), want, rtol=1e-4, atol=bound)
+    if shape[0] == 1 and shape[1] == 101:
+        assert plan.blocks >= tk.H100_SMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "odd-count", "unaligned"])
+def test_cuda_sigmoid_mask_float4_kernel_is_bitwise_plain(cuda_device, case):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    logits = 4 * torch.randn(64, 101, 101, 1, device=cuda_device, generator=g)
+    x = {"path": logits, "odd-count": torch.linspace(-30, 30, (1 << 20) + 3, device=cuda_device),
+         "unaligned": logits.flatten()[1:]}[case]
+    assert tk.sigmoid_mask_vectorized(x) == (case != "unaligned")
+    pp, mp = tk.fused_sigmoid_mask_plain(x, 0.5)
+    for p, m in (tk.fused_sigmoid_mask(x, 0.5), tk._earlier_fused_sigmoid_mask(x, 0.5)):
+        assert torch.equal(p.view(torch.int32), pp.view(torch.int32))
+        assert torch.equal(m, mp)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["fused_sigmoid_mask"] == 1

@@ -157,7 +157,12 @@ def test_streaming_means_match_jax():
 # -- depthwise autograd (plain arms) vs jax.grad through the Pallas kernel --------------
 
 
-@pytest.mark.parametrize("shape,k,rate", [((2, 9, 9, 8), 3, 2), ((1, 7, 6, 5), 5, 1), ((2, 13, 13, 4), 3, 8)])
+@pytest.mark.parametrize(
+    "shape,k,rate",
+    [((2, 9, 9, 8), 3, 2), ((1, 7, 6, 5), 5, 1), ((2, 13, 13, 4), 3, 8),
+     # the ASPP calls' geometry at narrow width (the dw band kernel's path), and an odd channel count
+     ((2, 13, 13, 8), 3, 2), ((2, 13, 13, 8), 3, 4), ((2, 13, 13, 8), 3, 8), ((1, 9, 11, 6), 3, 2)],
+)
 def test_depthwise_autograd_matches_jax_grad_through_pallas(shape, k, rate):
     rng = np.random.default_rng(rate)
     x = rng.normal(size=shape).astype(np.float32)
