@@ -62,9 +62,14 @@ Phases, each fatal on failure (exit 1, no result line):
              against the plain version and the earlier kernel (int8_conv.cu
              for every shape), the 59 BN calls (bf16 parameters) and a sweep
              bitwise against the plain version and their earlier kernel, and
-             fused_bias_act (every act, f32 and bf16) bitwise where the act
-             is exact and to the BN+act tolerance (or one bf16 step) for
-             sigmoid and gelu.
+             fused_bias_act (every act, f32 and bf16, with and without bias,
+             at [12 544, 1536] and C = 8 on the vector arm, at (3, 7, 5, 33)
+             and on a base one element off on the earlier kernel's arm) bit
+             for bit its earlier kernel, bitwise the plain version where the
+             act is exact and to the BN+act tolerance (or one bf16 step) for
+             sigmoid and gelu; timed in bf16 gelu and relu beside the earlier
+             kernel (earlier_ms), with the static SASS instruction counts of
+             its vector kernels (cuobjdump).
              Times: int8 kernels alone on the quantized input, per route,
              beside the earlier kernel on the same inputs, the bound (bytes
              over 3.35 TB/s or int8 operations over 1979 TOPS), the plain
@@ -139,7 +144,15 @@ Phases, each fatal on failure (exit 1, no result line):
              versions agrees (loss 1e-5; every gradient leaf to
              1e-4·max|g_leaf| + 1e-6; the plain run launches nothing); and
              the exported best fold serves, through the engine at bucket 4,
-             what the trainer's eval-mode forward gives (1e-6).
+             what the trainer's eval-mode forward gives (1e-6). Then
+             predict: a test directory of 128 new images from another seed
+             through Trainer.predict (2 folds x 4 TTA transforms at batch
+             64, 16 forwards, each launching 3 depthwise and 59 BN+act
+             kernels), held against the same ensemble through the plain
+             versions (probabilities 1e-5, masks equal away from the
+             threshold), its wall time and images/s; and `predict
+             --artifact-dir` on fold 0's export, equal to engine.infer on
+             the same images.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -273,6 +286,7 @@ TRAIN_BATCH = 64
 TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
 TRAIN_STEPS = 20
+PREDICT_IMAGES = 128
 TOL_DX = 1e-5
 TOL_DW_REL = 1e-4
 TOL_LOSS = 1e-5
@@ -1073,35 +1087,102 @@ def int8_matmul_checks(torch, calls, timer, card):
     return row, conv_row
 
 
+def bits_equal(torch, a, b) -> bool:
+    """The same bits: one dtype, one shape, equal bit patterns (+0 and -0
+    apart)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def sass_counts(lib_path: str, prefix: str):
+    """{mangled kernel name: static SASS instruction count, NOPs left out}
+    of the kernels in a built library whose name starts with ``prefix``, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    from tensorflowdistributedlearning_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        stripped = line.strip()
+        if stripped.startswith("Function :"):
+            name = stripped.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and stripped.startswith("/*") and "*/" in stripped:
+            instr = stripped.split("*/", 1)[1].strip()
+            if instr and not instr.startswith("NOP") and not instr.startswith("/*"):
+                counts[name] += 1
+    return {k: v for k, v in counts.items() if prefix in k}
+
+
 def fused_bias_act_checks(torch, timer, card):
-    """fused_bias_act held directly: every act, f32 and bf16, with and
-    without bias, at the ViT MLP hidden shape and an odd one; timed on the
-    hidden shape in bf16 with gelu (the MLP's epilogue)."""
+    """fused_bias_act held directly (no path calls it): every act, f32 and
+    bf16, with and without bias, bit for bit the earlier kernel and held
+    close to the plain version, at the ViT MLP hidden shape [12 544, 1536]
+    and C = 8 (the vector arm), (3, 7, 5, 33) and C = 64 on a base one
+    element off (the earlier kernel's arm); timed on the hidden shape in
+    bf16 with gelu (the MLP's epilogue) beside the earlier kernel, and with
+    relu beside it (the same bytes without libm's tanhf)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import _build
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
     m, _, n = VIT_MLP
     err = 0.0
+    cases = (((m, n), 0, True), ((4099, 8), 0, True), ((3, 7, 5, 33), 0, False), ((37, 64), 1, False))
+    checked = 0
     with torch.inference_mode():
-        for shape in ((m, n), (3, 7, 5, 33)):
-            x = 3 * torch.randn(shape, device="cuda", generator=gen)
+        for shape, offset, vector in cases:
+            numel = int(np.prod(shape))
+            base = 3 * torch.randn(numel + offset, device="cuda", generator=gen)
             bias = torch.randn(shape[-1], device="cuda", generator=gen)
             for dtype in (torch.float32, torch.bfloat16):
+                x = base.to(dtype)[offset:].view(shape)
+                plan = kernels.bias_act_route(x, torch.empty_like(x))
+                check((plan is not None) == vector, f"fused_bias_act {shape} {dtype} offset {offset}: plan {plan}, "
+                      f"expected the {'vector' if vector else 'earlier'} arm")
                 for act in kernels.ACTIVATIONS:
                     for bb in (bias, None):
-                        got = kernels.fused_bias_act(x.to(dtype), bb, act)
-                        want = kernels.fused_bias_act_plain(x.to(dtype), bb, act)
-                        err = max(err, held_close(torch, got, want, act, f"fused_bias_act {shape} {dtype} {act}"))
+                        what = f"fused_bias_act {shape} {dtype} {act} {'bias' if bb is not None else 'no bias'}"
+                        got = kernels.fused_bias_act(x, bb, act)
+                        old = kernels._earlier_fused_bias_act(x, bb, act)
+                        check(bits_equal(torch, got, old), f"{what}: not bit for bit the earlier kernel "
+                              f"({int((got.float() != old.float()).sum())} elements differ)")
+                        want = kernels.fused_bias_act_plain(x, bb, act)
+                        err = max(err, held_close(torch, got, want, act, what))
+                        checked += 1
         xb = (3 * torch.randn(m, n, device="cuda", generator=gen)).to(torch.bfloat16)
         bias = torch.randn(n, device="cuda", generator=gen)
+        plan = kernels.bias_act_route(xb, torch.empty_like(xb))
         ms = timer.ms(lambda: kernels.fused_bias_act(xb, bias, "gelu"))
+        earlier = timer.ms(lambda: kernels._earlier_fused_bias_act(xb, bias, "gelu"))
         plain = timer.ms(lambda: kernels.fused_bias_act_plain(xb, bias, "gelu"))
+        relu = timer.ms(lambda: kernels.fused_bias_act(xb, bias, "relu"))
+        relu_earlier = timer.ms(lambda: kernels._earlier_fused_bias_act(xb, bias, "relu"))
+        # floors under this timer: an empty kernel, and PyTorch's copy with
+        # the same traffic (read and write every bf16 element once)
+        empty = timer.ms(lambda: torch.cuda._sleep(0))
+        copy = timer.ms(lambda: xb.clone())
     nbytes, flops = 2 * 2 * xb.numel() + 4 * n, 12 * xb.numel()
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms(nbytes, flops),
-               bound_by=bound_by(nbytes, flops))
-    log(f"fused_bias_act: every act, f32 and bf16, with and without bias, max|err| {err:.3g}; at {(m, n)} bf16 "
-        f"gelu: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-        f"[{card}]")
+    arm = (f"vector: {plan.vec} channels a thread, {plan.groups} column groups x {plan.rows} row walkers, "
+           f"{plan.blocks} blocks")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, earlier_ms=earlier,
+               bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops), arm=arm)
+    log(f"fused_bias_act: {checked} cases (every act, f32 and bf16, with and without bias, at {(m, n)}, (4099, 8), "
+        f"(3, 7, 5, 33) and (37, 64) one element off) bit for bit the earlier kernel, max|err| vs plain {err:.3g}; "
+        f"at {(m, n)} bf16 ({arm}): gelu {ms:.4f} ms (earlier kernel {earlier:.4f} ms, plain {plain:.4f} ms), relu "
+        f"{relu:.4f} ms (earlier kernel {relu_earlier:.4f} ms), bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+        f"floors under this timer: an empty kernel {empty:.4f} ms, PyTorch's copy of x {copy:.4f} ms [{card}]")
+    sass = sass_counts(_build.library_path("bias_act"), "bias_act")
+    if sass is None:
+        log("fused_bias_act SASS instruction counts: not measured (no cuobjdump beside nvcc)")
+    else:
+        for name, count in sorted(sass.items()):
+            log(f"fused_bias_act SASS: {count} instructions (static, NOPs left out) in {name}")
     return row
 
 
@@ -1906,12 +1987,13 @@ def backward_phase(torch, calls, timer, card: str):
 
 
 class LaunchLedger:
-    """Wraps the trainer's step builders so that each train step's and each
-    eval forward's kernel launches are recorded as deltas of the counts."""
+    """Wraps the trainer's step builders so that each train step's, each
+    eval forward's and each predict forward's kernel launches are recorded
+    as deltas of the counts."""
 
     def __init__(self, kernels, step_lib):
         self.kernels, self.step_lib = kernels, step_lib
-        self.train, self.eval = [], []
+        self.train, self.eval, self.predict = [], [], []
 
     def _wrap(self, make, sink):
         kernels = self.kernels
@@ -1935,6 +2017,7 @@ class LaunchLedger:
             self.step_lib,
             make_train_step=self._wrap(self.step_lib.make_train_step, self.train),
             make_eval_step=self._wrap(self.step_lib.make_eval_step, self.eval),
+            make_predict_step=self._wrap(self.step_lib.make_predict_step, self.predict),
         )
 
 
@@ -1976,7 +2059,8 @@ def profile_steps(torch, step, state, batch, reps: int = 3):
 
 
 def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
-                size: int = 101, batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS, every: int = 10):
+                size: int = 101, batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS, every: int = 10,
+                n_test: int = PREDICT_IMAGES):
     """Trainer.train on the full-width model (the main training path), then
     the learning, profile, kernel-vs-plain and serve checks."""
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
@@ -2106,7 +2190,108 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         d_serve = float(np.abs(served - direct).max())
         check(d_serve <= 1e-6, f"served probabilities differ from the eval-mode forward by {d_serve}")
         log(f"train: exported fold 0 serves through the engine at bucket 4, max|dprobs| vs eval forward {d_serve:.3g}")
+        del best
+        results.update(predict_checks(torch, trainer, os.path.dirname(manifest), root, card, device, size, batch,
+                                      n_test))
     return results
+
+
+def predict_checks(torch, trainer, artifact: str, root: str, card: str, device: str, size: int, batch: int,
+                   n_test: int):
+    """Trainer.predict, the fold x TTA ensemble, over a test directory of
+    ``n_test`` new images: launches per forward, the same ensemble through
+    the plain versions, and ``predict --artifact-dir`` on fold 0's export
+    against the engine on the same images. Returns the launch counts of
+    both routes and the ensemble's wall time."""
+    from tensorflowdistributedlearning_tpu_torch.__main__ import main as cli_main
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+
+    test_dir = os.path.join(root, "test")
+    ids = write_salt_dataset(test_dir, n_test, size, SEED + 13)
+    members = trainer.train_config.n_folds * len(augment_lib.TTA_TRANSFORMS)
+    forwards = members * -(-n_test // batch)
+
+    # the main path: counts from 0 just before, read just after
+    ledger = LaunchLedger(kernels, step_lib)
+    with ledger.patch():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        pred = trainer.predict(test_dir, batch_size=batch)  # the host copy of each member waits for it
+        predict_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    check(pred["ids"] == ids, "predict's ids are not the test directory's")
+    probs, masks = pred["probabilities"], pred["masks"]
+    check(probs.shape == (n_test, size, size, 1) and masks.shape == probs.shape, f"predict shapes {probs.shape}")
+    check(bool(np.isfinite(probs).all()) and probs.min() >= 0 and probs.max() <= 1, "predict probabilities out of [0, 1]")
+    check(np.array_equal(masks, (probs > 0.5).astype(np.float32)), "predict masks are not mean > 0.5")
+    check(len(ledger.predict) == forwards, f"{len(ledger.predict)} predict forwards, expected {forwards}")
+    for i, delta in enumerate(ledger.predict):
+        check(delta == PER_EVAL_FORWARD, f"predict forward {i}: launches {delta}, expected {PER_EVAL_FORWARD}")
+    want = {k: PER_EVAL_FORWARD[k] * forwards for k in counts}
+    check(counts == want, f"predict launches {counts}, expected {want}")
+    log(f"predict: Trainer.predict, {trainer.train_config.n_folds} folds x {len(augment_lib.TTA_TRANSFORMS)} "
+        f"transforms over {n_test} {size}x{size} images at batch {batch}: {predict_s:.3f} s wall (restores, data and "
+        f"host copies included), {n_test / predict_s:.3f} images/s, {forwards} forwards, "
+        f"{n_test * members / predict_s:.3f} image-forwards/s [{card}]")
+    log(f"predict: every forward launched {PER_EVAL_FORWARD}; totals {counts}")
+    # two parts of the wall time on the host, each timed alone: a fold
+    # restore (predict makes one a fold) and decoding the test directory
+    t0 = time.perf_counter()
+    trainer.restore_fold(0)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False)
+    load_s = time.perf_counter() - t0
+    log(f"predict: one fold restore {restore_s:.3f} s, decoding the {n_test} test images {load_s:.3f} s (host) "
+        f"[{card}]")
+
+    # the same ensemble through the plain versions
+    plain = {"depthwise_conv2d": kernels.depthwise_conv2d_plain, "bn_act_folded": kernels.bn_act_folded_plain,
+             "fused_sigmoid_mask": kernels.fused_sigmoid_mask_plain}
+    with mock.patch.multiple(kernels, **plain):
+        kernels.reset_launch_counts()
+        ref = trainer.predict(test_dir, batch_size=batch)
+        check(sum(kernels.launch_counts().values()) == 0, f"the plain predict launched {kernels.launch_counts()}")
+    d_probs = float(np.abs(probs - ref["probabilities"]).max())
+    check(d_probs <= TOL_PROBS, f"predict: kernels vs plain max|dprobs| {d_probs} > {TOL_PROBS}")
+    away = np.abs(ref["probabilities"] - 0.5) > TOL_PROBS
+    check(np.array_equal(masks[away], ref["masks"][away]), "predict: masks differ from the plain ensemble's")
+    log(f"predict: kernels vs plain ensemble max|dprobs| {d_probs:.3g}, masks equal away from the threshold "
+        f"({int((~away).sum())} pixels within {TOL_PROBS}); mean mask coverage {float(masks.mean()):.4f}")
+
+    # predict --artifact-dir on fold 0's export, against the engine
+    out = os.path.join(root, "predict-artifact.npz")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        code = cli_main(["predict", "--model-dir", trainer.model_dir, "--test-dir", test_dir, "--artifact-dir",
+                         artifact, "--device", device, "--output", out])
+    artifact_s = time.perf_counter() - t0
+    artifact_counts = kernels.launch_counts()
+    check(code == 0, f"predict --artifact-dir exited {code}")
+    images = pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False).images
+    images = augment_lib.add_laplace_channel(torch.from_numpy(images)).numpy()
+    engine = InferenceEngine.from_artifact(artifact, device=device)
+    saved = np.load(out)
+    check(list(saved["ids"]) == ids, "predict --artifact-dir ids")
+    for i in range(0, n_test, engine.max_batch_size):
+        direct = engine.infer(images[i : i + engine.max_batch_size])
+        for key in ("probabilities", "mask"):
+            check(np.array_equal(saved[key][i : i + engine.max_batch_size], direct[key]),
+                  f"predict --artifact-dir {key} differ from engine.infer on rows {i}..")
+    chunks = -(-n_test // engine.max_batch_size)
+    want = {k: v * chunks for k, v in PER_FORWARD.items()}
+    check({k: artifact_counts[k] for k in want} == want and
+          sum(artifact_counts.values()) == sum(want.values()),
+          f"predict --artifact-dir launches {artifact_counts}, expected {want}")
+    log(f"predict --artifact-dir: fold 0's export over {n_test} images in {chunks} engine forwards, {artifact_s:.3f} s "
+        f"wall (artifact load included), equal to engine.infer on the same images; launches {want} [{card}]")
+    return dict(predict_launches=counts, artifact_launches=artifact_counts, predict_s=predict_s,
+                predict_images_per_s=n_test / predict_s, predict_forwards=forwards)
 
 
 def main() -> int:
@@ -2167,7 +2352,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"], **vit_paths}
+    paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
+             "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"], **vit_paths}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -2183,7 +2369,8 @@ def main() -> int:
         print(f"FAIL: launched no time on the main paths: {missing}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": table, "card": card,
-                      "train": {k: trained[k] for k in ("step_ms", "images_per_s")}}))
+                      "train": {k: trained[k] for k in ("step_ms", "images_per_s")},
+                      "predict": {k: trained[k] for k in ("predict_s", "predict_images_per_s", "predict_forwards")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,10 +1,14 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
-``cli.py``; the port carries ``train``, ``serve``, ``convert`` and
-``quantize-check``).
+``cli.py``; the port carries ``train``, ``predict``, ``serve``, ``convert``
+and ``quantize-check``).
 
     python -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
         --export-serving --serving-dtype int8-compute
+    python -m tensorflowdistributedlearning_tpu_torch predict \\
+        --model-dir MODEL_DIR --test-dir TEST --n-fold 5 --output pred.npz --submission submission.csv
+    python -m tensorflowdistributedlearning_tpu_torch predict \\
+        --artifact-dir MODEL_DIR/fold0/export/serving --test-dir TEST --output pred.npz
     python -m tensorflowdistributedlearning_tpu_torch convert \\
         --params flax_vars.npz --config cfg.json --out ARTIFACT_DIR --serving-dtype int8-compute
     python -m tensorflowdistributedlearning_tpu_torch convert \\
@@ -69,6 +73,87 @@ def cmd_train(args) -> int:
         out["serving_artifact"] = os.path.dirname(trainer.export_serving(fold, serving_dtype=args.serving_dtype))
         out["serving_dtype"] = args.serving_dtype
     print(json.dumps(out))
+    return 0
+
+
+def _predict_from_artifact(args) -> int:
+    """``predict --artifact-dir``: inference through the bucketed serve
+    engine from an exported artifact, with the manifest's preprocessing
+    contract (normalized images, the Laplacian channel when the artifact
+    takes two channels, NCHW when it was exported so) and no checkpoint."""
+    import numpy as np
+    import torch
+
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import serving as serving_lib
+
+    engine = InferenceEngine.from_artifact(args.artifact_dir, device=args.device)
+    manifest = serving_lib.read_manifest(args.artifact_dir)
+    nchw = manifest.get("data_format") == "NCHW"
+    channels = manifest["input_shape"][1 if nchw else -1]
+
+    test_ds = pipeline_lib.InMemoryDataset.from_directory(args.test_dir, with_masks=False)
+    images = test_ds.images  # [N, H, W, 1] normalized
+    if channels == 2:  # the segmentation contract: image + Laplacian channel
+        images = augment_lib.add_laplace_channel(torch.from_numpy(images)).numpy()
+    if nchw:
+        images = np.transpose(images, (0, 3, 1, 2))
+
+    step = engine.max_batch_size
+    chunks = [engine.infer(images[i : i + step]) for i in range(0, len(images), step)]
+    outputs = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    if args.submission and "mask" in outputs:
+        from tensorflowdistributedlearning_tpu_torch.data.kaggle import write_submission
+
+        write_submission(args.submission, test_ds.ids, outputs["mask"])
+    if args.output:
+        np.savez(args.output, ids=np.asarray(test_ds.ids), **outputs)
+        print(json.dumps({"written": args.output, "n": len(test_ds.ids)}))
+    else:
+        summary = {
+            "n": len(test_ds.ids),
+            "outputs": {k: list(v.shape) for k, v in outputs.items()},
+            "bucket_hits": {str(b): n for b, n in engine.bucket_hits.items()},
+        }
+        if "mask" in outputs:
+            summary["mean_mask_coverage"] = float(outputs["mask"].mean())
+        print(json.dumps(summary))
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """Fold x TTA ensemble prediction from the fold checkpoints under
+    ``--model-dir`` (or, with ``--artifact-dir``, one exported artifact
+    through the serve engine); prints one JSON line."""
+    import numpy as np
+
+    from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    if args.artifact_dir:
+        return _predict_from_artifact(args)
+    trainer = Trainer(
+        args.model_dir,
+        "",
+        train_config=TrainConfig(n_folds=args.n_fold),
+        device=args.device,
+        input_shape=tuple(args.input_shape),
+        n_blocks=tuple(args.n_blocks),
+        base_depth=args.base_depth,
+        use_pallas_depthwise=args.use_pallas_depthwise,
+    )
+    pred = trainer.predict(args.test_dir, batch_size=args.batch_size, tta=not args.no_tta)
+    if args.submission:
+        from tensorflowdistributedlearning_tpu_torch.data.kaggle import write_submission
+
+        write_submission(args.submission, pred["ids"], pred["masks"])
+    if args.output:
+        np.savez(args.output, ids=np.asarray(pred["ids"]), probabilities=pred["probabilities"], masks=pred["masks"])
+        print(json.dumps({"written": args.output, "n": len(pred["ids"])}))
+    else:
+        print(json.dumps({"n": len(pred["ids"]), "mean_mask_coverage": float(pred["masks"].mean())}))
     return 0
 
 
@@ -188,6 +273,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="route the depthwise convs through the hand-written kernels (forward, dx, dw)")
     t.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
     t.set_defaults(fn=cmd_train)
+
+    pr = sub.add_parser("predict", help="fold x TTA ensemble prediction")
+    pr.add_argument("--model-dir", required=True, help="the trained folds (fold{K}/...); ignored with --artifact-dir")
+    pr.add_argument("--test-dir", required=True, help="directory with images/*.png")
+    pr.add_argument("--artifact-dir", default=None,
+                    help="run inference from an exported serving artifact (through the bucketed serve engine) "
+                    "instead of restoring checkpoints; --model-dir is ignored")
+    pr.add_argument("--no-tta", action="store_true", help="disable test-time augmentation (single forward pass)")
+    pr.add_argument("--output", default=None, help="write predictions to this .npz (default: stdout summary)")
+    pr.add_argument("--submission", default=None, help="also write a Kaggle RLE submission csv here")
+    pr.add_argument("--batch-size", type=int, default=64)
+    pr.add_argument("--n-fold", type=int, default=5)
+    pr.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
+    pr.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
+    pr.add_argument("--base-depth", type=int, default=256)
+    pr.add_argument("--use-pallas-depthwise", action="store_true",
+                    help="route the depthwise convs through the hand-written kernels")
+    pr.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
+    pr.set_defaults(fn=cmd_predict)
 
     s = sub.add_parser("serve", help="serve an exported artifact over HTTP")
     s.add_argument("--artifact-dir", required=True)

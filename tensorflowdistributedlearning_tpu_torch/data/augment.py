@@ -302,3 +302,28 @@ def augment_batch(
 def prepare_eval_batch(images: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Eval preparation: no geometry, just the Laplacian channel."""
     return {"images": add_laplace_channel(images), "labels": masks}
+
+
+# Test-time augmentation (the JAX package's TTA_TRANSFORMS, tta_transform and
+# tta_inverse). All four transforms are involutions, so each is its own
+# inverse.
+
+TTA_TRANSFORMS = ("vertical", "horizontal", "transpose", "none")
+
+
+def tta_transform(x: torch.Tensor, transformation: str) -> torch.Tensor:
+    """Apply a named TTA transform to a [B, H, W, C] batch."""
+    if transformation == "vertical":
+        return torch.flip(x, dims=(1,))
+    if transformation == "horizontal":
+        return torch.flip(x, dims=(2,))
+    if transformation == "transpose":
+        return x.transpose(1, 2).contiguous()
+    if transformation == "none":
+        return x
+    raise ValueError(f"Unknown transformation {transformation}")
+
+
+def tta_inverse(x: torch.Tensor, transformation: str) -> torch.Tensor:
+    """Invert a named TTA transform (all are involutions)."""
+    return tta_transform(x, transformation)

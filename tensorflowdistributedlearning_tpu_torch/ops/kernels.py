@@ -16,7 +16,9 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   (the quantized serving specs) :func:`bn_act_unfolded` repeats flax's own
   order and roundings;
 - :func:`fused_bias_act` — per-channel bias + activation over the last axis
-  (``csrc/bias_act.cu``), the standalone face of the epilogue that the int8
+  (``csrc/bias_act.cu``: 16-byte column vectors walked down the rows where
+  :func:`bias_act_plan` gives a plan, the earlier one-thread-per-element
+  kernel otherwise), the standalone face of the epilogue that the int8
   kernels (``ops/quant_kernels.py``) share through ``csrc/epilogue.cuh``;
 - :func:`fused_sigmoid_mask` — the segmentation serve head
   (``csrc/sigmoid_mask.cu``: float4 loads and stores where every base is
@@ -92,6 +94,9 @@ _signatures = {
         "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_int, _c_void],
     ),
     "tfdl_bias_act": ("bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64, _c_int, _c_int, _c_void]),
+    "tfdl_bias_act_vec": (
+        "bias_act", [_c_void, _c_int, _c_void, _c_void, ctypes.c_int64] + [_c_int] * 4 + [_c_void],
+    ),
     "tfdl_sigmoid_mask_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_void]),
     "tfdl_sigmoid_mask_vec_f32": ("sigmoid_mask", [_c_void] * 3 + [ctypes.c_int64, ctypes.c_float, _c_int, _c_void]),
     "tfdl_int8_conv2d": ("int8_conv", [_c_void] * 6 + [_c_int] * 14 + [_c_void]),
@@ -744,28 +749,104 @@ def fused_bias_act_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None, a
     return activate(y, act).to(x.dtype)
 
 
+# the vector arm of csrc/bias_act.cu: 16 bytes a load, TFDL_BA_BLOCKS_SM
+# blocks of TFDL_THREADS resident on an SM
+BIAS_ACT_VEC_BYTES = 16
+BIAS_ACT_THREADS = 256
+BIAS_ACT_BLOCKS_SM = 4
+
+
+@dataclass(frozen=True)
+class BiasActPlan:
+    """How the vector arm of ``csrc/bias_act.cu`` walks x viewed as [P, C]:
+    a thread owns ``vec`` consecutive channels (one 16-byte vector) of one of
+    the ``groups = C / vec`` column groups and walks every ``rows``-th row
+    from its first; ``blocks`` blocks of :data:`BIAS_ACT_THREADS`."""
+
+    vec: int
+    groups: int
+    rows: int
+    blocks: int
+
+
+def bias_act_plan(total: int, c: int, itemsize: int, aligned: bool) -> Optional[BiasActPlan]:
+    """The vector arm's plan for ``total`` elements of ``itemsize`` bytes
+    with ``c`` channels, or None where the earlier one-thread-per-element
+    kernel takes the call (c not a multiple of the vector width, 8 bf16 or 4
+    floats; a base of x or out not 16-byte aligned; an empty tensor).
+
+    As many row walkers as one wave of the 132 SMs holds at
+    :data:`BIAS_ACT_BLOCKS_SM` blocks each, at most one per row."""
+    vec = BIAS_ACT_VEC_BYTES // itemsize
+    if total <= 0 or c <= 0 or c % vec or not aligned:
+        return None
+    groups = c // vec
+    resident = H100_SMS * BIAS_ACT_BLOCKS_SM * BIAS_ACT_THREADS
+    rows = max(1, min(total // c, resident // groups))
+    return BiasActPlan(vec, groups, rows, -(-rows * groups // BIAS_ACT_THREADS))
+
+
+def bias_act_route(x: torch.Tensor, out: torch.Tensor) -> Optional[BiasActPlan]:
+    """The vector arm's plan for this call, or None for the earlier kernel."""
+    return bias_act_plan(x.numel(), x.shape[-1], x.element_size(), _aligned(x, out))
+
+
+def _require_bias_act_cuda(name: str, x: torch.Tensor, bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Checks the CUDA arm's inputs; returns the bias as contiguous float32."""
+    _require_cuda(name, x, dtypes=(torch.float32, torch.bfloat16))
+    b32 = None if bias is None else bias.float().contiguous()
+    _require_cuda_f32(name, b32)
+    return b32
+
+
 def fused_bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None, act: str = "none") -> torch.Tensor:
     """Per-channel bias + activation over the last axis of ``x`` [..., C]
     (float32 or bfloat16), f32 math, output in ``x``'s dtype; ``bias`` [C]
     or None. Inference-only, as the TPU kernel is. CPU: plain version;
-    CUDA: ``csrc/bias_act.cu``."""
+    CUDA: ``csrc/bias_act.cu``, its vector arm where :func:`bias_act_route`
+    plans one (same bits either way)."""
     _check_bias_act(x, bias, act)
     if _use_plain(x):
         return fused_bias_act_plain(x, bias, act)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, bias)):
         raise RuntimeError("fused_bias_act: the CUDA kernel is inference-only, as the TPU kernel is")
-    _require_cuda("fused_bias_act", x, dtypes=(torch.float32, torch.bfloat16))
-    b32 = None if bias is None else bias.float().contiguous()
-    _require_cuda_f32("fused_bias_act", b32)
+    b32 = _require_bias_act_cuda("fused_bias_act", x, bias)
     out = torch.empty_like(x)
+    plan = bias_act_route(x, out)
+    if plan is None:
+        _launch_bias_act(x, b32, out, act, "fused_bias_act")
+    else:
+        c = x.shape[-1]
+        lib, fn = _entry("tfdl_bias_act_vec")
+        with torch.cuda.device(x.device):
+            code = fn(
+                x.data_ptr(), int(x.dtype == torch.bfloat16), b32.data_ptr() if b32 is not None else None,
+                out.data_ptr(), x.numel() // c, c, ACTIVATIONS[act], plan.rows, plan.blocks, _stream(x),
+            )
+        _build.check(lib, code, "fused_bias_act")
+    LAUNCHES["fused_bias_act"] += 1
+    return out
+
+
+def _launch_bias_act(x: torch.Tensor, b32: Optional[torch.Tensor], out: torch.Tensor, act: str, name: str) -> None:
+    """One launch of the earlier kernel (``tfdl_bias_act_kernel``: one
+    thread per element) into ``out``; counts nothing."""
     lib, fn = _entry("tfdl_bias_act")
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), b32.data_ptr() if b32 is not None else None,
             out.data_ptr(), x.numel(), x.shape[-1], ACTIVATIONS[act], _stream(x),
         )
-    _build.check(lib, code, "fused_bias_act")
-    LAUNCHES["fused_bias_act"] += 1
+    _build.check(lib, code, name)
+
+
+def _earlier_fused_bias_act(x: torch.Tensor, bias: Optional[torch.Tensor] = None, act: str = "none") -> torch.Tensor:
+    """The earlier kernel of :func:`fused_bias_act` at any shape. Kept to be
+    timed and held bit for bit beside the vector arm; counts nothing."""
+    _check_bias_act(x, bias, act)
+    b32 = _require_bias_act_cuda("fused_bias_act (earlier kernel)", x, bias)
+    out = torch.empty_like(x)
+    _launch_bias_act(x, b32, out, act, "fused_bias_act (earlier kernel)")
     return out
 
 

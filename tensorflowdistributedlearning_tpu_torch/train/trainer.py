@@ -1,6 +1,7 @@
 """K-fold trainer on one device (counterpart of the JAX package's
 ``train/trainer.py``: ``Trainer.train`` :289, ``_train_fold`` :388,
-``_evaluate`` :737, ``export_serving`` :998).
+``_evaluate`` :737, ``predict`` :857, ``export_serving`` :998,
+``_predict_one`` :1036).
 
 Per fold: stratified index manifests (``folds.json``, written once) →
 auto-resume from the fold's latest checkpoint → the train loop (shuffled
@@ -13,12 +14,15 @@ best-k export on ``metrics/mean_iou`` → the final checkpoint, eval and
 export. A fold already trained to ``steps`` is evaluated and not trained
 again.
 
+``predict`` is the fold × TTA ensemble: every fold's eval view (its EMA
+when tracked) under every test-time transform, averaged.
+
 Not in this slice, each a named ROADMAP item: the data-parallel step (queue
-A 2), ``predict`` with the fold × TTA ensemble (queue A 3), the telemetry
-ledger, health monitors and TensorBoard image summaries (queue A 13), the
-async host loop, the streaming data service, fault injection and
-preemption handling (queue A 14). ``TrainConfig.data_service_workers`` is
-accepted whatever its value: the trainer always feeds the in-memory stream
+A 2), the telemetry ledger, health monitors and TensorBoard image
+summaries (queue A 13), the async host loop, the streaming data service,
+fault injection and preemption handling (queue A 14).
+``TrainConfig.data_service_workers`` is accepted whatever its value: the
+trainer always feeds the in-memory stream
 (``pipeline.train_batches``, with the resume step folded into its seed, the
 JAX package's ``data_service_workers=0`` path).
 """
@@ -224,6 +228,64 @@ class Trainer:
         result = step_lib.compute_metrics(acc)
         logger.info("fold %d eval @ %d (%.3f s): %s", fold, state.step, time.perf_counter() - t0, result)
         return result
+
+    # -- prediction ---------------------------------------------------------
+
+    def predict(
+        self, test_dir: str, batch_size: int = 64, tta: bool = True, folds: Optional[Sequence[int]] = None
+    ) -> Dict[str, object]:
+        """Fold × TTA ensemble prediction over ``{test_dir}/images``.
+
+        For every fold's best state (falling back to its latest periodic
+        checkpoint; raises for a fold never trained), in its eval view (the
+        EMA parameters when tracked, even after a fallback), and every TTA
+        transform (``tta=False``: only ``"none"``), forward the transformed
+        images and invert the transform on the probabilities; the members
+        are summed in that order and divided by their count, as the JAX
+        package does.
+
+        Returns ``{"ids", "probabilities" [N,H,W,1], "masks" [N,H,W,1]}``
+        as numpy float32 arrays, ``[N,1,H,W]`` under ``data_format="NCHW"``;
+        the masks are ``mean > task.threshold``."""
+        transforms = augment_lib.TTA_TRANSFORMS if tta else ("none",)
+        folds = list(folds) if folds is not None else list(range(self.train_config.n_folds))
+        test_ds = pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False)
+        total = None
+        n_members = 0
+        for fold in folds:
+            state = self.restore_fold(fold)
+            with state.eval_params() as model:
+                for transformation in transforms:
+                    probs = self._predict_one(model, test_ds, batch_size, transformation)
+                    total = probs if total is None else total + probs
+                    n_members += 1
+        mean_probs = total / n_members
+        if self.train_config.data_format == "NCHW":
+            mean_probs = np.transpose(mean_probs, (0, 3, 1, 2))
+        return {
+            "ids": list(test_ds.ids),
+            "probabilities": mean_probs,
+            "masks": (mean_probs > self.task.threshold).astype(np.float32),
+        }
+
+    def _predict_one(
+        self, model: torch.nn.Module, test_ds: pipeline_lib.InMemoryDataset, batch_size: int, transformation: str
+    ) -> np.ndarray:
+        """Probabilities [N, H, W, 1] of one ensemble member: ``model`` (a
+        fold's eval view) under one TTA transform. Batches follow
+        ``eval_batches``' padding contract and reach the device through the
+        pinned copy; the valid rows (picked by the host's mask, so the host
+        never waits for the device) stay on the device until one copy to
+        the host at the end."""
+        predict_step = step_lib.make_predict_step(self.task)
+        chunks = []
+        for raw in pipeline_lib.eval_batches(test_ds, batch_size):
+            placed = pipeline_lib.to_device({"images": raw["images"]}, self.device)
+            images = augment_lib.tta_transform(placed["images"], transformation)
+            out = predict_step(model, {"images": augment_lib.add_laplace_channel(images)})
+            probs = augment_lib.tta_inverse(out["probabilities"], transformation)
+            chunks.append(probs[torch.from_numpy(raw["valid"] > 0)])
+        return torch.cat(chunks)[: len(test_ds)].cpu().numpy()
 
     # -- serving ------------------------------------------------------------
 

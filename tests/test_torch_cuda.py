@@ -494,3 +494,33 @@ def test_cuda_sigmoid_mask_float4_kernel_is_bitwise_plain(cuda_device, case):
         assert torch.equal(m, mp)
     torch.cuda.synchronize()
     assert tk.launch_counts()["fused_sigmoid_mask"] == 1
+
+
+# -- the fused_bias_act vector arm ---------------------------------------------------------
+
+# (shape, element offset of the base, vector arm): the ViT MLP hidden shape and
+# one vector a row take the vector arm; C = 33 and a base one element off the
+# earlier kernel
+BIAS_ACT_CASES = [((12544, 1536), 0, True), ((4099, 8), 0, True), ((2, 3, 5, 48), 0, True), ((3, 7, 5, 33), 0, False),
+                  ((37, 64), 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset,vector", BIAS_ACT_CASES, ids=lambda c: str(c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_bias_act_vector_arm_is_bitwise_the_earlier_kernel(cuda_device, shape, offset, vector, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + offset)
+    n = 1
+    for d in shape:
+        n *= d
+    x = (3 * torch.randn(n + offset, device=cuda_device, generator=g)).to(dtype)[offset:].view(shape)
+    bias = torch.randn(shape[-1], device=cuda_device, generator=g)
+    assert (tk.bias_act_route(x, torch.empty_like(x)) is not None) == vector
+    for act in tk.ACTIVATIONS:
+        for b in (bias, None):
+            got = tk.fused_bias_act(x, b, act)
+            old = tk._earlier_fused_bias_act(x, b, act)
+            view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got.view(view), old.view(view)), (act, b is None)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["fused_bias_act"] == 2 * len(tk.ACTIVATIONS)

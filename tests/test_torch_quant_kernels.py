@@ -316,6 +316,106 @@ def test_fused_bias_act_rejects_bad_arguments():
         tk.fused_bias_act(torch.zeros(2, 3), act="tanh")
 
 
+# -- the fused_bias_act vector arm's plan and walk -----------------------------------------
+
+
+@pytest.mark.parametrize(
+    "c,dtype,aligned,vector",
+    [(1536, torch.bfloat16, True, True), (8, torch.bfloat16, True, True), (12, torch.bfloat16, True, False),
+     (1536, torch.float32, True, True), (4, torch.float32, True, True), (12, torch.float32, True, True),
+     (6, torch.float32, True, False), (33, torch.float32, True, False), (1536, torch.bfloat16, False, False),
+     (1536, torch.float32, False, False)],
+)
+def test_bias_act_plan_takes_whole_vectors_on_aligned_bases(c, dtype, aligned, vector):
+    """The vector arm for C a multiple of 8 in bf16 and of 4 in float32 with
+    16-byte aligned bases; the earlier kernel otherwise."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = tk.bias_act_plan(64 * c, c, itemsize, aligned)
+    assert (plan is not None) == vector
+    if plan is not None:
+        assert plan.vec * itemsize == 16 and plan.groups * plan.vec == c
+
+
+def test_bias_act_plan_fills_one_wave_and_refuses_empty_tensors():
+    # the ViT MLP hidden shape: one wave of 4 blocks on each of the 132 SMs
+    for itemsize in (2, 4):
+        plan = tk.bias_act_plan(12544 * 1536, 1536, itemsize, True)
+        assert plan.blocks == tk.H100_SMS * tk.BIAS_ACT_BLOCKS_SM
+        assert plan.rows * plan.groups == plan.blocks * tk.BIAS_ACT_THREADS
+    # fewer rows than walkers: one walker a row
+    assert tk.bias_act_plan(3 * 64, 64, 4, True).rows == 3
+    assert tk.bias_act_plan(0, 64, 4, True) is None
+
+
+def test_bias_act_route_reads_alignment_from_the_bases():
+    flat = torch.zeros(37 * 64 + 1)
+    out = torch.empty(37, 64)
+    assert tk.bias_act_route(flat[:-1].view(37, 64), out) is not None
+    assert tk.bias_act_route(flat[1:].view(37, 64), out) is None
+    bf = torch.zeros(37 * 64 + 1, dtype=torch.bfloat16)
+    assert tk.bias_act_route(bf[1:].view(37, 64), torch.empty(37, 64, dtype=torch.bfloat16)) is None
+
+
+BIAS_ACT_UNROLL = 4  # csrc/bias_act.cu TFDL_BA_UNROLL: rows in flight a step
+
+
+def _bias_act_walk(x2d, bias, act, plan):
+    """The vector kernel's index walk, every thread at once: thread t (of
+    ``plan.blocks`` x 256; those past ``rows * groups`` return) owns
+    channels ``(t % groups) * vec`` on, starts at row ``t // groups`` and
+    steps ``rows`` rows, ``BIAS_ACT_UNROLL`` rows a step. Returns the output
+    and how often each element was written. The activation, the same
+    function at every element, is applied once to the whole walked sum, so
+    that PyTorch's CPU kernels take the path they take for the plain
+    version (their vector body and scalar tail round sigmoid and gelu
+    apart)."""
+    p_rows, c = x2d.shape
+    t = torch.arange(plan.blocks * tk.BIAS_ACT_THREADS)
+    t = t[t < plan.rows * plan.groups]
+    cols = ((t % plan.groups) * plan.vec)[:, None] + torch.arange(plan.vec)
+    p = t // plan.groups
+    summed = torch.empty(p_rows, c)
+    hits = torch.zeros(p_rows, c, dtype=torch.int64)
+    while bool((p < p_rows).any()):
+        for u in range(BIAS_ACT_UNROLL):
+            r = p + u * plan.rows
+            live = r < p_rows
+            rr, cc = r[live][:, None], cols[live]
+            y = x2d[rr, cc].float()
+            if bias is not None:
+                y = y + bias[cc]
+            summed[rr, cc] = y
+            hits[rr, cc] += 1
+        p = p + BIAS_ACT_UNROLL * plan.rows
+    return tk.activate(summed.view(x2d.shape), act).to(x2d.dtype), hits
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,rows",
+    [((50, 24), torch.float32, None), ((9, 8), torch.bfloat16, 2), ((23, 48), torch.bfloat16, 3),
+     ((17, 4), torch.float32, 5), ((2, 3, 7, 16), torch.float32, 1)],
+)
+@pytest.mark.parametrize("act", ACTS)
+def test_bias_act_vector_walk_matches_the_plain_version(shape, dtype, rows, act):
+    """The planner's own plan and forced ones with a few rows a walker (so a
+    walker takes several steps and ragged last steps): every element written
+    once, and the result bit for bit the plain version."""
+    rng = np.random.default_rng(len(act) + shape[-1])
+    x = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(dtype)
+    bias = torch.from_numpy(rng.standard_normal(shape[-1]).astype(np.float32))
+    c = shape[-1]
+    plan = tk.bias_act_plan(x.numel(), c, x.element_size(), True)
+    if rows is not None:
+        plan = tk.BiasActPlan(plan.vec, plan.groups, rows, -(-rows * plan.groups // tk.BIAS_ACT_THREADS))
+    x2d = x.reshape(-1, c)
+    for b in (bias, None):
+        out, hits = _bias_act_walk(x2d, b, act, plan)
+        assert bool((hits == 1).all())
+        want = tk.fused_bias_act_plain(x, b, act).reshape(-1, c)
+        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(out.view(view), want.view(view))
+
+
 # -- BatchNorm with bf16 parameters: flax's own order ------------------------------------
 
 
@@ -545,11 +645,12 @@ def test_bn_act_vectorized_needs_channels_in_fours_and_aligned_bases():
     [
         lambda: tk._earlier_bn_act(torch.zeros(1, 2, 2, 4), torch.ones(4), torch.zeros(4)),
         lambda: tk._earlier_bn_act_unfolded(torch.zeros(1, 2, 2, 4), *[torch.ones(4)] * 3),
+        lambda: tk._earlier_fused_bias_act(torch.zeros(2, 8), torch.ones(8), "gelu"),
         lambda: qk._earlier_int8_conv(torch.zeros(1, 4, 4, 16, dtype=torch.int8), torch.ones(()),
                                       torch.zeros(2, 3, 3, 16, dtype=torch.int8), torch.ones(2), None,
                                       torch.zeros(1, 4, 4, 2), SAME3, "none"),
     ],
-    ids=["bn_act", "bn_act_unfolded", "int8_conv2d"],
+    ids=["bn_act", "bn_act_unfolded", "fused_bias_act", "int8_conv2d"],
 )
 def test_earlier_kernels_take_only_cuda_tensors(call):
     """The earlier kernels are kept to be timed beside the new ones on the
