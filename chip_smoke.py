@@ -153,6 +153,29 @@ Phases, each fatal on failure (exit 1, no result line):
              threshold), its wall time and images/s; and `predict
              --artifact-dir` on fold 0's export, equal to engine.infer on
              the same images.
+8. dp      — data-parallel training on 192 TGS-layout images of the
+             seed, full width, global batch 64. One NCCL rank in this
+             process (a file:// store): Trainer.train, 2 folds x 5 steps,
+             3/3/3 depthwise launches per train step as in 7; under
+             PyTorch's deterministic algorithms 3 steps from one state bit
+             for bit 3 single-device steps (and those repeatable), the
+             one-rank all-reduce the identity; ms per step of both
+             steps, alternating, and the gradient all-reduce alone (CUDA
+             events) beside 2 x 166.9 MB over 3.35 TB/s. Then two gloo
+             ranks sharing the card, each a subprocess of this script
+             (``dp-rank``) that builds the kernels into one cold directory
+             at the same time as the other: per-rank and synchronized BN,
+             the first step against its single-process emulation on rank 0
+             (the ranks' rows forward and backward, gradients and
+             statistics averaged; for synchronized BN the whole batch with
+             its statistics formed from the ranks' row blocks, and the
+             plain whole-batch step beside it) under sigmoid cross entropy
+             under deterministic algorithms (loss 1e-5, every gradient leaf
+             1e-4·max|g| + 1e-6, BN statistics 1e-5),
+             the replicas' digests equal after 5 steps, ms per step and the
+             host-staged all-reduce; then Trainer.train on both ranks
+             (2 folds x 5 steps, 3/3/3 launches per train step, equal
+             metrics).
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -161,6 +184,7 @@ Prints the kernel table as one JSON line, then the last line
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -287,9 +311,23 @@ TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
 TRAIN_STEPS = 20
 PREDICT_IMAGES = 128
+# data-parallel phase: 2 folds x 5 steps per run at global batch 64; 192
+# images give each fold 96 train and 96 eval images, and three fixed
+# batches for the one-rank step check
+DP_IMAGES = 192
+DP_FOLDS = 2
+DP_STEPS = 5
+DP_RANKS = 2
+DP_TIMEOUT_S = 600
 TOL_DX = 1e-5
 TOL_DW_REL = 1e-4
 TOL_LOSS = 1e-5
+# the calls of a two-rank run's main path held against the plain versions,
+# by wrapper of ops/kernels.py: the rank's first train step's depthwise
+# forward, dx and dw, and its first eval forward's BN calls, all at the
+# rank's batch (half the global batch)
+RANK_HELD = {"depthwise_conv2d_forward": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3,
+             "bn_act_folded": PER_EVAL_FORWARD["fused_bn_act"]}
 
 
 class SmokeFailure(Exception):
@@ -2294,6 +2332,583 @@ def predict_checks(torch, trainer, artifact: str, root: str, card: str, device: 
                 predict_images_per_s=n_test / predict_s, predict_forwards=forwards)
 
 
+# -- data-parallel training ---------------------------------------------------------
+
+
+def state_digest(model) -> str:
+    """sha256 of every parameter and buffer, in state_dict order."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def same_state(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(), b.model.state_dict().values()))
+
+
+def worst_gradient(want, got, what: str) -> float:
+    """Every gradient leaf of ``got`` within 1e-4·max|want_leaf| + 1e-6 of
+    ``want`` (the train step's kernel-vs-plain bound); returns the worst
+    leaf's share of its tolerance."""
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        tol = 1e-4 * w.abs().max().item() + 1e-6
+        check(err <= tol, f"{what}: gradient {name} max|err| {err} > {tol}")
+        worst = max(worst, err / tol)
+    return worst
+
+
+def dp_batches(torch, data: str, ids, batch: int, n: int, device):
+    """``n`` global batches of ``batch`` rows, in file order, with the eval
+    preparation (no augmentation draw), on ``device``."""
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+
+    ds = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids[: batch * n])
+    placed = pipeline_lib.to_device({"images": ds.images, "masks": ds.masks}, torch.device(device))
+    return [augment_lib.prepare_eval_batch(placed["images"][k * batch:(k + 1) * batch],
+                                           placed["masks"][k * batch:(k + 1) * batch]) for k in range(n)]
+
+
+def host_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
+    """Median host wall time of ``fn`` with the device synchronized before
+    and after (for collectives that stage through the host)."""
+    times = []
+    for _ in range(reps + warmup):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[warmup:])
+
+
+def check_trainer_launches(train, evals, counts, folds, steps: int, what: str) -> None:
+    """Each train step's and eval forward's launch deltas, and their sum."""
+    check(len(train) == folds * steps, f"{what}: {len(train)} train steps recorded")
+    for i, delta in enumerate(train):
+        check(delta == PER_TRAIN_STEP, f"{what} train step {i}: launches {delta}, expected {PER_TRAIN_STEP}")
+    for i, delta in enumerate(evals):
+        check(delta == PER_EVAL_FORWARD, f"{what} eval forward {i}: launches {delta}, expected {PER_EVAL_FORWARD}")
+    want = {k: PER_TRAIN_STEP[k] * len(train) + PER_EVAL_FORWARD[k] * len(evals) for k in counts}
+    check(counts == want, f"{what} launches {counts}, expected {want}")
+
+
+def dp_world_one(torch, card: str, root: str, data: str, ids, device: str, model_kwargs, size: int, batch: int,
+                 steps: int, timer):
+    """Trainer.train as one NCCL rank (the main path of the data-parallel
+    step), then its step against the single-device step and its times."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+    tcfg = TrainConfig(n_folds=DP_FOLDS, seed=SEED % 1000 + 1, checkpoint_every_steps=steps, save_best=1)
+    out = {}
+
+    # the main path: counts from 0 just before, read just after
+    ledger = LaunchLedger(kernels, step_lib)
+    trainer = Trainer(os.path.join(root, "model-dp"), data, train_config=tcfg,
+                      device=None if device == "cuda" else device, input_shape=(size, size), **model_kwargs)
+    check(trainer.data_parallel and collectives.world_size() == 1, "the trainer did not take the one-rank group")
+    with ledger.patch():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        folds = trainer.train(ids, batch_size=batch, steps=steps)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    for fold, metrics in enumerate(folds):
+        check(all(np.isfinite(v) for v in metrics.values()), f"train-dp fold {fold}: non-finite metrics {metrics}")
+        check(sorted(fold_files(os.path.join(root, "model-dp"), fold)["checkpoints"]) == [steps],
+              f"train-dp fold {fold}: checkpoints")
+    check_trainer_launches(ledger.train, ledger.eval, counts, DP_FOLDS, steps, "train-dp")
+    out["launches"] = counts
+    log(f"train-dp: Trainer.train as 1 {torch.distributed.get_backend()} rank on {trainer.device}, {DP_FOLDS} folds x "
+        f"{steps} steps at batch {batch}, {train_s:.3f} s; {len(ledger.train)} train steps launched "
+        f"{PER_TRAIN_STEP} each, {len(ledger.eval)} eval forwards {PER_EVAL_FORWARD} each [{card}]")
+    del trainer
+
+    # the data-parallel step of one rank against the single-device step:
+    # three steps from one seeded state on three fixed batches, under
+    # PyTorch's deterministic algorithms (by default cuDNN picks algorithms
+    # that add in a run-dependent order, so the single-device step is not
+    # bitwise repeatable: it is checked here)
+    fixed = dp_batches(torch, data, ids, batch, 3, trainer_device(torch, device))
+    task = step_lib.SegmentationTask()
+    dp_step = step_lib.make_train_step(task, data_parallel=True)
+    single_step = step_lib.make_train_step(task)
+
+    def run(step):
+        state = create_train_state(cfg, tcfg, trainer_device(torch, device),
+                                   generator=torch.Generator().manual_seed(SEED + 5))
+        return state, [step_lib.compute_metrics(step(state, b)[1])["loss"] for b in fixed]
+
+    with deterministic_algorithms(torch):
+        single, loss_single = run(single_step)
+        again, loss_again = run(single_step)
+        check(same_state(torch, single, again) and loss_again == loss_single,
+              "3 single-device steps are not bitwise repeatable under deterministic algorithms")
+        del again
+        dp, loss_dp = run(dp_step)
+    check(same_state(torch, dp, single) and loss_dp == loss_single,
+          f"3 one-rank data-parallel steps are not bit for bit 3 single-device steps (losses {loss_dp} vs "
+          f"{loss_single})")
+    flat = dp.flat_grad
+    before = flat.clone()
+    collectives.pmean_(flat)
+    check(torch.equal(before, flat), "the one-rank all-reduce of the gradient is not the identity")
+    log(f"train-dp: 3 one-rank data-parallel steps are bit for bit 3 single-device steps under deterministic "
+        f"algorithms (losses {loss_dp}); the one-rank all-reduce of the gradient is the identity")
+    # with the default algorithms, as Trainer.train runs: the single-device
+    # step against itself and the one-rank step against both, read, not held
+    def gap(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a.model.state_dict().values(),
+                                                              b.model.state_dict().values()))
+
+    first, loss_first = run(single_step)
+    dp_default, loss_dp_default = run(dp_step)
+    second, loss_second = run(single_step)
+    out["default_single_gap"] = gap(first, second)
+    out["default_dp_gap"] = max(gap(dp_default, first), gap(dp_default, second))
+    log(f"train-dp: default algorithms, 3 steps from one state: single-device vs single-device max|dstate| "
+        f"{out['default_single_gap']:.3g} (losses {loss_first} vs {loss_second}); one-rank data-parallel vs "
+        f"single-device max|dstate| {out['default_dp_gap']:.3g} (losses {loss_dp_default})")
+    del first, second, dp_default
+    fixed = fixed[:1]
+
+    # times: the two steps alternately on one batch, then the all-reduce alone
+    ms = {"dp": [], "single": []}
+    for _ in range(6):
+        for name, step, state in (("dp", dp_step, dp), ("single", single_step, single)):
+            ms[name].append(host_ms(torch, lambda: step(state, fixed[0]), reps=1, warmup=0))
+    out["ms_dp"], out["ms_single"] = statistics.median(ms["dp"][1:]), statistics.median(ms["single"][1:])
+    nbytes = flat.numel() * flat.element_size()
+    out["allreduce_bound_ms"] = 2 * nbytes / PEAK_BYTES_S * 1e3
+    out["allreduce_ms"] = timer.ms(lambda: collectives.pmean_(flat)) if timer is not None else host_ms(
+        torch, lambda: collectives.pmean_(flat))
+    log(f"train-dp: {out['ms_dp']:.3f} ms per one-rank data-parallel step vs {out['ms_single']:.3f} ms single-device "
+        f"at batch {batch} (median of 5, alternating); gradient all-reduce of {flat.numel()} float32 "
+        f"({nbytes / 1e6:.1f} MB) {out['allreduce_ms']:.4f} ms, bound {out['allreduce_bound_ms']:.4f} ms "
+        f"(read and write once at 3.35 TB/s) [{card}]")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """PyTorch's deterministic algorithms (and cuDNN's) for the duration."""
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1], saved[2]
+
+
+def trainer_device(torch, device: str):
+    if device == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+@contextlib.contextmanager
+def record_kernel_calls(torch, limits):
+    """Records the first ``limits[name]`` calls of each named wrapper of
+    ops/kernels.py while it runs as before: its arguments (tensors cloned),
+    its result, and for dw the route it planned at the call. Yields
+    ``{name: [(args, out, plan), ...]}``."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    calls = {name: [] for name in limits}
+
+    def recording(name, inner):
+        def wrapper(*args):
+            plan = kernels.dw_route(*args) if name == "depthwise_conv2d_dw" else None
+            out = inner(*args)
+            if len(calls[name]) < limits[name]:
+                kept = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args)
+                calls[name].append((kept, out.detach().clone(), plan))
+            return out
+
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name in limits:
+            stack.enter_context(mock.patch.object(kernels, name, recording(name, getattr(kernels, name))))
+        yield calls
+
+
+def hold_rank_calls(torch, calls, whole_batch: int):
+    """A rank's recorded main-path calls (:data:`RANK_HELD`) held as the
+    single-device path's are: the forward and dx bitwise the earlier kernel
+    and within TOL_DEPTHWISE / TOL_DX of plain; dw on the band kernel, its
+    plan the one planned at the call, within the dw tolerance of plain and
+    bitwise a relaunch; BN bitwise the earlier kernel and within TOL_BN of
+    plain. Returns each kernel's max|err| and the dw plans beside the plans
+    at ``whole_batch`` rows."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    for name, n in RANK_HELD.items():
+        check(len(calls[name]) == n, f"recorded {len(calls[name])} {name} calls of the rank's main path, expected {n}")
+    out = {"depthwise_conv2d": 0.0, "depthwise_conv2d_dx": 0.0, "depthwise_conv2d_dw": 0.0, "fused_bn_act": 0.0,
+           "dw_plans": [], "shapes": []}
+    with torch.inference_mode():
+        for (x, w, rate), got, _ in calls["depthwise_conv2d_forward"]:
+            what = f"depthwise forward, the rank's {tuple(x.shape)} rate {rate}"
+            check(same(torch, got, kernels._earlier_depthwise(x, w, rate, False)), f"{what}: not bitwise the earlier kernel")
+            e = (got - kernels.depthwise_conv2d_plain(x, w, rate)).abs().max().item()
+            check(e <= TOL_DEPTHWISE, f"{what}: max|err| {e} > {TOL_DEPTHWISE} against the plain version")
+            out["depthwise_conv2d"] = max(out["depthwise_conv2d"], e)
+            out["shapes"].append(list(x.shape))
+        for (g, w, rate), got, _ in calls["depthwise_conv2d_dx"]:
+            what = f"depthwise dx, the rank's {tuple(g.shape)} rate {rate}"
+            check(same(torch, got, kernels._earlier_depthwise(g, w, rate, True)), f"{what}: not bitwise the earlier kernel")
+            e = (got - kernels._dx_plain(g, w, rate)).abs().max().item()
+            check(e <= TOL_DX, f"{what}: max|err| {e} > {TOL_DX} against the plain version")
+            out["depthwise_conv2d_dx"] = max(out["depthwise_conv2d_dx"], e)
+        for (x, g, ks, rate), got, plan in calls["depthwise_conv2d_dw"]:
+            kh, kw = int(ks[0]), int(ks[1])
+            b, h, wd, c = x.shape
+            what = f"dw, the rank's {tuple(x.shape)} {kh}x{kw} rate {rate}"
+            check(plan is not None, f"{what}: the call took the earlier tile kernel, not the band kernel")
+            check(kernels.dw_route(x, g, (kh, kw), rate) == plan, f"{what}: the held copy plans otherwise than the call")
+            kernels.reset_launch_counts()
+            e = dw_agreement(torch, x, g, kh, kw, rate, what)
+            check(kernels.launch_counts()["depthwise_conv2d_dw_band"] == 2, f"{what}: {kernels.launch_counts()}")
+            check(same(torch, got, kernels.depthwise_conv2d_dw(x, g, (kh, kw), rate)),
+                  f"{what}: the path's result is not bitwise a relaunch")
+            out["depthwise_conv2d_dw"] = max(out["depthwise_conv2d_dw"], e)
+            out["dw_plans"].append(f"{tuple(x.shape)} rate {rate}: {describe_dw_route(plan)}; at batch {whole_batch}: "
+                                   f"{describe_dw_route(kernels.dw_plan(whole_batch, h, wd, c, kh, kw, rate, True))}")
+        for (x, m, b, act, res), got, _ in calls["bn_act_folded"]:
+            what = f"fused_bn_act, the rank's eval call {tuple(x.shape)} {act} res={res is not None}"
+            check(same(torch, got, kernels._earlier_bn_act(x, m, b, act, res)), f"{what}: not bitwise the earlier kernel")
+            want = kernels.bn_act_folded_plain(x, m, b, act, res)
+            e = (got - want).abs().max().item()
+            check(bool(((got - want).abs() <= TOL_BN + TOL_BN * want.abs()).all()),
+                  f"{what}: max|err| {e} beyond {TOL_BN} + {TOL_BN}·|plain|")
+            out["fused_bn_act"] = max(out["fused_bn_act"], e)
+        out["bn_rows"] = sorted({x.shape[0] for (x, *_), _, _ in calls["bn_act_folded"]})
+    return out
+
+
+def dp_rank(torch, rank: int, world: int, store: str, root: str, device: str, model_kwargs, size: int,
+            batch: int, steps: int):
+    """One of the ranks that share the card over gloo: the first
+    data-parallel step of per-rank and of synchronized BN held against its
+    single-process emulation (rank 0), ``steps`` steps, a digest of the
+    replica, the times, and Trainer.train with its launches."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state, replicate
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(device if device == "cpu" else "cuda:0")
+    multihost.initialize(store, world, rank, backend="gloo", timeout=300)
+    out = {"rank": rank}
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            t0 = time.perf_counter()
+            build()  # every rank builds into one cold directory at once
+            out["build_s"] = time.perf_counter() - t0
+        data = os.path.join(root, "data")
+        ids = sorted(f[:-4] for f in os.listdir(os.path.join(data, "images")))
+        cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+        task = smooth_task()
+        (whole,) = dp_batches(torch, data, ids, batch, 1, dev)
+        rows = mesh.shard_rows(batch, rank, world)
+        local = {k: v[rows] for k, v in whole.items()}
+        for name, sync in (("off", False), ("on", True)):
+            tcfg = TrainConfig(seed=SEED % 1000 + 2, sync_batch_norm=sync)
+            state = replicate(create_train_state(cfg, tcfg, dev, generator=torch.Generator().manual_seed(SEED + 7)))
+            step = step_lib.make_train_step(task, data_parallel=True)
+            # the first step and its emulation in one summation order each
+            with deterministic_algorithms(torch):
+                loss = step_lib.compute_metrics(step(state, local)[1])["loss"]
+                grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+                stats = {n: b.detach().clone() for n, b in state.model.named_buffers()}
+                if rank == 0:
+                    out[f"first_{name}"] = dp_emulation(torch, cfg, tcfg, dev, task, whole, world, loss, grads,
+                                                        stats, per_rank=not sync)
+            times = [host_ms(torch, lambda: step(state, local), reps=1, warmup=0) for _ in range(steps - 1)]
+            out[f"digest_{name}"] = state_digest(state.model)
+            out[f"ms_{name}"] = statistics.median(times)
+            if not sync:
+                flat = state.flat_grad
+                out["allreduce_ms"] = host_ms(torch, lambda: collectives.pmean_(flat))
+                out["allreduce_mb"] = flat.numel() * flat.element_size() / 1e6
+                del flat
+            del state, grads, stats
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+        # the main path: Trainer.train, counts from 0 just before, read just after
+        tcfg = TrainConfig(n_folds=DP_FOLDS, seed=SEED % 1000 + 3, checkpoint_every_steps=steps, save_best=1,
+                           n_devices=world)
+        trainer = Trainer(os.path.join(root, "model-dp2"), data, train_config=tcfg, device=dev,
+                          input_shape=(size, size), **model_kwargs)
+        ledger = LaunchLedger(kernels, step_lib)
+        with ledger.patch(), record_kernel_calls(torch, RANK_HELD) as recorded:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out["metrics"] = trainer.train(ids, batch_size=batch, steps=steps)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["train_s"] = time.perf_counter() - t0
+            out["launches"] = kernels.launch_counts()
+        out["ledger_train"], out["ledger_eval"] = ledger.train, ledger.eval
+        if dev.type == "cuda":  # on the CPU the plain versions ran: nothing to hold
+            out["held"] = hold_rank_calls(torch, recorded, batch)
+        del recorded
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def smooth_task():
+    """The segmentation task under sigmoid cross entropy. The first-step
+    checks compare runs whose logits differ in the last bits (global BN
+    statistics as a mean of the ranks' means); the Lovász hinge's gradient
+    is piecewise constant in the logits, so such a bit moves it through the
+    sort order of near-equal errors, and the comparison would measure that.
+    Trainer.train keeps the Lovász hinge."""
+    from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+
+    class SmoothTask(step_lib.SegmentationTask):
+        def loss(self, logits, batch):
+            return losses_lib.sigmoid_cross_entropy(logits, batch["labels"])
+
+    return SmoothTask()
+
+
+@contextlib.contextmanager
+def split_batch_convs(world: int):
+    """Every convolution of a whole batch as ``world`` convolutions of the
+    ranks' row blocks, concatenated: cuDNN picks its algorithm by batch
+    size, so this gives each row what the rank that owns it computes."""
+    import torch.nn.functional as F
+
+    plain = F.conv2d
+
+    def conv2d(x, *args, **kwargs):
+        import torch
+
+        return torch.cat([plain(block, *args, **kwargs) for block in x.chunk(world)])
+
+    F.conv2d = conv2d
+    try:
+        yield
+    finally:
+        F.conv2d = plain
+
+
+def dp_emulation(torch, cfg, tcfg, dev, task, whole, world: int, loss, grads, stats, per_rank: bool):
+    """The first data-parallel step's semantics in this process, from the
+    same seeded state. Per-rank BN: each rank's rows forward and backward,
+    the gradients and statistics averaged. Synchronized BN: one whole-batch
+    forward and backward with the statistics formed from the ranks' row
+    blocks (``layers.split_moments``) and each convolution run on the
+    ranks' blocks (:func:`split_batch_convs`), so that the forward is the
+    ranks' to the bit and only the backward's sums over the batch are
+    grouped otherwise; and the plain whole-batch step beside it. Holds the step's loss (1e-5), gradient (per leaf
+    1e-4·max|g| + 1e-6) and BN statistics (1e-5) against the emulation, and
+    the loss and statistics against the plain whole-batch step; the
+    gradient's distance from the plain step is reported (a rounding-level
+    change of the statistics can take a ReLU or max-pool kink the other
+    way)."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.models.layers import split_moments
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    # no sync flag: its statistics would reduce over the group
+    emu = create_train_state(cfg, dataclasses.replace(tcfg, sync_batch_norm=False), dev,
+                             generator=torch.Generator().manual_seed(SEED + 7))
+    snapshot = {k: v.clone() for k, v in emu.model.state_dict().items()}
+
+    def run(parts, split: bool):
+        g_sum, s_sum, losses = {}, {}, []
+        for rows in parts:
+            emu.model.load_state_dict(snapshot)
+            with contextlib.ExitStack() as stack:
+                if split:
+                    stack.enter_context(split_moments(world))
+                    stack.enter_context(split_batch_convs(world))
+                l, _ = step_lib.forward_backward(emu, task, {k: v[rows] for k, v in whole.items()})
+            losses.append(float(l))
+            for n, p in emu.model.named_parameters():
+                g_sum[n] = g_sum.get(n, 0) + p.grad
+            for n, b in emu.model.named_buffers():
+                s_sum[n] = s_sum.get(n, 0) + b
+        k = len(parts)
+        return sum(losses) / k, {n: g / k for n, g in g_sum.items()}, {n: s / k for n, s in s_sum.items()}
+
+    def held(want_loss, want_s, what):
+        d_loss = abs(loss - want_loss)
+        check(d_loss <= TOL_LOSS, f"{what}: loss {loss} vs {want_loss}")
+        d_stats = max((stats[n] - s).abs().max().item() for n, s in want_s.items())
+        check(d_stats <= 1e-5, f"{what}: BN statistics {d_stats} apart")
+        return d_loss, d_stats
+
+    if per_rank:
+        want_loss, want_g, want_s = run([mesh.shard_rows(whole["images"].shape[0], r, world) for r in range(world)],
+                                        split=False)
+        d_loss, d_stats = held(want_loss, want_s, "per-rank BN first step vs its emulation")
+        out = {"worst_gradient": worst_gradient(want_g, grads, "per-rank BN first step vs its emulation")}
+    else:
+        want_loss, want_g, want_s = run([slice(None)], split=True)
+        d_loss, d_stats = held(want_loss, want_s, "synchronized BN first step vs its emulation")
+        out = {"worst_gradient": worst_gradient(want_g, grads, "synchronized BN first step vs its emulation")}
+        plain_loss, plain_g, plain_s = run([slice(None)], split=False)
+        out["plain_d_loss"], out["plain_d_stats"] = held(plain_loss, plain_s,
+                                                         "synchronized BN first step vs the whole-batch step")
+        out["plain_worst_gradient"] = max(
+            (grads[n] - g).abs().max().item() / (1e-4 * g.abs().max().item() + 1e-6) for n, g in plain_g.items())
+    del emu
+    out.update(d_loss=d_loss, d_stats=d_stats)
+    return out
+
+
+def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: int, batch: int, steps: int):
+    """Two gloo ranks on the one card, each a subprocess of this script
+    (``chip_smoke.py dp-rank ...``) building the kernels into one cold
+    directory at once."""
+    env = dict(os.environ, TFDL_TORCH_BUILD_DIR=os.path.join(root, "build-cold"))
+    store = f"file://{os.path.join(root, 'store-dp2')}"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(DP_RANKS):
+            logs.append(open(os.path.join(root, f"rank{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "dp-rank", str(rank), str(DP_RANKS), store, root, device,
+                 json.dumps(model_kwargs), str(size), str(batch), str(steps)],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env,
+            ))
+        deadline = time.perf_counter() + DP_TIMEOUT_S
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    outs = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(root, f"rank{rank}.log")) as f:
+            text = f.read()
+        check(p.returncode == 0, f"dp rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+        with open(os.path.join(root, f"rank{rank}.json")) as f:
+            outs.append(json.load(f))
+    r0 = outs[0]
+    for o in outs[1:]:
+        for name in ("off", "on"):
+            check(o[f"digest_{name}"] == r0[f"digest_{name}"],
+                  f"replicas differ after {steps} steps (BN {name}): {[x[f'digest_{name}'] for x in outs]}")
+        check(o["metrics"] == r0["metrics"], f"ranks return different metrics: {o['metrics']} vs {r0['metrics']}")
+    for o in outs:
+        check_trainer_launches(o["ledger_train"], o["ledger_eval"], o["launches"], DP_FOLDS, steps,
+                               f"train-dp2 rank {o['rank']}")
+    for name in ("off", "on"):
+        e = r0[f"first_{name}"]
+        plain = (f"; against the plain whole-batch step |dloss| {e['plain_d_loss']:.3g}, BN statistics "
+                 f"{e['plain_d_stats']:.3g}, worst gradient leaf at {e['plain_worst_gradient']:.3f} of the tolerance "
+                 "(reported)") if "plain_d_loss" in e else ""
+        log(f"train-dp2: BN {name}: first step vs its single-process emulation: |dloss| {e['d_loss']:.3g}, worst "
+            f"gradient leaf at {e['worst_gradient']:.3f} of its tolerance, BN statistics {e['d_stats']:.3g}{plain}; "
+            f"after {steps} steps the {DP_RANKS} replicas' digests are equal ({r0[f'digest_{name}']})")
+    held = {}
+    for o in outs if device == "cuda" else ():
+        h = o["held"]
+        log(f"train-dp2 rank {o['rank']}: its Trainer.train's first step's {RANK_HELD['depthwise_conv2d_forward']} "
+            f"depthwise forward, dx and dw calls at {h['shapes']} and its first eval forward's "
+            f"{RANK_HELD['bn_act_folded']} fused_bn_act calls at {h['bn_rows']} rows held against the plain versions: "
+            f"forward max|err| {h['depthwise_conv2d']:.3g}, dx {h['depthwise_conv2d_dx']:.3g}, dw "
+            f"{h['depthwise_conv2d_dw']:.3g}, BN {h['fused_bn_act']:.3g} (forward, dx and BN bitwise the earlier "
+            f"kernels, dw bitwise a relaunch)")
+        for plan in h["dw_plans"]:
+            log(f"train-dp2 rank {o['rank']}: dw {plan}")
+        for name in ("depthwise_conv2d", "depthwise_conv2d_dx", "depthwise_conv2d_dw", "fused_bn_act"):
+            held[name] = max(held.get(name, 0.0), h[name])
+    builds = [round(o.get("build_s", 0.0), 3) for o in outs]
+    log(f"train-dp2: {DP_RANKS} gloo ranks sharing {device} at batch {batch // DP_RANKS} each (global {batch}): "
+        f"{r0['ms_off']:.3f} ms per step with per-rank BN, {r0['ms_on']:.3f} ms with synchronized BN (rank 0, median "
+        f"of {steps - 1}); host-staged gradient all-reduce of {r0['allreduce_mb']:.1f} MB {r0['allreduce_ms']:.3f} ms; "
+        f"cold kernel builds racing in one directory {builds} s; {wall:.3f} s in all [{card}]")
+    log(f"train-dp2: Trainer.train on every rank, {DP_FOLDS} folds x {steps} steps, {r0['train_s']:.3f} s; each rank's "
+        f"{len(r0['ledger_train'])} train steps launched {PER_TRAIN_STEP} each; metrics equal on every rank "
+        f"{json.dumps(r0['metrics'])} [{card}]")
+    return {"launches": r0["launches"], "ms_off": r0["ms_off"], "ms_on": r0["ms_on"],
+            "allreduce_ms": r0["allreduce_ms"], "build_s": builds, "held": held}
+
+
+def dp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = DP_IMAGES,
+             size: int = 101, batch: int = TRAIN_BATCH, steps: int = DP_STEPS, timer=None):
+    """Data-parallel training: one NCCL rank in this process, then two gloo
+    ranks sharing the card."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
+
+    model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dp-") as root:
+        data = os.path.join(root, "data")
+        ids = write_salt_dataset(data, n_images, size, SEED + 31)
+        multihost.initialize(f"file://{os.path.join(root, 'store-dp1')}", 1, 0,
+                             backend="nccl" if device == "cuda" else "gloo", timeout=300)
+        try:
+            one = dp_world_one(torch, card, root, data, ids, device, model_kwargs, size, batch, steps, timer)
+        finally:
+            multihost.shutdown()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        two = dp_two_ranks(torch, card, root, device, model_kwargs, size, batch, steps)
+    return {"train-dp": one, "train-dp2": two}
+
+
+def dp_rank_main(argv) -> int:
+    """``chip_smoke.py dp-rank RANK WORLD STORE ROOT DEVICE MODEL_KWARGS SIZE
+    BATCH STEPS``: one rank of the two-rank phase; writes
+    ``ROOT/rank{RANK}.json``."""
+    import torch
+
+    rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    model_kwargs, size, batch, steps = json.loads(argv[5]), int(argv[6]), int(argv[7]), int(argv[8])
+    try:
+        out = dp_rank(torch, rank, world, store, root, device, model_kwargs, size, batch, steps)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2349,11 +2964,16 @@ def main() -> int:
         del calls
         torch.cuda.empty_cache()
         trained = train_phase(torch, card)
+        torch.cuda.empty_cache()
+        dp = dp_phase(torch, card, timer=timer)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    for name, e in dp["train-dp2"]["held"].items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
-             "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"], **vit_paths}
+             "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
+             "train-dp": dp["train-dp"]["launches"], "train-dp2": dp["train-dp2"]["launches"], **vit_paths}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -2370,11 +2990,13 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": table, "card": card,
                       "train": {k: trained[k] for k in ("step_ms", "images_per_s")},
-                      "predict": {k: trained[k] for k in ("predict_s", "predict_images_per_s", "predict_forwards")}}))
+                      "predict": {k: trained[k] for k in ("predict_s", "predict_images_per_s", "predict_forwards")},
+                      "train_dp": {k: v for k, v in dp["train-dp"].items() if k != "launches"},
+                      "train_dp2": {k: v for k, v in dp["train-dp2"].items() if k not in ("launches", "held")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["dp-rank"] else main())

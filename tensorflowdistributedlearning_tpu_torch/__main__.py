@@ -5,6 +5,8 @@ and ``quantize-check``).
     python -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
         --export-serving --serving-dtype int8-compute
+    torchrun --nproc-per-node 4 -m tensorflowdistributedlearning_tpu_torch train \\
+        --data-dir DATA --model-dir MODEL_DIR --batch-size 256 --sync-bn
     python -m tensorflowdistributedlearning_tpu_torch predict \\
         --model-dir MODEL_DIR --test-dir TEST --n-fold 5 --output pred.npz --submission submission.csv
     python -m tensorflowdistributedlearning_tpu_torch predict \\
@@ -36,13 +38,24 @@ def _best_fold(results: List[dict]) -> int:
 
 
 def cmd_train(args) -> int:
-    """K-fold training on one device; prints one JSON line with the folds'
+    """K-fold training, on one device or data-parallel over the ranks of a
+    process group (``torchrun``, or the explicit ``--coordinator-address``
+    / ``--num-processes`` / ``--process-id`` on every rank; ``--device
+    cpu`` ranks use gloo); rank 0 prints one JSON line with the folds'
     final eval metrics and ``n_params`` (and the exported artifact with
-    ``--export-serving``)."""
+    ``--export-serving``, single-process only)."""
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
     from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
 
+    multihost.initialize(
+        args.coordinator_address, args.num_processes, args.process_id, backend=multihost.backend_for(args.device)
+    )
+    if args.export_serving and multihost.process_count() > 1:
+        print("--export-serving runs single-process: export the trained model_dir from a single-process "
+              "session", file=sys.stderr)
+        return 2
     ids = pipeline_lib.discover_ids(args.data_dir)
     if not ids:
         print(f"No images found under {args.data_dir}/images", file=sys.stderr)
@@ -54,6 +67,8 @@ def cmd_train(args) -> int:
         save_best=args.save_best,
         checkpoint_every_steps=args.checkpoint_every,
         eval_throttle_secs=args.eval_throttle_secs,
+        n_devices=args.n_devices,
+        sync_batch_norm=args.sync_bn,
     )
     trainer = Trainer(
         args.model_dir,
@@ -72,7 +87,8 @@ def cmd_train(args) -> int:
         out["serving_fold"] = fold
         out["serving_artifact"] = os.path.dirname(trainer.export_serving(fold, serving_dtype=args.serving_dtype))
         out["serving_dtype"] = args.serving_dtype
-    print(json.dumps(out))
+    if multihost.is_main():
+        print(json.dumps(out))
     return 0
 
 
@@ -248,7 +264,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tensorflowdistributedlearning_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    t = sub.add_parser("train", help="K-fold cross-validated training on one device")
+    t = sub.add_parser("train", help="K-fold cross-validated training, on one device or data-parallel")
     t.add_argument("--data-dir", required=True, help="directory with images/*.png and masks/*.png")
     t.add_argument("--model-dir", required=True)
     t.add_argument("--batch-size", type=int, default=64)
@@ -271,7 +287,19 @@ def build_parser() -> argparse.ArgumentParser:
                    "quantized specs export to {fold_dir}/export/serving-{spec}")
     t.add_argument("--use-pallas-depthwise", action="store_true",
                    help="route the depthwise convs through the hand-written kernels (forward, dx, dw)")
-    t.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
+    t.add_argument("--device", default=None,
+                   help="torch device (default: cuda, this rank's GPU in a process group; no CPU fallback); "
+                   "cpu ranks use gloo")
+    t.add_argument("--n-devices", type=int, default=None,
+                   help="the world size the run expects (default: whatever the launcher set up); a rank owns "
+                   "one device")
+    t.add_argument("--sync-bn", action="store_true",
+                   help="synchronized BatchNorm: training statistics over the global batch instead of per rank")
+    t.add_argument("--coordinator-address", default=None, metavar="HOST:PORT",
+                   help="join an explicit process group at this address (tcp://HOST:PORT or file://PATH also "
+                   "taken); torchrun's environment is discovered without it")
+    t.add_argument("--num-processes", type=int, default=None, help="world size of the explicit process group")
+    t.add_argument("--process-id", type=int, default=None, help="this process's rank in the explicit group")
     t.set_defaults(fn=cmd_train)
 
     pr = sub.add_parser("predict", help="fold x TTA ensemble prediction")

@@ -4,7 +4,8 @@
 ``ModelConfig`` and ``TrainConfig`` mirror the JAX package's field for
 field, with the same defaults and the same ``__post_init__`` checks, so one
 JSON config drives both packages. The port serves and trains the ResNet
-segmentation family in float32 on one device and serves the ViT classifier
+segmentation family in float32 (on one device, or data-parallel over
+ranks with per-rank or synchronized BatchNorm) and serves the ViT classifier
 in float32 or bfloat16; the knobs it does not run yet are rejected by
 :func:`require_supported` and :func:`require_supported_training` with the
 queue item that will bring them.
@@ -333,13 +334,11 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
 _LATER_TRAINING = (
     (lambda c: c.optimizer == "lars", "optimizer='lars' (queue A 4)"),
     (lambda c: c.grad_accum_steps > 1, "grad_accum_steps > 1 (queue A 4)"),
-    (lambda c: c.n_devices not in (None, 1), "n_devices > 1, the data-parallel step (queue A 2)"),
     (lambda c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
     (
         lambda c: max(c.sequence_parallel, c.model_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
         "sequence/model/pipeline/expert parallelism (queue A 12)",
     ),
-    (lambda c: c.sync_batch_norm, "sync_batch_norm (queue A 2)"),
     (lambda c: c.weight_update_sharding, "weight_update_sharding, ZeRO-1 (queue A 12)"),
     (lambda c: c.nan_guard == "abort", "nan_guard='abort', the health monitors (queue A 13)"),
     (lambda c: c.trace_sample_rate > 0, "trace_sample_rate > 0, tracing (queue A 13)"),
@@ -350,8 +349,9 @@ _LATER_TRAINING = (
 
 def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a model or training configuration
-    the port does not train yet (one device, float32, the ResNet
-    segmenter), naming the ROADMAP item that brings it."""
+    the port does not train yet (it trains the ResNet segmenter in float32,
+    on one device or data-parallel), naming the ROADMAP item that brings
+    it."""
     require_supported(model_config)
     if model_config.backbone == "vit":
         raise NotImplementedError(
@@ -363,5 +363,5 @@ def require_supported_training(model_config: ModelConfig, train_config: TrainCon
     for test, what in _LATER_TRAINING:
         if test(train_config):
             raise NotImplementedError(
-                f"{what} is not ported yet; this slice trains on one device (see ROADMAP.md)"
+                f"{what} is not ported yet; the port trains data-parallel only (see ROADMAP.md)"
             )

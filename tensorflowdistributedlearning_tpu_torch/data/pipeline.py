@@ -23,6 +23,7 @@ import torch
 
 from tensorflowdistributedlearning_tpu_torch.data.augment import MEAN, STD
 from tensorflowdistributedlearning_tpu_torch.data.png import read_png_gray
+from tensorflowdistributedlearning_tpu_torch.parallel import multihost
 
 
 def load_png(path: str) -> np.ndarray:
@@ -98,6 +99,15 @@ class InMemoryDataset:
         index = {i: k for k, i in enumerate(self.ids)}
         rows = np.asarray([index[i] for i in ids])
         return InMemoryDataset(self.images[rows], None if self.masks is None else self.masks[rows], list(ids))
+
+
+def host_shard(ids: Sequence[str]) -> List[str]:
+    """The ids this process is responsible for in a data-parallel run: the
+    round-robin share ``ids[rank::world]``; everything in a single process."""
+    n = multihost.process_count()
+    if n == 1:
+        return list(ids)
+    return list(ids)[multihost.process_index() :: n]
 
 
 def train_batches(

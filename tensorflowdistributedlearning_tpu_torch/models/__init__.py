@@ -92,13 +92,22 @@ def model_for(config: ModelConfig) -> nn.Module:
 
 
 def build_model(
-    config: ModelConfig, device: DeviceLike = None, *, generator: Optional[torch.Generator] = None
+    config: ModelConfig,
+    device: DeviceLike = None,
+    *,
+    generator: Optional[torch.Generator] = None,
+    sync_batch_norm: bool = False,
 ) -> nn.Module:
     """The network for ``config`` (:func:`model_for`), initialised from
     ``generator`` (seed 0 when None), in eval mode on ``device`` (CUDA when
-    None; raises without it)."""
+    None; raises without it). ``sync_batch_norm``: every BatchNorm takes its
+    training statistics over the global batch of a data-parallel run (the
+    JAX package's ``bn_axis_name=BATCH_AXIS``)."""
     device = resolve_device(device)
     model = model_for(config)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = sync_batch_norm
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if isinstance(model, ViTClassifier):

@@ -28,13 +28,15 @@ int8-compute serving path can swap a module (``ops/quant_kernels.py``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives
 
 
 def scaled_width(channels: int, multiplier: float) -> int:
@@ -148,7 +150,10 @@ class BatchNorm(nn.Module):
     over (B, H, W) in f32, ``y = (x − mean) · (rsqrt(var + eps) · scale) +
     bias``, and ``running = decay · running + (1 − decay) · batch`` with the
     biased variance (``F.batch_norm`` would store the unbiased one). Plain
-    differentiable ops; the activation follows.
+    differentiable ops; the activation follows. With ``sync`` and a process
+    group the statistics span the global batch, as flax's BN with an
+    ``axis_name``: the per-rank ``[E[x], E[x²]]`` go through the
+    differentiable :func:`collectives.pmean` before the variance is formed.
 
     Eval mode: through :func:`kernels.bn_act_folded` (an input that is not
     float32 is promoted first); the f32 fold into ``m, b`` is cached and
@@ -156,10 +161,13 @@ class BatchNorm(nn.Module):
     parameters and statistics (the quantized serving specs) it is flax's
     unfolded form instead (:func:`kernels.bn_act_unfolded`, float32 out)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99):
+    def __init__(
+        self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99, sync: bool = False
+    ):
         super().__init__()
         self.eps = float(eps)
         self.decay = float(decay)
+        self.sync = sync
         self.weight = nn.Parameter(torch.ones(num_features)) if scale else None
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -195,10 +203,19 @@ class BatchNorm(nn.Module):
             lambda: kernels.unfold_bn_bf16(self.weight, self.bias, self.running_mean, self.running_var, self.eps),
         )
 
+    def _moments(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``E[x], E[x²]`` over (B, H, W) of the float32 input, over the
+        global batch under ``sync``."""
+        mean = xf.mean(dim=(0, 1, 2))
+        mean_sq = (xf * xf).mean(dim=(0, 1, 2))
+        if self.sync and collectives.is_initialized():
+            mean, mean_sq = collectives.pmean(torch.stack([mean, mean_sq]))
+        return mean, mean_sq
+
     def _batch_normalize(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        mean, mean_sq = self._moments(xf)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
             self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
@@ -220,6 +237,29 @@ class BatchNorm(nn.Module):
             return kernels.bn_act_unfolded(x.contiguous(), mean, mul, bias, act)
         m, b = self.folded()
         return kernels.bn_act_folded(x.float().contiguous(), m, b, act, residual)
+
+
+@contextlib.contextmanager
+def split_moments(world: int) -> Iterator[None]:
+    """For the duration, training-mode BatchNorm forms ``[E[x], E[x²]]`` as
+    synchronized BN over ``world`` ranks forms them from its batch's
+    ``world`` contiguous row blocks (the rows :func:`mesh.shard_rows` gives
+    each rank): the mean of the blocks' moments. Everything after the
+    moments is :meth:`BatchNorm._batch_normalize`'s. One process then
+    computes the statistics of a data-parallel step on the whole batch,
+    which is what the data-parallel step is held against in its tests."""
+    plain = BatchNorm._moments
+
+    def moments(self, xf):
+        blocks = xf.chunk(world)
+        stacked = sum(torch.stack([b.mean(dim=(0, 1, 2)), (b * b).mean(dim=(0, 1, 2))]) for b in blocks) / world
+        return stacked[0], stacked[1]
+
+    BatchNorm._moments = moments
+    try:
+        yield
+    finally:
+        BatchNorm._moments = plain
 
 
 class ConvBN(nn.Module):

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled on its own by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 the minutes ``torch.utils.cpp_extension.load`` spends on PyTorch's headers).
 All sources compile in parallel, one ``nvcc`` process each, on the first
-call of :func:`library`. Libraries land in ``{package}/_build/`` under a name
+call of :func:`library`. Libraries land in ``{package}/_build/`` (or
+``$TFDL_TORCH_BUILD_DIR`` when set) under a name
 that carries a hash of the source, the shared header and the flags, so an
 edited source is rebuilt and a stale library is never loaded. Installs are a
 pid-unique temp file plus an atomic ``os.replace`` (the same scheme as the
@@ -24,7 +25,7 @@ from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = os.environ.get("TFDL_TORCH_BUILD_DIR") or os.path.join(_PKG, "_build")
 
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast-math, so
 # expf/division stay IEEE-exact (the sigmoid-mask bit-identity contract)

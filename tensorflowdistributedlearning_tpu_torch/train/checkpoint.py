@@ -15,6 +15,12 @@ a checkpoint whose structure does not match the current state raises
 :class:`CheckpointStructureError` instead, since the configuration changed.
 Best exports are ranked on ``metrics/mean_iou``, higher is better (the
 reference compared the wrong way round, SURVEY §2.4.4).
+
+In a data-parallel run rank 0 alone writes and deletes; the other ranks
+take its decision (whether a step was saved, whether an export was kept)
+through a broadcast that returns only after rank 0 has written, so no rank
+reads a half-written step. Every rank restores; the trainer then
+``replicate``s rank 0's state.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from tensorflowdistributedlearning_tpu_torch.parallel import multihost
 from tensorflowdistributedlearning_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -83,20 +90,23 @@ class CheckpointManager:
         self.greater_is_better = greater_is_better
         self._ckpt_dir = os.path.join(self.directory, "checkpoints")
         self._best_dir = os.path.join(self.directory, "export", "best")
-        os.makedirs(self._ckpt_dir, exist_ok=True)
-        os.makedirs(self._best_dir, exist_ok=True)
+        self.writer = multihost.is_main()
+        if self.writer:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
+            os.makedirs(self._best_dir, exist_ok=True)
 
     # -- periodic ---------------------------------------------------------
 
     def save(self, state: TrainState) -> bool:
         """Save the state at its step now; re-offering a saved step is a
         no-op. Keeps the newest ``max_to_keep`` steps."""
-        if state.step in self.all_steps():
-            return False
-        _write_step(self._ckpt_dir, state.step, state.state_dict())
-        for old in self.all_steps()[: -self.max_to_keep]:
-            shutil.rmtree(os.path.join(self._ckpt_dir, str(old)), ignore_errors=True)
-        return True
+        saved = False
+        if self.writer and state.step not in self.all_steps():
+            _write_step(self._ckpt_dir, state.step, state.state_dict())
+            for old in self.all_steps()[: -self.max_to_keep]:
+                shutil.rmtree(os.path.join(self._ckpt_dir, str(old)), ignore_errors=True)
+            saved = True
+        return multihost.broadcast_object(saved)
 
     def is_save_step(self, step: int) -> bool:
         """Whether ``step`` is on the periodic save cadence."""
@@ -128,7 +138,8 @@ class CheckpointManager:
                     "checkpoint at step %d under %s is unreadable (%s: %s) — falling back to the previous step",
                     step, self.directory, type(e).__name__, str(e)[:200],
                 )
-                shutil.rmtree(os.path.join(self._ckpt_dir, str(step)), ignore_errors=True)
+                if self.writer:
+                    shutil.rmtree(os.path.join(self._ckpt_dir, str(step)), ignore_errors=True)
                 continue
             try:
                 state.load_state_dict(payload)
@@ -158,6 +169,9 @@ class CheckpointManager:
         """Offer the eval view of ``state`` (EMA parameters when tracked) with
         its eval ``metrics``; it stays only if it ranks in the top
         ``save_best`` on the best metric. Returns whether it was kept."""
+        return multihost.broadcast_object(self._export_best(state, metrics) if self.writer else False)
+
+    def _export_best(self, state: TrainState, metrics: Dict[str, float]) -> bool:
         kept = self.best_steps()
         if state.step in kept:
             return False

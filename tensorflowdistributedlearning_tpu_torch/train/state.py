@@ -4,6 +4,12 @@ The JAX ``TrainState`` is an immutable pytree of (step, params,
 batch_stats, opt_state); here it is the model (parameters and BN running
 statistics), its ``torch.optim`` optimizer, the host-side update count, the
 lr schedule, and the optional parameter EMA. Steps update it in place.
+
+In a data-parallel run every rank holds a replica: :func:`replicate` copies
+rank 0's state to every rank after init and after every restore, the step
+averages the gradients before the one update, and
+:func:`pmean_batch_stats` averages the BN running statistics after it, so
+the replicas stay bitwise equal.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import torch
 import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -28,6 +36,24 @@ class TrainState:
     grad_clip_norm: float = 0.0
     ema_decay: float = 0.0
     ema: Optional[Dict[str, torch.Tensor]] = None
+    # the parameters' gradients as one buffer (``.grad`` are views into it),
+    # made by :meth:`flatten_grads` for the data-parallel step's all-reduce
+    flat_grad: Optional[torch.Tensor] = None
+
+    def flatten_grads(self) -> torch.Tensor:
+        """The flat gradient buffer, allocated on the first call."""
+        if self.flat_grad is None:
+            self.flat_grad = collectives.flat_grad_buffer(self.model.parameters())
+        return self.flat_grad
+
+    def zero_grad(self) -> None:
+        """Clear the gradients before a backward: zero the flat buffer in
+        place when there is one (its views stay the ``.grad``), else set
+        every ``.grad`` to None."""
+        if self.flat_grad is not None:
+            self.flat_grad.zero_()
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``: optional
@@ -118,7 +144,7 @@ def create_train_state(
 
     require_supported_training(model_config, train_config)
     device = resolve_device(device)
-    model = build_model(model_config, device, generator=generator)
+    model = build_model(model_config, device, generator=generator, sync_batch_norm=train_config.sync_batch_norm)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model.train()
@@ -134,3 +160,30 @@ def create_train_state(
         ema_decay=train_config.ema_decay,
         ema=ema,
     )
+
+
+def replicate(state: TrainState) -> TrainState:
+    """Copy rank 0's state to every rank, in place (returned): parameters,
+    BN running statistics, optimizer state, EMA and update count. A no-op
+    without a process group."""
+    if not collectives.is_initialized():
+        return state
+    tensors = list(state.model.state_dict().values())
+    for p in state.model.parameters():
+        tensors += [v for _, v in sorted(state.optimizer.state.get(p, {}).items()) if isinstance(v, torch.Tensor)]
+    if state.ema is not None:
+        tensors += [state.ema[name] for name in sorted(state.ema)]
+    collectives.broadcast_(tensors)
+    state.step = int(multihost.broadcast_object(state.step))
+    return state
+
+
+def batch_stat_buffers(model: nn.Module):
+    """The BN running means and variances of ``model``."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm) for t in (m.running_mean, m.running_var)]
+
+
+def pmean_batch_stats(model: nn.Module) -> None:
+    """Average the BN running statistics over every rank, in place (one
+    collective), as the JAX step ``pmean``s its new ``batch_stats``."""
+    collectives.pmean_(batch_stat_buffers(model))

@@ -1,10 +1,12 @@
-"""Task heads, optimizers and the single-device train, eval and predict
-steps (counterpart of the JAX package's ``train/step.py``).
+"""Task heads, optimizers and the train, eval and predict steps
+(counterpart of the JAX package's ``train/step.py``).
 
 The JAX step is one jitted SPMD function of (state, batch); here a step is
 eager PyTorch on one device that updates the :class:`TrainState` in place
 and returns its metric contributions as device-resident ``Mean`` states, so
-the loop never waits on the device until it reads them.
+the loop never waits on the device until it reads them. In a data-parallel
+run each rank runs the step on its shard, with the JAX step's collectives
+made explicit (``make_train_step(data_parallel=True)``).
 
 Semantics kept from the JAX package:
 
@@ -34,6 +36,8 @@ from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
 from tensorflowdistributedlearning_tpu_torch.ops import metrics as metrics_lib
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+from tensorflowdistributedlearning_tpu_torch.train.state import pmean_batch_stats
 
 Metrics = Dict[str, metrics_lib.Mean]
 
@@ -244,7 +248,7 @@ def forward_backward(
     and the (detached) logits. The optimizer is not touched."""
     model = state.model
     model.train()
-    state.optimizer.zero_grad(set_to_none=True)
+    state.zero_grad()
     logits = model(batch["images"])
     loss = task.loss(logits, batch)
     if apply_weight_decay and weight_decay:
@@ -253,34 +257,60 @@ def forward_backward(
     return loss.detach(), logits.detach()
 
 
-def make_train_step(task, *, weight_decay: float = 0.0, apply_weight_decay: bool = False):
+def psum_metrics(metrics: Metrics) -> Metrics:
+    """Total the metric states over every rank, in place (one collective;
+    the JAX step's ``_psum_metrics``)."""
+    collectives.psum_([t for m in metrics.values() for t in (m.total, m.count)])
+    return metrics
+
+
+def make_train_step(
+    task, *, data_parallel: bool = False, weight_decay: float = 0.0, apply_weight_decay: bool = False
+):
     """``step(state, batch) -> (state, metrics)``: forward and backward in
     training mode, one optimizer update, metric contributions computed from
-    the pre-update logits (as the JAX step computes them)."""
+    the pre-update logits (as the JAX step computes them).
+
+    ``data_parallel``: the step of one rank of a process group, on its shard
+    of the global batch (BN on the shard's statistics, or the global batch's
+    under ``sync_batch_norm``). The gradient, kept in one flat buffer, is
+    averaged over the ranks before the update, so clipping, the update and
+    the EMA see the gradient of the global-batch mean loss; the BN running
+    statistics are averaged after the update and the metric states summed.
+    Without a group every reduction is the identity."""
 
     def step(state, batch: Dict[str, torch.Tensor]):
+        if data_parallel:
+            state.flatten_grads()
         loss, logits = forward_backward(
             state, task, batch, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
         )
+        if data_parallel:
+            collectives.pmean_(state.flat_grad)
         state.apply_gradients()
+        if data_parallel:
+            pmean_batch_stats(state.model)
         with torch.no_grad():
             metrics = _metric_deltas(task.metric_scores(logits, batch), loss)
+        if data_parallel:
+            psum_metrics(metrics)
         return state, metrics
 
     return step
 
 
-def make_eval_step(task):
+def make_eval_step(task, *, data_parallel: bool = False):
     """``step(model, batch) -> metrics``: inference-mode forward (BN on its
     running statistics) and per-example losses, weighted by ``batch['valid']``
-    when present."""
+    when present; ``data_parallel`` sums the metric states over the ranks."""
 
     def step(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Metrics:
         model.eval()
         with torch.no_grad():
             logits = model(batch["images"])
             loss = task.loss_per_example(logits, batch)
-            return _metric_deltas(task.metric_scores(logits, batch), loss, batch.get("valid"))
+            metrics = _metric_deltas(task.metric_scores(logits, batch), loss, batch.get("valid"))
+        return psum_metrics(metrics) if data_parallel else metrics
 
     return step
 

@@ -1,7 +1,7 @@
-"""K-fold trainer on one device (counterpart of the JAX package's
-``train/trainer.py``: ``Trainer.train`` :289, ``_train_fold`` :388,
-``_evaluate`` :737, ``predict`` :857, ``export_serving`` :998,
-``_predict_one`` :1036).
+"""K-fold trainer, on one device or data-parallel over ranks (counterpart
+of the JAX package's ``train/trainer.py``: ``Trainer.train`` :289,
+``_train_fold`` :388, ``_evaluate`` :737, ``predict`` :857,
+``export_serving`` :998, ``_predict_one`` :1036).
 
 Per fold: stratified index manifests (``folds.json``, written once) →
 auto-resume from the fold's latest checkpoint → the train loop (shuffled
@@ -17,9 +17,20 @@ again.
 ``predict`` is the fold × TTA ensemble: every fold's eval view (its EMA
 when tracked) under every test-time transform, averaged.
 
-Not in this slice, each a named ROADMAP item: the data-parallel step (queue
-A 2), the telemetry ledger, health monitors and TensorBoard image
-summaries (queue A 13), the async host loop, the streaming data service,
+Data-parallel: under a process group (``torchrun``, or explicit
+coordinator arguments; ``parallel/multihost.py``) every rank trains a
+replica on its own device: it loads its round-robin share of the fold's
+train and eval ids (``host_shard``), draws ``batch_size / world`` rows per
+step, and runs the data-parallel step (gradient mean, BN-statistics mean,
+metric sums). Eval runs the same number of steps on every rank
+(``eval_num_batches``, ``valid = 0`` padding) and sums the metrics, so every
+rank holds the global metrics and takes the same export decision. Rank 0
+alone writes files and logs; prediction and serving refuse to run
+multi-process, as in the JAX package.
+
+Not in this slice, each a named ROADMAP item: the telemetry ledger, health
+monitors and TensorBoard image summaries (queue A 13), the async host loop,
+the streaming data service,
 fault injection and preemption handling (queue A 14).
 ``TrainConfig.data_service_workers`` is accepted whatever its value: the
 trainer always feeds the in-memory stream
@@ -47,9 +58,10 @@ from tensorflowdistributedlearning_tpu_torch.config import (
 from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
 from tensorflowdistributedlearning_tpu_torch.data import folds as folds_lib
 from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
-from tensorflowdistributedlearning_tpu_torch.train.state import TrainState, create_train_state
+from tensorflowdistributedlearning_tpu_torch.train.state import TrainState, create_train_state, replicate
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -57,17 +69,29 @@ logger = logging.getLogger(__name__)
 _MODEL_FIELDS = {f.name for f in dataclasses.fields(ModelConfig)}
 
 
-def augment_seed(seed: int, fold: int, step: int) -> int:
+def augment_seed(seed: int, fold: int, step: int, rank: int = 0) -> int:
     """The augmentation generator's seed for one train step: a pure function
     of (seed + fold, step), so a resumed fold draws what the uninterrupted
-    run drew at the same step."""
-    return int(np.random.SeedSequence([seed + fold, step]).generate_state(1, np.uint64)[0] >> 1)
+    run drew at the same step. A rank > 0 folds its rank in, so the shards
+    of one global batch draw different augmentations (the JAX package draws
+    the whole global batch from one key); rank 0 draws what one process
+    draws."""
+    entropy = [seed + fold, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
+
+
+_SINGLE_PROCESS = (
+    "serving/predict restore runs single-process; load this model_dir from a single-process session"
+)
 
 
 class Trainer:
-    """K-fold cross-validated trainer for the segmentation task on one
-    device. ``**kwargs`` takes every ``ModelConfig`` field (unknown keys
-    raise); ``device`` is CUDA unless the caller asks for the CPU."""
+    """K-fold cross-validated trainer for the segmentation task.
+    ``**kwargs`` takes every ``ModelConfig`` field (unknown keys raise);
+    ``device`` is CUDA (the rank's GPU under a process group) unless the
+    caller asks for the CPU. ``n_devices`` is the world size: None takes the
+    process group the launcher set up (one process without one), any other
+    value must equal it."""
 
     def __init__(
         self,
@@ -96,10 +120,21 @@ class Trainer:
         # the reference trainer passed crop_probability=0
         self.augment_config = augment_config or augment_lib.AugmentConfig(crop_probability=0.0)
         require_supported_training(self.model_config, self.train_config)
+        multihost.initialize(backend=multihost.backend_for(device))
+        world = multihost.process_count()
+        n = self.train_config.n_devices
+        if n is not None and n != world:
+            raise ValueError(
+                f"n_devices={n} but this run has {world} process(es): a rank owns one device, so launch "
+                f"{n} ranks (torchrun --nproc-per-node {n}, or --coordinator-address/--num-processes/"
+                "--process-id on every rank) or leave n_devices unset"
+            )
+        self.data_parallel = collectives.is_initialized()
         self.device = resolve_device(device)
         self.task = step_lib.SegmentationTask()
         self._n_params: Optional[int] = None
-        os.makedirs(model_dir, exist_ok=True)
+        if multihost.is_main():
+            os.makedirs(model_dir, exist_ok=True)
 
     @property
     def params(self) -> int:
@@ -117,6 +152,10 @@ class Trainer:
         self._n_params = sum(p.numel() for p in state.model.parameters())
         return state
 
+    def _require_single_process(self) -> None:
+        if multihost.process_count() > 1:
+            raise RuntimeError(_SINGLE_PROCESS)
+
     def _checkpointer(self, fold: int) -> CheckpointManager:
         tcfg = self.train_config
         return CheckpointManager(
@@ -130,20 +169,30 @@ class Trainer:
     ) -> List[Dict[str, float]]:
         """Train every fold; returns each fold's final eval metrics. ``X``:
         example ids under ``{data_directory}/images``; ``y``: stratification
-        classes (from mask coverage when omitted)."""
+        classes (from mask coverage when omitted). ``batch_size`` is global:
+        each of W ranks draws ``batch_size / W`` rows per step."""
         validate_training_data_format(self.train_config)
+        multihost.per_process_batch_size(batch_size)  # fail fast, clear message
         dataset = pipeline_lib.InMemoryDataset.from_directory(self.data_directory, ids=list(X))
         if y is None:
             y = folds_lib.coverage_to_class(pipeline_lib.mask_coverage(dataset.masks))
-        manifests = folds_lib.write_fold_manifests(
-            self.model_dir, list(X), list(np.asarray(y)), self.train_config.n_folds, self.train_config.seed
-        )
+        manifests = None
+        if multihost.is_main():
+            manifests = folds_lib.write_fold_manifests(
+                self.model_dir, list(X), list(np.asarray(y)), self.train_config.n_folds, self.train_config.seed
+            )
+        manifests = multihost.broadcast_object(manifests)
         results = []
         for fold, manifest in enumerate(manifests):
-            logger.info("Processing fold %d", fold)
+            self._log("Processing fold %d", fold)
             results.append(self._train_fold(fold, dataset, manifest, batch_size, steps))
-            logger.info("Finished training fold %d", fold)
+            self._log("Finished training fold %d", fold)
         return results
+
+    def _log(self, msg: str, *args) -> None:
+        """Log from rank 0 only."""
+        if multihost.is_main():
+            logger.info(msg, *args)
 
     def _train_fold(
         self,
@@ -154,20 +203,24 @@ class Trainer:
         steps: int,
     ) -> Dict[str, float]:
         tcfg = self.train_config
-        train_ds = dataset.select(manifest["train"])
-        eval_ds = dataset.select(manifest["eval"])
+        local_bs = multihost.per_process_batch_size(batch_size)
+        train_ds = dataset.select(pipeline_lib.host_shard(manifest["train"]))
+        eval_ds = dataset.select(pipeline_lib.host_shard(manifest["eval"]))
+        eval_global_n = len(manifest["eval"])
         ckpt = self._checkpointer(fold)
-        state = ckpt.restore_latest(self._init_state())
+        state = replicate(ckpt.restore_latest(self._init_state()))
         start_step = state.step
         if start_step >= steps:
-            logger.info("fold %d already trained to step %d", fold, start_step)
-            return self._evaluate(state, eval_ds, batch_size, fold)
+            self._log("fold %d already trained to step %d", fold, start_step)
+            return self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
         if start_step > 0:
-            logger.info("fold %d resumes at step %d", fold, start_step)
+            self._log("fold %d resumes at step %d", fold, start_step)
 
-        train_step = step_lib.make_train_step(self.task, weight_decay=self.model_config.weight_decay)
+        train_step = step_lib.make_train_step(
+            self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay
+        )
         batches = pipeline_lib.train_batches(
-            train_ds, batch_size, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step
+            train_ds, local_bs, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step
         )
         batches = pipeline_lib.device_prefetch(
             batches, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth
@@ -184,7 +237,7 @@ class Trainer:
             window = step_lib.merge_metrics(window, metrics)
             step_no += 1
             if step_no % tcfg.train_log_every_steps == 0:
-                logger.info(
+                self._log(
                     "fold %d step %d: %s lr %.6g", fold, step_no, step_lib.compute_metrics(window), lr_sched(step_no)
                 )
                 window = None
@@ -192,41 +245,50 @@ class Trainer:
             if tcfg.eval_every_steps:
                 due = step_no % tcfg.eval_every_steps == 0
             else:
-                due = saved and time.time() - last_eval_time >= tcfg.eval_throttle_secs
+                # a clock decides: every rank takes rank 0's reading
+                due = saved and multihost.broadcast_object(time.time() - last_eval_time >= tcfg.eval_throttle_secs)
             if due:
                 last_eval_time = time.time()
                 last_eval_step = step_no
-                final_metrics = self._evaluate(state, eval_ds, batch_size, fold)
+                final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
                 ckpt.export_best(state, final_metrics)
         ckpt.save(state)
         if last_eval_step != step_no:
-            final_metrics = self._evaluate(state, eval_ds, batch_size, fold)
+            final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
             ckpt.export_best(state, final_metrics)
         return final_metrics
 
     def _prepare_train(self, fold: int, step: int, raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """On-device augmentation + Laplacian channel: {'images', 'masks'} ->
-        {'images', 'labels'}, drawn from the step's own generator."""
-        gen = torch.Generator(device=self.device).manual_seed(augment_seed(self.train_config.seed, fold, step))
+        {'images', 'labels'}, drawn from the step's (and rank's) own
+        generator."""
+        seed = augment_seed(self.train_config.seed, fold, step, multihost.process_index())
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         return augment_lib.augment_batch(gen, raw["images"], raw["masks"], self.augment_config)
 
     def _evaluate(
-        self, state: TrainState, eval_ds: pipeline_lib.InMemoryDataset, batch_size: int, fold: int
+        self, state: TrainState, eval_ds: pipeline_lib.InMemoryDataset, batch_size: int, fold: int,
+        global_n: Optional[int] = None,
     ) -> Dict[str, float]:
         """One full eval pass with streaming metrics (EMA parameters when
-        tracked); one device-to-host copy per pass."""
-        eval_step = step_lib.make_eval_step(self.task)
+        tracked); one device-to-host copy per pass. ``eval_ds`` is this
+        rank's shard and ``batch_size`` its share; ``global_n`` (the fold's
+        eval size) sets the step count every rank runs, and the metrics are
+        summed over the ranks."""
+        eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
+        global_n = len(eval_ds) if global_n is None else global_n
+        num = multihost.eval_num_batches(global_n, batch_size) if self.data_parallel else None
         acc = None
         t0 = time.perf_counter()
         with state.eval_params() as model:
-            for raw in pipeline_lib.eval_batches(eval_ds, batch_size):
+            for raw in pipeline_lib.eval_batches(eval_ds, batch_size, num_batches=num):
                 placed = pipeline_lib.to_device(raw, self.device)
                 batch = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
                 batch["valid"] = placed["valid"]
                 acc = step_lib.merge_metrics(acc, eval_step(model, batch))
         state.model.train()
         result = step_lib.compute_metrics(acc)
-        logger.info("fold %d eval @ %d (%.3f s): %s", fold, state.step, time.perf_counter() - t0, result)
+        self._log("fold %d eval @ %d (%.3f s): %s", fold, state.step, time.perf_counter() - t0, result)
         return result
 
     # -- prediction ---------------------------------------------------------
@@ -246,7 +308,8 @@ class Trainer:
 
         Returns ``{"ids", "probabilities" [N,H,W,1], "masks" [N,H,W,1]}``
         as numpy float32 arrays, ``[N,1,H,W]`` under ``data_format="NCHW"``;
-        the masks are ``mean > task.threshold``."""
+        the masks are ``mean > task.threshold``. Single-process only."""
+        self._require_single_process()
         transforms = augment_lib.TTA_TRANSFORMS if tta else ("none",)
         folds = list(folds) if folds is not None else list(range(self.train_config.n_folds))
         test_ds = pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False)
@@ -291,7 +354,9 @@ class Trainer:
 
     def restore_fold(self, fold: int) -> TrainState:
         """The fold's best exported state (falling back to its latest
-        periodic checkpoint); raises if the fold was never trained."""
+        periodic checkpoint); raises if the fold was never trained, and
+        under a process group of more than one rank."""
+        self._require_single_process()
         return self._checkpointer(fold).restore_best_or_raise(
             self._init_state(), hint=f"train fold {fold} first"
         )

@@ -3,7 +3,7 @@
 
 Entry points run on CUDA unless the caller asks for the CPU. With
 ``device=None`` and no CUDA they raise: the port never falls back to the CPU
-without a word.
+without a word. Under a process group ``None`` is the rank's own GPU.
 """
 
 from __future__ import annotations
@@ -12,13 +12,18 @@ from typing import Union
 
 import torch
 
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means ``cuda`` (and raises without a CUDA device); anything
-    else is taken as given, and a CUDA device that does not exist raises."""
+    """``None`` means ``cuda`` (and raises without a CUDA device), the rank's
+    ``cuda:{LOCAL_RANK}`` under a process group; anything else is taken as
+    given, and a CUDA device that does not exist raises."""
     if device is None:
+        if collectives.is_initialized():
+            return multihost.local_device()
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port runs on the GPU by default; pass "

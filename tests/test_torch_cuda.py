@@ -524,3 +524,73 @@ def test_cuda_bias_act_vector_arm_is_bitwise_the_earlier_kernel(cuda_device, sha
             assert torch.equal(got.view(view), old.view(view)), (act, b is None)
     torch.cuda.synchronize()
     assert tk.launch_counts()["fused_bias_act"] == 2 * len(tk.ACTIVATIONS)
+
+
+# -- the data-parallel step over NCCL, a world of one rank ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_world_one(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL reduces CUDA tensors only")
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"file://{tmp_path_factory.mktemp('nccl')}/store", 1, 0, backend="nccl", timeout=120)
+    try:
+        yield torch.device("cuda", torch.cuda.current_device())
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_world_one_nccl_step_is_the_single_device_step(nccl_world_one):
+    # the mean over one rank divides by 1: under PyTorch's deterministic
+    # algorithms (cuDNN's defaults add in a run-dependent order) three
+    # data-parallel steps, kernels on and sync BN on, are bit for bit three
+    # single-device steps
+    import numpy as np
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import synthetic
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(n_blocks=(1, 1, 1), input_shape=(33, 33), base_depth=16, width_multiplier=0.25,
+                      use_pallas_depthwise=True)
+    states = [create_train_state(cfg, TrainConfig(sync_batch_norm=sync), nccl_world_one,
+                                 generator=torch.Generator().manual_seed(0)) for sync in (True, False)]
+    steps = [step_lib.make_train_step(step_lib.SegmentationTask(), data_parallel=dp) for dp in (True, False)]
+    rng = np.random.default_rng(0)
+    tk.reset_launch_counts()
+    saved = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(3):
+            b = synthetic.synthetic_segmentation_batch(rng, 8, (33, 33))
+            batch = {k: torch.from_numpy(b[k]).to(nccl_world_one) for k in ("images", "labels")}
+            losses = [step_lib.compute_metrics(step(state, batch)[1])["loss"] for step, state in zip(steps, states)]
+            assert losses[0] == losses[1]
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+    assert tk.launch_counts()["depthwise_conv2d_dw"] == 2 * 3 * 3
+    for (name, a), b in zip(states[0].model.state_dict().items(), states[1].model.state_dict().values()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_pmean_backward_matches_cpu(nccl_world_one):
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn(2, 7, generator=g), torch.randn(2, 7, generator=g)
+    grads = []
+    for device in (nccl_world_one, torch.device("cpu")):
+        xd = x.to(device).requires_grad_(True)
+        y = collectives.pmean(xd) if device.type == "cuda" else xd.clone()  # CPU: the mean over one rank
+        (y * w.to(device)).sum().backward()
+        grads.append(xd.grad.cpu())
+        assert torch.equal(y.detach().cpu(), x)
+    assert torch.equal(grads[0], grads[1])

@@ -1,0 +1,248 @@
+"""One rank of the PyTorch port's data-parallel tests (a worker: it holds no
+test of its own): ``tests/test_torch_parallel.py`` and
+``tests/test_torch_train_trainer.py`` start W of these as subprocesses,
+
+    python tests/test_torch_dp_worker.py MODE RANK WORLD STORE DIR
+
+which join one gloo group through the ``file://`` store STORE (no port is
+bound), run on the CPU, write ``DIR/rank{RANK}.pt`` and exit. It imports no
+JAX: the parent holds the results against the JAX package.
+
+``step``: collectives, ``replicate`` of a perturbed state, and the
+data-parallel train step from ``DIR/init.pt`` on this rank's rows of the
+global batches in ``DIR/batches.npz`` (per-rank BN and sync BN, states after
+1 and 3 steps), then an eval pass over this rank's round-robin share of
+``DIR/eval.npz``.
+
+``trainer``: ``Trainer.train`` of the tiny model over the dataset in
+``DIR/data``, its no-op re-run, and what must raise under the group. Every
+directory made, file opened for writing, renamed or removed under the model
+directory is recorded from Python's audit events (``torch.save`` writes
+from C++, but a checkpoint step shows as its directory's mkdir and
+rename).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+TIMEOUT_S = 60.0
+TINY = dict(n_blocks=(1, 1, 1), input_shape=(33, 33), base_depth=16, width_multiplier=0.125,
+            use_pallas_depthwise=True)
+SGD = dict(optimizer="sgd", lr=1e-2, lr_decay_steps=2, sgd_momentum=0.9)
+
+
+def launch(mode: str, world: int, directory: str, timeout: float = 240.0):
+    """Run ``world`` ranks of ``mode`` over ``directory`` and return their
+    results, rank by rank. Every rank is killed if any is still running
+    when the call returns; a rank that fails raises with its output."""
+    import subprocess
+
+    store = os.path.join(directory, f"store-{mode}")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), mode, str(rank), str(world), f"file://{store}", directory],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=repo,
+        )
+        for rank in range(world)
+    ]
+    try:
+        for rank, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"rank {rank} of {world} ({mode}) exited {p.returncode}:\n{out[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def _bce_task():
+    from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+
+    class BceTask(step_lib.SegmentationTask):
+        """The segmentation task under sigmoid cross entropy: a smooth
+        objective, so a one-step comparison measures the step and not the
+        Lovász hinge's sort order at ulp-close errors."""
+
+        def loss(self, logits, batch):
+            return losses_lib.sigmoid_cross_entropy(logits, batch["labels"])
+
+    return BceTask()
+
+
+def _state(cfg, tcfg_kwargs, init):
+    from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    return create_train_state(cfg, TrainConfig(**tcfg_kwargs), "cpu", state_dict=init["state_dict"],
+                              step=init["step"])
+
+
+def _snapshot(state):
+    return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+
+def _collectives(rank: int, world: int):
+    """What the collectives give on this rank."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+
+    a = torch.tensor([float(rank + 1), 2.0 * rank])
+    b = torch.full((2, 3), float(rank))
+    collectives.psum_([a, b])
+    c = torch.tensor([float(rank), 1.0])
+    collectives.pmean_(c)
+    d = torch.tensor([float(rank), -float(rank)])
+    collectives.pmax_(d)
+    e = torch.full((3,), float(rank))
+    collectives.broadcast_([e])
+    # the differentiable mean: the cotangent of x_r is the mean of the
+    # ranks' cotangents of y
+    x = torch.tensor([1.0 + rank, 2.0 * rank], requires_grad=True)
+    w = torch.tensor([float(rank + 1), 3.0])
+    y = collectives.pmean(x)
+    (y * w).sum().backward()
+    return {
+        "psum": (a, b), "pmean": c, "pmax": d, "broadcast": e, "pmean_y": y.detach(), "pmean_grad": x.grad,
+        "max_batches": multihost.all_processes_max_batches(3 * rank + 1, 2),
+        "object": multihost.broadcast_object({"rank": rank}),
+        "info": multihost.process_info(),
+    }
+
+
+def _step_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    out = {"collectives": _collectives(rank, world)}
+    cfg = ModelConfig(**TINY)
+    init = torch.load(os.path.join(directory, "init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "batches.npz"))
+    images, labels = data["images"], data["labels"]  # [steps, global batch, ...]
+    rows = mesh.shard_rows(images.shape[1], rank, world)
+    task = _bce_task()
+
+    # replicate: rank 0's state reaches every rank, whatever a rank held
+    state = _state(cfg, SGD, init)
+    if rank:
+        with torch.no_grad():
+            for t in state.model.state_dict().values():
+                t.add_(1.0)
+    out["replicated"] = _snapshot(replicate(state))
+
+    for name, extra in (("per_rank", {}), ("sync", {"sync_batch_norm": True})):
+        state = replicate(_state(cfg, dict(SGD, **extra), init))
+        train_step = step_lib.make_train_step(task, data_parallel=True)
+        losses = []
+        for k in range(images.shape[0]):
+            batch = {"images": torch.from_numpy(images[k, rows]), "labels": torch.from_numpy(labels[k, rows])}
+            state, metrics = train_step(state, batch)
+            losses.append(step_lib.compute_metrics(metrics)["loss"])
+            if k == 0:
+                out[f"{name}_1"] = _snapshot(state)
+        out[f"{name}_{images.shape[0]}"] = _snapshot(state)
+        out[f"{name}_losses"] = losses
+        flat = state.flat_grad
+        out[f"{name}_flat"] = all(
+            p.grad.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
+            for p in state.model.parameters()
+        )
+
+    # eval over this rank's round-robin share of an uneven eval set
+    ev = np.load(os.path.join(directory, "eval.npz"))
+    ids = [str(i) for i in range(len(ev["images"]))]
+    dataset = pipeline_lib.InMemoryDataset(ev["images"], ev["masks"], ids).select(pipeline_lib.host_shard(ids))
+    local_bs = multihost.per_process_batch_size(int(ev["batch"]))
+    num = multihost.eval_num_batches(len(ids), local_bs)
+    eval_step = step_lib.make_eval_step(task, data_parallel=True)
+    acc = None
+    for raw in pipeline_lib.eval_batches(dataset, local_bs, num_batches=num):
+        batch = augment_lib.prepare_eval_batch(torch.from_numpy(raw["images"]), torch.from_numpy(raw["masks"]))
+        batch["valid"] = torch.from_numpy(raw["valid"])
+        acc = step_lib.merge_metrics(acc, eval_step(state.model, batch))
+    out["eval"] = step_lib.compute_metrics(acc)
+    out["eval_shard"] = list(dataset.ids)
+    out["eval_steps"] = num
+    return out
+
+
+def _trainer_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    model_dir = os.path.join(directory, "model")
+    data = os.path.join(directory, "data")
+    writes = []
+
+    def audit(event, args):
+        # every way a process creates, changes or removes a file or directory
+        if event not in ("open", "os.rename", "os.remove", "os.rmdir", "os.mkdir", "shutil.rmtree"):
+            return
+        path = args[0]
+        if event == "open":
+            mode, flags = args[1], args[2]
+            writing = any(c in (mode or "") for c in "wax+") or bool(flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT))
+            if not writing:
+                return
+        if not isinstance(path, (str, bytes, os.PathLike)) or not os.fsdecode(path).startswith(model_dir):
+            return
+        if event == "os.mkdir" and os.path.isdir(path):
+            return  # makedirs(exist_ok=True) of a directory that is there
+        writes.append((event, os.fsdecode(path)))
+
+    sys.addaudithook(audit)
+    tcfg = dict(n_folds=2, seed=0, checkpoint_every_steps=2, eval_throttle_secs=0, save_best=2)
+    model = {k: v for k, v in TINY.items() if k != "input_shape"}
+    ids = pipeline_lib.discover_ids(data)
+
+    def trainer(**kw):
+        return Trainer(model_dir, data, train_config=TrainConfig(**dict(tcfg, **kw)), device="cpu",
+                       input_shape=(32, 32), **model)
+
+    out = {"results": trainer(n_devices=world).train(ids, batch_size=4, steps=4)}
+    out["first_writes"] = list(writes)
+    del writes[:]
+    out["rerun"] = trainer().train(ids, batch_size=4, steps=4)
+    out["rerun_writes"] = list(writes)
+    for what, call in (
+        ("n_devices", lambda: trainer(n_devices=world + 1)),
+        ("predict", lambda: trainer().predict(os.path.join(directory, "test"), batch_size=4)),
+        ("batch", lambda: trainer().train(ids, batch_size=world + 1, steps=4)),
+    ):
+        try:
+            call()
+            out[what] = None
+        except (ValueError, RuntimeError) as e:
+            out[what] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def main(argv) -> int:
+    mode, rank, world, store, directory = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    torch.set_num_threads(1)
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
+
+    multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
+    out = (_step_mode if mode == "step" else _trainer_mode)(rank, world, directory)
+    multihost.barrier()
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    multihost.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

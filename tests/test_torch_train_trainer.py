@@ -27,6 +27,7 @@ from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager, CheckpointStructureError
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer, augment_seed
+from tests import test_torch_dp_worker as torch_dp_worker
 from tests.conftest import make_salt_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -146,10 +147,15 @@ def test_augment_seed_is_a_function_of_fold_and_step():
 
 def test_trainer_rejects_what_the_slice_does_not_run(salt, tmp_path):
     data, _ = salt
-    for kw in (dict(grad_accum_steps=2), dict(n_devices=2), dict(sync_batch_norm=True),
-               dict(weight_update_sharding=True), dict(optimizer="lars")):
+    for kw in (dict(grad_accum_steps=2), dict(weight_update_sharding=True), dict(optimizer="lars"),
+               dict(model_parallel=2), dict(sequence_parallel=2), dict(pipeline_parallel=2, pipeline_microbatches=2),
+               dict(expert_parallel=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP|queue"):
             _trainer(str(tmp_path), data, **kw)
+    # the data-parallel knobs are taken; n_devices must be the world size
+    _trainer(str(tmp_path), data, sync_batch_norm=True, n_devices=1)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        _trainer(str(tmp_path), data, n_devices=2)
     with pytest.raises(ValueError, match="NCHW"):
         _trainer(str(tmp_path), data, data_format="NCHW").train(["im00"], batch_size=2, steps=1)
 
@@ -245,3 +251,28 @@ def test_served_fold_with_a_best_export_is_that_export(trained_ema):
     restored = trainer.restore_fold(1)
     for name, p in restored.model.named_parameters():
         assert torch.equal(restored.ema[name], p.detach())
+
+
+def test_trainer_trains_data_parallel_over_two_gloo_ranks(tmp_path):
+    # two CPU ranks train the tiny model, 2 folds x 4 steps at global batch 4
+    # (tests/test_torch_dp_worker.py, mode "trainer")
+    make_salt_dataset(tmp_path, n_images=16, shape=(32, 32))
+    rank0, rank1 = torch_dp_worker.launch("trainer", 2, str(tmp_path))
+    assert len(rank0["results"]) == 2
+    assert rank0["results"] == rank1["results"]
+    assert all(np.isfinite(v) for fold in rank0["results"] for v in fold.values())
+    model_dir = str(tmp_path / "model")
+    for fold in (0, 1):
+        assert _steps(os.path.join(model_dir, f"fold{fold}", "checkpoints")) == [2, 4]
+        assert _steps(os.path.join(model_dir, f"fold{fold}", "export", "best"))
+    # rank 0 alone writes under model_dir; the re-run is a no-op resume
+    renamed = {os.path.relpath(path, model_dir) for event, path in rank0["first_writes"] if event == "os.rename"}
+    assert {os.path.join(f"fold{f}", "checkpoints", f".tmp-{s}") for f in (0, 1) for s in (2, 4)} <= {
+        p.rsplit("-", 1)[0] for p in renamed}
+    assert rank1["first_writes"] == [] and rank1["rerun_writes"] == [] and rank0["rerun_writes"] == []
+    assert rank0["rerun"] == rank0["results"] and rank1["rerun"] == rank1["results"]
+    for out in (rank0, rank1):
+        assert out["n_devices"].startswith("ValueError") and "torchrun --nproc-per-node 3" in out["n_devices"]
+        assert out["predict"] == "RuntimeError: serving/predict restore runs single-process; load this " \
+            "model_dir from a single-process session"
+        assert out["batch"].startswith("ValueError: Global batch size 3 must be divisible by the process count 2")
