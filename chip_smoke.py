@@ -110,6 +110,35 @@ Phases, each fatal on failure (exit 1, no result line):
              route), timing the GEMM and, as the earlier kernel, the conv
              route at the path's shapes; profiles the bucket-64 bf16,
              int8-compute and float32-compute forwards.
+   fit-vit — ClassifierTrainer.fit on the same preset (its TrainConfig:
+             AdamW 1e-3, weight decay 0.1, clip 1.0, label smoothing 0.1,
+             flip_crop, cosine with warmup), full width and depth, on the
+             index-keyed synthetic stream: 20 steps at batch 64, a
+             checkpoint and an eval (4 batches) every 10, best export on
+             metrics/top1; checks the checkpoint and export steps, finite
+             metrics, 12 tensor-core attention launches per train step and
+             per eval forward and nothing else; prints the wall time and
+             final metrics; restores the best export (no init draw, timed)
+             and serves it through serving_fn("float32") and
+             ("bfloat16") on a batch of 64 (class == argmax; probabilities
+             1e-5 and 2e-2 of the restored model's own forward) and through
+             the engine after export_serving (1e-5).
+   train-vit — the preset's train step on a resident batch of 64: ms per
+             step (median of steps 3-10), images/s, 12 tensor-core
+             attention launches per step, torch.profiler's device time,
+             idle share and top kernels (the idle share also against the
+             unprofiled step); every attention forward of one step held
+             against the plain version (one bf16 step beyond the float32
+             tolerance), the CUDA arm's dq, dk, dv against the plain arm's
+             (the same backward on the same inputs: reported bit for bit or
+             not, held to the forward's tolerance), the 12 backwards timed
+             per step beside their bound (five products of 2·B·H·T²·D in
+             float32 over 67 TFLOP/s, TF32 off) and SDPA's forward and
+             backward on the same tensors (a yardstick); one bf16 step from
+             one state with the fused and the plain attention, loss and
+             every gradient leaf within 2e-2·max|g_leaf| (worst leaf
+             printed); a float32-compute step at depth 2 and batch 8
+             through the CUDA-core arm, held the same way.
 6. backward — captures the three ASPP depthwise calls (input, filter, rate
              and the output gradient) from one full-width training forward
              and backward at batch 64, and holds the dx and dw kernels
@@ -131,7 +160,9 @@ Phases, each fatal on failure (exit 1, no result line):
              reading x and g once, x.sum() + g.sum()); library:
              aten.convolution_backward.
 7. train   — writes a TGS-layout dataset from the seed (256 images of
-             101x101, a third of the masks empty) and runs Trainer.train
+             101x101, a third of the masks empty) and its train.csv, takes
+             the ids and coverage classes from load_tgs_training_set (the
+             training script's loader) and runs Trainer.train
              on the full-width model, batch 64, 2 folds of 20 steps,
              checkpoints and evals every 10 steps; checks every fold's
              checkpoints and best export, finite metrics, exactly 3/3/3
@@ -150,9 +181,11 @@ Phases, each fatal on failure (exit 1, no result line):
              64, 16 forwards, each launching 3 depthwise and 59 BN+act
              kernels), held against the same ensemble through the plain
              versions (probabilities 1e-5, masks equal away from the
-             threshold), its wall time and images/s; and `predict
-             --artifact-dir` on fold 0's export, equal to engine.infer on
-             the same images.
+             threshold), its wall time and images/s; a fold restore timed
+             into the draw-free template, into a freshly drawn state (the
+             ensemble through that restore bit for bit the same) and as the
+             export's torch.load alone; and `predict --artifact-dir` on
+             fold 0's export, equal to engine.infer on the same images.
 8. dp      — data-parallel training on 192 TGS-layout images of the
              seed, full width, global batch 64. One NCCL rank in this
              process (a file:// store): Trainer.train, 2 folds x 5 steps,
@@ -306,6 +339,11 @@ PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # (calibrated logits, std 3) plus equal classes where the top two are apart
 TOL_VIT_F32 = 1e-5
 TOL_VIT_BF16 = 2e-2
+# ViT training: fit 20 steps at batch 64 with a checkpoint and an eval
+# every 10; the train step timed on a resident batch of 64
+VIT_BATCH = 64
+VIT_FIT_STEPS = 20
+VIT_FIT_EVERY = 10
 TRAIN_BATCH = 64
 TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
@@ -680,6 +718,13 @@ def kernel_phase(torch, model, timer, card: str):
     return rows
 
 
+def device_kernel(evt) -> bool:
+    """Whether a profiler event is work on the card: a CUDA event that is
+    not a user annotation (``Optimizer.step#AdamW.step`` shows on the
+    device timeline too, over the kernels it launched)."""
+    return str(getattr(evt, "device_type", "")).endswith("CUDA") and not getattr(evt, "is_user_annotation", False)
+
+
 def profile_forward(torch, engine, x, reps: int = 3):
     """torch.profiler over ``reps`` engine forwards at bucket 64: wall time,
     summed device-kernel time and the idle share per forward, and the kernels
@@ -696,7 +741,7 @@ def profile_forward(torch, engine, x, reps: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels_us = {}
     for evt in prof.events():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        if device_kernel(evt):
             kernels_us[evt.name] = kernels_us.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     device_ms = sum(kernels_us.values()) / 1e3 / reps
     if device_ms <= 0:
@@ -1799,6 +1844,371 @@ def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
     return paths, rows
 
 
+# -- ViT training -------------------------------------------------------------
+
+
+def vit_train_config(steps_every: int):
+    """The preset's ModelConfig and TrainConfig (AdamW 1e-3, weight decay
+    0.1 on the kernels, clip 1.0, label smoothing 0.1, flip_crop, cosine
+    with warmup) with checkpoints and evals every ``steps_every`` steps."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+
+    preset = get_preset(VIT_PRESET)
+    tcfg = dataclasses.replace(preset.train, checkpoint_every_steps=steps_every, eval_every_steps=steps_every,
+                               seed=SEED % 1000, save_best=2)
+    return preset.model, tcfg
+
+
+def capture_training_attention(torch, state, task, batch):
+    """One training forward and backward (``step.forward_backward``) with
+    every ``flash_attention`` call recorded: its inputs (the strided views
+    of qkv), its output and the cotangent of its output. Returns the loss
+    and the calls; the gradients stay in the parameters' ``.grad``."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+
+    calls = []
+    real = fa.flash_attention
+
+    def recording(q, k, v, *, causal=False):
+        out = real(q, k, v, causal=causal)
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "out": out.detach(), "causal": causal,
+               "grad": q.requires_grad}
+        calls.append(rec)
+        if out.requires_grad:
+            out.register_hook(lambda g, rec=rec: rec.__setitem__("g", g.detach()))
+        return out
+
+    with mock.patch.object(fa, "flash_attention", recording):
+        loss, _ = step_lib.forward_backward(state, task, batch)
+    return loss, calls
+
+
+def hold_attention_forward(torch, rec, what: str) -> float:
+    """A training call's output (the kernel's) against the plain version on
+    its inputs, at the forward's tolerance for its dtype; max|err|."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, got = rec["q"], rec["k"], rec["v"], rec["out"]
+    with torch.no_grad():
+        want = fa.flash_attention_plain(q, k, v, causal=rec["causal"])
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL_ATTN_RTOL, atol=attention_atol(v), msg=lambda m: f"{what}: {m}")
+    else:
+        check_bf16_step(torch, got, want, attention_atol(v), what)
+    return (got.float() - want.float()).abs().max().item()
+
+
+def hold_attention_backward(torch, rec, what: str):
+    """The CUDA arm's dq, dk, dv (autograd through the kernel, on views of
+    one qkv tensor laid out as the model's) against the plain arm's
+    (``flash_attention_backward`` on the same inputs and cotangent): the
+    same function on the same tensors, so bit for bit is expected; held to
+    the forward's tolerance and reported bitwise or not. Returns (bitwise,
+    max|err|)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = rec["q"], rec["k"], rec["v"], rec["g"]
+    qkv = torch.stack([q, k, v], dim=2).requires_grad_(True)
+    fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=rec["causal"]).backward(g)
+    views = [qkv.detach()[:, :, j] for j in range(3)]
+    want = fa.flash_attention_backward(*views, g, causal=rec["causal"])
+    bitwise, err = True, 0.0
+    for j, w in enumerate(want):
+        got = qkv.grad[:, :, j]
+        bitwise &= same(torch, got, w)
+        err = max(err, (got.float() - w.float()).abs().max().item())
+        if got.dtype == torch.float32:
+            torch.testing.assert_close(got, w, rtol=TOL_ATTN_RTOL, atol=attention_atol(w),
+                                       msg=lambda m: f"{what} d{'qkv'[j]}: {m}")
+        else:
+            check_bf16_step(torch, got, w, attention_atol(w), f"{what} d{'qkv'[j]}")
+    return bitwise, err
+
+
+def attention_backward_flops(shape) -> float:
+    """The backward's products (JAX's _flash_bwd): S = q·kᵀ, dV = Pᵀ·g,
+    dP = g·vᵀ, dQ = dS·k, dK = dSᵀ·q, each 2·B·H·T²·D."""
+    b, t, h, d = shape
+    return 10.0 * b * h * t * t * d
+
+
+def time_attention_backward(torch, calls, timer, card):
+    """The attention backwards of one train step (plain PyTorch, float32
+    math) timed summed over the step's calls, beside their bound (the five
+    products in float32 on the CUDA cores, TF32 off; the bytes of q, k, v,
+    g read once and dq, dk, dv written once) and beside SDPA's forward and
+    backward on the same tensors (a yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    ms = lib = nbytes = flops = 0.0
+    for rec in calls:
+        q, k, v, g = rec["q"], rec["k"], rec["v"], rec["g"]
+        ms += timer.ms(lambda: fa.flash_attention_backward(q, k, v, g), reps=10, warmup=2)
+        qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+        gt = g.transpose(1, 2)
+
+        def sdpa():
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(out, (qt, kt, vt), gt)
+
+        lib += timer.ms(sdpa, reps=10, warmup=2)
+        nbytes += 7 * q.numel() * q.element_size()
+        flops += attention_backward_flops(q.shape)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    bound = max(t_bytes, t_ops) * 1e3
+    row = dict(ms=ms, bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations", sdpa_fwd_bwd_ms=lib,
+               calls=len(calls), bf16_tensor_core_bound_ms=max(t_bytes, flops / PEAK_BF16_FLOP_S) * 1e3)
+    log(f"train-vit: attention backward (plain PyTorch, float32 math) per train step: {len(calls)} calls of "
+        f"{tuple(calls[0]['q'].shape)} {calls[0]['q'].dtype}, {ms:.4f} ms; bound {bound:.4f} ms by {row['bound_by']} "
+        f"({flops / 1e9:.2f} GFLOP over 67 TFLOP/s f32, {nbytes / 1e9:.4f} GB over 3.35 TB/s; the same products on "
+        f"the bf16 tensor cores would be {row['bf16_tensor_core_bound_ms']:.4f} ms); SDPA forward + backward on the "
+        f"same tensors {lib:.4f} ms [{card}]")
+    return row
+
+
+def fused_step_parity(torch, state, task, batch, card):
+    """One bf16 step's loss and gradients from one state with the fused
+    attention (the kernel, its autograd arm) and with the plain attention
+    (autograd through ``flash_attention_plain``), held to the ViT's bf16
+    bound scaled by each leaf's largest value; the worst leaf printed."""
+    from tensorflowdistributedlearning_tpu_torch.models.vit import MultiHeadSelfAttention
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+
+    attns = [m for m in state.model.modules() if isinstance(m, MultiHeadSelfAttention)]
+    kernels.reset_launch_counts()
+    loss_k, _ = step_lib.forward_backward(state, task, batch)
+    grads_k = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    fused_launches = kernels.launch_counts()["flash_attention"]
+    for m in attns:
+        m.use_fused = False
+    try:
+        kernels.reset_launch_counts()
+        loss_p, _ = step_lib.forward_backward(state, task, batch)
+        check(kernels.launch_counts()["flash_attention"] == 0, "the plain-attention step launched attention")
+    finally:
+        for m in attns:
+            m.use_fused = True
+    d_loss = abs(float(loss_k) - float(loss_p))
+    check(d_loss <= TOL_VIT_BF16 * abs(float(loss_p)), f"fused vs plain attention loss {float(loss_k)} vs {float(loss_p)}")
+    worst, worst_name = 0.0, ""
+    for n, p in state.model.named_parameters():
+        err = (grads_k[n] - p.grad).abs().max().item()
+        tol = TOL_VIT_BF16 * p.grad.abs().max().item()
+        check(err <= tol, f"fused vs plain attention gradient {n}: max|err| {err} > {tol}")
+        if tol and err / tol > worst:
+            worst, worst_name = err / tol, n
+    state.zero_grad()
+    log(f"train-vit: one bf16 step from one state, fused attention ({fused_launches} launches) vs plain: |dloss| "
+        f"{d_loss:.3g} (loss {float(loss_p):.5f}); every gradient leaf within {TOL_VIT_BF16}·max|g_leaf| (worst "
+        f"{worst_name} at {worst:.3f} of its tolerance) [{card}]")
+    return worst, worst_name
+
+
+def vit_train_phase(torch, card: str, timer, device: str = "cuda", cfg=None, batch: int = VIT_BATCH,
+                    f32_batch: int = 8):
+    """The ViT train step on a resident batch (the preset, full width and
+    depth, batch 64, bf16 compute): ms per step, images/s, launches per
+    step, the profile; every attention call of a step held against the
+    plain version, forward and backward; the backward timed beside its
+    bound and SDPA; the fused-vs-plain step parity; and one float32-compute
+    step at depth 2 (batch ``f32_batch``) so the float32 kernel runs under
+    training. ``cfg`` and ``device="cpu"`` rehearse it small on the CPU
+    (no timing, no profile, no launches there)."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    preset_cfg, tcfg = vit_train_config(VIT_FIT_EVERY)
+    cfg = cfg or preset_cfg
+    on_card = device == "cuda"
+    per_step = PER_VIT_FORWARD if on_card else {k: 0 for k in PER_VIT_FORWARD}
+    state = create_train_state(cfg, tcfg, device, generator=torch.Generator().manual_seed(SEED + 80))
+    raw = synthetic_classification_batch(np.random.default_rng(SEED + 81), batch, cfg.input_shape,
+                                         cfg.input_channels, cfg.num_classes)
+    fixed = pipeline_lib.to_device(raw, torch.device(device))
+    task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+    train_step = step_lib.make_train_step(task, weight_decay=cfg.weight_decay)
+
+    # the main path: counts from 0 just before the timed steps, read just after
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for i in range(10):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, fixed)
+        losses.append(step_lib.compute_metrics(metrics)["loss"])  # the host copy waits for the step
+        times.append(time.perf_counter() - t0)
+        after = kernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in per_step}
+        check(delta == per_step, f"train-vit step {i}: launches {delta}, expected {per_step}")
+    counts = kernels.launch_counts()
+    check(all(np.isfinite(losses)), f"train-vit: non-finite losses {losses}")
+    ms = statistics.median(times[2:]) * 1e3
+    out = dict(launches=counts, step_ms=ms, images_per_s=batch / ms * 1e3, losses=losses)
+    log(f"train-vit: {VIT_PRESET} train step on a resident batch of {batch}: {ms:.3f} ms per step (median of steps "
+        f"3-10), {batch / ms * 1e3:.3f} images/s; {per_step['flash_attention_tc']} tensor-core attention launches "
+        f"per step; losses {[round(v, 5) for v in losses]} [{card}]")
+    if on_card:
+        lines, stats = profile_steps(torch, train_step, state, fixed)
+        for line in lines:
+            log(f"profile train-vit: {line} [{card}]")
+        if stats is not None:
+            # the profiler slows the host: the idle share of the unprofiled step
+            stats["idle_unprofiled"] = max(0.0, 1 - stats["device_ms"] / ms)
+            log(f"train-vit: device kernels {stats['device_ms']:.3f} ms of the unprofiled {ms:.3f} ms step: device "
+                f"idle {stats['idle_unprofiled']:.3f} [{card}]")
+        out["profile"] = stats
+
+    # every attention call of one step, forward and backward
+    _, calls = capture_training_attention(torch, state, task, fixed)
+    check(len(calls) == cfg.vit_layers and all("g" in c and c["grad"] for c in calls),
+          f"train-vit: {len(calls)} attention calls with gradients, expected {cfg.vit_layers}")
+    fwd_err = max(hold_attention_forward(torch, c, f"train-vit attention call {i} forward") for i, c in enumerate(calls))
+    held = [hold_attention_backward(torch, c, f"train-vit attention call {i} backward") for i, c in enumerate(calls)]
+    out.update(attention_forward_err=fwd_err, attention_backward_bitwise=all(b for b, _ in held),
+               attention_backward_err=max(e for _, e in held))
+    log(f"train-vit: the {len(calls)} attention forwards of a training step {tuple(calls[0]['q'].shape)} "
+        f"{calls[0]['q'].dtype} held against the plain version (max|err| {fwd_err:.3g}); the CUDA arm's dq, dk, dv "
+        f"{'bit for bit' if out['attention_backward_bitwise'] else 'not bit for bit (within the tolerance)'} the "
+        f"plain arm's (max|err| {out['attention_backward_err']:.3g})")
+    if on_card:
+        out["attention_backward"] = time_attention_backward(torch, calls, timer, card)
+    del calls
+    if cfg.dtype == "bfloat16":
+        out["parity_worst"] = fused_step_parity(torch, state, task, fixed, card)
+    del state, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # a float32-compute step at depth 2: the CUDA-core kernel under training
+    cfg32 = dataclasses.replace(cfg, dtype="float32", vit_layers=2)
+    state32 = create_train_state(cfg32, tcfg, device, generator=torch.Generator().manual_seed(SEED + 82))
+    raw32 = synthetic_classification_batch(np.random.default_rng(SEED + 83), f32_batch, cfg.input_shape,
+                                           cfg.input_channels, cfg.num_classes)
+    kernels.reset_launch_counts()
+    _, calls32 = capture_training_attention(torch, state32, task, pipeline_lib.to_device(raw32, torch.device(device)))
+    c32 = kernels.launch_counts()
+    want32 = (2, 0) if on_card else (0, 0)
+    check((c32["flash_attention"], c32["flash_attention_tc"]) == want32,
+          f"float32 step launches {c32['flash_attention']} attention ({c32['flash_attention_tc']} tensor-core)")
+    err32 = max(hold_attention_forward(torch, c, f"float32 step attention call {i} forward")
+                for i, c in enumerate(calls32))
+    held32 = [hold_attention_backward(torch, c, f"float32 step attention call {i} backward")
+              for i, c in enumerate(calls32)]
+    out.update(f32_attention_forward_err=err32, f32_attention_backward_bitwise=all(b for b, _ in held32))
+    log(f"train-vit: float32-compute step at depth 2, batch {f32_batch}: {len(calls32)} attention calls "
+        f"{tuple(calls32[0]['q'].shape)} through the CUDA-core arm (launches {want32[0]}), forwards within the "
+        f"float32 tolerance of plain (max|err| {err32:.3g}); dq, dk, dv "
+        f"{'bit for bit' if out['f32_attention_backward_bitwise'] else 'not bit for bit (within the tolerance)'} "
+        f"the plain arm's")
+    return out
+
+
+def fit_vit_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = VIT_BATCH,
+                  steps: int = VIT_FIT_STEPS, every: int = VIT_FIT_EVERY):
+    """ClassifierTrainer.fit on the preset (full width and depth, bf16,
+    fused attention; the main training path of this model) on synthetic
+    data: ``steps`` steps at ``batch``, a checkpoint and an eval every
+    ``every``, best export on metrics/top1; then the restored best state
+    served through ``serving_fn`` in float32 and bfloat16 and exported
+    through the engine."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, ClassifierTrainer
+
+    preset_cfg, tcfg = vit_train_config(every)
+    cfg = cfg or preset_cfg
+    on_card = device == "cuda"
+    per = PER_VIT_FORWARD if on_card else {k: 0 for k in PER_VIT_FORWARD}
+    shape = (*cfg.input_shape, cfg.input_channels)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fit-vit-") as root:
+        model_dir = os.path.join(root, "model")
+        ledger = LaunchLedger(kernels, step_lib)
+        trainer = ClassifierTrainer(model_dir, None, cfg, tcfg, device=device)
+        with ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = trainer.fit(batch_size=batch, steps=steps)
+            if on_card:
+                torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        check(result.steps == steps, f"fit-vit: {result.steps} steps")
+        check(sorted(result.final_metrics) == ["loss", "metrics/top1", "metrics/top5"] and
+              all(np.isfinite(v) for v in result.final_metrics.values()), f"fit-vit metrics {result.final_metrics}")
+        files = {kind: sorted(int(d) for d in os.listdir(os.path.join(model_dir, *sub)) if d.isdigit())
+                 for kind, sub in (("checkpoints", ("checkpoints",)), ("best", ("export", "best")))}
+        check(files["checkpoints"] == list(range(every, steps + 1, every)), f"fit-vit checkpoints {files}")
+        check(len(files["best"]) >= 1, "fit-vit: no best export")
+        n_evals = steps // every + (steps % every != 0)
+        check(len(ledger.train) == steps and len(ledger.eval) == n_evals * EVAL_SYNTHETIC_BATCHES,
+              f"fit-vit: {len(ledger.train)} train steps and {len(ledger.eval)} eval forwards recorded")
+        for i, delta in enumerate(ledger.train + ledger.eval):
+            delta = {k: delta[k] for k in per}
+            check(delta == per, f"fit-vit step or eval forward {i}: launches {delta}, expected {per}")
+        log(f"fit-vit: ClassifierTrainer.fit, {VIT_PRESET} ({result.n_params} parameters), {steps} steps at batch "
+            f"{batch} on synthetic data, checkpoints and evals every {every}: {fit_s:.3f} s wall (data, "
+            f"augmentation, evals, checkpoints and best exports included) [{card}]")
+        log(f"fit-vit: final metrics {json.dumps(result.final_metrics)}; checkpoints {files['checkpoints']}, best "
+            f"exports {files['best']}; {len(ledger.train)} train steps and {len(ledger.eval)} eval forwards launched "
+            f"{per['flash_attention_tc']} tensor-core attention kernels each; totals {counts}")
+        out.update(launches=counts, fit_s=fit_s, final_metrics=result.final_metrics, n_params=result.n_params)
+
+        t0 = time.perf_counter()
+        best = trainer._restore_best_host()
+        if on_card:
+            torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        log(f"fit-vit: restore of the best export (step {best.step}, no init draw) {out['restore_s']:.3f} s [{card}]")
+        x = make_vit_instances(batch, SEED + 84, shape)
+        with torch.inference_mode():
+            logits = best.model.eval()(torch.from_numpy(x).to(device))
+            direct = step_lib.ClassificationTask().predictions(logits)["probabilities"].float()
+        del best
+        served = {}
+        for spec in ("float32", "bfloat16"):
+            serve = trainer.serving_fn(spec)
+            kernels.reset_launch_counts()
+            answer = serve(x)
+            launched = kernels.launch_counts()
+            probs, cls = answer["probabilities"], answer["class"]
+            check(probs.shape == (batch, cfg.num_classes) and probs.dtype == torch.float32 and
+                  cls.dtype == torch.int32 and bool(torch.isfinite(probs).all()), f"fit-vit serve {spec}: outputs")
+            check(torch.equal(cls, probs.argmax(-1).to(torch.int32)), f"fit-vit serve {spec}: class != argmax")
+            check({k: launched[k] for k in per} == per, f"fit-vit serve {spec}: launches {launched}")
+            d = (probs - direct).abs().max().item()
+            tol = TOL_VIT_F32 if spec == "float32" else TOL_VIT_BF16
+            check(d <= tol, f"fit-vit serve {spec}: max|dprobs| {d} against the restored model's forward > {tol}")
+            served[spec] = d
+        log(f"fit-vit: serving_fn float32 and bfloat16 of the restored best answer a batch of {batch}: class == "
+            f"argmax, max|dprobs| against the restored model's own forward {served['float32']:.3g} (float32) and "
+            f"{served['bfloat16']:.3g} (bfloat16 weights)")
+        manifest = trainer.export_serving()
+        engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device=device, buckets=(batch,))
+        kernels.reset_launch_counts()
+        infer = engine.infer(x)
+        launched = kernels.launch_counts()
+        d = float(np.abs(infer["probabilities"] - direct.cpu().numpy()).max())
+        check(d <= TOL_VIT_F32, f"fit-vit export: engine probabilities {d} from the restored model's forward")
+        check({k: launched[k] for k in per} == per, f"fit-vit export: engine launches {launched}")
+        log(f"fit-vit: export_serving through the engine at bucket {batch}: max|dprobs| {d:.3g}, launches "
+            f"{per['flash_attention_tc']} tensor-core attention kernels")
+        out["serve_max_dprobs"] = served
+    return out
+
+
 # -- training -------------------------------------------------------------------
 
 
@@ -2071,7 +2481,9 @@ def fold_files(model_dir: str, fold: int):
 
 def profile_steps(torch, step, state, batch, reps: int = 3):
     """torch.profiler over ``reps`` train steps: wall and device-kernel time
-    per step, the device idle share, and the kernels that take the most."""
+    per step, the device idle share, and the kernels that take the most, as
+    lines of text and ``{"wall_ms", "device_ms", "idle"}`` (None when the
+    profiler recorded no CUDA kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     step(state, batch)
@@ -2084,16 +2496,18 @@ def profile_steps(torch, step, state, batch, reps: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels_us = {}
     for evt in prof.events():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        if device_kernel(evt):
             kernels_us[evt.name] = kernels_us.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     device_ms = sum(kernels_us.values()) / 1e3 / reps
     if device_ms <= 0:
-        return [f"train step: wall {wall_ms:.3f} ms; device time not measured (the profiler recorded no CUDA kernels)"]
+        return ([f"train step: wall {wall_ms:.3f} ms; device time not measured (the profiler recorded no CUDA "
+                 "kernels)"], None)
+    idle = max(0.0, 1 - device_ms / wall_ms)
     lines = [f"train step at batch {batch['images'].shape[0]}: wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} "
-             f"ms, device idle {max(0.0, 1 - device_ms / wall_ms):.3f} of the wall time"]
+             f"ms, device idle {idle:.3f} of the wall time"]
     for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:12]:
         lines.append(f"  {us / 1e3 / reps:9.3f} ms  {name[:110]}")
-    return lines
+    return lines, {"wall_ms": wall_ms, "device_ms": device_ms, "idle": idle}
 
 
 def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
@@ -2104,6 +2518,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.kaggle import load_tgs_training_set
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
     from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
     from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
@@ -2118,8 +2533,15 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as root:
         data, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
         t0 = time.perf_counter()
-        ids = write_salt_dataset(data, n_images, size, SEED + 11)
-        log(f"train: wrote {len(ids)} {size}x{size} TGS-layout images in {time.perf_counter() - t0:.3f} s")
+        written = write_salt_dataset(data, n_images, size, SEED + 11)
+        # the training script's ids and stratification classes: train.csv and the masks' coverage bins
+        train_csv = os.path.join(root, "train.csv")
+        with open(train_csv, "w") as f:
+            f.write("id,rle_mask\n" + "".join(f"{i},\n" for i in reversed(written)))
+        ids, classes = load_tgs_training_set(data, train_csv)
+        check(ids == sorted(written) and len(classes) == len(ids), "load_tgs_training_set ids")
+        log(f"train: wrote {len(ids)} {size}x{size} TGS-layout images and train.csv in {time.perf_counter() - t0:.3f} "
+            f"s; load_tgs_training_set: {len(ids)} ids, coverage classes {np.bincount(classes).tolist()}")
 
         # the main path: counts from 0 just before, read just after
         ledger = LaunchLedger(kernels, step_lib)
@@ -2128,7 +2550,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         with ledger.patch():
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            folds = trainer.train(ids, batch_size=batch, steps=steps)
+            folds = trainer.train(ids, classes, batch_size=batch, steps=steps)
             if device == "cuda":
                 torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
@@ -2158,7 +2580,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         before = {f: fold_files(model_dir, f) for f in range(TRAIN_FOLDS)}
         kernels.reset_launch_counts()
         again = Trainer(model_dir, data, train_config=tcfg, device=device, input_shape=(size, size),
-                        **model_kwargs).train(ids, batch_size=batch, steps=steps)
+                        **model_kwargs).train(ids, classes, batch_size=batch, steps=steps)
         rerun = kernels.launch_counts()
         check(rerun["depthwise_conv2d_dx"] == 0 and rerun["depthwise_conv2d_dw"] == 0, f"the re-run trained: {rerun}")
         check({f: fold_files(model_dir, f) for f in range(TRAIN_FOLDS)} == before, "the re-run rewrote checkpoints")
@@ -2186,7 +2608,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         log(f"train: {ms:.3f} ms per step (median of steps 3-10), {batch / ms * 1e3:.3f} images/s at batch {batch} "
             f"[{card}]")
         if device == "cuda":
-            for line in profile_steps(torch, train_step, state, fixed):
+            for line in profile_steps(torch, train_step, state, fixed)[0]:
                 log(f"profile: {line} [{card}]")
 
         # kernel path vs plain path: one step from one state and batch
@@ -2276,16 +2698,34 @@ def predict_checks(torch, trainer, artifact: str, root: str, card: str, device: 
         f"host copies included), {n_test / predict_s:.3f} images/s, {forwards} forwards, "
         f"{n_test * members / predict_s:.3f} image-forwards/s [{card}]")
     log(f"predict: every forward launched {PER_EVAL_FORWARD}; totals {counts}")
-    # two parts of the wall time on the host, each timed alone: a fold
-    # restore (predict makes one a fold) and decoding the test directory
-    t0 = time.perf_counter()
-    trainer.restore_fold(0)
-    restore_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False)
-    load_s = time.perf_counter() - t0
-    log(f"predict: one fold restore {restore_s:.3f} s, decoding the {n_test} test images {load_s:.3f} s (host) "
-        f"[{card}]")
+    # parts of the wall time, each timed alone: a fold restore (predict
+    # makes one a fold) into the draw-free template, the same restore into a
+    # freshly drawn state (what it replaced), torch.load of the export, and
+    # decoding the test directory
+    def drawn_restore(fold):
+        return trainer._checkpointer(fold).restore_best_or_raise(trainer._init_state())
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ckpt = trainer._checkpointer(0)
+    export = os.path.join(ckpt.directory, "export", "best", str(ckpt.best_step()), "state.pt")
+    restore_s = timed(lambda: trainer.restore_fold(0))
+    drawn_s = timed(lambda: drawn_restore(0))
+    torch_load_s = timed(lambda: torch.load(export, map_location="cpu", weights_only=True))
+    load_s = timed(lambda: pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False))
+    log(f"predict: one fold restore {restore_s:.3f} s without an init draw, {drawn_s:.3f} s into a freshly drawn "
+        f"state; torch.load of the best export alone {torch_load_s:.3f} s; decoding the {n_test} test images "
+        f"{load_s:.3f} s (host) [{card}]")
+    with mock.patch.object(trainer, "restore_fold", drawn_restore):
+        before = trainer.predict(test_dir, batch_size=batch)
+    check(before["ids"] == pred["ids"] and all(np.array_equal(before[k], pred[k]) for k in ("probabilities", "masks")),
+          "predict: the draw-free restore changed the predictions")
+    log("predict: the ensemble through the draw-free restore is bit for bit the one through the drawn restore")
 
     # the same ensemble through the plain versions
     plain = {"depthwise_conv2d": kernels.depthwise_conv2d_plain, "bn_act_folded": kernels.bn_act_folded_plain,
@@ -2329,7 +2769,8 @@ def predict_checks(torch, trainer, artifact: str, root: str, card: str, device: 
     log(f"predict --artifact-dir: fold 0's export over {n_test} images in {chunks} engine forwards, {artifact_s:.3f} s "
         f"wall (artifact load included), equal to engine.infer on the same images; launches {want} [{card}]")
     return dict(predict_launches=counts, artifact_launches=artifact_counts, predict_s=predict_s,
-                predict_images_per_s=n_test / predict_s, predict_forwards=forwards)
+                predict_images_per_s=n_test / predict_s, predict_forwards=forwards, restore_s=restore_s,
+                drawn_restore_s=drawn_s, torch_load_s=torch_load_s)
 
 
 # -- data-parallel training ---------------------------------------------------------
@@ -2950,6 +3391,14 @@ def main() -> int:
         vit_paths, vit_rows = vit_phase(torch, card, timer)
         rows.update(vit_rows)
         torch.cuda.empty_cache()
+        fitted = fit_vit_phase(torch, card)
+        torch.cuda.empty_cache()
+        vit_trained = vit_train_phase(torch, card, timer)
+        torch.cuda.empty_cache()
+        rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
+                                                     vit_trained["attention_forward_err"])
+        rows["flash_attention_f32"]["max_abs_err"] = max(rows["flash_attention_f32"]["max_abs_err"],
+                                                         vit_trained["f32_attention_forward_err"])
 
         from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_segmentation_batch
 
@@ -2973,7 +3422,8 @@ def main() -> int:
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
              "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
-             "train-dp": dp["train-dp"]["launches"], "train-dp2": dp["train-dp2"]["launches"], **vit_paths}
+             "train-dp": dp["train-dp"]["launches"], "train-dp2": dp["train-dp2"]["launches"], **vit_paths,
+             "fit-vit": fitted["launches"], "train-vit": vit_trained["launches"]}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -2990,7 +3440,10 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": table, "card": card,
                       "train": {k: trained[k] for k in ("step_ms", "images_per_s")},
-                      "predict": {k: trained[k] for k in ("predict_s", "predict_images_per_s", "predict_forwards")},
+                      "predict": {k: trained[k] for k in ("predict_s", "predict_images_per_s", "predict_forwards",
+                                                          "restore_s", "drawn_restore_s", "torch_load_s")},
+                      "fit_vit": {k: v for k, v in fitted.items() if k != "launches"},
+                      "train_vit": {k: v for k, v in vit_trained.items() if k not in ("launches", "losses")},
                       "train_dp": {k: v for k, v in dp["train-dp"].items() if k != "launches"},
                       "train_dp2": {k: v for k, v in dp["train-dp2"].items() if k not in ("launches", "held")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
-``cli.py``; the port carries ``train``, ``predict``, ``serve``, ``convert``
-and ``quantize-check``).
+``cli.py``; the port carries ``train``, ``fit``, ``predict``, ``serve``,
+``convert`` and ``quantize-check``).
 
     python -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
         --export-serving --serving-dtype int8-compute
     torchrun --nproc-per-node 4 -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 256 --sync-bn
+    python -m tensorflowdistributedlearning_tpu_torch fit \\
+        --preset vit_s16_imagenet --model-dir MODEL_DIR --steps 1000 --batch-size 64 --export-serving
     python -m tensorflowdistributedlearning_tpu_torch predict \\
         --model-dir MODEL_DIR --test-dir TEST --n-fold 5 --output pred.npz --submission submission.csv
     python -m tensorflowdistributedlearning_tpu_torch predict \\
@@ -90,6 +92,56 @@ def cmd_train(args) -> int:
     if multihost.is_main():
         print(json.dumps(out))
     return 0
+
+
+def cmd_fit(args) -> int:
+    """Classification training of a named preset (``train/fit.py``), on
+    synthetic data unless ``--data-dir`` holds data the port reads (none
+    yet: records and ImageFolder splits raise); rank 0 prints one JSON line
+    with ``preset``, ``steps``, ``n_params``, ``final_metrics`` and, with
+    ``--export-serving`` (single-process only), ``serving_artifact``."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
+    from tensorflowdistributedlearning_tpu_torch.train.fit import fit_preset
+
+    multihost.initialize(
+        args.coordinator_address, args.num_processes, args.process_id, backend=multihost.backend_for(args.device)
+    )
+    if args.export_serving and multihost.process_count() > 1:
+        print("--export-serving runs single-process: export the trained model_dir from a single-process "
+              "run", file=sys.stderr)
+        return 2
+    result = fit_preset(
+        args.preset,
+        args.model_dir,
+        data_dir=args.data_dir,
+        steps=args.steps,
+        batch_size=args.batch_size,
+        eval_every_steps=args.eval_every,
+        export_serving=args.serving_dtype if args.export_serving else None,
+        device=args.device,
+        optimizer=args.optimizer,
+        lr=args.lr,
+        augmentation=args.augmentation,
+        ema_decay=args.ema_decay,
+        grad_clip_norm=args.grad_clip,
+    )
+    summary = {"preset": args.preset, "steps": result.steps, "n_params": result.n_params,
+               "final_metrics": result.final_metrics}
+    if result.serving_artifact:
+        summary["serving_artifact"] = result.serving_artifact
+    if multihost.is_main():
+        print(json.dumps(summary))
+    return 0
+
+
+def _add_process_group(p: argparse.ArgumentParser) -> None:
+    """The explicit process-group flags (``torchrun``'s environment is
+    discovered without them)."""
+    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT",
+                   help="join an explicit process group at this address (tcp://HOST:PORT or file://PATH also "
+                   "taken); torchrun's environment is discovered without it")
+    p.add_argument("--num-processes", type=int, default=None, help="world size of the explicit process group")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank in the explicit group")
 
 
 def _predict_from_artifact(args) -> int:
@@ -295,12 +347,36 @@ def build_parser() -> argparse.ArgumentParser:
                    "one device")
     t.add_argument("--sync-bn", action="store_true",
                    help="synchronized BatchNorm: training statistics over the global batch instead of per rank")
-    t.add_argument("--coordinator-address", default=None, metavar="HOST:PORT",
-                   help="join an explicit process group at this address (tcp://HOST:PORT or file://PATH also "
-                   "taken); torchrun's environment is discovered without it")
-    t.add_argument("--num-processes", type=int, default=None, help="world size of the explicit process group")
-    t.add_argument("--process-id", type=int, default=None, help="this process's rank in the explicit group")
+    _add_process_group(t)
     t.set_defaults(fn=cmd_train)
+
+    f = sub.add_parser("fit", help="single-run classification training from a named preset (synthetic data)")
+    f.add_argument("--preset", required=True)
+    f.add_argument("--model-dir", required=True)
+    f.add_argument("--data-dir", default=None,
+                   help="omitted: synthetic data; a directory with record shards or an ImageFolder split is "
+                   "refused until the port reads them")
+    f.add_argument("--steps", type=int, default=100)
+    f.add_argument("--batch-size", type=int, default=None, help="global batch (default: the preset's)")
+    f.add_argument("--eval-every", type=int, default=None)
+    f.add_argument("--optimizer", choices=("adam", "sgd", "lars"), default=None,
+                   help="override the preset's optimizer; requires --lr when it differs from the preset's pairing")
+    f.add_argument("--lr", type=float, default=None, help="override the preset's learning rate")
+    f.add_argument("--augmentation", choices=("flip_crop", "crop", "none", "mixup", "cutmix"), default=None,
+                   help="override the preset's train augmentation policy")
+    f.add_argument("--ema-decay", type=float, default=None,
+                   help="track a parameter EMA at this decay and evaluate/export the averaged weights; 0 disables")
+    f.add_argument("--grad-clip", type=float, default=None,
+                   help="clip gradients to this global l2 norm before the update; 0 disables")
+    f.add_argument("--export-serving", action="store_true",
+                   help="after training, export the best state's serving artifact ({model_dir}/export/serving)")
+    f.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",
+                   help="precision spec of --export-serving (quantized specs export to export/serving-{spec})")
+    f.add_argument("--device", default=None,
+                   help="torch device (default: cuda, this rank's GPU in a process group; no CPU fallback); "
+                   "cpu ranks use gloo")
+    _add_process_group(f)
+    f.set_defaults(fn=cmd_fit)
 
     pr = sub.add_parser("predict", help="fold x TTA ensemble prediction")
     pr.add_argument("--model-dir", required=True, help="the trained folds (fold{K}/...); ignored with --artifact-dir")

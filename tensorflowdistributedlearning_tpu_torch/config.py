@@ -5,8 +5,9 @@
 field, with the same defaults and the same ``__post_init__`` checks, so one
 JSON config drives both packages. The port serves and trains the ResNet
 segmentation family in float32 (on one device, or data-parallel over
-ranks with per-rank or synchronized BatchNorm) and serves the ViT classifier
-in float32 or bfloat16; the knobs it does not run yet are rejected by
+ranks with per-rank or synchronized BatchNorm) and serves and trains the
+ViT classifier in float32 or bfloat16; the knobs it does not run yet are
+rejected by
 :func:`require_supported` and :func:`require_supported_training` with the
 queue item that will bring them.
 """
@@ -349,15 +350,12 @@ _LATER_TRAINING = (
 
 def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a model or training configuration
-    the port does not train yet (it trains the ResNet segmenter in float32,
-    on one device or data-parallel), naming the ROADMAP item that brings
-    it."""
+    the port does not train yet, naming the ROADMAP item that brings it. It
+    trains the ResNet segmenter in float32 and the ViT classifier without
+    experts in float32 or bfloat16 compute, on one device or data-parallel;
+    what :func:`require_supported` refuses (the MoE ViT, the ResNet
+    classification head) it refuses too."""
     require_supported(model_config)
-    if model_config.backbone == "vit":
-        raise NotImplementedError(
-            "training backbone='vit' is not ported yet (ViT training: queue A 1, see ROADMAP.md); "
-            "the port serves the ViT classifier"
-        )
     if model_config.remat:
         raise NotImplementedError("remat=True in training is not ported yet (queue A 4, see ROADMAP.md)")
     for test, what in _LATER_TRAINING:

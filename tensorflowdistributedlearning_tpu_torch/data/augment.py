@@ -9,10 +9,18 @@ U(±range)·height, optional zoom-crop, one composed inverse affine warp per
 image (bilinear for the image, nearest for the mask, zero fill outside), the
 central crop back to the input size, and the Laplacian second channel.
 
+Classification augmentation is the JAX package's: a per-image horizontal
+flip and a reflect-padded random crop (:func:`augment_classification_batch`),
+then optionally mixup or cutmix, which pair each image with a permuted
+partner and return ``labels_b`` and the mixing weight ``lam`` for the loss.
+
 Randomness comes from an explicit ``torch.Generator`` (on the device of the
 batch); it cannot reproduce ``jax.random``'s bits, so the two packages agree
 on the warp given one matrix and on the distribution of the sampled
-matrices, not on the draws.
+matrices, not on the draws. The classification transforms are each split
+into a draw (``*_draws``: flip bits, crop offsets, permutation, ``lam``, box
+centre) and an apply that is a function of the batch and the draws, so the
+apply can be held bit for bit against the JAX package on JAX's draws.
 """
 
 from __future__ import annotations
@@ -297,6 +305,161 @@ def augment_batch(
         out_hw = (images.shape[1], images.shape[2])
     aug_images, aug_masks = _augment(generator, images, masks, cfg, tuple(out_hw))
     return {"images": add_laplace_channel(aug_images), "labels": aug_masks}
+
+
+# -- classification -------------------------------------------------------------
+
+
+def classification_augment_draws(
+    generator: torch.Generator, n: int, crop_padding: int = 4, flip: bool = True, device=None
+) -> Dict[str, Optional[torch.Tensor]]:
+    """The draws of :func:`augment_classification_batch` for ``n`` images:
+    ``flips`` [n] bool (p = 0.5; None without ``flip``), crop offsets
+    ``ys``, ``xs`` [n] int64 in ``[0, 2·crop_padding]`` (None without
+    padding)."""
+    flips = torch.rand(n, generator=generator, device=device) < 0.5 if flip else None
+    if crop_padding <= 0:
+        return {"flips": flips, "ys": None, "xs": None}
+    hi = 2 * crop_padding + 1
+    ys = torch.randint(0, hi, (n,), generator=generator, device=device)
+    xs = torch.randint(0, hi, (n,), generator=generator, device=device)
+    return {"flips": flips, "ys": ys, "xs": xs}
+
+
+def apply_classification_augment(
+    images: torch.Tensor, flips: Optional[torch.Tensor], ys: Optional[torch.Tensor], xs: Optional[torch.Tensor],
+    crop_padding: int = 4,
+) -> torch.Tensor:
+    """Mirror the rows whose ``flips`` is set, then crop each [H, W] window
+    at ``(ys, xs)`` out of the batch REFLECT-padded by ``crop_padding``."""
+    if flips is not None:
+        images = torch.where(flips[:, None, None, None], images.flip(2), images)
+    if ys is None:
+        return images
+    b, h, w, _ = images.shape
+    padded = _reflect_pad(images, crop_padding)
+    rows = ys.long()[:, None] + torch.arange(h, device=images.device)  # [B, H]
+    cols = xs.long()[:, None] + torch.arange(w, device=images.device)  # [B, W]
+    batch = torch.arange(b, device=images.device)[:, None, None]
+    return padded[batch, rows[:, :, None], cols[:, None, :]]
+
+
+def augment_classification_batch(
+    generator: torch.Generator, images: torch.Tensor, crop_padding: int = 4, flip: bool = True
+) -> torch.Tensor:
+    """Per-image random horizontal flip and reflect-padded random crop of
+    [B, H, W, C] images (the ImageNet/CIFAR recipe); ``flip=False`` keeps
+    the chirality (text, digits)."""
+    draws = classification_augment_draws(generator, images.shape[0], crop_padding, flip, images.device)
+    return apply_classification_augment(images, crop_padding=crop_padding, **draws)
+
+
+def beta_sample(generator: torch.Generator, n: int, alpha: float, device=None) -> torch.Tensor:
+    """[n] float32 draws of Beta(alpha, alpha) by Jöhnk's rejection method
+    on uniforms (``torch.distributions`` takes no generator): X = U^(1/a),
+    Y = V^(1/a), kept when X + Y <= 1, the draw X / (X + Y); in logs, so
+    a small U cannot underflow. Each round keeps a share
+    Γ(1+a)² / Γ(1+2a) of its candidates (0.95 at a = 0.2, 0.5 at a = 1);
+    the rounds end when every row has one, which reads one flag on the
+    host per round."""
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    todo = torch.ones(n, dtype=torch.bool, device=device)
+    while True:
+        log_x = torch.log(torch.rand(n, generator=generator, device=device, dtype=torch.float64)) / alpha
+        log_y = torch.log(torch.rand(n, generator=generator, device=device, dtype=torch.float64)) / alpha
+        log_sum = torch.logaddexp(log_x, log_y)
+        take = todo & (log_sum <= 0)
+        out = torch.where(take, torch.exp(log_x - log_sum).float(), out)
+        todo = todo & ~take
+        if not bool(todo.any()):
+            return out
+
+
+def mixup_draws(generator: torch.Generator, n: int, alpha: float = 0.2, device=None) -> Dict[str, torch.Tensor]:
+    """The draws of :func:`mixup_batch`: a permutation ``perm`` [n] and
+    ``lam`` [n] ~ Beta(alpha, alpha)."""
+    perm = torch.randperm(n, generator=generator, device=device)
+    return {"perm": perm, "lam": beta_sample(generator, n, alpha, device)}
+
+
+def apply_mixup(images: torch.Tensor, labels: torch.Tensor, perm: torch.Tensor, lam: torch.Tensor):
+    """Mixup (arXiv:1710.09412) of each image with its partner ``perm``:
+    ``lam`` folded to ``max(lam, 1 - lam)`` (so ``labels`` stay the
+    majority target), ``lam·x + (1 - lam)·x[perm]``; returns the batch with
+    ``labels``, ``labels_b`` and ``lam`` (float32) for the loss."""
+    lam = lam.to(images.dtype)
+    lam = torch.maximum(lam, 1.0 - lam)
+    w = lam[:, None, None, None]
+    mixed = w * images + (1.0 - w) * images[perm]
+    return {"images": mixed, "labels": labels, "labels_b": labels[perm], "lam": lam.float()}
+
+
+def mixup_batch(generator: torch.Generator, images: torch.Tensor, labels: torch.Tensor, alpha: float = 0.2):
+    """Mixup with draws from ``generator`` (:func:`apply_mixup`)."""
+    return apply_mixup(images, labels, **mixup_draws(generator, images.shape[0], alpha, images.device))
+
+
+def cutmix_draws(generator: torch.Generator, n: int, h: int, w: int, alpha: float = 1.0, device=None):
+    """The draws of :func:`cutmix_batch`: ``perm`` [n], the box's area
+    draw ``lam0`` [n] ~ Beta(alpha, alpha), and its centre ``cy`` [n] in
+    [0, h), ``cx`` [n] in [0, w)."""
+    perm = torch.randperm(n, generator=generator, device=device)
+    lam0 = beta_sample(generator, n, alpha, device)
+    cy = torch.randint(0, h, (n,), generator=generator, device=device)
+    cx = torch.randint(0, w, (n,), generator=generator, device=device)
+    return {"perm": perm, "lam0": lam0, "cy": cy, "cx": cx}
+
+
+def apply_cutmix(images: torch.Tensor, labels: torch.Tensor, perm, lam0, cy, cx):
+    """CutMix (arXiv:1905.04899): a box of sides ``int(sqrt(1 - lam0)·h)``
+    by ``int(sqrt(1 - lam0)·w)`` centred at ``(cy, cx)``, clamped to the
+    image, takes the partner's pixels; ``lam`` is the share of pixels that
+    survive after the clamp, so the loss mixes what the pixels hold."""
+    _, h, w, _ = images.shape
+    dev = images.device
+    cut = torch.sqrt(1.0 - lam0.float())
+    bh = (cut * h).to(torch.int32)
+    bw = (cut * w).to(torch.int32)
+    cy, cx = cy.to(torch.int32), cx.to(torch.int32)
+    y0 = torch.clamp(cy - bh // 2, 0, h)
+    y1 = torch.clamp(cy + (bh + 1) // 2, 0, h)
+    x0 = torch.clamp(cx - bw // 2, 0, w)
+    x1 = torch.clamp(cx + (bw + 1) // 2, 0, w)
+    rows = torch.arange(h, device=dev)[None, :, None]
+    cols = torch.arange(w, device=dev)[None, None, :]
+    in_box = ((rows >= y0[:, None, None]) & (rows < y1[:, None, None])
+              & (cols >= x0[:, None, None]) & (cols < x1[:, None, None]))  # [B, H, W]
+    mixed = torch.where(in_box[..., None], images[perm], images)
+    # the mean as XLA computes jnp.mean: the sum times the float32 reciprocal
+    box_frac = in_box.float().sum(dim=(1, 2)) * torch.tensor(1.0 / (h * w), dtype=torch.float32, device=dev)
+    return {"images": mixed, "labels": labels, "labels_b": labels[perm], "lam": 1.0 - box_frac}
+
+
+def cutmix_batch(generator: torch.Generator, images: torch.Tensor, labels: torch.Tensor, alpha: float = 1.0):
+    """CutMix with draws from ``generator`` (:func:`apply_cutmix`)."""
+    _, h, w, _ = images.shape
+    return apply_cutmix(images, labels, **cutmix_draws(generator, images.shape[0], h, w, alpha, images.device))
+
+
+def prepare_classification_batch(
+    generator: torch.Generator, batch: Dict[str, torch.Tensor], policy: str = "flip_crop"
+) -> Dict[str, torch.Tensor]:
+    """A train batch ``{"images", "labels"}`` under the augmentation policy
+    (``TrainConfig.augmentation``): ``none`` passes it through; the others
+    flip (not under ``crop``) and crop with a reflect padding of
+    ``min(4, max(H // 8, 1))`` pixels (the jitter scales with the input,
+    up to CIFAR's 4), then ``mixup`` and ``cutmix`` mix the pairs."""
+    if policy == "none":
+        return batch
+    images = batch["images"]
+    pad = min(4, max(images.shape[1] // 8, 1))
+    images = augment_classification_batch(generator, images, crop_padding=pad,
+                                          flip=policy in ("flip_crop", "mixup", "cutmix"))
+    if policy == "mixup":
+        return mixup_batch(generator, images, batch["labels"])
+    if policy == "cutmix":
+        return cutmix_batch(generator, images, batch["labels"])
+    return {"images": images, "labels": batch["labels"]}
 
 
 def prepare_eval_batch(images: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -91,6 +91,25 @@ def model_for(config: ModelConfig) -> nn.Module:
     return ResNetSegmentation(config)
 
 
+def _set_sync_batch_norm(model: nn.Module, sync: bool) -> nn.Module:
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = sync
+    return model
+
+
+def empty_model(config: ModelConfig, device: DeviceLike = None, *, sync_batch_norm: bool = False) -> nn.Module:
+    """The network of ``config`` with its tensors allocated on ``device``
+    (CUDA when None) and left uninitialised, in eval mode: built on
+    ``torch.device("meta")``, then ``to_empty``. It draws nothing, so it is
+    the template of a restore, whose strict ``load_state_dict`` overwrites
+    every tensor."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = model_for(config)
+    return _set_sync_batch_norm(model, sync_batch_norm).to_empty(device=device).eval()
+
+
 def build_model(
     config: ModelConfig,
     device: DeviceLike = None,
@@ -104,10 +123,7 @@ def build_model(
     training statistics over the global batch of a data-parallel run (the
     JAX package's ``bn_axis_name=BATCH_AXIS``)."""
     device = resolve_device(device)
-    model = model_for(config)
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.sync = sync_batch_norm
+    model = _set_sync_batch_norm(model_for(config), sync_batch_norm)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if isinstance(model, ViTClassifier):
@@ -124,6 +140,7 @@ __all__ = [
     "SplitSeparableConv2D",
     "ViTClassifier",
     "build_model",
+    "empty_model",
     "fixed_padding",
     "init_vit_weights",
     "init_weights",

@@ -1,5 +1,7 @@
 """Vision Transformer classifier (counterpart of
-``tensorflowdistributedlearning_tpu/models/vit.py``), eval-mode.
+``tensorflowdistributedlearning_tpu/models/vit.py``), for serving and
+training (the model has no dropout and no BatchNorm, so its training-mode
+forward is its eval-mode one).
 
 A pre-LN ViT: patch embedding (a VALID stride-p conv), learned position
 embeddings, N transformer blocks, a final LayerNorm, a float32 mean pool
@@ -25,9 +27,15 @@ The dtype flow repeats flax's under ``ModelConfig.dtype``:
   is a float32 mean; the ``logits`` Dense has no dtype, so it computes in
   float32 from the float32 pool.
 
+Each cast of a parameter to the compute dtype is a differentiable
+``Tensor.to``: in bf16 compute the float32 parameters receive float32
+gradients (the bf16 cotangent cast back), as flax's promotion does under
+``jax.grad``.
+
 Attention is :func:`ops.flash_attention.flash_attention` under
 ``use_fused_attention`` (the hand-written kernel on CUDA) and its plain
-version otherwise; both keep float32 math and return the compute dtype.
+version otherwise; both keep float32 math, return the compute dtype and
+carry gradients (the kernel through its ``autograd.Function``).
 The patch conv and the Dense products stay ``torch.matmul``, as the JAX
 package leaves them to XLA. Under ``int8-compute`` the Dense layers become
 ``ops.quant_kernels.QuantLinear`` at load time.

@@ -22,9 +22,19 @@ base or strides are not 16-byte aligned is first copied to a contiguous
 tensor. Each takes the head widths of :data:`KERNEL_HEAD_DIMS` for its
 dtype and raises on any other (``config.require_supported`` refuses such a
 fused ViT before it reaches the card). ``csrc/flash_attention.cu``, the
-earlier CUDA-core kernel, is built but no path calls it. Both are
-forward-only: the CUDA arm raises when a gradient is wanted; the JAX
-package's backward (``_flash_bwd``, plain XLA) comes with ViT training.
+earlier CUDA-core kernel, is built but no path calls it.
+
+Gradients (ViT training): :func:`flash_attention` is a
+``torch.autograd.Function`` on both arms, as the JAX package's is a
+``custom_vjp``. The forward saves ``(q, k, v)`` and neither the output nor
+a logsumexp (JAX's ``_flash_fwd``); the backward
+(:func:`flash_attention_backward`, JAX's ``_flash_bwd``) rebuilds the
+scores in plain float32 PyTorch: ``P = softmax(q·kᵀ·scale)`` (masked under
+``causal``), ``dV = Pᵀ·g``, ``dP = g·vᵀ``, ``dS = P∘(dP - rowsum(dP∘P))``,
+``dQ = dS·k·scale``, ``dK = dSᵀ·q·scale``, each returned in the input
+dtype. The JAX package computes these products in XLA outside any Pallas
+kernel, so they stay PyTorch products here; a Hopper backward kernel is
+queued in ROADMAP.md (B 1).
 
 Not carried over: ``_VMEM_KV_LIMIT_BYTES``, the TPU kernel's VMEM budget
 above which its wrapper fell back to XLA, and the ViT's ``_FUSED_MAX_SEQ``
@@ -89,6 +99,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
     return o.to(q.dtype)
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, *,
+                             causal: bool = False):
+    """``(dq, dk, dv)`` of attention at ``q, k, v`` [B, T, H, D] for the
+    output cotangent ``g`` (JAX's ``_flash_bwd``): float32 math on the
+    recomputed weights, results in ``q``'s dtype."""
+    dtype = q.dtype
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    scale = _scale(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        t = q.shape[1]
+        visible = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(visible, s, torch.full_like(s, MASK_VALUE))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
 def _strides(x: torch.Tensor, name: str):
     if x.stride(3) != 1:
         raise ValueError(f"flash_attention: {name} must have a contiguous last axis, got strides {x.stride()}")
@@ -124,21 +156,11 @@ def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
-    """Softmax attention on ``[B, T, H, D]`` (float32 or bfloat16), float32
-    math, output ``[B, T, H, D]`` contiguous in ``q``'s dtype. CPU: plain
-    version; CUDA: ``csrc/flash_attention_tc.cu`` for bfloat16 inputs,
-    ``csrc/flash_attention_f32.cu`` for float32 (head widths of
-    :data:`KERNEL_HEAD_DIMS`, any sequence length, inputs read through their
-    strides), which refuse inputs that need a gradient."""
-    _check(q, k, v)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The forward of one checked call: the plain version on the CPU, else
+    one kernel launch, counted."""
     if kernels._use_plain(q):
         return flash_attention_plain(q, k, v, causal=causal)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel is forward-only; its backward comes with ViT training "
-            "(see ROADMAP.md). Call it under torch.no_grad() or torch.inference_mode()"
-        )
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}; q, k, v must share one CUDA device")
@@ -156,3 +178,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if tensor_cores:
         kernels.LAUNCHES["flash_attention_tc"] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward of :func:`_forward`, the backward of
+    :func:`flash_attention_backward` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, g, causal=ctx.causal), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    """Softmax attention on ``[B, T, H, D]`` (float32 or bfloat16), float32
+    math, output ``[B, T, H, D]`` contiguous in ``q``'s dtype, differentiable
+    in ``q``, ``k`` and ``v``. CPU: plain version; CUDA:
+    ``csrc/flash_attention_tc.cu`` for bfloat16 inputs,
+    ``csrc/flash_attention_f32.cu`` for float32 (head widths of
+    :data:`KERNEL_HEAD_DIMS`, any sequence length, inputs read through their
+    strides). The backward is :func:`flash_attention_backward` on both."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bool(causal))
+    return _forward(q, k, v, bool(causal))

@@ -1,4 +1,4 @@
-"""Lovász hinge loss (counterpart of
+"""Lovász hinge and softmax cross entropy (counterpart of
 ``tensorflowdistributedlearning_tpu/ops/losses.py``).
 
 The per-image loss runs batched: one descending ``torch.sort`` per image
@@ -97,3 +97,25 @@ def sigmoid_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     writes it: ``max(x, 0) - x·z + log1p(exp(-|x|))``."""
     labels = labels.to(logits.dtype)
     return torch.mean(torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def softmax_cross_entropy_per_example(
+    logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0
+) -> torch.Tensor:
+    """Per-example softmax cross entropy of [B, K] logits against integer
+    labels [B], shape [B], from a float32 ``log_softmax``. With
+    ``label_smoothing`` s the target is ``(1-s)·onehot + s/K``, written as
+    the JAX package writes it: ``-(1-s)·logp_true - (s/K)·sum(logp)``
+    (``F.cross_entropy(label_smoothing=s)`` is the same quantity summed in
+    another order)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    true_logp = torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+    if label_smoothing:
+        k = logits.shape[-1]
+        return -(1.0 - label_smoothing) * true_logp - (label_smoothing / k) * logp.sum(dim=-1)
+    return -true_logp
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean of :func:`softmax_cross_entropy_per_example`."""
+    return softmax_cross_entropy_per_example(logits, labels, label_smoothing).mean()

@@ -6,7 +6,14 @@ the device they were computed on, so a train loop accumulates without a host
 sync and fetches once. Semantics as in the JAX package: per-image IoU from
 the binary confusion counts with the empty-mask rule (TP+FP+FN == 0 scores
 1.0), the reference's nonstandard ``mean(score * (score > t))`` threshold
-form over 0.50..0.95 (SURVEY §2.4.14), and per-image pixel accuracy.
+form over 0.50..0.95 (SURVEY §2.4.14), and per-image pixel accuracy. The
+classifier's per-example top-1 and top-k hits.
+
+Ties among the logits: ``jax.lax.top_k`` keeps the lower index first;
+``torch.topk`` on the CPU and CUDA does not promise an order among equal
+values, and ``torch.argmax`` and ``jnp.argmax`` both take the first index.
+So top-1 agrees with the JAX package on every input, top-k on logits whose
+k-th and (k+1)-th values differ.
 """
 
 from __future__ import annotations
@@ -86,3 +93,18 @@ def mean_accuracy(
     state = Mean.empty(y_true.device) if state is None else state
     new_state = state.update(mean_accuracy_scores(y_true, y_pred))
     return new_state.compute(), new_state
+
+
+def top1_accuracy_scores(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-example top-1 hits, shape [B] float32."""
+    return (torch.argmax(logits, dim=-1) == labels.long()).float()
+
+
+def topk_accuracy_scores(logits: torch.Tensor, labels: torch.Tensor, k: int = 5) -> torch.Tensor:
+    """Per-example top-k hits, shape [B] float32; top-1 when ``k`` is at
+    least the class count (every class in the top set would score a
+    constant 1)."""
+    if k >= logits.shape[-1]:
+        return top1_accuracy_scores(logits, labels)
+    top = torch.topk(logits, k, dim=-1).indices
+    return (top == labels.long()[:, None]).any(dim=-1).float()

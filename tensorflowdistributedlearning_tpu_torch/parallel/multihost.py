@@ -113,6 +113,19 @@ def local_device() -> torch.device:
     return torch.device("cuda", index)
 
 
+def require_world_size(n_devices: Optional[int]) -> None:
+    """Raise unless ``n_devices`` (a config's device count; None takes
+    whatever the launcher set up) is this run's process count: a rank owns
+    one device."""
+    world = process_count()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(
+            f"n_devices={n_devices} but this run has {world} process(es): a rank owns one device, so launch "
+            f"{n_devices} ranks (torchrun --nproc-per-node {n_devices}, or --coordinator-address/--num-processes/"
+            "--process-id on every rank) or leave n_devices unset"
+        )
+
+
 def per_process_batch_size(global_batch: int) -> int:
     """This process's share of every global batch (``global_batch / process_count``)."""
     p = process_count()

@@ -51,7 +51,8 @@ ARTIFACT_FORMAT = "torch state_dict + ModelConfig JSON"
 def serving_model(config: ModelConfig, qstate: Mapping[str, Any], section: Mapping[str, Any],
                   device: DeviceLike = None) -> nn.Module:
     """The eval-mode model that serves ``qstate`` (``quantize_state``'s
-    output) under its section's spec, on ``device``:
+    output) under its section's spec, on ``device`` (allocated without an
+    init draw, then loaded strictly):
 
     - ``float32``: the state as it is;
     - other specs: BatchNorm parameters and statistics stay bf16 (flax's
@@ -65,12 +66,11 @@ def serving_model(config: ModelConfig, qstate: Mapping[str, Any], section: Mappi
     The ViT has no BatchNorm: its parameters hold their bf16 (int8:
     dequantized) values in float32, which is what flax computes with once
     it promotes or casts them at each call."""
-    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.models import empty_model
     from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
     from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels
 
-    device = resolve_device(device)
-    model = build_model(config, device)
+    model = empty_model(config, device)
     dense = quantize.dequantize(qstate)
     if section.get("dtype", "float32") != "float32":
         for m in model.modules():

@@ -135,18 +135,44 @@ def create_train_state(
     step: int = 0,
 ) -> TrainState:
     """A fresh training state on ``device`` (CUDA when None; raises without
-    it): the model built from ``generator`` (or loaded strictly from
-    ``state_dict``, e.g. ``utils.convert.from_flax``), in training mode, with
-    the configured optimizer at update count ``step``."""
+    it): the model built from ``generator`` (or, with ``state_dict``, e.g.
+    ``utils.convert.from_flax``, allocated without a draw and loaded
+    strictly), in training mode, with the configured optimizer at update
+    count ``step``."""
     from tensorflowdistributedlearning_tpu_torch.config import require_supported_training
-    from tensorflowdistributedlearning_tpu_torch.models import build_model
-    from tensorflowdistributedlearning_tpu_torch.train.step import make_lr_schedule, make_optimizer
+    from tensorflowdistributedlearning_tpu_torch.models import build_model, empty_model
 
     require_supported_training(model_config, train_config)
     device = resolve_device(device)
-    model = build_model(model_config, device, generator=generator, sync_batch_norm=train_config.sync_batch_norm)
-    if state_dict is not None:
+    sync = train_config.sync_batch_norm
+    if state_dict is None:
+        model = build_model(model_config, device, generator=generator, sync_batch_norm=sync)
+    else:
+        model = empty_model(model_config, device, sync_batch_norm=sync)
         model.load_state_dict(state_dict, strict=True)
+    return _state_of(model, train_config, step)
+
+
+def template_train_state(model_config: ModelConfig, train_config: TrainConfig, device: DeviceLike = None) -> TrainState:
+    """The template a restore fills: a training state whose model is
+    :func:`models.empty_model` (allocated, not initialised; no draw) with
+    the configured optimizer and EMA. ``CheckpointManager.restore_latest``,
+    ``restore_best`` and ``restore_best_or_raise`` overwrite every tensor
+    (a periodic checkpoint also the optimizer state) or raise; use the
+    state only after one of them succeeded."""
+    from tensorflowdistributedlearning_tpu_torch.config import require_supported_training
+    from tensorflowdistributedlearning_tpu_torch.models import empty_model
+
+    require_supported_training(model_config, train_config)
+    model = empty_model(model_config, device, sync_batch_norm=train_config.sync_batch_norm)
+    return _state_of(model, train_config, 0)
+
+
+def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainState:
+    """``model`` in training mode with the configured optimizer, schedule,
+    clip and EMA (a copy of its parameters) at update count ``step``."""
+    from tensorflowdistributedlearning_tpu_torch.train.step import make_lr_schedule, make_optimizer
+
     model.train()
     ema = None
     if train_config.ema_decay:

@@ -10,14 +10,16 @@ made explicit (``make_train_step(data_parallel=True)``).
 
 Semantics kept from the JAX package:
 
-- the objective is the per-image Lovász hinge alone: ``weight_decay`` is
+- the segmenter's objective is the per-image Lovász hinge alone, the
+  classifier's softmax cross entropy (:class:`ClassificationTask`);
+  ``weight_decay`` is
   passed but ``apply_weight_decay`` stays False, as the reference declared an
   l2 regularizer and never minimized it;
 - update k uses the learning rate ``schedule(k)``, k = 0, 1, ... (optax
   evaluates its schedule at the pre-increment count);
 - ``adam`` is ``torch.optim.Adam`` (optax's eps outside the square root,
   eps_root 0), ``weight_decay > 0`` makes it AdamW with decay on the
-  convolution kernels only (:func:`kernel_decay_mask`), ``sgd`` is Nesterov
+  conv and Dense kernels only (:func:`kernel_decay_mask`), ``sgd`` is Nesterov
   momentum (decay before momentum), ``grad_clip_norm`` clips the global norm
   the way ``optax.clip_by_global_norm`` does, and ``ema_decay`` tracks an
   exponential moving average of the parameters for eval and export.
@@ -78,9 +80,31 @@ class SegmentationTask:
 
 @dataclasses.dataclass(frozen=True)
 class ClassificationTask:
-    """Image classification heads (the JAX package's ``ClassificationTask``,
-    ``train/step.py:381-389``): softmax probabilities and the argmax class.
-    Its loss and metrics come with ViT training (ROADMAP queue A 1)."""
+    """Softmax classification (the JAX package's ``ClassificationTask``,
+    ``train/step.py:334-389``): cross entropy with ``label_smoothing`` in the
+    train loss only (eval is plain cross entropy, so metrics compare across
+    smoothing settings); under mixup or cutmix (a batch with ``labels_b``
+    and ``lam``) the loss is ``mean(lam·CE(labels) + (1-lam)·CE(labels_b))``;
+    top-1 and, with more than 5 classes, top-5 hits."""
+
+    label_smoothing: float = 0.0
+
+    def loss(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if "lam" in batch:
+            ce_a = losses_lib.softmax_cross_entropy_per_example(logits, batch["labels"], self.label_smoothing)
+            ce_b = losses_lib.softmax_cross_entropy_per_example(logits, batch["labels_b"], self.label_smoothing)
+            lam = batch["lam"]
+            return torch.mean(lam * ce_a + (1.0 - lam) * ce_b)
+        return losses_lib.softmax_cross_entropy(logits, batch["labels"], self.label_smoothing)
+
+    def loss_per_example(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return losses_lib.softmax_cross_entropy_per_example(logits, batch["labels"])
+
+    def metric_scores(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        scores = {"metrics/top1": metrics_lib.top1_accuracy_scores(logits, batch["labels"])}
+        if logits.shape[-1] > 5:
+            scores["metrics/top5"] = metrics_lib.topk_accuracy_scores(logits, batch["labels"], k=5)
+        return scores
 
     def predictions(self, logits: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``probabilities``: the softmax over the last axis in the logits'
@@ -148,16 +172,17 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 
 def kernel_decay_mask(model: nn.Module) -> Dict[str, bool]:
-    """``{parameter name: decayed}``: True only for convolution kernels
-    (``nn.Conv2d`` and depthwise weights, flax's ``kernel`` leaves); BN scale
-    and bias and every bias stay undecayed."""
+    """``{parameter name: decayed}``: True only for the weights flax names
+    ``kernel`` (``nn.Conv2d``, depthwise and Dense weights, the ViT's patch
+    conv); BN and LayerNorm scale and bias, every bias and the ViT's
+    ``pos_embedding`` stay undecayed."""
     from tensorflowdistributedlearning_tpu_torch.models.layers import DepthwiseConv2D
 
     mask = {}
     for mod_name, module in model.named_modules():
         for name, _ in module.named_parameters(recurse=False):
             full = f"{mod_name}.{name}" if mod_name else name
-            mask[full] = name == "weight" and isinstance(module, (nn.Conv2d, DepthwiseConv2D))
+            mask[full] = name == "weight" and isinstance(module, (nn.Conv2d, nn.Linear, DepthwiseConv2D))
     return mask
 
 
@@ -200,7 +225,7 @@ def clip_by_global_norm(params, max_norm: float) -> None:
 
 
 def _l2_penalty(model: nn.Module) -> torch.Tensor:
-    """slim-style l2: sum(w²)/2 over the convolution kernels only."""
+    """slim-style l2: sum(w²)/2 over the kernels (:func:`kernel_decay_mask`)."""
     mask = kernel_decay_mask(model)
     total = None
     for name, p in model.named_parameters():

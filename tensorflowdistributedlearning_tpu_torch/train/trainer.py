@@ -61,7 +61,12 @@ from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_li
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
-from tensorflowdistributedlearning_tpu_torch.train.state import TrainState, create_train_state, replicate
+from tensorflowdistributedlearning_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    replicate,
+    template_train_state,
+)
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -121,14 +126,7 @@ class Trainer:
         self.augment_config = augment_config or augment_lib.AugmentConfig(crop_probability=0.0)
         require_supported_training(self.model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
-        world = multihost.process_count()
-        n = self.train_config.n_devices
-        if n is not None and n != world:
-            raise ValueError(
-                f"n_devices={n} but this run has {world} process(es): a rank owns one device, so launch "
-                f"{n} ranks (torchrun --nproc-per-node {n}, or --coordinator-address/--num-processes/"
-                "--process-id on every rank) or leave n_devices unset"
-            )
+        multihost.require_world_size(self.train_config.n_devices)
         self.data_parallel = collectives.is_initialized()
         self.device = resolve_device(device)
         self.task = step_lib.SegmentationTask()
@@ -148,7 +146,14 @@ class Trainer:
 
     def _init_state(self) -> TrainState:
         generator = torch.Generator().manual_seed(self.train_config.seed)
-        state = create_train_state(self.model_config, self.train_config, self.device, generator=generator)
+        return self._counted(create_train_state(self.model_config, self.train_config, self.device, generator=generator))
+
+    def _template_state(self) -> TrainState:
+        """The restore template: allocated, not drawn (a restore overwrites
+        every tensor)."""
+        return self._counted(template_train_state(self.model_config, self.train_config, self.device))
+
+    def _counted(self, state: TrainState) -> TrainState:
         self._n_params = sum(p.numel() for p in state.model.parameters())
         return state
 
@@ -354,11 +359,12 @@ class Trainer:
 
     def restore_fold(self, fold: int) -> TrainState:
         """The fold's best exported state (falling back to its latest
-        periodic checkpoint); raises if the fold was never trained, and
-        under a process group of more than one rank."""
+        periodic checkpoint), loaded into a template that draws no weights;
+        raises if the fold was never trained, and under a process group of
+        more than one rank."""
         self._require_single_process()
         return self._checkpointer(fold).restore_best_or_raise(
-            self._init_state(), hint=f"train fold {fold} first"
+            self._template_state(), hint=f"train fold {fold} first"
         )
 
     def serving_fn(self, fold: int, serving_dtype: str = "float32"):

@@ -14,7 +14,8 @@ port's ``state_dict`` by name (the port's modules mirror the flax tree):
 Strict both ways: a flax leaf the port does not use, a port tensor left
 unfilled, or a shape that disagrees raises. :func:`from_flax_train_state`
 carries a whole JAX ``TrainState`` across (params, batch_stats and the
-step), so both packages can train on from one state. Inputs are nested dicts of numpy
+step), and :func:`load_optax_state` its optax Adam moments and parameter
+EMA, so both packages can train on from one state, mid-trajectory too. Inputs are nested dicts of numpy
 arrays or flat ``"a/b/c"``-keyed mappings (what :func:`load_flax_npz` reads
 from an ``.npz`` that holds ``flatten_dict({"params": ..., "batch_stats":
 ...}, sep="/")``).
@@ -157,9 +158,53 @@ def from_flax(params, batch_stats, config: ModelConfig) -> Dict[str, torch.Tenso
 
 def from_flax_train_state(train_state, config: ModelConfig) -> Tuple[Dict[str, torch.Tensor], int]:
     """``(state_dict, step)`` of a JAX ``TrainState`` (anything with
-    ``params``, ``batch_stats`` and ``step``): pass them to
-    ``train.state.create_train_state(..., state_dict=, step=)``. The
-    optimizer moments are not carried: a state with ``step > 0`` restarts
-    its moments from zero."""
+    ``params``, ``batch_stats`` and ``step``; the ViT's ``batch_stats`` is
+    empty): pass them to ``train.state.create_train_state(...,
+    state_dict=, step=)``, then :func:`load_optax_state` to carry the
+    optimizer's moments and the EMA across as well (without it a state with
+    ``step > 0`` restarts its moments from zero)."""
     step = int(np.asarray(train_state.step))
     return from_flax(train_state.params, train_state.batch_stats, config), step
+
+
+def _optax_nodes(node):
+    """Every node of an optax state tree (namedtuples and tuples walked)."""
+    yield node
+    if isinstance(node, tuple):
+        for child in node:
+            yield from _optax_nodes(child)
+
+
+def load_optax_state(state, opt_state, config: ModelConfig) -> None:
+    """Carry an optax state into the port's ``TrainState`` ``state`` (in
+    place), strictly: the Adam moments of its ``ScaleByAdamState`` (``mu``,
+    ``nu``, ``count``) become ``torch.optim.Adam``/``AdamW``'s
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` of every parameter (both count
+    the updates taken, so the bias corrections agree), and an
+    ``EmaTrackerState``'s ``ema`` the state's EMA. Raises when the chain
+    holds no Adam state, when the port runs another optimizer, or when the
+    two disagree on whether an EMA is tracked."""
+    nodes = list(_optax_nodes(opt_state))
+    adam = [n for n in nodes if all(hasattr(n, a) for a in ("mu", "nu", "count"))]
+    emas = [n for n in nodes if type(n).__name__ == "EmaTrackerState"]
+    if len(adam) != 1:
+        raise ValueError(f"expected one ScaleByAdamState in the optax state, found {len(adam)}")
+    if not isinstance(state.optimizer, torch.optim.Adam | torch.optim.AdamW):
+        raise ValueError(f"the port's optimizer is {type(state.optimizer).__name__}, not Adam/AdamW")
+    if (state.ema is None) != (not emas):
+        raise ValueError("the optax state and the port's state disagree on whether a parameter EMA is tracked")
+    mu = from_flax(adam[0].mu, {}, config)
+    nu = from_flax(adam[0].nu, {}, config)
+    count = float(np.asarray(adam[0].count))
+    params = dict(state.model.named_parameters())
+    for name, p in params.items():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device),
+        }
+    if emas:
+        ema = from_flax(emas[0].ema, {}, config)
+        with torch.no_grad():
+            for name, e in state.ema.items():
+                e.copy_(ema[name])

@@ -165,11 +165,14 @@ def test_cuda_flash_attention_kernel_matches_plain(cuda_device, shape, causal, d
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_gradients_and_odd_head_widths(cuda_device):
+    """Inputs that need a gradient go through the kernel (the backward is
+    ``flash_attention_backward``); head widths no kernel takes raise."""
     from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
 
     q = torch.randn(1, 8, 2, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fa.flash_attention(q, q, q)
+    fa.flash_attention(q, q, q).sum().backward()
+    assert tk.launch_counts()["flash_attention"] == 1 and q.grad is not None
+    tk.reset_launch_counts()
     # 24 is no multiple of 16 and 144 is past 128: no kernel takes them, in either dtype
     for d in (24, 144):
         for dtype in (torch.float32, torch.bfloat16):
@@ -177,6 +180,37 @@ def test_cuda_flash_attention_refuses_gradients_and_odd_head_widths(cuda_device)
             with pytest.raises(ValueError, match="head widths"):
                 fa.flash_attention(odd, odd, odd)
     assert tk.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((4, 196, 6, 64), torch.bfloat16), ((2, 196, 6, 64), torch.float32),
+                                         ((2, 65, 3, 32), torch.bfloat16)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_attention_backward_is_the_plain_arms(cuda_device, shape, dtype, causal):
+    """The kernel's autograd arm: one forward launch, and gradients bit for
+    bit ``flash_attention_backward`` on the same inputs (the CPU arm's
+    backward), reaching the qkv tensor through its strided views; within
+    the forward's tolerance of autograd through the plain forward."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(t + h)
+    qkv = torch.randn(b, t, 3, h, d, device=cuda_device, generator=g).to(dtype).requires_grad_(True)
+    cot = torch.randn(b, t, h, d, device=cuda_device, generator=g).to(dtype)
+    out = fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=causal)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["flash_attention"] == 1
+    assert tk.launch_counts()["flash_attention_tc"] == int(dtype == torch.bfloat16)
+    q, k, v = (qkv.detach()[:, :, j] for j in range(3))
+    want = fa.flash_attention_backward(q, k, v, cot, causal=causal)
+    for j, w in enumerate(want):
+        assert qkv.grad[:, :, j].dtype == dtype and torch.equal(qkv.grad[:, :, j], w), "qkv"[j]
+    ref = qkv.detach().float().requires_grad_(True)
+    fa.flash_attention_plain(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], causal=causal).backward(cot.float())
+    scale = float(ref.grad.abs().max())
+    tol = (2e-5 if dtype == torch.float32 else 2e-2) * scale
+    assert float((qkv.grad.float() - ref.grad).abs().max()) <= tol
 
 
 @pytest.mark.cuda

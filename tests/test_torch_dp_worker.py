@@ -14,6 +14,12 @@ global batches in ``DIR/batches.npz`` (per-rank BN and sync BN, states after
 1 and 3 steps), then an eval pass over this rank's round-robin share of
 ``DIR/eval.npz``.
 
+``fit``: the ViT's data-parallel train step from ``DIR/fit_init.pt`` on
+this rank's rows of ``DIR/fit_batch.npz`` (the averaged gradient, the
+parameters after the update, the summed metrics), then
+``ClassifierTrainer.fit`` of the tiny ViT under the group and what its
+serving restore raises there.
+
 ``trainer``: ``Trainer.train`` of the tiny model over the dataset in
 ``DIR/data``, its no-op re-run, and what must raise under the group. Every
 directory made, file opened for writing, renamed or removed under the model
@@ -34,6 +40,10 @@ TIMEOUT_S = 60.0
 TINY = dict(n_blocks=(1, 1, 1), input_shape=(33, 33), base_depth=16, width_multiplier=0.125,
             use_pallas_depthwise=True)
 SGD = dict(optimizer="sgd", lr=1e-2, lr_decay_steps=2, sgd_momentum=0.9)
+VIT_TINY = dict(backbone="vit", num_classes=10, input_shape=(16, 16), input_channels=3, patch_size=4, embed_dim=32,
+                num_heads=2, vit_layers=2, output_stride=None, use_fused_attention=True)
+VIT_ADAMW = dict(optimizer="adam", lr=1e-3, weight_decay=0.1, grad_clip_norm=1.0, label_smoothing=0.1,
+                 lr_schedule="cosine", lr_warmup_steps=1, lr_decay_steps=10, augmentation="none")
 
 
 def launch(mode: str, world: int, directory: str, timeout: float = 240.0):
@@ -179,6 +189,37 @@ def _step_mode(rank: int, world: int, directory: str):
     return out
 
 
+def _fit_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    cfg = ModelConfig(**VIT_TINY)
+    init = torch.load(os.path.join(directory, "fit_init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "fit_batch.npz"))
+    rows = mesh.shard_rows(len(data["labels"]), rank, world)
+    state = replicate(_state(cfg, VIT_ADAMW, init))
+    train_step = step_lib.make_train_step(step_lib.ClassificationTask(label_smoothing=0.1), data_parallel=True)
+    state, metrics = train_step(state, {k: torch.from_numpy(v[rows]) for k, v in data.items()})
+    out = {
+        "grads": {n: p.grad.detach().clone() for n, p in state.model.named_parameters()},
+        "params": _snapshot(state),
+        "metrics": step_lib.compute_metrics(metrics),
+    }
+    model_dir = os.path.join(directory, "fit-model")
+    trainer = ClassifierTrainer(model_dir, None, cfg, TrainConfig(**VIT_ADAMW, checkpoint_every_steps=2,
+                                                                  n_devices=world), device="cpu")
+    out["fit"] = trainer.fit(batch_size=8, steps=3).final_metrics
+    try:
+        trainer.serving_fn()
+        out["serving"] = None
+    except RuntimeError as e:
+        out["serving"] = str(e)
+    return out
+
+
 def _trainer_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
@@ -237,7 +278,7 @@ def main(argv) -> int:
     from tensorflowdistributedlearning_tpu_torch.parallel import multihost
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
-    out = (_step_mode if mode == "step" else _trainer_mode)(rank, world, directory)
+    out = {"step": _step_mode, "fit": _fit_mode, "trainer": _trainer_mode}[mode](rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     multihost.shutdown()
