@@ -210,6 +210,36 @@ Phases, each fatal on failure (exit 1, no result line):
              (2 folds x 5 steps, 3/3/3 launches per train step, equal
              metrics).
 
+9. train-bf16 — tgs_salt_bf16 (the segmenter in bf16 compute, full width
+             and depth, depthwise kernels on) through Trainer.train (2 folds
+             x 10 steps at batch 64 on 256 TGS-layout images; 3/3/3 bf16
+             depthwise fwd/dx/dw launches per step, 59 bf16 BN launches per
+             eval forward), the step on a resident batch (ms, images/s,
+             profile, idle share), every bf16 kernel call of a step and an
+             eval forward held against its plain version (one bf16 step; BN
+             bit for bit for relu) and timed beside its bound, the plain
+             version and the library call, then Trainer.predict over 128
+             images and fold 0's export through the engine at bucket 64.
+10. fit-resnet50 — resnet50_classic_imagenet (full width and depth, bf16,
+             space-to-depth stem) through fit_preset on synthetic
+             ImageNet-shaped data (20 steps at batch 64, the preset's SGD
+             recipe, one eval, the float32 export), a restore, that export
+             through the engine; then the restored state with its running
+             statistics re-estimated from 4 training-mode forwards and its
+             logits scaled to std 3 (20 steps leave the statistics near
+             their init and every softmax saturated): each of the 52 BN
+             calls of its eval forward at batch 64 held bit for bit against
+             the plain version, its float32 export through the engine
+             (buckets 1/16/64) and HTTP (1 and 4 instances) with 52 bf16 BN
+             launches per forward, its bfloat16 spec through the engine
+             against its plain forward and the float32 spec, and the step
+             on a resident batch.
+11. train-lars — resnet50_bf16_8k's model (remat) under its LARS recipe
+             without ZeRO-1, grad_accum_steps 2, 5 steps at batch 64 with and
+             without remat (ms per step, peak device memory), then one
+             remat step bit for bit one plain step under deterministic
+             algorithms.
+
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -220,6 +250,7 @@ import contextlib
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -258,6 +289,10 @@ REPLACES = {
     "int8_matmul_conv": "tensorflowdistributedlearning_tpu/ops/quant_kernels.py:241",
     "flash_attention": "tensorflowdistributedlearning_tpu/ops/flash_attention.py:97",
     "flash_attention_f32": "tensorflowdistributedlearning_tpu/ops/flash_attention.py:97",
+    "depthwise_conv2d_bf16": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:138",
+    "depthwise_conv2d_dx_bf16": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:170",
+    "depthwise_conv2d_dw_bf16": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:172",
+    "fused_bn_act_bf16_act": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:398",
 }
 SOURCES = {
     "depthwise_conv2d": f"{PKG}/csrc/depthwise.cu",
@@ -275,11 +310,20 @@ SOURCES = {
     "int8_matmul_conv": f"{PKG}/csrc/int8_conv.cu",
     "flash_attention": f"{PKG}/csrc/flash_attention_tc.cu",
     "flash_attention_f32": f"{PKG}/csrc/flash_attention_f32.cu",
+    "depthwise_conv2d_bf16": f"{PKG}/csrc/depthwise.cu",
+    "depthwise_conv2d_dx_bf16": f"{PKG}/csrc/depthwise.cu",
+    "depthwise_conv2d_dw_bf16": f"{PKG}/csrc/depthwise_dw.cu",
+    "fused_bn_act_bf16_act": f"{PKG}/csrc/bn_act.cu",
 }
 # rows of the kernels line that are one arm of a wrapper with two kernels:
-# their launches from the wrapper's counters (all launches, one arm's apart)
+# their launches from the wrapper's counters (all launches, one arm's apart);
+# the float32 rows leave out the bf16 arms' launches (every bf16 dw of the
+# paths takes the band route, which the train-bf16 phase asserts)
 ARM_LAUNCHES = {
-    "depthwise_conv2d_dw": lambda c: c["depthwise_conv2d_dw_band"],
+    "depthwise_conv2d": lambda c: c["depthwise_conv2d"] - c["depthwise_conv2d_bf16"],
+    "depthwise_conv2d_dx": lambda c: c["depthwise_conv2d_dx"] - c["depthwise_conv2d_dx_bf16"],
+    "fused_bn_act": lambda c: c["fused_bn_act"] - c["fused_bn_act_bf16_act"],
+    "depthwise_conv2d_dw": lambda c: c["depthwise_conv2d_dw_band"] - c["depthwise_conv2d_dw_bf16"],
     "depthwise_conv2d_dw_tile": lambda c: c["depthwise_conv2d_dw"] - c["depthwise_conv2d_dw_band"],
     "int8_conv2d": lambda c: c["int8_conv2d_tc"],
     "int8_conv2d_gemm": lambda c: c["int8_conv2d_gemm"],
@@ -295,9 +339,11 @@ ARM_LAUNCHES = {
 # int8_conv2d's (every path conv has Cin a multiple of 32) and dw's tile
 # route (every path dw has C % 4 == 0, aligned bases and a band that fits)
 OFF_PATH = ("fused_bias_act", "int8_matmul_conv", "int8_conv2d_conv", "depthwise_conv2d_dw_tile")
+_NO_BF16 = {"depthwise_conv2d_bf16": 0, "depthwise_conv2d_dx_bf16": 0, "depthwise_conv2d_dw_bf16": 0,
+            "fused_bn_act_bf16_act": 0}
 _NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_conv2d_gemm": 0,
              "int8_conv2d_tc": 0, "int8_matmul": 0, "int8_matmul_gemm": 0,
-             "flash_attention": 0, "flash_attention_tc": 0}
+             "flash_attention": 0, "flash_attention_tc": 0, **_NO_BF16}
 PER_FORWARD = {"depthwise_conv2d": 3, "fused_bn_act": 59, "fused_sigmoid_mask": 1}
 # launches per training step, and per eval-mode forward of the trainer
 PER_TRAIN_STEP = {"depthwise_conv2d": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3,
@@ -312,13 +358,13 @@ PER_INT8_FORWARD = {"int8_conv2d": 52, "int8_conv2d_gemm": 43, "int8_conv2d_tc":
                     "fused_bn_act": 0, "fused_bn_act_bf16": 59,
                     "fused_sigmoid_mask": 1, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
                     "depthwise_conv2d_dw_band": 0, "fused_bias_act": 0, "int8_matmul": 0, "int8_matmul_gemm": 0,
-                    "flash_attention": 0, "flash_attention_tc": 0}
+                    "flash_attention": 0, "flash_attention_tc": 0, **_NO_BF16}
 VIT_MLP = (64 * 196, 384, 1536)  # ViT-S/16 MLP at batch 64 (196 patch tokens, no cls): M, K width, N hidden
 VIT_PRESET = "vit_s16_imagenet"
 _NO_SEGMENTER = {"depthwise_conv2d": 0, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
                  "depthwise_conv2d_dw_band": 0, "fused_bn_act": 0,
                  "fused_bn_act_bf16": 0, "fused_bias_act": 0, "fused_sigmoid_mask": 0, "int8_conv2d": 0,
-                 "int8_conv2d_gemm": 0, "int8_conv2d_tc": 0}
+                 "int8_conv2d_gemm": 0, "int8_conv2d_tc": 0, **_NO_BF16}
 # launches per ViT-S/16 serve forward: one attention kernel per block (the
 # tensor-core arm in bf16 compute, the CUDA-core arm in float32 compute),
 # and under int8-compute one int8 matmul per Dense (4 per block and the
@@ -360,6 +406,40 @@ DP_TIMEOUT_S = 600
 TOL_DX = 1e-5
 TOL_DW_REL = 1e-4
 TOL_LOSS = 1e-5
+# bf16 compute: tgs_salt_bf16 through Trainer.train (2 folds x 10 steps),
+# resnet50_classic_imagenet through fit_preset (20 steps at batch 64), and
+# resnet50_bf16_8k's model and LARS recipe with remat and accumulation (5
+# steps at batch 64, without ZeRO-1). The bf16 arms hold their plain
+# versions within one bf16 step (float32 sums in another order, one
+# rounding); the BN arm bit for bit for its piecewise-linear activations
+TOL_BF16_STEPS = 1
+BF16_ROWS = ("depthwise_conv2d_bf16", "depthwise_conv2d_dx_bf16", "depthwise_conv2d_dw_bf16", "fused_bn_act_bf16_act")
+BF16_PRESET = "tgs_salt_bf16"
+R50_PRESET = "resnet50_classic_imagenet"
+LARS_PRESET = "resnet50_bf16_8k"
+BF16_TRAIN_STEPS = 10
+R50_BATCH = 64
+R50_FIT_STEPS = 20
+R50_CALIBRATION_BATCHES = 4
+# the ResNet-50's bfloat16 serving spec (bf16 BN parameters and statistics,
+# flax's unfolded BN in bf16 arithmetic) against its float32 spec: the
+# largest logit gap (logit_gap) over the logits' std. The spec's own
+# distance: 0.687 on the card; JAX's bf16 spec lies 1.13 from its float32
+# spec at a reduced size on the CPU, where the port's bf16 spec is JAX's
+# within 1e-4 (tests/test_torch_resnet_classifier.py)
+TOL_R50_BF16_SPEC = 1.0
+LARS_STEPS = 5
+PER_BF16_TRAIN_STEP = {**PER_TRAIN_STEP, "depthwise_conv2d_bf16": 3, "depthwise_conv2d_dx_bf16": 3,
+                       "depthwise_conv2d_dw_bf16": 3}
+PER_BF16_EVAL_FORWARD = {**PER_EVAL_FORWARD, "depthwise_conv2d_bf16": 3,
+                         "fused_bn_act_bf16_act": PER_EVAL_FORWARD["fused_bn_act"]}
+# the ResNet classifiers launch no kernel in training (no depthwise conv;
+# training BN is plain) and, per eval-mode forward of ResNet-50 (classic),
+# one BN + act for each of the root's 4 BNs and the 3 of each of 16 units
+PER_R50_TRAIN_STEP = {**PER_TRAIN_STEP, "depthwise_conv2d": 0, "depthwise_conv2d_dx": 0, "depthwise_conv2d_dw": 0,
+                      "depthwise_conv2d_dw_band": 0}
+PER_R50_FORWARD = {**PER_R50_TRAIN_STEP, "fused_bn_act": 4 + 3 * 16, "fused_bn_act_bf16_act": 4 + 3 * 16}
+PER_R50_BF16_SPEC_FORWARD = {**PER_R50_TRAIN_STEP, "fused_bn_act_bf16": 4 + 3 * 16}
 # the calls of a two-rank run's main path held against the plain versions,
 # by wrapper of ops/kernels.py: the rank's first train step's depthwise
 # forward, dx and dw, and its first eval forward's BN calls, all at the
@@ -1479,10 +1559,11 @@ def make_vit_instances(n: int, seed: int, shape=(224, 224, 3)):
     return np.random.default_rng(seed).normal(size=(n, *shape)).astype(np.float32)
 
 
-def calibrate_vit_head(torch, model, x) -> None:
-    """Scale the ``logits`` Dense so the logits of ``x`` have std 3: random
-    weights otherwise give near-uniform probabilities over 1000 classes,
-    and comparisons of them would say little."""
+def calibrate_logits(torch, model, x) -> None:
+    """Scale a classifier's ``logits`` Dense so the logits of ``x`` have std
+    3: random weights otherwise give near-uniform (or saturated)
+    probabilities over 1000 classes, and comparisons of them would say
+    little."""
     with torch.inference_mode():
         std = model(x).float().std()
         model.logits.weight.mul_(3.0 / std)
@@ -1778,7 +1859,7 @@ def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
     shape = (*cfg.input_shape, cfg.input_channels)
     t0 = time.perf_counter()
     model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(SEED + 60)).to(device).eval()
-    calibrate_vit_head(torch, model, torch.from_numpy(make_vit_instances(16, SEED + 62, shape)).to(device))
+    calibrate_logits(torch, model, torch.from_numpy(make_vit_instances(16, SEED + 62, shape)).to(device))
     n_params = sum(p.numel() for p in model.parameters())
     log(f"vit: {VIT_PRESET if preset else cfg} (embed {cfg.embed_dim}, {cfg.vit_layers} layers, {cfg.num_heads} "
         f"heads, patch {cfg.patch_size}, {cfg.dtype}, fused attention {cfg.use_fused_attention}), {n_params} "
@@ -3350,6 +3431,700 @@ def dp_rank_main(argv) -> int:
     return 0
 
 
+# -- ResNet bf16 compute, the ResNet-50 classifier, LARS + remat + accumulation ---------------
+
+
+def bf16_step_map(torch, a, b):
+    """Distance in bf16 steps between two bf16 tensors, element by element
+    (bit patterns as ordered integers)."""
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_steps(torch, a, b, atol: float = 1e-6) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors, 0 where the
+    two are within ``atol``: near zero a bf16 step is far below float32's
+    noise (:func:`smooth_act_sweep` reads it)."""
+    if not a.numel():
+        return 0
+    steps = bf16_step_map(torch, a, b)
+    return int(torch.where((a.float() - b.float()).abs() <= atol, 0, steps).max())
+
+
+def hold_bf16(torch, got, want, what: str, steps: int = TOL_BF16_STEPS) -> float:
+    """A bf16 kernel result against its plain version: one dtype and shape,
+    within ``steps`` bf16 steps; returns max|got - want|."""
+    check(got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    n = bf16_steps(torch, got, want)
+    check(n <= steps, f"{what}: {n} bf16 steps from the plain version (> {steps})")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def smooth_act_sweep(torch, card: str, shape=(64, 51, 51, 128)) -> dict:
+    """The bf16 BN row kernel with sigmoid and gelu, which no bf16 path
+    calls, on the draws of tests/test_torch_cuda.py's first case (``shape``,
+    a CUDA generator seeded with ``len(act)``; x·3, a residual, m, b), with
+    and without the residual: held within TOL_BF16_STEPS of the plain
+    version at the 1e-6 absolute floor of :func:`bf16_steps`. Logs the raw
+    largest step count and the largest |gap| among elements more than one
+    step apart: gelu's ``0.5·y·(1 + tanh(inner))`` cancels for large
+    negative ``y``, where tanh's float32 result near -1 moves in steps of
+    6e-8, so a tiny result can be many bf16 steps apart while its absolute
+    gap stays below ``|y|·6e-8``."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    out = {}
+    n, c = int(np.prod(shape)), shape[-1]
+    with torch.no_grad():
+        for act in ("sigmoid", "gelu"):
+            g = torch.Generator(device="cuda").manual_seed(len(act))
+            x = (3.0 * torch.randn(n, device="cuda", generator=g)).to(torch.bfloat16).view(shape)
+            r = torch.randn(n, device="cuda", generator=g).to(torch.bfloat16).view(shape)
+            m, b = torch.rand(c, device="cuda", generator=g) + 0.5, torch.randn(c, device="cuda", generator=g)
+            for res in (None, r):
+                what = f"BN + {act} sweep {shape}{' + residual' if res is not None else ''}"
+                got, want = kernels.bn_act_folded(x, m, b, act, res), kernels.bn_act_folded_plain(x, m, b, act, res)
+                hold_bf16(torch, got, want, f"train-bf16 {what}")
+                steps = bf16_step_map(torch, got, want)
+                far = steps > TOL_BF16_STEPS
+                gap = float((got.float() - want.float()).abs()[far].max()) if bool(far.any()) else 0.0
+                out[what] = dict(raw_steps=int(steps.max()), far=int(far.sum()), far_max_abs_gap=gap)
+                log(f"train-bf16: {what}: raw largest gap {int(steps.max())} bf16 steps; {int(far.sum())} elements "
+                    f"more than {TOL_BF16_STEPS} step apart, largest |gap| among them {gap:.3g} [{card}]")
+    return out
+
+
+def bf16_kernel_rows(torch, calls, bn_calls, timer, card: str, batch: int):
+    """The bf16 arms at the train path's shapes: each recorded call of a
+    tgs_salt_bf16 train step (depthwise forward, dx, dw) and eval forward
+    (BN + act) held against its plain version (within one bf16 step; BN bit
+    for bit for its piecewise-linear activations), then timed beside the
+    plain version, its bound (bytes over 3.35 TB/s or float32 operations
+    over 67 TFLOP/s, the larger) and the library call (bf16
+    ``F.conv2d(groups=C)`` and ``aten.convolution_backward``; BN has no
+    single call, so its eager bf16 ``x*m + b`` then the activation is
+    logged beside it as ``eager_ms``), summed per train step or per
+    bucket-64 forward."""
+    import torch.nn.functional as F
+
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    aten = torch.ops.aten
+    rows = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0)
+            for name in BF16_ROWS}
+    rows["fused_bn_act_bf16_act"]["library_ms"] = None
+    rows["fused_bn_act_bf16_act"]["eager_ms"] = 0.0
+    on_card = timer is not None
+    with torch.no_grad():
+        for (x, w, rate), out, _ in calls["depthwise_conv2d_forward"]:
+            what = f"train-bf16 forward {tuple(x.shape)} rate {rate}"
+            r = rows["depthwise_conv2d_bf16"]
+            r["max_abs_err"] = max(r["max_abs_err"], hold_bf16(torch, out, kernels.depthwise_conv2d_plain(x, w, rate),
+                                                               what))
+            kh, kw, ch = w.shape
+            b, h, wd, _ = x.shape
+            r["nbytes"] += 2 * (2 * x.numel() + w.numel())
+            r["flops"] += 2 * b * ch * depthwise_valid_taps(h, wd, kh, rate)
+            if on_card:
+                wt = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+                pad = (rate * (kh - 1) // 2, rate * (kw - 1) // 2)
+                xv = x.permute(0, 3, 1, 2)
+                r["ms"] += timer.ms(lambda: kernels.depthwise_conv2d_forward(x, w, rate))
+                r["plain_ms"] += timer.ms(lambda: kernels.depthwise_conv2d_plain(x, w, rate))
+                r["library_ms"] += timer.ms(lambda: F.conv2d(xv, wt, padding=pad, dilation=rate, groups=ch))
+        fwd_x = {c[0][2]: c[0][0] for c in calls["depthwise_conv2d_forward"]}
+        for (g, w, rate), out, _ in calls["depthwise_conv2d_dx"]:
+            what = f"train-bf16 dx {tuple(g.shape)} rate {rate}"
+            r = rows["depthwise_conv2d_dx_bf16"]
+            r["max_abs_err"] = max(r["max_abs_err"], hold_bf16(torch, out, kernels._dx_plain(g, w, rate), what))
+            kh, kw, ch = w.shape
+            b, h, wd, _ = g.shape
+            r["nbytes"] += 2 * (2 * g.numel() + w.numel())
+            r["flops"] += 2 * b * ch * depthwise_valid_taps(h, wd, kh, rate)
+            if on_card:
+                x = fwd_x[rate]
+                gv, xv = g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+                wt = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+                pad = [rate * (kh - 1) // 2, rate * (kw - 1) // 2]
+                r["ms"] += timer.ms(lambda: kernels.depthwise_conv2d_dx(g, w, rate))
+                r["plain_ms"] += timer.ms(lambda: kernels._dx_plain(g, w, rate))
+                r["library_ms"] += timer.ms(lambda: aten.convolution_backward(
+                    gv, xv, wt, None, [1, 1], pad, [rate, rate], False, [0, 0], ch, [True, False, False]))
+        for (x, g, ks, rate), out, plan in calls["depthwise_conv2d_dw"]:
+            kh, kw = ks
+            what = f"train-bf16 dw {tuple(x.shape)} rate {rate}"
+            if on_card:
+                check(plan is not None, f"{what}: the bf16 call missed the band kernel")
+            r = rows["depthwise_conv2d_dw_bf16"]
+            want = kernels._dw_plain(x, g, kh, kw, rate).to(torch.bfloat16)
+            r["max_abs_err"] = max(r["max_abs_err"], hold_bf16(torch, out, want, what))
+            if on_card:
+                check(torch.equal(out, kernels.depthwise_conv2d_dw(x, g, ks, rate)), f"{what}: not bitwise repeatable")
+            ch = x.shape[-1]
+            b, h, wd, _ = x.shape
+            r["nbytes"] += 2 * (x.numel() + g.numel() + kh * kw * ch)
+            r["flops"] += 2 * b * ch * depthwise_valid_taps(h, wd, kh, rate)
+            if on_card:
+                gv, xv = g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+                wt = torch.zeros(ch, 1, kh, kw, dtype=torch.bfloat16, device=x.device)
+                pad = [rate * (kh - 1) // 2, rate * (kw - 1) // 2]
+                r["ms"] += timer.ms(lambda: kernels.depthwise_conv2d_dw(x, g, ks, rate))
+                r["plain_ms"] += timer.ms(lambda: kernels._dw_plain(x, g, kh, kw, rate))
+                r["library_ms"] += timer.ms(lambda: aten.convolution_backward(
+                    gv, xv, wt, None, [1, 1], pad, [rate, rate], False, [0, 0], ch, [False, True, False]))
+        r = rows["fused_bn_act_bf16_act"]
+        for (x, m, b, act, res), out, _ in bn_calls:
+            want = kernels.bn_act_folded_plain(x, m, b, act, res)
+            what = f"train-bf16 BN {tuple(x.shape)} {act}"
+            steps = 0 if act in ("none", "relu", "relu6") else TOL_BF16_STEPS
+            r["max_abs_err"] = max(r["max_abs_err"], hold_bf16(torch, out, want, what, steps))
+            r["nbytes"] += 2 * (2 * x.numel() + (res.numel() if res is not None else 0)) + 8 * m.numel()
+            r["flops"] += (3 if res is not None else 2) * x.numel()
+            if on_card:
+                r["ms"] += timer.ms(lambda: kernels.bn_act_folded(x, m, b, act, res))
+                r["plain_ms"] += timer.ms(lambda: kernels.bn_act_folded_plain(x, m, b, act, res))
+                mb, bb = m.to(torch.bfloat16), b.to(torch.bfloat16)
+                r["eager_ms"] += timer.ms(lambda: kernels.activate(x * mb + bb, act))
+    for name, r in rows.items():
+        nbytes, flops = r.pop("nbytes"), r.pop("flops")
+        r.update(bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops))
+        if on_card:
+            per = "per bucket-64 forward" if name == "fused_bn_act_bf16_act" else f"per train step at batch {batch}"
+            lib = (f"eager bf16 x*m+b then act {r['eager_ms']:.4f} ms (no single library call)"
+                   if r["library_ms"] is None else f"library {r['library_ms']:.4f} ms")
+            log(f"{name}: {r['ms']:.4f} ms {per} (plain {r['plain_ms']:.4f} ms, {lib}, bound {r['bound_ms']:.4f} ms "
+                f"by {r['bound_by']}, {nbytes / 1e6:.1f} MB), max|err| {r['max_abs_err']:.3g} [{card}]")
+    return rows
+
+
+def train_bf16_phase(torch, card: str, timer, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
+                     size: int = 101, batch: int = TRAIN_BATCH, steps: int = BF16_TRAIN_STEPS,
+                     n_test: int = PREDICT_IMAGES):
+    """tgs_salt_bf16 (the main path's segmenter in bf16 compute, full width
+    and depth; ``use_pallas_depthwise`` on, as the train phase runs) through
+    Trainer.train (2 folds x ``steps`` steps at ``batch``), the step on a
+    resident batch (ms, images/s, profile), every bf16 kernel call of a step
+    and an eval forward held against its plain version and timed, then
+    Trainer.predict and a bucket-64 engine forward of fold 0's export.
+    ``model_kwargs`` and ``device="cpu"`` rehearse it small on the CPU."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    on_card = device == "cuda"
+    preset = dataclasses.replace(get_preset(BF16_PRESET).model, use_pallas_depthwise=True)
+    model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True, dtype="bfloat16")
+    cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+    if on_card:
+        check(cfg == preset, f"train-bf16: {cfg} is not the {BF16_PRESET} preset")
+    per_step = PER_BF16_TRAIN_STEP if on_card else {k: 0 for k in PER_BF16_TRAIN_STEP}
+    per_eval = PER_BF16_EVAL_FORWARD if on_card else {k: 0 for k in PER_BF16_EVAL_FORWARD}
+    tcfg = TrainConfig(n_folds=TRAIN_FOLDS, seed=SEED % 1000 + 1, checkpoint_every_steps=steps, eval_every_steps=steps,
+                       save_best=1)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-bf16-") as root:
+        data, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
+        ids = write_salt_dataset(data, n_images, size, SEED + 31)
+        ledger = LaunchLedger(kernels, step_lib)
+        trainer = Trainer(model_dir, data, train_config=tcfg, device=device, input_shape=(size, size), **model_kwargs)
+        # the main path: counts from 0 just before, read just after
+        with ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            folds = trainer.train(ids, batch_size=batch, steps=steps)
+            if on_card:
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        check(len(folds) == TRAIN_FOLDS and all(np.isfinite(v) for f in folds for v in f.values()),
+              f"train-bf16: fold metrics {folds}")
+        check(len(ledger.train) == TRAIN_FOLDS * steps, f"train-bf16: {len(ledger.train)} train steps recorded")
+        for i, delta in enumerate(ledger.train):
+            check(delta == per_step, f"train-bf16 step {i}: launches {delta}, expected {per_step}")
+        for i, delta in enumerate(ledger.eval):
+            check(delta == per_eval, f"train-bf16 eval forward {i}: launches {delta}, expected {per_eval}")
+        out["launches"] = counts
+        log(f"train-bf16: Trainer.train of {BF16_PRESET} ({trainer.params} parameters, bf16 compute, depthwise "
+            f"kernels on), {TRAIN_FOLDS} folds x {steps} steps at batch {batch} on {len(ids)} images: {train_s:.3f} s "
+            f"(data, augmentation, eval, checkpoints included); folds {json.dumps(folds)} [{card}]")
+        log(f"train-bf16: {len(ledger.train)} train steps launched {per_step['depthwise_conv2d_bf16']}/"
+            f"{per_step['depthwise_conv2d_dx_bf16']}/{per_step['depthwise_conv2d_dw_bf16']} bf16 depthwise fwd/dx/dw "
+            f"each; {len(ledger.eval)} eval forwards {per_eval['fused_bn_act_bf16_act']} bf16 BN + act each")
+
+        # the step on a resident batch
+        dataset = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids[:batch])
+        placed = pipeline_lib.to_device({"images": dataset.images, "masks": dataset.masks}, torch.device(device))
+        fixed = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
+        state = create_train_state(cfg, tcfg, device, generator=torch.Generator().manual_seed(SEED + 32))
+        train_step = step_lib.make_train_step(step_lib.SegmentationTask())
+        losses, times = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, fixed)
+            losses.append(step_lib.compute_metrics(metrics)["loss"])
+            times.append(time.perf_counter() - t0)
+        check(all(np.isfinite(losses)), f"train-bf16: non-finite losses {losses}")
+        ms = statistics.median(times[2:]) * 1e3
+        out.update(step_ms=ms, images_per_s=batch / ms * 1e3, train_s=train_s)
+        log(f"train-bf16: {ms:.3f} ms per step (median of steps 3-10), {batch / ms * 1e3:.3f} images/s at batch "
+            f"{batch}; losses {[round(v, 5) for v in losses]} [{card}]")
+        if on_card:
+            lines, stats = profile_steps(torch, train_step, state, fixed)
+            for line in lines:
+                log(f"profile train-bf16: {line} [{card}]")
+            if stats is not None:
+                stats["idle_unprofiled"] = max(0.0, 1 - stats["device_ms"] / ms)
+                log(f"train-bf16: device kernels {stats['device_ms']:.3f} ms of the unprofiled {ms:.3f} ms step: "
+                    f"device idle {stats['idle_unprofiled']:.3f} [{card}]")
+            out["profile"] = stats
+
+        # every bf16 kernel call of one step and one eval forward, held and timed
+        limits = {"depthwise_conv2d_forward": 3, "depthwise_conv2d_dx": 3, "depthwise_conv2d_dw": 3}
+        with record_kernel_calls(torch, limits) as calls:
+            step_lib.forward_backward(state, step_lib.SegmentationTask(), fixed)
+        state.zero_grad()
+        from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+
+        n_bn = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+        check(n_bn == PER_EVAL_FORWARD["fused_bn_act"] or not on_card, f"train-bf16: {n_bn} BatchNorms")
+        with record_kernel_calls(torch, {"bn_act_folded": n_bn}) as bn:
+            with torch.no_grad():
+                state.model.eval()(fixed["images"])
+        state.model.train()
+        n_calls = {k: len(v) for k, v in {**calls, **bn}.items()}
+        check(n_calls == dict(limits, bn_act_folded=n_bn), f"train-bf16: recorded calls {n_calls}")
+        check(all(a[0].dtype == torch.bfloat16 for v in calls.values() for a, _, _ in v)
+              and all(a[0].dtype == torch.bfloat16 for a, _, _ in bn["bn_act_folded"]),
+              "train-bf16: a path call was not bf16")
+        del state
+        out["rows"] = bf16_kernel_rows(torch, calls, bn["bn_act_folded"], timer if on_card else None, card, batch)
+        if on_card:
+            out["smooth_act_sweep"] = smooth_act_sweep(torch, card)
+        del calls, bn
+        log(f"train-bf16: every bf16 kernel call of a step (3 forward, 3 dx, 3 dw) and of an eval forward ({n_bn} BN) held "
+            f"against its plain version: max|err| "
+            f"{json.dumps({k: round(r['max_abs_err'], 6) for k, r in out['rows'].items()})}")
+
+        # predict, then fold 0's export through the engine at bucket 64
+        test_dir = os.path.join(root, "test")
+        write_salt_dataset(test_dir, n_test, size, SEED + 33)
+        shutil.rmtree(os.path.join(test_dir, "masks"))
+        with ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            pred = trainer.predict(test_dir, batch_size=batch)
+            if on_card:
+                torch.cuda.synchronize()
+            predict_s = time.perf_counter() - t0
+            out["predict_launches"] = kernels.launch_counts()
+        check(pred["probabilities"].shape == (n_test, size, size, 1) and np.isfinite(pred["probabilities"]).all(),
+              f"train-bf16 predict: {pred['probabilities'].shape}")
+        for i, delta in enumerate(ledger.predict):
+            check(delta == per_eval, f"train-bf16 predict forward {i}: launches {delta}, expected {per_eval}")
+        out.update(predict_s=predict_s, predict_forwards=len(ledger.predict))
+        log(f"train-bf16: Trainer.predict, {TRAIN_FOLDS} folds x 4 transforms over {n_test} images at batch {batch}: "
+            f"{predict_s:.3f} s wall, {n_test / predict_s:.3f} images/s, {len(ledger.predict)} forwards [{card}]")
+        manifest = trainer.export_serving(0)
+        engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device=device, buckets=(batch,))
+        x = make_instances(torch, batch, SEED + 34) if size == 101 else np.random.default_rng(SEED + 34).normal(
+            size=(batch, size, size, 2)).astype(np.float32)
+        engine.warmup()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        served = engine.infer(x)
+        engine_ms = (time.perf_counter() - t0) * 1e3
+        out["engine_launches"] = kernels.launch_counts()
+        want = dict(per_eval, fused_sigmoid_mask=1 if on_card else 0)
+        check(out["engine_launches"] == want, f"train-bf16 engine: launches {out['engine_launches']}, expected {want}")
+        best = trainer.restore_fold(0).model.eval()
+        with torch.no_grad():
+            direct = torch.sigmoid(best(torch.from_numpy(x).to(device))).cpu().numpy()
+        d = float(np.abs(served["probabilities"] - direct).max())
+        check(d <= 1e-6, f"train-bf16 engine: probabilities {d} from the restored model's forward")
+        out["engine_ms"] = engine_ms
+        log(f"train-bf16: fold 0's export through the engine at bucket {batch}: {engine_ms:.3f} ms (pad, H2D, forward, "
+            f"D2H), max|dprobs| {d:.3g} from the restored model, launches {per_eval['depthwise_conv2d_bf16']} bf16 "
+            f"depthwise + {per_eval['fused_bn_act_bf16_act']} bf16 BN + 1 sigmoid-mask [{card}]")
+    return out
+
+
+def logit_gap(p: np.ndarray, q: np.ndarray) -> float:
+    """Two softmaxes compared as their logits: ``log p - log q`` centred per
+    row (a softmax forgets its row's shift), its largest magnitude over the
+    std of ``log q``."""
+    logq = np.log(q.astype(np.float64))
+    d = np.log(p.astype(np.float64)) - logq
+    d -= d.mean(axis=-1, keepdims=True)
+    return float(np.abs(d).max() / logq.std())
+
+
+def estimate_bn_statistics(torch, model, batches) -> None:
+    """Set every BatchNorm's running statistics to the mean of its batch
+    statistics over ``batches`` (no-grad training-mode forwards), its decay
+    as it was afterwards; leaves the model in eval mode."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [bn.decay for bn in bns]
+    model.train()
+    try:
+        with torch.no_grad():
+            for i, x in enumerate(batches):
+                for bn in bns:
+                    bn.decay = i / (i + 1)
+                model(x)
+    finally:
+        for bn, decay in zip(bns, saved):
+            bn.decay = decay
+        model.eval()
+
+
+def hold_bn_calls(torch, calls, what: str) -> float:
+    """Recorded ``bn_act_folded`` calls on bf16 activations held against
+    the plain version on the same inputs: bit for bit for the
+    piecewise-linear activations, within TOL_BF16_STEPS otherwise; returns
+    the largest max|err|."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    worst = 0.0
+    with torch.no_grad():
+        for (x, m, b, act, res), out, _ in calls:
+            steps = 0 if act in ("none", "relu", "relu6") else TOL_BF16_STEPS
+            want = kernels.bn_act_folded_plain(x, m, b, act, res)
+            worst = max(worst, hold_bf16(torch, out, want, f"{what} BN {tuple(x.shape)} {act}", steps))
+    return worst
+
+
+def r50_instances(n: int, seed: int, shape) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=(n, *shape)).astype(np.float32)
+
+
+def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = R50_BATCH,
+                       steps: int = R50_FIT_STEPS, buckets=(1, 16, 64), http_sizes=(1, 4)):
+    """resnet50_classic_imagenet (ResNet-50, classic widths, space-to-depth
+    stem, bf16 compute; full width and depth) through ``fit_preset`` on
+    synthetic ImageNet-shaped data: ``steps`` steps at ``batch`` under the
+    preset's SGD recipe, one eval at the end, the float32-spec export, a
+    restore of the best state; then the export through the engine (buckets
+    ``buckets``) and HTTP (``http_sizes`` instances), the bfloat16 spec
+    through the engine, and the step on a resident batch (ms, images/s,
+    profile). ``cfg`` and ``device="cpu"`` rehearse it small."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, ServingServer, bind_ephemeral,
+    )
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, ClassifierTrainer, fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    on_card = device == "cuda"
+    preset = configs.get_preset(R50_PRESET)
+    cfg = cfg or preset.model
+    per_step = PER_R50_TRAIN_STEP if on_card else {k: 0 for k in PER_R50_TRAIN_STEP}
+    per_fwd = PER_R50_FORWARD if on_card else {k: 0 for k in PER_R50_FORWARD}
+    shape = (*cfg.input_shape, cfg.input_channels)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fit-r50-") as root, \
+            mock.patch.dict(configs.PRESETS, {R50_PRESET: dataclasses.replace(preset, model=cfg)}):
+        model_dir = os.path.join(root, "model")
+        ledger = LaunchLedger(kernels, step_lib)
+        with ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = fit_preset(R50_PRESET, model_dir, steps=steps, batch_size=batch, eval_every_steps=steps,
+                                export_serving="float32", device=device)
+            if on_card:
+                torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        check(result.steps == steps and sorted(result.final_metrics) == ["loss", "metrics/top1", "metrics/top5"]
+              and all(np.isfinite(v) for v in result.final_metrics.values()), f"fit-resnet50: {result}")
+        check(len(ledger.train) == steps and len(ledger.eval) == EVAL_SYNTHETIC_BATCHES,
+              f"fit-resnet50: {len(ledger.train)} train steps, {len(ledger.eval)} eval forwards")
+        for i, delta in enumerate(ledger.train):
+            check(delta == per_step, f"fit-resnet50 step {i}: launches {delta}, expected {per_step}")
+        for i, delta in enumerate(ledger.eval):
+            check(delta == per_fwd, f"fit-resnet50 eval forward {i}: launches {delta}, expected {per_fwd}")
+        out.update(launches=counts, fit_s=fit_s, n_params=result.n_params, final_metrics=result.final_metrics)
+        log(f"fit-resnet50: fit_preset {R50_PRESET} ({result.n_params} parameters), {steps} steps at batch {batch} "
+            f"on synthetic data ({preset.train.optimizer}, lr {preset.train.lr}, {preset.train.lr_schedule} with "
+            f"{preset.train.lr_warmup_steps} warmup steps), one eval, the float32 export: {fit_s:.3f} s wall; final "
+            f"{json.dumps(result.final_metrics)}; {len(ledger.eval)} eval forwards launched "
+            f"{per_fwd['fused_bn_act_bf16_act']} bf16 BN + act each [{card}]")
+        trainer = ClassifierTrainer(model_dir, None, cfg, preset.train, device=device)
+        t0 = time.perf_counter()
+        best = trainer._restore_best_host()
+        if on_card:
+            torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        log(f"fit-resnet50: restore of the best state (step {best.step}, no init draw) {out['restore_s']:.3f} s [{card}]")
+        x = r50_instances(batch, SEED + 41, shape)
+        xt = torch.from_numpy(x).to(device)
+        task = step_lib.ClassificationTask()
+
+        # fit_preset's own export through the engine: the restored state's forward
+        engine = InferenceEngine.from_artifact(result.serving_artifact, device=device, buckets=(batch,))
+        with best.eval_params() as model, torch.inference_mode():
+            direct = task.predictions(model.eval()(xt))["probabilities"].float().cpu().numpy()
+        got = engine.infer(x)
+        d = float(np.abs(got["probabilities"] - direct).max())
+        check(d <= TOL_VIT_F32, f"fit-resnet50 export: probabilities {d} from the restored model's forward")
+        check_classes(got["probabilities"], got["class"], "fit-resnet50 export")
+        log(f"fit-resnet50: fit_preset's float32 export through the engine at bucket {batch}: max|dprobs| {d:.3g} from "
+            f"the restored model's forward")
+        del engine
+
+        # the served state: 20 steps at decay 0.99 leave the running statistics
+        # 82% at their init, so the eval-mode logits are huge and every softmax
+        # saturates; the running statistics are re-estimated from training-mode
+        # forwards and the logits scaled to std 3, so probabilities and
+        # classes can show a serving fault
+        with best.eval_params() as model:
+            calib = [r50_instances(batch, SEED + 45 + i, shape) for i in range(R50_CALIBRATION_BATCHES)]
+            estimate_bn_statistics(torch, model, [torch.from_numpy(c).to(device) for c in calib])
+            calibrate_logits(torch, model.eval(), xt)
+            n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+            check(n_bn == per_fwd["fused_bn_act"] or not on_card, f"fit-resnet50: {n_bn} BatchNorms")
+            with record_kernel_calls(torch, {"bn_act_folded": n_bn}) as bn, torch.inference_mode():
+                logits = model(xt)
+            direct = task.predictions(logits)["probabilities"].float().cpu().numpy()
+            out["logit_std"] = float(logits.float().std())
+            art = os.path.join(root, "served")
+            art16 = os.path.join(root, "served-bfloat16")
+            for directory, spec in ((art, "float32"), (art16, "bfloat16")):
+                serving.export_serving_artifact(model, cfg, directory, metadata={"step": best.step}, serving_dtype=spec)
+        del best
+        out["bn_held_err"] = hold_bn_calls(torch, bn["bn_act_folded"], "fit-resnet50 eval forward")
+        check(len(bn["bn_act_folded"]) == n_bn and all(a[0].dtype == torch.bfloat16 for a, _, _ in bn["bn_act_folded"]),
+              "fit-resnet50: recorded BN calls")
+        log(f"fit-resnet50: running statistics re-estimated from {R50_CALIBRATION_BATCHES} training-mode forwards of "
+            f"{batch}, logits std {out['logit_std']:.3f}; the {len(bn['bn_act_folded'])} BN calls of one eval forward "
+            f"at batch {batch} held against the plain version: max|err| {out['bn_held_err']:.3g}")
+
+        # the export through the engine and HTTP: the main serving path
+        engine = InferenceEngine.from_artifact(art, device=device, buckets=buckets)
+        warm = engine.warmup()
+        batcher = MicroBatcher(engine, max_wait_ms=5.0, max_queue=64)
+        server = ServingServer(engine, batcher, sock=bind_ephemeral("127.0.0.1", 0)).start()
+        lat_engine, lat_http = {}, {}
+        try:
+            kernels.reset_launch_counts()
+            for n in http_sizes:
+                xs = r50_instances(n, SEED + 42 + n, shape)
+                status, body = post(server.url + "/v1/predict", {"instances": xs.tolist()})
+                t0 = time.perf_counter()
+                status, body = post(server.url + "/v1/predict", {"instances": xs.tolist()})
+                lat_http[n] = (time.perf_counter() - t0) * 1e3
+                check(status == 200 and body["n"] == n, f"fit-resnet50 HTTP {n}: {status}")
+                p = np.asarray(body["predictions"]["probabilities"], np.float32)
+                check_classes(p, np.asarray(body["predictions"]["class"], np.int32), f"fit-resnet50 HTTP {n}")
+            for b in buckets:
+                lat = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    got = engine.infer(x[:b])
+                    lat.append(time.perf_counter() - t0)
+                lat_engine[b] = statistics.median(lat) * 1e3
+                check_classes(got["probabilities"], got["class"], f"fit-resnet50 engine bucket {b}")
+            served = kernels.launch_counts()
+            forwards = sum(engine.bucket_hits.values())
+        finally:
+            server.shutdown()
+        d = float(np.abs(got["probabilities"] - direct).max())
+        check(d <= TOL_VIT_F32, f"fit-resnet50 engine: probabilities {d} from the served model's forward")
+        want = {k: v * forwards for k, v in per_fwd.items()}
+        check({k: served[k] for k in want} == want, f"fit-resnet50 serve: launches {served}, expected {want}")
+        out.update(serve_launches=served, serve_forwards=forwards, engine_ms=lat_engine, http_ms=lat_http)
+        log(f"fit-resnet50: warmup s per bucket {json.dumps({str(b): round(s, 4) for b, s in warm.items()})}; "
+            f"{forwards} served forwards launched {per_fwd['fused_bn_act_bf16_act']} bf16 BN + act each; max|dprobs| "
+            f"{d:.3g} from the served model's forward, top probability {float(got['probabilities'].max(-1).mean()):.3f} "
+            f"on average")
+        for b, ms in lat_engine.items():
+            log(f"fit-resnet50: engine bucket {b} p50 forward {ms:.3f} ms (pad, H2D, forward, D2H), "
+                f"{b / ms * 1e3:.1f} images/s [{card}]")
+        for n, ms in lat_http.items():
+            log(f"fit-resnet50: {n} instances request latency {ms:.3f} ms over HTTP [{card}]")
+
+        # the bfloat16 spec: bf16 BN parameters, the unfolded arm; held against
+        # its own forward through the plain versions, and against the float32
+        # spec within TOL_R50_BF16_SPEC with equal classes where the top two are apart
+        engine16 = InferenceEngine.from_artifact(art16, device=device, buckets=(batch,))
+        kernels.reset_launch_counts()
+        got16 = engine16.infer(x)
+        c16 = kernels.launch_counts()
+        want16 = PER_R50_BF16_SPEC_FORWARD if on_card else {k: 0 for k in PER_R50_BF16_SPEC_FORWARD}
+        check({k: c16[k] for k in want16} == want16, f"fit-resnet50 bfloat16 spec: launches {c16}")
+        plain16 = serving.load_serving_artifact(art16, device)
+        with mock.patch.multiple(kernels, bn_act_unfolded=kernels.bn_act_unfolded_plain,
+                                 bn_act_folded=kernels.bn_act_folded_plain):
+            kernels.reset_launch_counts()
+            want16p = plain16(x)["probabilities"].float().cpu().numpy()
+            check(sum(kernels.launch_counts().values()) == 0, "fit-resnet50: the plain bfloat16 forward launched")
+        d16 = float(np.abs(got16["probabilities"] - want16p).max())
+        check(d16 <= TOL_VIT_F32, f"fit-resnet50 bfloat16 spec: probabilities {d16} from its plain forward")
+        check_classes(got16["probabilities"], got16["class"], "fit-resnet50 bfloat16 spec")
+        d32 = float(np.abs(got16["probabilities"] - direct).max())
+        gap = logit_gap(got16["probabilities"], direct)
+        check(gap <= TOL_R50_BF16_SPEC, f"fit-resnet50 bfloat16 spec: logits {gap} of their std from the float32 spec's")
+        out.update(bf16_spec_dprobs=d16, bf16_spec_vs_f32_dprobs=d32, bf16_spec_vs_f32_logit_gap=gap)
+        log(f"fit-resnet50: bfloat16 spec through the engine at bucket {batch}: max|dprobs| {d16:.3g} from its plain "
+            f"forward; from the float32 spec logits {gap:.4g} of their std apart (bound {TOL_R50_BF16_SPEC}), "
+            f"max|dprobs| {d32:.3g}; {want16['fused_bn_act_bf16']} BN launches with bf16 parameters")
+
+    # the step on a resident batch
+    state = create_train_state(cfg, preset.train, device, generator=torch.Generator().manual_seed(SEED + 43))
+    raw = synthetic_classification_batch(np.random.default_rng(SEED + 44), batch, cfg.input_shape,
+                                         cfg.input_channels, cfg.num_classes)
+    fixed = pipeline_lib.to_device(raw, torch.device(device))
+    train_step = step_lib.make_train_step(step_lib.ClassificationTask(label_smoothing=preset.train.label_smoothing),
+                                          weight_decay=cfg.weight_decay)
+    times, losses = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, fixed)
+        losses.append(step_lib.compute_metrics(metrics)["loss"])
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"fit-resnet50: non-finite losses {losses}")
+    ms = statistics.median(times[2:]) * 1e3
+    out.update(step_ms=ms, images_per_s=batch / ms * 1e3)
+    log(f"fit-resnet50: train step on a resident batch of {batch}: {ms:.3f} ms (median of steps 3-10), "
+        f"{batch / ms * 1e3:.3f} images/s [{card}]")
+    if on_card:
+        lines, stats = profile_steps(torch, train_step, state, fixed)
+        for line in lines:
+            log(f"profile fit-resnet50: {line} [{card}]")
+        if stats is not None:
+            stats["idle_unprofiled"] = max(0.0, 1 - stats["device_ms"] / ms)
+            log(f"fit-resnet50: device kernels {stats['device_ms']:.3f} ms of the unprofiled {ms:.3f} ms step: device "
+                f"idle {stats['idle_unprofiled']:.3f} [{card}]")
+        out["profile"] = stats
+    return out
+
+
+@contextlib.contextmanager
+def cublas_deterministic():
+    """cuBLAS's deterministic workspace for the duration (PyTorch's
+    deterministic mode refuses a matmul without it)."""
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+
+
+def train_lars_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = R50_BATCH,
+                     steps: int = LARS_STEPS):
+    """The resnet50_imagenet model with ``remat`` (resnet50_bf16_8k's
+    model) under resnet50_bf16_8k's LARS recipe without ZeRO-1, with
+    ``grad_accum_steps`` = 2, on a resident synthetic batch: ``steps`` steps
+    with and without ``remat`` (ms per step, peak device memory), then one
+    remat step held bit for bit against one plain step under deterministic
+    algorithms. ``cfg`` and ``device="cpu"`` rehearse it small."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    on_card = device == "cuda"
+    preset = get_preset(LARS_PRESET)
+    cfg = cfg or preset.model
+    check(cfg.remat, "train-lars: the model must have remat on")
+    tcfg = dataclasses.replace(preset.train, weight_update_sharding=False, grad_accum_steps=2)
+    task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+    raw = synthetic_classification_batch(np.random.default_rng(SEED + 51), batch, cfg.input_shape,
+                                         cfg.input_channels, cfg.num_classes)
+    fixed = pipeline_lib.to_device(raw, torch.device(device))
+    init = {k: v.cpu() for k, v in build_model(cfg, device, generator=torch.Generator().manual_seed(SEED + 52))
+            .state_dict().items()}
+    out = {}
+    kernels.reset_launch_counts()
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = create_train_state(c, tcfg, device, state_dict=init)
+        train_step = step_lib.make_train_step(task, weight_decay=c.weight_decay, accum=tcfg.grad_accum_steps)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, fixed)
+            losses.append(step_lib.compute_metrics(metrics)["loss"])
+            times.append(time.perf_counter() - t0)
+        check(all(np.isfinite(losses)), f"train-lars remat={remat}: non-finite losses {losses}")
+        ms = statistics.median(times[1:]) * 1e3
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        key = "remat" if remat else "plain"
+        out[key] = dict(step_ms=ms, images_per_s=batch / ms * 1e3, peak_bytes=peak, losses=losses)
+        log(f"train-lars: {LARS_PRESET}'s model (remat {remat}), lars lr {tcfg.lr} with {tcfg.lr_warmup_steps} warmup "
+            f"steps, grad_accum_steps 2, batch {batch}: {ms:.3f} ms per step (median of steps 2-{steps}), "
+            f"{batch / ms * 1e3:.3f} images/s, peak device memory {peak / 2 ** 30:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated); losses {[round(v, 5) for v in losses]} [{card}]")
+        del state, train_step
+        if on_card:
+            torch.cuda.empty_cache()
+    out["launches"] = kernels.launch_counts()
+    want = PER_R50_TRAIN_STEP if on_card else {k: 0 for k in PER_R50_TRAIN_STEP}
+    check(out["launches"] == want, f"train-lars: launches {out['launches']}")
+    if on_card:
+        out["peak_ratio"] = out["remat"]["peak_bytes"] / out["plain"]["peak_bytes"]
+        out["time_ratio"] = out["remat"]["step_ms"] / out["plain"]["step_ms"]
+        log(f"train-lars: remat peak memory {out['peak_ratio']:.3f} of the plain step's, step time "
+            f"{out['time_ratio']:.3f} of it [{card}]")
+
+    # one remat step against one plain step, bit for bit
+    results = []
+    with deterministic_algorithms(torch), cublas_deterministic():
+        for remat in (True, False):
+            c = dataclasses.replace(cfg, remat=remat)
+            state = create_train_state(c, tcfg, device, state_dict=init)
+            state, metrics = step_lib.make_train_step(task, weight_decay=c.weight_decay,
+                                                      accum=tcfg.grad_accum_steps)(state, fixed)
+            results.append((step_lib.compute_metrics(metrics), {k: v.detach().clone() for k, v in
+                                                                 state.model.state_dict().items()},
+                            [state.optimizer.state[p]["trace"].clone() for p in state.model.parameters()]))
+            del state
+    (m_r, s_r, t_r), (m_p, s_p, t_p) = results
+    differ = [k for k in s_r if not torch.equal(s_r[k], s_p[k])]
+    check(m_r == m_p and not differ and all(torch.equal(a, b) for a, b in zip(t_r, t_p)),
+          f"train-lars: the remat step is not bit for bit the plain one ({len(differ)} tensors differ, e.g. "
+          f"{differ[:3]}; metrics {m_r} vs {m_p})")
+    out["bitwise"] = True
+    log(f"train-lars: one remat step bit for bit one plain step under deterministic algorithms (parameters, BN "
+        f"running statistics moved once, LARS traces, metrics {json.dumps(m_r)})")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3415,6 +4190,15 @@ def main() -> int:
         trained = train_phase(torch, card)
         torch.cuda.empty_cache()
         dp = dp_phase(torch, card, timer=timer)
+        torch.cuda.empty_cache()
+        trained16 = train_bf16_phase(torch, card, timer)
+        rows.update(trained16.pop("rows"))
+        torch.cuda.empty_cache()
+        fitted50 = fit_resnet50_phase(torch, card)
+        rows["fused_bn_act_bf16_act"]["max_abs_err"] = max(rows["fused_bn_act_bf16_act"]["max_abs_err"],
+                                                           fitted50["bn_held_err"])
+        torch.cuda.empty_cache()
+        lars = train_lars_phase(torch, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3423,7 +4207,10 @@ def main() -> int:
     paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
              "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
              "train-dp": dp["train-dp"]["launches"], "train-dp2": dp["train-dp2"]["launches"], **vit_paths,
-             "fit-vit": fitted["launches"], "train-vit": vit_trained["launches"]}
+             "fit-vit": fitted["launches"], "train-vit": vit_trained["launches"],
+             "train-bf16": trained16["launches"], "predict-bf16": trained16["predict_launches"],
+             "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
+             "serve-resnet50": fitted50["serve_launches"], "train-lars": lars["launches"]}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -3445,7 +4232,10 @@ def main() -> int:
                       "fit_vit": {k: v for k, v in fitted.items() if k != "launches"},
                       "train_vit": {k: v for k, v in vit_trained.items() if k not in ("launches", "losses")},
                       "train_dp": {k: v for k, v in dp["train-dp"].items() if k != "launches"},
-                      "train_dp2": {k: v for k, v in dp["train-dp2"].items() if k not in ("launches", "held")}}))
+                      "train_dp2": {k: v for k, v in dp["train-dp2"].items() if k not in ("launches", "held")},
+                      "train_bf16": {k: v for k, v in trained16.items() if not k.endswith("launches")},
+                      "fit_resnet50": {k: v for k, v in fitted50.items() if not k.endswith("launches")},
+                      "train_lars": {k: v for k, v in lars.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -81,6 +81,8 @@ def cmd_train(args) -> int:
         n_blocks=tuple(args.n_blocks),
         base_depth=args.base_depth,
         use_pallas_depthwise=args.use_pallas_depthwise,
+        block_type=args.block_type,
+        dtype=args.dtype,
     )
     results = trainer.train(ids, batch_size=args.batch_size, steps=args.steps)
     out = {"folds": results, "n_params": trainer.params}
@@ -124,6 +126,7 @@ def cmd_fit(args) -> int:
         augmentation=args.augmentation,
         ema_decay=args.ema_decay,
         grad_clip_norm=args.grad_clip,
+        grad_accum_steps=args.grad_accum,
     )
     summary = {"preset": args.preset, "steps": result.steps, "n_params": result.n_params,
                "final_metrics": result.final_metrics}
@@ -211,6 +214,8 @@ def cmd_predict(args) -> int:
         n_blocks=tuple(args.n_blocks),
         base_depth=args.base_depth,
         use_pallas_depthwise=args.use_pallas_depthwise,
+        block_type=args.block_type,
+        dtype=args.dtype,
     )
     pred = trainer.predict(args.test_dir, batch_size=args.batch_size, tta=not args.no_tta)
     if args.submission:
@@ -312,6 +317,18 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    """The segmenter's model flags shared by ``train`` and ``predict`` (the
+    JAX CLI's shared model arguments; ``--backbone xception`` is queue
+    A 11)."""
+    p.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
+    p.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
+    p.add_argument("--base-depth", type=int, default=256)
+    p.add_argument("--block-type", choices=("bottleneck", "basic_block"), default="bottleneck")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="compute dtype (parameters, loss and metrics stay float32)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tensorflowdistributedlearning_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -322,9 +339,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--batch-size", type=int, default=64)
     t.add_argument("--n-fold", type=int, default=5)
     t.add_argument("--seed", type=int, default=42)
-    t.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
-    t.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
-    t.add_argument("--base-depth", type=int, default=256)
+    _add_model_args(t)
     t.add_argument("--lr", type=float, default=0.001)
     t.add_argument("--steps", type=int, default=10_000)
     t.add_argument("--save-best", type=int, default=5)
@@ -368,6 +383,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="track a parameter EMA at this decay and evaluate/export the averaged weights; 0 disables")
     f.add_argument("--grad-clip", type=float, default=None,
                    help="clip gradients to this global l2 norm before the update; 0 disables")
+    f.add_argument("--grad-accum", type=int, default=None,
+                   help="accumulate gradients over this many sequential microbatches per step (one optimizer "
+                   "update on their mean; the per-rank batch must divide)")
     f.add_argument("--export-serving", action="store_true",
                    help="after training, export the best state's serving artifact ({model_dir}/export/serving)")
     f.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",
@@ -389,9 +407,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--submission", default=None, help="also write a Kaggle RLE submission csv here")
     pr.add_argument("--batch-size", type=int, default=64)
     pr.add_argument("--n-fold", type=int, default=5)
-    pr.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
-    pr.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
-    pr.add_argument("--base-depth", type=int, default=256)
+    _add_model_args(pr)
     pr.add_argument("--use-pallas-depthwise", action="store_true",
                     help="route the depthwise convs through the hand-written kernels")
     pr.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")

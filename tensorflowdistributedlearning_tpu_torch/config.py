@@ -4,10 +4,11 @@
 ``ModelConfig`` and ``TrainConfig`` mirror the JAX package's field for
 field, with the same defaults and the same ``__post_init__`` checks, so one
 JSON config drives both packages. The port serves and trains the ResNet
-segmentation family in float32 (on one device, or data-parallel over
-ranks with per-rank or synchronized BatchNorm) and serves and trains the
-ViT classifier in float32 or bfloat16; the knobs it does not run yet are
-rejected by
+family (the segmenter and the classifier, every block layout, block type
+and stem, float32 or bfloat16 compute, with or without ``remat``; on one
+device, or data-parallel over ranks with per-rank or synchronized
+BatchNorm) and the ViT classifier in float32 or bfloat16; the knobs it does
+not run yet are rejected by
 :func:`require_supported` and :func:`require_supported_training` with the
 queue item that will bring them.
 """
@@ -128,27 +129,24 @@ class ModelConfig:
 _LATER = (
     (lambda c: c.backbone == "xception", "backbone='xception' (queue A 11)"),
     (lambda c: c.moe_experts > 0, "moe_experts > 0, the Switch-MoE ViT (queue A 12)"),
-    (lambda c: c.backbone == "resnet" and c.num_classes is not None, "the ResNet classification head (queue A 4)"),
-    (lambda c: c.backbone == "resnet" and c.dtype == "bfloat16", "ResNet dtype='bfloat16' (queue A 4)"),
-    (lambda c: c.stem_space_to_depth, "stem_space_to_depth (queue A 4)"),
-    (lambda c: c.block_type == "basic_block", "block_type='basic_block' (queue A 4)"),
-    (lambda c: c.block_layout == "classic", "block_layout='classic' (queue A 4)"),
 )
 
 
 def require_supported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     run yet, naming the ROADMAP item that brings it. It runs the ResNet
-    segmenter in float32 and the ViT classifier (``backbone="vit"``) in
-    float32 or bfloat16, with or without ``use_fused_attention``; a ViT
+    segmenter and classifier (``num_classes``) at every block layout,
+    block type and stem, and the ViT classifier (``backbone="vit"``, with
+    or without ``use_fused_attention``), each in float32 or bfloat16
+    compute; it refuses the Xception backbone and the MoE ViT. A ViT
     without ``num_classes`` raises ``ValueError`` when it is built, as the
     JAX model does when it is applied. A fused-attention ViT must have a
     head width that the attention kernels are built for."""
     for test, what in _LATER:
         if test(config):
             raise NotImplementedError(
-                f"{what} is not ported yet; the port runs the float32 ResNet segmentation "
-                "model and the ViT classifier (see ROADMAP.md)"
+                f"{what} is not ported yet; the port runs the ResNet segmenter and classifier "
+                "and the ViT classifier (see ROADMAP.md)"
             )
     if config.backbone == "vit" and config.use_fused_attention:
         _require_kernel_head_dim(config)
@@ -333,8 +331,6 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
 # training knobs of the JAX package that later slices of the port bring,
 # with the ROADMAP queue item that brings each
 _LATER_TRAINING = (
-    (lambda c: c.optimizer == "lars", "optimizer='lars' (queue A 4)"),
-    (lambda c: c.grad_accum_steps > 1, "grad_accum_steps > 1 (queue A 4)"),
     (lambda c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
     (
         lambda c: max(c.sequence_parallel, c.model_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
@@ -351,13 +347,14 @@ _LATER_TRAINING = (
 def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a model or training configuration
     the port does not train yet, naming the ROADMAP item that brings it. It
-    trains the ResNet segmenter in float32 and the ViT classifier without
-    experts in float32 or bfloat16 compute, on one device or data-parallel;
-    what :func:`require_supported` refuses (the MoE ViT, the ResNet
-    classification head) it refuses too."""
+    trains every model :func:`require_supported` accepts (the ResNet
+    segmenter and classifier, the ViT classifier without experts; float32
+    or bfloat16 compute; ``remat`` per residual unit or transformer block)
+    with Adam, SGD or LARS, ``grad_accum_steps`` >= 1, on one device or
+    data-parallel; it refuses what :func:`require_supported` refuses, the
+    planner, ZeRO-1 and the model-parallel axes (queue A 12), and the
+    observability knobs (queue A 13)."""
     require_supported(model_config)
-    if model_config.remat:
-        raise NotImplementedError("remat=True in training is not ported yet (queue A 4, see ROADMAP.md)")
     for test, what in _LATER_TRAINING:
         if test(train_config):
             raise NotImplementedError(

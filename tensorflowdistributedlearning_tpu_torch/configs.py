@@ -7,8 +7,9 @@ package, plain-data modules included), with the same names, values and
 descriptions; ``tests/test_torch_vit.py`` holds every preset's
 :meth:`Preset.to_dict` equal to the JAX one. The comments that give the
 provenance of each value are the JAX package's. What the port runs of each preset is what
-:func:`config.require_supported` accepts: this slice serves
-``vit_s16_imagenet``.
+:func:`config.require_supported` and :func:`config.require_supported_training`
+accept: every preset but ``xception41_imagenet`` (queue A 11),
+``vit_s16_moe_imagenet`` and ``resnet50_bf16_8k``'s ZeRO-1 (queue A 12).
 """
 
 from __future__ import annotations
@@ -137,8 +138,8 @@ PRESETS: Dict[str, Preset] = {
         model=_imagenet_model(
             n_blocks=(3, 4, 6, 3),
             block_layout="classic",
-            # on in the JAX package on TPU evidence; the port has no
-            # space-to-depth stem yet (ROADMAP queue A)
+            # on in the JAX package on TPU evidence; the port computes the
+            # same function (layers.SpaceToDepthConv)
             stem_space_to_depth=True,
         ),
         train=_IMAGENET_1K_TRAIN,

@@ -4,11 +4,20 @@
 //   fused_bn_act (kernel bodies _bn_act_kernel and _bn_act_res_kernel; the
 //   fold _fold_bn stays outside the kernel, in f32 torch ops on [C] vectors).
 //
-// Two entry points, each with its earlier kernel kept beside it (timed
-// against it and held to it bit for bit; no path calls the earlier ones):
+// Three entry points, the first two with their earlier kernels kept beside
+// them (timed against them and held to them bit for bit; no path calls the
+// earlier ones):
 // - tfdl_bn_act_rows_f32 (earlier: tfdl_bn_act_f32): out = act(x * m[c] +
 //   b[c] (+ r)) for NHWC float32 x with the folded f32 vectors (float32
 //   parameters);
+// - tfdl_bn_act_rows_bf16: the same with bfloat16 activations (x, r and
+//   out bf16; the bf16-compute models' eval-mode BatchNorm), the f32 fold:
+//   x and r widened to f32, the same f32 arithmetic, the result rounded
+//   once to bf16 (round to nearest even), as the TPU kernel computes in
+//   f32 and writes x.dtype. Its vector arm takes 8 channels a thread (one
+//   16-byte load of x and r, one 16-byte store, two float4 loads of each
+//   fold vector) where C % 8 == 0 and every base is 16-byte aligned
+//   (ops/kernels.py bn_act_vectorized_bf16); else one channel a thread;
 // - tfdl_bn_act_rows_unfolded (earlier: tfdl_bn_act_unfolded): flax's own
 //   order for bfloat16 parameters (the quantized serving specs), out =
 //   act(((x - mean[c]) * mul[c]) + bias[c]) with every step rounded to bf16
@@ -198,6 +207,86 @@ __global__ void __launch_bounds__(TFDL_THREADS)
   }
 }
 
+// bf16 activations: out = bf16(act(x * m[c] + b[c] (+ r))), x and r bf16;
+// VEC 8 or 1 channels a thread (8: 16-byte words of x, r and out)
+__device__ __forceinline__ void tfdl_ld_bf16(const __nv_bfloat16* __restrict__ p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const unsigned int w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[2 * e] = __uint_as_float(w[e] << 16);
+    v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void tfdl_ld_bf16(const __nv_bfloat16* __restrict__ p, float (&v)[1]) {
+  v[0] = __bfloat162float(*p);
+}
+__device__ __forceinline__ unsigned int tfdl_pack_bf16x2(float lo, float hi) {
+  return (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void tfdl_st_bf16(__nv_bfloat16* __restrict__ p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(tfdl_pack_bf16x2(v[0], v[1]), tfdl_pack_bf16x2(v[2], v[3]),
+                                            tfdl_pack_bf16x2(v[4], v[5]), tfdl_pack_bf16x2(v[6], v[7]));
+}
+__device__ __forceinline__ void tfdl_st_bf16(__nv_bfloat16* __restrict__ p, const float (&v)[1]) {
+  *p = __float2bfloat16_rn(v[0]);
+}
+// VEC f32 fold values at p (two float4 loads for 8)
+template <int VEC>
+__device__ __forceinline__ void tfdl_ld_fold(const float* __restrict__ p, float (&v)[VEC]) {
+  if (VEC == 8) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x;
+    v[1 % VEC] = a.y;
+    v[2 % VEC] = a.z;
+    v[3 % VEC] = a.w;
+    v[4 % VEC] = b.x;
+    v[5 % VEC] = b.y;
+    v[6 % VEC] = b.z;
+    v[7 % VEC] = b.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(TFDL_THREADS)
+    tfdl_bn_act_rows_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ m,
+                                 const float* __restrict__ b, const __nv_bfloat16* __restrict__ r,
+                                 __nv_bfloat16* __restrict__ out, int64_t P, int C, int64_t rows, int act) {
+  const int G = C / VEC;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * G) return;
+  const int c = (int)(t % G) * VEC;
+  float mv[VEC], bv[VEC];
+  tfdl_ld_fold<VEC>(m + c, mv);
+  tfdl_ld_fold<VEC>(b + c, bv);
+  for (int64_t p = t / G; p < P; p += 2 * rows) {
+    const bool two = p + rows < P;
+    float xv[2][VEC], rv[2][VEC];
+    tfdl_ld_bf16(x + p * C + c, xv[0]);
+    if (two) tfdl_ld_bf16(x + (p + rows) * C + c, xv[1]);
+    if (r != nullptr) {
+      tfdl_ld_bf16(r + p * C + c, rv[0]);
+      if (two) tfdl_ld_bf16(r + (p + rows) * C + c, rv[1]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
+      float y[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = __fadd_rn(__fmul_rn(xv[u][e], mv[e]), bv[e]);
+        if (r != nullptr) v = __fadd_rn(v, rv[u][e]);
+        y[e] = tfdl_act(v, act);
+      }
+      tfdl_st_bf16(out + (p + u * rows) * C + c, y);
+    }
+  }
+}
+
 // unfolded: out = act(((x - mean[c]) * mul[c]) + bias[c]), each step
 // rounded to bf16 for bf16 x
 template <int VEC, typename XT>
@@ -279,6 +368,30 @@ extern "C" int tfdl_bn_act_rows_f32(const void* x, const void* m, const void* b,
   } else {
     tfdl_bn_act_rows_kernel<1><<<blocks, TFDL_THREADS, 0, st>>>(
         (const float*)x, (const float*)m, (const float*)b, (const float*)r, (float*)out, P, C, rows, act);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, r (may be null), out: bf16 [P, C]; m, b: f32 [C]; vec = 1 takes the
+// 8-channel path (C % 8 == 0 and every base 16-byte aligned), 0 the scalar
+// one
+extern "C" int tfdl_bn_act_rows_bf16(const void* x, const void* m, const void* b, const void* r, void* out,
+                                     int64_t P, int C, int act, int vec, void* stream) {
+  if (P <= 0 || C <= 0) return (int)cudaSuccess;
+  if (vec && C % 8 != 0) return (int)cudaErrorInvalidValue;
+  const int groups = vec ? C / 8 : C;
+  int64_t rows = 0;
+  const int code = tfdl_bn_rows(P, groups, &rows);
+  if (code != 0) return code;
+  const unsigned int blocks = (unsigned int)((rows * groups + TFDL_THREADS - 1) / TFDL_THREADS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  typedef __nv_bfloat16 bf;
+  if (vec) {
+    tfdl_bn_act_rows_bf16_kernel<8><<<blocks, TFDL_THREADS, 0, st>>>(
+        (const bf*)x, (const float*)m, (const float*)b, (const bf*)r, (bf*)out, P, C, rows, act);
+  } else {
+    tfdl_bn_act_rows_bf16_kernel<1><<<blocks, TFDL_THREADS, 0, st>>>(
+        (const bf*)x, (const float*)m, (const float*)b, (const bf*)r, (bf*)out, P, C, rows, act);
   }
   return (int)cudaGetLastError();
 }

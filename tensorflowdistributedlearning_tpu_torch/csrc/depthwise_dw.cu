@@ -1,4 +1,5 @@
-// Filter gradient of the stride-1 SAME depthwise 2-D convolution, float32.
+// Filter gradient of the stride-1 SAME depthwise 2-D convolution, float32 or
+// bfloat16.
 //
 // Replaces: tensorflowdistributedlearning_tpu/ops/pallas_kernels.py
 //   _dw_bwd (the custom VJP of depthwise_conv2d), its dw half: kh*kw
@@ -50,17 +51,42 @@
 // in a fixed order into the [tiles, kh*kw, C] partial, and the second kernel
 // sums the tiles in order.
 //
+// The bf16 arms (tfdl_depthwise_dw_band_bf16, tfdl_depthwise_dw_bf16: the
+// bf16-compute models' path) are the same two kernels on 2-byte x and g:
+// the band kernel stages bf16 bands (half the shared memory, so its plan,
+// ops/kernels.py dw_plan with itemsize 2, may take taller bands) by 8-byte
+// cp.async, a thread's 4 channels one 8-byte vector; every product and
+// sum is float32 (the partial too), and the tile sum rounds dw once to
+// bf16 (round to nearest even): the TPU path sums in float32 and casts dw
+// to the filter's dtype, which the JAX layer cast to bf16.
+//
 // Layout: x and g are NHWC contiguous; partial is [tiles, kh*kw, C]; dw is
 // [kh, kw, C]. Filters up to 7x7 (odd sides) are instantiated.
 
+#include <cuda_bf16.h>
+
 #include "common.cuh"
+
+__device__ __forceinline__ float tfdl_f32(float v) { return v; }
+__device__ __forceinline__ float tfdl_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void tfdl_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void tfdl_store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// four consecutive elements widened to float32 (16-byte aligned floats,
+// 8-byte aligned bf16)
+__device__ __forceinline__ float4 tfdl_ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 tfdl_ld4(const __nv_bfloat16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
 
 #define TFDL_DW_CH 32
 #define TFDL_DW_LANES 8
 
-template <int KH, int KW>
+template <typename E, int KH, int KW>
 __global__ void tfdl_depthwise_dw_partial_kernel(
-    const float* __restrict__ x, const float* __restrict__ g,
+    const E* __restrict__ x, const E* __restrict__ g,
     float* __restrict__ partial, int H, int W, int C, int rate, int64_t P,
     int64_t tile_rows) {
   __shared__ float lanes[TFDL_DW_LANES][TFDL_DW_CH];
@@ -79,8 +105,8 @@ __global__ void tfdl_depthwise_dw_partial_kernel(
       const int64_t q = p / W;
       const int oy = (int)(q % H);
       const int64_t b = q / H;
-      const float gv = g[p * C + c];
-      const float* xb = x + b * (int64_t)H * W * C + c;
+      const float gv = tfdl_f32(g[p * C + c]);
+      const E* xb = x + b * (int64_t)H * W * C + c;
 #pragma unroll
       for (int i = 0; i < KH; ++i) {
         const int iy = oy + i * rate - ph;
@@ -90,7 +116,7 @@ __global__ void tfdl_depthwise_dw_partial_kernel(
           const int ix = ox + j * rate - pw;
           if (row_in && ix >= 0 && ix < W) {
             acc[i * KW + j] =
-                fmaf(gv, xb[((int64_t)iy * W + ix) * C], acc[i * KW + j]);
+                fmaf(gv, tfdl_f32(xb[((int64_t)iy * W + ix) * C]), acc[i * KW + j]);
           }
         }
       }
@@ -109,33 +135,35 @@ __global__ void tfdl_depthwise_dw_partial_kernel(
   }
 }
 
-// dw[k] = sum over tiles, in tile order, of partial[tile][k], k = tap*C + c.
+// dw[k] = sum over tiles, in tile order, of partial[tile][k], k = tap*C + c;
+// stored as D (float, or bf16 rounded once)
+template <typename D>
 __global__ void tfdl_depthwise_dw_sum_kernel(const float* __restrict__ partial,
-                                             float* __restrict__ dw,
+                                             D* __restrict__ dw,
                                              int64_t tiles, int64_t n) {
   for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < n;
        k += (int64_t)gridDim.x * blockDim.x) {
     float s = 0.0f;
     for (int64_t t = 0; t < tiles; ++t) s += partial[t * n + k];
-    dw[k] = s;
+    tfdl_store(dw + k, s);
   }
 }
 
 #define TFDL_DW_CASE(KH_, KW_)                                               \
   if (kh == KH_ && kw == KW_) {                                              \
-    tfdl_depthwise_dw_partial_kernel<KH_, KW_><<<grid, block, 0, s>>>(       \
-        (const float*)x, (const float*)g, (float*)partial, H, W, C, rate, P, \
+    tfdl_depthwise_dw_partial_kernel<E, KH_, KW_><<<grid, block, 0, s>>>(    \
+        (const E*)x, (const E*)g, (float*)partial, H, W, C, rate, P,         \
         tile_rows);                                                          \
     launched = true;                                                         \
   }
 
 // Returns a cudaError_t as int: cudaErrorInvalidValue for a filter side
 // that is not odd and <= 7, or a tile count past the grid's y limit.
-extern "C" int tfdl_depthwise_dw_f32(const void* x, const void* g,
-                                     void* partial, void* dw, int B, int H,
-                                     int W, int C, int kh, int kw, int rate,
-                                     int64_t tiles, int64_t tile_rows,
-                                     void* stream) {
+template <typename E>
+static int tfdl_dw_tiles(const void* x, const void* g, void* partial,
+                         void* dw, int B, int H, int W, int C, int kh,
+                         int kw, int rate, int64_t tiles, int64_t tile_rows,
+                         void* stream) {
   const int64_t P = (int64_t)B * H * W;
   const int64_t n = (int64_t)kh * kw * C;
   if (n == 0) return (int)cudaSuccess;
@@ -153,9 +181,27 @@ extern "C" int tfdl_depthwise_dw_f32(const void* x, const void* g,
   if (!launched) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tfdl_depthwise_dw_sum_kernel<<<tfdl_blocks(n), TFDL_THREADS, 0, s>>>(
-      (const float*)partial, (float*)dw, tiles, n);
+  tfdl_depthwise_dw_sum_kernel<E><<<tfdl_blocks(n), TFDL_THREADS, 0, s>>>(
+      (const float*)partial, (E*)dw, tiles, n);
   return (int)cudaGetLastError();
+}
+
+// x, g: float32 NHWC; partial [tiles, kh*kw, C] and dw [kh, kw, C] float32
+extern "C" int tfdl_depthwise_dw_f32(const void* x, const void* g,
+                                     void* partial, void* dw, int B, int H,
+                                     int W, int C, int kh, int kw, int rate,
+                                     int64_t tiles, int64_t tile_rows,
+                                     void* stream) {
+  return tfdl_dw_tiles<float>(x, g, partial, dw, B, H, W, C, kh, kw, rate, tiles, tile_rows, stream);
+}
+
+// x, g: bfloat16 NHWC; partial float32; dw bfloat16
+extern "C" int tfdl_depthwise_dw_bf16(const void* x, const void* g,
+                                      void* partial, void* dw, int B, int H,
+                                      int W, int C, int kh, int kw, int rate,
+                                      int64_t tiles, int64_t tile_rows,
+                                      void* stream) {
+  return tfdl_dw_tiles<__nv_bfloat16>(x, g, partial, dw, B, H, W, C, kh, kw, rate, tiles, tile_rows, stream);
 }
 
 // -- the band kernel ------------------------------------------------------------
@@ -164,43 +210,52 @@ extern "C" int tfdl_depthwise_dw_f32(const void* x, const void* g,
 #define TFDL_DWB_WARPS (TFDL_DWB_THREADS / 32)
 #define TFDL_DWB_SMEM_MAX 232448  // 227 KB: the most shared memory a block may use
 
-__device__ __forceinline__ void tfdl_dwb_cp16(float* dst, const float* src) {
+// one thread's 4 channels: 16 bytes of float32, 8 of bf16
+__device__ __forceinline__ void tfdl_dwb_cp4(float* dst, const float* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void tfdl_dwb_cp4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
                : "memory");
 }
 
 // Copies image b's band: x rows [ry0, ry1) to buf, g rows [y0, y1) to
 // buf + goff, `channels` (= 4 << lg_nv) channels from c0, then commits.
+template <typename E>
 __device__ __forceinline__ void tfdl_dwb_stage(
-    const float* __restrict__ x, const float* __restrict__ g, float* buf,
+    const E* __restrict__ x, const E* __restrict__ g, E* buf,
     int goff, int b, int H, int W, int C, int c0, int lg_nv, int ry0, int ry1,
     int y0, int y1) {
   const int nv = 1 << lg_nv, cs = nv * 4;
-  const float* xsrc = x + ((int64_t)b * H + ry0) * W * C + c0;
-  const float* gsrc = g + ((int64_t)b * H + y0) * W * C + c0;
+  const E* xsrc = x + ((int64_t)b * H + ry0) * W * C + c0;
+  const E* gsrc = g + ((int64_t)b * H + y0) * W * C + c0;
   const int xv = ((ry1 - ry0) * W) << lg_nv, gv = ((y1 - y0) * W) << lg_nv;
   for (int i = threadIdx.x; i < xv + gv; i += TFDL_DWB_THREADS) {
     const bool is_x = i < xv;
     const int k = is_x ? i : i - xv;
     const int px = k >> lg_nv, v = k & (nv - 1);
     if (c0 + v * 4 >= C) continue;  // the ragged last slice
-    tfdl_dwb_cp16((is_x ? buf : buf + goff) + px * cs + v * 4,
-                  (is_x ? xsrc : gsrc) + (int64_t)px * C + v * 4);
+    tfdl_dwb_cp4((is_x ? buf : buf + goff) + px * cs + v * 4,
+                 (is_x ? xsrc : gsrc) + (int64_t)px * C + v * 4);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// grid: (tiles = groups * bands, slices); partial [tiles, KH*KW, C]
-template <int KH, int KW>
+// grid: (tiles = groups * bands, slices); partial [tiles, KH*KW, C];
+// stage_elems and goff count elements of E
+template <typename E, int KH, int KW>
 __global__ void __launch_bounds__(TFDL_DWB_THREADS)
-    tfdl_depthwise_dw_band_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ g,
+    tfdl_depthwise_dw_band_kernel(const E* __restrict__ x,
+                                  const E* __restrict__ g,
                                   float* __restrict__ partial, int B, int H,
                                   int W, int C, int rate, int lg_nv,
                                   int band_rows, int bands, int images,
-                                  int stages, int stage_floats, int goff) {
+                                  int stages, int stage_elems, int goff) {
   extern __shared__ __align__(16) float tfdl_dwb_smem[];
+  E* const stage_base = reinterpret_cast<E*>(tfdl_dwb_smem);
   const int nv = 1 << lg_nv, cs = nv * 4, lg_cs = lg_nv + 2;
   const int lanes = TFDL_DWB_THREADS >> lg_nv;
   const int cv = threadIdx.x & (nv - 1), lane = threadIdx.x >> lg_nv;
@@ -218,12 +273,12 @@ __global__ void __launch_bounds__(TFDL_DWB_THREADS)
   for (int t = 0; t < KH * KW; ++t) acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   if (stages == 2)
-    tfdl_dwb_stage(x, g, tfdl_dwb_smem, goff, b0, H, W, C, c0, lg_nv, ry0, ry1, y0, y1);
+    tfdl_dwb_stage(x, g, stage_base, goff, b0, H, W, C, c0, lg_nv, ry0, ry1, y0, y1);
   for (int b = b0, k = 0; b < b1; ++b, ++k) {
-    float* buf = tfdl_dwb_smem + (stages == 2 ? (k & 1) * stage_floats : 0);
+    E* buf = stage_base + (stages == 2 ? (k & 1) * stage_elems : 0);
     if (stages == 2) {
       if (b + 1 < b1) {
-        tfdl_dwb_stage(x, g, tfdl_dwb_smem + ((k + 1) & 1) * stage_floats, goff, b + 1, H, W, C,
+        tfdl_dwb_stage(x, g, stage_base + ((k + 1) & 1) * stage_elems, goff, b + 1, H, W, C,
                        c0, lg_nv, ry0, ry1, y0, y1);
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
       } else {
@@ -235,8 +290,8 @@ __global__ void __launch_bounds__(TFDL_DWB_THREADS)
     }
     __syncthreads();
     if (cvalid) {
-      const float* gb = buf + goff + cv * 4;
-      const float* xb = buf + cv * 4;
+      const E* gb = buf + goff + cv * 4;
+      const E* xb = buf + cv * 4;
 #pragma unroll
       for (int i = 0; i < KH; ++i) {
         const int dy = i * rate - ph;
@@ -255,8 +310,8 @@ __global__ void __launch_bounds__(TFDL_DWB_THREADS)
           const int step = sr * W + sk, wrap = W - nx;
           float4 a = acc[i * KW + j];
           for (int q = lane; q < n; q += lanes) {
-            const float4 gv = *reinterpret_cast<const float4*>(gb + (o << lg_cs));
-            const float4 xv = *reinterpret_cast<const float4*>(xb + ((o + xo) << lg_cs));
+            const float4 gv = tfdl_ld4(gb + (o << lg_cs));
+            const float4 xv = tfdl_ld4(xb + ((o + xo) << lg_cs));
             a.x = fmaf(gv.x, xv.x, a.x);
             a.y = fmaf(gv.y, xv.y, a.y);
             a.z = fmaf(gv.z, xv.z, a.z);
@@ -302,67 +357,70 @@ __global__ void __launch_bounds__(TFDL_DWB_THREADS)
   }
 }
 
-// dw[k] = sum over tiles, in tile order, of partial[tile][k]: the second
-// pass of the band kernel, launched as a programmatic dependent of it so
-// that its launch overlaps the band kernel's tail; griddepcontrol.wait
-// holds it until the band kernel's partial is complete and visible.
+// dw[k] = sum over tiles, in tile order, of partial[tile][k], stored as D:
+// the second pass of the band kernel, launched as a programmatic dependent
+// of it so that its launch overlaps the band kernel's tail;
+// griddepcontrol.wait holds it until the band kernel's partial is complete
+// and visible.
+template <typename D>
 __global__ void tfdl_depthwise_dw_band_sum_kernel(
-    const float* __restrict__ partial, float* __restrict__ dw, int64_t tiles,
+    const float* __restrict__ partial, D* __restrict__ dw, int64_t tiles,
     int64_t n) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < n;
        k += (int64_t)gridDim.x * blockDim.x) {
     float s = 0.0f;
     for (int64_t t = 0; t < tiles; ++t) s += partial[t * n + k];
-    dw[k] = s;
+    tfdl_store(dw + k, s);
   }
 }
 
-template <int KH, int KW>
-static int tfdl_dwb_launch(dim3 grid, int smem, cudaStream_t s, const float* x,
-                           const float* g, float* partial, int B, int H,
+template <typename E, int KH, int KW>
+static int tfdl_dwb_launch(dim3 grid, int smem, cudaStream_t s, const E* x,
+                           const E* g, float* partial, int B, int H,
                            int W, int C, int rate, int lg_nv, int band_rows,
-                           int bands, int images, int stages, int stage_floats,
+                           int bands, int images, int stages, int stage_elems,
                            int goff) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        tfdl_depthwise_dw_band_kernel<KH, KW>,
+        tfdl_depthwise_dw_band_kernel<E, KH, KW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  tfdl_depthwise_dw_band_kernel<KH, KW><<<grid, TFDL_DWB_THREADS, smem, s>>>(
+  tfdl_depthwise_dw_band_kernel<E, KH, KW><<<grid, TFDL_DWB_THREADS, smem, s>>>(
       x, g, partial, B, H, W, C, rate, lg_nv, band_rows, bands, images,
-      stages, stage_floats, goff);
+      stages, stage_elems, goff);
   return (int)cudaGetLastError();
 }
 
 #define TFDL_DWB_CASE(KH_, KW_)                                              \
   if (kh == KH_ && kw == KW_)                                                \
-    code = tfdl_dwb_launch<KH_, KW_>(                                       \
-        grid, (int)smem, s, (const float*)x, (const float*)g,                \
+    code = tfdl_dwb_launch<E, KH_, KW_>(                                    \
+        grid, (int)smem, s, (const E*)x, (const E*)g,                        \
         (float*)partial, B, H, W, C, rate, lg_nv, band_rows, bands, images,  \
-        stages, (int)stage_floats, (int)goff);
+        stages, (int)stage_elems, (int)goff);
 
 // The plan (ops/kernels.py dw_plan): `channels` a block (4, 8, 16 or 32),
 // `band_rows` rows a band, `images` images a block, `stages` 1 or 2. Needs
-// C % 4 == 0 and x, g 16-byte aligned; partial is [tiles, kh*kw, C] with
-// tiles = ceil(B / images) * ceil(H / band_rows), summed in tile order by
-// a second, dependent launch. Returns a cudaError_t as int:
+// C % 4 == 0 and x, g aligned to a thread's 4 channels (16 bytes of
+// float32, 8 of bf16); partial is [tiles, kh*kw, C] float32 with tiles =
+// ceil(B / images) * ceil(H / band_rows), summed in tile order by a second,
+// dependent launch into dw (E). Returns a cudaError_t as int:
 // cudaErrorInvalidValue for a plan that does not fit.
-extern "C" int tfdl_depthwise_dw_band_f32(const void* x, const void* g,
-                                          void* partial, void* dw, int B,
-                                          int H, int W, int C, int kh, int kw,
-                                          int rate, int channels,
-                                          int band_rows, int images,
-                                          int stages, void* stream) {
+template <typename E>
+static int tfdl_dw_band(const void* x, const void* g, void* partial, void* dw,
+                        int B, int H, int W, int C, int kh, int kw, int rate,
+                        int channels, int band_rows, int images, int stages,
+                        void* stream) {
   const int64_t n = (int64_t)kh * kw * C;
   if (n == 0) return (int)cudaSuccess;
   int lg_nv = 0;
   while ((4 << lg_nv) < channels) ++lg_nv;
+  const uintptr_t align = 4 * sizeof(E) - 1;
   if ((int64_t)B * H * W == 0 || C % 4 != 0 || (4 << lg_nv) != channels ||
       channels > 32 || band_rows < 1 || images < 1 ||
       (stages != 1 && stages != 2) || rate < 1 ||
-      (((uintptr_t)x | (uintptr_t)g) & 15) != 0)
+      (((uintptr_t)x | (uintptr_t)g) & align) != 0)
     return (int)cudaErrorInvalidValue;
   const int ph = rate * (kh - 1) / 2;
   const int bands = (H + band_rows - 1) / band_rows;
@@ -370,10 +428,10 @@ extern "C" int tfdl_depthwise_dw_band_f32(const void* x, const void* g,
   const int64_t slices = ((int64_t)C + channels - 1) / channels;
   const int64_t region = (int64_t)(band_rows + 2 * ph < H ? band_rows + 2 * ph : H);
   const int64_t goff = region * W * channels;
-  const int64_t stage_floats = goff + (int64_t)band_rows * W * channels;
+  const int64_t stage_elems = goff + (int64_t)band_rows * W * channels;
   const int64_t red_floats = (int64_t)TFDL_DWB_WARPS * kh * kw * channels;
-  const int64_t smem =
-      4 * (stages * stage_floats > red_floats ? stages * stage_floats : red_floats);
+  const int64_t stage_bytes = (int64_t)sizeof(E) * stages * stage_elems;
+  const int64_t smem = stage_bytes > 4 * red_floats ? stage_bytes : 4 * red_floats;
   if (smem > TFDL_DWB_SMEM_MAX || groups * bands > 0x7fffffff || slices > 65535)
     return (int)cudaErrorInvalidValue;
   const int64_t tiles = groups * bands;
@@ -394,6 +452,28 @@ extern "C" int tfdl_depthwise_dw_band_f32(const void* x, const void* g,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&config, tfdl_depthwise_dw_band_sum_kernel,
-                                 (const float*)partial, (float*)dw, tiles, n);
+  return (int)cudaLaunchKernelEx(&config, tfdl_depthwise_dw_band_sum_kernel<E>,
+                                 (const float*)partial, (E*)dw, tiles, n);
+}
+
+// x, g: float32; partial and dw float32
+extern "C" int tfdl_depthwise_dw_band_f32(const void* x, const void* g,
+                                          void* partial, void* dw, int B,
+                                          int H, int W, int C, int kh, int kw,
+                                          int rate, int channels,
+                                          int band_rows, int images,
+                                          int stages, void* stream) {
+  return tfdl_dw_band<float>(x, g, partial, dw, B, H, W, C, kh, kw, rate, channels, band_rows, images, stages,
+                             stream);
+}
+
+// x, g: bfloat16; partial float32; dw bfloat16
+extern "C" int tfdl_depthwise_dw_band_bf16(const void* x, const void* g,
+                                           void* partial, void* dw, int B,
+                                           int H, int W, int C, int kh, int kw,
+                                           int rate, int channels,
+                                           int band_rows, int images,
+                                           int stages, void* stream) {
+  return tfdl_dw_band<__nv_bfloat16>(x, g, partial, dw, B, H, W, C, kh, kw, rate, channels, band_rows, images,
+                                     stages, stream);
 }

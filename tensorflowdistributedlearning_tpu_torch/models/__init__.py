@@ -1,5 +1,5 @@
 """Model factory (counterpart of ``tensorflowdistributedlearning_tpu/models``):
-the ResNet segmenter and the ViT classifier."""
+the ResNet segmenter, the ResNet classifier and the ViT classifier."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, require_
 from tensorflowdistributedlearning_tpu_torch.models.layers import (
     BatchNorm,
     ConvBN,
+    Dense,
     DepthwiseConv2D,
     SplitSeparableConv2D,
     fixed_padding,
@@ -21,9 +22,10 @@ from tensorflowdistributedlearning_tpu_torch.models.layers import (
 )
 from tensorflowdistributedlearning_tpu_torch.models.resnet import (
     ResNetBackbone,
+    ResNetClassifier,
     ResNetSegmentation,
 )
-from tensorflowdistributedlearning_tpu_torch.models.vit import Dense, LayerNorm, PatchEmbed, ViTClassifier
+from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, PatchEmbed, ViTClassifier
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 # flax's truncated_normal initializers cut at +-2 stddev; variance_scaling's
@@ -36,10 +38,12 @@ def _trunc_normal(t: torch.Tensor, std: float, generator: torch.Generator) -> No
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The JAX package's initializers, drawn from ``generator``: convs He
-    (variance_scaling(2.0, fan_in, truncated_normal)), depthwise kernels
-    truncated normal 0.33, pointwise 0.06, biases zero, BN scale one /
-    bias zero, running statistics mean 0 / var 1."""
+    """The JAX package's initializers, drawn from ``generator``: convs (the
+    space-to-depth stem's canonical 3x3 filter too) and the ResNet
+    classifier's Dense ``logits`` He (variance_scaling(2.0, fan_in,
+    truncated_normal)), depthwise kernels truncated normal 0.33, pointwise
+    0.06, biases zero, BN scale one / bias zero, running statistics mean 0
+    / var 1."""
     pointwise = {id(m.pointwise) for m in model.modules() if isinstance(m, SplitSeparableConv2D)}
     with torch.no_grad():
         for m in model.modules():
@@ -51,6 +55,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     _trunc_normal(m.weight, math.sqrt(2.0 / fan_in) / _TRUNC_STD, generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                _trunc_normal(m.weight, math.sqrt(2.0 / m.weight.shape[1]) / _TRUNC_STD, generator)
+                m.bias.zero_()
             elif isinstance(m, DepthwiseConv2D):
                 _trunc_normal(m.weight, 0.33, generator)
                 m.bias.zero_()
@@ -84,10 +91,13 @@ def init_vit_weights(model: ViTClassifier, generator: torch.Generator) -> nn.Mod
 def model_for(config: ModelConfig) -> nn.Module:
     """The uninitialised network of ``config`` on the current default device
     (``torch.device("meta")`` builds a template without memory): the ViT
-    classifier for ``backbone="vit"``, the segmentation network otherwise."""
+    classifier for ``backbone="vit"``, else the ResNet classifier with
+    ``num_classes`` and the segmentation network without."""
     require_supported(config)
     if config.backbone == "vit":
         return ViTClassifier(config)
+    if config.num_classes is not None:
+        return ResNetClassifier(config)
     return ResNetSegmentation(config)
 
 
@@ -136,6 +146,7 @@ def build_model(
 __all__ = [
     "ConvBN",
     "ResNetBackbone",
+    "ResNetClassifier",
     "ResNetSegmentation",
     "SplitSeparableConv2D",
     "ViTClassifier",

@@ -17,13 +17,27 @@ Training mode follows flax: BatchNorm normalises with the batch mean and
 the biased batch variance and moves its running statistics by the decay;
 eval mode folds the running statistics into the fused BN+act kernel.
 
-Dtypes follow flax's promotion with the model's ``dtype=float32``: every
-conv, depthwise conv and BN computes in float32 whatever its input's dtype,
-except that a BatchNorm whose parameters are bfloat16 (the quantized
-serving specs, ``train/quantize.py``) computes as flax does in the promoted
-dtype of its input and its bf16 statistics (bf16 for a bf16 input) and
-returns float32. Convolutions are called through their modules, so the
-int8-compute serving path can swap a module (``ops/quant_kernels.py``).
+Dtypes follow flax's layers under the model's ``ModelConfig.dtype``, which
+each layer holds as its ``compute_dtype`` (float32 parameters either way):
+
+- float32: every conv, depthwise conv and BN computes in float32 whatever
+  its input's dtype (a bf16 input from an int8-compute layer is promoted);
+- bfloat16: a conv casts its input and filter to bf16 and returns bf16,
+  its bias added in bf16 after the product (flax's ``nn.Conv(dtype=bf16)``:
+  two roundings); a depthwise conv computes in float32 from bf16 inputs
+  and rounds once (the kernel's rule), its bias added in bf16; BatchNorm
+  takes its statistics and normalises in float32 and returns bf16
+  (``nn.BatchNorm(dtype=bf16)`` with float32 parameters), in eval mode
+  through the bf16-activation arm of :func:`kernels.bn_act_folded`.
+
+Each cast of a parameter is a differentiable ``Tensor.to``, so float32
+parameters receive float32 gradients of the bf16 computation, as flax's
+promotion does under ``jax.grad``. A BatchNorm whose parameters are
+bfloat16 (the quantized serving specs, ``train/quantize.py``) computes as
+flax does in the promoted dtype of its input and its bf16 statistics (bf16
+for a bf16 input), returned in the compute dtype. Convolutions are called
+through their modules, so the int8-compute serving path can swap a module
+(``ops/quant_kernels.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils import checkpoint as checkpoint_lib
 
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives
@@ -42,6 +57,42 @@ from tensorflowdistributedlearning_tpu_torch.parallel import collectives
 def scaled_width(channels: int, multiplier: float) -> int:
     """Stage width under ``ModelConfig.width_multiplier`` (>= 1 channel)."""
     return max(1, int(round(channels * multiplier)))
+
+
+def compute_dtype_of(config) -> torch.dtype:
+    """The compute dtype of a ``ModelConfig``: bf16 under
+    ``dtype="bfloat16"``, float32 otherwise."""
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+def promote_dtype(x: torch.Tensor, dtype) -> torch.dtype:
+    """flax's ``promote_dtype``: the given dtype, or (None) the result type
+    of the input and the float32 parameters."""
+    return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with ``dtype``: ``weight`` [out, in] (flax's
+    ``kernel`` transposed), product then bias add in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=None):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = promote_dtype(x, self.dtype)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        return y + self.bias.to(dt)
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H/block, W/block, block*block*C], channel order
+    (dy, dx, c), as the JAX package's ``space_to_depth``."""
+    b, h, w, c = x.shape
+    if h % block or w % block:
+        raise ValueError(f"space_to_depth needs H, W divisible by {block}, got {h}x{w}")
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // block, w // block, block * block * c)
 
 
 def same_pads(size: int, kernel_size: int, stride: int = 1, rate: int = 1) -> Tuple[int, int]:
@@ -130,14 +181,51 @@ def upsample(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 
 class Conv2dSame(nn.Conv2d):
-    """``flax.linen.Conv(padding="SAME", dtype=float32)`` on NHWC input: the
-    input is promoted to float32 (a bf16 input from an int8-compute layer),
-    then :func:`conv2d_same`. Parameters as ``nn.Conv2d``'s (OIHW)."""
+    """``flax.linen.Conv(padding="SAME", dtype=compute_dtype)`` on NHWC
+    input. float32: the input is promoted (a bf16 input from an
+    int8-compute layer), then :func:`conv2d_same`; bf16: input and filter
+    cast to bf16, the product rounded, then the bias added in bf16.
+    Parameters as ``nn.Conv2d``'s (OIHW)."""
 
     same_padding = "SAME"
 
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0])
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0])
+        y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride[0], self.dilation[0])
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class SpaceToDepthConv(nn.Conv2d):
+    """The JAX package's ``SpaceToDepthConv``: a 3x3 stride-2 SAME conv
+    computed as a 2x2 stride-1 conv on :func:`space_to_depth` (2) of its
+    input, the same function with a 4x deeper contraction. The parameter is
+    the canonical 3x3 filter (``weight`` [F, C, 3, 3], flax's ``conv/
+    kernel`` [3, 3, C, F]), transformed at every call: padded to 4x4 at the
+    high edge, each side split as (block, offset) and the offsets folded
+    into the contraction in ``space_to_depth``'s (dy, dx, c) order; the 2x2
+    conv pads (0, 1). Needs even input sides. No bias."""
+
+    def __init__(self, in_channels: int, features: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, features, 3, stride=2, bias=False)
+        self.compute_dtype = compute_dtype
+
+    def folded_weight(self) -> torch.Tensor:
+        """The 2x2 filter over ``4 * C`` channels, OIHW."""
+        c, f = self.in_channels, self.out_channels
+        k44 = F.pad(self.weight.permute(2, 3, 1, 0), (0, 0, 0, 0, 0, 1, 0, 1))  # HWIO, high edge
+        k2 = k44.reshape(2, 2, 2, 2, c, f).permute(0, 2, 1, 3, 4, 5).reshape(2, 2, 4 * c, f)
+        return k2.permute(3, 2, 0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = _pad_nhwc(space_to_depth(x.to(dt), 2), (0, 1), (0, 1))
+        return F.conv2d(y.permute(0, 3, 1, 2), self.folded_weight().to(dt)).permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.Module):
@@ -155,19 +243,26 @@ class BatchNorm(nn.Module):
     ``axis_name``: the per-rank ``[E[x], E[x²]]`` go through the
     differentiable :func:`collectives.pmean` before the variance is formed.
 
-    Eval mode: through :func:`kernels.bn_act_folded` (an input that is not
-    float32 is promoted first); the f32 fold into ``m, b`` is cached and
-    recomputed whenever a parameter or buffer changes. With bfloat16
-    parameters and statistics (the quantized serving specs) it is flax's
-    unfolded form instead (:func:`kernels.bn_act_unfolded`, float32 out)."""
+    Eval mode: through :func:`kernels.bn_act_folded` on the input in the
+    compute dtype (float32: promoted; bf16: the kernel's bf16-activation
+    arm); the f32 fold into ``m, b`` is cached and recomputed whenever a
+    parameter or buffer changes. With bfloat16 parameters and statistics
+    (the quantized serving specs) it is flax's unfolded form instead
+    (:func:`kernels.bn_act_unfolded`). Either mode returns
+    ``compute_dtype``: the float32 result rounded once in bf16 compute."""
 
     def __init__(
-        self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99, sync: bool = False
+        self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99, sync: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.eps = float(eps)
         self.decay = float(decay)
         self.sync = sync
+        self.compute_dtype = compute_dtype
+        # set while a rematerialized unit is recomputed (remat_call): batch
+        # statistics as in training, running ones kept
+        self.frozen_stats = False
         self.weight = nn.Parameter(torch.ones(num_features)) if scale else None
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -216,27 +311,33 @@ class BatchNorm(nn.Module):
         xf = x.float()
         mean, mean_sq = self._moments(xf)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
-            self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
+        if not self.frozen_stats:
+            self._update_running(mean, var)
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
         return (xf - mean) * mul + self.bias
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
+            self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
+
     def forward(self, x: torch.Tensor, act: str = "relu", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt = self.compute_dtype
         if self.training:
             y = self._batch_normalize(x)
             if residual is not None:
                 y = y + residual
-            return kernels.activate(y, act)
+            return kernels.activate(y, act).to(dt)
         if self.bf16_params:
             if residual is not None:
                 raise NotImplementedError("BatchNorm with bfloat16 parameters takes no residual")
             mean, mul, bias = self.unfolded()
-            return kernels.bn_act_unfolded(x.contiguous(), mean, mul, bias, act)
+            return kernels.bn_act_unfolded(x.contiguous(), mean, mul, bias, act).to(dt)
         m, b = self.folded()
-        return kernels.bn_act_folded(x.float().contiguous(), m, b, act, residual)
+        r = None if residual is None else residual.to(dt).contiguous()
+        return kernels.bn_act_folded(x.to(dt).contiguous(), m, b, act, r)
 
 
 @contextlib.contextmanager
@@ -262,18 +363,60 @@ def split_moments(world: int) -> Iterator[None]:
         BatchNorm._moments = plain
 
 
+@contextlib.contextmanager
+def _running_stats_frozen(module: nn.Module) -> Iterator[None]:
+    """For the duration, the BatchNorms under ``module`` normalise with
+    their batch statistics as in training but leave the running statistics
+    alone: the recompute of a rematerialized unit."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen_stats = False
+
+
+def remat_call(unit: nn.Module, x: torch.Tensor, remat: bool):
+    """``unit(x)``; with ``remat`` in training mode under autograd, through
+    ``torch.utils.checkpoint`` (non-reentrant), as flax's ``nn.remat`` of
+    the unit: its activations are recomputed in the backward pass, the
+    recompute under :func:`_running_stats_frozen` so that BatchNorm's
+    running statistics move once a step."""
+    if not (remat and unit.training and torch.is_grad_enabled()):
+        return unit(x)
+    return checkpoint_lib.checkpoint(
+        unit, x, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _running_stats_frozen(unit)),
+    )
+
+
 class ConvBN(nn.Module):
     """Conv2D (no bias) + BatchNorm + relu, flax SAME padding. Submodule
-    names ``conv``/``bn`` match the flax tree."""
+    names ``conv``/``bn`` match the flax tree. ``space_to_depth`` makes the
+    conv a :class:`SpaceToDepthConv`, which computes exactly the 3x3
+    stride-2 rate-1 conv and raises for any other, as the JAX ``ConvBN``
+    does."""
 
     def __init__(
         self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
         rate: int = 1, bn_epsilon: float = 1e-3, bn_scale: bool = True, bn_decay: float = 0.99,
+        space_to_depth: bool = False, compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.stride, self.rate = stride, rate
-        self.conv = Conv2dSame(in_channels, features, kernel_size, stride=stride, dilation=rate, bias=False)
-        self.bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay)
+        if space_to_depth:
+            if kernel_size != 3 or stride != 2 or rate != 1:
+                raise ValueError(
+                    "space_to_depth implements exactly the 3x3 stride-2 rate-1 stem conv; got "
+                    f"kernel_size={kernel_size}, stride={stride}, rate={rate}"
+                )
+            self.conv = SpaceToDepthConv(in_channels, features, compute_dtype)
+        else:
+            self.conv = Conv2dSame(in_channels, features, kernel_size, stride=stride, dilation=rate, bias=False,
+                                   compute_dtype=compute_dtype)
+        self.bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x), act="relu")
@@ -284,20 +427,26 @@ class DepthwiseConv2D(nn.Module):
     the kernel's layout (flax's ``[kh, kw, 1, C]`` without its unit axis).
     ``use_kernel=True`` takes :func:`kernels.depthwise_conv2d` (the CUDA
     kernels, forward and backward, on a CUDA tensor); False the grouped-conv
-    plain version."""
+    plain version. Input and filter are cast to ``compute_dtype`` (the
+    kernels' bf16 arms in bf16 compute), then the bias is added in it."""
 
-    def __init__(self, channels: int, kernel_size: int = 3, rate: int = 1, use_kernel: bool = False):
+    def __init__(
+        self, channels: int, kernel_size: int = 3, rate: int = 1, use_kernel: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError(f"DepthwiseConv2D requires an odd kernel_size, got {kernel_size}")
         self.rate = rate
         self.use_kernel = use_kernel
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(kernel_size, kernel_size, channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         dw = kernels.depthwise_conv2d if self.use_kernel else kernels.depthwise_conv2d_plain
-        return dw(x.float().contiguous(), self.weight, self.rate) + self.bias
+        return dw(x.to(dt).contiguous(), self.weight.to(dt), self.rate) + self.bias.to(dt)
 
 
 class SplitSeparableConv2D(nn.Module):
@@ -308,11 +457,12 @@ class SplitSeparableConv2D(nn.Module):
     def __init__(
         self, in_channels: int, features: int, kernel_size: int = 3, rate: int = 1,
         bn_epsilon: float = 1e-3, bn_scale: bool = True, use_kernel: bool = False, bn_decay: float = 0.99,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.depthwise = DepthwiseConv2D(in_channels, kernel_size, rate, use_kernel)
-        self.pointwise = Conv2dSame(in_channels, features, 1, bias=False)
-        self.pointwise_bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay)
+        self.depthwise = DepthwiseConv2D(in_channels, kernel_size, rate, use_kernel, compute_dtype)
+        self.pointwise = Conv2dSame(in_channels, features, 1, bias=False, compute_dtype=compute_dtype)
+        self.pointwise_bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.depthwise(x))

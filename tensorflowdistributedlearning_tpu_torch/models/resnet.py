@@ -1,7 +1,17 @@
-"""ResNet-v2-beta backbone with the DeepLabV3+ segmentation head (counterpart
-of ``tensorflowdistributedlearning_tpu/models/resnet.py``). Training mode
+"""ResNet-v2-beta backbone with the DeepLabV3+ segmentation head and the
+classification head (counterpart of
+``tensorflowdistributedlearning_tpu/models/resnet.py``). Training mode
 (``model.train()``) is the JAX ``train=True`` forward: the same graph, with
 BatchNorm on batch statistics.
+
+The backbone takes both block layouts (``reference``: the reference's
+wide stages and atrous block4; ``classic``: the published ResNet-50/101/152
+ladder), both unit types (bottleneck, basic block), the plain or the
+space-to-depth stem, and computes in ``ModelConfig.dtype`` (the input cast
+to it first; float32 logits either way). ``remat`` recomputes each residual
+unit in the backward pass (``torch.utils.checkpoint``, non-reentrant) in
+place of storing its activations, as flax's ``nn.remat`` per unit; the
+recompute leaves BatchNorm's running statistics where the forward put them.
 
 Module and parameter names mirror the flax tree (``backbone.block1_unit1.
 conv2.bn.running_var`` is flax's ``batch_stats/backbone/block1_unit1/conv2/
@@ -23,13 +33,17 @@ from tensorflowdistributedlearning_tpu_torch.models.layers import (
     BatchNorm,
     Conv2dSame,
     ConvBN,
+    Dense,
     SplitSeparableConv2D,
+    compute_dtype_of,
     max_pool_same,
+    remat_call,
     scaled_width,
     subsample,
     upsample,
 )
 
+DEFAULT_MULTI_GRID = (2, 2, 2)
 SEGMENTATION_MULTI_GRID = (1, 2, 1)
 
 
@@ -82,6 +96,28 @@ def resnet_block_specs(
     )
 
 
+def classic_block_specs(n_blocks: Tuple[int, ...], width_multiplier: float = 1.0) -> Tuple[BlockSpec, ...]:
+    """The published ResNet-50/101/152 ladder: four stages at bottleneck
+    widths 64/128/256/512 (outputs 256/512/1024/2048), the stride-2 unit
+    last in each of the first three, the fourth unstrided (overall stride
+    32 with the root's 4)."""
+    if len(n_blocks) != 4:
+        raise ValueError("classic layout expects n_blocks of length 4, e.g. (3, 4, 6, 3)")
+
+    def w(c: int) -> int:
+        return scaled_width(c, width_multiplier)
+
+    specs = []
+    for name, base, num_units, last_stride in zip(
+        ("block1", "block2", "block3", "block4"), (64, 128, 256, 512), n_blocks, (2, 2, 2, 1)
+    ):
+        units = tuple(
+            UnitSpec(depth=w(base * 4), depth_bottleneck=w(base), stride=1) for _ in range(num_units - 1)
+        ) + (UnitSpec(depth=w(base * 4), depth_bottleneck=w(base), stride=last_stride),)
+        specs.append(BlockSpec(name, units))
+    return tuple(specs)
+
+
 def stack_blocks_dense(blocks, output_stride: Optional[int]):
     """slim ``stack_blocks_dense`` semantics: yields ``(block name, unit
     index, applied spec, accumulated rate)``; strides apply until the target
@@ -113,20 +149,22 @@ class BottleneckUnit(nn.Module):
     """Pre-activation bottleneck unit: preact BN+relu -> 1x1 reduce (BN+relu)
     -> 3x3 atrous (BN+relu, stride fused) -> 1x1 expand (bias); shortcut is
     the subsampled input or a 1x1 conv of the preactivation. Returns
-    ``(relu(shortcut + residual), residual)``: under int8-compute both terms
-    leave int8 convs in bf16, so the add and the residual stream are bf16,
-    as in flax."""
+    ``(relu(shortcut + residual), residual)`` in the compute dtype (and
+    under int8-compute both terms leave int8 convs in bf16, so the add and
+    the residual stream are bf16, as in flax)."""
+
+    out_width = "depth"
 
     def __init__(
         self, in_channels: int, spec: UnitSpec, rate: int = 1, bn_epsilon: float = 1e-3,
-        bn_scale: bool = True, bn_decay: float = 0.99,
+        bn_scale: bool = True, bn_decay: float = 0.99, compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.spec = spec
-        common = dict(bn_epsilon=bn_epsilon, bn_scale=bn_scale, bn_decay=bn_decay)
-        self.preact = BatchNorm(in_channels, bn_epsilon, bn_scale, bn_decay)
+        common = dict(bn_epsilon=bn_epsilon, bn_scale=bn_scale, bn_decay=bn_decay, compute_dtype=compute_dtype)
+        self.preact = BatchNorm(in_channels, bn_epsilon, bn_scale, bn_decay, compute_dtype=compute_dtype)
         self.shortcut = (
-            Conv2dSame(in_channels, spec.depth, 1, stride=spec.stride)
+            Conv2dSame(in_channels, spec.depth, 1, stride=spec.stride, compute_dtype=compute_dtype)
             if spec.depth != in_channels
             else None
         )
@@ -135,7 +173,7 @@ class BottleneckUnit(nn.Module):
             spec.depth_bottleneck, spec.depth_bottleneck, 3, stride=spec.stride,
             rate=rate * spec.unit_rate, **common,
         )
-        self.conv3 = Conv2dSame(spec.depth_bottleneck, spec.depth, 1)
+        self.conv3 = Conv2dSame(spec.depth_bottleneck, spec.depth, 1, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor):
         preact = self.preact(x, act="relu")
@@ -147,47 +185,91 @@ class BottleneckUnit(nn.Module):
         return torch.relu(shortcut + residual), residual
 
 
+class BasicBlockUnit(nn.Module):
+    """Pre-activation basic (two-conv) unit: preact BN+relu -> 3x3 (BN+relu,
+    stride fused) -> 3x3 atrous (bias); shortcut is the subsampled input or
+    a 1x1 conv of the preactivation. Its output width is
+    ``depth_bottleneck``: the reference's basic block ignores ``depth``.
+    Returns ``(relu(shortcut + residual), residual)``."""
+
+    out_width = "depth_bottleneck"
+
+    def __init__(
+        self, in_channels: int, spec: UnitSpec, rate: int = 1, bn_epsilon: float = 1e-3,
+        bn_scale: bool = True, bn_decay: float = 0.99, compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.spec = spec
+        width = spec.depth_bottleneck
+        self.preact = BatchNorm(in_channels, bn_epsilon, bn_scale, bn_decay, compute_dtype=compute_dtype)
+        self.shortcut = (
+            Conv2dSame(in_channels, width, 1, stride=spec.stride, compute_dtype=compute_dtype)
+            if width != in_channels
+            else None
+        )
+        self.conv1 = ConvBN(in_channels, width, 3, stride=spec.stride, bn_epsilon=bn_epsilon, bn_scale=bn_scale,
+                            bn_decay=bn_decay, compute_dtype=compute_dtype)
+        self.conv2 = Conv2dSame(width, width, 3, dilation=rate * spec.unit_rate, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor):
+        preact = self.preact(x, act="relu")
+        shortcut = subsample(x, self.spec.stride) if self.shortcut is None else self.shortcut(preact)
+        residual = self.conv2(self.conv1(preact))
+        return torch.relu(shortcut + residual), residual
+
+
 class ResNetBackbone(nn.Module):
     """ResNet-v2-beta feature extractor: root of three 3x3 convs (first
-    stride 2), SAME max-pool, post-norm BN+relu, then the residual stages
-    under output_stride control. ``forward`` returns the end-point dict
-    ('root', each 'block{i}', 'block1_unit1_residual', 'features')."""
+    stride 2; space-to-depth under ``stem_space_to_depth``), SAME max-pool,
+    post-norm BN+relu, then the residual stages of the configured layout and
+    unit type under output_stride control (None: every stride applied).
+    ``forward`` casts the input to the compute dtype and returns the
+    end-point dict ('root', each 'block{i}', 'block1_unit1_residual',
+    'features')."""
 
     def __init__(self, config: ModelConfig, multi_grid: Tuple[int, int, int] = SEGMENTATION_MULTI_GRID):
         super().__init__()
         require_supported(config)
         cfg = config
         wm = cfg.width_multiplier
+        self.compute_dtype = compute_dtype_of(cfg)
+        self.remat = cfg.remat
         common = dict(
-            bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale, bn_decay=cfg.batch_norm_decay
+            bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale, bn_decay=cfg.batch_norm_decay,
+            compute_dtype=self.compute_dtype,
         )
         c1, c3 = scaled_width(64, wm), scaled_width(128, wm)
-        self.conv1_1 = ConvBN(cfg.input_channels, c1, 3, stride=2, **common)
+        self.conv1_1 = ConvBN(cfg.input_channels, c1, 3, stride=2, space_to_depth=cfg.stem_space_to_depth, **common)
         self.conv1_2 = ConvBN(c1, c1, 3, **common)
         self.conv1_3 = ConvBN(c1, c3, 3, **common)
-        self.postnorm = BatchNorm(c3, cfg.batch_norm_epsilon, cfg.batch_norm_scale, cfg.batch_norm_decay)
+        self.postnorm = BatchNorm(c3, cfg.batch_norm_epsilon, cfg.batch_norm_scale, cfg.batch_norm_decay,
+                                  compute_dtype=self.compute_dtype)
         self.unit_names = []
         self.block_ends: Dict[str, str] = {}
         channels = c3
-        blocks = resnet_block_specs(cfg.n_blocks, multi_grid, wm)
+        if cfg.block_layout == "classic":
+            blocks = classic_block_specs(cfg.n_blocks, wm)
+        else:
+            blocks = resnet_block_specs(cfg.n_blocks, multi_grid, wm)
+        unit_cls = BasicBlockUnit if cfg.block_type == "basic_block" else BottleneckUnit
         for block_name, i, spec, rate in stack_blocks_dense(blocks, cfg.output_stride):
             name = f"{block_name}_unit{i + 1}"
-            self.add_module(name, BottleneckUnit(channels, spec, rate, **common))
+            self.add_module(name, unit_cls(channels, spec, rate, **common))
             self.unit_names.append(name)
             self.block_ends[block_name] = name
-            channels = spec.depth
+            channels = getattr(spec, unit_cls.out_width)
         self.out_channels = channels
-        self.skip_channels = blocks[0].units[0].depth
+        self.skip_channels = getattr(blocks[0].units[0], unit_cls.out_width)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         end_points: Dict[str, torch.Tensor] = {}
-        x = self.conv1_3(self.conv1_2(self.conv1_1(x)))
+        x = self.conv1_3(self.conv1_2(self.conv1_1(x.to(self.compute_dtype))))
         x = max_pool_same(x, 3, 2)
         x = self.postnorm(x, act="relu")
         end_points["root"] = x
         last_of = {unit: block for block, unit in self.block_ends.items()}
         for name in self.unit_names:
-            x, residual = getattr(self, name)(x)
+            x, residual = remat_call(getattr(self, name), x, self.remat)
             if name == "block1_unit1":
                 end_points["block1_unit1_residual"] = residual
             if name in last_of:
@@ -205,8 +287,10 @@ class ASPP(nn.Module):
         super().__init__()
         cfg = config
         depth = cfg.base_depth
+        self.compute_dtype = compute_dtype_of(cfg)
         common = dict(
-            bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale, bn_decay=cfg.batch_norm_decay
+            bn_epsilon=cfg.batch_norm_epsilon, bn_scale=cfg.batch_norm_scale, bn_decay=cfg.batch_norm_decay,
+            compute_dtype=self.compute_dtype,
         )
         sep = dict(common, use_kernel=cfg.use_pallas_depthwise)
         self.conv_1x1 = ConvBN(in_channels, depth, 1, **common)
@@ -224,37 +308,39 @@ class ASPP(nn.Module):
         a4 = self.conv_3x3_3(x)
         # jnp.mean: f32 sum and division, result in x's dtype
         pooled = self.pool_conv_1x1(x.float().mean(dim=(1, 2), keepdim=True).to(x.dtype))
-        a5 = upsample(pooled, out_size)
+        a5 = upsample_to(pooled, out_size, self.compute_dtype)
         return self.project(torch.cat([a1, a2, a3, a4, a5], dim=-1))
+
+
+def upsample_to(x: torch.Tensor, out_hw, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`upsample` in float32 (of a bf16 input too), cast to ``dtype``:
+    the JAX head's ``upsample(...).astype(dtype)``."""
+    return upsample(x.float() if x.dtype == torch.bfloat16 else x, out_hw).to(dtype)
 
 
 class ResNetSegmentation(nn.Module):
     """Backbone + ASPP + DeepLabV3+ decoder with the block1 skip, producing
     per-pixel float32 logits [B, H, W, 1] at input resolution from NHWC
-    input [B, H, W, input_channels]. The head's submodules (``aspp``,
-    ``decoder_conv_1x1``, ``decoder_conv_3x3``) sit at the top level, as
-    ``deeplab_head`` binds them in flax."""
+    input [B, H, W, input_channels], whatever the compute dtype. The
+    head's submodules (``aspp``, ``decoder_conv_1x1``, ``decoder_conv_3x3``)
+    sit at the top level, as ``deeplab_head`` binds them in flax."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
         require_supported(config)
         self.config = config
+        dtype = compute_dtype_of(config)
         self.backbone = ResNetBackbone(config, SEGMENTATION_MULTI_GRID)
         common = dict(
             bn_epsilon=config.batch_norm_epsilon, bn_scale=config.batch_norm_scale,
-            bn_decay=config.batch_norm_decay,
+            bn_decay=config.batch_norm_decay, compute_dtype=dtype,
         )
         self.aspp = ASPP(config, self.backbone.out_channels)
         self.decoder_conv_1x1 = ConvBN(self.backbone.skip_channels, config.base_depth, 1, **common)
-        self.decoder_conv_3x3 = Conv2dSame(2 * config.base_depth, 1, 3)
+        self.decoder_conv_3x3 = Conv2dSame(2 * config.base_depth, 1, 3, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.config.remat:
-            raise NotImplementedError(
-                "remat=True in training is not ported yet (recomputing a unit would move "
-                "BatchNorm's running statistics twice; queue A 4, see ROADMAP.md)"
-            )
-        end_points = self.backbone(x.float())
+        end_points = self.backbone(x)
         return deeplab_head(self, end_points["features"], end_points["block1_unit1_residual"])
 
 
@@ -264,7 +350,29 @@ def deeplab_head(net: nn.Module, features: torch.Tensor, skip: torch.Tensor) -> 
     projected skip concat, 3x3 fuse to one channel, bilinear upsample to the
     configured input resolution in float32."""
     aspp = net.aspp(features)
-    aspp_up = upsample(aspp, skip.shape[1:3])
+    aspp_up = upsample_to(aspp, skip.shape[1:3], net.aspp.compute_dtype)
     decoder = torch.cat([net.decoder_conv_1x1(skip), aspp_up], dim=-1)
     decoder = net.decoder_conv_3x3(decoder)
     return upsample(decoder.float(), net.config.input_shape).contiguous()
+
+
+class ResNetClassifier(nn.Module):
+    """Classification path: the backbone with every stride applied
+    (``output_stride=None``, overall stride 32) and the default multi-grid
+    (2, 2, 2), a mean pool over H, W (float32 sums, in the compute dtype,
+    as ``jnp.mean``), then the float32 Dense ``logits``. Returns [B,
+    num_classes] float32 logits."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        require_supported(config)
+        if config.num_classes is None:
+            raise ValueError("ResNetClassifier requires config.num_classes")
+        self.config = config
+        self.backbone = ResNetBackbone(dataclasses.replace(config, output_stride=None), DEFAULT_MULTI_GRID)
+        self.logits = Dense(self.backbone.out_channels, config.num_classes, None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        features = self.backbone(x)["features"]
+        pooled = features.float().mean(dim=(1, 2)).to(features.dtype)
+        return self.logits(pooled.float())

@@ -23,6 +23,8 @@ The dtype flow repeats flax's under ``ModelConfig.dtype``:
   1e-5), ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32,
   then cast to the compute dtype;
 - ``gelu`` is jax's default tanh approximation;
+- ``remat`` recomputes each transformer block in the backward pass
+  (:func:`layers.remat_call`), as flax's ``nn.remat`` per block;
 - ``pos_embedding`` is cast to the compute dtype before the add; the pool
   is a float32 mean; the ``logits`` Dense has no dtype, so it computes in
   float32 from the float32 pool.
@@ -48,34 +50,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
-from tensorflowdistributedlearning_tpu_torch.models.layers import scaled_width
+from tensorflowdistributedlearning_tpu_torch.models.layers import (
+    Dense, compute_dtype_of, promote_dtype, remat_call, scaled_width,
+)
 from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
-
-
-def compute_dtype(config: ModelConfig) -> torch.dtype:
-    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
-
-
-def _promote(x: torch.Tensor, dtype) -> torch.dtype:
-    """flax's ``promote_dtype``: the given dtype, or (None) the result type
-    of the input and the float32 parameters."""
-    return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
-
-
-class Dense(nn.Linear):
-    """flax ``nn.Dense`` with ``dtype``: ``weight`` [out, in] (flax's
-    ``kernel`` transposed), product then bias add in the compute dtype."""
-
-    def __init__(self, in_features: int, out_features: int, dtype=None):
-        super().__init__(in_features, out_features)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = _promote(x, self.dtype)
-        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        return y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -96,7 +76,7 @@ class LayerNorm(nn.Module):
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean) * mul + self.bias.float()
-        return y.to(_promote(x, self.dtype))
+        return y.to(promote_dtype(x, self.dtype))
 
 
 class PatchEmbed(nn.Conv2d):
@@ -114,7 +94,7 @@ class PatchEmbed(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         p = self.patch
-        dt = _promote(x, self.dtype)
+        dt = promote_dtype(x, self.dtype)
         patches = x.to(dt).reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         patches = patches.reshape(b, (h // p) * (w // p), p * p * c)
         kernel = self.weight.to(dt).permute(2, 3, 1, 0).reshape(p * p * c, -1)
@@ -181,7 +161,7 @@ class ViTClassifier(nn.Module):
             raise ValueError(f"input_shape {config.input_shape} not divisible by patch_size {p}")
         self.config = config
         self.embed = embed
-        dtype = compute_dtype(config)
+        dtype = compute_dtype_of(config)
         self.dtype = dtype
         self.patch_embed = PatchEmbed(config.input_channels, embed, p, dtype)
         self.pos_embedding = nn.Parameter(torch.zeros((h // p) * (w // p), embed))
@@ -207,7 +187,7 @@ class ViTClassifier(nn.Module):
         tokens = self.patch_embed(x)
         tokens = tokens + self.pos_embedding.to(self.dtype)[None]
         for block in self.blocks():
-            tokens = block(tokens)
+            tokens = remat_call(block, tokens, self.config.remat)
         tokens = self.ln_final(tokens)
         pooled = tokens.float().mean(dim=1)
         return self.logits(pooled)

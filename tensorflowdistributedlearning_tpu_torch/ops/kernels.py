@@ -9,10 +9,13 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   counterpart): forward ``csrc/depthwise.cu``'s tiled kernel; dx the same
   kernel with the filter flipped in space by index; dw
   ``csrc/depthwise_dw.cu``'s band kernel, planned on the host by
-  :func:`dw_plan` (other shapes: the earlier tile kernel);
+  :func:`dw_plan` (other shapes: the earlier tile kernel). Each takes
+  float32 or bfloat16 tensors (bf16 loads, float32 sums, bf16 stores, as
+  the TPU kernel takes any dtype and accumulates in float32);
 - :func:`fused_bn_act` — inference BN + activation (+ residual)
   (``csrc/bn_act.cu``'s row kernel: 16-byte loads, no division per
-  element), inference-only as the TPU kernel is; with bfloat16 parameters
+  element), float32 or bfloat16 activations with the float32 fold,
+  inference-only as the TPU kernel is; with bfloat16 parameters
   (the quantized serving specs) :func:`bn_act_unfolded` repeats flax's own
   order and roundings;
 - :func:`fused_bias_act` — per-channel bias + activation over the last axis
@@ -51,7 +54,9 @@ from tensorflowdistributedlearning_tpu_torch.ops import _build
 # one arm's again apart (flash_attention_tc: the bf16 tensor-core arm;
 # int8_matmul_gemm: the GEMM route, the rest went through int8_conv.cu;
 # depthwise_conv2d_dw_band: dw through the band kernel, the rest through the
-# earlier tile kernel;
+# earlier tile kernel; depthwise_conv2d_bf16, _dx_bf16, _dw_bf16 and
+# fused_bn_act_bf16_act: the bf16-activation arms (fused_bn_act_bf16 is the
+# arm for bf16 parameters);
 # int8_conv2d_gemm / int8_conv2d_tc: the 1x1 convs through int8_gemm.cu and
 # the k x k convs through int8_conv_tc.cu, the rest through int8_conv.cu)
 LAUNCHES: Dict[str, int] = {
@@ -59,8 +64,12 @@ LAUNCHES: Dict[str, int] = {
     "depthwise_conv2d_dx": 0,
     "depthwise_conv2d_dw": 0,
     "depthwise_conv2d_dw_band": 0,
+    "depthwise_conv2d_bf16": 0,
+    "depthwise_conv2d_dx_bf16": 0,
+    "depthwise_conv2d_dw_bf16": 0,
     "fused_bn_act": 0,
     "fused_bn_act_bf16": 0,
+    "fused_bn_act_bf16_act": 0,
     "fused_bias_act": 0,
     "fused_sigmoid_mask": 0,
     "int8_conv2d": 0,
@@ -80,16 +89,22 @@ _c_int = ctypes.c_int
 # C entry point -> (library = csrc/{library}.cu, argtypes)
 _signatures = {
     "tfdl_depthwise_tiled_f32": ("depthwise", [_c_void] * 3 + [_c_int] * 8 + [_c_void]),
+    "tfdl_depthwise_tiled_bf16": ("depthwise", [_c_void] * 3 + [_c_int] * 8 + [_c_void]),
     "tfdl_depthwise_conv2d_f32": ("depthwise", [_c_void] * 3 + [_c_int] * 7 + [_c_void]),
     "tfdl_depthwise_dw_f32": (
         "depthwise_dw", [_c_void] * 4 + [_c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
     ),
+    "tfdl_depthwise_dw_bf16": (
+        "depthwise_dw", [_c_void] * 4 + [_c_int] * 7 + [ctypes.c_int64, ctypes.c_int64, _c_void],
+    ),
     "tfdl_depthwise_dw_band_f32": ("depthwise_dw", [_c_void] * 4 + [_c_int] * 11 + [_c_void]),
+    "tfdl_depthwise_dw_band_bf16": ("depthwise_dw", [_c_void] * 4 + [_c_int] * 11 + [_c_void]),
     "tfdl_bn_act_f32": ("bn_act", [_c_void] * 5 + [ctypes.c_int64, _c_int, _c_int, _c_void]),
     "tfdl_bn_act_unfolded": (
         "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_void],
     ),
     "tfdl_bn_act_rows_f32": ("bn_act", [_c_void] * 5 + [ctypes.c_int64, _c_int, _c_int, _c_int, _c_void]),
+    "tfdl_bn_act_rows_bf16": ("bn_act", [_c_void] * 5 + [ctypes.c_int64, _c_int, _c_int, _c_int, _c_void]),
     "tfdl_bn_act_rows_unfolded": (
         "bn_act", [_c_void, _c_int] + [_c_void] * 4 + [ctypes.c_int64, _c_int, _c_int, _c_int, _c_void],
     ),
@@ -213,20 +228,27 @@ class DwPlan:
         return self.tiles * self.slices
 
 
-def dw_band_smem(h: int, w: int, kh: int, kw: int, rate: int, channels: int, band_rows: int, stages: int) -> int:
+def dw_band_smem(
+    h: int, w: int, kh: int, kw: int, rate: int, channels: int, band_rows: int, stages: int, itemsize: int = 4
+) -> int:
     """Shared-memory bytes of the band kernel, as its C entry computes them:
     ``stages`` copies of a band of g and its x rows with the halo clipped to
-    the image, or the warps' tap sums, whichever is larger."""
+    the image, in elements of ``itemsize`` bytes (4 float32, 2 bfloat16),
+    or the warps' float32 tap sums, whichever is larger."""
     ph = rate * (kh - 1) // 2
     stage = (min(h, band_rows + 2 * ph) + band_rows) * w * channels
-    return 4 * max(stages * stage, DW_BAND_WARPS * kh * kw * channels)
+    return max(itemsize * stages * stage, 4 * DW_BAND_WARPS * kh * kw * channels)
 
 
-def dw_plan(b: int, h: int, w: int, c: int, kh: int, kw: int, rate: int, aligned: bool) -> Optional[DwPlan]:
+def dw_plan(
+    b: int, h: int, w: int, c: int, kh: int, kw: int, rate: int, aligned: bool, itemsize: int = 4
+) -> Optional[DwPlan]:
     """The band kernel's plan for dw of x, g [b, h, w, c] with a kh x kw
-    filter at ``rate``, or None where the earlier tile kernel takes the call
-    (c % 4 != 0, a base of x or g not 16-byte aligned, an empty tensor, or
-    no band of one row that fits in shared memory).
+    filter at ``rate`` and elements of ``itemsize`` bytes, or None where the
+    earlier tile kernel takes the call (c % 4 != 0, a base of x or g not
+    aligned to a thread's 4 channels, 16 bytes in float32 and 8 in
+    bfloat16, an empty tensor, or no band of one row that fits in shared
+    memory).
 
     The widest channel slice and the tallest band that fill the 132 SMs
     with one image a block (else the fitting pair with the most blocks);
@@ -241,7 +263,7 @@ def dw_plan(b: int, h: int, w: int, c: int, kh: int, kw: int, rate: int, aligned
     for channels in (cs for cs in DW_BAND_CHANNELS if cs <= widest):
         slices = -(-c // channels)
         for band_rows in sorted({-(-h // n) for n in range(1, h + 1)}, reverse=True):
-            if dw_band_smem(h, w, kh, kw, rate, channels, band_rows, 1) > H100_SMEM_BLOCK:
+            if dw_band_smem(h, w, kh, kw, rate, channels, band_rows, 1, itemsize) > H100_SMEM_BLOCK:
                 continue
             blocks = b * -(-h // band_rows) * slices
             if best is None or blocks > best[0]:
@@ -255,7 +277,7 @@ def dw_plan(b: int, h: int, w: int, c: int, kh: int, kw: int, rate: int, aligned
     _, channels, band_rows = best
     slices, bands = -(-c // channels), -(-h // band_rows)
     for stages in (2, 1):
-        smem = dw_band_smem(h, w, kh, kw, rate, channels, band_rows, stages)
+        smem = dw_band_smem(h, w, kh, kw, rate, channels, band_rows, stages, itemsize)
         if smem > H100_SMEM_BLOCK:
             continue
         per_sm = min(H100_THREADS_SM // DW_BAND_THREADS, H100_SMEM_SM // (smem + 1024))
@@ -277,16 +299,26 @@ def _check_depthwise(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"channel mismatch: x has {x.shape[-1]}, w has {c}")
 
 
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic: float32 for bf16 (and float32)
+    inputs, as the kernels sum; float64 where a test asks for it."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def depthwise_conv2d_plain(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
     """Plain version: grouped convolution on the NCHW view, the counterpart
     of ``depthwise_conv2d_reference``. ``x`` [B,H,W,C], ``w`` [kh,kw,C];
-    returns [B,H,W,C]. Differentiable through PyTorch's own autograd."""
+    returns [B,H,W,C] in ``x``'s dtype. A bfloat16 ``x`` is computed in
+    float32 and rounded once, the kernel's rule and the TPU kernel's (f32
+    sums, out in ``x.dtype``). Differentiable through PyTorch's own
+    autograd."""
     _check_depthwise(x, w)
     kh, kw, c = w.shape
     weight = w.permute(2, 0, 1).unsqueeze(1)  # [C, 1, kh, kw]
     pad = (rate * (kh - 1) // 2, rate * (kw - 1) // 2)
-    out = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=pad, dilation=rate, groups=c)
-    return out.permute(0, 2, 3, 1)
+    cdt = _sum_dtype(x)
+    out = F.conv2d(x.permute(0, 3, 1, 2).to(cdt), weight.to(cdt), padding=pad, dilation=rate, groups=c)
+    return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _dx_plain(g: torch.Tensor, w: torch.Tensor, rate: int) -> torch.Tensor:
@@ -294,6 +326,8 @@ def _dx_plain(g: torch.Tensor, w: torch.Tensor, rate: int) -> torch.Tensor:
 
 
 def _dw_plain(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int, rate: int) -> torch.Tensor:
+    """dw in float32 (float32 sums of bf16 inputs; float64 stays float64)."""
+    x, g = x.to(_sum_dtype(x)), g.to(_sum_dtype(x))
     h, wd = x.shape[1], x.shape[2]
     ph, pw = rate * (kh - 1) // 2, rate * (kw - 1) // 2
     xp = F.pad(x, (0, 0, pw, pw, ph, ph))
@@ -314,25 +348,39 @@ def depthwise_conv2d_backward_plain(
     VJP (``_dw_bwd``) writes it: dx is the grouped conv of ``g`` with the
     spatially flipped filter (stride-1 SAME, symmetric padding, odd sides);
     dw[i, j, c] is the sum over (B, H, W) of ``g`` times ``x`` shifted by
-    tap (i, j), zero outside."""
+    tap (i, j), zero outside, summed in float32 and returned in ``w``'s
+    dtype (``_dw_bwd``'s ``dw.astype(w.dtype)``)."""
     _check_depthwise(x, w)
     kh, kw, _ = w.shape
     return _dx_plain(g, w, rate), _dw_plain(x, g, kh, kw, rate).to(w.dtype)
 
 
+def _require_one_dtype(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The depthwise kernels' types: every tensor float32, or every one
+    bfloat16 (on one CUDA device, contiguous)."""
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 tensors, got {dtype}")
+    _require_cuda(name, *tensors, dtypes=(dtype,))
+    return dtype
+
+
 def _launch_depthwise(x: torch.Tensor, w: torch.Tensor, rate: int, flip: bool, name: str) -> torch.Tensor:
     """One launch of ``csrc/depthwise.cu``'s tiled kernel: the conv of
     ``x`` with ``w``, or with ``w`` flipped in space when ``flip`` (dx),
-    the flip an index in the kernel. Counts one launch under ``name``."""
-    _require_cuda_f32(name, x, w)
+    the flip an index in the kernel; float32, or bfloat16 (its bf16 arm,
+    counted again as ``{name}_bf16``). Counts one launch under ``name``."""
+    bf16 = _require_one_dtype(name, x, w) == torch.bfloat16
     b, h, wd, c = x.shape
     kh, kw, _ = w.shape
     out = torch.empty_like(x)
-    lib, fn = _entry("tfdl_depthwise_tiled_f32")
+    lib, fn = _entry("tfdl_depthwise_tiled_bf16" if bf16 else "tfdl_depthwise_tiled_f32")
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, int(rate), int(flip), _stream(x))
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
+    if bf16:
+        LAUNCHES[f"{name}_bf16"] += 1
     return out
 
 
@@ -377,20 +425,21 @@ def depthwise_conv2d_dx(g: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torc
     return _launch_depthwise(g, w, rate, True, "depthwise_conv2d_dx")
 
 
-def _aligned(*tensors: torch.Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+def _aligned(*tensors: torch.Tensor, to: int = 16) -> bool:
+    return all(t.data_ptr() % to == 0 for t in tensors)
 
 
 def _launch_dw_tiles(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int, rate: int, name: str) -> torch.Tensor:
     """One call of the earlier dw kernel (``tfdl_depthwise_dw_partial_kernel``
-    and its tile sum), at any shape; counts nothing."""
+    and its tile sum), at any shape, float32 partial sums; dw in ``x``'s
+    dtype. Counts nothing."""
     b, h, wd, c = x.shape
     pixels = b * h * wd
     tile_rows = max(_DW_TILE_ROWS, -(-pixels // _DW_MAX_TILES))
     tiles = max(1, -(-pixels // tile_rows))
     partial = torch.empty((tiles, kh * kw, c), dtype=torch.float32, device=x.device)
-    dw = torch.empty((kh, kw, c), dtype=torch.float32, device=x.device)
-    lib, fn = _entry("tfdl_depthwise_dw_f32")
+    dw = torch.empty((kh, kw, c), dtype=x.dtype, device=x.device)
+    lib, fn = _entry("tfdl_depthwise_dw_bf16" if x.dtype == torch.bfloat16 else "tfdl_depthwise_dw_f32")
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw,
@@ -410,49 +459,55 @@ def _check_dw(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int]) ->
 
 
 def _require_dw_cuda(name: str, x: torch.Tensor, g: torch.Tensor, kh: int, kw: int) -> None:
-    _require_cuda_f32(name, x, g)
+    _require_one_dtype(name, x, g)
     if kh > _DW_MAX_SIDE or kw > _DW_MAX_SIDE:
         raise ValueError(f"{name}: the CUDA kernels take sides up to {_DW_MAX_SIDE}, got {kh}x{kw}")
 
 
 def dw_route(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1) -> Optional[DwPlan]:
     """The band kernel's plan for this call, or None for the earlier tile
-    kernel: chosen from the shape and the bases' alignment, before any
-    launch."""
+    kernel: chosen from the shape, the dtype and the bases' alignment (a
+    thread's 4 channels: 16 bytes, 8 in bfloat16), before any launch."""
     b, h, wd, c = x.shape
-    return dw_plan(b, h, wd, c, int(kernel_size[0]), int(kernel_size[1]), int(rate), _aligned(x, g))
+    itemsize = x.element_size()
+    return dw_plan(b, h, wd, c, int(kernel_size[0]), int(kernel_size[1]), int(rate),
+                   _aligned(x, g, to=4 * itemsize), itemsize)
 
 
 def depthwise_conv2d_dw(
     x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int], rate: int = 1
 ) -> torch.Tensor:
     """Filter gradient ``[kh, kw, C]`` of the conv of ``x`` whose output
-    gradient is ``g`` (both [B,H,W,C]). CPU: plain version; CUDA:
+    gradient is ``g`` (both [B,H,W,C], float32 or both bfloat16), summed in
+    float32 and returned in their dtype. CPU: plain version; CUDA:
     ``csrc/depthwise_dw.cu`` (odd sides up to 7; bit-reproducible), the band
     kernel where :func:`dw_route` plans one (counted again as
-    ``depthwise_conv2d_dw_band``), else the earlier tile kernel."""
+    ``depthwise_conv2d_dw_band``), else the earlier tile kernel; bf16
+    inputs counted again as ``depthwise_conv2d_dw_bf16``."""
     kh, kw = _check_dw(x, g, kernel_size)
     if _use_plain(x):
         with torch.no_grad():
-            return _dw_plain(x, g, kh, kw, rate)
+            return _dw_plain(x, g, kh, kw, rate).to(x.dtype)
     _require_dw_cuda("depthwise_conv2d_dw", x, g, kh, kw)
+    bf16 = x.dtype == torch.bfloat16
     plan = dw_route(x, g, (kh, kw), rate)
     if plan is None:
         dw = _launch_dw_tiles(x, g, kh, kw, rate, "depthwise_conv2d_dw")
-        LAUNCHES["depthwise_conv2d_dw"] += 1
-        return dw
-    b, h, wd, c = x.shape
-    partial = torch.empty((plan.tiles, kh * kw, c), dtype=torch.float32, device=x.device)
-    dw = torch.empty((kh, kw, c), dtype=torch.float32, device=x.device)
-    lib, fn = _entry("tfdl_depthwise_dw_band_f32")
-    with torch.cuda.device(x.device):
-        code = fn(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw, int(rate),
-            plan.channels, plan.band_rows, plan.images, plan.stages, _stream(x),
-        )
-    _build.check(lib, code, "depthwise_conv2d_dw")
+    else:
+        b, h, wd, c = x.shape
+        partial = torch.empty((plan.tiles, kh * kw, c), dtype=torch.float32, device=x.device)
+        dw = torch.empty((kh, kw, c), dtype=x.dtype, device=x.device)
+        lib, fn = _entry("tfdl_depthwise_dw_band_bf16" if bf16 else "tfdl_depthwise_dw_band_f32")
+        with torch.cuda.device(x.device):
+            code = fn(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, h, wd, c, kh, kw, int(rate),
+                plan.channels, plan.band_rows, plan.images, plan.stages, _stream(x),
+            )
+        _build.check(lib, code, "depthwise_conv2d_dw")
+        LAUNCHES["depthwise_conv2d_dw_band"] += 1
     LAUNCHES["depthwise_conv2d_dw"] += 1
-    LAUNCHES["depthwise_conv2d_dw_band"] += 1
+    if bf16:
+        LAUNCHES["depthwise_conv2d_dw_bf16"] += 1
     return dw
 
 
@@ -493,9 +548,11 @@ class DepthwiseConv2dFunction(torch.autograd.Function):
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, rate: int = 1) -> torch.Tensor:
-    """Stride-1 SAME depthwise conv; ``x`` [B,H,W,C], ``w`` [kh,kw,C],
-    ``rate`` the atrous dilation. Differentiable in ``x`` and ``w``. CPU:
-    plain versions; CUDA: the kernels."""
+    """Stride-1 SAME depthwise conv; ``x`` [B,H,W,C], ``w`` [kh,kw,C] of
+    one dtype (float32, or bfloat16: the JAX layer casts the filter to the
+    compute dtype), ``rate`` the atrous dilation. Differentiable in ``x``
+    and ``w``; the gradients come in the inputs' dtype. CPU: plain
+    versions; CUDA: the kernels."""
     _check_depthwise(x, w)
     return DepthwiseConv2dFunction.apply(x, w, int(rate))
 
@@ -546,6 +603,9 @@ def _check_bn_act(x, m, b, act, residual) -> None:
 # and every base is 16-byte aligned
 BN_VEC_CHANNELS = 4
 BN_VEC_ALIGN = 16
+# the bf16-activation row kernel's vector arm: a thread's eight channels are
+# one 16-byte word of a bf16 row (and two of the float32 fold)
+BN_VEC_CHANNELS_BF16 = 8
 
 
 def bn_act_vectorized(c: int, *tensors: Optional[torch.Tensor]) -> bool:
@@ -556,16 +616,26 @@ def bn_act_vectorized(c: int, *tensors: Optional[torch.Tensor]) -> bool:
     return c % BN_VEC_CHANNELS == 0 and all(t is None or t.data_ptr() % BN_VEC_ALIGN == 0 for t in tensors)
 
 
+def bn_act_vectorized_bf16(c: int, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether the bf16-activation row kernel takes its vector arm (eight
+    channels a thread: ``c % 8 == 0`` and every base 16-byte aligned, None
+    entries ignored); else its scalar arm. Same bits either way."""
+    return c % BN_VEC_CHANNELS_BF16 == 0 and all(t is None or t.data_ptr() % BN_VEC_ALIGN == 0 for t in tensors)
+
+
 def bn_act_folded_plain(
     x: torch.Tensor, m: torch.Tensor, b: torch.Tensor, act: str = "relu",
     residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the kernel body: ``act(x*m + b [+ residual])``."""
+    """Plain version of the kernel body: ``act(x*m + b [+ residual])`` in
+    float32 (the product and each add rounded on its own), returned in
+    ``x``'s dtype: the bf16 arm reads bf16 ``x`` and ``residual`` and
+    rounds once at the end, as the TPU kernel writes ``x.dtype``."""
     _check_bn_act(x, m, b, act, residual)
-    y = x * m + b
+    y = x.to(_sum_dtype(x)) * m + b
     if residual is not None:
-        y = y + residual
-    return activate(y, act)
+        y = y + residual.to(y.dtype)
+    return activate(y, act).to(x.dtype)
 
 
 def bn_act_folded(
@@ -573,8 +643,11 @@ def bn_act_folded(
     residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``act(x*m + b [+ residual])`` over NHWC ``x`` with already-folded
-    [C] vectors — what a module with a cached fold calls. CPU: plain
-    version; CUDA: the kernel, which refuses inputs that need a gradient."""
+    float32 [C] vectors — what a module with a cached fold calls; ``x``
+    and ``residual`` float32, or both bfloat16 (out bf16). CPU: plain
+    version; CUDA: the kernel (the bf16 arm counted again as
+    ``fused_bn_act_bf16_act``), which refuses inputs that need a
+    gradient."""
     _check_bn_act(x, m, b, act, residual)
     if _use_plain(x):
         return bn_act_folded_plain(x, m, b, act, residual)
@@ -584,18 +657,24 @@ def bn_act_folded(
             "no backward; call it under torch.no_grad() (eval), or train the model in "
             "training mode, whose BatchNorm uses batch statistics in plain ops"
         )
-    _require_cuda_f32("fused_bn_act", x, m, b, residual)
+    bf16 = _require_one_dtype("fused_bn_act", *(t for t in (x, residual) if t is not None)) == torch.bfloat16
+    _require_cuda_f32("fused_bn_act", m, b)
+    if m.device != x.device:
+        raise ValueError(f"fused_bn_act: tensors on {x.device} and {m.device}")
     out = torch.empty_like(x)
     c = x.shape[-1]
-    lib, fn = _entry("tfdl_bn_act_rows_f32")
+    vec = (bn_act_vectorized_bf16 if bf16 else bn_act_vectorized)(c, x, m, b, residual, out)
+    lib, fn = _entry("tfdl_bn_act_rows_bf16" if bf16 else "tfdl_bn_act_rows_f32")
     r_ptr = residual.data_ptr() if residual is not None else None
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), m.data_ptr(), b.data_ptr(), r_ptr, out.data_ptr(), x.numel() // max(c, 1), c,
-            ACTIVATIONS[act], int(bn_act_vectorized(c, x, m, b, residual, out)), _stream(x),
+            ACTIVATIONS[act], int(vec), _stream(x),
         )
     _build.check(lib, code, "fused_bn_act")
     LAUNCHES["fused_bn_act"] += 1
+    if bf16:
+        LAUNCHES["fused_bn_act_bf16_act"] += 1
     return out
 
 

@@ -12,11 +12,15 @@ update) → a checkpoint every ``checkpoint_every_steps`` → an eval every
 of the eval view (the EMA when tracked) on ``metrics/top1`` → the final
 checkpoint, and a final eval when the last step was not an eval step.
 
+The models are the classifiers the port builds: the ViT and the ResNet
+classifier (every layout, unit type and stem; float32 or bf16 compute;
+``remat``), under Adam, SGD or LARS with ``grad_accum_steps`` >= 1.
 Data-parallel under a process group as ``train/trainer.py`` is: every rank
 trains a replica on its device, draws ``batch_size / world`` rows a step
 from its own stream (seed ``seed + rank``, as the JAX package's process
 index), runs the data-parallel step (one all-reduce of the flat gradient,
-the metric sums; the ViT has no BatchNorm), and rank 0 alone writes.
+the BN running statistics' mean where the model has BatchNorm, the metric
+sums), and rank 0 alone writes.
 Serving restores refuse to run under more than one rank.
 
 Input: only the synthetic stream is ported. ``data_dir=None``, or a
@@ -214,7 +218,8 @@ class ClassifierTrainer:
         if start_step > 0:
             self._log("resumes at step %d", start_step)
         train_step = step_lib.make_train_step(
-            self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay
+            self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
+            accum=tcfg.grad_accum_steps,
         )
         batches = pipeline_lib.device_prefetch(
             self._train_stream(batch_size, steps - start_step, start_step),
@@ -328,7 +333,8 @@ def fit_preset(
 ) -> FitResult:
     """Train a named classification preset (the ``fit`` command).
     ``overrides`` are ``TrainConfig`` fields (``optimizer``, ``lr``,
-    ``augmentation``, ``ema_decay``, ``grad_clip_norm``, ...); None keeps
+    ``augmentation``, ``ema_decay``, ``grad_clip_norm``,
+    ``grad_accum_steps``, ...); None keeps
     the preset's value, and a knob the port does not run yet raises
     ``NotImplementedError`` from ``require_supported_training``. Swapping
     the optimizer needs an explicit ``lr`` (preset learning rates are tuned

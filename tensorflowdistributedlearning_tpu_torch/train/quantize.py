@@ -127,6 +127,17 @@ def quantize_leaf_int8(weight: torch.Tensor, axis: int) -> Dict[str, torch.Tenso
             "scale": torch.from_numpy(rec["scale"]), "axis": axis}
 
 
+def require_int8_compute_supported(config: ModelConfig) -> None:
+    """Refuse ``int8-compute`` for the models whose int8 serving path is
+    not ported yet: the ResNet classifier and the bf16-compute ResNets
+    (queue A 17 of ROADMAP.md). ``int8`` storage serves them dequantized."""
+    if config.backbone == "resnet" and (config.num_classes is not None or config.dtype == "bfloat16"):
+        raise NotImplementedError(
+            "int8-compute serving of the ResNet classifier and of the bf16-compute ResNets is not ported yet "
+            "(queue A 17 of ROADMAP.md); serve them as float32, bfloat16 or int8"
+        )
+
+
 def quantize_state(state: Mapping[str, torch.Tensor], serving_spec: str, config: ModelConfig):
     """``(qstate, section)`` for export. ``float32`` returns the state
     untouched; ``bfloat16`` casts every float tensor; ``int8`` and
@@ -136,6 +147,8 @@ def quantize_state(state: Mapping[str, torch.Tensor], serving_spec: str, config:
     from tensorflowdistributedlearning_tpu_torch.utils.convert import kernel_leaves
 
     storage, compute = parse_serving_spec(serving_spec)
+    if compute == "int8":
+        require_int8_compute_supported(config)
     section: Dict[str, Any] = {
         "dtype": storage,
         "compute_dtype": compute,

@@ -3,8 +3,8 @@ JAX package's ``Trainer.serving_fn`` at ``train/trainer.py:929-996``,
 ``ClassifierTrainer.serving_fn`` / ``export_serving`` at
 ``train/fit.py:1016-1102``, and of ``train/serving.py``).
 
-The task follows the config: a model with ``num_classes`` (the ViT
-classifier) serves ``{"probabilities" [B, num_classes] float32, "class" [B]
+The task follows the config: a model with ``num_classes`` (the ViT or the
+ResNet classifier) serves ``{"probabilities" [B, num_classes] float32, "class" [B]
 int32}`` and its manifest carries the JAX classifier's metadata keys
 (``task``, ``num_classes``, ``backbone``); the segmenter serves
 ``{"probabilities", "mask"}`` and its manifest is what it was.
@@ -78,6 +78,7 @@ def serving_model(config: ModelConfig, qstate: Mapping[str, Any], section: Mappi
                 m.to(torch.bfloat16)
     model.load_state_dict(dense, strict=True)
     if section.get("compute_dtype") == "int8":
+        quantize.require_int8_compute_supported(config)
         records = {k: v for k, v in qstate.items() if quantize.is_record(v)}
         quant_kernels.swap_int8_layers(model, records, dense)
     return model.eval()

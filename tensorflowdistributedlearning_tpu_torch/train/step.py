@@ -20,9 +20,15 @@ Semantics kept from the JAX package:
 - ``adam`` is ``torch.optim.Adam`` (optax's eps outside the square root,
   eps_root 0), ``weight_decay > 0`` makes it AdamW with decay on the
   conv and Dense kernels only (:func:`kernel_decay_mask`), ``sgd`` is Nesterov
-  momentum (decay before momentum), ``grad_clip_norm`` clips the global norm
-  the way ``optax.clip_by_global_norm`` does, and ``ema_decay`` tracks an
-  exponential moving average of the parameters for eval and export.
+  momentum (decay before momentum), ``lars`` is ``optax.lars`` (:class:`Lars`:
+  masked decay, masked trust ratio, lr, then Nesterov momentum of the
+  lr-scaled update), ``grad_clip_norm`` clips the global norm the way
+  ``optax.clip_by_global_norm`` does, and ``ema_decay`` tracks an
+  exponential moving average of the parameters for eval and export;
+- ``grad_accum_steps`` (``make_train_step(accum=)``) splits the batch into
+  chunks run in order against the same parameters (BN statistics moving
+  chunk by chunk), sums their gradients as ``a + g / accum``, merges their
+  metrics, and takes one update (one all-reduce, data-parallel).
 """
 
 from __future__ import annotations
@@ -186,13 +192,64 @@ def kernel_decay_mask(model: nn.Module) -> Dict[str, bool]:
     return mask
 
 
+# optax.lars' defaults that the JAX package keeps
+LARS_TRUST_COEFFICIENT = 0.001
+LARS_EPS = 0.0
+
+
+class Lars(torch.optim.Optimizer):
+    """``optax.lars(lr, weight_decay, weight_decay_mask=m,
+    trust_ratio_mask=m, momentum, nesterov=True)`` with the JAX package's
+    mask ``m`` = the kernels (:func:`kernel_decay_mask`), update by update:
+    for a masked parameter ``u = g + weight_decay·p``, then ``u = u·ratio``
+    with ``ratio = trust_coefficient·|p| / (|u| + eps)`` (1 where either
+    norm is 0); an unmasked one keeps ``u = g``; then ``u = -lr·u`` and the
+    trace ``t = u + momentum·t``, the update ``u + momentum·t`` (Nesterov,
+    as the JAX package chains it) added to ``p``. The learning rate scales before the momentum, so this
+    is not SGD with a factor. A param group's ``masked`` flag says which
+    rule applies; ``state[p]["trace"]`` is optax's ``TraceState.trace``."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay, masked=True))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Lars.step takes no closure")
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad
+                if group["masked"]:
+                    if group["weight_decay"]:
+                        u = u + group["weight_decay"] * p
+                    p_norm = torch.linalg.vector_norm(p)
+                    u_norm = torch.linalg.vector_norm(u)
+                    ratio = LARS_TRUST_COEFFICIENT * p_norm / (u_norm + LARS_EPS)
+                    u = u * torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
+                u = u * -group["lr"]
+                state = self.state[p]
+                trace = state.get("trace")
+                trace = u if trace is None else u + group["momentum"] * trace
+                state["trace"] = trace
+                p.add_(u + group["momentum"] * trace)
+        return None
+
+
 def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
     """The configured optimizer over ``model``'s parameters, in two param
-    groups (decayed kernels first, then the rest) when ``weight_decay > 0``.
-    The lr is set per update by :meth:`TrainState.apply_gradients`."""
-    if cfg.optimizer == "lars":
-        raise NotImplementedError("optimizer='lars' is not ported yet (queue A 4, see ROADMAP.md)")
+    groups (decayed kernels first, then the rest) when ``weight_decay > 0``,
+    and always for ``lars`` (its masked kernels, then the rest). The lr is
+    set per update by :meth:`TrainState.apply_gradients`."""
     named = list(model.named_parameters())
+    if cfg.optimizer == "lars":
+        mask = kernel_decay_mask(model)
+        groups = [
+            {"params": [p for n, p in named if mask[n]], "masked": True},
+            {"params": [p for n, p in named if not mask[n]], "masked": False},
+        ]
+        return Lars(groups, lr=make_lr_schedule(cfg)(0), momentum=cfg.sgd_momentum, weight_decay=cfg.weight_decay)
     if cfg.weight_decay:
         mask = kernel_decay_mask(model)
         groups = [
@@ -203,7 +260,9 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
         groups = [{"params": [p for _, p in named], "weight_decay": 0.0}]
     lr = make_lr_schedule(cfg)(0)
     if cfg.optimizer == "sgd":
-        return torch.optim.SGD(groups, lr=lr, momentum=cfg.sgd_momentum, nesterov=True)
+        # optax's Nesterov trace at momentum 0 is plain SGD, which torch's SGD
+        # takes only without the Nesterov flag
+        return torch.optim.SGD(groups, lr=lr, momentum=cfg.sgd_momentum, nesterov=cfg.sgd_momentum > 0)
     if cfg.weight_decay:
         return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -289,12 +348,37 @@ def psum_metrics(metrics: Metrics) -> Metrics:
     return metrics
 
 
+def split_batch(batch: Dict[str, torch.Tensor], accum: int):
+    """The ``accum`` consecutive row chunks of ``batch`` (the JAX step's
+    ``x.reshape((accum, local // accum) + ...)``); entries without the
+    batch's leading dimension (a scalar) go to every chunk. Raises
+    ``ValueError`` when the rows do not divide."""
+    local = batch["images"].shape[0]
+    if local % accum:
+        raise ValueError(
+            f"grad accumulation needs the per-shard batch ({local}) divisible by grad_accum_steps ({accum})"
+        )
+    n = local // accum
+    return [
+        {k: v[i * n:(i + 1) * n] if v.dim() and v.shape[0] == local else v for k, v in batch.items()}
+        for i in range(accum)
+    ]
+
+
 def make_train_step(
-    task, *, data_parallel: bool = False, weight_decay: float = 0.0, apply_weight_decay: bool = False
+    task, *, data_parallel: bool = False, weight_decay: float = 0.0, apply_weight_decay: bool = False,
+    accum: int = 1,
 ):
     """``step(state, batch) -> (state, metrics)``: forward and backward in
     training mode, one optimizer update, metric contributions computed from
     the pre-update logits (as the JAX step computes them).
+
+    ``accum`` > 1 (``TrainConfig.grad_accum_steps``): the batch splits into
+    ``accum`` chunks (:func:`split_batch`), each run forward and backward in
+    order against the same parameters (the BN running statistics move
+    through the chunks in order), their gradients summed as ``a + g /
+    accum`` from zero in the flat gradient buffer, their metrics merged;
+    then one update, as the JAX step's scan does.
 
     ``data_parallel``: the step of one rank of a process group, on its shard
     of the global batch (BN on the shard's statistics, or the global batch's
@@ -304,20 +388,34 @@ def make_train_step(
     statistics are averaged after the update and the metric states summed.
     Without a group every reduction is the identity."""
 
-    def step(state, batch: Dict[str, torch.Tensor]):
-        if data_parallel:
-            state.flatten_grads()
+    if accum < 1:
+        raise ValueError(f"accum must be >= 1, got {accum}")
+
+    def chunk_step(state, chunk: Dict[str, torch.Tensor]) -> Metrics:
         loss, logits = forward_backward(
-            state, task, batch, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
+            state, task, chunk, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
         )
+        with torch.no_grad():
+            return _metric_deltas(task.metric_scores(logits, chunk), loss)
+
+    def step(state, batch: Dict[str, torch.Tensor]):
+        if data_parallel or accum > 1:
+            state.flatten_grads()
+        if accum == 1:
+            metrics = chunk_step(state, batch)
+        else:
+            chunks = split_batch(batch, accum)
+            total = torch.zeros_like(state.flat_grad)
+            metrics = None
+            for chunk in chunks:
+                metrics = merge_metrics(metrics, chunk_step(state, chunk))
+                total.add_(state.flat_grad / accum)
+            state.flat_grad.copy_(total)
         if data_parallel:
             collectives.pmean_(state.flat_grad)
         state.apply_gradients()
         if data_parallel:
             pmean_batch_stats(state.model)
-        with torch.no_grad():
-            metrics = _metric_deltas(task.metric_scores(logits, batch), loss)
-        if data_parallel:
             psum_metrics(metrics)
         return state, metrics
 

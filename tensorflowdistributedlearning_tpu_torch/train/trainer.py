@@ -222,7 +222,8 @@ class Trainer:
             self._log("fold %d resumes at step %d", fold, start_step)
 
         train_step = step_lib.make_train_step(
-            self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay
+            self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
+            accum=tcfg.grad_accum_steps,
         )
         batches = pipeline_lib.train_batches(
             train_ds, local_bs, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step

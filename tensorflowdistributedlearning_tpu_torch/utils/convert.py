@@ -9,13 +9,18 @@ port's ``state_dict`` by name (the port's modules mirror the flax tree):
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 - for the ViT: Dense ``kernel [in, out]`` -> ``weight [out, in]``, LayerNorm
   ``scale``/``bias`` -> ``weight``/``bias``, ``pos_embedding`` as it is,
-  the patch conv as any conv; its ``batch_stats`` are empty.
+  the patch conv as any conv; its ``batch_stats`` are empty;
+- for the ResNet classifier: ``backbone/...`` as the segmenter's (basic
+  blocks' ``preact``, ``shortcut``, ``conv1``, ``conv2`` included), the
+  space-to-depth stem's canonical ``conv/kernel`` [3, 3, C, F] as any conv
+  filter, and the Dense ``logits``.
 
 Strict both ways: a flax leaf the port does not use, a port tensor left
 unfilled, or a shape that disagrees raises. :func:`from_flax_train_state`
 carries a whole JAX ``TrainState`` across (params, batch_stats and the
-step), and :func:`load_optax_state` its optax Adam moments and parameter
-EMA, so both packages can train on from one state, mid-trajectory too. Inputs are nested dicts of numpy
+step), and :func:`load_optax_state` its optax Adam moments or SGD / LARS
+momentum trace and parameter EMA, so both packages can train on from one
+state, mid-trajectory too. Inputs are nested dicts of numpy
 arrays or flat ``"a/b/c"``-keyed mappings (what :func:`load_flax_npz` reads
 from an ``.npz`` that holds ``flatten_dict({"params": ..., "batch_stats":
 ...}, sep="/")``).
@@ -125,15 +130,32 @@ def kernel_leaves(config: ModelConfig) -> Dict[str, Tuple[str, int]]:
 def from_flax(params, batch_stats, config: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (CPU float32 tensors) for the flax
     ``params``/``batch_stats`` of ``build_model(config)``."""
-    flat = {"params": flatten(params), "batch_stats": flatten(batch_stats or {})}
-    used = {"params": set(), "batch_stats": set()}
+    return _convert({"params": flatten(params), "batch_stats": flatten(batch_stats or {})}, config)
+
+
+def params_from_flax(tree, config: ModelConfig) -> Dict[str, torch.Tensor]:
+    """``{port parameter name: tensor}`` for a tree shaped like flax's
+    ``params`` (an optax slot: Adam's ``mu``/``nu``, a momentum
+    ``trace``, an EMA), strictly, without the BN statistics."""
+    return _convert({"params": flatten(tree)}, config)
+
+
+def _convert(flat: Dict[str, Dict[str, np.ndarray]], config: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The port tensors of ``flat``'s collections (``params`` and, when
+    given, ``batch_stats``), strictly both ways."""
+    used = {coll: set() for coll in flat}
     template = _template(config)
     expected = template.state_dict()
+    if "batch_stats" not in flat:
+        params = {name for name, _ in template.named_parameters()}
+        expected = {k: v for k, v in expected.items() if k in params}
     state: Dict[str, torch.Tensor] = {}
     for mod_path, module in template.named_modules():
         flax_path = mod_path.replace(".", "/")
         prefix = f"{mod_path}." if mod_path else ""
         for name, coll, leaf, transform in _sources(module, flax_path):
+            if coll not in flat:
+                continue
             key = prefix + name
             if leaf not in flat[coll]:
                 raise KeyError(f"flax {coll} has no {leaf!r} for port tensor {key!r}")
@@ -146,7 +168,7 @@ def from_flax(params, batch_stats, config: ModelConfig) -> Dict[str, torch.Tenso
                 )
             state[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
             used[coll].add(leaf)
-    for coll in ("params", "batch_stats"):
+    for coll in flat:
         unused = sorted(set(flat[coll]) - used[coll])
         if unused:
             raise ValueError(f"flax {coll} leaves the port does not use: {unused[:10]}")
@@ -177,34 +199,58 @@ def _optax_nodes(node):
 
 def load_optax_state(state, opt_state, config: ModelConfig) -> None:
     """Carry an optax state into the port's ``TrainState`` ``state`` (in
-    place), strictly: the Adam moments of its ``ScaleByAdamState`` (``mu``,
-    ``nu``, ``count``) become ``torch.optim.Adam``/``AdamW``'s
-    ``exp_avg``, ``exp_avg_sq`` and ``step`` of every parameter (both count
-    the updates taken, so the bias corrections agree), and an
-    ``EmaTrackerState``'s ``ema`` the state's EMA. Raises when the chain
-    holds no Adam state, when the port runs another optimizer, or when the
-    two disagree on whether an EMA is tracked."""
+    place), strictly. Its one optimizer slot:
+
+    - a ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) becomes
+      ``torch.optim.Adam``/``AdamW``'s ``exp_avg``, ``exp_avg_sq`` and
+      ``step`` of every parameter (both count the updates taken, so the
+      bias corrections agree);
+    - a ``TraceState`` (``trace``, the momentum of ``sgd`` and ``lars``)
+      becomes ``torch.optim.SGD``'s ``momentum_buffer`` (optax's trace of
+      the gradients, which SGD's buffer is) or :class:`train.step.Lars`'s
+      ``trace`` (the trace of the lr-scaled updates, as optax keeps it);
+
+    and an ``EmaTrackerState``'s ``ema`` the state's EMA. Raises when the
+    chain holds no such slot or more than one, when the port runs another
+    optimizer, or when the two disagree on whether an EMA is tracked."""
+    from tensorflowdistributedlearning_tpu_torch.train.step import Lars
+
     nodes = list(_optax_nodes(opt_state))
     adam = [n for n in nodes if all(hasattr(n, a) for a in ("mu", "nu", "count"))]
+    traces = [n for n in nodes if type(n).__name__ == "TraceState"]
     emas = [n for n in nodes if type(n).__name__ == "EmaTrackerState"]
-    if len(adam) != 1:
-        raise ValueError(f"expected one ScaleByAdamState in the optax state, found {len(adam)}")
-    if not isinstance(state.optimizer, torch.optim.Adam | torch.optim.AdamW):
-        raise ValueError(f"the port's optimizer is {type(state.optimizer).__name__}, not Adam/AdamW")
+    if len(adam) + len(traces) != 1:
+        raise ValueError(
+            f"expected one ScaleByAdamState or TraceState in the optax state, found {len(adam)} and {len(traces)}"
+        )
+    port = type(state.optimizer).__name__
+    if adam and not isinstance(state.optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        raise ValueError(f"the port's optimizer is {port}, not Adam/AdamW as the optax state's ScaleByAdamState")
+    if traces and not isinstance(state.optimizer, (torch.optim.SGD, Lars)):
+        raise ValueError(
+            f"the optax state holds a momentum trace (the TraceState of sgd or lars), not the ScaleByAdamState "
+            f"that the port's {port} takes"
+        )
     if (state.ema is None) != (not emas):
         raise ValueError("the optax state and the port's state disagree on whether a parameter EMA is tracked")
-    mu = from_flax(adam[0].mu, {}, config)
-    nu = from_flax(adam[0].nu, {}, config)
-    count = float(np.asarray(adam[0].count))
     params = dict(state.model.named_parameters())
-    for name, p in params.items():
-        state.optimizer.state[p] = {
-            "step": torch.tensor(count, dtype=torch.float32),
-            "exp_avg": mu[name].to(p.device),
-            "exp_avg_sq": nu[name].to(p.device),
-        }
+    if adam:
+        mu = params_from_flax(adam[0].mu, config)
+        nu = params_from_flax(adam[0].nu, config)
+        count = float(np.asarray(adam[0].count))
+        for name, p in params.items():
+            state.optimizer.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": mu[name].to(p.device),
+                "exp_avg_sq": nu[name].to(p.device),
+            }
+    else:
+        trace = params_from_flax(traces[0].trace, config)
+        key = "trace" if isinstance(state.optimizer, Lars) else "momentum_buffer"
+        for name, p in params.items():
+            state.optimizer.state[p] = {key: trace[name].to(p.device)}
     if emas:
-        ema = from_flax(emas[0].ema, {}, config)
+        ema = params_from_flax(emas[0].ema, config)
         with torch.no_grad():
             for name, e in state.ema.items():
                 e.copy_(ema[name])

@@ -628,3 +628,121 @@ def test_cuda_pmean_backward_matches_cpu(nccl_world_one):
         grads.append(xd.grad.cpu())
         assert torch.equal(y.detach().cpu(), x)
     assert torch.equal(grads[0], grads[1])
+
+
+# -- the bf16-activation arms (bf16-compute models) ------------------------------------------
+
+
+def _bf16_steps(a: torch.Tensor, b: torch.Tensor, atol: float = 1e-6) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors (their bit
+    patterns as ordered integers), 0 where the two are within ``atol``:
+    near zero a bf16 step is far below float32's noise on unit-scale
+    inputs (sigmoid and gelu of large negative values)."""
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    steps = (ordered(a) - ordered(b)).abs()
+    return int(torch.where((a.float() - b.float()).abs() <= atol, 0, steps).max())
+
+
+def _bf16_view(shape, offset, device, g, scale=1.0):
+    n = 1
+    for d in shape:
+        n *= d
+    return (scale * torch.randn(n + offset, device=device, generator=g)).to(torch.bfloat16)[offset:].view(shape)
+
+
+# (x shape, k, rate, base offset in elements): the ASPP calls of tgs_salt_bf16
+# at batch 64, odd channel counts (the one-channel arm) and a base 2 and 4
+# bytes off an 8-byte boundary
+BF16_DW_CASES = [((64, 13, 13, 1024), 3, 2, 0), ((64, 13, 13, 1024), 3, 8, 0), ((3, 9, 11, 6), 3, 2, 0),
+                 ((2, 9, 11, 33), 3, 1, 0), ((2, 9, 11, 16), 3, 2, 1), ((2, 9, 11, 16), 3, 2, 2),
+                 ((1, 17, 23, 72), 5, 3, 0), ((1, 40, 40, 256), 7, 12, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,rate,offset", BF16_DW_CASES)
+def test_cuda_depthwise_bf16_arms_match_plain(cuda_device, shape, k, rate, offset):
+    """The bf16 forward, dx and dw against the plain versions on the card:
+    within one bf16 step (float32 sums in another order, then one
+    rounding); dw bitwise repeatable."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape) + offset)
+    x, gout = _bf16_view(shape, offset, cuda_device, g), _bf16_view(shape, offset, cuda_device, g)
+    w = (0.4 * torch.randn(k, k, shape[-1], device=cuda_device, generator=g)).to(torch.bfloat16)
+    fwd = tk.depthwise_conv2d_forward(x, w, rate)
+    dx = tk.depthwise_conv2d_dx(gout, w, rate)
+    dw = tk.depthwise_conv2d_dw(x, gout, (k, k), rate)
+    assert fwd.dtype == dx.dtype == dw.dtype == torch.bfloat16
+    pdx, pdw = tk.depthwise_conv2d_backward_plain(x, w, gout, rate)
+    assert _bf16_steps(fwd, tk.depthwise_conv2d_plain(x, w, rate)) <= 1
+    assert _bf16_steps(dx, pdx) <= 1
+    assert _bf16_steps(dw, pdw) <= 1
+    assert torch.equal(dw, tk.depthwise_conv2d_dw(x, gout, (k, k), rate))
+    torch.cuda.synchronize()
+    c = tk.launch_counts()
+    assert (c["depthwise_conv2d_bf16"], c["depthwise_conv2d_dx_bf16"], c["depthwise_conv2d_dw_bf16"]) == (1, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "relu", "relu6", "sigmoid", "gelu"])
+def test_cuda_bn_act_bf16_arm_matches_plain(cuda_device, act):
+    """The bf16-activation row kernel against the plain version on the
+    card: bit for bit for the piecewise-linear activations (the same
+    rounded float32 operations, then one rounding to bf16), within one bf16
+    step for sigmoid and gelu (libm); its vector and scalar arms agree bit
+    for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(len(act))
+    shapes = [((64, 51, 51, 128), 0), ((64, 13, 13, 256), 0), ((3, 7, 5, 33), 0), ((2, 13, 13, 256), 1),
+              ((2, 13, 13, 12), 0)]
+    for shape, offset in shapes:
+        c = shape[-1]
+        x, r = _bf16_view(shape, offset, cuda_device, g, 3.0), _bf16_view(shape, offset, cuda_device, g)
+        m, b = torch.rand(c, device=cuda_device, generator=g) + 0.5, torch.randn(c, device=cuda_device, generator=g)
+        assert tk.bn_act_vectorized_bf16(c, x, m, b, r) == (offset == 0 and c % 8 == 0)
+        for res in (None, r):
+            got = tk.bn_act_folded(x, m, b, act, res)
+            want = tk.bn_act_folded_plain(x, m, b, act, res)
+            assert got.dtype == torch.bfloat16
+            if act in ("none", "relu", "relu6"):
+                assert torch.equal(got, want), shape
+            else:
+                assert _bf16_steps(got, want) <= 1, shape
+            if offset == 0 and c % 8 == 0:  # the scalar arm on a copy one element off
+                xs = _bf16_view(shape, 1, cuda_device, g)
+                xs.copy_(x)
+                rs = None if res is None else _bf16_view(shape, 1, cuda_device, g).copy_(res)
+                assert torch.equal(tk.bn_act_folded(xs, m, b, act, rs), got), shape
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["fused_bn_act_bf16_act"] == 2 * len(shapes) + 2 * 2
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_tensors_never_take_the_plain_arms(cuda_device):
+    """A CUDA bf16 tensor launches the kernel or raises: the plain versions
+    patched to fail are never reached, and a dtype the kernels do not take
+    (float16) raises."""
+    from unittest import mock
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = _bf16_view((2, 9, 9, 16), 0, cuda_device, g)
+    w = _bf16_view((3, 3, 16), 0, cuda_device, g)
+    m, b = torch.ones(16, device=cuda_device), torch.zeros(16, device=cuda_device)
+    with mock.patch.multiple(tk, depthwise_conv2d_plain=boom, _dx_plain=boom, _dw_plain=boom,
+                             bn_act_folded_plain=boom):
+        out = tk.depthwise_conv2d(x.requires_grad_(), w.requires_grad_(), 2)
+        out.float().sum().backward()
+        with torch.no_grad():
+            tk.bn_act_folded(out.detach(), m, b, "relu")
+    torch.cuda.synchronize()
+    c = tk.launch_counts()
+    assert (c["depthwise_conv2d_bf16"], c["depthwise_conv2d_dx_bf16"], c["depthwise_conv2d_dw_bf16"],
+            c["fused_bn_act_bf16_act"]) == (1, 1, 1, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tk.depthwise_conv2d_forward(x.detach().half(), w.detach().half(), 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tk.bn_act_folded(x.detach().half(), m, b, "relu")

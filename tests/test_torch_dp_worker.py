@@ -14,6 +14,11 @@ global batches in ``DIR/batches.npz`` (per-rank BN and sync BN, states after
 1 and 3 steps), then an eval pass over this rank's round-robin share of
 ``DIR/eval.npz``.
 
+``accum``: one data-parallel step with ``grad_accum_steps`` = 2 from
+``DIR/init.pt`` on this rank's rows of the first global batch of
+``DIR/batches.npz``, with the all-reduces it made counted
+(``tests/test_torch_lars_accum_remat.py``).
+
 ``fit``: the ViT's data-parallel train step from ``DIR/fit_init.pt`` on
 this rank's rows of ``DIR/fit_batch.npz`` (the averaged gradient, the
 parameters after the update, the summed metrics), then
@@ -189,6 +194,38 @@ def _step_mode(rank: int, world: int, directory: str):
     return out
 
 
+def _accum_mode(rank: int, world: int, directory: str):
+    """One data-parallel step with ``grad_accum_steps`` = 2 on this rank's
+    rows of the global batch: the state after it, the loss, and how many
+    all-reduces the step made (one for the gradient, one for the BN
+    statistics, whatever the chunk count)."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    cfg = ModelConfig(**TINY)
+    init = torch.load(os.path.join(directory, "init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "batches.npz"))
+    rows = mesh.shard_rows(data["images"].shape[1], rank, world)
+    state = replicate(_state(cfg, SGD, init))
+    train_step = step_lib.make_train_step(_bce_task(), data_parallel=True, accum=2)
+    batch = {"images": torch.from_numpy(data["images"][0, rows]), "labels": torch.from_numpy(data["labels"][0, rows])}
+    calls = []
+    real = collectives.pmean_
+
+    def counted(tensors):
+        calls.append(1)
+        return real(tensors)
+
+    collectives.pmean_ = counted
+    try:
+        state, metrics = train_step(state, batch)
+    finally:
+        collectives.pmean_ = real
+    return {"state": _snapshot(state), "loss": step_lib.compute_metrics(metrics)["loss"], "all_reduces": len(calls)}
+
+
 def _fit_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
     from tensorflowdistributedlearning_tpu_torch.parallel import mesh
@@ -278,7 +315,8 @@ def main(argv) -> int:
     from tensorflowdistributedlearning_tpu_torch.parallel import multihost
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
-    out = {"step": _step_mode, "fit": _fit_mode, "trainer": _trainer_mode}[mode](rank, world, directory)
+    out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode}[mode](
+        rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     multihost.shutdown()

@@ -217,10 +217,24 @@ def test_data_the_port_cannot_read_yet_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("preset, match", [("vit_s16_moe_imagenet", "queue A 12"), ("cifar10_smoke", "queue A 4"),
-                                           ("resnet50_imagenet", "queue A 4")])
-def test_presets_the_port_does_not_train_are_refused(tmp_path, preset, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
+                                           ("resnet50_imagenet", "queue A 4"), ("resnet50_bf16_8k", "queue A 12")])
+def test_presets_the_port_does_not_train_are_refused(tmp_path, monkeypatch, preset, match):
+    """The MoE ViT and ``resnet50_bf16_8k`` (ZeRO-1) stay refused, each
+    naming queue A 12. The ResNet classifier presets that queue A 4 brought
+    train through ``fit_preset``: ``cifar10_smoke`` as it is, and
+    ``resnet50_imagenet`` (accepted at full size) at 1/16 width on 32x32
+    inputs, a CPU's size."""
+    if match == "queue A 12":
+        with pytest.raises(NotImplementedError, match=match):
+            tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
+        return
+    full = tconfigs.get_preset(preset)
+    tfit.require_supported_training(full.model, full.train)
+    if preset == "resnet50_imagenet":
+        small = dataclasses.replace(full.model, width_multiplier=0.0625, input_shape=(32, 32))
+        monkeypatch.setitem(tconfigs.PRESETS, preset, dataclasses.replace(full, model=small))
+    res = tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
+    assert res.steps == 1 and all(np.isfinite(v) for v in res.final_metrics.values())
 
 
 def test_other_refusals(tmp_path):
@@ -235,8 +249,10 @@ def test_other_refusals(tmp_path):
         tfit.fit_preset("vit_s16_imagenet", str(tmp_path), optimizer="sgd", device="cpu")
     with pytest.raises(NotImplementedError, match="queue A 12"):
         tfit.ClassifierTrainer(str(tmp_path), None, cfg, TrainConfig(sequence_parallel=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A 4"):
-        tfit.ClassifierTrainer(str(tmp_path), None, dataclasses.replace(cfg, remat=True), device="cpu")
+    # remat, once refused here, trains (queue A 4): one step of the remat ViT
+    remat = tfit.ClassifierTrainer(str(tmp_path / "remat"), None, dataclasses.replace(cfg, remat=True),
+                                   TrainConfig(**ADAMW), device="cpu").fit(batch_size=4, steps=1)
+    assert remat.steps == 1
     with pytest.raises(AttributeError, match="fit"):
         tfit.ClassifierTrainer(str(tmp_path), None, cfg, device="cpu").params
     with pytest.raises(RuntimeError, match="fit\\(\\) first"):

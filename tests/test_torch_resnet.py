@@ -252,13 +252,26 @@ def test_stack_blocks_dense_rates():
 
 
 def test_training_mode_raises():
-    # training mode runs (batch statistics; the training slice), except for
-    # the knobs that slice does not train yet, which raise naming the queue
+    # training mode runs (batch statistics; the training slice); remat, once
+    # refused here, trains since queue A 4's model half: the same loss,
+    # gradients and running statistics as the model without it, bit for bit
     model = build_model(ModelConfig(**TINY, input_shape=(17, 17)), "cpu").train()
     assert model(torch.randn(2, 17, 17, 2)).shape == (2, 17, 17, 1)
-    remat = build_model(ModelConfig(**TINY, input_shape=(17, 17), remat=True), "cpu").train()
-    with pytest.raises(NotImplementedError, match="training"):
-        remat(torch.zeros(1, 17, 17, 2))
+    cfg = ModelConfig(**TINY, input_shape=(17, 17), remat=True)
+    remat = build_model(cfg, "cpu").train()
+    plain = build_model(dataclasses.replace(cfg, remat=False), "cpu").train()
+    plain.load_state_dict(remat.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 17, 17, 2)).astype(np.float32))
+    losses = []
+    for m in (remat, plain):
+        loss = m(x).square().mean()
+        loss.backward()
+        losses.append(loss.detach())
+    assert torch.equal(losses[0], losses[1])
+    for (name, a), b in zip(remat.named_parameters(), plain.parameters()):
+        assert torch.equal(a.grad, b.grad), name
+    for (name, a), b in zip(remat.state_dict().items(), plain.state_dict().values()):
+        assert torch.equal(a, b), name
 
 
 # -- preprocessing ------------------------------------------------------------------------
@@ -309,11 +322,25 @@ def test_model_config_rejects_what_jax_rejects(kwargs):
      {"block_layout": "classic", "n_blocks": (3, 4, 6, 3)}],
 )
 def test_later_slices_raise_not_implemented(kwargs):
+    """The Xception backbone (queue A 11) and the MoE ViT (queue A 12) stay
+    refused; the ResNet knobs queue A 4 brought (the classification head,
+    bf16 compute, the space-to-depth stem, basic blocks, the classic
+    layout) are accepted, and a narrow model of each builds and runs (the
+    parity tests are ``tests/test_torch_resnet_classifier.py`` and
+    ``tests/test_torch_resnet_bf16.py``)."""
     cfg = ModelConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        require_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, "cpu")
+    if cfg.backbone == "xception" or cfg.moe_experts:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            require_supported(cfg)
+        with pytest.raises(NotImplementedError):
+            build_model(cfg, "cpu")
+        return
+    require_supported(cfg)
+    narrow = dataclasses.replace(cfg, width_multiplier=0.125, base_depth=16, input_shape=(32, 32),
+                                 n_blocks=(1, 1, 1, 1) if cfg.block_layout == "classic" else (1, 1, 1))
+    out = build_model(narrow, "cpu")(torch.randn(2, 32, 32, 2))
+    assert out.shape == ((2, 10) if cfg.num_classes else (2, 32, 32, 1))
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
 
 
 def test_vit_without_num_classes_raises_value_error_at_build():

@@ -248,8 +248,14 @@ def test_adamw_and_sgd_decay_only_kernels():
         decayed, plain = state.optimizer.param_groups
         assert decayed["weight_decay"] == 1e-3 and plain["weight_decay"] == 0.0
         assert all(p.dim() == 4 or p.dim() == 3 for p in decayed["params"])
-    with pytest.raises(NotImplementedError, match="lars"):
-        create_train_state(cfg, TrainConfig(optimizer="lars"), "cpu")
+    # lars, once refused here (queue A 4): optax.lars' masks, the kernels
+    # decayed and trust-scaled, the rest neither
+    state = create_train_state(cfg, TrainConfig(optimizer="lars", weight_decay=1e-3), "cpu")
+    assert isinstance(state.optimizer, tstep.Lars)
+    masked, plain = state.optimizer.param_groups
+    assert masked["masked"] and not plain["masked"] and masked["weight_decay"] == 1e-3
+    assert all(p.dim() == 4 or p.dim() == 3 for p in masked["params"])
+    assert all(p.dim() == 1 for p in plain["params"])
 
 
 def test_clip_by_global_norm_matches_optax():

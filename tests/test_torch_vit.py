@@ -100,12 +100,20 @@ def test_get_preset_rejects_unknown_names():
 @pytest.mark.parametrize("fused", [False, True], ids=["xla_path", "fused"])
 def test_vit_is_supported_for_serving_but_not_training(dtype, fused):
     """The ViT serves, and trains since ViT training was ported (queue A
-    1); what training still refuses of it is ``remat`` (queue A 4)."""
+    1); ``remat``, once refused here, trains too (queue A 4): each block
+    recomputed in the backward, gradients bit for bit those without it."""
     cfg = ModelConfig(**TINY_VIT, dtype=dtype, use_fused_attention=fused)
     require_supported(cfg)
     require_supported_training(cfg, TrainConfig())
-    with pytest.raises(NotImplementedError, match="queue A 4"):
-        require_supported_training(dataclasses.replace(cfg, remat=True), TrainConfig())
+    remat_cfg = dataclasses.replace(cfg, remat=True)
+    require_supported_training(remat_cfg, TrainConfig())
+    models = [build_model(c, "cpu", generator=torch.Generator().manual_seed(0)).train() for c in (remat_cfg, cfg)]
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, *cfg.input_shape, cfg.input_channels))
+                         .astype(np.float32))
+    for m in models:
+        m(x).float().square().mean().backward()
+    for (name, a), b in zip(models[0].named_parameters(), models[1].parameters()):
+        assert torch.equal(a.grad, b.grad), name
 
 
 def test_preset_model_is_supported():
