@@ -168,7 +168,11 @@ Phases, each fatal on failure (exit 1, no result line):
              checkpoints and best export, finite metrics, exactly 3/3/3
              depthwise forward/dx/dw and 0 BN+act and 0 sigmoid-mask
              launches per train step (3 depthwise and 59 BN+act per eval
-             forward), and that a re-run is a no-op resume. Then 10 steps
+             forward), and that a re-run is a no-op resume. The folds feed
+             through the data service (TrainConfig's default 2 workers):
+             fold 0 stopped at step 10 (data_state-10.json written) and
+             resumed to 20 is handed batches 10-19 equal, by sha256 of
+             the images and masks, to the uninterrupted fold's. Then 10 steps
              on one fixed batch must lower the loss (ms per step, images/s);
              torch.profiler over 3 steps gives the device idle share; one
              step from one state with the kernels and with the plain
@@ -234,6 +238,25 @@ Phases, each fatal on failure (exit 1, no result line):
              launches per forward, its bfloat16 spec through the engine
              against its plain forward and the float32 spec, and the step
              on a resident batch.
+   fit-records — resnet50_classic_imagenet (full width and depth, bf16)
+             through fit_preset on 768 class-conditional 224x224 images
+             from the seed in 16 record shards with .idx sidecars,
+             eval_holdout_fraction 0.125 (2 shards, 96 images; the second
+             eval batch half padding), the data service's default 2
+             workers, 20 steps at batch 64, one eval, the best export.
+             Prints the decoder in use (native, or data/png.py where
+             native/io.cc does not build). Checks: shard 0's records read
+             back decode to the pixels written; 2 eval forwards over
+             exactly 96 valid rows, 52 bf16 BN launches each, none per
+             train step; a run stopped at step 10 writes
+             data_state-10.json and, resumed, draws batches 10-19 equal to
+             the uninterrupted stream's; the service alone gives batches
+             0-3 equal at 1, 2 and 4 workers. Times: the service alone at
+             1/2/4 workers (images/s, no model), fit's train loop
+             (images/s, host clock) and the share of fit's wall time the
+             host waits on the next batch; then 5 steps from an
+             ImageFolder train/ (96 images) and val/ (32) split, one eval
+             over 32 valid rows.
 11. train-lars — resnet50_bf16_8k's model (remat) under its LARS recipe
              without ZeRO-1, grad_accum_steps 2, 5 steps at batch 64 with and
              without remat (ms per step, peak device memory), then one
@@ -429,6 +452,20 @@ R50_CALIBRATION_BATCHES = 4
 # within 1e-4 (tests/test_torch_resnet_classifier.py)
 TOL_R50_BF16_SPEC = 1.0
 LARS_STEPS = 5
+# fit-records: resnet50_classic_imagenet through fit_preset on record shards
+# written from the seed (768 class-conditional 224x224 images, 16 shards, 2
+# held out: 96 eval images, the second eval batch half padding), 20 steps at
+# batch 64 through the data service's default 2 workers; a run stopped at
+# step 10 and resumed; the service alone with 1/2/4 workers; then 5 steps
+# from an ImageFolder split of 128 images (96 train, 32 val)
+FR_IMAGES = 768
+FR_SHARDS = 16
+FR_HOLDOUT = 0.125
+FR_STOP = 10
+FR_WORKERS = (1, 2, 4)
+FR_SERVICE_BATCHES = 12
+FR_FOLDER_CLASSES = 8
+FR_FOLDER_STEPS = 5
 PER_BF16_TRAIN_STEP = {**PER_TRAIN_STEP, "depthwise_conv2d_bf16": 3, "depthwise_conv2d_dx_bf16": 3,
                        "depthwise_conv2d_dw_bf16": 3}
 PER_BF16_EVAL_FORWARD = {**PER_EVAL_FORWARD, "depthwise_conv2d_bf16": 3,
@@ -2591,6 +2628,46 @@ def profile_steps(torch, step, state, batch, reps: int = 3):
     return lines, {"wall_ms": wall_ms, "device_ms": device_ms, "idle": idle}
 
 
+def batch_digest(batch) -> str:
+    """sha256 over a host batch's arrays, in key order."""
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def observe_prefetch(pipeline_lib, digests, waits=None):
+    """Patch ``pipeline_lib.device_prefetch`` so that every host batch the
+    trainers' prefetch thread takes is digested into ``digests`` (on that
+    thread: nothing waits on the device), and, with ``waits``, the host's
+    ``(start, end)`` wait for each next batch is recorded."""
+    real = pipeline_lib.device_prefetch
+
+    def prefetch(iterator, place, depth=2):
+        def digested():
+            for b in iterator:
+                digests.append(batch_digest(b))
+                yield b
+
+        gen = real(digested(), place, depth)
+        if waits is None:
+            return gen
+
+        def timed():
+            while True:
+                t0 = time.perf_counter()
+                b = next(gen, None)
+                if b is None:
+                    return
+                waits.append((t0, time.perf_counter()))
+                yield b
+
+        return timed()
+
+    return mock.patch.object(pipeline_lib, "device_prefetch", prefetch)
+
+
 def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
                 size: int = 101, batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS, every: int = 10,
                 n_test: int = PREDICT_IMAGES):
@@ -2598,6 +2675,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
     the learning, profile, kernel-vs-plain and serve checks."""
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import folds as folds_lib
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
     from tensorflowdistributedlearning_tpu_torch.data.kaggle import load_tgs_training_set
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
@@ -2628,7 +2706,8 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         ledger = LaunchLedger(kernels, step_lib)
         trainer = Trainer(model_dir, data, train_config=tcfg, device=device,
                           input_shape=(size, size), **model_kwargs)
-        with ledger.patch():
+        fed = []
+        with ledger.patch(), observe_prefetch(pipeline_lib, fed):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             folds = trainer.train(ids, classes, batch_size=batch, steps=steps)
@@ -2668,6 +2747,37 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         for a, b in zip(again, folds):
             check(all(abs(a[k] - b[k]) <= 1e-6 for k in b), f"re-run eval {a} != {b}")
         log(f"train: re-run is a no-op resume (launches {rerun}, checkpoints untouched, same eval)")
+
+        # the fold stream is the data service's (data_service_workers=2, the
+        # default): fold 0 stopped at step 10 and resumed to 20 is handed
+        # what the uninterrupted fold 0 was, batch for batch
+        check(tcfg.data_service_workers == 2, f"data_service_workers {tcfg.data_service_workers}")
+        check(len(fed) == TRAIN_FOLDS * steps, f"{len(fed)} batches fed to the uninterrupted run")
+        resumed = Trainer(os.path.join(root, "model-resumed"), data, train_config=tcfg, device=device,
+                          input_shape=(size, size), **model_kwargs)
+        manifest = folds_lib.write_fold_manifests(resumed.model_dir, ids, list(np.asarray(classes)), tcfg.n_folds,
+                                                  tcfg.seed)[0]
+        dataset = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids)
+        fed_parts = []
+        t0 = time.perf_counter()
+        for stop in (every, steps):
+            fed_parts.append([])
+            with observe_prefetch(pipeline_lib, fed_parts[-1]):
+                resumed._train_fold(0, dataset, manifest, batch, stop)
+            if stop == every:
+                sidecar = os.path.join(resumed.model_dir, "fold0", "checkpoints", f"data_state-{every}.json")
+                check(os.path.exists(sidecar), f"no {sidecar} after a fold stopped at step {every}")
+                state = json.load(open(sidecar))
+                check(state["batch_index"] == every and state["seed"] == tcfg.seed, f"fold 0 sidecar {state}")
+        resume_s = time.perf_counter() - t0
+        check(fed_parts[0] == fed[:every], f"the fold stopped at step {every} was fed other batches than steps "
+              f"0-{every - 1}")
+        check(fed_parts[1] == fed[every:steps], f"the resumed fold was fed other batches than the uninterrupted "
+              f"fold's steps {every}-{steps - 1}")
+        results["resume_s"] = resume_s
+        log(f"train: fold 0 stopped at step {every} (data_state-{every}.json: {json.dumps(state)}) and resumed to "
+            f"{steps}: steps {every}-{steps - 1} fed the same {steps - every} batches (sha256 of images and masks) "
+            f"as the uninterrupted fold; both runs {resume_s:.3f} s [{card}]")
 
         # the train step learns: 10 steps on one fixed batch from a fresh state
         dataset = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids[:batch])
@@ -4021,6 +4131,200 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
     return out
 
 
+def class_images(n: int, shape, num_classes: int, seed: int):
+    """``n`` class-conditional uint8 images (pixels ~ N((k + 0.5) / K · 255,
+    40), the synthetic ImageFolder writer's recipe) and their labels."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, n)
+    images = [np.clip(rng.standard_normal(shape, dtype=np.float32) * np.float32(40.0)
+                      + np.float32((k + 0.5) / num_classes * 255.0), 0, 255).astype(np.uint8) for k in labels]
+    return images, [int(k) for k in labels]
+
+
+def fit_records_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = R50_BATCH,
+                      steps: int = R50_FIT_STEPS, n_images: int = FR_IMAGES, shards: int = FR_SHARDS,
+                      folder_per_class: int = 16, stop: int = FR_STOP):
+    """resnet50_classic_imagenet through ``fit_preset`` on record shards
+    (the main path of ``fit`` with data: the data service's default 2
+    workers), a stop at step ``stop`` and a resume, the service alone, then an
+    ImageFolder split. ``cfg`` and ``device="cpu"`` rehearse it small."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import imagefolder, records
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
+    from tensorflowdistributedlearning_tpu_torch.native import loader
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer, fit_preset
+
+    on_card = device == "cuda"
+    preset = configs.get_preset(R50_PRESET)
+    cfg = cfg or preset.model
+    tcfg = preset.train
+    per_step = PER_R50_TRAIN_STEP if on_card else {k: 0 for k in PER_R50_TRAIN_STEP}
+    per_fwd = PER_R50_FORWARD if on_card else {k: 0 for k in PER_R50_FORWARD}
+    shape = (*cfg.input_shape, cfg.input_channels)
+    out = {"decoder": loader.decoder()}
+    if out["decoder"] == "native":
+        log(f"fit-records: image decoder native (native/io.cc, {'PNG + JPEG' if loader.jpeg_available() else 'PNG'})")
+    else:
+        log("fit-records: image decoder png.py — native/io.cc did not build here (png.h / jpeglib.h missing), so "
+            "PNGs at the target size decode through data/png.py and a JPEG or a resize would raise")
+    check(tcfg.data_service_workers == 2, f"{R50_PRESET}: data_service_workers {tcfg.data_service_workers}")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fit-records-") as root, \
+            mock.patch.dict(configs.PRESETS, {R50_PRESET: dataclasses.replace(preset, model=cfg)}):
+        data = os.path.join(root, "records")
+        t0 = time.perf_counter()
+        images, labels = class_images(n_images, shape, cfg.num_classes, SEED + 51)
+        paths = records.write_classification_shards(data, images, labels, shards=shards)
+        write_s = time.perf_counter() - t0
+        check(all(os.path.exists(records.shard_index_path(p)) for p in paths), "a shard without its .idx sidecar")
+        check(records.count_records(paths) == n_images, "record count")
+        # shard 0 read back through the native reader decodes to the pixels written
+        blobs, rows = [], list(range(0, n_images, shards))
+        for i, payload in zip(rows, records.RecordStream(paths[:1])):
+            label, blob = records.decode_classification_record(payload)
+            check(label == labels[i], f"record {i}: label {label} != {labels[i]}")
+            blobs.append(blob)
+        decoded = loader.decode_image_blobs(blobs, cfg.input_shape, cfg.input_channels)
+        want = np.stack([images[i] for i in rows]).astype(np.float32) / np.float32(255.0)
+        check(np.array_equal(decoded, want), "records read back decode to other pixels than were written")
+        log(f"fit-records: wrote {n_images} class-conditional {shape[0]}x{shape[1]}x{shape[2]} images into {shards} "
+            f"record shards with .idx sidecars in {write_s:.3f} s ({sum(os.path.getsize(p) for p in paths) / 2**20:.1f} "
+            f"MiB); shard 0's {len(rows)} records decode ({out['decoder']}) to the pixels written")
+
+        overrides = dict(eval_holdout_fraction=FR_HOLDOUT)
+        trainer = ClassifierTrainer(os.path.join(root, "probe"), data, cfg, dataclasses.replace(tcfg, **overrides),
+                                    device=device)
+        train_paths = trainer._open_records("train", host_shard=False).paths
+        eval_paths = trainer._open_records("val").paths
+        n_eval = records.count_records(eval_paths)
+        check(len(eval_paths) == int(np.ceil(FR_HOLDOUT * shards)) and eval_paths == paths[-len(eval_paths):],
+              f"held-out shards {eval_paths}")
+        del trainer
+
+        # the main path: counts from 0 just before, read just after
+        ledger = LaunchLedger(kernels, step_lib)
+        valid_rows = []
+
+        def counting_eval():
+            """Wrap the eval step builder in place now to sum each batch's valid rows."""
+            current = step_lib.make_eval_step
+
+            def make(*args, **kwargs):
+                inner = current(*args, **kwargs)
+
+                def step(model, b):
+                    valid_rows.append(float(b["valid"].sum()))
+                    return inner(model, b)
+
+                return step
+
+            return mock.patch.object(step_lib, "make_eval_step", make)
+
+        fed, waits = [], []
+        with ledger.patch(), counting_eval(), observe_prefetch(pipeline_lib, fed, waits):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = fit_preset(R50_PRESET, os.path.join(root, "model"), data_dir=data, steps=steps,
+                                batch_size=batch, eval_every_steps=steps, device=device, **overrides)
+            if on_card:
+                torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        check(result.steps == steps and all(np.isfinite(v) for v in result.final_metrics.values()),
+              f"fit-records: {result}")
+        check(len(ledger.train) == steps and len(fed) == steps, f"fit-records: {len(ledger.train)} steps")
+        n_eval_batches = -(-n_eval // batch)
+        check(len(ledger.eval) == n_eval_batches and sum(valid_rows) == n_eval,
+              f"fit-records: {len(ledger.eval)} eval forwards over {sum(valid_rows)} valid rows, expected "
+              f"{n_eval_batches} over {n_eval}")
+        for i, delta in enumerate(ledger.train):
+            check(delta == per_step, f"fit-records step {i}: launches {delta}, expected {per_step}")
+        for i, delta in enumerate(ledger.eval):
+            check(delta == per_fwd, f"fit-records eval forward {i}: launches {delta}, expected {per_fwd}")
+        blocked = sum(b - a for a, b in waits)
+        loop_ips = (len(waits) - 2) * batch / (waits[-1][0] - waits[1][0]) if len(waits) > 2 else float("nan")
+        out.update(launches=counts, fit_s=fit_s, final_metrics=result.final_metrics, eval_valid_rows=sum(valid_rows),
+                   blocked_s=blocked, blocked_share=blocked / fit_s, loop_images_per_s=loop_ips)
+        log(f"fit-records: fit_preset {R50_PRESET} on {len(train_paths)} train shards ({n_images - n_eval} records), "
+            f"eval_holdout_fraction {FR_HOLDOUT} ({len(eval_paths)} shards, {n_eval} records), {steps} steps at batch "
+            f"{batch} through the data service's {tcfg.data_service_workers} workers, one eval, the best export: "
+            f"{fit_s:.3f} s wall; final {json.dumps(result.final_metrics)} [{card}]")
+        log(f"fit-records: {len(ledger.eval)} eval forwards over {sum(valid_rows):.0f} valid rows of "
+            f"{len(ledger.eval) * batch}, each launching {per_fwd['fused_bn_act_bf16_act']} bf16 BN + act; "
+            f"{len(ledger.train)} train steps launched none")
+        log(f"fit-records: train loop {loop_ips:.1f} images/s (host clock, batches 2-{len(waits) - 1}); the host "
+            f"waited {blocked:.3f} s on the next batch, {blocked / fit_s:.4f} of fit's wall time [{card}]")
+
+        # a run stopped at step 10 writes its sidecar; resumed, it draws the
+        # uninterrupted stream's batches 10-19
+        resumed_dir = os.path.join(root, "model-resumed")
+        parts = []
+        for until in (stop, steps):
+            parts.append([])
+            with observe_prefetch(pipeline_lib, parts[-1]):
+                fit_preset(R50_PRESET, resumed_dir, data_dir=data, steps=until, batch_size=batch,
+                           eval_every_steps=steps, device=device, **overrides)
+            if until == stop:
+                sidecar = os.path.join(resumed_dir, "checkpoints", f"data_state-{stop}.json")
+                check(os.path.exists(sidecar), f"no {sidecar} after a run stopped at step {stop}")
+                state = json.load(open(sidecar))
+                check(state["batch_index"] == stop and state["batch_size"] == batch, f"sidecar {state}")
+        check(parts[0] == fed[:stop] and parts[1] == fed[stop:],
+              f"the resumed run drew other batches than the uninterrupted stream's {stop}-{steps - 1}")
+        log(f"fit-records: stopped at step {stop} (data_state-{stop}.json: {json.dumps(state)}), resumed to "
+            f"{steps}: batches {stop}-{steps - 1} equal the uninterrupted stream's (sha256 of images, labels, valid)")
+
+        # the service alone: batches 0-3 do not depend on the worker count;
+        # the data path's rate with 1/2/4 workers, no model
+        out["service_images_per_s"] = {}
+        for workers in FR_WORKERS:
+            source = service_lib.ClassificationRecordSource(
+                train_paths, image_shape=cfg.input_shape, channels=cfg.input_channels, num_classes=cfg.num_classes)
+            service = service_lib.StreamingDataService(source, batch_size=batch, seed=tcfg.seed, workers=workers)
+            t0 = time.perf_counter()
+            got = [batch_digest(b) for b in service.batches(steps=FR_SERVICE_BATCHES)]
+            dt = time.perf_counter() - t0
+            check(got[:4] == fed[:4], f"service batches 0-3 with {workers} workers differ from fit's")
+            out["service_images_per_s"][workers] = FR_SERVICE_BATCHES * batch / dt
+            log(f"fit-records: data service alone, {workers} worker(s), {FR_SERVICE_BATCHES} batches of {batch} "
+                f"(read, {out['decoder']} decode, normalise): {FR_SERVICE_BATCHES * batch / dt:.1f} images/s; "
+                f"batches 0-3 equal fit's [{card}]")
+
+        # an ImageFolder split: 5 steps, one eval over val/
+        folder = os.path.join(root, "folder")
+        imagefolder.write_synthetic_imagefolder(os.path.join(folder, "train"), FR_FOLDER_CLASSES, folder_per_class * 3 // 4,
+                                                cfg.input_shape, cfg.input_channels, seed=SEED + 52)
+        imagefolder.write_synthetic_imagefolder(os.path.join(folder, "val"), FR_FOLDER_CLASSES, folder_per_class // 4,
+                                                cfg.input_shape, cfg.input_channels, seed=SEED + 53)
+        n_val = FR_FOLDER_CLASSES * (folder_per_class // 4)
+        folder_ledger = LaunchLedger(kernels, step_lib)
+        valid_rows.clear()
+        with folder_ledger.patch(), counting_eval():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fit_preset(R50_PRESET, os.path.join(root, "model-folder"), data_dir=folder, steps=FR_FOLDER_STEPS,
+                             batch_size=batch, eval_every_steps=FR_FOLDER_STEPS, device=device)
+            if on_card:
+                torch.cuda.synchronize()
+            folder_s = time.perf_counter() - t0
+            out["folder_launches"] = kernels.launch_counts()
+        check(res.steps == FR_FOLDER_STEPS and all(np.isfinite(v) for v in res.final_metrics.values()),
+              f"fit-records ImageFolder: {res}")
+        check(len(folder_ledger.train) == FR_FOLDER_STEPS and sum(valid_rows) == n_val,
+              f"ImageFolder: {len(folder_ledger.train)} steps, {sum(valid_rows)} valid eval rows")
+        for delta in folder_ledger.eval:
+            check(delta == per_fwd, f"ImageFolder eval forward: launches {delta}, expected {per_fwd}")
+        out["folder_s"] = folder_s
+        log(f"fit-records: ImageFolder train/ ({FR_FOLDER_CLASSES * (folder_per_class * 3 // 4)} images) and val/ "
+            f"({n_val}): {FR_FOLDER_STEPS} steps at batch {batch}, one eval over {sum(valid_rows):.0f} valid rows, "
+            f"{folder_s:.3f} s wall; final {json.dumps(res.final_metrics)} [{card}]")
+    return out
+
+
 @contextlib.contextmanager
 def cublas_deterministic():
     """cuBLAS's deterministic workspace for the duration (PyTorch's
@@ -4127,6 +4431,13 @@ def train_lars_phase(torch, card: str, device: str = "cuda", cfg=None, batch: in
 
 def main() -> int:
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def mark(phase: str) -> None:
+        """Log the wall time since the previous mark (the phase's, setup included)."""
+        marks.append(time.perf_counter())
+        log(f"phase {phase}: {marks[-1] - marks[-2]:.1f} s (at {marks[-1] - t_start:.1f} s)")
+
     try:
         import torch
     except ImportError as e:
@@ -4142,6 +4453,7 @@ def main() -> int:
         except ImportError as e:
             raise SmokeFailure(f"the port package is not importable from {os.getcwd()}: {e}")
         build()
+        mark("build")
         cfg = ModelConfig(use_pallas_depthwise=True)
         gen = torch.Generator().manual_seed(SEED)
         t0 = time.perf_counter()
@@ -4153,22 +4465,28 @@ def main() -> int:
         log(f"model: full-width ResNet-v2 + DeepLabV3+, {n_params} parameters, built in {time.perf_counter() - t0:.3f} s")
         timer = Timer(torch)
         rows = kernel_phase(torch, model, timer, card)
+        mark("kernels")
         for name, r in rows.items():
             earlier = f", earlier kernel {r['earlier_ms']:.4f} ms" if "earlier_ms" in r else ""
             log(f"{name}: {r['ms']:.4f} ms per forward at bucket {BUCKET} (plain {r['plain_ms']:.4f} ms, "
                 f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms{earlier}, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
         served = serve_phase(torch, model, cfg, card)
+        mark("serve")
         int8_counts, int8_rows = int8_phase(torch, model, cfg, card, timer)
+        mark("int8")
         rows.update(int8_rows)
         del model
         torch.cuda.empty_cache()
         vit_paths, vit_rows = vit_phase(torch, card, timer)
+        mark("vit")
         rows.update(vit_rows)
         torch.cuda.empty_cache()
         fitted = fit_vit_phase(torch, card)
+        mark("fit-vit")
         torch.cuda.empty_cache()
         vit_trained = vit_train_phase(torch, card, timer)
+        mark("train-vit")
         torch.cuda.empty_cache()
         rows["flash_attention"]["max_abs_err"] = max(rows["flash_attention"]["max_abs_err"],
                                                      vit_trained["attention_forward_err"])
@@ -4185,20 +4503,33 @@ def main() -> int:
         del train_model, images
         torch.cuda.empty_cache()
         rows.update(backward_phase(torch, calls, timer, card))
+        mark("backward")
         del calls
         torch.cuda.empty_cache()
         trained = train_phase(torch, card)
+        mark("train")
         torch.cuda.empty_cache()
         dp = dp_phase(torch, card, timer=timer)
+        mark("dp")
         torch.cuda.empty_cache()
         trained16 = train_bf16_phase(torch, card, timer)
+        mark("train-bf16")
         rows.update(trained16.pop("rows"))
         torch.cuda.empty_cache()
         fitted50 = fit_resnet50_phase(torch, card)
+        mark("fit-resnet50")
         rows["fused_bn_act_bf16_act"]["max_abs_err"] = max(rows["fused_bn_act_bf16_act"]["max_abs_err"],
                                                            fitted50["bn_held_err"])
         torch.cuda.empty_cache()
+        fit_records = fit_records_phase(torch, card)
+        mark("fit-records")
+        rates = "/".join(f"{v:.1f}" for v in fit_records["service_images_per_s"].values())
+        log(f"fit-records: the data path alone {rates} images/s at {'/'.join(map(str, FR_WORKERS))} workers, fit's "
+            f"train loop {fit_records['loop_images_per_s']:.1f}, the step on a resident batch "
+            f"{fitted50['images_per_s']:.1f} images/s (fit-resnet50) [{card}]")
+        torch.cuda.empty_cache()
         lars = train_lars_phase(torch, card)
+        mark("train-lars")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4210,7 +4541,8 @@ def main() -> int:
              "fit-vit": fitted["launches"], "train-vit": vit_trained["launches"],
              "train-bf16": trained16["launches"], "predict-bf16": trained16["predict_launches"],
              "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
-             "serve-resnet50": fitted50["serve_launches"], "train-lars": lars["launches"]}
+             "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
+             "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"]}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -4235,6 +4567,7 @@ def main() -> int:
                       "train_dp2": {k: v for k, v in dp["train-dp2"].items() if k not in ("launches", "held")},
                       "train_bf16": {k: v for k, v in trained16.items() if not k.endswith("launches")},
                       "fit_resnet50": {k: v for k, v in fitted50.items() if not k.endswith("launches")},
+                      "fit_records": {k: v for k, v in fit_records.items() if not k.endswith("launches")},
                       "train_lars": {k: v for k, v in lars.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
 ``cli.py``; the port carries ``train``, ``fit``, ``predict``, ``serve``,
-``convert`` and ``quantize-check``).
+``convert``, ``quantize-check`` and ``records-index``).
 
     python -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
@@ -9,6 +9,9 @@
         --data-dir DATA --model-dir MODEL_DIR --batch-size 256 --sync-bn
     python -m tensorflowdistributedlearning_tpu_torch fit \\
         --preset vit_s16_imagenet --model-dir MODEL_DIR --steps 1000 --batch-size 64 --export-serving
+    python -m tensorflowdistributedlearning_tpu_torch fit \\
+        --preset resnet50_classic_imagenet --data-dir RECORDS --model-dir MODEL_DIR --eval-holdout-fraction 0.1
+    python -m tensorflowdistributedlearning_tpu_torch records-index RECORDS
     python -m tensorflowdistributedlearning_tpu_torch predict \\
         --model-dir MODEL_DIR --test-dir TEST --n-fold 5 --output pred.npz --submission submission.csv
     python -m tensorflowdistributedlearning_tpu_torch predict \\
@@ -71,6 +74,7 @@ def cmd_train(args) -> int:
         eval_throttle_secs=args.eval_throttle_secs,
         n_devices=args.n_devices,
         sync_batch_norm=args.sync_bn,
+        **({} if args.data_workers is None else {"data_service_workers": args.data_workers}),
     )
     trainer = Trainer(
         args.model_dir,
@@ -97,9 +101,9 @@ def cmd_train(args) -> int:
 
 
 def cmd_fit(args) -> int:
-    """Classification training of a named preset (``train/fit.py``), on
-    synthetic data unless ``--data-dir`` holds data the port reads (none
-    yet: records and ImageFolder splits raise); rank 0 prints one JSON line
+    """Classification training of a named preset (``train/fit.py``) on the
+    record shards or ImageFolder split of ``--data-dir``, or on synthetic
+    data without one; rank 0 prints one JSON line
     with ``preset``, ``steps``, ``n_params``, ``final_metrics`` and, with
     ``--export-serving`` (single-process only), ``serving_artifact``."""
     from tensorflowdistributedlearning_tpu_torch.parallel import multihost
@@ -127,6 +131,8 @@ def cmd_fit(args) -> int:
         ema_decay=args.ema_decay,
         grad_clip_norm=args.grad_clip,
         grad_accum_steps=args.grad_accum,
+        eval_holdout_fraction=args.eval_holdout_fraction,
+        data_service_workers=args.data_workers,
     )
     summary = {"preset": args.preset, "steps": result.steps, "n_params": result.n_params,
                "final_metrics": result.final_metrics}
@@ -135,6 +141,34 @@ def cmd_fit(args) -> int:
     if multihost.is_main():
         print(json.dumps(summary))
     return 0
+
+
+def cmd_records_index(args) -> int:
+    """Write the ``.idx`` count/offset sidecar of every shard matching
+    ``--glob`` under the directory; prints one line per shard, then one
+    JSON line of totals."""
+    import glob
+
+    from tensorflowdistributedlearning_tpu_torch.data import records as records_lib
+
+    paths = sorted(glob.glob(os.path.join(args.data_dir, args.glob)))
+    if not paths:
+        print(f"no shards matching {args.glob!r} under {args.data_dir}", file=sys.stderr)
+        return 1
+    total = 0
+    for path in paths:
+        n = len(records_lib.write_shard_index(path))
+        total += n
+        print(f"{records_lib.shard_index_path(path)}: {n} record(s)")
+    print(json.dumps({"shards": len(paths), "records": total}))
+    return 0
+
+
+def _add_data_workers(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-workers", type=int, default=None,
+                   help="workers of the streaming data service (data/service.py) that read, decode and assemble "
+                   "the train batches; batch content does not depend on the count. 0 = the in-line streams "
+                   "(default: the config's, 2)")
 
 
 def _add_process_group(p: argparse.ArgumentParser) -> None:
@@ -362,15 +396,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "one device")
     t.add_argument("--sync-bn", action="store_true",
                    help="synchronized BatchNorm: training statistics over the global batch instead of per rank")
+    _add_data_workers(t)
     _add_process_group(t)
     t.set_defaults(fn=cmd_train)
 
-    f = sub.add_parser("fit", help="single-run classification training from a named preset (synthetic data)")
+    f = sub.add_parser("fit", help="single-run classification training from a named preset")
     f.add_argument("--preset", required=True)
     f.add_argument("--model-dir", required=True)
     f.add_argument("--data-dir", default=None,
-                   help="omitted: synthetic data; a directory with record shards or an ImageFolder split is "
-                   "refused until the port reads them")
+                   help="record shards ({split}-*.tfrecord) or an ImageFolder split (train/, val/); omitted: "
+                   "synthetic data")
     f.add_argument("--steps", type=int, default=100)
     f.add_argument("--batch-size", type=int, default=None, help="global batch (default: the preset's)")
     f.add_argument("--eval-every", type=int, default=None)
@@ -386,6 +421,10 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--grad-accum", type=int, default=None,
                    help="accumulate gradients over this many sequential microbatches per step (one optimizer "
                    "update on their mean; the per-rank batch must divide)")
+    f.add_argument("--eval-holdout-fraction", type=float, default=None,
+                   help="with record shards and no val split: hold out this fraction of train shards as the eval "
+                   "split")
+    _add_data_workers(f)
     f.add_argument("--export-serving", action="store_true",
                    help="after training, export the best state's serving artifact ({model_dir}/export/serving)")
     f.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",
@@ -458,6 +497,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "(normally a hard fail: the pair derives from different weights)")
     q.add_argument("--device", default=None, help="torch device; default cuda (no CPU fallback)")
     q.set_defaults(fn=cmd_quantize_check)
+
+    ri = sub.add_parser("records-index",
+                        help="write .idx count/offset sidecars for existing TFRecord shards (new shards get them "
+                        "from write_classification_shards)")
+    ri.add_argument("data_dir", help="directory holding *.tfrecord shards")
+    ri.add_argument("--glob", default="*.tfrecord", help="shard filename pattern (default: *.tfrecord)")
+    ri.set_defaults(fn=cmd_records_index)
     return p
 
 

@@ -187,12 +187,13 @@ class TrainConfig:
     and have no effect here: ``telemetry``, ``telemetry_memory_every_windows``,
     ``health_monitors`` and ``train_log_every_steps`` (the port logs through
     ``logging``; the ledger is queue A 13), ``dispatch_ahead_steps`` (eager
-    PyTorch already runs ahead of the device), ``async_checkpointing`` (saves
-    are synchronous), ``data_service_workers`` (the trainer feeds the
-    in-memory stream; the streaming service is queue A 14), and the
-    ``fit()``-only ``augmentation``, ``label_smoothing`` and
-    ``eval_holdout_fraction``. The knobs that would change what a run does
-    raise in :func:`require_supported_training`."""
+    PyTorch already runs ahead of the device) and ``async_checkpointing``
+    (saves are synchronous). ``data_service_workers`` (default 2) sets the
+    streaming data service's workers that feed ``Trainer.train``'s folds and
+    ``fit``'s record shards (0: the in-line streams); ``augmentation``,
+    ``label_smoothing`` and ``eval_holdout_fraction`` (the held-out share of
+    the train record shards) act in ``fit()`` only. The knobs that would
+    change what a run does raise in :func:`require_supported_training`."""
 
     data_format: str = "NHWC"
     optimizer: str = "adam"  # "adam" | "sgd" (Nesterov) | "lars"

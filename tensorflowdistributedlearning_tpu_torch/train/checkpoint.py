@@ -4,6 +4,7 @@ the JAX package's ``train/checkpoint.py``, which keeps Orbax managers).
 Layout under a fold directory:
 
     checkpoints/{step}/state.pt       periodic: model, optimizer, step, EMA
+    checkpoints/data_state-{step}.json  the data service's resume state
     export/best/{step}/state.pt       best-k: the eval view of the model
     export/best/{step}/metrics.json   the eval metrics it was ranked on
 
@@ -25,6 +26,7 @@ reads a half-written step. Every rank restores; the trainer then
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import os
@@ -151,6 +153,54 @@ class CheckpointManager:
                 ) from e
             return state
         return state
+
+    # -- the data service's resume state (sidecar) ---------------------------
+
+    def _data_state_path(self, step: int) -> str:
+        return os.path.join(self._ckpt_dir, f"data_state-{step}.json")
+
+    def save_data_state(self, step: int, state: Dict) -> None:
+        """Write the input stream's resume state (a ``DataServiceState`` JSON
+        dict, ``data/service.py``) beside the step's checkpoint, atomically;
+        rank 0 alone writes. Sidecars of steps no longer kept (and not
+        ``step``) are removed."""
+        if not self.writer:
+            return
+        path = self._data_state_path(step)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"step": int(step), **state}, f)
+        os.replace(tmp, path)
+        kept = set(self.all_steps())
+        for old in glob.glob(os.path.join(self._ckpt_dir, "data_state-*.json")):
+            try:
+                old_step = int(os.path.basename(old)[len("data_state-") : -len(".json")])
+            except ValueError:
+                continue
+            if old_step != step and old_step not in kept:
+                try:
+                    os.remove(old)
+                except OSError:
+                    pass
+
+    def restore_data_state(self, step: int) -> Optional[Dict]:
+        """The resume state saved with ``step``, or None when there is none
+        (a run without the service). A sidecar that does not parse, or parses
+        to something else, warns and gives None: the index-keyed stream's
+        state follows from the step alone."""
+        path = self._data_state_path(step)
+        try:
+            with open(path, encoding="utf-8") as f:
+                state = json.load(f)
+            if not isinstance(state, dict) or not {"seed", "batch_index"} <= state.keys():
+                raise ValueError(f"not a data_state sidecar: {state!r:.120}")
+            return state
+        except FileNotFoundError:
+            return None
+        except (OSError, ValueError) as e:
+            logger.warning("data-state sidecar for step %d is unreadable (%s) — deriving the stream state from "
+                           "the step instead", step, e)
+            return None
 
     # -- best export ------------------------------------------------------
 

@@ -4,8 +4,8 @@
 ``export_serving`` :1072, ``fit_preset`` :1126).
 
 One run, no folds, top-1 as the model-selection metric: resume from the
-latest checkpoint → the train loop (the index-keyed synthetic stream,
-prefetched to the device; on-device augmentation keyed by (seed, step);
+latest checkpoint → the train loop (the train stream below, prefetched to
+the device; on-device augmentation keyed by (seed, step);
 training-mode forward, softmax cross entropy, backward, one optimizer
 update) → a checkpoint every ``checkpoint_every_steps`` → an eval every
 ``eval_every_steps`` (default: the checkpoint cadence) with best-k export
@@ -23,14 +23,26 @@ the BN running statistics' mean where the model has BatchNorm, the metric
 sums), and rank 0 alone writes.
 Serving restores refuse to run under more than one rank.
 
-Input: only the synthetic stream is ported. ``data_dir=None``, or a
-directory without record shards and without an ImageFolder split, trains on
-``data/synthetic.py``'s index-keyed batches (batch i a pure function of
-(seed, i), so a resumed run sees what the uninterrupted run saw) and
-evaluates one pass of 4 synthetic batches (seed + 1). A directory that
-holds data the port cannot read yet raises, naming the queue item: record
-shards (``*.tfrecord``, queue A 4), an ImageFolder ``train/`` or ``val/``
-split (queue A 11). Left out of the loop, each a ROADMAP item: telemetry,
+Input, in the JAX package's order of preference (``data_dir`` may hold any
+of them; a stream is this rank's share):
+
+- record shards ``{data_dir}/train-*.tfrecord`` (``data/records.py``):
+  with ``data_service_workers`` > 0 (the default) through the streaming data
+  service (``data/service.py``; all shards, dealt per epoch, batch i a pure
+  function of (seed, i), a resume validating the checkpoint's sidecar and
+  replaying the exact remaining stream); with 0 through
+  ``ClassificationRecords`` (this rank's shards, the resume step folded into
+  the seed), which refuses a checkpoint that carries a service sidecar.
+  ``eval_holdout_fraction`` > 0 with no ``val-*.tfrecord`` holds out the
+  last ceil(fraction · n) sorted train shards as the eval split;
+- an ImageFolder split ``{data_dir}/train/{class}/*.png|jpg``
+  (``data/imagefolder.py``), the resume step folded into the seed;
+- otherwise ``data/synthetic.py``'s index-keyed batches.
+
+Eval: ``val`` record shards or ``{data_dir}/val/``, else the train records or
+folder (warned once: selection on train data), one ordered pass with
+``valid = 0`` padding and the batch count equal on every rank; else 4
+synthetic batches (seed + 1). Left out of the loop, each a ROADMAP item: telemetry,
 health monitors and the profiler (A 13), fault injection and preemption
 (A 14), dispatch-ahead (``async_loop``, A 11), and tensor, pipeline, expert
 and sequence parallelism (A 12, refused by ``require_supported_training``).
@@ -39,10 +51,10 @@ and sequence parallelism (A 12, refused by ``require_supported_training``).
 from __future__ import annotations
 
 import dataclasses
-import glob
 import logging
+import math
 import os
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +66,10 @@ from tensorflowdistributedlearning_tpu_torch.config import (
     validate_training_data_format,
 )
 from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+from tensorflowdistributedlearning_tpu_torch.data import imagefolder
 from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+from tensorflowdistributedlearning_tpu_torch.data import records as records_lib
+from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
 from tensorflowdistributedlearning_tpu_torch.data import synthetic as synthetic_lib
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
@@ -128,41 +143,122 @@ class ClassifierTrainer:
 
     # -- data -------------------------------------------------------------
 
-    def _require_synthetic(self) -> None:
-        """Refuse a ``data_dir`` that holds data the port cannot read yet:
-        the synthetic stream must never stand in for data that exists."""
-        d = self.data_dir
-        if d is None:
-            return
-        shards = glob.glob(os.path.join(d, "train-*.tfrecord")) + glob.glob(os.path.join(d, "val-*.tfrecord"))
-        if shards:
-            raise NotImplementedError(
-                f"{d} holds record shards ({os.path.basename(sorted(shards)[0])}, ...): fit() from records is not "
-                "ported yet (data/records.py, queue A 4 of ROADMAP.md)"
-            )
-        for split in ("train", "val"):
-            if os.path.isdir(os.path.join(d, split)):
-                raise NotImplementedError(
-                    f"{d}/{split} is an ImageFolder split: fit() from an ImageFolder is not ported yet "
-                    "(data/imagefolder.py, queue A 11 of ROADMAP.md)"
-                )
-
     def _synthetic(self, batch_size: int, seed: int, steps: int, **kw) -> Iterator[Dict[str, np.ndarray]]:
-        """The synthetic classification stream of this model's shapes, once
-        :meth:`_require_synthetic` has passed."""
-        self._require_synthetic()
+        """The synthetic classification stream of this model's shapes."""
         cfg = self.model_config
         return synthetic_lib.synthetic_batches(
             "classification", batch_size, seed=seed, steps=steps, input_shape=cfg.input_shape,
             channels=cfg.input_channels, num_classes=cfg.num_classes, **kw,
         )
 
-    def _train_stream(self, batch_size: int, steps: int, start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """This rank's train batches from ``start_step`` on: index-keyed
-        synthetic batches (seed ``seed + rank``)."""
+    def _holdout_partition(self, paths):
+        """``(train_paths, heldout_paths)`` under ``eval_holdout_fraction``:
+        the last ceil(fraction · n) sorted shards (at least one) are the eval
+        split, the same on every rank."""
+        frac = self.train_config.eval_holdout_fraction
+        if frac <= 0:
+            return list(paths), []
+        n_hold = max(1, math.ceil(frac * len(paths)))
+        if n_hold >= len(paths):
+            raise ValueError(
+                f"eval_holdout_fraction={frac} would hold out {n_hold} of {len(paths)} train record shard(s), "
+                "leaving none to train on; write more shards or lower the fraction"
+            )
+        return list(paths[:-n_hold]), list(paths[-n_hold:])
+
+    def _open_records(self, split: str, host_shard: bool = True) -> Optional[records_lib.ClassificationRecords]:
+        """The record source of ``split`` (``{data_dir}/{split}-*.tfrecord``),
+        or None when there are no such shards. With
+        ``eval_holdout_fraction`` > 0 and no ``val`` shards, ``train`` leaves
+        out the held-out shards and ``val`` is them. ``host_shard`` keeps
+        this rank's round-robin shards; the data service takes them all and
+        deals them per epoch."""
+        if self.data_dir is None:
+            return None
+        cfg = self.model_config
+
+        def open_split(glob_split):
+            try:
+                return records_lib.ClassificationRecords(
+                    self.data_dir, split=glob_split, image_shape=cfg.input_shape, channels=cfg.input_channels,
+                    num_classes=cfg.num_classes,
+                )
+            except ValueError:  # no shards for this split
+                return None
+
+        ds = open_split(split)
+        if self.train_config.eval_holdout_fraction > 0 and open_split("val") is None:
+            if split == "train" and ds is not None:
+                ds.paths, _ = self._holdout_partition(ds.paths)
+            elif split == "val":
+                ds = open_split("train")
+                if ds is not None:
+                    _, ds.paths = self._holdout_partition(ds.paths)
+        if ds is None or not host_shard:
+            return ds
+        n_shards = len(ds.paths)
+        ds.paths = records_lib.host_shard_paths(ds.paths)
+        if not ds.paths:
+            raise ValueError(
+                f"{split} has {n_shards} record shard(s) for {multihost.process_count()} processes — every process "
+                "needs at least one; re-shard the dataset (write_classification_shards(shards>=process_count))"
+            )
+        return ds
+
+    def _open_split(self, split: str) -> Optional[imagefolder.ImageFolder]:
+        """The ImageFolder split ``{data_dir}/{split}``, or None."""
+        if self.data_dir is None:
+            return None
+        root = os.path.join(self.data_dir, split)
+        if not os.path.isdir(root):
+            return None
+        cfg = self.model_config
+        ds = imagefolder.ImageFolder(root, cfg.input_shape, channels=cfg.input_channels)
+        if ds.num_classes > cfg.num_classes:
+            raise ValueError(f"{root} has {ds.num_classes} classes but the model has num_classes={cfg.num_classes}")
+        return ds
+
+    def _train_stream(
+        self, batch_size: int, steps: int, start_step: int = 0, resume_state: Optional[Dict] = None
+    ) -> Tuple[Iterator[Dict[str, np.ndarray]], Optional[service_lib.StreamingDataService]]:
+        """This rank's train batches from ``start_step`` on, and the data
+        service feeding them (None when another stream does; the caller
+        closes it). ``resume_state`` is the checkpoint's service sidecar."""
+        tcfg = self.train_config
         local_bs = multihost.per_process_batch_size(batch_size)
-        return self._synthetic(local_bs, self.train_config.seed + multihost.process_index(), steps,
-                               start_index=start_step, index_keyed=True)
+        # the streams without an index key fold the resume point into their
+        # seed, so a resumed run does not replay the first batches
+        seed = tcfg.seed + multihost.process_index() + 7919 * start_step
+        use_service = tcfg.data_service_workers > 0
+        records_ds = self._open_records("train", host_shard=not use_service)
+        if records_ds is not None:
+            if use_service:
+                cfg = self.model_config
+                service = service_lib.StreamingDataService(
+                    service_lib.ClassificationRecordSource(
+                        records_ds.paths, image_shape=cfg.input_shape, channels=cfg.input_channels,
+                        num_classes=cfg.num_classes,
+                    ),
+                    batch_size=local_bs, seed=tcfg.seed, workers=tcfg.data_service_workers, start_batch=start_step,
+                    resume_state=resume_state,
+                )
+                if service.redeal is not None:
+                    self._log("the data service re-deals across a world resize: %s", service.redeal)
+                return service.batches(steps=steps), service
+            if resume_state is not None:
+                raise ValueError(
+                    "this checkpoint carries a data-service resume sidecar but data_service_workers=0 selects the "
+                    "legacy stream — resuming would silently replay or skip training data; resume with "
+                    "--data-workers >= 1 (any count: batch content is worker-invariant)"
+                )
+            return records_ds.batches(local_bs, seed=seed, steps=steps), None
+        train_split = self._open_split("train")
+        if train_split is not None:
+            # geometry runs on the device (_prepare_train): the host decodes and normalises
+            return imagefolder.train_batches(train_split.host_shard(), local_bs, seed=seed, steps=steps,
+                                             augment=False), None
+        return self._synthetic(local_bs, tcfg.seed + multihost.process_index(), steps, start_index=start_step,
+                               index_keyed=True), None
 
     def _prepare_train(self, step: int, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """On-device augmentation under ``TrainConfig.augmentation``, drawn
@@ -200,14 +296,15 @@ class ClassifierTrainer:
 
     def fit(self, batch_size: int = 64, steps: int = 10_000, eval_every_steps: Optional[int] = None) -> FitResult:
         """Train to ``steps`` (global ``batch_size``) with periodic
-        checkpoints, evals and best export; resumes from the latest
-        checkpoint, and a run already at ``steps`` only evaluates.
-        ``eval_every_steps`` defaults to ``TrainConfig.eval_every_steps``,
-        then to ``checkpoint_every_steps``."""
+        checkpoints (each with the data service's sidecar), evals and best
+        export; resumes from the latest checkpoint, and a run already at
+        ``steps`` only evaluates. ``eval_every_steps`` defaults to
+        ``TrainConfig.eval_every_steps``, then to ``checkpoint_every_steps``."""
         tcfg = self.train_config
         validate_training_data_format(tcfg)
-        self._require_synthetic()
         multihost.per_process_batch_size(batch_size)  # fail fast, clear message
+        # a layout fault of the eval split shows now, not at the first eval
+        self._open_records("val")
         eval_every = eval_every_steps or tcfg.eval_every_steps or tcfg.checkpoint_every_steps
         ckpt = self._checkpointer()
         state = replicate(ckpt.restore_latest(self._init_state()))
@@ -217,16 +314,34 @@ class ClassifierTrainer:
             return FitResult(self._evaluate(state, batch_size), self.params, start_step)
         if start_step > 0:
             self._log("resumes at step %d", start_step)
+        resume_state = ckpt.restore_data_state(start_step) if start_step > 0 else None
+        stream, service = self._train_stream(batch_size, steps - start_step, start_step, resume_state)
+        try:
+            return self._fit_loop(state, ckpt, stream, service, batch_size, eval_every)
+        finally:
+            if service is not None:
+                service.close()
+
+    def _fit_loop(self, state: TrainState, ckpt: CheckpointManager, stream, service, batch_size: int,
+                  eval_every: int) -> FitResult:
+        """The steps from ``state.step`` to the stream's end: each step, its
+        checkpoint (with the service's sidecar) and eval on their cadence,
+        then the final checkpoint and eval."""
+        tcfg = self.train_config
         train_step = step_lib.make_train_step(
             self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
             accum=tcfg.grad_accum_steps,
         )
         batches = pipeline_lib.device_prefetch(
-            self._train_stream(batch_size, steps - start_step, start_step),
-            lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth,
+            stream, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth
         )
+
+        def save_sidecar(step: int) -> None:
+            if service is not None:
+                ckpt.save_data_state(step, service.state(step).to_json())
+
         lr_sched = step_lib.make_host_lr_schedule(tcfg)
-        step_no = start_step
+        step_no = state.step
         last_eval_step = -1
         final_metrics: Dict[str, float] = {}
         window = None
@@ -237,32 +352,79 @@ class ClassifierTrainer:
             if step_no % tcfg.train_log_every_steps == 0:
                 self._log("step %d: %s lr %.6g", step_no, step_lib.compute_metrics(window), lr_sched(step_no))
                 window = None
-            ckpt.maybe_save(state, step=step_no)
+            if ckpt.maybe_save(state, step=step_no):
+                save_sidecar(step_no)
             if step_no % eval_every == 0:
                 last_eval_step = step_no
                 final_metrics = self._evaluate(state, batch_size)
                 ckpt.export_best(state, final_metrics)
         ckpt.save(state)
+        save_sidecar(step_no)
         if last_eval_step != step_no:
             final_metrics = self._evaluate(state, batch_size)
             ckpt.export_best(state, final_metrics)
         return FitResult(final_metrics, self.params, step_no)
 
     def _evaluate(self, state: TrainState, batch_size: int) -> Dict[str, float]:
-        """One eval pass of the eval view (EMA parameters when tracked): 4
-        synthetic batches of the per-process size from ``seed + 1``, every
-        row valid; metrics summed over the ranks."""
+        """One eval pass of the eval view (EMA parameters when tracked): the
+        ``val`` records or folder, else the train records or folder (warned
+        once), each one ordered pass with ``valid = 0`` padding and the same
+        batch count on every rank; else 4 synthetic batches of the
+        per-process size from ``seed + 1``. Metrics are summed over the
+        ranks."""
         local_bs = multihost.per_process_batch_size(batch_size)
+        val_folder = self._open_split("val")
+        eval_records = self._open_records("val")
+        if eval_records is None and val_folder is None:
+            eval_records = self._open_records("train")
+            if eval_records is not None:
+                self._warn_eval_on_train("train record shards")
+        if eval_records is not None:
+            return self._evaluate_records(state, eval_records, local_bs)
+        eval_split = val_folder
+        if eval_split is None:
+            eval_split = self._open_split("train")
+            if eval_split is not None:
+                self._warn_eval_on_train("the train ImageFolder split")
+        if eval_split is None:
+            batches = (dict(b, valid=np.ones(local_bs, np.float32))
+                       for b in self._synthetic(local_bs, self.train_config.seed + 1, EVAL_SYNTHETIC_BATCHES))
+        else:
+            num = multihost.eval_num_batches(len(eval_split), local_bs)
+            batches = imagefolder.eval_batches(eval_split.host_shard(), local_bs, num_batches=num)
+        return self._eval_pass(state, batches)
+
+    def _evaluate_records(self, state: TrainState, ds: records_lib.ClassificationRecords,
+                          local_bs: int) -> Dict[str, float]:
+        """One ordered pass over this rank's record shards, extended to the
+        largest batch count of any rank by wrap-around rows with
+        ``valid = 0``."""
+        num = multihost.all_processes_max_batches(records_lib.count_records(ds.paths), local_bs)
+        return self._eval_pass(state, ds.batches(local_bs, repeat=False, pad_to_batches=num))
+
+    def _eval_pass(self, state: TrainState, batches: Iterator[Dict[str, np.ndarray]]) -> Dict[str, float]:
+        """Accumulate the eval step's metrics over ``batches`` (rows weighted
+        by ``valid``); one device-to-host copy per pass."""
         eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
         acc = None
         with state.eval_params() as model:
-            for raw in self._synthetic(local_bs, self.train_config.seed + 1, EVAL_SYNTHETIC_BATCHES):
-                batch = pipeline_lib.to_device(dict(raw, valid=np.ones(local_bs, np.float32)), self.device)
-                acc = step_lib.merge_metrics(acc, eval_step(model, batch))
+            for raw in batches:
+                acc = step_lib.merge_metrics(acc, eval_step(model, pipeline_lib.to_device(raw, self.device)))
         state.model.train()
         result = step_lib.compute_metrics(acc)
         self._log("eval @ %d: %s", state.step, result)
         return result
+
+    def _warn_eval_on_train(self, source: str) -> None:
+        """Once per trainer: selection on train data overestimates."""
+        if getattr(self, "_warned_eval_on_train", False):
+            return
+        self._warned_eval_on_train = True
+        logger.warning(
+            "no val split found — eval (and best-checkpoint selection) is running on %s; metrics/top1 will "
+            "overestimate generalization. Provide val-*.tfrecord shards / a val/ folder, or set "
+            "TrainConfig.eval_holdout_fraction to carve one out of the train record shards.", source,
+        )
 
     # -- serving ----------------------------------------------------------
 
@@ -334,7 +496,8 @@ def fit_preset(
     """Train a named classification preset (the ``fit`` command).
     ``overrides`` are ``TrainConfig`` fields (``optimizer``, ``lr``,
     ``augmentation``, ``ema_decay``, ``grad_clip_norm``,
-    ``grad_accum_steps``, ...); None keeps
+    ``grad_accum_steps``, ``eval_holdout_fraction``,
+    ``data_service_workers``, ...); None keeps
     the preset's value, and a knob the port does not run yet raises
     ``NotImplementedError`` from ``require_supported_training``. Swapping
     the optimizer needs an explicit ``lr`` (preset learning rates are tuned

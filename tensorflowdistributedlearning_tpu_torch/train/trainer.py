@@ -8,7 +8,8 @@ auto-resume from the fold's latest checkpoint → the train loop (shuffled
 in-memory batches, pinned-memory prefetch to the device, on-device
 augmentation + Laplacian channel, training-mode forward, per-image Lovász
 hinge, backward, optimizer update) → periodic checkpoints every
-``checkpoint_every_steps`` → eval every ``eval_every_steps`` (or, without
+``checkpoint_every_steps``, each with the data service's resume sidecar →
+eval every ``eval_every_steps`` (or, without
 it, when a checkpoint lands and ``eval_throttle_secs`` have passed) with
 best-k export on ``metrics/mean_iou`` → the final checkpoint, eval and
 export. A fold already trained to ``steps`` is evaluated and not trained
@@ -28,14 +29,17 @@ rank holds the global metrics and takes the same export decision. Rank 0
 alone writes files and logs; prediction and serving refuse to run
 multi-process, as in the JAX package.
 
+The fold's train batches: with ``TrainConfig.data_service_workers`` > 0
+(the default, 2) the streaming data service over the fold's arrays
+(``data/service.py``, ``ArrayBatchSource``, seed ``seed + fold``): batch i
+is a pure function of (seed + fold, i), the JAX package's batch i, and a
+resumed fold validates the checkpoint's sidecar and replays the exact
+remaining stream. ``data_service_workers=0`` feeds ``pipeline.train_batches``
+with the resume step folded into its seed, as the JAX package does then.
+
 Not in this slice, each a named ROADMAP item: the telemetry ledger, health
-monitors and TensorBoard image summaries (queue A 13), the async host loop,
-the streaming data service,
-fault injection and preemption handling (queue A 14).
-``TrainConfig.data_service_workers`` is accepted whatever its value: the
-trainer always feeds the in-memory stream
-(``pipeline.train_batches``, with the resume step folded into its seed, the
-JAX package's ``data_service_workers=0`` path).
+monitors and TensorBoard image summaries (queue A 13), the async host loop
+(queue A 11), fault injection and preemption handling (queue A 14).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from tensorflowdistributedlearning_tpu_torch.config import (
 from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
 from tensorflowdistributedlearning_tpu_torch.data import folds as folds_lib
 from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
@@ -225,18 +230,52 @@ class Trainer:
             self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
             accum=tcfg.grad_accum_steps,
         )
-        batches = pipeline_lib.train_batches(
-            train_ds, local_bs, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step
-        )
+        service = None
+        if tcfg.data_service_workers > 0:
+            service = service_lib.StreamingDataService(
+                # the arrays are this rank's shard for this world size: the
+                # sidecar records it, so a resume under another world size
+                # re-deals explicitly
+                service_lib.ArrayBatchSource(
+                    {"images": train_ds.images, "masks": train_ds.masks}, process_count=multihost.process_count()
+                ),
+                batch_size=local_bs, seed=tcfg.seed + fold, workers=tcfg.data_service_workers,
+                start_batch=start_step,
+                resume_state=ckpt.restore_data_state(start_step) if start_step > 0 else None,
+            )
+            if service.redeal is not None:
+                self._log("fold %d: the data service re-deals across a world resize: %s", fold, service.redeal)
+            batches = service.batches(steps=steps - start_step)
+        else:
+            batches = pipeline_lib.train_batches(
+                train_ds, local_bs, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step
+            )
+        try:
+            return self._train_loop(fold, state, ckpt, train_step, batches, service, eval_ds, local_bs,
+                                    eval_global_n)
+        finally:
+            if service is not None:
+                service.close()
+
+    def _train_loop(self, fold, state, ckpt, train_step, batches, service, eval_ds, local_bs, eval_global_n):
+        """The fold's steps from its resume point: each step, its checkpoint
+        (with the service's sidecar) and eval on their cadence, then the
+        final checkpoint, eval and export."""
+        tcfg = self.train_config
         batches = pipeline_lib.device_prefetch(
             batches, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth
         )
+
+        def save_sidecar(step: int) -> None:
+            if service is not None:
+                ckpt.save_data_state(step, service.state(step).to_json())
+
         lr_sched = step_lib.make_host_lr_schedule(tcfg)
         last_eval_time = 0.0
         last_eval_step = -1
         final_metrics: Dict[str, float] = {}
         window = None
-        step_no = start_step
+        step_no = state.step
         for raw in batches:
             batch = self._prepare_train(fold, step_no, raw)
             state, metrics = train_step(state, batch)
@@ -248,6 +287,8 @@ class Trainer:
                 )
                 window = None
             saved = ckpt.maybe_save(state, step=step_no)
+            if saved:
+                save_sidecar(step_no)
             if tcfg.eval_every_steps:
                 due = step_no % tcfg.eval_every_steps == 0
             else:
@@ -259,6 +300,7 @@ class Trainer:
                 final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
                 ckpt.export_best(state, final_metrics)
         ckpt.save(state)
+        save_sidecar(step_no)
         if last_eval_step != step_no:
             final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
             ckpt.export_best(state, final_metrics)

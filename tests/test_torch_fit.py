@@ -198,15 +198,22 @@ def test_resume_is_the_uninterrupted_run_bit_for_bit(tmp_path):
 
 
 def test_data_the_port_cannot_read_yet_is_refused(tmp_path):
+    """Record shards and ImageFolder splits are read since the records slice
+    (queue A 4, and the data half of queue A 11); data that neither package
+    can train on raises the JAX package's error: a record shard with no
+    record, an ImageFolder split with no image."""
     cfg = ModelConfig(**TINY)
     records = tmp_path / "records"
     records.mkdir()
     (records / "train-00000-of-00001.tfrecord").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="queue A 4"):
+    with pytest.raises(ValueError, match="zero records"):
         tfit.ClassifierTrainer(str(tmp_path / "m1"), str(records), cfg, device="cpu").fit(batch_size=8, steps=1)
+    with pytest.raises(ValueError, match="zero records"):
+        jfit.ClassifierTrainer(str(tmp_path / "j1"), str(records), jconfig.ModelConfig(**TINY),
+                               jconfig.TrainConfig(telemetry=False)).fit(batch_size=8, steps=1)
     folder = tmp_path / "folder"
     (folder / "train" / "class000").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="queue A 11"):
+    with pytest.raises(ValueError, match="No .png/.jpg/.jpeg files"):
         tfit.ClassifierTrainer(str(tmp_path / "m2"), str(folder), cfg, device="cpu").fit(batch_size=8, steps=1)
     # a directory with neither trains on the synthetic stream, as JAX does
     empty = tmp_path / "empty"

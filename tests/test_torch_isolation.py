@@ -92,3 +92,30 @@ def test_cuda_tests_are_marked_and_skip_with_a_reason():
     out = proc.stdout
     assert "skipped" in out and "passed" not in out.split("skipped")[-1].split("\n")[0], out[-2000:]
     assert "needs an NVIDIA GPU" in out, out[-2000:]
+
+
+def test_native_build_reads_only_the_ports_sources(tmp_path, monkeypatch):
+    """``native/loader.py`` compiles ``native/*.cc`` of the port's package
+    and nothing else: every source argument of every ``g++`` call lies
+    there."""
+    from tensorflowdistributedlearning_tpu_torch.native import loader
+
+    calls = []
+
+    def fake_run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "refused by the test")
+
+    monkeypatch.setenv("TFDL_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(loader.subprocess, "run", fake_run)
+    monkeypatch.setattr(loader, "_libs", {})
+    assert loader.io_library() is None and loader.decoder() == "png.py"
+    with pytest.raises(RuntimeError, match="records.cc did not build"):
+        loader.records_library()
+    assert len(calls) == len(loader.IO_VARIANTS) + 1
+    native = os.path.join(PKG, "native")
+    for cmd in calls:
+        sources = [a for a in cmd if a.endswith((".cc", ".cpp", ".c", ".h"))]
+        assert len(sources) == 1 and os.path.dirname(sources[0]) == native, cmd
+        assert not any("tensorflowdistributedlearning_tpu/" in a for a in cmd), cmd
+    assert set(os.listdir(native)) - {"__pycache__"} == {"__init__.py", "io.cc", "loader.py", "records.cc"}

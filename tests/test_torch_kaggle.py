@@ -117,7 +117,9 @@ def test_training_script_trains_every_fold_and_writes_the_submission(driven):
     assert len(summary["folds"]) == 2 and summary["n_params"] > 0
     assert all(np.isfinite(v) for fold in summary["folds"] for v in fold.values())
     for fold in range(2):
-        assert os.listdir(os.path.join(driven["model_dir"], f"fold{fold}", "checkpoints")) == ["2"]
+        # the step and, beside it, the data service's resume sidecar (as the JAX package writes it)
+        assert sorted(os.listdir(os.path.join(driven["model_dir"], f"fold{fold}", "checkpoints"))) == \
+            ["2", "data_state-2.json"]
     assert sub == {"submission": driven["submission"], "n": 6}
     with open(driven["submission"]) as f:
         rows = list(csv.reader(f))
