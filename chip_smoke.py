@@ -46,6 +46,38 @@ Phases, each fatal on failure (exit 1, no result line):
              equal where |p - 0.5| >= 1e-5), and checks that the served
              forwards launched 3 depthwise, 59 BN+act and 1 sigmoid-mask
              kernels each.
+   serve-obs — the serve tier's observability on the same model: the
+             float32 artifact and its bfloat16 spec, each stamped with its
+             drift baseline on the card (a segmenter has no class output, so
+             the drift monitor declines it, as in the JAX package: the
+             fit-resnet50 phase serves the monitor), served as two tenants
+             of one registry.json. First without telemetry, then with a
+             ledger, tracing at rate 1.0, an SLO, the capture tee and
+             windows emitted by hand: a fixed request script over both
+             tenants (a 413, a malformed 400, a 429 from a held full queue,
+             x-request-id echoed), the bucket-1 p50 over HTTP and the
+             8-client closed-loop requests/s with telemetry off and on
+             (fixed windows in the order off, on, on, off; the gap against
+             the spread of each pair),
+             /admin/profile?seconds=1 under load, an SLO target that holds,
+             then one that is breached (health_alert, /healthz degraded, a
+             postmortem capture), then recovered (ok). Checks the ledger
+             (run_header, serve_start, serve_window counters equal to the
+             script's per tenant, cost and memory_watermark events with
+             bytes_in_use, the alerts, run_end), each sampled request's
+             request span with queue_wait / pad / compute under it linked
+             to a batch span, Prometheus counters equal to the JSON
+             /metrics, the capture holding device kernels of depthwise,
+             BN + act and sigmoid-mask, the later postmortem capture (on
+             another thread) device kernels too, no profiler error, the capture
+             shards read back bit for bit, responses bit for bit their
+             engine batch's rows, and the launches per forward of each
+             tenant (3 depthwise, 1 sigmoid-mask and 59 BN + act: folded
+             float32 or, in the bfloat16 tenant, with bf16 parameters).
+             Beside it a `serve` process (the command, --prewarm-buckets 2,
+             --inject-fault sigkill@3): a cold bucket-16 hit counted as a
+             post-warmup first run, and the process killed after its third
+             answer.
 5. int8    — exports float32 and int8-compute artifacts of the same model
              and serves the latter through the engine (buckets 1/4/16/64)
              and over HTTP; checks 52 int8_conv2d, 3 depthwise, 59 BN+act
@@ -234,8 +266,12 @@ Phases, each fatal on failure (exit 1, no result line):
              their init and every softmax saturated): each of the 52 BN
              calls of its eval forward at batch 64 held bit for bit against
              the plain version, its float32 export through the engine
-             (buckets 1/16/64) and HTTP (1 and 4 instances) with 52 bf16 BN
-             launches per forward, its bfloat16 spec through the engine
+             (buckets 1/16/32/64) and HTTP (1 and 4 instances) with 52 bf16 BN
+             launches per forward, its drift baseline stamped on the card and
+             the served classes scored against it by the server's drift
+             monitor (the stamp's own pinned batch, served in the engine's
+             bucket 32 as the stamp ran it, must score 0 and leave the
+             monitor healthy), its bfloat16 spec through the engine
              against its plain forward and the float32 spec, and the step
              on a resident batch.
    fit-records — resnet50_classic_imagenet (full width and depth, bf16)
@@ -281,6 +317,7 @@ import tempfile
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -451,6 +488,10 @@ R50_CALIBRATION_BATCHES = 4
 # spec at a reduced size on the CPU, where the port's bf16 spec is JAX's
 # within 1e-4 (tests/test_torch_resnet_classifier.py)
 TOL_R50_BF16_SPEC = 1.0
+# drift score of the stamp's own pinned batch served back at the stamp's
+# batch shape (the engine's bucket 32): the stamp's classes exactly (padded
+# into bucket 64, bf16 numerics moved 4 of the 32 classes on the H100)
+DRIFT_OWN_INPUTS_MAX = 0.0
 LARS_STEPS = 5
 # fit-records: resnet50_classic_imagenet through fit_preset on record shards
 # written from the seed (768 class-conditional 224x224 images, 16 shards, 2
@@ -1012,6 +1053,491 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
                   f"{name}: {counts[name]} launches for {forwards} forwards, expected {per} each")
         results["launches"] = counts
     return results
+
+
+# -- serve tier observability ----------------------------------------------------
+
+OBS_REQUESTS = 20  # per SLO window: the tracker's min_requests
+OBS_CLIENTS = 8
+OBS_SEQUENTIAL_S = 4.0  # bucket-1 requests one at a time, seconds per arm
+OBS_LOOP_S = 8.0  # closed-loop clients, seconds per arm
+
+
+def post_raw(url: str, body: bytes, headers=None, timeout: float = 300.0):
+    """POST raw bytes; (status, headers, JSON body)."""
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def get_url(url: str, headers=None, timeout: float = 60.0):
+    req = urllib.request.Request(url, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def http_load(url: str, x, clients: int = OBS_CLIENTS) -> dict:
+    """One arm of the telemetry off/on comparison, in fixed windows: bucket-1
+    requests one at a time for OBS_SEQUENTIAL_S (their latencies, ms), then
+    ``clients`` closed-loop clients for OBS_LOOP_S (completions over the
+    wall time until the last answer)."""
+    body = json.dumps({"instances": x}).encode()
+    lat = []
+    t_end = time.perf_counter() + OBS_SEQUENTIAL_S
+    while time.perf_counter() < t_end:
+        t0 = time.perf_counter()
+        check(post_raw(url, body)[0] == 200, "bucket-1 request failed")
+        lat.append((time.perf_counter() - t0) * 1e3)
+    stop_t = time.perf_counter() + OBS_LOOP_S
+
+    def client(_):
+        statuses = []
+        while time.perf_counter() < stop_t:
+            statuses.append(post_raw(url, body)[0])
+        return statuses
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        statuses = sum(pool.map(client, range(clients)), [])
+    rps = len(statuses) / (time.perf_counter() - t0)
+    check(all(s == 200 for s in statuses), f"closed-loop statuses {sorted(set(statuses))}")
+    return {"lat_ms": lat, "p50_ms": statistics.median(lat), "rps": rps, "requests": len(lat) + len(statuses)}
+
+
+def off_on_gap(off, on) -> dict:
+    """The on-minus-off gap of two off and two on readings, beside the
+    spread of each pair (the host's drift within one call): the gap is
+    resolved only when it exceeds the larger spread."""
+    gap = statistics.mean(on) - statistics.mean(off)
+    bound = max(abs(off[0] - off[1]), abs(on[0] - on[1]))
+    return {"off": [round(v, 3) for v in off], "on": [round(v, 3) for v in on], "gap": round(gap, 3),
+            "spread_off": round(abs(off[0] - off[1]), 3), "spread_on": round(abs(on[0] - on[1]), 3),
+            "resolved": abs(gap) > bound}
+
+
+def keepalive_posts(url: str, body: bytes, n: int):
+    """``n`` POSTs on one HTTP/1.1 connection, then a GET on it: the server
+    answers a connection's requests in order and accounts a request's latency
+    (its SLO sample) after answering it, so when the GET answers, all ``n``
+    are in the server's window."""
+    import http.client
+
+    u = urllib.parse.urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=300)
+    statuses = []
+    try:
+        for _ in range(n):
+            conn.request("POST", u.path, body=body, headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            r.read()
+            statuses.append(r.status)
+        conn.request("GET", "/healthz")
+        conn.getresponse().read()
+    finally:
+        conn.close()
+    return statuses
+
+
+def spawn_fault_drill(root: str, artifact: str, device: str = "cuda"):
+    """A `serve` process of the command: the artifact at buckets 1/4/16/64
+    with only 1 and 4 warm, ledger windows every 0.5 s, killed after its
+    third answered request."""
+    out = open(os.path.join(root, "drill.out"), "w")
+    err = open(os.path.join(root, "drill.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", PKG, "serve", "--artifact-dir", artifact, "--port", "0", "--workdir",
+         os.path.join(root, "drill"), "--prewarm-buckets", "2", "--window-secs", "0.5", "--trace-sample-rate", "1.0",
+         "--inject-fault", "sigkill@3", *(["--device", device] if device != "cuda" else [])],
+        stdout=out, stderr=err, cwd=os.getcwd())
+    return proc, out, err
+
+
+def fault_drill(torch, proc, root: str, x1, x16):
+    """Drive the drill: bucket 1, a cold bucket 16, bucket 1 (the kill)."""
+    deadline = time.monotonic() + 300
+    ready = None
+    while ready is None and time.monotonic() < deadline and proc.poll() is None:
+        with open(os.path.join(root, "drill.out")) as f:
+            line = f.readline()
+        if line.strip():
+            ready = json.loads(line)
+        else:
+            time.sleep(0.2)
+    if ready is None:
+        with open(os.path.join(root, "drill.err")) as f:
+            tail = f.read()[-3000:]
+        raise SmokeFailure(f"serve-obs: the serve process did not come up (rc {proc.poll()}): {tail}")
+    url = ready["serving"]
+    check(sorted(ready["warmup_s"]) == ["1", "4"], f"serve-obs drill: warmed {ready['warmup_s']}")
+    check(post(url + "/v1/predict", {"instances": x1})[0] == 200, "serve-obs drill: first request")
+    check(post(url + "/v1/predict", {"instances": x16})[0] == 200, "serve-obs drill: cold bucket-16 request")
+    metrics = json.loads(get_url(url + "/metrics")[1])
+    cold = metrics["registry"]["counters"].get("serve/cold_bucket_hits/16")
+    check(cold == 1, f"serve-obs drill: cold bucket-16 hits {cold}")
+    status = post(url + "/v1/predict", {"instances": x1})[0]
+    rc = proc.wait(60)
+    check(status == 200 and rc == -9, f"serve-obs drill: third request HTTP {status}, process rc {rc}")
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger
+
+    events = read_ledger(os.path.join(root, "drill"))
+    kinds = [e["event"] for e in events]
+    late = [e for e in events if e["event"] == "compile" and e["post_warmup"]]
+    check("serve_start" in kinds and "run_end" not in kinds and len(late) == 1,
+          f"serve-obs drill ledger: {sorted(set(kinds))}, post-warmup first runs {len(late)}")
+    return {"cold_first_run_s": late[0]["duration_s"], "windows": kinds.count("serve_window")}
+
+
+def check_request_traces(events, ids):
+    """Each traced request: one ``request`` span (status 200) with
+    queue_wait, pad and compute under it, the compute linked to the compute
+    span of a batch trace."""
+    spans = [e for e in events if e["event"] == "trace"]
+    by_id = {e["span_id"]: e for e in spans}
+    batch_computes = {e["span_id"] for e in spans if e["name"] == "compute"
+                      and by_id.get(e.get("parent_id"), {}).get("name") == "batch"}
+    roots = {e["trace_id"]: e for e in spans if e["name"] == "request"}
+    for rid in ids:
+        root = roots.get(rid)
+        check(root is not None and root["attrs"]["status"] == 200, f"serve-obs: no request span for {rid}")
+        kids = {e["name"]: e for e in spans if e["trace_id"] == rid and e.get("parent_id") == root["span_id"]}
+        check(set(kids) == {"queue_wait", "pad", "compute"}, f"serve-obs: {rid} spans {sorted(kids)}")
+        check(kids["compute"]["attrs"]["batch_span_id"] in batch_computes, f"serve-obs: {rid} not linked to a batch")
+    return len(roots)
+
+
+def serve_obs_phase(torch, model, cfg, card: str, device: str = "cuda"):
+    from tensorflowdistributedlearning_tpu_torch.data import png, records
+    from tensorflowdistributedlearning_tpu_torch.loop.capture import TrafficCapture, to_uint8_image
+    from tensorflowdistributedlearning_tpu_torch.obs import health
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger
+    from tensorflowdistributedlearning_tpu_torch.obs.metrics import MetricsRegistry
+    from tensorflowdistributedlearning_tpu_torch.obs.telemetry import Telemetry
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, ServingServer, bind_ephemeral,
+    )
+    from tensorflowdistributedlearning_tpu_torch.serve.quant_check import stamp_drift_baseline
+    from tensorflowdistributedlearning_tpu_torch.serve.registry import ModelEntry, read_registry, write_registry
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    out = {}
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        laps[what] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-obs-")
+    drill = None
+    try:
+        arts = {}
+        for spec in ("float32", "bfloat16"):
+            arts[spec] = os.path.join(root, spec)
+            serving.export_serving_artifact(model, cfg, arts[spec], serving_dtype=spec)
+            stamp_drift_baseline(arts[spec], device=device)
+            baseline = serving.read_manifest(arts[spec]).get("drift_baseline")
+            check(bool(baseline) and set(baseline["outputs"]) == {"probabilities", "mask"},
+                  f"serve-obs: the {spec} export carries no drift baseline")
+            try:
+                health.DriftMonitor(baseline)
+                raise SmokeFailure("serve-obs: a segmenter baseline gave a drift monitor")
+            except ValueError as e:
+                check("no integer output histogram" in str(e), f"serve-obs: drift monitor refused with {e}")
+        lap("export")
+        drill = spawn_fault_drill(root, arts["float32"], device)
+        write_registry(root, [ModelEntry(name="seg", artifact_dir=arts["float32"], version=1),
+                              ModelEntry(name="seg16", artifact_dir=arts["bfloat16"], version=2)])
+        entries = list(read_registry(root).models.values())
+        one = make_instances(torch, 1, SEED + 500).tolist()
+
+        # telemetry off: a server of its own, measured beside the other
+        bare_engine = InferenceEngine.from_artifact(arts["float32"], device=device)
+        bare_engine.warmup()
+        bare = ServingServer(bare_engine, MicroBatcher(bare_engine, max_wait_ms=5.0), sock=bind_ephemeral()).start()
+        lap("off")
+
+        # telemetry on
+        workdir, capdir = os.path.join(root, "work"), os.path.join(root, "capture")
+        tel = Telemetry(workdir, trace_sample_rate=1.0, device=device,
+                        run_info={"kind": "serve", "models": {e.name: e.version for e in entries}})
+        engines = {e.name: InferenceEngine.from_artifact(e.artifact_dir, device=device, tracer=tel.tracer,
+                                                         registry=tel.registry if i == 0 else MetricsRegistry())
+                   for i, e in enumerate(entries)}
+        for e in engines.values():
+            e.warmup(tel, mark_warm=False)
+        tel.mark_warm()
+        capture = TrafficCapture(capdir, records_per_shard=32)
+        server = ServingServer(engines["seg"], MicroBatcher(engines["seg"], max_wait_ms=5.0), telemetry=tel,
+                               window_secs=0, slo_p99_ms=60_000, model="seg", registry_version=1, capture=capture,
+                               sock=bind_ephemeral())
+        server.add_model("seg16", engines["seg16"], MicroBatcher(engines["seg16"], max_wait_ms=5.0, max_queue=1),
+                         version=2, slo_p99_ms=60_000)
+        server.start()
+        lap("start")
+        url = server.url + "/v1/predict"
+        want = {name: {"requests": 0, "examples": 0} for name in engines}
+        sent = []  # the primary's answered instances (what the capture may hold)
+        batches = {name: [] for name in engines}
+
+        def recording(name, fn):
+            def run(x):
+                y = fn(x)
+                batches[name].append((np.array(x, copy=True), {k: v.cpu().numpy() for k, v in y.items()}))
+                return y
+            return run
+
+        def answered(name, x, n=1):
+            want[name]["requests"] += n
+            want[name]["examples"] += n * len(x)
+            if name == "seg":
+                sent.extend([x] * n)
+
+        try:
+            # the main path: counts from 0 just before, read just after
+            kernels.reset_launch_counts()
+            fns = {name: e.serve_fn for name, e in engines.items()}
+            for name, e in engines.items():
+                e.serve_fn = recording(name, fns[name])
+            script = [("seg", n) for n in (1, 3, 16, 7, 2, 12, 4, 16)] + [("seg16", n) for n in (2, 5, 1, 8)]
+            inst = [make_instances(torch, n, SEED + 600 + i) for i, (_, n) in enumerate(script)]
+
+            def one_request(i):
+                name = script[i][0]
+                return i, post_raw(url, json.dumps({"instances": inst[i].tolist(), "model": name}).encode(),
+                                   headers={"x-request-id": f"obs-{i}"})
+
+            # the primary's concurrently; seg16's one at a time (its queue holds one)
+            with ThreadPoolExecutor(max_workers=6) as pool:
+                replies = dict(pool.map(one_request, [i for i, (n, _) in enumerate(script) if n == "seg"]))
+            replies.update(one_request(i) for i, (n, _) in enumerate(script) if n == "seg16")
+            for i, (status, headers, body) in replies.items():
+                check(status == 200 and headers.get("x-request-id") == f"obs-{i}" and body["n"] == len(inst[i]),
+                      f"serve-obs request {i}: HTTP {status} {str(body)[:200]}")
+                answered(script[i][0], inst[i])
+            for name, e in engines.items():
+                e.serve_fn = fns[name]
+            row = json.dumps(one[0])
+            status, headers, body = post_raw(url, ("{\"instances\": [" + ",".join([row] * 65) + "]}").encode(),
+                                             headers={"x-request-id": "obs-413"})
+            check(status == 413 and body["error"]["request_id"] == "obs-413" and headers["x-request-id"] == "obs-413",
+                  f"serve-obs 413: HTTP {status} {body}")
+            status, headers, body = post_raw(url, b"{not json")
+            check(status == 400 and body["error"]["code"] == "bad_request" and headers.get("x-request-id"),
+                  f"serve-obs malformed: HTTP {status} {body}")
+            # a full queue: seg16's worker held in a forward, one request queued
+            entered, release = threading.Event(), threading.Event()
+            inner = engines["seg16"].serve_fn
+
+            def held(x):
+                entered.set()
+                release.wait(60)
+                return inner(x)
+
+            engines["seg16"].serve_fn = held
+            body16 = json.dumps({"instances": one, "model": "seg16"}).encode()
+            with ThreadPoolExecutor(max_workers=2) as pool:
+                first = pool.submit(post_raw, url, body16)
+                check(entered.wait(60), "serve-obs: the held forward never started")
+                second = pool.submit(post_raw, url, body16)
+                depth = engines["seg16"].registry.gauge("serve/queue_depth")
+                t_end = time.monotonic() + 60
+                while depth.value != 1 and time.monotonic() < t_end:
+                    time.sleep(0.002)
+                status, headers, body = post_raw(url, body16)
+                check(status == 429 and headers.get("Retry-After") and body["error"]["code"] == "queue_full",
+                      f"serve-obs 429: HTTP {status} {body}")
+                release.set()
+                check(first.result()[0] == 200 and second.result()[0] == 200, "serve-obs: the held requests failed")
+            engines["seg16"].serve_fn = inner
+            answered("seg16", one, 2)
+            held_window = server.emit_window()
+            check(held_window["models"]["seg16"]["rejected_queue_full"] == 1, "serve-obs: 429 not counted")
+            lap("script")
+
+            # off, on, on, off in one call: the host's drift shows as the
+            # spread of each pair
+            loads = {"off": [], "on": []}
+            for which in ("off", "on", "on", "off"):
+                loads[which].append(http_load((bare.url + "/v1/predict") if which == "off" else url, one))
+            answered("seg", one, sum(r["requests"] for r in loads["on"]))
+            out["p50_ms"] = off_on_gap([r["p50_ms"] for r in loads["off"]], [r["p50_ms"] for r in loads["on"]])
+            out["rps"] = off_on_gap([r["rps"] for r in loads["off"]], [r["rps"] for r in loads["on"]])
+            out["samples"] = {which: [(len(r["lat_ms"]), r["requests"] - len(r["lat_ms"])) for r in runs]
+                              for which, runs in loads.items()}
+            lap("off-on-on-off")
+
+            # /admin/profile under load
+            stop = threading.Event()
+            loaded = []
+            body1 = json.dumps({"instances": one}).encode()
+
+            def client():
+                while not stop.is_set():
+                    loaded.append(post_raw(url, body1)[0])
+
+            threads = [threading.Thread(target=client) for _ in range(OBS_CLIENTS)]
+            for t in threads:
+                t.start()
+            time.sleep(0.3)
+            status, text = get_url(server.url + "/admin/profile?seconds=1")
+            check(status == 202, f"serve-obs /admin/profile: HTTP {status} {text}")
+            capture_id = json.loads(text)["capture_id"]
+            t_end = time.monotonic() + 120
+            while server.profiler.capturing and time.monotonic() < t_end:
+                time.sleep(0.05)
+            stop.set()
+            for t in threads:
+                t.join()
+            check(not server.profiler.capturing and all(s == 200 for s in loaded),
+                  f"serve-obs: profile under load, statuses {sorted(set(loaded))}")
+            answered("seg", one, len(loaded))
+            lap("profile")
+
+            # an SLO that holds, then one that is breached, then recovered
+            slo_status = []
+            for target in (60_000, 1e-3, 60_000):
+                server.slo.p99_target_ms = target
+                with ThreadPoolExecutor(max_workers=4) as pool:
+                    statuses = sum(pool.map(lambda _: keepalive_posts(url, body1, OBS_REQUESTS // 4), range(4)), [])
+                check(statuses == [200] * OBS_REQUESTS, f"serve-obs: SLO requests {statuses}")
+                answered("seg", one, OBS_REQUESTS)
+                server.emit_window()
+                slo_status.append(json.loads(get_url(server.url + "/healthz")[1])["status"])
+            check(slo_status == ["ok", "degraded", "ok"], f"serve-obs /healthz through the SLO: {slo_status}")
+            lap("slo")
+
+            prom = get_url(server.url + "/metrics?format=prometheus")[1]
+            snap = json.loads(get_url(server.url + "/metrics")[1])
+            counts = kernels.launch_counts()
+            forwards = {name: sum(e.bucket_hits.values()) for name, e in engines.items()}
+            forwards["off"] = sum(bare_engine.bucket_hits.values())
+        finally:
+            server.shutdown()
+            bare.shutdown()
+        lap("shutdown")
+        check(server.profiler.errors == 0, f"serve-obs: {server.profiler.errors} profiler errors")
+
+        # launches per forward of each tenant
+        log(f"serve-obs: forwards {forwards}, launches {counts}")
+        f32, b16 = forwards["seg"] + forwards["off"], forwards["seg16"]
+        expect = {"depthwise_conv2d": 3 * (f32 + b16), "fused_bn_act": 59 * f32,
+                  "fused_bn_act_bf16": 59 * b16, "fused_sigmoid_mask": f32 + b16, "depthwise_conv2d_bf16": 0,
+                  "fused_bn_act_bf16_act": 0}
+        check({k: counts[k] for k in expect} == expect, f"serve-obs launches {counts}, expected {expect}")
+        out["launches"] = counts
+
+        # Prometheus against the JSON view, same moment
+        values = {}
+        for line in prom.splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                values[name] = float(value)
+        for name, value in snap["registry"]["counters"].items():
+            check(values.get("tfdl_" + name.replace("/", "_") + "_total") == value, f"serve-obs prometheus {name}")
+        for name, row in snap["models"].items():
+            for metric in ("requests", "completed", "rejected_queue_full"):
+                key = f'tfdl_serve_model_{metric}_total{{model="{name}",version="{row["version"]}"}}'
+                check(values.get(key) == row[metric], f"serve-obs prometheus {key}")
+
+        # the ledger
+        events = read_ledger(workdir)
+        kinds = [e["event"] for e in events]
+        check(kinds[0] == "run_header" and kinds[-1] == "run_end" and "serve_start" in kinds,
+              f"serve-obs ledger kinds {sorted(set(kinds))}")
+        platform = "gpu" if device == "cuda" else "cpu"
+        check(events[0]["fingerprint"]["platform"] == platform and "torch_version" in events[0]["fingerprint"],
+              f"serve-obs run header {events[0]['fingerprint']}")
+        final = [e for e in events if e["event"] == "serve_window"][-1]
+        for name, w in want.items():
+            row = final["models"][name]
+            check(row["requests"] == row["completed"] == w["requests"] and row["errors"] == 0,
+                  f"serve-obs {name}: window {row}, script {w}")
+            check(row["batched_examples"] == w["examples"], f"serve-obs {name}: examples {row}, script {w}")
+        check(final["final"] and final["recompiles_post_warmup"] == 0, f"serve-obs final window {final}")
+        cost = [e for e in events if e["event"] == "cost"]
+        marks = [e for e in events if e["event"] == "memory_watermark"]
+        check(cost and all(c["chip_seconds"] > 0 for c in cost), "serve-obs: no cost events")
+        check(device != "cuda" or (marks and all(m.get("bytes_in_use") for m in marks) and marks[0]["bytes_limit"] > 0),
+              f"serve-obs: watermarks {marks[:1]}")
+        alerts = [e for e in events if e["event"] == "health_alert" and e["monitor"] == "slo"]
+        check([a.get("resolved", False) for a in alerts] == [False, True], f"serve-obs SLO alerts {alerts}")
+        captures = {e["capture_id"]: e for e in events if e["event"] == "profile_capture"}
+        roofs = {e["capture_id"]: e for e in events if e["event"] == "op_roofline"}
+        postmortem = [c for c in captures.values() if c["reason"] == "alert"]
+        check(capture_id in captures and (capture_id in roofs or device != "cuda") and len(postmortem) == 1
+              and postmortem[0]["alert_id"] == alerts[0]["alert_id"], f"serve-obs captures {list(captures.values())}")
+        # the postmortem: a later session on another thread, over the
+        # recovery round's traffic, holds the worker's kernels too
+        check(postmortem[0]["capture_id"] in roofs or device != "cuda",
+              f"serve-obs: the postmortem capture holds no device kernels {postmortem[0]}")
+        with open(os.path.join(captures[capture_id]["logdir"], "ops.json")) as f:
+            ops = json.load(f)
+        names = " ".join(r["name"] for r in ops)
+        for needle in ("tfdl_depthwise", "tfdl_bn_act", "tfdl_sigmoid_mask"):
+            check(needle in names or device != "cuda", f"serve-obs: the capture holds no {needle} kernel")
+        out["roofline"] = {k: roofs.get(capture_id, {}).get(k) for k in ("total_ms", "buckets", "classes")}
+        traced = check_request_traces(events, [f"obs-{i}" for i in range(len(script))])
+        out["traced_requests"] = traced
+
+        # capture shards: each record one of the primary's answered examples
+        known = {to_uint8_image(x).tobytes() for inst_x in {id(x): x for x in sent}.values()
+                 for x in np.asarray(inst_x)}
+        n_rec = 0
+        for name in sorted(os.listdir(capdir)):
+            if name.endswith(".tfrecord"):
+                for payload in records.read_records(os.path.join(capdir, name)):
+                    label, blob = records.decode_classification_record(payload)
+                    img = png.read_png(blob)
+                    check(label == 0 and img.reshape(101, 101, 2).tobytes() in known,
+                          "serve-obs: a capture record is none of the submitted examples")
+                    n_rec += 1
+        cap = [e for e in events if e["event"] == "capture_window"][-1]
+        check(n_rec == cap["total_captured"] > 0, f"serve-obs capture: {n_rec} records, window {cap}")
+        out["captured"], out["tee_dropped"] = n_rec, final["tee_dropped"]
+
+        # each response is its rows of one engine batch, bit for bit
+        for i, (status, _, body) in replies.items():
+            n, name = len(inst[i]), script[i][0]
+            p = np.asarray(body["predictions"]["probabilities"], np.float32)
+            mk = np.asarray(body["predictions"]["mask"], np.float32)
+            rows = [(bout, off) for bx, bout in batches[name] for off in range(bx.shape[0] - n + 1)
+                    if np.array_equal(bx[off:off + n], inst[i])]
+            check(len(rows) >= 1, f"serve-obs request {i}: its instances are in no engine batch")
+            bout, off = rows[0]
+            check(np.array_equal(p, bout["probabilities"][off:off + n]) and np.array_equal(mk, bout["mask"][off:off + n]),
+                  f"serve-obs request {i}: response differs from its engine batch's rows")
+
+        lap("checks")
+        out["drill"] = fault_drill(torch, drill[0], root, one, make_instances(torch, 16, SEED + 501).tolist())
+        lap("drill")
+        out["laps_s"] = laps
+    finally:
+        if drill is not None:
+            if drill[0].poll() is None:
+                drill[0].kill()
+                drill[0].wait(30)
+            drill[1].close()
+            drill[2].close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"serve-obs: telemetry off against on at trace rate 1.0, in the order off, on, on, off; per arm "
+        f"{OBS_SEQUENTIAL_S:g} s of bucket-1 requests one at a time, then {OBS_LOOP_S:g} s of "
+        f"{OBS_CLIENTS} closed-loop clients; (sequential, closed-loop) requests per arm {json.dumps(out['samples'])} "
+        f"[{card}]")
+    log(f"serve-obs: bucket-1 p50 over HTTP, ms: {json.dumps(out['p50_ms'])} [{card}]")
+    log(f"serve-obs: {OBS_CLIENTS}-client closed-loop requests/s: {json.dumps(out['rps'])} [{card}]")
+    log(f"serve-obs: /admin/profile under load: {json.dumps(out['roofline'])} [{card}]")
+    log(f"serve-obs: {out['traced_requests']} traced requests, {out['captured']} captured examples "
+        f"({out['tee_dropped']} dropped), drill: cold first run {out['drill']['cold_first_run_s']} s, "
+        f"{out['drill']['windows']} windows before the kill; seconds by part {json.dumps(out['laps_s'])}")
+    return out
 
 
 # -- int8-compute serving --------------------------------------------------------
@@ -3923,13 +4449,14 @@ def r50_instances(n: int, seed: int, shape) -> np.ndarray:
 
 
 def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = R50_BATCH,
-                       steps: int = R50_FIT_STEPS, buckets=(1, 16, 64), http_sizes=(1, 4)):
+                       steps: int = R50_FIT_STEPS, buckets=(1, 16, 32, 64), http_sizes=(1, 4)):
     """resnet50_classic_imagenet (ResNet-50, classic widths, space-to-depth
     stem, bf16 compute; full width and depth) through ``fit_preset`` on
     synthetic ImageNet-shaped data: ``steps`` steps at ``batch`` under the
     preset's SGD recipe, one eval at the end, the float32-spec export, a
     restore of the best state; then the export through the engine (buckets
-    ``buckets``) and HTTP (``http_sizes`` instances), the bfloat16 spec
+    ``buckets``) and HTTP (``http_sizes`` instances) with its drift
+    baseline stamped and scored by the server's drift monitor, the bfloat16 spec
     through the engine, and the step on a resident batch (ms, images/s,
     profile). ``cfg`` and ``device="cpu"`` rehearse it small."""
     import dataclasses
@@ -3942,6 +4469,8 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
     from tensorflowdistributedlearning_tpu_torch.serve import (
         InferenceEngine, MicroBatcher, ServingServer, bind_ephemeral,
     )
+    from tensorflowdistributedlearning_tpu_torch.obs import health
+    from tensorflowdistributedlearning_tpu_torch.serve.quant_check import pinned_eval_batch, stamp_drift_baseline
     from tensorflowdistributedlearning_tpu_torch.train import serving
     from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
     from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, ClassifierTrainer, fit_preset
@@ -4031,11 +4560,17 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             f"{batch}, logits std {out['logit_std']:.3f}; the {len(bn['bn_act_folded'])} BN calls of one eval forward "
             f"at batch {batch} held against the plain version: max|err| {out['bn_held_err']:.3g}")
 
+        # the export's drift baseline, stamped on the card, read by the drift
+        # monitor of the server that serves it
+        baseline = stamp_drift_baseline(art, device=device)
+        check(serving.read_manifest(art).get("drift_baseline") == baseline, "fit-resnet50: no drift baseline stamped")
+        drift = health.DriftMonitor(baseline, threshold=0.35, min_requests=1, sustain_windows=1)
         # the export through the engine and HTTP: the main serving path
         engine = InferenceEngine.from_artifact(art, device=device, buckets=buckets)
         warm = engine.warmup()
         batcher = MicroBatcher(engine, max_wait_ms=5.0, max_queue=64)
-        server = ServingServer(engine, batcher, sock=bind_ephemeral("127.0.0.1", 0)).start()
+        server = ServingServer(engine, batcher, sock=bind_ephemeral("127.0.0.1", 0), window_secs=0,
+                               drift_monitor=drift).start()
         lat_engine, lat_http = {}, {}
         try:
             kernels.reset_launch_counts()
@@ -4058,8 +4593,24 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
                 check_classes(got["probabilities"], got["class"], f"fit-resnet50 engine bucket {b}")
             served = kernels.launch_counts()
             forwards = sum(engine.bucket_hits.values())
+            scored = server.emit_window()["drift"]
+            # the stamp's own inputs served in one bucket of the stamp's
+            # batch: their classes are the stamp's
+            pinned = pinned_eval_batch(serving.read_manifest(art), baseline["batch"], baseline["seed"])
+            for i in range(0, len(pinned), engine.max_batch_size):
+                chunk = pinned[i:i + engine.max_batch_size]
+                status, body = post(server.url + "/v1/predict", {"instances": chunk.tolist()})
+                check(status == 200 and body["n"] == len(chunk), f"fit-resnet50 pinned batch: HTTP {status}")
+            own = server.emit_window()["drift"]
         finally:
             server.shutdown()
+        check(scored["output"] == "class" and 0.0 <= scored["score"] <= 1.0, f"fit-resnet50 drift: {scored}")
+        check(own["healthy"] and own["score"] <= DRIFT_OWN_INPUTS_MAX,
+              f"fit-resnet50 drift on the baseline's own inputs: {own}, wanted a score <= {DRIFT_OWN_INPUTS_MAX}")
+        out["drift"], out["drift_own_inputs"] = scored, own
+        log(f"fit-resnet50: drift monitor on the stamped baseline (the export's {baseline['batch']}-image pinned "
+            f"batch): total-variation score {scored['score']} of the served classes (healthy {scored['healthy']}), "
+            f"{own['score']} of the pinned batch itself served (healthy {own['healthy']}), threshold 0.35")
         d = float(np.abs(got["probabilities"] - direct).max())
         check(d <= TOL_VIT_F32, f"fit-resnet50 engine: probabilities {d} from the served model's forward")
         want = {k: v * forwards for k, v in per_fwd.items()}
@@ -4473,6 +5024,8 @@ def main() -> int:
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}) [{card}]")
         served = serve_phase(torch, model, cfg, card)
         mark("serve")
+        observed = serve_obs_phase(torch, model, cfg, card)
+        mark("serve-obs")
         int8_counts, int8_rows = int8_phase(torch, model, cfg, card, timer)
         mark("int8")
         rows.update(int8_rows)
@@ -4535,7 +5088,7 @@ def main() -> int:
         return 1
     for name, e in dp["train-dp2"]["held"].items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
-    paths = {"serve": served["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
+    paths = {"serve": served["launches"], "serve-obs": observed["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
              "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
              "train-dp": dp["train-dp"]["launches"], "train-dp2": dp["train-dp2"]["launches"], **vit_paths,
              "fit-vit": fitted["launches"], "train-vit": vit_trained["launches"],
@@ -4561,6 +5114,7 @@ def main() -> int:
                       "train": {k: trained[k] for k in ("step_ms", "images_per_s")},
                       "predict": {k: trained[k] for k in ("predict_s", "predict_images_per_s", "predict_forwards",
                                                           "restore_s", "drawn_restore_s", "torch_load_s")},
+                      "serve_obs": {k: v for k, v in observed.items() if k != "launches"},
                       "fit_vit": {k: v for k, v in fitted.items() if k != "launches"},
                       "train_vit": {k: v for k, v in vit_trained.items() if k not in ("launches", "losses")},
                       "train_dp": {k: v for k, v in dp["train-dp"].items() if k != "launches"},

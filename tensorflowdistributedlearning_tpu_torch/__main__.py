@@ -22,6 +22,8 @@
         --params vit_vars.npz --preset vit_s16_imagenet --out VIT_ARTIFACT_DIR
     python -m tensorflowdistributedlearning_tpu_torch serve \\
         --artifact-dir ARTIFACT_DIR --port 8500 --buckets 1 4 16 64
+    python -m tensorflowdistributedlearning_tpu_torch serve \\
+        --registry registry.json --workdir WORKDIR --trace-sample-rate 0.01 --slo-p99-ms 50
     python -m tensorflowdistributedlearning_tpu_torch quantize-check \\
         --reference-dir F32_ARTIFACT --candidate-dir INT8_ARTIFACT
 """
@@ -95,9 +97,24 @@ def cmd_train(args) -> int:
         out["serving_fold"] = fold
         out["serving_artifact"] = os.path.dirname(trainer.export_serving(fold, serving_dtype=args.serving_dtype))
         out["serving_dtype"] = args.serving_dtype
+        _stamp_baseline(out["serving_artifact"], args.device)
     if multihost.is_main():
         print(json.dumps(out))
     return 0
+
+
+def _stamp_baseline(artifact_dir: str, device) -> None:
+    """Stamp a fresh export's ``drift_baseline`` (``serve --drift-threshold``
+    reads it). A fault of the artifact's files is logged and the export
+    survives; any other failure (a kernel's, say) propagates."""
+    import logging
+
+    from tensorflowdistributedlearning_tpu_torch.serve.quant_check import stamp_drift_baseline
+
+    try:
+        stamp_drift_baseline(artifact_dir, device=device)
+    except (OSError, ValueError, KeyError) as e:
+        logging.getLogger(__name__).warning("drift-baseline stamp failed for %s: %s", artifact_dir, e)
 
 
 def cmd_fit(args) -> int:
@@ -138,6 +155,7 @@ def cmd_fit(args) -> int:
                "final_metrics": result.final_metrics}
     if result.serving_artifact:
         summary["serving_artifact"] = result.serving_artifact
+        _stamp_baseline(result.serving_artifact, args.device)
     if multihost.is_main():
         print(json.dumps(summary))
     return 0
@@ -320,34 +338,146 @@ def cmd_quantize_check(args) -> int:
     return 0 if result["passed"] else 1
 
 
+def _drift_monitor(args, artifact_dir: str):
+    """The primary model's DriftMonitor under ``--drift-threshold``, or None
+    (with a warning) when its manifest has no usable baseline."""
+    import logging
+
+    from tensorflowdistributedlearning_tpu_torch.obs import health as health_lib
+    from tensorflowdistributedlearning_tpu_torch.train import serving as serving_lib
+
+    baseline = serving_lib.read_manifest(artifact_dir).get("drift_baseline")
+    if not baseline:
+        logging.getLogger(__name__).warning(
+            "serve: --drift-threshold set but %s carries no drift_baseline — export with train/fit "
+            "--export-serving to stamp one; drift monitoring disabled", artifact_dir,
+        )
+        return None
+    try:
+        return health_lib.DriftMonitor(
+            baseline, threshold=args.drift_threshold, min_requests=args.drift_min_requests,
+            sustain_windows=args.drift_sustain_windows,
+        )
+    except ValueError as e:
+        logging.getLogger(__name__).warning("serve: drift monitoring disabled: %s", e)
+        return None
+
+
 def cmd_serve(args) -> int:
-    """Serve an artifact over HTTP: warm every bucket, run the micro-batcher
-    behind /v1/predict, drain on SIGINT/SIGTERM."""
+    """Serve an artifact, or every model of a ``registry.json``, over HTTP:
+    warm the buckets, run a micro-batcher per model behind /v1/predict,
+    ledger windows into ``{workdir}/telemetry.jsonl`` (JAX's
+    ``telemetry-report`` renders it), drain on SIGINT/SIGTERM."""
+    import signal
+
+    if not args.artifact_dir and not args.registry:
+        print("serve: one of --artifact-dir or --registry is required", file=sys.stderr)
+        return 2
+    if args.visible_devices:
+        # before CUDA initialises: the ordinals this replica may claim
+        os.environ["CUDA_VISIBLE_DEVICES"] = args.visible_devices
+
+    from tensorflowdistributedlearning_tpu_torch.obs.metrics import MetricsRegistry
+    from tensorflowdistributedlearning_tpu_torch.obs.telemetry import Telemetry
+    from tensorflowdistributedlearning_tpu_torch.resilience import faults
     from tensorflowdistributedlearning_tpu_torch.serve import (
         InferenceEngine,
         MicroBatcher,
         ServingServer,
         bind_ephemeral,
     )
+    from tensorflowdistributedlearning_tpu_torch.serve.registry import DEFAULT_MODEL, ModelEntry, read_registry
 
-    engine = InferenceEngine.from_artifact(args.artifact_dir, device=args.device, buckets=args.buckets)
-    warm = engine.warmup()
-    batcher = MicroBatcher(engine, max_wait_ms=args.max_wait_ms, max_queue=args.queue_size)
+    if args.registry:
+        registry = read_registry(os.path.dirname(os.path.abspath(args.registry)), path=args.registry)
+        entries = list(registry.models.values())
+        if args.model:
+            entries = [registry.entry(args.model)]
+        versioned = True
+    else:
+        entries = [ModelEntry(name=args.model or DEFAULT_MODEL, artifact_dir=args.artifact_dir,
+                              version=args.model_version or 1, prewarm_budget=args.prewarm_buckets)]
+        versioned = args.model_version is not None
+    # bound before the telemetry, so that the run header carries the real port
     sock = bind_ephemeral(args.host, args.port)
-    server = ServingServer(engine, batcher, sock=sock).start()
-    server.install_signal_handlers()
-    print(
-        json.dumps(
-            {
-                "serving": server.url,
-                "port": server.port,
-                "buckets": list(engine.buckets),
-                "warmup_s": {str(b): round(s, 6) for b, s in warm.items()},
-            }
-        ),
-        flush=True,
+    port = sock.getsockname()[1]
+    workdir = args.workdir or args.artifact_dir or os.path.dirname(os.path.abspath(args.registry))
+    run_info = {
+        "kind": "serve",
+        "replica": args.replica_id,
+        "artifact_dir": args.artifact_dir,
+        "buckets": list(args.buckets),
+        "max_wait_ms": args.max_wait_ms,
+        "queue_size": args.queue_size,
+        "port": port,
+        "endpoint": f"http://{args.host}:{port}",
+    }
+    if args.model:
+        run_info["model"] = args.model
+    if args.registry:
+        run_info["models"] = {e.name: e.version for e in entries}
+    if args.visible_devices:
+        run_info["visible_devices"] = args.visible_devices
+    telemetry = Telemetry(workdir, trace_sample_rate=args.trace_sample_rate, process_index=args.replica_id,
+                          run_info=run_info, device=args.device)
+    if args.inject_fault:
+        faults.install(args.inject_fault, seed=args.seed)
+    capture = drift = None
+    if args.capture_dir:
+        from tensorflowdistributedlearning_tpu_torch.loop.capture import TrafficCapture
+
+        capture = TrafficCapture(args.capture_dir, sample_fraction=args.capture_fraction,
+                                 records_per_shard=args.capture_records_per_shard,
+                                 quota_bytes=int(args.capture_quota_mb * (1 << 20)))
+    if args.drift_threshold is not None:
+        drift = _drift_monitor(args, entries[0].artifact_dir)
+    # the primary model rides the telemetry's registry; later tenants own theirs
+    engines = [
+        InferenceEngine.from_artifact(
+            e.artifact_dir, device=args.device, buckets=e.buckets or tuple(args.buckets),
+            registry=telemetry.registry if i == 0 else MetricsRegistry(), tracer=telemetry.tracer,
+        )
+        for i, e in enumerate(entries)
+    ]
+    warmup = {}
+    for e, engine in zip(entries, engines):
+        timings = engine.warmup(telemetry, budget=e.prewarm_budget, mark_warm=False)
+        warmup.update({(f"{e.name}/{b}" if args.registry else str(b)): s for b, s in timings.items()})
+    telemetry.mark_warm()
+
+    def batcher(engine):
+        return MicroBatcher(engine, max_wait_ms=args.max_wait_ms, max_queue=args.queue_size,
+                            default_deadline_ms=args.default_deadline_ms)
+
+    first = entries[0]
+    server = ServingServer(
+        engines[0], batcher(engines[0]), telemetry=telemetry, window_secs=args.window_secs,
+        slo_p99_ms=first.slo_p99_ms if first.slo_p99_ms is not None else args.slo_p99_ms,
+        slo_error_budget=first.slo_error_budget if first.slo_error_budget is not None else args.slo_error_budget,
+        replica_id=args.replica_id, sock=sock, model=first.name,
+        registry_version=first.version if versioned else None, capture=capture, drift_monitor=drift,
     )
-    server.wait()
+    for e, engine in zip(entries[1:], engines[1:]):
+        server.add_model(e.name, engine, batcher(engine), version=e.version, slo_p99_ms=e.slo_p99_ms,
+                         slo_error_budget=e.slo_error_budget if e.slo_error_budget is not None else 0.01)
+    server.start()
+    ready = {
+        "serving": server.url,
+        "port": server.port,
+        "replica": args.replica_id,
+        "buckets": list(server.engine.buckets),
+        "warmup_s": warmup,
+        "ledger": workdir,
+    }
+    if args.registry or args.model:
+        ready["models"] = {e.name: e.version for e in entries}
+    print(json.dumps(ready), flush=True)
+    server.install_signal_handlers((signal.SIGINT, signal.SIGTERM))
+    try:
+        server.wait()
+    finally:
+        server.shutdown()
+        faults.uninstall()
     return 0
 
 
@@ -452,13 +582,59 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
     pr.set_defaults(fn=cmd_predict)
 
-    s = sub.add_parser("serve", help="serve an exported artifact over HTTP")
-    s.add_argument("--artifact-dir", required=True)
+    s = sub.add_parser("serve", help="serve an exported artifact, or a registry of them, over HTTP")
+    s.add_argument("--artifact-dir", default=None, help="the artifact to serve; required unless --registry")
+    s.add_argument("--registry", default=None, metavar="PATH",
+                   help="a registry.json (serve/registry.py): every entry's artifact loads as its own engine and "
+                   "micro-batcher; requests pick one by the payload's \"model\" key")
+    s.add_argument("--model", default=None,
+                   help="the name this replica serves under (with --registry: load only that entry)")
+    s.add_argument("--model-version", type=int, default=None,
+                   help="registry version of the served artifact (on /healthz, /metrics and serve_window)")
+    s.add_argument("--prewarm-buckets", type=int, default=None,
+                   help="warm only the first K buckets (smallest first); a colder bucket's first hit is counted "
+                   "as serve/cold_bucket_hits and a post-warmup first run")
+    s.add_argument("--visible-devices", default=None, metavar="IDS",
+                   help="comma-separated CUDA device ordinals this replica may claim (CUDA_VISIBLE_DEVICES)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8500, help="0 picks a free port")
     s.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 16, 64])
     s.add_argument("--max-wait-ms", type=float, default=5.0)
     s.add_argument("--queue-size", type=int, default=256)
+    s.add_argument("--default-deadline-ms", type=float, default=None,
+                   help="deadline of requests that carry none; expired requests answer 504")
+    s.add_argument("--workdir", default=None,
+                   help="telemetry ledger dir ({workdir}/telemetry.jsonl; default: the artifact dir)")
+    s.add_argument("--window-secs", type=float, default=30.0,
+                   help="ledger window cadence; 0 disables periodic windows (the final one is still written)")
+    s.add_argument("--trace-sample-rate", type=float, default=0.0,
+                   help="fraction of requests whose queue/pad/compute trace persists as `trace` ledger events")
+    s.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="p99 latency target in ms as a windowed error budget: a breach writes a health_alert and "
+                   "flips /healthz to degraded")
+    s.add_argument("--slo-error-budget", type=float, default=0.01,
+                   help="fraction of a window's requests allowed over the p99 target")
+    s.add_argument("--replica-id", type=int, default=0,
+                   help="this replica's id: on serve_window events and /healthz; replica i > 0 writes "
+                   "telemetry-{i}.jsonl")
+    s.add_argument("--inject-fault", default=None, metavar="SPEC",
+                   help="fault drill (resilience/faults.py): 'sigkill@N' kills this replica after its Nth answered "
+                   "request")
+    s.add_argument("--seed", type=int, default=0, help="seed of ranged --inject-fault specs")
+    s.add_argument("--capture-dir", default=None, metavar="DIR",
+                   help="arm the traffic-capture tee (loop/capture.py): accepted requests of the primary model "
+                   "into record shards under DIR")
+    s.add_argument("--capture-fraction", type=float, default=1.0,
+                   help="fraction of accepted requests the tee samples (a fixed stride)")
+    s.add_argument("--capture-quota-mb", type=float, default=64.0,
+                   help="disk ceiling of the sealed capture shards (oldest evicted first)")
+    s.add_argument("--capture-records-per-shard", type=int, default=64, help="records per sealed capture shard")
+    s.add_argument("--drift-threshold", type=float, default=None,
+                   help="arm the DriftMonitor: total-variation distance of the served class distribution from "
+                   "the manifest's drift_baseline past this writes drift_alert events")
+    s.add_argument("--drift-min-requests", type=int, default=20, help="window floor before a drift verdict counts")
+    s.add_argument("--drift-sustain-windows", type=int, default=2,
+                   help="consecutive over-threshold windows before the alert fires")
     s.add_argument("--device", default=None, help="torch device; default cuda (no CPU fallback)")
     s.set_defaults(fn=cmd_serve)
 

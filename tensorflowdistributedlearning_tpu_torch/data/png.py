@@ -6,7 +6,7 @@ native decoder with). This reads 8-bit grey, grey+alpha, RGB and RGBA images
 (non-interlaced, any of the five row filters): :func:`read_png` gives the
 samples as they are stored, :func:`read_png_gray` converts colour to grey
 with PIL's ``convert("L")`` integer formula, so a TGS file decodes to the
-bytes PIL gives. :func:`encode_png` writes 8-bit grey, RGB and RGBA images
+bytes PIL gives. :func:`encode_png` writes 8-bit grey, grey+alpha, RGB and RGBA images
 (row filter 0); its bytes differ from PIL's, the pixels it stores do not.
 """
 
@@ -109,17 +109,17 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-_COLOUR_TYPES = {1: 0, 3: 2, 4: 6}  # samples per pixel -> colour type
+_COLOUR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}  # samples per pixel -> colour type
 
 
 def encode_png(image: np.ndarray) -> bytes:
-    """Encode a [H, W] grey or [H, W, C] (C = 1, 3 or 4) uint8 image as an
+    """Encode a [H, W] grey or [H, W, C] (C = 1, 2, 3 or 4) uint8 image as an
     8-bit PNG: every row filter 0, the image data one ``zlib`` stream."""
     image = np.ascontiguousarray(image, np.uint8)
     if image.ndim == 2:
         image = image[:, :, None]
     if image.ndim != 3 or image.shape[2] not in _COLOUR_TYPES:
-        raise ValueError(f"encode_png expects [H, W] or [H, W, 1|3|4] uint8, got shape {image.shape}")
+        raise ValueError(f"encode_png expects [H, W] or [H, W, 1|2|3|4] uint8, got shape {image.shape}")
     height, width, channels = image.shape
     raw = np.concatenate([np.zeros((height, 1), np.uint8), image.reshape(height, width * channels)], axis=1)
     header = struct.pack(">IIBBBBB", width, height, 8, _COLOUR_TYPES[channels], 0, 0, 0)

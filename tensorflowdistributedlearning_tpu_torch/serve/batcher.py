@@ -9,8 +9,16 @@ once). The queue is bounded — a full queue raises :class:`QueueFullError`
 at submit (HTTP 429) — requests may carry deadlines (expired ones complete
 with :class:`DeadlineExceededError`, HTTP 504, without taking a bucket
 slot), and ``close(drain=True)`` stops intake and finishes everything
-already accepted. Request tracing and chip-seconds attribution arrive with
-the port's ``obs/`` slice.
+already accepted.
+
+Each request may carry its submitter's ``obs.trace.TraceContext``:
+the worker then emits the request's ``queue_wait`` span and, around the
+engine call, a ``batch`` span (its own trace, kept when any member request
+is sampled) under which the engine's ``pad`` and ``compute`` spans nest;
+those two are mirrored onto every member request's trace with a
+``batch_span_id`` link. With a ``cost_meter`` attached (the server does),
+each batch's engine time is split across its member requests as
+chip-seconds (``obs/capacity.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Deque, List, Optional
 
 import numpy as np
 
+from tensorflowdistributedlearning_tpu_torch.obs import trace as trace_lib
 from tensorflowdistributedlearning_tpu_torch.serve.engine import InferenceEngine, RequestTooLargeError
 
 __all__ = [
@@ -46,15 +55,17 @@ class ServerClosedError(RuntimeError):
 
 
 class Request:
-    """Future-like handle for one submitted request."""
+    """Future-like handle for one submitted request; ``trace`` is the
+    submitter's open span context (or None)."""
 
-    __slots__ = ("x", "n", "deadline_t", "enqueued_t", "_event", "_result", "_error")
+    __slots__ = ("x", "n", "deadline_t", "enqueued_t", "trace", "_event", "_result", "_error")
 
-    def __init__(self, x: np.ndarray, deadline_t: Optional[float]):
+    def __init__(self, x: np.ndarray, deadline_t: Optional[float], trace: Optional[trace_lib.TraceContext] = None):
         self.x = x
         self.n = x.shape[0]
         self.deadline_t = deadline_t
         self.enqueued_t = time.monotonic()
+        self.trace = trace
         self._event = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
@@ -95,13 +106,16 @@ class MicroBatcher:
             raise ValueError("max_queue must be >= 1")
         self.default_deadline_ms = default_deadline_ms
         self.registry = engine.registry
+        self.cost_meter = None  # obs.capacity.CostMeter, attached by the server
         self._queue: Deque[Request] = collections.deque()
         self._cond = threading.Condition()
         self._closed = False
         self._worker = threading.Thread(target=self._run, name="serve-microbatcher", daemon=True)
         self._worker.start()
 
-    def submit(self, x, *, deadline_ms: Optional[float] = None) -> Request:
+    def submit(
+        self, x, *, deadline_ms: Optional[float] = None, trace: Optional[trace_lib.TraceContext] = None
+    ) -> Request:
         """Enqueue ``x`` ([n, *example_shape] or one bare example); returns a
         :class:`Request`. Raises at once — never queues — when closed, too
         large, malformed, or the queue is full."""
@@ -117,7 +131,7 @@ class MicroBatcher:
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         deadline_t = time.monotonic() + deadline_ms / 1000.0 if deadline_ms is not None else None
-        req = Request(x, deadline_t)
+        req = Request(x, deadline_t, trace=trace)
         with self._cond:
             if self._closed:
                 raise ServerClosedError("batcher is draining; not accepting requests")
@@ -186,17 +200,43 @@ class MicroBatcher:
 
     def _execute(self, batch: List[Request]) -> None:
         now = time.monotonic()
+        wall_now = time.time()
         wait_h = self.registry.histogram("serve/queue_wait")
         for req in batch:
             wait_h.record(now - req.enqueued_t)
         x = np.concatenate([r.x for r in batch]) if len(batch) > 1 else batch[0].x
+        tracer = self.engine.tracer
+        traced = [r for r in batch if tracer.enabled and r.trace is not None]
+        batch_span = None
+        for req in traced:
+            tracer.emit(
+                trace_lib.SPAN_QUEUE_WAIT,
+                trace_id=req.trace.trace_id,
+                parent_id=req.trace.span_id,
+                start_t=wall_now - (now - req.enqueued_t),
+                duration_s=now - req.enqueued_t,
+                sampled=req.trace.sampled,
+            )
+        infer_t0 = time.perf_counter()
         try:
-            out = self.engine.infer(x)
+            if traced:
+                with tracer.span(
+                    trace_lib.SPAN_BATCH,
+                    sampled=any(r.trace.sampled for r in traced),
+                    attrs={"requests": len(batch), "examples": sum(r.n for r in batch)},
+                ) as batch_span:
+                    out = self.engine.infer(x)
+            else:
+                out = self.engine.infer(x)
         except Exception as e:  # noqa: BLE001 — fail the requests, not the worker
             self.registry.counter("serve/errors").inc(len(batch))
             for req in batch:
                 req._finish(error=e)
             return
+        if self.cost_meter is not None:
+            self.cost_meter.add_batch(time.perf_counter() - infer_t0, [r.n for r in batch])
+        if batch_span is not None:
+            self._emit_member_spans(tracer, traced, batch_span)
         offset = 0
         for req in batch:
             lo, hi = offset, offset + req.n
@@ -205,6 +245,33 @@ class MicroBatcher:
         self.registry.counter("serve/completed").inc(len(batch))
         self.registry.counter("serve/batches").inc()
         self.registry.counter("serve/batched_examples").inc(offset)
+
+    @staticmethod
+    def _emit_member_spans(tracer, traced: List[Request], batch_span) -> None:
+        """Mirror the batch's pad and compute spans onto each member
+        request's trace, linked to the batch trace's compute span by the
+        ``batch_trace_id`` / ``batch_span_id`` attrs."""
+        children = {c.name: c for c in batch_span.children}
+        compute = children.get(trace_lib.SPAN_COMPUTE)
+        for name in (trace_lib.SPAN_PAD, trace_lib.SPAN_COMPUTE):
+            child = children.get(name)
+            if child is None:
+                continue
+            link = {
+                "batch_trace_id": batch_span.trace_id,
+                "batch_span_id": compute.span_id if compute is not None else batch_span.span_id,
+                **child.attrs,
+            }
+            for req in traced:
+                tracer.emit(
+                    name,
+                    trace_id=req.trace.trace_id,
+                    parent_id=req.trace.span_id,
+                    start_t=child.start_t,
+                    duration_s=child.duration_s,
+                    sampled=req.trace.sampled,
+                    attrs=link,
+                )
 
     def _run(self) -> None:
         while True:

@@ -147,6 +147,22 @@ def write_drift_baseline(artifact_dir: str, baseline: Dict) -> None:
     os.replace(tmp, path)
 
 
+def stamp_drift_baseline(artifact_dir: str, *, batch_size: int = 32, seed: int = 0, device: DeviceLike = None) -> Dict:
+    """Compute and persist an artifact's own output-distribution baseline
+    (the export-time path): its serving closure on ``device`` (CUDA when
+    None) over the pinned eval batch, summarised and written into the
+    manifest."""
+    from tensorflowdistributedlearning_tpu_torch.train import serving as serving_lib
+
+    manifest = serving_lib.read_manifest(artifact_dir)
+    batch = pinned_eval_batch(manifest, batch_size, seed)
+    fn = serving_lib.load_serving_artifact(artifact_dir, device)
+    out = {k: v.detach().cpu().numpy() for k, v in fn(batch).items()}
+    baseline = summarize_output_distribution(out, batch=batch.shape[0], seed=seed)
+    write_drift_baseline(artifact_dir, baseline)
+    return baseline
+
+
 def output_delta(name: str, ref: np.ndarray, cand: np.ndarray) -> Dict:
     """Delta record for one output; the applicable threshold keys depend on
     which of the three output kinds this is. Public: the promotion
