@@ -2436,9 +2436,9 @@ def vit_phase(torch, card: str, timer, device: str = "cuda", cfg=None):
     with tempfile.TemporaryDirectory(prefix="chip-smoke-vit-") as root:
         runs = {}
         for key, m, c, spec, buckets, http, tol in (
-            ("vit", model, cfg, "float32", (1, 4, 16, 64), (1, 4, 16), TOL_VIT_BF16),
-            ("vit-int8-compute", model, cfg, "int8-compute", (1, 4, 16, 64), (1, 4, 16), TOL_VIT_BF16),
-            ("vit-f32", model32, cfg32, "float32", (1, 4, 16, 64), (1, 4, 16), TOL_VIT_F32),
+            ("vit", model, cfg, "float32", (1, 4, 16, 64), (1, 4), TOL_VIT_BF16),
+            ("vit-int8-compute", model, cfg, "int8-compute", (1, 4, 16, 64), (1, 4), TOL_VIT_BF16),
+            ("vit-f32", model32, cfg32, "float32", (1, 4, 16, 64), (1, 4), TOL_VIT_F32),
             ("vit-bfloat16", model, cfg, "bfloat16", (64,), (), TOL_VIT_BF16),
             ("vit-int8", model, cfg, "int8", (64,), (), TOL_VIT_BF16),
         ):
@@ -2809,6 +2809,7 @@ def fit_vit_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int =
             f"exports {files['best']}; {len(ledger.train)} train steps and {len(ledger.eval)} eval forwards launched "
             f"{per['flash_attention_tc']} tensor-core attention kernels each; totals {counts}")
         out.update(launches=counts, fit_s=fit_s, final_metrics=result.final_metrics, n_params=result.n_params)
+        check_run_ledger(model_dir, steps, n_evals, "fit-vit")
 
         t0 = time.perf_counter()
         best = trainer._restore_best_host()
@@ -2850,6 +2851,94 @@ def fit_vit_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int =
         log(f"fit-vit: export_serving through the engine at bucket {batch}: max|dprobs| {d:.3g}, launches "
             f"{per['flash_attention_tc']} tensor-core attention kernels")
         out["serve_max_dprobs"] = served
+        if on_card:
+            out["arms"] = dispatch_arms(torch, card, cfg, tcfg, batch, steps, os.path.join(root, "arms"))
+    return out
+
+
+def dispatch_arms(torch, card: str, cfg, tcfg, batch: int, steps: int, root: str, timed=(5, 15),
+                  log_every: int = 5, device: str = "cuda"):
+    """ClassifierTrainer.fit of ``cfg`` for ``steps`` steps in four arms:
+    dispatch-ahead 0 and 2 with telemetry on, 2 with it off, then 0 with it
+    on again; a window every ``log_every`` steps, no checkpoint or eval
+    until the end. Steps ``timed[0]`` + 1 to ``timed[1]`` are timed on the
+    host clock, from their first call after the card finished the earlier
+    steps to the card's end of the last: ms per step. The steps after them
+    run under a CUDA-only profile: device kernel time per step, and the
+    idle share against the timed steps (1 - kernel time / ms per step).
+    Recorded, not claimed."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+
+    first, last = timed
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = []
+    for i, (ahead, telemetry) in enumerate(((0, True), (2, True), (2, False), (0, True))):
+        arm_cfg = dataclasses.replace(tcfg, dispatch_ahead_steps=ahead, telemetry=telemetry,
+                                      train_log_every_steps=log_every, checkpoint_every_steps=10 * steps,
+                                      eval_every_steps=10 * steps)
+        real = step_lib.make_train_step
+        marks = {}
+
+        def make(*a, **k):
+            inner = real(*a, **k)
+            calls = [0]
+
+            def step(state, b):
+                if calls[0] == first:
+                    sync()
+                    marks["t0"] = time.perf_counter()
+                if calls[0] == last:
+                    sync()
+                    marks["t1"] = time.perf_counter()
+                    marks["session"] = contextlib.ExitStack()
+                    marks["session"].enter_context(profiler_session())
+                    activity = ProfilerActivity.CUDA if device == "cuda" else ProfilerActivity.CPU
+                    marks["prof"] = marks["session"].enter_context(profile(activities=[activity]))
+                result = inner(state, b)
+                calls[0] += 1
+                if calls[0] == steps:
+                    sync()
+                    marks["session"].close()
+                return result
+
+            return step
+
+        trainer = ClassifierTrainer(os.path.join(root, f"arm{i}"), None, cfg, arm_cfg, device=device)
+        with mock.patch.object(step_lib, "make_train_step", make):
+            trainer.fit(batch_size=batch, steps=steps)
+        ms = (marks["t1"] - marks["t0"]) * 1e3 / (last - first)
+        device_ms = sum(evt.time_range.elapsed_us() for evt in marks["prof"].events()
+                        if device_kernel(evt)) / 1e3 / (steps - last)
+        idle = max(0.0, 1 - device_ms / ms)
+        arm = {"dispatch_ahead": ahead, "telemetry": telemetry, "ms_per_step": ms, "idle": idle,
+               "device_ms_per_step": device_ms}
+        spans = ""
+        if telemetry:
+            # the clean windows' time per step three ways: the mean step span
+            # (the JAX package's mfu), step + fetch-wait time (the port's) and
+            # the wall time its images/s imply (recorded)
+            wins = [w for w in read_ledger(os.path.join(root, f"arm{i}")) if w["event"] == "step_window"
+                    and not w["dirty"] and w.get("images_per_sec")]
+            check(wins, f"fit-vit arm {i}: no clean window")
+            arm["window_ms"] = {
+                "step_span": statistics.mean(w["step_time_ms"]["mean_ms"] for w in wins),
+                "step_and_fetch": statistics.mean((w["compute_s"] + w["fetch_wait_s"]) / w["steps"] * 1e3
+                                                  for w in wins),
+                "wall": statistics.mean(batch / w["images_per_sec"] * 1e3 for w in wins),
+            }
+            spans = (f"; its {len(wins)} clean windows' ms per step: mean step span "
+                     f"{arm['window_ms']['step_span']:.3f}, step + fetch-wait {arm['window_ms']['step_and_fetch']:.3f}, "
+                     f"wall {arm['window_ms']['wall']:.3f}")
+        out.append(arm)
+        log(f"fit-vit arm {i}: dispatch-ahead {ahead}, telemetry {'on' if telemetry else 'off'}: {ms:.3f} ms per step "
+            f"(steps {first + 1}-{last}, host clock, the card's end of the last included), device kernels "
+            f"{device_ms:.3f} ms per step (steps {last + 1}-{steps}, profiled), device idle {idle:.3f}{spans} [{card}]")
     return out
 
 
@@ -3081,11 +3170,12 @@ def backward_phase(torch, calls, timer, card: str):
 class LaunchLedger:
     """Wraps the trainer's step builders so that each train step's, each
     eval forward's and each predict forward's kernel launches are recorded
-    as deltas of the counts."""
+    as deltas of the counts; with ``trainer_cls`` (the K-fold Trainer), each
+    image summary's eval-mode forward too (``summary``)."""
 
-    def __init__(self, kernels, step_lib):
-        self.kernels, self.step_lib = kernels, step_lib
-        self.train, self.eval, self.predict = [], [], []
+    def __init__(self, kernels, step_lib, trainer_cls=None):
+        self.kernels, self.step_lib, self.trainer_cls = kernels, step_lib, trainer_cls
+        self.train, self.eval, self.predict, self.summary = [], [], [], []
 
     def _wrap(self, make, sink):
         kernels = self.kernels
@@ -3105,12 +3195,27 @@ class LaunchLedger:
         return maker
 
     def patch(self):
-        return mock.patch.multiple(
+        steps = mock.patch.multiple(
             self.step_lib,
             make_train_step=self._wrap(self.step_lib.make_train_step, self.train),
             make_eval_step=self._wrap(self.step_lib.make_eval_step, self.eval),
             make_predict_step=self._wrap(self.step_lib.make_predict_step, self.predict),
         )
+        if self.trainer_cls is None:
+            return steps
+        stack = contextlib.ExitStack()
+        stack.enter_context(steps)
+        real = self.trainer_cls._write_image_summaries
+        kernels, sink = self.kernels, self.summary
+
+        def summaries(trainer, *a, **kw):
+            before = kernels.launch_counts()
+            real(trainer, *a, **kw)
+            after = kernels.launch_counts()
+            sink.append({k: after[k] - before[k] for k in after})
+
+        stack.enter_context(mock.patch.object(self.trainer_cls, "_write_image_summaries", summaries))
+        return stack
 
 
 def fold_files(model_dir: str, fold: int):
@@ -3132,7 +3237,7 @@ def profile_steps(torch, step, state, batch, reps: int = 3):
 
     step(state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler_session(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             step(state, batch)
@@ -3154,6 +3259,54 @@ def profile_steps(torch, step, state, batch, reps: int = 3):
     return lines, {"wall_ms": wall_ms, "device_ms": device_ms, "idle": idle}
 
 
+@contextlib.contextmanager
+def profiler_session():
+    """The process's one profiler session (``obs.profiler``'s): a trainer's
+    cadence capture asked for meanwhile is refused and counted."""
+    from tensorflowdistributedlearning_tpu_torch.obs import profiler
+
+    check(profiler.exclusive_session(blocking=True), "the profiler session")
+    try:
+        yield
+    finally:
+        profiler.release_session()
+
+
+def check_run_ledger(model_dir: str, steps: int, evals: int, what: str, data_service: bool = False,
+                     windows: int = None):
+    """The run's ledger parses and holds a ``run_header``, ``step_window``s
+    whose ``steps`` sum to the ``steps`` run (``windows`` of them when
+    given), one ``eval`` event per eval pass and a ``run_end`` that is not
+    interrupted; with ``data_service``, every window carries the service's
+    block. Returns the events."""
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import last_run_events, read_ledger_with_errors
+
+    events, errors = read_ledger_with_errors(os.path.join(model_dir, "telemetry.jsonl"))
+    events = last_run_events(events)
+    check(errors == 0 and events and events[0]["event"] == "run_header", f"{what} ledger: {errors} parse errors, "
+          f"first event {events[0]['event'] if events else None}")
+    wins = [e for e in events if e["event"] == "step_window"]
+    n_evals = sum(e["event"] == "eval" for e in events)
+    check(sum(w["steps"] for w in wins) == steps and (windows is None or len(wins) == windows),
+          f"{what} ledger: {len(wins)} windows of {sum(w['steps'] for w in wins)} steps, expected {steps}")
+    check(n_evals == evals, f"{what} ledger: {n_evals} eval events, expected {evals}")
+    check(events[-1]["event"] == "run_end" and not events[-1].get("interrupted"), f"{what} ledger: no clean run_end")
+    # a run with the cadence profiler armed ledgers its counters: a capture
+    # that failed or was refused fails the phase
+    prof = events[-1].get("profiler")
+    n_captures = sum(e["event"] == "profile_capture" for e in events)
+    check(prof is None and n_captures == 0 or prof is not None and prof["errors"] == 0 and prof["refused"] == 0
+          and prof["captures"] == n_captures, f"{what} ledger: profiler {prof}, {n_captures} profile_capture events")
+    for alert in (e for e in events if e["event"] == "health_alert"):
+        log(f"{what}: health_alert {json.dumps({k: v for k, v in alert.items() if k not in ('event', 't')})}")
+    if data_service:
+        check(all("data_service" in w for w in wins), f"{what} ledger: a window without the data_service block")
+    kinds = sorted({e["event"] for e in events})
+    log(f"{what}: ledger {len(events)} events ({', '.join(kinds)}), {len(wins)} windows of {steps} steps, {n_evals} "
+        f"evals, run_end {json.dumps({k: v for k, v in events[-1].items() if k not in ('event', 't')})[:200]}")
+    return events
+
+
 def batch_digest(batch) -> str:
     """sha256 over a host batch's arrays, in key order."""
     h = hashlib.sha256()
@@ -3170,13 +3323,13 @@ def observe_prefetch(pipeline_lib, digests, waits=None):
     ``(start, end)`` wait for each next batch is recorded."""
     real = pipeline_lib.device_prefetch
 
-    def prefetch(iterator, place, depth=2):
+    def prefetch(iterator, place, depth=2, registry=None):
         def digested():
             for b in iterator:
                 digests.append(batch_digest(b))
                 yield b
 
-        gen = real(digested(), place, depth)
+        gen = real(digested(), place, depth, registry=registry)
         if waits is None:
             return gen
 
@@ -3229,7 +3382,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
             f"s; load_tgs_training_set: {len(ids)} ids, coverage classes {np.bincount(classes).tolist()}")
 
         # the main path: counts from 0 just before, read just after
-        ledger = LaunchLedger(kernels, step_lib)
+        ledger = LaunchLedger(kernels, step_lib, Trainer)
         trainer = Trainer(model_dir, data, train_config=tcfg, device=device,
                           input_shape=(size, size), **model_kwargs)
         fed = []
@@ -3253,14 +3406,19 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         check(len(ledger.train) == TRAIN_FOLDS * steps, f"{len(ledger.train)} train steps recorded")
         for i, delta in enumerate(ledger.train):
             check(delta == PER_TRAIN_STEP, f"train step {i}: launches {delta}, expected {PER_TRAIN_STEP}")
-        eval_forwards = len(ledger.eval)
-        for i, delta in enumerate(ledger.eval):
+        # the image summaries' eval-mode forwards: one per log window and per eval pass
+        eval_forwards = len(ledger.eval) + len(ledger.summary)
+        n_evals = TRAIN_FOLDS * (steps // every)
+        check(len(ledger.summary) == TRAIN_FOLDS * (steps // tcfg.train_log_every_steps) + n_evals,
+              f"train: {len(ledger.summary)} image summaries")
+        for i, delta in enumerate(ledger.eval + ledger.summary):
             check(delta == PER_EVAL_FORWARD, f"eval forward {i}: launches {delta}, expected {PER_EVAL_FORWARD}")
         want = {k: PER_TRAIN_STEP[k] * len(ledger.train) + PER_EVAL_FORWARD[k] * eval_forwards for k in counts}
         check(counts == want, f"train path launches {counts}, expected {want}")
-        log(f"train: {len(ledger.train)} train steps launched {PER_TRAIN_STEP} each; {eval_forwards} eval forwards "
-            f"launched {PER_EVAL_FORWARD} each; totals {counts}")
+        log(f"train: {len(ledger.train)} train steps launched {PER_TRAIN_STEP} each; {len(ledger.eval)} eval forwards "
+            f"and {len(ledger.summary)} image-summary forwards launched {PER_EVAL_FORWARD} each; totals {counts}")
         results["launches"] = counts
+        check_run_ledger(model_dir, TRAIN_FOLDS * steps, n_evals, "train")
 
         # a re-run is a no-op resume: no step trains, no checkpoint changes
         before = {f: fold_files(model_dir, f) for f in range(TRAIN_FOLDS)}
@@ -3573,7 +3731,7 @@ def dp_world_one(torch, card: str, root: str, data: str, ids, device: str, model
     out = {}
 
     # the main path: counts from 0 just before, read just after
-    ledger = LaunchLedger(kernels, step_lib)
+    ledger = LaunchLedger(kernels, step_lib, Trainer)
     trainer = Trainer(os.path.join(root, "model-dp"), data, train_config=tcfg,
                       device=None if device == "cuda" else device, input_shape=(size, size), **model_kwargs)
     check(trainer.data_parallel and collectives.world_size() == 1, "the trainer did not take the one-rank group")
@@ -3589,7 +3747,8 @@ def dp_world_one(torch, card: str, root: str, data: str, ids, device: str, model
         check(all(np.isfinite(v) for v in metrics.values()), f"train-dp fold {fold}: non-finite metrics {metrics}")
         check(sorted(fold_files(os.path.join(root, "model-dp"), fold)["checkpoints"]) == [steps],
               f"train-dp fold {fold}: checkpoints")
-    check_trainer_launches(ledger.train, ledger.eval, counts, DP_FOLDS, steps, "train-dp")
+    # eval forwards: the passes' and the image summaries'
+    check_trainer_launches(ledger.train, ledger.eval + ledger.summary, counts, DP_FOLDS, steps, "train-dp")
     out["launches"] = counts
     log(f"train-dp: Trainer.train as 1 {torch.distributed.get_backend()} rank on {trainer.device}, {DP_FOLDS} folds x "
         f"{steps} steps at batch {batch}, {train_s:.3f} s; {len(ledger.train)} train steps launched "
@@ -3822,7 +3981,7 @@ def dp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
                            n_devices=world)
         trainer = Trainer(os.path.join(root, "model-dp2"), data, train_config=tcfg, device=dev,
                           input_shape=(size, size), **model_kwargs)
-        ledger = LaunchLedger(kernels, step_lib)
+        ledger = LaunchLedger(kernels, step_lib, Trainer)
         with ledger.patch(), record_kernel_calls(torch, RANK_HELD) as recorded:
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -3831,7 +3990,7 @@ def dp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
                 torch.cuda.synchronize()
             out["train_s"] = time.perf_counter() - t0
             out["launches"] = kernels.launch_counts()
-        out["ledger_train"], out["ledger_eval"] = ledger.train, ledger.eval
+        out["ledger_train"], out["ledger_eval"] = ledger.train, ledger.eval + ledger.summary
         if dev.type == "cuda":  # on the CPU the plain versions ran: nothing to hold
             out["held"] = hold_rank_calls(torch, recorded, batch)
         del recorded
@@ -4505,6 +4664,7 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
         for i, delta in enumerate(ledger.eval):
             check(delta == per_fwd, f"fit-resnet50 eval forward {i}: launches {delta}, expected {per_fwd}")
         out.update(launches=counts, fit_s=fit_s, n_params=result.n_params, final_metrics=result.final_metrics)
+        check_run_ledger(model_dir, steps, 1, "fit-resnet50")
         log(f"fit-resnet50: fit_preset {R50_PRESET} ({result.n_params} parameters), {steps} steps at batch {batch} "
             f"on synthetic data ({preset.train.optimizer}, lr {preset.train.lr}, {preset.train.lr_schedule} with "
             f"{preset.train.lr_warmup_steps} warmup steps), one eval, the float32 export: {fit_s:.3f} s wall; final "
@@ -4796,6 +4956,9 @@ def fit_records_phase(torch, card: str, device: str = "cuda", cfg=None, batch: i
             check(delta == per_step, f"fit-records step {i}: launches {delta}, expected {per_step}")
         for i, delta in enumerate(ledger.eval):
             check(delta == per_fwd, f"fit-records eval forward {i}: launches {delta}, expected {per_fwd}")
+        events = check_run_ledger(os.path.join(root, "model"), steps, 1, "fit-records", data_service=True)
+        svc = [w["data_service"] for w in events if w["event"] == "step_window"]
+        log(f"fit-records: the windows' data_service blocks {json.dumps(svc)}")
         blocked = sum(b - a for a, b in waits)
         loop_ips = (len(waits) - 2) * batch / (waits[-1][0] - waits[1][0]) if len(waits) > 2 else float("nan")
         out.update(launches=counts, fit_s=fit_s, final_metrics=result.final_metrics, eval_valid_rows=sum(valid_rows),
@@ -4980,6 +5143,408 @@ def train_lars_phase(torch, card: str, device: str = "cuda", cfg=None, batch: in
     return out
 
 
+# Xception-41: the segmenter through Trainer.train with every observability
+# knob on, and the classifier preset through fit_preset
+XC_STEPS = 20
+XC_EVERY = 10
+XC_LOG_EVERY = 5
+XC_TRACE_RATE = 0.25
+XC_PROFILE_EVERY = 2
+XC_NAN_STEPS = 5
+XC_NAN_IMAGES = 64
+# a window's mfu (the step FLOPs over its step and fetch-wait time per step)
+# against the mfu its images/s imply (the same FLOPs over its wall time per
+# step): at most this ratio, and at most 1
+MFU_IMPLIED_RATIO = 1.25
+X41_PRESET = "xception41_imagenet"
+X41_STEPS = 20
+
+
+def xception_counts(per, n_bn: int) -> dict:
+    """``per`` with the BN launches of an Xception forward."""
+    return {**per, "fused_bn_act": n_bn}
+
+
+def train_xception_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
+                         size: int = 101, batch: int = TRAIN_BATCH, steps: int = XC_STEPS, every: int = XC_EVERY,
+                         log_every: int = XC_LOG_EVERY, nan_images: int = XC_NAN_IMAGES):
+    """The Xception-41 segmenter (reference widths, ``output_stride=8``,
+    depthwise kernels in the ASPP, float32) through Trainer.train, 2 folds
+    x ``steps`` steps at ``batch`` on the train phase's seeded salt
+    dataset, with dispatch-ahead 2, a window every ``log_every`` steps,
+    traces at 0.25, a cadence profile every 2 windows and the NaN guard on
+    abort; an eval and a checkpoint every ``every`` steps. Checks the
+    launches, the ledger (memory, windows, mfu, traces, checkpoints, the
+    capture and its roofline), the event files, the served export, and a
+    NaN drill. ``model_kwargs`` and ``device="cpu"`` rehearse it small."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
+    from tensorflowdistributedlearning_tpu_torch.data import folds as folds_lib
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.models import model_for
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+    from tensorflowdistributedlearning_tpu_torch.obs import health
+    from tensorflowdistributedlearning_tpu_torch.obs import profiler as profiler_lib
+    from tensorflowdistributedlearning_tpu_torch.obs import trace as trace_lib
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+    from tensorflowdistributedlearning_tpu_torch.utils import summary
+
+    on_card = device == "cuda"
+    model_kwargs = dict(model_kwargs or {}, backbone="xception", output_stride=8, use_pallas_depthwise=True)
+    cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+    with torch.device("meta"):
+        n_bn = sum(isinstance(m, BatchNorm) for m in model_for(cfg).modules())
+    zero = {k: 0 for k in PER_TRAIN_STEP}
+    per_step = PER_TRAIN_STEP if on_card else zero
+    per_eval = xception_counts(PER_EVAL_FORWARD, n_bn) if on_card else zero
+    tcfg = TrainConfig(n_folds=TRAIN_FOLDS, seed=SEED % 1000 + 5, checkpoint_every_steps=every,
+                       eval_every_steps=every, save_best=2, dispatch_ahead_steps=2, train_log_every_steps=log_every,
+                       trace_sample_rate=XC_TRACE_RATE, profile_every_windows=XC_PROFILE_EVERY, nan_guard="abort")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-xception-") as root:
+        data, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
+        ids = write_salt_dataset(data, n_images, size, SEED + 11)  # the train phase's dataset
+        ledger = LaunchLedger(kernels, step_lib, Trainer)
+        trainer = Trainer(model_dir, data, train_config=tcfg, device=device, input_shape=(size, size),
+                          **model_kwargs)
+        decisions = []
+        real_span = trace_lib.Tracer.span
+
+        @contextlib.contextmanager
+        def deciding_span(tracer, name, **kw):
+            """The tracer's span, recording each root span's sampling verdict."""
+            with real_span(tracer, name, **kw) as opened:
+                if opened is not None and opened.parent_id is None:
+                    decisions.append((name, opened.sampled))
+                yield opened
+
+        with ledger.patch(), mock.patch.object(trace_lib.Tracer, "span", deciding_span):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            folds = trainer.train(ids, batch_size=batch, steps=steps)
+            if on_card:
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        check(len(folds) == TRAIN_FOLDS and all(np.isfinite(v) for f in folds for v in f.values()),
+              f"train-xception: fold metrics {folds}")
+        n_evals = TRAIN_FOLDS * (steps // every)
+        check(len(ledger.train) == TRAIN_FOLDS * steps, f"train-xception: {len(ledger.train)} train steps")
+        check(len(ledger.summary) == TRAIN_FOLDS * (steps // log_every) + n_evals,
+              f"train-xception: {len(ledger.summary)} image summaries")
+        for i, delta in enumerate(ledger.train):
+            check({k: delta[k] for k in per_step} == per_step, f"train-xception step {i}: launches {delta}")
+        for i, delta in enumerate(ledger.eval + ledger.summary):
+            check({k: delta[k] for k in per_eval} == per_eval, f"train-xception eval forward {i}: launches {delta}")
+        forwards = len(ledger.eval) + len(ledger.summary)
+        want = {k: per_step[k] * len(ledger.train) + per_eval[k] * forwards for k in per_step}
+        check({k: counts[k] for k in want} == want, f"train-xception launches {counts}, expected {want}")
+        out.update(launches=counts, train_s=train_s, n_params=trainer.params, n_bn=n_bn)
+        log(f"train-xception: Trainer.train of Xception-41 + ASPP + decoder ({trainer.params} parameters, "
+            f"{size}x{size}x2, output_stride 8, float32), {TRAIN_FOLDS} folds x {steps} steps at batch {batch}: "
+            f"{train_s:.3f} s (data, evals, checkpoints, summaries, traces and profiles included); {len(ledger.train)} "
+            f"steps launched {per_step['depthwise_conv2d']}/{per_step['depthwise_conv2d_dx']}/"
+            f"{per_step['depthwise_conv2d_dw']} depthwise fwd/dx/dw each, {forwards} eval and image-summary forwards "
+            f"{per_eval['fused_bn_act']} BN + act each; folds {json.dumps(folds)} [{card}]")
+
+        # the ledger
+        events = check_run_ledger(model_dir, TRAIN_FOLDS * steps, n_evals, "train-xception")
+        mems = [e for e in events if e["event"] == "memory"]
+        check(len(mems) >= TRAIN_FOLDS, f"train-xception: {len(mems)} memory events")
+        if on_card:
+            in_use = [d.get("bytes_in_use") for e in mems for d in e["devices"].values()]
+            check(in_use and all(v for v in in_use), f"train-xception: memory events' bytes_in_use {in_use}")
+        windows = [e for e in events if e["event"] == "step_window"]
+        for w in windows:
+            check("fetch_wait_s" in w and "step_time_ms" in w and ("mfu" in w or not on_card),
+                  f"train-xception window {w}")
+        # mfu: the ledger rounds it to 4 places (JAX's field), so the check
+        # recomputes it from the window's own fields, unrounded
+        peak = profiler_lib.resolve_peak_flops(device=device)
+        flops = 6.0 * trainer.params * batch
+        mfus = []
+        for w in windows:
+            mfu = flops * w["steps"] / (w["compute_s"] + w["fetch_wait_s"]) / peak if peak else None
+            # the JAX package's pricing, over the mean step span alone (recorded)
+            span_mfu = flops / (w["step_time_ms"]["mean_ms"] / 1e3) / peak if peak else None
+            implied = flops / batch * w["images_per_sec"] / peak if peak and not w["dirty"] else None
+            log(f"train-xception: window fold {w['fold']} step {w['step']}{' (dirty)' if w['dirty'] else ''}: "
+                f"{w.get('images_per_sec')} images/s, step span {w['step_time_ms']['mean_ms']} ms mean, compute "
+                f"{w['compute_s']} s, fetch_wait {w['fetch_wait_s']} s, data_wait {w['data_wait_s']} s; mfu "
+                f"{w.get('mfu')} ({mfu if mfu is None else f'{mfu:.4e}'} unrounded), over the mean step span "
+                f"{span_mfu if span_mfu is None else f'{span_mfu:.4e}'}, implied by images/s "
+                f"{implied if implied is None else f'{implied:.4e}'} [{card}]")
+            if w["dirty"]:
+                continue
+            mfus.append((w["fold"], w["step"], mfu, span_mfu, implied))
+            check(not on_card or w["mfu"] == round(mfu, 4) and mfu <= 1.0 and mfu <= MFU_IMPLIED_RATIO * implied,
+                  f"train-xception window fold {w['fold']} step {w['step']}: mfu {w.get('mfu')} ({mfu}) against "
+                  f"{implied} implied by {w['images_per_sec']} images/s")
+        check(len(mfus) >= TRAIN_FOLDS, f"train-xception: {len(mfus)} clean windows")
+        out["mfu"] = mfus
+        # every step, eval and checkpoint span was offered to the sampler, and
+        # exactly the sampled ones are in the ledger
+        traces = [e for e in events if e["event"] == "trace" and not e.get("parent_id")]
+        ckpts = [e for e in events if e["event"] == "checkpoint"]
+        names = ("step", "eval", "checkpoint")
+        offered = {n: sum(d == n for d, _ in decisions) for n in names}
+        sampled = {n: sum(d == n and v for d, v in decisions) for n in names}
+        ledgered = {n: sum(t["name"] == n for t in traces) for n in names}
+        share = sum(sampled.values()) / max(1, sum(offered.values()))
+        check(offered == {"step": TRAIN_FOLDS * steps, "eval": n_evals, "checkpoint": len(ckpts)}
+              and sampled == ledgered and sampled["step"] >= 1 and 0.08 <= share <= 0.5,
+              f"train-xception traces: offered {offered}, sampled {sampled}, ledgered {ledgered}")
+        by_name = ledgered
+        check(len(ckpts) == TRAIN_FOLDS * (steps // every + 1) and ckpts[-1].get("final"),
+              f"train-xception: checkpoint events {[(e['step'], e.get('final')) for e in ckpts]}")
+        log(f"train-xception: traces at rate {XC_TRACE_RATE}: sampled {by_name} of the offered {offered} step, eval "
+            f"and checkpoint spans (share {share:.3f}), each sampled one in the ledger; {len(ckpts)} checkpoint "
+            f"events; {len(mems)} memory events")
+        captures = [e for e in events if e["event"] == "profile_capture"]
+        roofs = [e for e in events if e["event"] == "op_roofline"]
+        # one capture every XC_PROFILE_EVERY windows of the run, none refused
+        # and none failed (check_run_ledger read the counters)
+        n_captures = TRAIN_FOLDS * (steps // log_every) // XC_PROFILE_EVERY
+        check(len(captures) == n_captures and events[-1].get("profiler", {}).get("captures") == n_captures,
+              f"train-xception: {len(captures)} cadence captures, expected {n_captures}; run_end profiler "
+              f"{events[-1].get('profiler')}")
+        if on_card:
+            # a capture begun at a fold's last window holds no train step: no mfu
+            priced = [r for r in roofs if "mfu" in r]
+            check(roofs and all(r["phase"] == "train" for r in roofs) and priced
+                  and all(r["mfu"] <= 1.0 and r["analytic_flops_per_step"] == flops for r in priced),
+                  f"train-xception rooflines {[(r['step'], r.get('mfu')) for r in roofs]}")
+            ops = json.load(open(os.path.join(captures[0]["logdir"], "ops.json")))
+            names = {o["name"]: o["occurrences"] for o in ops}
+            tiled = sum(n for k, n in names.items() if "tfdl_depthwise_tiled_kernel" in k)
+            band = sum(n for k, n in names.items() if "tfdl_depthwise_dw_band_kernel" in k)
+            check(tiled >= 6 and band >= 3, f"train-xception capture: depthwise fwd+dx {tiled}, dw {band} launches")
+            log(f"train-xception: {len(captures)} cadence captures; the first holds {len(ops)} kernels, "
+                f"{tiled} depthwise forward and dx launches and {band} dw launches; rooflines "
+                f"{[(r['step'], r.get('mfu'), r['classes']) for r in roofs]} [{card}]")
+
+        # the event files
+        for fold in range(TRAIN_FOLDS):
+            fold_windows = [w for w in windows if w["fold"] == fold]
+            (train_events,) = [os.path.join(model_dir, f"fold{fold}", "train", f)
+                               for f in os.listdir(os.path.join(model_dir, f"fold{fold}", "train"))]
+            scalars = summary.read_events(train_events)
+            check([s for s, _ in scalars] == [w["step"] for w in fold_windows] and all(
+                all(abs(v - w["scalars"][k]) <= 1e-6 * max(1.0, abs(v)) for k, v in got.items())
+                for (_, got), w in zip(scalars, fold_windows)), f"train-xception fold {fold}: TensorBoard scalars")
+            tags = {}
+            for step, images in summary.read_images(train_events):
+                tags.setdefault(step, set()).update(images)
+            kinds = {t.split("/")[0] for step_tags in tags.values() for t in step_tags}
+            check(kinds == {"image", "label", "probability", "prediction"} and len(tags) == steps // log_every,
+                  f"train-xception fold {fold}: image summaries {tags}")
+        log(f"train-xception: fold{{0,1}}/train scalars equal the windows' scalars; image, label, probability and "
+            f"prediction summaries decoded at every window")
+
+        # the export, served
+        manifest = trainer.export_serving(0)
+        engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device=device, buckets=(batch,))
+        x = make_instances(torch, batch, SEED + 62)[:, :size, :size]
+        kernels.reset_launch_counts()
+        got = engine.infer(x)["probabilities"]
+        served = kernels.launch_counts()
+        best = trainer.restore_fold(0).model.eval()
+        plain = {"depthwise_conv2d": kernels.depthwise_conv2d_plain, "bn_act_folded": kernels.bn_act_folded_plain,
+                 "fused_sigmoid_mask": kernels.fused_sigmoid_mask_plain}
+        with mock.patch.multiple(kernels, **plain), torch.no_grad():
+            want = torch.sigmoid(best(torch.from_numpy(x).to(device))).cpu().numpy()
+        del best
+        d = float(np.abs(got - want).max())
+        per_serve = {"depthwise_conv2d": 3, "fused_bn_act": n_bn, "fused_sigmoid_mask": 1} if on_card else {
+            "depthwise_conv2d": 0, "fused_bn_act": 0, "fused_sigmoid_mask": 0}
+        check(d <= TOL_PROBS, f"train-xception export: probabilities {d} from the plain forward")
+        check({k: served[k] for k in per_serve} == per_serve, f"train-xception export: launches {served}")
+        out["serve_launches"] = served
+        log(f"train-xception: fold 0's export through the engine at bucket {batch}: launches {per_serve}, max|dprobs| "
+            f"{d:.3g} from the forward through the plain versions [{card}]")
+
+        # the step on a resident batch: ms, images/s, idle share
+        dataset = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids[:batch])
+        placed = pipeline_lib.to_device({"images": dataset.images, "masks": dataset.masks}, torch.device(device))
+        fixed = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
+        state = trainer._init_state()
+        train_step = step_lib.make_train_step(step_lib.SegmentationTask())
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, fixed)
+            step_lib.compute_metrics(metrics)
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times[2:]) * 1e3
+        out.update(step_ms=ms, images_per_s=batch / ms * 1e3)
+        log(f"train-xception: {ms:.3f} ms per step (median of steps 3-6 on a resident batch), "
+            f"{batch / ms * 1e3:.3f} images/s at batch {batch} [{card}]")
+        if on_card:
+            lines, stats = profile_steps(torch, train_step, state, fixed)
+            for line in lines:
+                log(f"profile train-xception: {line} [{card}]")
+            out["profile"] = stats
+        del state
+
+        # the NaN drill: one NaN pixel in one train image of fold 0
+        drill_ids = ids[:nan_images]
+        classes = folds_lib.coverage_to_class(pipeline_lib.mask_coverage(
+            pipeline_lib.InMemoryDataset.from_directory(data, ids=drill_ids).masks))
+        poisoned_id = folds_lib.build_fold_manifests(drill_ids, list(classes), tcfg.n_folds, tcfg.seed)[0]["train"][0]
+        real = pipeline_lib.InMemoryDataset.from_directory.__func__
+
+        def poisoned(cls, *a, **k):
+            ds = real(cls, *a, **k)
+            ds.images[list(ds.ids).index(poisoned_id), size // 2, size // 2, 0] = np.nan
+            return ds
+
+        drill_dir = os.path.join(root, "model-nan")
+        with mock.patch.object(pipeline_lib.InMemoryDataset, "from_directory", classmethod(poisoned)):
+            try:
+                Trainer(drill_dir, data, train_config=tcfg, device=device, input_shape=(size, size),
+                        **model_kwargs).train(drill_ids, classes, batch_size=batch, steps=XC_NAN_STEPS)
+                raised = None
+            except health.HealthAbortError as e:
+                raised = e
+        check(raised is not None, "train-xception NaN drill: no HealthAbortError")
+        drill = read_ledger(drill_dir)
+        alerts = [e for e in drill if e["event"] == "health_alert"]
+        check(len(alerts) == 1 and alerts[0]["monitor"] == "nan_loss" and alerts[0]["action"] == "abort",
+              f"train-xception NaN drill: alerts {alerts}")
+        final = fold_files(drill_dir, 0)["checkpoints"]
+        last = [e for e in drill if e["event"] == "checkpoint"][-1]
+        check(last.get("final") and last["step"] in final and drill[-1]["event"] == "run_end"
+              and drill[-1]["interrupted"], f"train-xception NaN drill: checkpoints {list(final)}, last {drill[-1]}")
+        log(f"train-xception: NaN drill ({poisoned_id} holds one NaN pixel, {XC_NAN_STEPS} steps): "
+            f"{type(raised).__name__}: {raised}; health_alert {json.dumps({k: v for k, v in alerts[0].items() if k != 't'})}; "
+            f"the final checkpoint at step {last['step']} on disk")
+    return out
+
+
+def fit_xception_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = R50_BATCH,
+                       steps: int = X41_STEPS, log_every: int = XC_LOG_EVERY):
+    """xception41_imagenet (Xception-41 classifier, 224x224x3, bf16 compute,
+    1000 classes; full width and depth) through ``fit_preset`` on synthetic
+    data: ``steps`` steps at ``batch``, one eval at the end, the float32
+    export; then the export through the engine (the bf16-activation BN
+    arm) against its forward through the plain versions, and the step on a
+    resident batch. ``cfg`` and ``device="cpu"`` rehearse it small."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.models import model_for
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, ClassifierTrainer, fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    on_card = device == "cuda"
+    preset = configs.get_preset(X41_PRESET)
+    cfg = cfg or preset.model
+    with torch.device("meta"):
+        n_bn = sum(isinstance(m, BatchNorm) for m in model_for(cfg).modules())
+    zero = {k: 0 for k in PER_R50_TRAIN_STEP}
+    per_step = PER_R50_TRAIN_STEP if on_card else zero
+    per_fwd = {**PER_R50_TRAIN_STEP, "fused_bn_act": n_bn, "fused_bn_act_bf16_act": n_bn} if on_card else zero
+    shape = (*cfg.input_shape, cfg.input_channels)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fit-xception-") as root, \
+            mock.patch.dict(configs.PRESETS, {X41_PRESET: dataclasses.replace(preset, model=cfg)}):
+        model_dir = os.path.join(root, "model")
+        ledger = LaunchLedger(kernels, step_lib)
+        with ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = fit_preset(X41_PRESET, model_dir, steps=steps, batch_size=batch, eval_every_steps=steps,
+                                export_serving="float32", device=device, train_log_every_steps=log_every)
+            if on_card:
+                torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        check(result.steps == steps and all(np.isfinite(v) for v in result.final_metrics.values()),
+              f"fit-xception: {result}")
+        check(len(ledger.train) == steps and len(ledger.eval) == EVAL_SYNTHETIC_BATCHES,
+              f"fit-xception: {len(ledger.train)} train steps, {len(ledger.eval)} eval forwards")
+        for i, delta in enumerate(ledger.train + ledger.eval):
+            want = per_step if i < steps else per_fwd
+            check({k: delta[k] for k in want} == want, f"fit-xception step or eval forward {i}: launches {delta}")
+        check_run_ledger(model_dir, steps, 1, "fit-xception", windows=steps // log_every)
+        out.update(launches=counts, fit_s=fit_s, n_params=result.n_params, final_metrics=result.final_metrics)
+        log(f"fit-xception: fit_preset {X41_PRESET} ({result.n_params} parameters, bf16 compute), {steps} steps at "
+            f"batch {batch} on synthetic data ({preset.train.optimizer}, lr {preset.train.lr}), one eval, the float32 "
+            f"export: {fit_s:.3f} s wall; final {json.dumps(result.final_metrics)}; {len(ledger.eval)} eval forwards "
+            f"launched {per_fwd['fused_bn_act_bf16_act']} bf16 BN + act each [{card}]")
+
+        # the export through the engine against its forward through the plain versions
+        trainer = ClassifierTrainer(model_dir, None, cfg, preset.train, device=device)
+        best = trainer._restore_best_host()
+        x = r50_instances(batch, SEED + 71, shape)
+        xt = torch.from_numpy(x).to(device)
+        with best.eval_params() as model:
+            calib = [r50_instances(batch, SEED + 72 + i, shape) for i in range(R50_CALIBRATION_BATCHES)]
+            estimate_bn_statistics(torch, model, [torch.from_numpy(c).to(device) for c in calib])
+            calibrate_logits(torch, model.eval(), xt)
+            art = os.path.join(root, "served")
+            serving.export_serving_artifact(model, cfg, art, metadata={"step": best.step}, serving_dtype="float32")
+        del best
+        engine = InferenceEngine.from_artifact(art, device=device, buckets=(batch,))
+        kernels.reset_launch_counts()
+        got = engine.infer(x)
+        served = kernels.launch_counts()
+        check({k: served[k] for k in per_fwd} == per_fwd, f"fit-xception serve: launches {served}")
+        plain_model = serving.load_serving_artifact(art, device)
+        with mock.patch.multiple(kernels, bn_act_folded=kernels.bn_act_folded_plain):
+            kernels.reset_launch_counts()
+            want = plain_model(x)
+            check(sum(kernels.launch_counts().values()) == 0, "fit-xception: the plain forward launched")
+        p, pw = got["probabilities"], want["probabilities"].float().cpu().numpy()
+        cls, clsw = got["class"], want["class"].cpu().numpy()
+        d = float(np.abs(p - pw).max())
+        top2 = np.sort(pw, -1)[:, -2:]
+        apart = top2[:, 1] - top2[:, 0] > 2 * TOL_VIT_F32
+        check(d <= TOL_VIT_F32 and np.array_equal(cls[apart], clsw[apart]),
+              f"fit-xception serve: max|dprobs| {d}, top-1 {int((cls != clsw).sum())} rows apart")
+        check_classes(p, cls, "fit-xception serve")
+        out.update(serve_launches=served, serve_dprobs=d, top1_agree=float((cls == clsw).mean()))
+        log(f"fit-xception: the export (running statistics re-estimated, logits at std 3) through the engine at "
+            f"bucket {batch}: {per_fwd['fused_bn_act_bf16_act']} bf16-activation BN + act launches, max|dprobs| {d:.3g} "
+            f"and top-1 on {int(apart.sum())} of {batch} rows equal to the forward through the plain versions [{card}]")
+
+    # the step on a resident batch
+    state = create_train_state(cfg, preset.train, device, generator=torch.Generator().manual_seed(SEED + 73))
+    raw = synthetic_classification_batch(np.random.default_rng(SEED + 74), batch, cfg.input_shape,
+                                         cfg.input_channels, cfg.num_classes)
+    fixed = pipeline_lib.to_device(raw, torch.device(device))
+    train_step = step_lib.make_train_step(step_lib.ClassificationTask(label_smoothing=preset.train.label_smoothing),
+                                          weight_decay=cfg.weight_decay)
+    times, losses = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, fixed)
+        losses.append(step_lib.compute_metrics(metrics)["loss"])
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"fit-xception: non-finite losses {losses}")
+    ms = statistics.median(times[2:]) * 1e3
+    out.update(step_ms=ms, images_per_s=batch / ms * 1e3)
+    log(f"fit-xception: train step on a resident batch of {batch}: {ms:.3f} ms (median of steps 3-6), "
+        f"{batch / ms * 1e3:.3f} images/s [{card}]")
+    if on_card:
+        lines, stats = profile_steps(torch, train_step, state, fixed)
+        for line in lines:
+            log(f"profile fit-xception: {line} [{card}]")
+        out["profile"] = stats
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     marks = [t_start]
@@ -5083,6 +5648,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         lars = train_lars_phase(torch, card)
         mark("train-lars")
+        torch.cuda.empty_cache()
+        xception = train_xception_phase(torch, card)
+        mark("train-xception")
+        torch.cuda.empty_cache()
+        x41 = fit_xception_phase(torch, card)
+        mark("fit-xception")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5095,7 +5666,9 @@ def main() -> int:
              "train-bf16": trained16["launches"], "predict-bf16": trained16["predict_launches"],
              "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
              "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
-             "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"]}
+             "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
+             "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
+             "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -5122,7 +5695,9 @@ def main() -> int:
                       "train_bf16": {k: v for k, v in trained16.items() if not k.endswith("launches")},
                       "fit_resnet50": {k: v for k, v in fitted50.items() if not k.endswith("launches")},
                       "fit_records": {k: v for k, v in fit_records.items() if not k.endswith("launches")},
-                      "train_lars": {k: v for k, v in lars.items() if k != "launches"}}))
+                      "train_lars": {k: v for k, v in lars.items() if k != "launches"},
+                      "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
+                      "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

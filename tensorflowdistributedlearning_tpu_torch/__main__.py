@@ -76,7 +76,7 @@ def cmd_train(args) -> int:
         eval_throttle_secs=args.eval_throttle_secs,
         n_devices=args.n_devices,
         sync_batch_norm=args.sync_bn,
-        **({} if args.data_workers is None else {"data_service_workers": args.data_workers}),
+        **_loop_overrides(args),
     )
     trainer = Trainer(
         args.model_dir,
@@ -86,6 +86,7 @@ def cmd_train(args) -> int:
         input_shape=tuple(args.input_shape),
         n_blocks=tuple(args.n_blocks),
         base_depth=args.base_depth,
+        backbone=args.backbone,
         use_pallas_depthwise=args.use_pallas_depthwise,
         block_type=args.block_type,
         dtype=args.dtype,
@@ -150,6 +151,11 @@ def cmd_fit(args) -> int:
         grad_accum_steps=args.grad_accum,
         eval_holdout_fraction=args.eval_holdout_fraction,
         data_service_workers=args.data_workers,
+        prefetch_depth=args.prefetch_depth,
+        dispatch_ahead_steps=args.dispatch_ahead,
+        trace_sample_rate=args.trace_sample_rate,
+        nan_guard=args.nan_guard,
+        profile_every_windows=args.profile_every_windows,
     )
     summary = {"preset": args.preset, "steps": result.steps, "n_params": result.n_params,
                "final_metrics": result.final_metrics}
@@ -182,11 +188,44 @@ def cmd_records_index(args) -> int:
     return 0
 
 
-def _add_data_workers(p: argparse.ArgumentParser) -> None:
+_LOOP_FLAGS = (
+    ("data_workers", "data_service_workers"),
+    ("prefetch_depth", "prefetch_depth"),
+    ("dispatch_ahead", "dispatch_ahead_steps"),
+    ("trace_sample_rate", "trace_sample_rate"),
+    ("nan_guard", "nan_guard"),
+    ("profile_every_windows", "profile_every_windows"),
+)
+
+
+def _loop_overrides(args) -> dict:
+    """The ``TrainConfig`` fields of the host-loop and observability flags
+    that were given (the config's defaults stay the single source)."""
+    return {field: getattr(args, flag) for flag, field in _LOOP_FLAGS if getattr(args, flag) is not None}
+
+
+def _add_host_loop(p: argparse.ArgumentParser) -> None:
+    """The host-loop and observability flags of ``train`` and ``fit`` (the
+    JAX CLI's); None keeps the config's value."""
     p.add_argument("--data-workers", type=int, default=None,
                    help="workers of the streaming data service (data/service.py) that read, decode and assemble "
                    "the train batches; batch content does not depend on the count. 0 = the in-line streams "
                    "(default: the config's, 2)")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="host-to-device input prefetch depth (>= 1; default: the config's, 2)")
+    p.add_argument("--dispatch-ahead", type=int, default=None,
+                   help="launch at most this many train steps ahead of the card, each log window's metrics "
+                   "fetched one window late; 0 = the synchronous loop (numerics identical either way; default: "
+                   "the config's, 2)")
+    p.add_argument("--trace-sample-rate", type=float, default=None,
+                   help="fraction of train steps, eval passes and checkpoints persisted as `trace` ledger "
+                   "events; 0 disables (the config's default)")
+    p.add_argument("--nan-guard", choices=("warn", "abort", "off"), default=None,
+                   help="non-finite loss guard: warn (alert and go on), abort (alert, write the final "
+                   "checkpoint, stop), off; default: the config's (warn)")
+    p.add_argument("--profile-every-windows", type=int, default=None,
+                   help="capture a torch.profiler trace of a few train steps every N log windows and ledger "
+                   "profile_capture / op_roofline events; 0 disables (the config's default)")
 
 
 def _add_process_group(p: argparse.ArgumentParser) -> None:
@@ -265,6 +304,7 @@ def cmd_predict(args) -> int:
         input_shape=tuple(args.input_shape),
         n_blocks=tuple(args.n_blocks),
         base_depth=args.base_depth,
+        backbone=args.backbone,
         use_pallas_depthwise=args.use_pallas_depthwise,
         block_type=args.block_type,
         dtype=args.dtype,
@@ -483,11 +523,11 @@ def cmd_serve(args) -> int:
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
     """The segmenter's model flags shared by ``train`` and ``predict`` (the
-    JAX CLI's shared model arguments; ``--backbone xception`` is queue
-    A 11)."""
+    JAX CLI's shared model arguments)."""
     p.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
     p.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
     p.add_argument("--base-depth", type=int, default=256)
+    p.add_argument("--backbone", choices=("resnet", "xception"), default="resnet")
     p.add_argument("--block-type", choices=("bottleneck", "basic_block"), default="bottleneck")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute dtype (parameters, loss and metrics stay float32)")
@@ -526,7 +566,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "one device")
     t.add_argument("--sync-bn", action="store_true",
                    help="synchronized BatchNorm: training statistics over the global batch instead of per rank")
-    _add_data_workers(t)
+    _add_host_loop(t)
     _add_process_group(t)
     t.set_defaults(fn=cmd_train)
 
@@ -554,7 +594,7 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--eval-holdout-fraction", type=float, default=None,
                    help="with record shards and no val split: hold out this fraction of train shards as the eval "
                    "split")
-    _add_data_workers(f)
+    _add_host_loop(f)
     f.add_argument("--export-serving", action="store_true",
                    help="after training, export the best state's serving artifact ({model_dir}/export/serving)")
     f.add_argument("--serving-dtype", choices=SERVING_SPECS, default="float32",

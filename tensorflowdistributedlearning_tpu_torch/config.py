@@ -127,7 +127,6 @@ class ModelConfig:
 # knobs of the JAX package that later slices of the port bring, with the
 # ROADMAP queue item that brings each
 _LATER = (
-    (lambda c: c.backbone == "xception", "backbone='xception' (queue A 11)"),
     (lambda c: c.moe_experts > 0, "moe_experts > 0, the Switch-MoE ViT (queue A 12)"),
 )
 
@@ -136,17 +135,18 @@ def require_supported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     run yet, naming the ROADMAP item that brings it. It runs the ResNet
     segmenter and classifier (``num_classes``) at every block layout,
-    block type and stem, and the ViT classifier (``backbone="vit"``, with
-    or without ``use_fused_attention``), each in float32 or bfloat16
-    compute; it refuses the Xception backbone and the MoE ViT. A ViT
+    block type and stem, the Xception-41 segmenter and classifier
+    (``backbone="xception"``), and the ViT classifier (``backbone="vit"``,
+    with or without ``use_fused_attention``), each in float32 or bfloat16
+    compute; it refuses the MoE ViT. A ViT
     without ``num_classes`` raises ``ValueError`` when it is built, as the
     JAX model does when it is applied. A fused-attention ViT must have a
     head width that the attention kernels are built for."""
     for test, what in _LATER:
         if test(config):
             raise NotImplementedError(
-                f"{what} is not ported yet; the port runs the ResNet segmenter and classifier "
-                "and the ViT classifier (see ROADMAP.md)"
+                f"{what} is not ported yet; the port runs the ResNet and Xception-41 segmenters and "
+                "classifiers and the ViT classifier (see ROADMAP.md)"
             )
     if config.backbone == "vit" and config.use_fused_attention:
         _require_kernel_head_dim(config)
@@ -183,17 +183,39 @@ class TrainConfig:
     reference's continuous exponential decay, checkpoints every 500 steps,
     eval throttled to >= 300 s).
 
-    Fields that only shape the JAX package's own orchestration are accepted
-    and have no effect here: ``telemetry``, ``telemetry_memory_every_windows``,
-    ``health_monitors`` and ``train_log_every_steps`` (the port logs through
-    ``logging``; the ledger is queue A 13), ``dispatch_ahead_steps`` (eager
-    PyTorch already runs ahead of the device) and ``async_checkpointing``
-    (saves are synchronous). ``data_service_workers`` (default 2) sets the
-    streaming data service's workers that feed ``Trainer.train``'s folds and
+    The trainers' host loop and observability, as in the JAX package:
+
+    - ``telemetry`` (default on): the run ledger ``telemetry.jsonl`` in the
+      model directory (``obs/telemetry.py``) with a ``step_window`` event
+      every ``train_log_every_steps`` steps (the data-wait / step /
+      fetch-wait split, images/s, ``mfu``, the input queues; its scalars are
+      the window's last step's, as TensorBoard's), eval, checkpoint and
+      cost events, and a ``memory`` event every
+      ``telemetry_memory_every_windows`` windows. The TensorBoard event
+      files are written either way (rank 0).
+    - ``trace_sample_rate``: the share of step, eval and checkpoint spans
+      persisted as ``trace`` events.
+    - ``profile_every_windows`` > 0: a ``torch.profiler`` capture of three
+      train steps every that many windows, ledgered as ``profile_capture``
+      and a ``train`` ``op_roofline``.
+    - ``health_monitors`` (default on): the NaN guard, loss-spike,
+      step-time and data-starved monitors over the windows, with
+      ``nan_guard`` ``warn``, ``abort`` (write the final checkpoint, then
+      raise ``HealthAbortError``) or ``off``.
+    - ``dispatch_ahead_steps`` (default 2): how many train steps the host
+      may launch ahead of the card before it waits on the oldest (under the
+      ``fetch_wait`` span); a window's metrics are copied to the host behind
+      an event and written at the next boundary. 0 is the synchronous loop:
+      each window's metrics are read in place, which waits for the card.
+
+    ``async_checkpointing`` is accepted and has no effect (saves are
+    synchronous). ``data_service_workers`` (default 2) sets the streaming
+    data service's workers that feed ``Trainer.train``'s folds and
     ``fit``'s record shards (0: the in-line streams); ``augmentation``,
     ``label_smoothing`` and ``eval_holdout_fraction`` (the held-out share of
     the train record shards) act in ``fit()`` only. The knobs that would
-    change what a run does raise in :func:`require_supported_training`."""
+    change what a run does and that the port does not run yet raise in
+    :func:`require_supported_training`."""
 
     data_format: str = "NHWC"
     optimizer: str = "adam"  # "adam" | "sgd" (Nesterov) | "lars"
@@ -338,9 +360,6 @@ _LATER_TRAINING = (
         "sequence/model/pipeline/expert parallelism (queue A 12)",
     ),
     (lambda c: c.weight_update_sharding, "weight_update_sharding, ZeRO-1 (queue A 12)"),
-    (lambda c: c.nan_guard == "abort", "nan_guard='abort', the health monitors (queue A 13)"),
-    (lambda c: c.trace_sample_rate > 0, "trace_sample_rate > 0, tracing (queue A 13)"),
-    (lambda c: c.profile_every_windows > 0, "profile_every_windows > 0, the profiler (queue A 13)"),
     (lambda c: c.compile_cache_dir is not None, "compile_cache_dir (no compile cache in eager PyTorch)"),
 )
 
@@ -348,13 +367,13 @@ _LATER_TRAINING = (
 def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a model or training configuration
     the port does not train yet, naming the ROADMAP item that brings it. It
-    trains every model :func:`require_supported` accepts (the ResNet
-    segmenter and classifier, the ViT classifier without experts; float32
-    or bfloat16 compute; ``remat`` per residual unit or transformer block)
-    with Adam, SGD or LARS, ``grad_accum_steps`` >= 1, on one device or
-    data-parallel; it refuses what :func:`require_supported` refuses, the
-    planner, ZeRO-1 and the model-parallel axes (queue A 12), and the
-    observability knobs (queue A 13)."""
+    trains every model :func:`require_supported` accepts (the ResNet and
+    Xception-41 segmenters and classifiers, the ViT classifier without
+    experts; float32 or bfloat16 compute; ``remat`` per residual unit or
+    transformer block) with Adam, SGD or LARS, ``grad_accum_steps`` >= 1,
+    on one device or data-parallel, under every observability knob; it
+    refuses what :func:`require_supported` refuses, the planner, ZeRO-1 and
+    the model-parallel axes (queue A 12), and ``compile_cache_dir``."""
     require_supported(model_config)
     for test, what in _LATER_TRAINING:
         if test(train_config):

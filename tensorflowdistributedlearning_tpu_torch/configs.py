@@ -8,8 +8,8 @@ descriptions; ``tests/test_torch_vit.py`` holds every preset's
 :meth:`Preset.to_dict` equal to the JAX one. The comments that give the
 provenance of each value are the JAX package's. What the port runs of each preset is what
 :func:`config.require_supported` and :func:`config.require_supported_training`
-accept: every preset but ``xception41_imagenet`` (queue A 11),
-``vit_s16_moe_imagenet`` and ``resnet50_bf16_8k``'s ZeRO-1 (queue A 12).
+accept: every preset but ``vit_s16_moe_imagenet`` and
+``resnet50_bf16_8k``'s ZeRO-1 (queue A 12).
 """
 
 from __future__ import annotations

@@ -188,11 +188,14 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     return out
 
 
-def device_prefetch(iterator: Iterator, place: Callable, depth: int = 2) -> Iterator:
+def device_prefetch(iterator: Iterator, place: Callable, depth: int = 2, registry=None) -> Iterator:
     """Buffered host-to-device prefetch: a daemon thread places batches
     (``place``, e.g. :func:`to_device`) and stays ``depth`` batches ahead.
     Puts are stop-aware, so a consumer that abandons the stream releases the
-    thread; errors in the producer re-raise in the consumer."""
+    thread; errors in the producer re-raise in the consumer. ``registry``
+    (an ``obs.metrics.MetricsRegistry``) records the batches still ready at
+    each take into ``prefetch/queue_depth`` (0: the consumer caught the
+    producer)."""
     if depth < 1:
         raise ValueError(f"device_prefetch depth must be >= 1, got {depth}")
     q: queue_lib.Queue = queue_lib.Queue(maxsize=depth)
@@ -224,6 +227,11 @@ def device_prefetch(iterator: Iterator, place: Callable, depth: int = 2) -> Iter
 
     thread = threading.Thread(target=producer, daemon=True, name="device_prefetch")
     thread.start()
+    hist = None
+    if registry is not None:
+        from tensorflowdistributedlearning_tpu_torch.obs.telemetry import PREFETCH_DEPTH_HISTOGRAM
+
+        hist = registry.histogram(PREFETCH_DEPTH_HISTOGRAM)
 
     def consume():
         try:
@@ -233,6 +241,8 @@ def device_prefetch(iterator: Iterator, place: Callable, depth: int = 2) -> Iter
                     return
                 if isinstance(item, _Failure):
                     raise item.error
+                if hist is not None:
+                    hist.record(float(q.qsize()))
                 yield item
         finally:
             stop.set()

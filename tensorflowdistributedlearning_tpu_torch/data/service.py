@@ -19,8 +19,10 @@ here is batch ``i`` there).
   (``train.checkpoint.CheckpointManager.save_data_state``); a resume
   validates it and replays the exact remaining stream.
 
-The JAX package's telemetry registry (``data_service/*``) arrives with queue
-A 13: ``registry`` must be None until then.
+With a ``registry`` (an ``obs.metrics.MetricsRegistry``), the reorder
+buffer's depth at each take, the consumer's underruns, the workers' busy
+seconds and the worker count flow into it under the JAX package's
+``data_service/*`` names, which the trainers' step windows drain.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -390,8 +393,9 @@ class StreamingDataService:
     with an in-order reorder buffer and bounded backpressure.
 
     One service drives ONE stream (``batches()`` is single-shot, like
-    ``device_prefetch``). ``registry`` must be None: the service's telemetry
-    (the JAX package's ``data_service/*`` histograms) is queue A 13.
+    ``device_prefetch``). ``registry`` (an ``obs.metrics.MetricsRegistry``)
+    records the reorder-buffer depth, underruns and worker busy time under
+    the ``data_service/*`` names; None records nothing.
 
     ``resume_state`` (a ``DataServiceState`` json dict, from the checkpoint
     sidecar) is VALIDATED against ``(seed, start_batch)``: a mismatch means
@@ -407,7 +411,7 @@ class StreamingDataService:
     checkpoint. Seed, per-host batch size and the shard fingerprint are still
     hard-refused on mismatch (those change WHAT the indices mean, not who
     reads them); the accepted re-deal is logged and surfaced as
-    ``self.redeal``, which the trainers log."""
+    ``self.redeal``, which the trainers ledger as a ``data_redeal`` event."""
 
     def __init__(
         self,
@@ -443,11 +447,7 @@ class StreamingDataService:
         self._capacity = (
             int(queue_depth) if queue_depth else max(2, self.workers + 1)
         )
-        if registry is not None:
-            raise NotImplementedError(
-                "the data service's telemetry registry is not ported yet (queue A 13 of ROADMAP.md); pass "
-                "registry=None"
-            )
+        self._registry = registry
         # set when an accepted resume crossed a world resize: the validated
         # re-deal's facts ({"old_process_count", "new_process_count",
         # "batch_index"})
@@ -619,16 +619,24 @@ class StreamingDataService:
             )
         self._started = True
         end = None if steps is None else self.start_batch + int(steps)
+        ready_hist = under_hist = busy_hist = None
+        if self._registry is not None:
+            from tensorflowdistributedlearning_tpu_torch.obs import telemetry as tm
+
+            ready_hist = self._registry.histogram(tm.DATA_READY_HISTOGRAM)
+            under_hist = self._registry.histogram(tm.DATA_UNDERRUN_HISTOGRAM)
+            busy_hist = self._registry.histogram(tm.DATA_WORKER_BUSY_HISTOGRAM)
+            self._registry.gauge(tm.DATA_WORKERS_GAUGE).set(self.workers)
         for w in range(self.workers):
             t = threading.Thread(
                 target=self._worker,
-                args=(w, end),
+                args=(w, end, busy_hist),
                 daemon=True,
                 name=f"data-service-{w}",
             )
             t.start()
             self._threads.append(t)
-        gen = self._consume(end)
+        gen = self._consume(end, ready_hist, under_hist)
         import weakref
 
         # a generator dropped before its first next() never reaches the
@@ -636,12 +644,15 @@ class StreamingDataService:
         weakref.finalize(gen, self._stop.set)
         return gen
 
-    def _worker(self, wid: int, end: Optional[int]) -> None:
+    def _worker(self, wid: int, end: Optional[int], busy_hist) -> None:
         try:
             i = self.start_batch + wid
             while (end is None or i < end) and not self._stop.is_set():
                 parts = self._parts(i)
+                t0 = time.perf_counter()
                 batch = self.source.materialize(self.seed, parts)
+                if busy_hist is not None:
+                    busy_hist.record(time.perf_counter() - t0)
                 with self._cond:
                     while (
                         i - self._next_emit >= self._capacity
@@ -659,12 +670,19 @@ class StreamingDataService:
                     self._error = e
                 self._cond.notify_all()
 
-    def _consume(self, end):
+    def _consume(self, end, ready_hist, under_hist):
         try:
             i = self.start_batch
             while end is None or i < end:
                 with self._cond:
                     if i not in self._ready:
+                        if self._error is not None:
+                            raise self._error
+                        # the consumer arrived before the batch: an underrun
+                        # (the first take, waiting for the workers to spin
+                        # up, is startup)
+                        if under_hist is not None and i > self.start_batch:
+                            under_hist.record(1.0)
                         while i not in self._ready:
                             if self._error is not None:
                                 raise self._error
@@ -677,7 +695,10 @@ class StreamingDataService:
                             self._cond.wait(0.1)
                     batch = self._ready.pop(i)
                     self._next_emit = i + 1
+                    depth = len(self._ready)
                     self._cond.notify_all()
+                if ready_hist is not None:
+                    ready_hist.record(float(depth))
                 yield batch
                 i += 1
         finally:

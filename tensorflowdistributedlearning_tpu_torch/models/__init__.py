@@ -1,5 +1,6 @@
 """Model factory (counterpart of ``tensorflowdistributedlearning_tpu/models``):
-the ResNet segmenter, the ResNet classifier and the ViT classifier."""
+the ResNet and Xception-41 segmenters and classifiers and the ViT
+classifier."""
 
 from __future__ import annotations
 
@@ -26,6 +27,11 @@ from tensorflowdistributedlearning_tpu_torch.models.resnet import (
     ResNetSegmentation,
 )
 from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, PatchEmbed, ViTClassifier
+from tensorflowdistributedlearning_tpu_torch.models.xception import (
+    SeparableConvSame,
+    Xception41,
+    XceptionSegmentation,
+)
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 # flax's truncated_normal initializers cut at +-2 stddev; variance_scaling's
@@ -41,15 +47,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's initializers, drawn from ``generator``: convs (the
     space-to-depth stem's canonical 3x3 filter too) and the ResNet
     classifier's Dense ``logits`` He (variance_scaling(2.0, fan_in,
-    truncated_normal)), depthwise kernels truncated normal 0.33, pointwise
-    0.06, biases zero, BN scale one / bias zero, running statistics mean 0
-    / var 1."""
-    pointwise = {id(m.pointwise) for m in model.modules() if isinstance(m, SplitSeparableConv2D)}
+    truncated_normal)), depthwise kernels (Xception's grouped ones too)
+    truncated normal 0.33, pointwise 0.06, biases zero, BN scale one / bias
+    zero, running statistics mean 0 / var 1."""
+    separable = [m for m in model.modules() if isinstance(m, (SplitSeparableConv2D, SeparableConvSame))]
+    pointwise = {id(m.pointwise) for m in separable}
+    grouped_depthwise = {id(m.depthwise) for m in separable if isinstance(m, SeparableConvSame)}
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
                 if id(m) in pointwise:
                     _trunc_normal(m.weight, 0.06, generator)
+                elif id(m) in grouped_depthwise:
+                    _trunc_normal(m.weight, 0.33, generator)
                 else:
                     fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
                     _trunc_normal(m.weight, math.sqrt(2.0 / fan_in) / _TRUNC_STD, generator)
@@ -91,11 +101,14 @@ def init_vit_weights(model: ViTClassifier, generator: torch.Generator) -> nn.Mod
 def model_for(config: ModelConfig) -> nn.Module:
     """The uninitialised network of ``config`` on the current default device
     (``torch.device("meta")`` builds a template without memory): the ViT
-    classifier for ``backbone="vit"``, else the ResNet classifier with
-    ``num_classes`` and the segmentation network without."""
+    classifier for ``backbone="vit"``, else the ResNet or Xception-41
+    (``backbone``) classifier with ``num_classes`` and segmentation network
+    without."""
     require_supported(config)
     if config.backbone == "vit":
         return ViTClassifier(config)
+    if config.backbone == "xception":
+        return Xception41(config) if config.num_classes is not None else XceptionSegmentation(config)
     if config.num_classes is not None:
         return ResNetClassifier(config)
     return ResNetSegmentation(config)
@@ -150,6 +163,8 @@ __all__ = [
     "ResNetSegmentation",
     "SplitSeparableConv2D",
     "ViTClassifier",
+    "Xception41",
+    "XceptionSegmentation",
     "build_model",
     "empty_model",
     "fixed_padding",

@@ -110,10 +110,10 @@ def _pad_nhwc(x: torch.Tensor, ph: Tuple[int, int], pw: Tuple[int, int], value: 
 
 def conv2d_same(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-    stride: int = 1, rate: int = 1,
+    stride: int = 1, rate: int = 1, groups: int = 1,
 ) -> torch.Tensor:
-    """``flax.linen.Conv(padding="SAME")`` on NHWC ``x`` with an OIHW
-    ``weight``; returns NHWC."""
+    """``flax.linen.Conv(padding="SAME", feature_group_count=groups)`` on
+    NHWC ``x`` with an OIHW ``weight``; returns NHWC."""
     k = weight.shape[-1]
     ph = same_pads(x.shape[1], weight.shape[-2], stride, rate)
     pw = same_pads(x.shape[2], k, stride, rate)
@@ -122,7 +122,7 @@ def conv2d_same(
     else:
         x = _pad_nhwc(x, ph, pw)
         padding = (0, 0)
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride, padding=padding, dilation=rate)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride, padding=padding, dilation=rate, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -196,8 +196,8 @@ class Conv2dSame(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
-            return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0])
-        y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride[0], self.dilation[0])
+            return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0], self.groups)
+        y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride[0], self.dilation[0], self.groups)
         return y if self.bias is None else y + self.bias.to(dt)
 
 

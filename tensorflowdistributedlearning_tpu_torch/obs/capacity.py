@@ -1,6 +1,5 @@
-"""Device-memory watermarks and chip-seconds per request (the port's copy of
-the serve half of the JAX package's ``obs/capacity.py``, same event names
-and fields).
+"""Device-memory watermarks and chip-seconds (the port's copy of the JAX
+package's ``obs/capacity.py``, same event names and fields).
 
 - :class:`WatermarkTracker`: per-phase peak device memory with a headroom
   estimate and a linear trend. On CUDA, ``torch.cuda.memory_stats`` gives
@@ -128,6 +127,13 @@ class WatermarkTracker:
         self.phase_peaks: Dict[str, Dict] = {}
         self._history: Deque[Tuple[float, int]] = collections.deque(maxlen=self.TREND_SAMPLES)
         self.samples = 0
+        # the trainers' exact parameter + optimizer-state bytes on the card
+        self.predicted_bytes_per_device: Optional[int] = None
+
+    def set_predicted(self, bytes_per_device: Optional[int]) -> None:
+        """The exact state bytes each watermark is compared with."""
+        if bytes_per_device:
+            self.predicted_bytes_per_device = int(bytes_per_device)
 
     def _query(self, stats: Optional[Dict[str, Dict[str, int]]] = None) -> Tuple[int, Optional[int], int]:
         """(max peak, max limit, live bytes) across devices; zeros when
@@ -174,6 +180,9 @@ class WatermarkTracker:
             }
             if step is not None:
                 fields["step"] = step
+            if self.predicted_bytes_per_device:
+                fields["predicted_bytes_per_device"] = self.predicted_bytes_per_device
+                fields["measured_minus_predicted_bytes"] = peak - self.predicted_bytes_per_device
             if self.bytes_limit:
                 fields["bytes_limit"] = self.bytes_limit
                 fields["headroom_frac"] = round(max(0.0, 1.0 - peak / self.bytes_limit), 4)
@@ -232,6 +241,32 @@ class CostMeter:
     def set_devices(self, devices: Sequence) -> None:
         """Count the distinct CUDA cards of ``devices`` (the engines')."""
         self.n_chips = max(1, len(cuda_indices(devices)))
+
+    def train_window(
+        self, compute_s: float, steps: int, *, examples: Optional[float] = None, step: Optional[int] = None
+    ) -> Optional[Dict]:
+        """The ``cost`` event fields of one training log window: its
+        ``step`` span total times the chip count (None for an empty
+        window)."""
+        if compute_s <= 0 or steps <= 0:
+            return None
+        chip_s = compute_s * self.n_chips
+        with self._lock:
+            self.chip_seconds_total += chip_s
+            total = self.chip_seconds_total
+        fields: Dict = {
+            "scope": "train",
+            "n_chips": self.n_chips,
+            "chip_seconds": round(chip_s, 6),
+            "chip_seconds_total": round(total, 6),
+            "chip_seconds_per_step": round(chip_s / steps, 6),
+        }
+        if step is not None:
+            fields["step"] = step
+        if examples:
+            fields["examples"] = int(examples)
+            fields["examples_per_chip_second"] = round(examples / chip_s, 2)
+        return fields
 
     def add_batch(self, compute_s: float, request_examples: Sequence[int]) -> None:
         """Attribute one dispatched batch's engine time to its member

@@ -1,6 +1,18 @@
-"""Online health monitors of the serve tier (the port's copy of the serve
-half of the JAX package's ``obs/health.py``; the trainers' monitors are
-queue A 13).
+"""Online health monitors of the trainers and the serve tier (the port's
+copy of the JAX package's ``obs/health.py``, same alerts and fields).
+
+The trainers' monitors, run by :class:`HealthMonitor` over every emitted
+``step_window`` (``Telemetry.window_event``):
+
+- :class:`NanGuard`: a non-finite train loss; ``warn`` alerts and goes on,
+  ``abort`` alerts, then raises :class:`HealthAbortError`;
+- :class:`LossSpikeDetector`: rolling median + MAD over the loss stream;
+- :class:`StepTimeRegressionDetector`: a clean window's mean step time
+  against the median of the first clean windows;
+- :class:`DataStarvedDetector`: ``data_wait`` dominating consecutive clean
+  windows.
+
+The serve tier's:
 
 - :class:`HeadroomMonitor`: device-memory headroom from the watermark
   stream; low headroom, or a trend that reaches the limit within
@@ -23,13 +35,141 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
+import statistics
 import threading
-from typing import Dict, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 
+from tensorflowdistributedlearning_tpu_torch.obs import trace as trace_lib
+
 HEALTH_ALERT_EVENT = "health_alert"
 DRIFT_ALERT_EVENT = "drift_alert"
+
+NAN_ACTIONS = ("warn", "abort", "off")
+
+
+class HealthAbortError(RuntimeError):
+    """Raised by the NaN guard under ``action='abort'`` after its alert is
+    ledgered: the run stops at a recorded boundary."""
+
+
+class NanGuard:
+    """Non-finite loss detector. ``action``: "warn" | "abort" | "off"."""
+
+    def __init__(self, action: str = "warn"):
+        if action not in NAN_ACTIONS:
+            raise ValueError(f"nan_guard action must be one of {NAN_ACTIONS}, got {action!r}")
+        self.action = action
+        self.fired = 0
+
+    def check(self, step: int, loss: float) -> Optional[Dict]:
+        if self.action == "off" or math.isfinite(loss):
+            return None
+        self.fired += 1
+        return {
+            "monitor": "nan_loss",
+            "severity": "critical" if self.action == "abort" else "warn",
+            "step": step,
+            # str(): NaN and Infinity are not JSON numbers
+            "loss": str(loss),
+            "action": self.action,
+        }
+
+
+class LossSpikeDetector:
+    """A finite loss above ``median + threshold * scale`` of the last
+    ``window`` losses, ``scale = max(MAD, rel_floor * |median|,
+    abs_floor)``; spikes join the history too, so a level shift stops
+    alerting once the window rolls over."""
+
+    def __init__(self, window: int = 32, min_history: int = 8, threshold: float = 8.0, rel_floor: float = 0.02,
+                 abs_floor: float = 1e-6):
+        self.window = int(window)
+        self.min_history = max(2, int(min_history))
+        self.threshold = float(threshold)
+        self.rel_floor = float(rel_floor)
+        self.abs_floor = float(abs_floor)
+        self._history: Deque[float] = collections.deque(maxlen=self.window)
+
+    def check(self, step: int, loss: float) -> Optional[Dict]:
+        if not math.isfinite(loss):
+            return None  # the NaN guard owns non-finite values
+        alert = None
+        if len(self._history) >= self.min_history:
+            med = statistics.median(self._history)
+            mad = statistics.median(abs(x - med) for x in self._history)
+            scale = max(mad, self.rel_floor * abs(med), self.abs_floor)
+            if loss > med + self.threshold * scale:
+                alert = {
+                    "monitor": "loss_spike", "severity": "warn", "step": step, "loss": round(float(loss), 6),
+                    "median": round(med, 6), "mad": round(mad, 6), "threshold": self.threshold,
+                }
+        self._history.append(float(loss))
+        return alert
+
+
+class StepTimeRegressionDetector:
+    """Baseline: the median mean step time of the first
+    ``baseline_windows`` clean windows; one alert when a clean window's
+    mean exceeds ``factor`` x baseline, one ``resolved`` on the way back.
+    Dirty windows (first runs, evals, checkpoints) are skipped."""
+
+    def __init__(self, baseline_windows: int = 5, factor: float = 1.5):
+        self.baseline_windows = max(1, int(baseline_windows))
+        self.factor = float(factor)
+        self._warmup: List[float] = []
+        self.baseline_ms: Optional[float] = None
+        self.degraded = False
+
+    def check(self, step: int, mean_ms: float, dirty: bool = False) -> Optional[Dict]:
+        if dirty or mean_ms <= 0:
+            return None
+        if self.baseline_ms is None:
+            self._warmup.append(float(mean_ms))
+            if len(self._warmup) >= self.baseline_windows:
+                self.baseline_ms = statistics.median(self._warmup)
+            return None
+        regressed = mean_ms > self.factor * self.baseline_ms
+        fields = {"monitor": "step_time", "severity": "warn", "step": step, "mean_ms": round(float(mean_ms), 3),
+                  "baseline_ms": round(self.baseline_ms, 3)}
+        if regressed and not self.degraded:
+            self.degraded = True
+            return dict(fields, factor=self.factor)
+        if not regressed and self.degraded:
+            self.degraded = False
+            return dict(fields, resolved=True)
+        return None
+
+
+class DataStarvedDetector:
+    """Input-bound training: ``data_wait_frac`` above ``threshold`` in
+    ``consecutive`` clean windows (one alert), ``resolved`` on recovery."""
+
+    def __init__(self, threshold: float = 0.5, consecutive: int = 2):
+        if not 0.0 < threshold < 1.0:
+            raise ValueError(f"data_starved threshold must be in (0, 1), got {threshold}")
+        self.threshold = float(threshold)
+        self.consecutive = max(1, int(consecutive))
+        self._over = 0
+        self.degraded = False
+
+    def check(self, step: int, data_wait_frac: float, dirty: bool = False) -> Optional[Dict]:
+        if dirty:
+            return None
+        starved = data_wait_frac > self.threshold
+        self._over = self._over + 1 if starved else 0
+        fields = {"monitor": "data_starved", "severity": "warn", "step": step,
+                  "data_wait_frac": round(float(data_wait_frac), 4), "threshold": self.threshold}
+        if self._over >= self.consecutive and not self.degraded:
+            self.degraded = True
+            return fields
+        if not starved and self.degraded:
+            self.degraded = False
+            fields["resolved"] = True
+            return fields
+        return None
 
 
 class HeadroomMonitor:
@@ -350,3 +490,95 @@ class DriftMonitor:
         if self.last_score is not None:
             out["score"] = self.last_score
         return out
+
+
+class HealthMonitor:
+    """The trainers' monitors over the window stream (``Telemetry.
+    window_event`` calls :meth:`observe_window` after writing the window):
+    alerts append as ``health_alert`` events with a unique ``alert_id``,
+    and the NaN guard's ``abort`` raises :class:`HealthAbortError` last.
+    The loss consults the fault hook (``nan-loss@N``) first."""
+
+    def __init__(self, *, nan_action: str = "warn", spike: Optional[LossSpikeDetector] = None,
+                 step_time: Optional[StepTimeRegressionDetector] = None, headroom: Optional[HeadroomMonitor] = None,
+                 data_starved: Optional[DataStarvedDetector] = None):
+        self.nan_guard = NanGuard(nan_action)
+        self.spike = spike if spike is not None else LossSpikeDetector()
+        self.step_time = step_time if step_time is not None else StepTimeRegressionDetector()
+        self.headroom = headroom if headroom is not None else HeadroomMonitor()
+        self.data_starved = data_starved if data_starved is not None else DataStarvedDetector()
+        self.alerts: List[Dict] = []
+
+    @classmethod
+    def from_train_config(cls, tcfg) -> Optional["HealthMonitor"]:
+        """The monitor a trainer runs under ``tcfg``; None when disabled."""
+        if not getattr(tcfg, "health_monitors", True):
+            return None
+        return cls(nan_action=getattr(tcfg, "nan_guard", "warn"))
+
+    @property
+    def status(self) -> str:
+        degraded = self.step_time.degraded or self.headroom.degraded or self.data_starved.degraded
+        return "degraded" if degraded else "ok"
+
+    def reset(self) -> None:
+        """A fresh training phase (a new fold): drop the loss history, the
+        step-time baseline and the starvation streak; alerts and the guard's
+        action persist."""
+        sp, st, ds = self.spike, self.step_time, self.data_starved
+        self.spike = LossSpikeDetector(window=sp.window, min_history=sp.min_history, threshold=sp.threshold,
+                                       rel_floor=sp.rel_floor, abs_floor=sp.abs_floor)
+        self.step_time = StepTimeRegressionDetector(baseline_windows=st.baseline_windows, factor=st.factor)
+        self.data_starved = DataStarvedDetector(threshold=ds.threshold, consecutive=ds.consecutive)
+
+    def _ledger(self, telemetry, alert: Dict) -> None:
+        alert.setdefault("alert_id", trace_lib.new_id())
+        self.alerts.append(alert)
+        telemetry.event(HEALTH_ALERT_EVENT, **alert)
+
+    def observe_memory(self, telemetry, step: Optional[int], watermark: Dict) -> Optional[Dict]:
+        """The headroom monitor on one watermark sample."""
+        alert = self.headroom.check(step, watermark.get("peak_bytes", 0), watermark.get("bytes_limit"),
+                                    samples_to_limit=watermark.get("samples_to_limit"))
+        if alert:
+            self._ledger(telemetry, alert)
+        return alert
+
+    def observe_window(self, telemetry, step: int, scalars: Dict, fields: Dict) -> List[Dict]:
+        """Every monitor on one emitted window; ledgers and returns the
+        alerts, then raises :class:`HealthAbortError` after a NaN alert
+        under ``abort``."""
+        from tensorflowdistributedlearning_tpu_torch.resilience import faults as faults_lib
+
+        alerts: List[Dict] = []
+        loss = scalars.get("loss")
+        if loss is not None:
+            loss = float(loss)
+            if faults_lib.poisoned(faults_lib.SITE_LOSS, step):
+                loss = float("nan")
+            nan_alert = self.nan_guard.check(step, loss)
+            if nan_alert:
+                alerts.append(nan_alert)
+            else:
+                spike = self.spike.check(step, loss)
+                if spike:
+                    alerts.append(spike)
+        dirty = bool(fields.get("dirty"))
+        mean_ms = (fields.get("step_time_ms") or {}).get("mean_ms")
+        if mean_ms is not None:
+            st = self.step_time.check(step, float(mean_ms), dirty=dirty)
+            if st:
+                alerts.append(st)
+        frac = fields.get("data_wait_frac")
+        if frac is not None:
+            starved = self.data_starved.check(step, float(frac), dirty=dirty)
+            if starved:
+                alerts.append(starved)
+        for alert in alerts:
+            self._ledger(telemetry, alert)
+        if any(a["monitor"] == "nan_loss" and a.get("action") == "abort" for a in alerts):
+            raise HealthAbortError(
+                f"non-finite train loss at step {step} (nan_guard='abort'; the health_alert ledger event precedes "
+                "this exit)"
+            )
+        return alerts

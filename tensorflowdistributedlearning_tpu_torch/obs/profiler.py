@@ -1,30 +1,52 @@
-"""Timed ``torch.profiler`` captures of a serving replica, parsed into a
-roofline and ledgered (the port's copy of the serve half of the JAX
-package's ``obs/profiler.py``, same events and fields).
+"""``torch.profiler`` captures of a trainer or a serving replica, parsed
+into a roofline and ledgered (the port's copy of the JAX package's
+``obs/profiler.py``, same events and fields).
 
-:class:`ContinuousProfiler` takes two kinds of capture:
+:class:`ContinuousProfiler` takes three kinds of capture:
 
-- **admin** (:meth:`capture_timed`): an explicit N-second capture, the serve
-  ``/admin/profile`` endpoint;
-- **alert** (:meth:`trigger`): one postmortem capture when the SLO budget
-  breaks, rate-limited and stamped with the alert's ``alert_id``.
+- **cadence** (``every_windows`` > 0, ``TrainConfig.profile_every_windows``):
+  every N-th log window starts a capture that stops after
+  :attr:`~ContinuousProfiler.capture_steps` train steps (counted by
+  :meth:`~ContinuousProfiler.note_step` from the telemetry's ``step``
+  spans); its roofline has ``phase`` ``"train"`` and the captured steps'
+  MFU;
+- **admin** (:meth:`~ContinuousProfiler.capture_timed`): an explicit
+  N-second capture, the serve ``/admin/profile`` endpoint;
+- **alert** (:meth:`~ContinuousProfiler.trigger`): one postmortem capture
+  on a ``step_time`` or SLO health alert, rate-limited and stamped with the
+  alert's ``alert_id``.
 
 A capture records the card's kernels through CUPTI whatever host thread
-launched them (the batcher worker, not the HTTP thread that asked). It runs
-on a thread of its own: the profiler session is entered and left on that
-thread, as a context manager (the pattern that kept the device kernels of
-every later session on the H100), and a capture asked for while one runs
-is refused. Each capture writes the Chrome trace (``trace.json``) and the
-kernel breakdown (``ops.json``) into ``{workdir}/profile/capture-{id}/`` and
-ledgers ``profile_capture``, then ``op_roofline`` when it holds device
-kernels. The roofline classifies each kernel into the JAX package's buckets
-(:data:`BUCKET_NEEDLES`): the port's own kernels by the ``tfdl_`` names
-of their stated bucket, cuDNN's convolutions as ``conv``, GEMMs as
-``matmul``, the rest by kind. Serving has no step FLOP count, so no MFU is
-written, as in the JAX package.
+launched them (on the CPU, the host ops of its own thread). A timed
+capture runs on a thread of its own: the profiler session is entered and
+left on that thread (the pattern that kept the device kernels of every
+later session on the H100). A stepped capture (cadence, or an alert at a
+train window) enters and leaves its session on the train thread and parses
+there too: a parse off that thread contends with the train loop for the
+interpreter lock, runs longer and spills into the next window, while on
+the train thread its cost stays in the window that holds the capture
+(:attr:`~ContinuousProfiler.steps_captured` lets the trainers mark that
+window dirty). One session
+runs in a process at a time (:func:`exclusive_session`): a capture asked
+for while another runs, this profiler's or anyone's, is refused and counted
+(``refused``). A cadence capture waits for the card to finish the captured
+steps before it stops. Each capture writes the Chrome trace
+(``trace.json``) and the kernel breakdown (``ops.json``) into
+``{workdir}/profile/capture-{id}/`` and ledgers ``profile_capture``, then
+``op_roofline`` when it holds device kernels. The roofline classifies each
+kernel into the JAX package's buckets (:data:`BUCKET_NEEDLES`): the port's
+own kernels by the ``tfdl_`` names of their stated bucket, cuDNN's
+convolutions as ``conv``, GEMMs as ``matmul``, the rest by kind.
 
-Failure stance: a profiler hiccup is logged and counted (``errors``), never
-fatal to serving.
+MFU is JAX's analytic convention: the telemetry's step FLOPs
+(``6 · params · global_batch``) over the measured time against the card's
+peak (:func:`resolve_peak_flops`); absent without a known peak (the CPU),
+never 0/0. A cadence capture's time is the longer of its steps' ``step``
+spans and its wall time until the card finished them (an eager step span
+holds only the launches).
+
+Failure stance: a profiler hiccup is logged and counted (``errors``),
+never fatal to training or serving.
 """
 
 from __future__ import annotations
@@ -43,6 +65,53 @@ logger = logging.getLogger(__name__)
 
 PROFILE_CAPTURE_EVENT = "profile_capture"
 OP_ROOFLINE_EVENT = "op_roofline"
+
+# health_alert monitors that trigger a postmortem capture at a train window
+TRIGGER_MONITORS = ("step_time", "slo")
+
+# dense bf16 tensor-core peak FLOP/s by card name (lower-cased substring,
+# first hit wins): the H100 SXM's 989 TFLOP/s
+PEAK_FLOPS_BY_KIND = {"h100": 989e12}
+
+# one torch.profiler session per process
+_SESSION = threading.Lock()
+
+
+def exclusive_session(blocking: bool = False) -> bool:
+    """Claim the process's one profiler session (False when another runs
+    and ``blocking`` is off); :func:`release_session` gives it back."""
+    return _SESSION.acquire(blocking=blocking)
+
+
+def release_session() -> None:
+    _SESSION.release()
+
+
+def resolve_peak_flops(device_kind: Optional[str] = None, device=None) -> Optional[float]:
+    """Peak FLOP/s per card for MFU, or None when the card is not in
+    :data:`PEAK_FLOPS_BY_KIND` (and on the CPU): the caller then omits MFU.
+    ``TFDL_PEAK_FLOPS`` overrides, as in the JAX package. ``device_kind``
+    defaults to ``torch.cuda.get_device_name`` of ``device`` (a CPU
+    ``device`` has none)."""
+    env = os.environ.get("TFDL_PEAK_FLOPS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            logger.warning("ignoring unparseable TFDL_PEAK_FLOPS=%r", env)
+    if device_kind is None:
+        import torch
+
+        if device is not None and torch.device(device).type != "cuda":
+            return None
+        if not torch.cuda.is_available():
+            return None
+        device_kind = torch.cuda.get_device_name(device)
+    kind = (device_kind or "").lower()
+    for needle, flops in PEAK_FLOPS_BY_KIND.items():
+        if needle in kind:
+            return flops
+    return None
 
 # device kernel name (lower-cased) -> the JAX package's op buckets
 # (utils/xplane.DEFAULT_GROUPS), first hit in this order wins; "other" else
@@ -111,9 +180,15 @@ def grouped_breakdown(rows: List[OpTime]) -> Dict[str, float]:
     return {k: round(v, 3) for k, v in out.items() if v}
 
 
-def build_roofline(rows: List[OpTime], *, phase: str = "infer", top: int = 5) -> Dict:
+def build_roofline(
+    rows: List[OpTime], *, phase: str = "infer", top: int = 5, busy_s: Optional[float] = None,
+    steps: Optional[int] = None, step_flops: Optional[Dict] = None,
+) -> Dict:
     """One ``op_roofline`` event body: buckets, the compute / HBM /
-    collective split and the top kernels with their class."""
+    collective split and the top kernels with their class; with the
+    telemetry's ``step_flops`` and the captured ``steps`` and their
+    ``busy_s`` (the sum of their ``step`` spans), the achieved FLOP/s, the
+    ``mfu`` and the compute-class ``compute_mfu``."""
     groups = grouped_breakdown(rows)
     total_ms = sum(groups.values())
     compute_ms = sum(groups.get(b, 0.0) for b in _COMPUTE_BUCKETS)
@@ -137,117 +212,196 @@ def build_roofline(rows: List[OpTime], *, phase: str = "infer", top: int = 5) ->
     if hbm_rows:
         out["top_hbm_op"] = {"name": hbm_rows[0].name, "total_ms": hbm_rows[0].total_ms,
                              "fraction": hbm_rows[0].fraction}
+    sf = step_flops or {}
+    flops_per_step = sf.get("flops_per_step")
+    n_devices = sf.get("n_devices") or 1
+    if flops_per_step and steps and busy_s and busy_s > 0:
+        achieved = flops_per_step * steps / busy_s / n_devices
+        out["analytic_flops_per_step"] = float(flops_per_step)
+        out["achieved_flops_per_sec_per_chip"] = round(achieved, 3)
+        peak = sf.get("peak_flops_per_chip")
+        if peak:
+            out["peak_flops_per_chip"] = float(peak)
+            out["mfu"] = round(achieved / peak, 4)
+            if compute_ms > 0:
+                out["compute_mfu"] = round(flops_per_step * steps / (compute_ms / 1e3) / n_devices / peak, 4)
+        collective_bytes = sf.get("collective_bytes_per_step")
+        if collective_bytes and collective_ms > 0:
+            out["achieved_collective_bytes_per_sec"] = round(collective_bytes * steps / (collective_ms / 1e3), 3)
+            out["collective_bytes_per_step"] = float(collective_bytes)
     return out
 
 
 class ContinuousProfiler:
-    """Timed captures of one replica, parsed and ledgered (see the module
-    docstring). Without a logdir (telemetry off) it captures nothing."""
+    """Cadence, timed and triggered captures, parsed and ledgered (see the
+    module docstring). Without a logdir (telemetry off) it captures
+    nothing. ``phase`` names the rooflines of timed and triggered captures
+    (``"infer"`` on a server); cadence captures are ``"train"``.
+    ``device``: the card a cadence capture waits for before it stops."""
 
-    # how long capture_timed waits for the capture thread's session to open
+    # how long a capture waits for its thread's session to open
     START_TIMEOUT_S = 60.0
+    # a cadence capture whose steps never come stops after this long
+    MAX_CAPTURE_S = 600.0
     # at most one postmortem capture per this many seconds
     MIN_TRIGGER_INTERVAL_S = 300.0
     TOP_OPS = 5
 
-    def __init__(self, telemetry):
+    def __init__(self, telemetry, *, every_windows: int = 0, capture_steps: int = 3, phase: str = "infer",
+                 device=None):
         self.telemetry = telemetry
         workdir = getattr(telemetry, "workdir", None)
         self.logdir = os.path.join(workdir, "profile") if workdir else None
+        self.every_windows = max(0, int(every_windows))
+        self.capture_steps = max(1, int(capture_steps))
+        self.phase = phase
+        self.device = device
+        # the flag Telemetry.span reads once per train step
         self.capturing = False
         self.captures = 0
+        # train steps counted by stepped captures, over the profiler's life
+        self.steps_captured = 0
         self.rate_limited = 0
+        self.refused = 0
         self.errors = 0
         self._active: Optional[Dict] = None
         self._lock = threading.Lock()
         self._last_trigger: Optional[float] = None
+
+    @property
+    def enabled(self) -> bool:
+        """Cadence capture armed."""
+        return self.every_windows > 0 and self.logdir is not None
 
     def _error(self, what: str, e: BaseException) -> None:
         with self._lock:
             self.errors += 1
         logger.warning("profile capture %s: %s", what, e)
 
-    def capture_timed(
-        self, seconds: float = 1.0, *, reason: str = "admin", alert_id: Optional[str] = None, wait: bool = False
-    ) -> Optional[Dict]:
-        """Start an N-second capture on its own thread; returns ``{capture_id,
-        seconds, status}`` once the session is open (``wait``: once it is
-        ledgered), or None when a capture is already running, there is no
-        logdir, or the session did not open."""
+    # -- capture lifecycle -------------------------------------------------
+
+    def _begin(self, reason: str, *, step: Optional[int] = None, alert_id: Optional[str] = None,
+               seconds: Optional[float] = None) -> Optional[Dict]:
+        """Start a capture: timed (``seconds``) on a thread of its own, or
+        over the next ``capture_steps`` train steps on the calling (train)
+        thread; None when one is running (this profiler's or another session
+        of the process), there is no logdir, or the session did not open."""
         if self.logdir is None:
             return None
-        seconds = max(0.05, float(seconds))
         with self._lock:
-            if self._active is not None:
+            if self._active is not None or not exclusive_session():
+                self.refused += 1
                 return None  # the running capture wins
             capture_id = trace_lib.new_id()
             rec: Dict = {
                 "capture_id": capture_id,
                 "dir": os.path.join(self.logdir, f"capture-{capture_id}"),
                 "reason": reason,
-                "seconds": seconds,
-                "stop": threading.Event(),
-                "started": threading.Event(),
+                "steps": 0,
+                "busy_s": 0.0,
             }
-            if alert_id is not None:
-                rec["alert_id"] = alert_id
+            for key, value in (("step", step), ("alert_id", alert_id), ("seconds", seconds)):
+                if value is not None:
+                    rec[key] = value
             self._active = rec
             self.capturing = True
-        thread = threading.Thread(target=self._run, args=(rec,), daemon=True, name="profile-capture")
+        if seconds is None:
+            # a session entered on another thread than the one launching
+            # the steps slowed an Xception-41 step about 7x on the H100
+            if not self._open(rec):
+                self._release(rec)
+                return None
+            return rec
+        rec["stop"], rec["started"] = threading.Event(), threading.Event()
+        thread = threading.Thread(target=self._run_timed, args=(rec,), daemon=True, name="profile-capture")
         rec["thread"] = thread
         thread.start()
         if not rec["started"].wait(self.START_TIMEOUT_S) or rec.get("failed"):
             return None
-        if wait:
-            thread.join()
-        return {"capture_id": capture_id, "seconds": seconds, "status": "complete" if wait else "started"}
+        return rec
 
-    def _run(self, rec: Dict) -> None:
-        try:
-            self._capture(rec)
-        finally:
-            rec["started"].set()
-            with self._lock:
-                if self._active is rec:
-                    self._active = None
-                    self.capturing = False
-
-    def _capture(self, rec: Dict) -> None:
+    def _on_cuda(self) -> bool:
         import torch
+
+        return torch.cuda.is_available() and (self.device is None or torch.device(self.device).type == "cuda")
+
+    def _open(self, rec: Dict) -> bool:
+        """Enter the profiler session of ``rec`` on this thread: the card's
+        kernels on CUDA (recording every host op as well slowed a train
+        step about 10x), the host ops of this thread on the CPU."""
         from torch.profiler import ProfilerActivity, profile
 
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
+        activity = ProfilerActivity.CUDA if self._on_cuda() else ProfilerActivity.CPU
         try:
             os.makedirs(rec["dir"], exist_ok=True)
-            session = profile(activities=activities)
-            session.__enter__()
+            rec["session"] = profile(activities=[activity])
+            rec["session"].__enter__()
         except Exception as e:  # noqa: BLE001 — never kill the producer
-            rec["failed"] = True
             self._error("failed to start", e)
-            return
-        t0 = time.perf_counter()
-        rec["started"].set()
+            return False
+        rec["t0"] = time.perf_counter()
+        return True
+
+    def _close(self, rec: Dict) -> bool:
+        """Leave ``rec``'s session on this thread; a stepped capture first
+        waits for the card to finish its steps, whose device time (not
+        their launches' step spans) then prices them."""
+        import torch
+
+        if "seconds" not in rec and self._on_cuda():
+            torch.cuda.synchronize(self.device)
+            rec["busy_s"] = max(rec["busy_s"], time.perf_counter() - rec["t0"])
+        rec["window_s"] = time.perf_counter() - rec["t0"]
         try:
-            rec["stop"].wait(rec["seconds"])
-        finally:
-            try:
-                session.__exit__(None, None, None)
-            except Exception as e:  # noqa: BLE001
-                self._error("failed to stop", e)
+            rec["session"].__exit__(None, None, None)
+        except Exception as e:  # noqa: BLE001
+            self._error("failed to stop", e)
+            return False
+        return True
+
+    def _release(self, rec: Dict) -> None:
+        with self._lock:
+            if self._active is rec:
+                self._active = None
+                self.capturing = False
+        release_session()
+
+    def _run_timed(self, rec: Dict) -> None:
+        try:
+            if not self._open(rec):
+                rec["failed"] = True
                 return
-        window_s = time.perf_counter() - t0
+            rec["started"].set()
+            rec["stop"].wait(rec["seconds"])
+            if self._close(rec):
+                self._parse(rec)
+        finally:
+            rec["started"].set()
+            self._release(rec)
+
+    def _parse(self, rec: Dict) -> None:
+        """Write ``ops.json`` and ``trace.json`` and ledger the capture."""
         try:
+            session = rec["session"]
             rows = kernel_breakdown(session.events())
             with open(os.path.join(rec["dir"], "ops.json"), "w") as f:
                 json.dump([dataclasses.asdict(r) for r in rows], f)
             session.export_chrome_trace(os.path.join(rec["dir"], "trace.json"))
-            self._ledger_capture(rec, rows, window_s)
+            self._ledger_capture(rec, rows, rec["window_s"])
             with self._lock:
                 self.captures += 1
         except Exception as e:  # noqa: BLE001 — parse and ledger are best-effort
             self._error(f"{rec['capture_id']} not ledgered", e)
+
+    def _stop_stepped(self, rec: Dict) -> None:
+        """End a stepped capture on the train thread, then parse and ledger
+        it there."""
+        self.capturing = False
+        try:
+            if self._close(rec):
+                self._parse(rec)
+        finally:
+            self._release(rec)
 
     def _ledger_capture(self, rec: Dict, rows: List[OpTime], window_s: float) -> None:
         capture: Dict = {
@@ -257,38 +411,99 @@ class ContinuousProfiler:
             "window_s": round(window_s, 6),
             "ops": len(rows),
             "skipped_plane_files": 0,
-            "seconds": rec["seconds"],
         }
-        if "alert_id" in rec:
-            capture["alert_id"] = rec["alert_id"]
+        cadence = "seconds" not in rec
+        for key in ("step", "alert_id", "seconds"):
+            if key in rec:
+                capture[key] = rec[key]
+        if cadence:
+            capture["steps"] = rec["steps"]
         self.telemetry.event(PROFILE_CAPTURE_EVENT, **capture)
         if not rows:
             return
-        roofline = build_roofline(rows, phase="infer", top=self.TOP_OPS)
+        if cadence:
+            roofline = build_roofline(
+                rows, phase="train", top=self.TOP_OPS, busy_s=rec["busy_s"] or None, steps=rec["steps"] or None,
+                step_flops=getattr(self.telemetry, "step_flops", None),
+            )
+        else:
+            roofline = build_roofline(rows, phase=self.phase, top=self.TOP_OPS)
         roofline["capture_id"] = rec["capture_id"]
         roofline["reason"] = rec["reason"]
-        if "alert_id" in rec:
-            roofline["alert_id"] = rec["alert_id"]
+        for key in ("step", "alert_id"):
+            if key in rec:
+                roofline[key] = rec[key]
         self.telemetry.event(OP_ROOFLINE_EVENT, **roofline)
 
-    def trigger(self, alert: Dict, *, seconds: float = 2.0) -> Optional[Dict]:
+    def note_step(self, duration_s: float = 0.0) -> None:
+        """One train step ended under a stepped capture (its ``step`` span's
+        wall time, on the train thread); the capture stops after
+        ``capture_steps`` of them."""
+        rec = self._active
+        if rec is None or "seconds" in rec or rec.get("stopping"):
+            return
+        rec["steps"] += 1
+        self.steps_captured += 1
+        rec["busy_s"] += float(duration_s)
+        if rec["steps"] >= self.capture_steps:
+            rec["stopping"] = True
+            self._stop_stepped(rec)
+
+    # -- entry points ------------------------------------------------------
+
+    def on_window(self, *, step: Optional[int] = None, windows: int = 0, alerts: Optional[List[Dict]] = None) -> None:
+        """A train window was written: a postmortem capture for an open
+        ``step_time`` alert first, then the cadence."""
+        for alert in alerts or ():
+            if alert.get("monitor") in TRIGGER_MONITORS and not alert.get("resolved"):
+                self.trigger(alert, step=step)
+                break
+        if self.every_windows and windows > 0 and windows % self.every_windows == 0:
+            self._begin("cadence", step=step)
+
+    def capture_timed(
+        self, seconds: float = 1.0, *, reason: str = "admin", alert_id: Optional[str] = None, wait: bool = False
+    ) -> Optional[Dict]:
+        """Start an N-second capture; returns ``{capture_id, seconds,
+        status}`` once the session is open (``wait``: once it is ledgered),
+        or None when it was refused or did not open."""
+        seconds = max(0.05, float(seconds))
+        rec = self._begin(reason, alert_id=alert_id, seconds=seconds)
+        if rec is None:
+            return None
+        if wait:
+            rec["thread"].join()
+        return {"capture_id": rec["capture_id"], "seconds": seconds, "status": "complete" if wait else "started"}
+
+    def trigger(self, alert: Dict, *, step: Optional[int] = None, seconds: Optional[float] = None) -> Optional[Dict]:
         """Postmortem capture for a health alert: at most one per
-        ``MIN_TRIGGER_INTERVAL_S``, stamped with the alert's id."""
+        ``MIN_TRIGGER_INTERVAL_S``, stamped with the alert's id; timed with
+        ``seconds`` (a server), else over the next ``capture_steps`` steps."""
         now = time.monotonic()
         if self._last_trigger is not None and now - self._last_trigger < self.MIN_TRIGGER_INTERVAL_S:
             self.rate_limited += 1
             return None
-        out = self.capture_timed(seconds, reason="alert", alert_id=alert.get("alert_id"))
+        if seconds is not None:
+            out = self.capture_timed(seconds, reason="alert", alert_id=alert.get("alert_id"))
+        else:
+            rec = self._begin("alert", step=step, alert_id=alert.get("alert_id"))
+            out = {"capture_id": rec["capture_id"]} if rec else None
         if out is not None:
             self._last_trigger = now
         return out
 
     def close(self) -> None:
-        """Stop a capture in flight and wait until it is ledgered."""
+        """Stop a capture in flight (a stepped one on this thread, which must
+        be the train thread) and wait until it is ledgered."""
         rec = self._active
         if rec is None:
             return
-        rec["stop"].set()
+        if "seconds" in rec:
+            rec["stop"].set()
+        elif not rec.get("stopping"):
+            rec["stopping"] = True
+            self._stop_stepped(rec)
+        self.capturing = False
         thread = rec.get("thread")
         if thread is not None and thread.is_alive():
             thread.join(timeout=60.0)

@@ -12,6 +12,7 @@ the single-process answer.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Any, Dict, Optional
@@ -22,6 +23,40 @@ import torch.distributed as dist
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+# the telemetry whose `barrier_wait` span times the sync points below (the
+# trainers register theirs for the run; at most one run per process)
+_probe_telemetry = None
+
+
+def instrument(telemetry) -> None:
+    """Time :func:`barrier` and :func:`broadcast_object` as ``telemetry``'s
+    ``barrier_wait`` span: per-window barrier wait lands in the step
+    windows, where per-rank asymmetry tells a slow rank from a slow link."""
+    global _probe_telemetry
+    _probe_telemetry = telemetry
+
+
+def uninstrument(telemetry=None) -> None:
+    """Detach the probe (only if ``telemetry``, when given, is the one
+    registered)."""
+    global _probe_telemetry
+    if telemetry is None or _probe_telemetry is telemetry:
+        _probe_telemetry = None
+
+
+@contextlib.contextmanager
+def barrier_probe():
+    """The ``barrier_wait`` span around one sync point; a no-op without an
+    instrumented, enabled telemetry."""
+    tel = _probe_telemetry
+    if tel is None or not getattr(tel, "enabled", False):
+        yield
+        return
+    from tensorflowdistributedlearning_tpu_torch.obs.telemetry import SPAN_BARRIER
+
+    with tel.span(SPAN_BARRIER):
+        yield
 
 
 def backend_for(device) -> str:
@@ -159,7 +194,8 @@ def all_processes_max_batches(local_n: int, per_process_batch: int) -> int:
 
 def barrier() -> None:
     if collectives.is_initialized():
-        dist.barrier()
+        with barrier_probe():
+            dist.barrier()
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:
@@ -170,5 +206,6 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
     if not collectives.is_initialized():
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src, device=collectives.collective_device())
+    with barrier_probe():
+        dist.broadcast_object_list(box, src=src, device=collectives.collective_device())
     return box[0]

@@ -42,10 +42,17 @@ of them; a stream is this rank's share):
 Eval: ``val`` record shards or ``{data_dir}/val/``, else the train records or
 folder (warned once: selection on train data), one ordered pass with
 ``valid = 0`` padding and the batch count equal on every rank; else 4
-synthetic batches (seed + 1). Left out of the loop, each a ROADMAP item: telemetry,
-health monitors and the profiler (A 13), fault injection and preemption
-(A 14), dispatch-ahead (``async_loop``, A 11), and tensor, pipeline, expert
-and sequence parallelism (A 12, refused by ``require_supported_training``).
+synthetic batches (seed + 1).
+
+Observability and the host loop, as ``train/trainer.py``'s and the JAX
+package's: one run ledger in ``model_dir`` (step windows, ``mfu``, eval,
+checkpoint, memory, ``resumed`` and ``data_redeal`` events, traces, health
+alerts, cadence profiles), TensorBoard scalars in ``train/`` and ``eval/``
+(rank 0), dispatch-ahead with deferred window fetches
+(``train/async_loop.py``), and a health abort that writes the final
+checkpoint before it re-raises. Left out, each a ROADMAP item: fault
+injection and preemption (A 14), and tensor, pipeline, expert and sequence
+parallelism (A 12, refused by ``require_supported_training``).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import dataclasses
 import logging
 import math
 import os
+import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -71,7 +79,10 @@ from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_li
 from tensorflowdistributedlearning_tpu_torch.data import records as records_lib
 from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
 from tensorflowdistributedlearning_tpu_torch.data import synthetic as synthetic_lib
+from tensorflowdistributedlearning_tpu_torch.obs import health as health_lib
+from tensorflowdistributedlearning_tpu_torch.obs import telemetry as obs_lib
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+from tensorflowdistributedlearning_tpu_torch.train import async_loop
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
 from tensorflowdistributedlearning_tpu_torch.train.state import (
@@ -80,8 +91,15 @@ from tensorflowdistributedlearning_tpu_torch.train.state import (
     replicate,
     template_train_state,
 )
-from tensorflowdistributedlearning_tpu_torch.train.trainer import augment_seed
+from tensorflowdistributedlearning_tpu_torch.train.trainer import (
+    augment_seed,
+    close_telemetry,
+    open_telemetry,
+    run_info,
+    setup_step_telemetry,
+)
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
+from tensorflowdistributedlearning_tpu_torch.utils.summary import SummaryWriter
 
 logger = logging.getLogger(__name__)
 
@@ -128,6 +146,7 @@ class ClassifierTrainer:
         self.device = resolve_device(device)
         self.task = step_lib.ClassificationTask(label_smoothing=self.train_config.label_smoothing)
         self._n_params: Optional[int] = None
+        self._telemetry = obs_lib.NULL_TELEMETRY
         if multihost.is_main():
             os.makedirs(model_dir, exist_ok=True)
 
@@ -219,11 +238,12 @@ class ClassifierTrainer:
         return ds
 
     def _train_stream(
-        self, batch_size: int, steps: int, start_step: int = 0, resume_state: Optional[Dict] = None
+        self, batch_size: int, steps: int, start_step: int = 0, resume_state: Optional[Dict] = None, registry=None
     ) -> Tuple[Iterator[Dict[str, np.ndarray]], Optional[service_lib.StreamingDataService]]:
         """This rank's train batches from ``start_step`` on, and the data
         service feeding them (None when another stream does; the caller
-        closes it). ``resume_state`` is the checkpoint's service sidecar."""
+        closes it). ``resume_state`` is the checkpoint's service sidecar;
+        ``registry`` takes the service's ``data_service/*`` queues."""
         tcfg = self.train_config
         local_bs = multihost.per_process_batch_size(batch_size)
         # the streams without an index key fold the resume point into their
@@ -240,10 +260,11 @@ class ClassifierTrainer:
                         num_classes=cfg.num_classes,
                     ),
                     batch_size=local_bs, seed=tcfg.seed, workers=tcfg.data_service_workers, start_batch=start_step,
-                    resume_state=resume_state,
+                    resume_state=resume_state, registry=registry,
                 )
                 if service.redeal is not None:
                     self._log("the data service re-deals across a world resize: %s", service.redeal)
+                    self._telemetry.event("data_redeal", step=start_step, **service.redeal)
                 return service.batches(steps=steps), service
             if resume_state is not None:
                 raise ValueError(
@@ -306,66 +327,152 @@ class ClassifierTrainer:
         # a layout fault of the eval split shows now, not at the first eval
         self._open_records("val")
         eval_every = eval_every_steps or tcfg.eval_every_steps or tcfg.checkpoint_every_steps
+        self._telemetry = open_telemetry(
+            self.model_dir, tcfg, run_info("classification", steps, batch_size, self.model_config, tcfg), self.device
+        )
+        try:
+            return self._fit_instrumented(batch_size, steps, eval_every)
+        finally:
+            close_telemetry(self._telemetry)
+            self._telemetry = obs_lib.NULL_TELEMETRY
+
+    def _fit_instrumented(self, batch_size: int, steps: int, eval_every: int) -> FitResult:
+        """The run under ``self._telemetry``: restore, then train or, at
+        ``steps`` already, evaluate."""
+        tcfg = self.train_config
+        tel = self._telemetry
+        state = self._init_state()
+        setup_step_telemetry(tel, self, state, batch_size, tcfg.profile_every_windows)
         ckpt = self._checkpointer()
-        state = replicate(ckpt.restore_latest(self._init_state()))
+        state = replicate(ckpt.restore_latest(state))
         start_step = state.step
         if start_step >= steps:
             self._log("already trained to step %d", start_step)
-            return FitResult(self._evaluate(state, batch_size), self.params, start_step)
+            metrics = self._evaluate(state, batch_size, step_no=start_step)
+            tel.close(steps=start_step, already_trained=True)
+            return FitResult(metrics, self.params, start_step)
         if start_step > 0:
             self._log("resumes at step %d", start_step)
+            tel.event("resumed", step=start_step)
         resume_state = ckpt.restore_data_state(start_step) if start_step > 0 else None
-        stream, service = self._train_stream(batch_size, steps - start_step, start_step, resume_state)
+        is_main = multihost.is_main()
+        # the registry's queues are drained per window, which rank 0 alone writes
+        registry = tel.registry if tel.enabled and is_main else None
+        stream, service = self._train_stream(batch_size, steps - start_step, start_step, resume_state, registry)
+        tb_train = SummaryWriter(os.path.join(self.model_dir, "train")) if is_main else None
+        tb_eval = SummaryWriter(os.path.join(self.model_dir, "eval")) if is_main else None
         try:
-            return self._fit_loop(state, ckpt, stream, service, batch_size, eval_every)
+            result = self._fit_loop(state, ckpt, stream, service, batch_size, eval_every, registry, tb_train, tb_eval)
         finally:
             if service is not None:
                 service.close()
+            for writer in (tb_train, tb_eval):
+                if writer is not None:
+                    writer.close()
+        tel.memory_event(step=result.steps)
+        tel.close(steps=result.steps, final_metrics={k: float(v) for k, v in result.final_metrics.items()})
+        return result
 
     def _fit_loop(self, state: TrainState, ckpt: CheckpointManager, stream, service, batch_size: int,
-                  eval_every: int) -> FitResult:
+                  eval_every: int, registry, tb_train, tb_eval) -> FitResult:
         """The steps from ``state.step`` to the stream's end: each step, its
-        checkpoint (with the service's sidecar) and eval on their cadence,
-        then the final checkpoint and eval."""
+        log window, checkpoint (with the service's sidecar) and eval on
+        their cadence, then the final checkpoint and eval. A health abort
+        writes the final checkpoint, then re-raises."""
         tcfg = self.train_config
+        tel = self._telemetry
+        local_bs = multihost.per_process_batch_size(batch_size)
         train_step = step_lib.make_train_step(
             self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
             accum=tcfg.grad_accum_steps,
         )
         batches = pipeline_lib.device_prefetch(
-            stream, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth
+            stream, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth, registry=registry
         )
 
         def save_sidecar(step: int) -> None:
             if service is not None:
                 ckpt.save_data_state(step, service.state(step).to_json())
 
+        def emit_window(rec: async_loop.PendingWindow, scalars: Dict[str, float]) -> None:
+            if tb_train is not None:
+                tb_train.scalars(scalars, rec.step)
+            tel.window_event(
+                rec.step, steps=rec.steps, images_per_sec=rec.images_per_sec, scalars=scalars, dirty=rec.dirty,
+                samples=rec.samples, examples=rec.steps * local_bs,
+            )
+
+        def evaluate(step: int) -> Dict[str, float]:
+            metrics = self._evaluate(state, batch_size, step_no=step)
+            if tb_eval is not None:
+                tb_eval.scalars(metrics, step)
+                tb_eval.flush()
+            ckpt.export_best(state, metrics)
+            return metrics
+
+        overlap = async_loop.HostOverlap(tel, dispatch_ahead=tcfg.dispatch_ahead_steps, emit=emit_window)
         lr_sched = step_lib.make_host_lr_schedule(tcfg)
         step_no = state.step
         last_eval_step = -1
         final_metrics: Dict[str, float] = {}
-        window = None
-        for raw in batches:
-            state, metrics = train_step(state, self._prepare_train(step_no, raw))
-            window = step_lib.merge_metrics(window, metrics)
-            step_no += 1
-            if step_no % tcfg.train_log_every_steps == 0:
-                self._log("step %d: %s lr %.6g", step_no, step_lib.compute_metrics(window), lr_sched(step_no))
-                window = None
-            if ckpt.maybe_save(state, step=step_no):
-                save_sidecar(step_no)
-            if step_no % eval_every == 0:
-                last_eval_step = step_no
-                final_metrics = self._evaluate(state, batch_size)
-                ckpt.export_best(state, final_metrics)
-        ckpt.save(state)
+        window_t0 = time.perf_counter()
+        window_start = step_no
+        # the first window holds the first run; eval and checkpoint windows
+        # are not training time either
+        window_dirty = True
+        abort_err = None
+        batches_it = iter(batches)
+        try:
+            while True:
+                with tel.span(obs_lib.SPAN_DATA_WAIT):
+                    raw = next(batches_it, None)
+                if raw is None:
+                    break
+                with tel.span(obs_lib.SPAN_STEP):
+                    state, metrics = train_step(state, self._prepare_train(step_no, raw))
+                step_no += 1
+                overlap.track(metrics)
+                if tb_train is not None and step_no % tcfg.train_log_every_steps == 0:
+                    now = time.perf_counter()
+                    if tel.window_profiled():
+                        window_dirty = True
+                    images_per_sec = None
+                    if not window_dirty and step_no > window_start:
+                        images_per_sec = (step_no - window_start) * batch_size / (now - window_t0)
+                    overlap.window(async_loop.PendingWindow(
+                        step=step_no, metrics=metrics, steps=step_no - window_start, lr=lr_sched(step_no),
+                        images_per_sec=images_per_sec, dirty=window_dirty,
+                    ))
+                    window_t0, window_start, window_dirty = now, step_no, False
+                    tel.mark_warm(obs_lib.SPAN_STEP, obs_lib.SPAN_DATA_WAIT)
+                saved = False
+                if ckpt.is_save_step(step_no):
+                    with tel.span(obs_lib.SPAN_CHECKPOINT):
+                        saved = ckpt.maybe_save(state, step=step_no)
+                if saved:
+                    overlap.flush()
+                    window_dirty = True
+                    save_sidecar(step_no)
+                    tel.checkpoint_event(step_no)
+                if step_no % eval_every == 0:
+                    overlap.flush()
+                    last_eval_step = step_no
+                    final_metrics = evaluate(step_no)
+                    window_dirty = True
+            overlap.flush()
+        except health_lib.HealthAbortError as e:
+            abort_err = e
+        with tel.span(obs_lib.SPAN_CHECKPOINT):
+            ckpt.save(state)
         save_sidecar(step_no)
+        tel.checkpoint_event(step_no, final=True)
+        if abort_err is not None:
+            raise abort_err
         if last_eval_step != step_no:
-            final_metrics = self._evaluate(state, batch_size)
-            ckpt.export_best(state, final_metrics)
+            final_metrics = evaluate(step_no)
         return FitResult(final_metrics, self.params, step_no)
 
-    def _evaluate(self, state: TrainState, batch_size: int) -> Dict[str, float]:
+    def _evaluate(self, state: TrainState, batch_size: int, step_no: Optional[int] = None) -> Dict[str, float]:
         """One eval pass of the eval view (EMA parameters when tracked): the
         ``val`` records or folder, else the train records or folder (warned
         once), each one ordered pass with ``valid = 0`` padding and the same
@@ -380,7 +487,7 @@ class ClassifierTrainer:
             if eval_records is not None:
                 self._warn_eval_on_train("train record shards")
         if eval_records is not None:
-            return self._evaluate_records(state, eval_records, local_bs)
+            return self._evaluate_records(state, eval_records, local_bs, step_no)
         eval_split = val_folder
         if eval_split is None:
             eval_split = self._open_split("train")
@@ -392,27 +499,40 @@ class ClassifierTrainer:
         else:
             num = multihost.eval_num_batches(len(eval_split), local_bs)
             batches = imagefolder.eval_batches(eval_split.host_shard(), local_bs, num_batches=num)
-        return self._eval_pass(state, batches)
+        return self._eval_pass(state, batches, step_no)
 
     def _evaluate_records(self, state: TrainState, ds: records_lib.ClassificationRecords,
-                          local_bs: int) -> Dict[str, float]:
+                          local_bs: int, step_no: Optional[int] = None) -> Dict[str, float]:
         """One ordered pass over this rank's record shards, extended to the
         largest batch count of any rank by wrap-around rows with
         ``valid = 0``."""
         num = multihost.all_processes_max_batches(records_lib.count_records(ds.paths), local_bs)
-        return self._eval_pass(state, ds.batches(local_bs, repeat=False, pad_to_batches=num))
+        return self._eval_pass(state, ds.batches(local_bs, repeat=False, pad_to_batches=num), step_no)
 
-    def _eval_pass(self, state: TrainState, batches: Iterator[Dict[str, np.ndarray]]) -> Dict[str, float]:
+    def _eval_pass(self, state: TrainState, batches: Iterator[Dict[str, np.ndarray]],
+                   step_no: Optional[int] = None) -> Dict[str, float]:
         """Accumulate the eval step's metrics over ``batches`` (rows weighted
-        by ``valid``); one device-to-host copy per pass."""
+        by ``valid``) on the device under the ``eval`` span, at most
+        ``dispatch_ahead_steps`` (at least 1) batches in flight; one
+        device-to-host copy per pass, then the ``eval`` event."""
         eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
-        acc = None
-        with state.eval_params() as model:
-            for raw in batches:
-                acc = step_lib.merge_metrics(acc, eval_step(model, pipeline_lib.to_device(raw, self.device)))
-        state.model.train()
-        result = step_lib.compute_metrics(acc)
-        self._log("eval @ %d: %s", state.step, result)
+        tel = self._telemetry
+        t0 = time.perf_counter()
+        with tel.span(obs_lib.SPAN_EVAL):
+            budget = async_loop.eval_budget(tel, self.train_config.dispatch_ahead_steps)
+            acc = None
+            with state.eval_params() as model:
+                for raw in batches:
+                    acc = async_loop.merge_metrics_device(
+                        acc, eval_step(model, pipeline_lib.to_device(raw, self.device))
+                    )
+                    budget.track(acc)
+            state.model.train()
+            result = async_loop.fetch_metrics(acc, telemetry=tel)
+        step_no = state.step if step_no is None else step_no
+        self._log("eval @ %d: %s", step_no, result)
+        tel.eval_event(step_no, result, time.perf_counter() - t0)
+        tel.mark_warm(obs_lib.SPAN_EVAL)
         return result
 
     def _warn_eval_on_train(self, source: str) -> None:

@@ -129,12 +129,15 @@ def quantize_leaf_int8(weight: torch.Tensor, axis: int) -> Dict[str, torch.Tenso
 
 def require_int8_compute_supported(config: ModelConfig) -> None:
     """Refuse ``int8-compute`` for the models whose int8 serving path is
-    not ported yet: the ResNet classifier and the bf16-compute ResNets
-    (queue A 17 of ROADMAP.md). ``int8`` storage serves them dequantized."""
-    if config.backbone == "resnet" and (config.num_classes is not None or config.dtype == "bfloat16"):
+    not ported yet: the ResNet classifier, the bf16-compute ResNets and the
+    Xception-41 models (queue A 17 of ROADMAP.md). ``int8`` storage serves
+    them dequantized."""
+    if config.backbone == "xception" or (
+        config.backbone == "resnet" and (config.num_classes is not None or config.dtype == "bfloat16")
+    ):
         raise NotImplementedError(
-            "int8-compute serving of the ResNet classifier and of the bf16-compute ResNets is not ported yet "
-            "(queue A 17 of ROADMAP.md); serve them as float32, bfloat16 or int8"
+            "int8-compute serving of the ResNet classifier, of the bf16-compute ResNets and of Xception-41 is not "
+            "ported yet (queue A 17 of ROADMAP.md); serve them as float32, bfloat16 or int8"
         )
 
 

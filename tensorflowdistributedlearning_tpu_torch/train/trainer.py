@@ -37,9 +37,20 @@ resumed fold validates the checkpoint's sidecar and replays the exact
 remaining stream. ``data_service_workers=0`` feeds ``pipeline.train_batches``
 with the resume step folded into its seed, as the JAX package does then.
 
-Not in this slice, each a named ROADMAP item: the telemetry ledger, health
-monitors and TensorBoard image summaries (queue A 13), the async host loop
-(queue A 11), fault injection and preemption handling (queue A 14).
+Observability, as the JAX package's: one run ledger for the K-fold run in
+``model_dir`` (``obs/telemetry.py``; ``TrainConfig.telemetry``) with the
+step windows (the data-wait / step / fetch-wait split, throughput, ``mfu``,
+the prefetch and data-service queues), eval, checkpoint and memory events,
+sampled traces (``trace_sample_rate``), the health monitors (``nan_guard``
+'abort' writes the final checkpoint, then raises ``HealthAbortError``) and
+cadence profiles (``profile_every_windows``); TensorBoard scalars and
+input/label/probability/prediction images in ``fold{i}/train`` and
+``fold{i}/eval`` (rank 0). The host loop runs ``dispatch_ahead_steps``
+steps ahead of the card and writes each window one boundary late
+(``train/async_loop.py``). Each rank writes its own ledger
+(``telemetry-{i}.jsonl`` on rank i > 0).
+
+Not in this slice: fault injection and preemption handling (queue A 14).
 """
 
 from __future__ import annotations
@@ -63,7 +74,11 @@ from tensorflowdistributedlearning_tpu_torch.data import augment as augment_lib
 from tensorflowdistributedlearning_tpu_torch.data import folds as folds_lib
 from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
 from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
+from tensorflowdistributedlearning_tpu_torch.obs import health as health_lib
+from tensorflowdistributedlearning_tpu_torch.obs import telemetry as obs_lib
+from tensorflowdistributedlearning_tpu_torch.obs.profiler import ContinuousProfiler
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+from tensorflowdistributedlearning_tpu_torch.train import async_loop
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
 from tensorflowdistributedlearning_tpu_torch.train.state import (
@@ -73,6 +88,7 @@ from tensorflowdistributedlearning_tpu_torch.train.state import (
     template_train_state,
 )
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
+from tensorflowdistributedlearning_tpu_torch.utils.summary import SummaryWriter
 
 logger = logging.getLogger(__name__)
 
@@ -88,6 +104,71 @@ def augment_seed(seed: int, fold: int, step: int, rank: int = 0) -> int:
     draws."""
     entropy = [seed + fold, step] + ([rank] if rank else [])
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
+
+
+def tensor_bytes(tensors) -> int:
+    """Bytes of the tensors among ``tensors``."""
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def state_bytes(state: TrainState) -> Dict[str, int]:
+    """The memory event's exact state accounting on the card: parameters
+    (and the EMA) and the optimizer's slots as allocated now (torch's Adam
+    allocates its moments at the first update)."""
+    params = tensor_bytes(state.model.parameters())
+    if state.ema is not None:
+        params += tensor_bytes(state.ema.values())
+    opt = tensor_bytes(v for slots in state.optimizer.state.values() for v in slots.values())
+    return {"params_bytes_per_device": params, "opt_state_bytes_per_device": opt, "weight_update_sharding": False}
+
+
+def setup_step_telemetry(tel, trainer, state: TrainState, batch_size: int, every_windows: int) -> None:
+    """The per-fold (per-run) telemetry set-up both trainers share: the
+    memory event, JAX's ``6 · params · global_batch`` step pricing (and the
+    gradient all-reduce's ``2 · params`` bytes over more than one rank),
+    and the cadence profiler."""
+    tel.memory_event(**state_bytes(state))
+    if not tel.enabled:
+        return
+    world = multihost.process_count()
+    params_bytes = tensor_bytes(state.model.parameters())
+    tel.set_step_flops(
+        6.0 * float(trainer.params) * float(batch_size), n_devices=world,
+        collective_bytes_per_step=2.0 * params_bytes if world > 1 else None,
+    )
+    if tel.profiler is None:
+        tel.set_profiler(ContinuousProfiler(tel, every_windows=every_windows, phase="train", device=trainer.device))
+
+
+def run_info(task: str, steps: int, batch_size: int, model_config: ModelConfig, train_config: TrainConfig,
+             **extra) -> Dict:
+    """The run header's JAX keys (no ``plan``: the planner is queue A 12)."""
+    return {
+        "task": task, "steps": steps, "global_batch": batch_size, **extra,
+        "mesh": {"data": multihost.process_count()},
+        "model_config": dataclasses.asdict(model_config),
+        "train_config": dataclasses.asdict(train_config),
+    }
+
+
+def open_telemetry(model_dir: str, train_config: TrainConfig, info: Dict, device) -> obs_lib.Telemetry:
+    """The run's telemetry (every rank writes its own ledger, rank 0
+    ``telemetry.jsonl``), with the health monitors of ``train_config``,
+    timing the process group's sync points as ``barrier_wait``."""
+    tel = obs_lib.Telemetry(
+        model_dir, enabled=train_config.telemetry, memory_every_windows=train_config.telemetry_memory_every_windows,
+        trace_sample_rate=train_config.trace_sample_rate,
+        health=health_lib.HealthMonitor.from_train_config(train_config), device=device, run_info=info,
+    )
+    multihost.instrument(tel)
+    return tel
+
+
+def close_telemetry(tel: obs_lib.Telemetry) -> None:
+    """Teardown of :func:`open_telemetry`: a run that did not close with its
+    results is recorded as interrupted."""
+    multihost.uninstrument(tel)
+    tel.close(interrupted=True)
 
 
 _SINGLE_PROCESS = (
@@ -136,6 +217,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.task = step_lib.SegmentationTask()
         self._n_params: Optional[int] = None
+        self._telemetry = obs_lib.NULL_TELEMETRY
         if multihost.is_main():
             os.makedirs(model_dir, exist_ok=True)
 
@@ -192,12 +274,25 @@ class Trainer:
                 self.model_dir, list(X), list(np.asarray(y)), self.train_config.n_folds, self.train_config.seed
             )
         manifests = multihost.broadcast_object(manifests)
-        results = []
-        for fold, manifest in enumerate(manifests):
-            self._log("Processing fold %d", fold)
-            results.append(self._train_fold(fold, dataset, manifest, batch_size, steps))
-            self._log("Finished training fold %d", fold)
-        return results
+        tcfg = self.train_config
+        # one ledger for the K-fold run; events carry their fold
+        self._telemetry = open_telemetry(
+            self.model_dir, tcfg,
+            run_info("segmentation", steps, batch_size, self.model_config, tcfg, n_folds=tcfg.n_folds), self.device,
+        )
+        try:
+            results = []
+            for fold, manifest in enumerate(manifests):
+                self._log("Processing fold %d", fold)
+                results.append(self._train_fold(fold, dataset, manifest, batch_size, steps))
+                self._log("Finished training fold %d", fold)
+            self._telemetry.close(
+                folds=len(results), final_metrics={k: float(v) for k, v in (results[-1] if results else {}).items()}
+            )
+            return results
+        finally:
+            close_telemetry(self._telemetry)
+            self._telemetry = obs_lib.NULL_TELEMETRY
 
     def _log(self, msg: str, *args) -> None:
         """Log from rank 0 only."""
@@ -213,23 +308,33 @@ class Trainer:
         steps: int,
     ) -> Dict[str, float]:
         tcfg = self.train_config
+        tel = self._telemetry
+        # loss history and step-time baselines are per-fold facts
+        if tel.health is not None:
+            tel.health.reset()
         local_bs = multihost.per_process_batch_size(batch_size)
         train_ds = dataset.select(pipeline_lib.host_shard(manifest["train"]))
         eval_ds = dataset.select(pipeline_lib.host_shard(manifest["eval"]))
         eval_global_n = len(manifest["eval"])
         ckpt = self._checkpointer(fold)
         state = replicate(ckpt.restore_latest(self._init_state()))
+        setup_step_telemetry(tel, self, state, batch_size, tcfg.profile_every_windows)
         start_step = state.step
         if start_step >= steps:
             self._log("fold %d already trained to step %d", fold, start_step)
-            return self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
+            return self._evaluate(state, eval_ds, local_bs, fold, eval_global_n, step_no=start_step)
         if start_step > 0:
             self._log("fold %d resumes at step %d", fold, start_step)
+            tel.event("resumed", step=start_step, fold=fold)
 
         train_step = step_lib.make_train_step(
             self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
             accum=tcfg.grad_accum_steps,
         )
+        is_main = multihost.is_main()
+        # the registry's queues are drained per window, which rank 0 alone
+        # writes: the other ranks record nothing
+        registry = tel.registry if tel.enabled and is_main else None
         service = None
         if tcfg.data_service_workers > 0:
             service = service_lib.StreamingDataService(
@@ -240,69 +345,133 @@ class Trainer:
                     {"images": train_ds.images, "masks": train_ds.masks}, process_count=multihost.process_count()
                 ),
                 batch_size=local_bs, seed=tcfg.seed + fold, workers=tcfg.data_service_workers,
-                start_batch=start_step,
+                start_batch=start_step, registry=registry,
                 resume_state=ckpt.restore_data_state(start_step) if start_step > 0 else None,
             )
             if service.redeal is not None:
                 self._log("fold %d: the data service re-deals across a world resize: %s", fold, service.redeal)
+                tel.event("data_redeal", step=start_step, fold=fold, **service.redeal)
             batches = service.batches(steps=steps - start_step)
         else:
             batches = pipeline_lib.train_batches(
                 train_ds, local_bs, seed=tcfg.seed + fold + 7919 * start_step, steps=steps - start_step
             )
+        batches = pipeline_lib.device_prefetch(
+            batches, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth, registry=registry
+        )
+        tb_train = SummaryWriter(os.path.join(self._fold_dir(fold), "train")) if is_main else None
+        tb_eval = SummaryWriter(os.path.join(self._fold_dir(fold), "eval")) if is_main else None
         try:
-            return self._train_loop(fold, state, ckpt, train_step, batches, service, eval_ds, local_bs,
-                                    eval_global_n)
+            return self._train_loop(fold, state, ckpt, train_step, batches, service, eval_ds, batch_size,
+                                    eval_global_n, tb_train, tb_eval)
         finally:
             if service is not None:
                 service.close()
+            for writer in (tb_train, tb_eval):
+                if writer is not None:
+                    writer.close()
 
-    def _train_loop(self, fold, state, ckpt, train_step, batches, service, eval_ds, local_bs, eval_global_n):
-        """The fold's steps from its resume point: each step, its checkpoint
-        (with the service's sidecar) and eval on their cadence, then the
-        final checkpoint, eval and export."""
+    def _train_loop(self, fold, state, ckpt, train_step, batches, service, eval_ds, batch_size, eval_global_n,
+                    tb_train, tb_eval):
+        """The fold's steps from its resume point: each step, its log
+        window, checkpoint (with the service's sidecar) and eval on their
+        cadence, then the final checkpoint, eval and export. A health abort
+        writes the final checkpoint, then re-raises."""
         tcfg = self.train_config
-        batches = pipeline_lib.device_prefetch(
-            batches, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth
-        )
+        tel = self._telemetry
+        local_bs = multihost.per_process_batch_size(batch_size)
 
         def save_sidecar(step: int) -> None:
             if service is not None:
                 ckpt.save_data_state(step, service.state(step).to_json())
 
+        def emit_window(rec: async_loop.PendingWindow, scalars: Dict[str, float]) -> None:
+            if tb_train is not None:
+                tb_train.scalars(scalars, rec.step)
+            tel.window_event(
+                rec.step, steps=rec.steps, images_per_sec=rec.images_per_sec, scalars=scalars, dirty=rec.dirty,
+                samples=rec.samples, examples=rec.steps * local_bs, **rec.extra,
+            )
+
+        overlap = async_loop.HostOverlap(tel, dispatch_ahead=tcfg.dispatch_ahead_steps, emit=emit_window)
         lr_sched = step_lib.make_host_lr_schedule(tcfg)
         last_eval_time = 0.0
         last_eval_step = -1
         final_metrics: Dict[str, float] = {}
-        window = None
         step_no = state.step
-        for raw in batches:
-            batch = self._prepare_train(fold, step_no, raw)
-            state, metrics = train_step(state, batch)
-            window = step_lib.merge_metrics(window, metrics)
-            step_no += 1
-            if step_no % tcfg.train_log_every_steps == 0:
-                self._log(
-                    "fold %d step %d: %s lr %.6g", fold, step_no, step_lib.compute_metrics(window), lr_sched(step_no)
-                )
-                window = None
-            saved = ckpt.maybe_save(state, step=step_no)
-            if saved:
-                save_sidecar(step_no)
-            if tcfg.eval_every_steps:
-                due = step_no % tcfg.eval_every_steps == 0
-            else:
-                # a clock decides: every rank takes rank 0's reading
-                due = saved and multihost.broadcast_object(time.time() - last_eval_time >= tcfg.eval_throttle_secs)
-            if due:
-                last_eval_time = time.time()
-                last_eval_step = step_no
-                final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
-                ckpt.export_best(state, final_metrics)
-        ckpt.save(state)
+        window_t0 = time.perf_counter()
+        window_start = step_no
+        # the first window holds the first run; windows with an eval or a
+        # checkpoint are not training time either
+        window_dirty = True
+        abort_err = None
+        batches_it = iter(batches)
+        try:
+            while True:
+                with tel.span(obs_lib.SPAN_DATA_WAIT):
+                    raw = next(batches_it, None)
+                if raw is None:
+                    break
+                with tel.span(obs_lib.SPAN_STEP):
+                    batch = self._prepare_train(fold, step_no, raw)
+                    state, metrics = train_step(state, batch)
+                step_no += 1
+                overlap.track(metrics)
+                if tb_train is not None and step_no % tcfg.train_log_every_steps == 0:
+                    now = time.perf_counter()
+                    if tel.window_profiled():
+                        window_dirty = True
+                    images_per_sec = None
+                    if not window_dirty and step_no > window_start:
+                        images_per_sec = (step_no - window_start) * batch_size / (now - window_t0)
+                    overlap.window(async_loop.PendingWindow(
+                        step=step_no, metrics=metrics, steps=step_no - window_start, lr=lr_sched(step_no),
+                        images_per_sec=images_per_sec, dirty=window_dirty, extra={"fold": fold},
+                    ))
+                    window_t0, window_start, window_dirty = now, step_no, False
+                    tel.mark_warm(obs_lib.SPAN_STEP, obs_lib.SPAN_DATA_WAIT)
+                    if multihost.process_count() == 1:
+                        # the wait for the steps in flight is fetch_wait; the
+                        # summaries' own forward and encoding are in no span,
+                        # as in the JAX package
+                        overlap.drain()
+                        self._write_image_summaries(tb_train, state.model, batch, step_no)
+                saved = False
+                if ckpt.is_save_step(step_no):
+                    with tel.span(obs_lib.SPAN_CHECKPOINT):
+                        saved = ckpt.maybe_save(state, step=step_no)
+                if saved:
+                    overlap.flush()
+                    window_dirty = True
+                    save_sidecar(step_no)
+                    tel.checkpoint_event(step_no, fold=fold)
+                if tcfg.eval_every_steps:
+                    due = step_no % tcfg.eval_every_steps == 0
+                else:
+                    # a clock decides: every rank takes rank 0's reading
+                    due = saved and multihost.broadcast_object(
+                        time.time() - last_eval_time >= tcfg.eval_throttle_secs
+                    )
+                if due:
+                    overlap.flush()
+                    last_eval_time = time.time()
+                    last_eval_step = step_no
+                    final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n, writer=tb_eval,
+                                                   step_no=step_no)
+                    ckpt.export_best(state, final_metrics)
+                    window_dirty = True
+            overlap.flush()
+        except health_lib.HealthAbortError as e:
+            abort_err = e
+        with tel.span(obs_lib.SPAN_CHECKPOINT):
+            ckpt.save(state)
         save_sidecar(step_no)
+        tel.checkpoint_event(step_no, fold=fold, final=True)
+        if abort_err is not None:
+            raise abort_err
         if last_eval_step != step_no:
-            final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n)
+            final_metrics = self._evaluate(state, eval_ds, local_bs, fold, eval_global_n, writer=tb_eval,
+                                           step_no=step_no)
             ckpt.export_best(state, final_metrics)
         return final_metrics
 
@@ -316,28 +485,68 @@ class Trainer:
 
     def _evaluate(
         self, state: TrainState, eval_ds: pipeline_lib.InMemoryDataset, batch_size: int, fold: int,
-        global_n: Optional[int] = None,
+        global_n: Optional[int] = None, writer: Optional[SummaryWriter] = None, step_no: Optional[int] = None,
     ) -> Dict[str, float]:
         """One full eval pass with streaming metrics (EMA parameters when
-        tracked); one device-to-host copy per pass. ``eval_ds`` is this
-        rank's shard and ``batch_size`` its share; ``global_n`` (the fold's
-        eval size) sets the step count every rank runs, and the metrics are
-        summed over the ranks."""
+        tracked) under the ``eval`` span; the accumulator stays on the
+        device, one host transfer per pass. ``eval_ds`` is this rank's shard
+        and ``batch_size`` its share; ``global_n`` (the fold's eval size)
+        sets the step count every rank runs, and the metrics are summed over
+        the ranks. With ``writer``: the eval scalars and images."""
         eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
         global_n = len(eval_ds) if global_n is None else global_n
         num = multihost.eval_num_batches(global_n, batch_size) if self.data_parallel else None
-        acc = None
+        tel = self._telemetry
         t0 = time.perf_counter()
-        with state.eval_params() as model:
-            for raw in pipeline_lib.eval_batches(eval_ds, batch_size, num_batches=num):
-                placed = pipeline_lib.to_device(raw, self.device)
-                batch = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
-                batch["valid"] = placed["valid"]
-                acc = step_lib.merge_metrics(acc, eval_step(model, batch))
-        state.model.train()
-        result = step_lib.compute_metrics(acc)
-        self._log("fold %d eval @ %d (%.3f s): %s", fold, state.step, time.perf_counter() - t0, result)
+        first_batch = None
+        with tel.span(obs_lib.SPAN_EVAL):
+            budget = async_loop.eval_budget(tel, self.train_config.dispatch_ahead_steps)
+            acc = None
+            with state.eval_params() as model:
+                for raw in pipeline_lib.eval_batches(eval_ds, batch_size, num_batches=num):
+                    placed = pipeline_lib.to_device(raw, self.device)
+                    batch = augment_lib.prepare_eval_batch(placed["images"], placed["masks"])
+                    batch["valid"] = placed["valid"]
+                    acc = async_loop.merge_metrics_device(acc, eval_step(model, batch))
+                    budget.track(acc)
+                    if first_batch is None:
+                        first_batch = batch
+                state.model.train()
+                result = async_loop.fetch_metrics(acc, telemetry=tel)
+                eval_s = time.perf_counter() - t0
+                if step_no is None:
+                    step_no = state.step
+                if writer is not None and multihost.process_count() == 1:
+                    self._write_image_summaries(writer, model, first_batch, step_no)
+        tel.eval_event(step_no, result, eval_s, fold=fold)
+        tel.mark_warm(obs_lib.SPAN_EVAL)
+        self._log("fold %d eval @ %d (%.3f s): %s", fold, step_no, eval_s, result)
+        if writer is not None:
+            writer.scalars(result, step_no)
+            writer.flush()
         return result
+
+    def _write_image_summaries(self, writer: SummaryWriter, model: torch.nn.Module, batch, step_no: int) -> None:
+        """input/label/probability/prediction images of the first three
+        examples of ``batch`` (the JAX package's tags ``image/i``,
+        ``label/i``, ``probability/i``, ``prediction/i``): one eval-mode
+        forward of ``model`` as it stands, which leaves BN's running
+        statistics alone and the model in the mode it found."""
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                probs = torch.sigmoid(model(batch["images"][:3]))[..., 0].cpu().numpy()
+        finally:
+            model.train(was_training)
+        images = batch["images"][:3, ..., 0].cpu().numpy()
+        labels = batch["labels"][:3, ..., 0].cpu().numpy()
+        for i in range(min(3, images.shape[0])):
+            lo, hi = images[i].min(), images[i].max()
+            writer.image(f"image/{i}", (images[i] - lo) / max(hi - lo, 1e-6), step_no)
+            writer.image(f"label/{i}", labels[i], step_no)
+            writer.image(f"probability/{i}", probs[i], step_no)
+            writer.image(f"prediction/{i}", (probs[i] > 0.5).astype(np.float32), step_no)
 
     # -- prediction ---------------------------------------------------------
 

@@ -136,8 +136,32 @@ def test_a_world_resize_re_deals_as_in_jax(shards):
 
 
 def test_a_registry_is_refused_until_the_telemetry_is_ported(shards):
-    with pytest.raises(NotImplementedError, match="queue A 13"):
-        tsvc.StreamingDataService(_source(tsvc, shards), batch_size=8, seed=7, registry=object())
+    """Once refused (queue A 13), a ``registry`` now takes the service's
+    queues under the JAX package's names, as JAX's does on the same
+    shards: the workers gauge, one ready-depth sample per take and one
+    busy-time sample per batch (their values are timings and depths, the
+    same in kind), and at most one underrun per take after the first."""
+    from tensorflowdistributedlearning_tpu.obs import metrics as jmetrics
+    from tensorflowdistributedlearning_tpu.obs import telemetry as jtm
+    from tensorflowdistributedlearning_tpu_torch.obs import metrics as tmetrics
+    from tensorflowdistributedlearning_tpu_torch.obs import telemetry as ttm
+
+    seen = []
+    for lib, metrics, tm in ((tsvc, tmetrics, ttm), (jsvc, jmetrics, jtm)):
+        registry = metrics.MetricsRegistry()
+        batches = list(lib.StreamingDataService(_source(lib, shards), batch_size=8, seed=7, workers=2,
+                                                registry=registry).batches(steps=6))
+        hists = {name: registry.histogram(name).drain() for name in (
+            tm.DATA_READY_HISTOGRAM, tm.DATA_UNDERRUN_HISTOGRAM, tm.DATA_WORKER_BUSY_HISTOGRAM)}
+        under = hists[tm.DATA_UNDERRUN_HISTOGRAM]
+        assert metrics.window_count(under) <= 5 and set(under) <= {1.0}
+        assert all(v >= 0 for v in hists[tm.DATA_READY_HISTOGRAM] + hists[tm.DATA_WORKER_BUSY_HISTOGRAM])
+        seen.append(([b["labels"].tolist() for b in batches], registry.gauge(tm.DATA_WORKERS_GAUGE).value,
+                     metrics.window_count(hists[tm.DATA_READY_HISTOGRAM]),
+                     metrics.window_count(hists[tm.DATA_WORKER_BUSY_HISTOGRAM]),
+                     sorted(registry.snapshot().get("histograms", {}))))
+    assert ttm.DATA_READY_HISTOGRAM == jtm.DATA_READY_HISTOGRAM == "data_service/ready_depth"
+    assert seen[0] == seen[1] and seen[0][1:4] == (2, 6, 6)
 
 
 def test_worker_error_reaches_the_consumer(shards):

@@ -224,12 +224,14 @@ def test_data_the_port_cannot_read_yet_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("preset, match", [("vit_s16_moe_imagenet", "queue A 12"), ("cifar10_smoke", "queue A 4"),
-                                           ("resnet50_imagenet", "queue A 4"), ("resnet50_bf16_8k", "queue A 12")])
+                                           ("resnet50_imagenet", "queue A 4"), ("resnet50_bf16_8k", "queue A 12"),
+                                           ("xception41_imagenet", "queue A 11")])
 def test_presets_the_port_does_not_train_are_refused(tmp_path, monkeypatch, preset, match):
     """The MoE ViT and ``resnet50_bf16_8k`` (ZeRO-1) stay refused, each
     naming queue A 12. The ResNet classifier presets that queue A 4 brought
-    train through ``fit_preset``: ``cifar10_smoke`` as it is, and
-    ``resnet50_imagenet`` (accepted at full size) at 1/16 width on 32x32
+    and ``xception41_imagenet`` (queue A 11) train through ``fit_preset``:
+    ``cifar10_smoke`` as it is, and ``resnet50_imagenet`` and
+    ``xception41_imagenet`` (accepted at full size) at 1/16 width on 32x32
     inputs, a CPU's size."""
     if match == "queue A 12":
         with pytest.raises(NotImplementedError, match=match):
@@ -237,7 +239,7 @@ def test_presets_the_port_does_not_train_are_refused(tmp_path, monkeypatch, pres
         return
     full = tconfigs.get_preset(preset)
     tfit.require_supported_training(full.model, full.train)
-    if preset == "resnet50_imagenet":
+    if preset in ("resnet50_imagenet", "xception41_imagenet"):
         small = dataclasses.replace(full.model, width_multiplier=0.0625, input_shape=(32, 32))
         monkeypatch.setitem(tconfigs.PRESETS, preset, dataclasses.replace(full, model=small))
     res = tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")

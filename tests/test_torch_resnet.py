@@ -322,14 +322,14 @@ def test_model_config_rejects_what_jax_rejects(kwargs):
      {"block_layout": "classic", "n_blocks": (3, 4, 6, 3)}],
 )
 def test_later_slices_raise_not_implemented(kwargs):
-    """The Xception backbone (queue A 11) and the MoE ViT (queue A 12) stay
-    refused; the ResNet knobs queue A 4 brought (the classification head,
-    bf16 compute, the space-to-depth stem, basic blocks, the classic
-    layout) are accepted, and a narrow model of each builds and runs (the
-    parity tests are ``tests/test_torch_resnet_classifier.py`` and
-    ``tests/test_torch_resnet_bf16.py``)."""
+    """The MoE ViT (queue A 12) stays refused; the ResNet knobs queue A 4
+    brought (the classification head, bf16 compute, the space-to-depth
+    stem, basic blocks, the classic layout) and the Xception backbone
+    (queue A 11) are accepted, and a narrow model of each builds and runs
+    (the parity tests are ``tests/test_torch_resnet_classifier.py``,
+    ``tests/test_torch_resnet_bf16.py`` and ``tests/test_torch_xception.py``)."""
     cfg = ModelConfig(**kwargs)
-    if cfg.backbone == "xception" or cfg.moe_experts:
+    if cfg.moe_experts:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             require_supported(cfg)
         with pytest.raises(NotImplementedError):

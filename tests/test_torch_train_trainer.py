@@ -268,11 +268,19 @@ def test_trainer_trains_data_parallel_over_two_gloo_ranks(tmp_path):
     for fold in (0, 1):
         assert _steps(os.path.join(model_dir, f"fold{fold}", "checkpoints")) == [2, 4]
         assert _steps(os.path.join(model_dir, f"fold{fold}", "export", "best"))
-    # rank 0 alone writes under model_dir; the re-run is a no-op resume
+    # rank 0 alone writes under model_dir, but for each rank's own run
+    # ledger (rank 1: telemetry-1.jsonl, as every JAX process writes its
+    # own); the re-run is a no-op resume that only appends to the ledgers
     renamed = {os.path.relpath(path, model_dir) for event, path in rank0["first_writes"] if event == "os.rename"}
     assert {os.path.join(f"fold{f}", "checkpoints", f".tmp-{s}") for f in (0, 1) for s in (2, 4)} <= {
         p.rsplit("-", 1)[0] for p in renamed}
-    assert rank1["first_writes"] == [] and rank1["rerun_writes"] == [] and rank0["rerun_writes"] == []
+
+    def ledger(name):
+        return ("open", os.path.join(model_dir, name))
+
+    assert set(rank1["first_writes"]) == set(rank1["rerun_writes"]) == {ledger("telemetry-1.jsonl")}
+    assert set(rank0["rerun_writes"]) == {ledger("telemetry.jsonl")}
+    assert ledger("telemetry.jsonl") in rank0["first_writes"]
     assert rank0["rerun"] == rank0["results"] and rank1["rerun"] == rank1["results"]
     for out in (rank0, rank1):
         assert out["n_devices"].startswith("ValueError") and "torchrun --nproc-per-node 3" in out["n_devices"]
