@@ -1059,8 +1059,9 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
 
 OBS_REQUESTS = 20  # per SLO window: the tracker's min_requests
 OBS_CLIENTS = 8
-OBS_SEQUENTIAL_S = 4.0  # bucket-1 requests one at a time, seconds per arm
-OBS_LOOP_S = 8.0  # closed-loop clients, seconds per arm
+OBS_SEQUENTIAL_S = 2.0  # bucket-1 requests one at a time, seconds per arm
+OBS_LOOP_S = 4.0  # closed-loop clients, seconds per arm
+OBS_PROFILE_S = 3  # the /admin/profile capture under load
 
 
 def post_raw(url: str, body: bytes, headers=None, timeout: float = 300.0):
@@ -1387,7 +1388,10 @@ def serve_obs_phase(torch, model, cfg, card: str, device: str = "cuda"):
             for t in threads:
                 t.start()
             time.sleep(0.3)
-            status, text = get_url(server.url + "/admin/profile?seconds=1")
+            # the loaded server is host-bound: about two batched forwards a
+            # second, each ~30 ms on the card, so a 1 s window once held no
+            # whole forward (no depthwise kernel); 3 s holds several
+            status, text = get_url(server.url + f"/admin/profile?seconds={OBS_PROFILE_S}")
             check(status == 202, f"serve-obs /admin/profile: HTTP {status} {text}")
             capture_id = json.loads(text)["capture_id"]
             t_end = time.monotonic() + 120
@@ -1480,10 +1484,13 @@ def serve_obs_phase(torch, model, cfg, card: str, device: str = "cuda"):
               f"serve-obs: the postmortem capture holds no device kernels {postmortem[0]}")
         with open(os.path.join(captures[capture_id]["logdir"], "ops.json")) as f:
             ops = json.load(f)
-        names = " ".join(r["name"] for r in ops)
-        for needle in ("tfdl_depthwise", "tfdl_bn_act", "tfdl_sigmoid_mask"):
-            check(needle in names or device != "cuda", f"serve-obs: the capture holds no {needle} kernel")
+        held = {needle: sum(r["occurrences"] for r in ops if needle in r["name"])
+                for needle in ("tfdl_depthwise", "tfdl_bn_act", "tfdl_sigmoid_mask")}
+        log(f"serve-obs: the {OBS_PROFILE_S} s admin capture holds {held} launches over {len(loaded)} loaded requests")
+        for needle, n in held.items():
+            check(n > 0 or device != "cuda", f"serve-obs: the capture holds no {needle} kernel ({held})")
         out["roofline"] = {k: roofs.get(capture_id, {}).get(k) for k in ("total_ms", "buckets", "classes")}
+        out["admin_capture"] = {"seconds": OBS_PROFILE_S, "launches": held, "loaded_requests": len(loaded)}
         traced = check_request_traces(events, [f"obs-{i}" for i in range(len(script))])
         out["traced_requests"] = traced
 
@@ -4568,15 +4575,16 @@ def logit_gap(p: np.ndarray, q: np.ndarray) -> float:
 
 def estimate_bn_statistics(torch, model, batches) -> None:
     """Set every BatchNorm's running statistics to the mean of its batch
-    statistics over ``batches`` (no-grad training-mode forwards), its decay
-    as it was afterwards; leaves the model in eval mode."""
-    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+    statistics over ``batches`` (no-grad training-mode forwards, a
+    classifier's dropout keyed by the seed), its decay as it was
+    afterwards; leaves the model in eval mode."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, dropout_key
 
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     saved = [bn.decay for bn in bns]
     model.train()
     try:
-        with torch.no_grad():
+        with torch.no_grad(), dropout_key(SEED):
             for i, x in enumerate(batches):
                 for bn in bns:
                     bn.decay = i / (i + 1)
@@ -5143,6 +5151,334 @@ def train_lars_phase(torch, card: str, device: str = "cuda", cfg=None, batch: in
     return out
 
 
+# ZeRO-1 (parallel/zero.py): resnet50_bf16_8k's model and LARS recipe on two
+# gloo ranks that share the card, replicated and sharded, then its preset
+# through fit_preset with a resume
+ZERO_RANKS = 2
+ZERO_STEPS = 5  # timed steps per mode at global batch 64
+ZERO_HELD_STEPS = 3  # lockstep steps under deterministic algorithms
+ZERO_FIT_STOP = 2
+ZERO_FIT_STEPS = 4
+ZERO_TIMEOUT_S = 420
+# LARS under ZeRO-1 against the replicated LARS step from the same state:
+# the slices' squared sums reach the trust ratio's norms in another order,
+# which moves an update (at most lr·0.001·|p| per leaf) by a few float32
+# roundings, and p + update rounds to a neighbouring float; so per element
+# |dp| <= ZERO_LARS_ULPS spacings of p plus TOL_ZERO_LARS·lr
+TOL_ZERO_LARS = 1e-6
+ZERO_LARS_ULPS = 2
+
+
+def zero_rank(torch, rank: int, world: int, store: str, root: str, device: str, cfg_kwargs, batch: int,
+              steps: int):
+    """One of the ranks of ``train-zero1``: each mode alone (``steps`` steps
+    on a resident batch: ms per step, peak memory, the memory event's
+    bytes; the ZeRO mode's parameter all-gather timed), the ZeRO step held
+    step by step against the replicated one from the same state, then
+    fit_preset of resnet50_bf16_8k to ZERO_FIT_STOP and resumed to
+    ZERO_FIT_STEPS with its launches counted, and its last checkpoint
+    restored into a ZeRO-1 template."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger_with_errors
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, multihost, zero
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
+    from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state, replicate, template_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import state_bytes
+
+    on_card = device == "cuda"
+    dev = torch.device("cuda:0" if on_card else "cpu")
+    multihost.initialize(store, world, rank, backend="gloo", timeout=300)
+    out = {"rank": rank}
+    try:
+        if on_card:
+            torch.cuda.set_device(0)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        preset = configs.get_preset(LARS_PRESET)
+        cfg = ModelConfig(**cfg_kwargs) if cfg_kwargs else preset.model
+        tcfg = {mode: dataclasses.replace(preset.train, weight_update_sharding=mode == "zero")
+                for mode in ("replicated", "zero")}
+        task = step_lib.ClassificationTask(label_smoothing=preset.train.label_smoothing)
+        raw = synthetic_classification_batch(np.random.default_rng(SEED + 61), batch, cfg.input_shape,
+                                             cfg.input_channels, cfg.num_classes)
+        rows = mesh.shard_rows(batch, rank, world)
+        local = pipeline_lib.to_device({k: v[rows] for k, v in raw.items()}, dev)
+        init = {k: v.cpu() for k, v in build_model(cfg, dev, generator=torch.Generator().manual_seed(SEED + 62))
+                .state_dict().items()}
+        train_step = step_lib.make_train_step(task, data_parallel=True, weight_decay=cfg.weight_decay,
+                                              seed=preset.train.seed)
+
+        def fresh(mode):
+            return replicate(create_train_state(cfg, tcfg[mode], dev, state_dict=init))
+
+        for mode in ("replicated", "zero"):
+            state = fresh(mode)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, metrics = train_step(state, local)
+                losses.append(step_lib.compute_metrics(metrics)["loss"])  # waits for the card
+                times.append(time.perf_counter() - t0)
+            rec = dict(step_ms=statistics.median(times[1:]) * 1e3, losses=losses,
+                       peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0,
+                       **state_bytes(state, mode == "zero"))
+            if mode == "zero":
+                layout = state.zero
+                rec["all_gather_ms"] = host_ms(torch, layout.gather_params)
+                rec["all_gather_mb"] = zero.all_gather_bytes(layout) / 1e6
+                rec["sharded"], rec["whole"] = len(layout.sharded), len(layout.dims) - len(layout.sharded)
+                # the slots of the leaves every rank keeps whole (LARS: a trace each)
+                rec["tail_bytes"] = sum(layout.params[n].numel() * layout.params[n].element_size()
+                                        for n, d in layout.dims.items() if d is None)
+            out[mode] = rec
+            del state
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # the ZeRO step against the replicated step from the same state
+        with deterministic_algorithms(torch), cublas_deterministic():
+            rep, sharded = fresh("replicated"), fresh("zero")
+            held = []
+            for k in range(ZERO_HELD_STEPS):
+                if k:
+                    sharded.load_state_dict(rep.state_dict())
+                lr = rep.schedule(rep.step)
+                _, m_rep = train_step(rep, local)
+                _, m_zero = train_step(sharded, local)
+                pairs = list(zip(rep.model.parameters(), sharded.model.parameters()))
+                gap = max(float((a - b).abs().max()) for a, b in pairs)
+                # the distance in units of the parameter's float32 spacing
+                ulps = max(float(((a - b).abs() / (torch.nextafter(a.abs(), torch.full_like(a, float("inf")))
+                                                    - a.abs())).max()) for a, b in pairs)
+                excess = max(float(((a - b).abs() - ZERO_LARS_ULPS * (torch.nextafter(
+                    a.abs(), torch.full_like(a, float("inf"))) - a.abs())).max()) for a, b in pairs)
+                stats = all(torch.equal(a, b) for a, b in zip(rep.model.buffers(), sharded.model.buffers()))
+                held.append(dict(lr=lr, gap=gap, ulps=ulps, excess=excess, stats_equal=stats,
+                                 loss_equal=step_lib.compute_metrics(m_rep) == step_lib.compute_metrics(m_zero)))
+            out["held"] = held
+            out["held_digest"] = state_digest(sharded.model)
+            del rep, sharded
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # the main path: fit_preset with ZeRO-1, stopped and resumed; counts from 0 just before
+        model_dir = os.path.join(root, "fit-zero1")
+        ledger = LaunchLedger(kernels, step_lib)
+        with mock.patch.dict(configs.PRESETS, {LARS_PRESET: dataclasses.replace(preset, model=cfg)}), ledger.patch():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = [fit_preset(LARS_PRESET, model_dir, steps=stop, batch_size=batch, device=dev,
+                                  checkpoint_every_steps=ZERO_FIT_STOP).final_metrics
+                       for stop in (ZERO_FIT_STOP, ZERO_FIT_STEPS)]
+            if on_card:
+                torch.cuda.synchronize()
+            out["fit_s"] = time.perf_counter() - t0
+            out["launches"] = kernels.launch_counts()
+        out["fit_metrics"] = results
+        out["ledger_train"], out["ledger_eval"] = ledger.train, ledger.eval
+        out["eval_forwards"] = 2 * EVAL_SYNTHETIC_BATCHES
+        events, errors = read_ledger_with_errors(
+            os.path.join(model_dir, "telemetry.jsonl" if rank == 0 else f"telemetry-{rank}.jsonl"))
+        out["memory_events"] = [{k: e.get(k) for k in ("opt_state_bytes_per_device", "params_bytes_per_device",
+                                                        "weight_update_sharding")}
+                                for e in events if e["event"] == "memory" and "opt_state_bytes_per_device" in e]
+        out["ledger_errors"] = errors
+        # the last checkpoint into a ZeRO-1 template on every rank: the whole
+        # state it gathers back is the file's
+        restored = CheckpointManager(model_dir).restore_latest(template_train_state(cfg, tcfg["zero"], dev))
+        check(restored.zero is not None and restored.step == ZERO_FIT_STEPS,
+              f"train-zero1 rank {rank}: restored a {'ZeRO-1' if restored.zero else 'replicated'} state at step "
+              f"{restored.step}")
+        whole = restored.state_dict()
+        out["restored_digest"] = optimizer_digest(whole["optimizer"])
+        out["restored_model"] = state_digest(restored.model)
+        del restored, whole
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def optimizer_digest(opt_state) -> str:
+    """sha256 of an optimizer state dict's tensors, by index and slot."""
+    h = hashlib.sha256()
+    for i in sorted(opt_state["state"], key=int):
+        for key, v in sorted(opt_state["state"][i].items()):
+            h.update(f"{i}/{key}".encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes() if hasattr(v, "numpy") else repr(v).encode())
+    return h.hexdigest()[:16]
+
+
+def train_zero1_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int = R50_BATCH,
+                      steps: int = ZERO_STEPS):
+    """ZeRO-1 on two gloo ranks sharing the card (each ``chip_smoke.py
+    zero-rank ...``, with the kernels' warm build directory), then this
+    process restores their checkpoint into one replicated state. ``cfg``
+    and ``device="cpu"`` rehearse it small."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
+    from tensorflowdistributedlearning_tpu_torch.train.state import template_train_state
+
+    on_card = device == "cuda"
+    preset = configs.get_preset(LARS_PRESET)
+    cfg_kwargs = dataclasses.asdict(cfg) if cfg is not None else {}
+    cfg = cfg or preset.model
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-zero1-") as root:
+        store = f"file://{os.path.join(root, 'store')}"
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        try:
+            for rank in range(ZERO_RANKS):
+                logs.append(open(os.path.join(root, f"rank{rank}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "zero-rank", str(rank), str(ZERO_RANKS), store, root,
+                     device, json.dumps(cfg_kwargs), str(batch), str(steps)],
+                    stdout=logs[-1], stderr=subprocess.STDOUT,
+                ))
+            deadline = time.perf_counter() + ZERO_TIMEOUT_S
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        outs = []
+        for rank, p in enumerate(procs):
+            with open(os.path.join(root, f"rank{rank}.log")) as f:
+                text = f.read()
+            check(p.returncode == 0, f"zero rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+            with open(os.path.join(root, f"rank{rank}.json")) as f:
+                outs.append(json.load(f))
+        r0 = outs[0]
+        for o in outs[1:]:
+            for key in ("held_digest", "fit_metrics", "restored_digest", "restored_model"):
+                check(o[key] == r0[key], f"train-zero1: ranks differ in {key}: {[x[key] for x in outs]}")
+            for mode in ("replicated", "zero"):
+                check(o[mode]["losses"] == r0[mode]["losses"], f"train-zero1 {mode}: ranks' losses differ")
+        for o in outs:
+            what = f"train-zero1 rank {o['rank']}"
+            for k, h in enumerate(o["held"]):
+                check(h["excess"] <= TOL_ZERO_LARS * h["lr"] and h["stats_equal"] and h["loss_equal"],
+                      f"{what}: held step {k}: max|dp| {h['gap']:.3g} ({h['ulps']:.3g} spacings of p), beyond "
+                      f"{ZERO_LARS_ULPS} spacings {h['excess']:.3g} against {TOL_ZERO_LARS:g}·lr {h['lr']:.3g} (BN "
+                      f"statistics equal {h['stats_equal']}, metrics equal {h['loss_equal']})")
+            rep, z = o["replicated"], o["zero"]
+            for mode in ("replicated", "zero"):
+                check(all(np.isfinite(o[mode]["losses"])), f"{what} {mode}: losses {o[mode]['losses']}")
+            check(not rep["weight_update_sharding"] and z["weight_update_sharding"]
+                  and rep["params_bytes_per_device"] == z["params_bytes_per_device"],
+                  f"{what}: memory event fields {rep} / {z}")
+            # the sharded slots halve; the whole leaves' slots stay on each rank
+            want = (rep["opt_state_bytes_per_device"] - z["tail_bytes"]) // ZERO_RANKS + z["tail_bytes"]
+            check(z["opt_state_bytes_per_device"] == want,
+                  f"{what}: ZeRO opt bytes {z['opt_state_bytes_per_device']}, expected {want} (replicated "
+                  f"{rep['opt_state_bytes_per_device']}, whole tail {z['tail_bytes']})")
+            check(o["ledger_errors"] == 0 and len(o["memory_events"]) == 2 and all(
+                e == {"opt_state_bytes_per_device": z["opt_state_bytes_per_device"],
+                      "params_bytes_per_device": z["params_bytes_per_device"], "weight_update_sharding": True}
+                for e in o["memory_events"]), f"{what}: fit's memory events {o['memory_events']}")
+            per_step = PER_R50_TRAIN_STEP if on_card else {k: 0 for k in PER_R50_TRAIN_STEP}
+            per_fwd = PER_R50_FORWARD if on_card else {k: 0 for k in PER_R50_FORWARD}
+            check(len(o["ledger_train"]) == ZERO_FIT_STEPS and len(o["ledger_eval"]) == o["eval_forwards"],
+                  f"{what}: fit ran {len(o['ledger_train'])} train steps, {len(o['ledger_eval'])} eval forwards")
+            for delta in o["ledger_train"]:
+                check(delta == per_step, f"{what}: fit step launches {delta}, expected {per_step}")
+            for delta in o["ledger_eval"]:
+                check(delta == per_fwd, f"{what}: fit eval forward launches {delta}, expected {per_fwd}")
+            check(all(np.isfinite(v) for m in o["fit_metrics"] for v in m.values()), f"{what}: {o['fit_metrics']}")
+
+        # rank 0's checkpoint into one process: the whole state the ranks gathered
+        model_dir = os.path.join(root, "fit-zero1")
+        t1 = time.perf_counter()
+        tcfg = dataclasses.replace(preset.train, weight_update_sharding=True)
+        state = CheckpointManager(model_dir).restore_latest(template_train_state(cfg, tcfg, device))
+        check(state.zero is None and state.step == ZERO_FIT_STEPS, f"train-zero1: one-process restore at step "
+              f"{state.step}, layout {state.zero}")
+        got = optimizer_digest(state.optimizer.state_dict())
+        check(got == r0["restored_digest"] and state_digest(state.model) == r0["restored_model"],
+              f"train-zero1: the one-process restore's optimizer state {got} / model {state_digest(state.model)} "
+              f"against the ranks' {r0['restored_digest']} / {r0['restored_model']}")
+        raw = synthetic_classification_batch(np.random.default_rng(SEED + 63), 8, cfg.input_shape, cfg.input_channels,
+                                             cfg.num_classes)
+        with torch.no_grad():
+            logits = state.model.eval()(pipeline_lib.to_device(raw, torch.device(device))["images"])
+        check(tuple(logits.shape) == (8, cfg.num_classes) and bool(torch.isfinite(logits).all()),
+              f"train-zero1: restored forward {tuple(logits.shape)}")
+        restore_s = time.perf_counter() - t1
+        del state, logits
+        if on_card:
+            torch.cuda.empty_cache()
+    rep, z = r0["replicated"], r0["zero"]
+    gaps = [f"{h['gap']:.3g} ({h['ulps']:.3g} spacings of p) at lr {h['lr']:.3g}" for h in r0["held"]]
+    log(f"train-zero1: {LARS_PRESET}'s model and LARS recipe on {ZERO_RANKS} gloo ranks sharing {device}, global batch "
+        f"{batch} ({batch // ZERO_RANKS} a rank), median of steps 2-{steps}: replicated {rep['step_ms']:.3f} ms per "
+        f"step, ZeRO-1 {z['step_ms']:.3f} ms; peak device memory (rank 0, torch.cuda.max_memory_allocated) "
+        f"{rep['peak_bytes'] / 2 ** 30:.3f} / {z['peak_bytes'] / 2 ** 30:.3f} GiB [{card}]")
+    log(f"train-zero1: opt_state_bytes_per_device {rep['opt_state_bytes_per_device']} replicated, "
+        f"{', '.join(str(o['zero']['opt_state_bytes_per_device']) for o in outs)} by rank under ZeRO-1 "
+        f"({z['sharded']} leaves sharded, {z['whole']} whole: {z['tail_bytes']} bytes of trace on every rank); the "
+        f"parameter all-gather (host-staged over gloo) {z['all_gather_mb']:.1f} MB in {z['all_gather_ms']:.3f} ms "
+        f"[{card}]")
+    log(f"train-zero1: the ZeRO step against the replicated step from the same state (deterministic algorithms): "
+        f"max|dp| {', '.join(gaps)}; BN statistics and metrics equal; ranks' digests equal")
+    log(f"train-zero1: fit_preset {LARS_PRESET} with ZeRO-1 to step {ZERO_FIT_STOP}, resumed to {ZERO_FIT_STEPS}: "
+        f"{r0['fit_s']:.3f} s, metrics {json.dumps(r0['fit_metrics'])}; eval forwards launched "
+        f"{PER_R50_FORWARD['fused_bn_act_bf16_act']} bf16 BN + act each; its checkpoint restored on both ranks into "
+        f"ZeRO-1 shards and in this process into one replicated state ({restore_s:.3f} s), the same whole state; "
+        f"{wall:.3f} s for the ranks [{card}]")
+    return {"launches": r0["launches"], "replicated_step_ms": rep["step_ms"], "zero_step_ms": z["step_ms"],
+            "replicated_peak_bytes": rep["peak_bytes"], "zero_peak_bytes": z["peak_bytes"],
+            "replicated_opt_bytes": rep["opt_state_bytes_per_device"],
+            "zero_opt_bytes": [o["zero"]["opt_state_bytes_per_device"] for o in outs],
+            "all_gather_ms": z["all_gather_ms"], "all_gather_mb": z["all_gather_mb"],
+            "held_gaps": [h["gap"] for h in r0["held"]], "held_ulps": [h["ulps"] for h in r0["held"]],
+            "fit_s": r0["fit_s"], "ranks_s": wall}
+
+
+def zero_rank_main(argv) -> int:
+    """``chip_smoke.py zero-rank RANK WORLD STORE ROOT DEVICE CFG BATCH
+    STEPS``: one rank of ``train-zero1``; writes ``ROOT/rank{RANK}.json``."""
+    import torch
+
+    rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    cfg_kwargs, batch, steps = json.loads(argv[5]), int(argv[6]), int(argv[7])
+    if cfg_kwargs:
+        for key in ("input_shape", "n_blocks"):
+            cfg_kwargs[key] = tuple(cfg_kwargs[key])
+    try:
+        out = zero_rank(torch, rank, world, store, root, device, cfg_kwargs, batch, steps)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 # Xception-41: the segmenter through Trainer.train with every observability
 # knob on, and the classifier preset through fit_preset
 XC_STEPS = 20
@@ -5649,6 +5985,9 @@ def main() -> int:
         lars = train_lars_phase(torch, card)
         mark("train-lars")
         torch.cuda.empty_cache()
+        zero1 = train_zero1_phase(torch, card)
+        mark("train-zero1")
+        torch.cuda.empty_cache()
         xception = train_xception_phase(torch, card)
         mark("train-xception")
         torch.cuda.empty_cache()
@@ -5667,6 +6006,7 @@ def main() -> int:
              "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
              "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
              "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
+             "train-zero1": zero1["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
              "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
     def launches(name, counts):
@@ -5696,6 +6036,7 @@ def main() -> int:
                       "fit_resnet50": {k: v for k, v in fitted50.items() if not k.endswith("launches")},
                       "fit_records": {k: v for k, v in fit_records.items() if not k.endswith("launches")},
                       "train_lars": {k: v for k, v in lars.items() if k != "launches"},
+                      "train_zero1": {k: v for k, v in zero1.items() if k != "launches"},
                       "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
                       "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5704,4 +6045,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["dp-rank"] else main())
+    if sys.argv[1:2] == ["dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
+    sys.exit(zero_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["zero-rank"] else main())

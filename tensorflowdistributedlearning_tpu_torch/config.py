@@ -359,7 +359,6 @@ _LATER_TRAINING = (
         lambda c: max(c.sequence_parallel, c.model_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
         "sequence/model/pipeline/expert parallelism (queue A 12)",
     ),
-    (lambda c: c.weight_update_sharding, "weight_update_sharding, ZeRO-1 (queue A 12)"),
     (lambda c: c.compile_cache_dir is not None, "compile_cache_dir (no compile cache in eager PyTorch)"),
 )
 
@@ -371,9 +370,11 @@ def require_supported_training(model_config: ModelConfig, train_config: TrainCon
     Xception-41 segmenters and classifiers, the ViT classifier without
     experts; float32 or bfloat16 compute; ``remat`` per residual unit or
     transformer block) with Adam, SGD or LARS, ``grad_accum_steps`` >= 1,
-    on one device or data-parallel, under every observability knob; it
-    refuses what :func:`require_supported` refuses, the planner, ZeRO-1 and
-    the model-parallel axes (queue A 12), and ``compile_cache_dir``."""
+    on one device or data-parallel, with or without ZeRO-1's sharded
+    weight update (``weight_update_sharding``, ``parallel/zero.py``), under
+    every observability knob; it refuses what :func:`require_supported`
+    refuses, the planner and the model-parallel axes (queue A 12), and
+    ``compile_cache_dir``."""
     require_supported(model_config)
     for test, what in _LATER_TRAINING:
         if test(train_config):

@@ -38,12 +38,18 @@ flax does in the promoted dtype of its input and its bf16 statistics (bf16
 for a bf16 input), returned in the compute dtype. Convolutions are called
 through their modules, so the int8-compute serving path can swap a module
 (``ops/quant_kernels.py``).
+
+Stochastic layers (Xception-41's pre-logits dropout) own no random state:
+a training-mode draw takes its generator from :func:`dropout_key`, which
+the train step sets for each forward from (seed, step, rank, accumulation
+chunk), as the JAX step folds those into its ``dropout`` PRNG key.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Tuple
+import contextvars
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -52,6 +58,37 @@ from torch.utils import checkpoint as checkpoint_lib
 
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+
+
+# the key of the forward in progress: {"seed": int, device: its generator}
+_DROPOUT_KEY: contextvars.ContextVar[Optional[Dict]] = contextvars.ContextVar("dropout_key", default=None)
+
+
+@contextlib.contextmanager
+def dropout_key(seed: int) -> Iterator[None]:
+    """For the duration, training-mode dropout draws from one stream seeded
+    with ``seed`` (a generator per device, made at the first draw there;
+    later draws continue it)."""
+    token = _DROPOUT_KEY.set({"seed": int(seed)})
+    try:
+        yield
+    finally:
+        _DROPOUT_KEY.reset(token)
+
+
+def dropout_generator(device: torch.device) -> torch.Generator:
+    """The generator of the :func:`dropout_key` in force on ``device``;
+    raises without one (a module keeps no stream of its own)."""
+    key = _DROPOUT_KEY.get()
+    if key is None:
+        raise RuntimeError(
+            "a training-mode dropout draw needs a key: run the forward under models.layers.dropout_key(seed) "
+            "(the train step keys it by seed, step, rank and accumulation chunk)"
+        )
+    device = torch.device(device)
+    if device not in key:
+        key[device] = torch.Generator(device=device).manual_seed(key["seed"])
+    return key[device]
 
 
 def scaled_width(channels: int, multiplier: float) -> int:

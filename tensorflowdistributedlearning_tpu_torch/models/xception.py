@@ -28,15 +28,18 @@ entry_block1_unit1/separable_conv1/depthwise/kernel``), so
 ``utils/convert.py`` maps one onto the other; a grouped filter ``[C, 1, 3,
 3]`` is flax's ``[3, 3, 1, C]`` transposed as any conv filter.
 
-The classifier's dropout draws its masks from the module's own
-``torch.Generator`` on the input's device, seeded with ``dropout_seed``:
-the JAX package's masks come from its PRNG and cannot be matched.
+The classifier's dropout draws its masks from the generator of the
+``layers.dropout_key`` in force, which the train step keys by
+(``TrainConfig.seed``, step, rank, accumulation chunk) as the JAX step
+folds them into its PRNG key: the module holds no random state, so a
+resumed run continues the uninterrupted stream. The bits cannot match
+``jax.random``'s; the keying does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -49,6 +52,7 @@ from tensorflowdistributedlearning_tpu_torch.models.layers import (
     ConvBN,
     Dense,
     compute_dtype_of,
+    dropout_generator,
     fixed_padding,
     scaled_width,
 )
@@ -260,24 +264,21 @@ class Xception41(nn.Module):
     the Dense ``logits``. Without ``num_classes`` it returns the pooled
     features."""
 
-    def __init__(self, config: ModelConfig, keep_prob: float = DEFAULT_KEEP_PROB, dropout_seed: int = 0):
+    def __init__(self, config: ModelConfig, keep_prob: float = DEFAULT_KEEP_PROB):
         super().__init__()
         require_supported(config)
         self.config = config
         self.keep_prob = float(keep_prob)
-        self.dropout_seed = int(dropout_seed)
-        self._generator: Optional[torch.Generator] = None
         self.backbone = XceptionBackbone(dataclasses.replace(config, output_stride=None))
         self.logits = Dense(self.backbone.out_channels, config.num_classes, None) if config.num_classes else None
 
     def _dropout(self, x: torch.Tensor) -> torch.Tensor:
         """flax ``nn.Dropout(1 - keep_prob)``: ``x / keep_prob`` where a
-        uniform draw is below ``keep_prob``, else 0."""
+        uniform draw is below ``keep_prob``, else 0; the draw from
+        :func:`layers.dropout_generator`."""
         if not self.training or self.keep_prob >= 1.0:
             return x
-        if self._generator is None or self._generator.device != x.device:
-            self._generator = torch.Generator(device=x.device).manual_seed(self.dropout_seed)
-        keep = torch.rand(x.shape, generator=self._generator, device=x.device) < self.keep_prob
+        keep = torch.rand(x.shape, generator=dropout_generator(x.device), device=x.device) < self.keep_prob
         return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ all-reduces over the default process group. Every function is a no-op when
 no group is initialized (one process), so the single-device step pays
 nothing.
 
+ZeRO-1's parameter gather is :func:`all_gather` of one flat buffer.
+
 A list of tensors is reduced as one collective: the tensors of one dtype are
 packed into a flat buffer, all-reduced and copied back. The trainer keeps its
 gradients in such a buffer from the start (:func:`flat_grad_buffer`), so a
@@ -115,6 +117,22 @@ def broadcast_(tensors: Tensors, src: int = 0) -> None:
             for t in group:
                 t.copy_(flat[offset : offset + t.numel()].view(t.shape))
                 offset += t.numel()
+
+
+def all_gather(flat: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``flat`` (one dimension, the same size on every rank) as
+    the rows of a ``[world, n]`` tensor on ``flat``'s device, one
+    collective (ZeRO-1's parameter gather). Under a backend that cannot
+    carry ``flat`` where it lies (gloo, for ranks that share a card) the
+    collective runs on :func:`collective_device` and the result is copied
+    back."""
+    if not is_initialized():
+        return flat.reshape(1, -1)
+    device = collective_device()
+    send = flat if flat.device == device else flat.to(device)
+    out = torch.empty((world_size(), flat.numel()), dtype=flat.dtype, device=device)
+    dist.all_gather(list(out.unbind(0)), send)
+    return out if out.device == flat.device else out.to(flat.device)
 
 
 class _PMean(torch.autograd.Function):

@@ -9,7 +9,7 @@ of W owns rows ``[r·B/W, (r+1)·B/W)`` (:func:`shard_rows`), the rows
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives
 
@@ -37,3 +37,21 @@ def shard_rows(global_batch: int, rank: Optional[int] = None, world: Optional[in
     rank = collectives.rank() if rank is None else rank
     local = local_batch_size(global_batch, world)
     return slice(rank * local, (rank + 1) * local)
+
+
+def largest_divisible_dim(shape: Sequence[int], degree: int, *, taken: Optional[set] = None) -> Optional[int]:
+    """Index of the largest dimension of ``shape`` divisible by ``degree``,
+    skipping indices in ``taken`` (dimensions another axis already shards);
+    None when nothing divides. The first such dimension wins a tie. The
+    eligibility rule of the ZeRO-1 weight-update specs
+    (:mod:`.zero`): a conv filter shards its widest channel dimension, a
+    bias shards outright, and only scalars and odd-sized vectors stay
+    whole."""
+    taken = taken or set()
+    best: Optional[int] = None
+    for i, d in enumerate(shape):
+        if i in taken or d % degree != 0:
+            continue
+        if best is None or d > shape[best]:
+            best = i
+    return best

@@ -21,11 +21,14 @@ In a data-parallel run rank 0 alone writes and deletes; the other ranks
 take its decision (whether a step was saved, whether an export was kept)
 through a broadcast that returns only after rank 0 has written, so no rank
 reads a half-written step. Every rank restores; the trainer then
-``replicate``s rank 0's state.
+``replicate``s rank 0's state. Under ZeRO-1 every rank joins the gather of
+the whole state that rank 0 writes (a periodic step, or the EMA of a best
+export), after the same broadcast decision.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import logging
@@ -102,13 +105,24 @@ class CheckpointManager:
     def save(self, state: TrainState) -> bool:
         """Save the state at its step now; re-offering a saved step is a
         no-op. Keeps the newest ``max_to_keep`` steps."""
+        if state.zero is not None:
+            # the whole state is a gather every rank joins: decide first
+            if not multihost.broadcast_object(self.writer and state.step not in self.all_steps()):
+                return False
+            payload = state.state_dict()
+            if self.writer:
+                self._write_periodic(state.step, payload)
+            return multihost.broadcast_object(True)
         saved = False
         if self.writer and state.step not in self.all_steps():
-            _write_step(self._ckpt_dir, state.step, state.state_dict())
-            for old in self.all_steps()[: -self.max_to_keep]:
-                shutil.rmtree(os.path.join(self._ckpt_dir, str(old)), ignore_errors=True)
+            self._write_periodic(state.step, state.state_dict())
             saved = True
         return multihost.broadcast_object(saved)
+
+    def _write_periodic(self, step: int, payload: Dict) -> None:
+        _write_step(self._ckpt_dir, step, payload)
+        for old in self.all_steps()[: -self.max_to_keep]:
+            shutil.rmtree(os.path.join(self._ckpt_dir, str(old)), ignore_errors=True)
 
     def is_save_step(self, step: int) -> bool:
         """Whether ``step`` is on the periodic save cadence."""
@@ -219,13 +233,20 @@ class CheckpointManager:
         """Offer the eval view of ``state`` (EMA parameters when tracked) with
         its eval ``metrics``; it stays only if it ranks in the top
         ``save_best`` on the best metric. Returns whether it was kept."""
+        if state.zero is not None:
+            # the eval view gathers the EMA: every rank enters it
+            with state.eval_params() as model:
+                kept = self._export_best(state, metrics, model) if self.writer else False
+            return multihost.broadcast_object(kept)
         return multihost.broadcast_object(self._export_best(state, metrics) if self.writer else False)
 
-    def _export_best(self, state: TrainState, metrics: Dict[str, float]) -> bool:
+    def _export_best(self, state: TrainState, metrics: Dict[str, float], model=None) -> bool:
+        """Write the eval view (``model`` when the caller entered it) as a
+        best export if it ranks."""
         kept = self.best_steps()
         if state.step in kept:
             return False
-        with state.eval_params() as model:
+        with state.eval_params() if model is None else contextlib.nullcontext(model) as model:
             payload = {"step": state.step, "model": model.state_dict()}
             _write_step(self._best_dir, state.step, payload, {k: float(v) for k, v in metrics.items()})
         kept[state.step] = float(metrics[self.best_metric])

@@ -20,7 +20,9 @@ trains a replica on its device, draws ``batch_size / world`` rows a step
 from its own stream (seed ``seed + rank``, as the JAX package's process
 index), runs the data-parallel step (one all-reduce of the flat gradient,
 the BN running statistics' mean where the model has BatchNorm, the metric
-sums), and rank 0 alone writes.
+sums; under ``weight_update_sharding`` the update is ZeRO-1's,
+``parallel/zero.py``: each rank updates its slices of the optimizer state
+and the EMA and all-gathers the parameters), and rank 0 alone writes.
 Serving restores refuse to run under more than one rank.
 
 Input, in the JAX package's order of preference (``data_dir`` may hold any
@@ -52,7 +54,7 @@ alerts, cadence profiles), TensorBoard scalars in ``train/`` and ``eval/``
 (``train/async_loop.py``), and a health abort that writes the final
 checkpoint before it re-raises. Left out, each a ROADMAP item: fault
 injection and preemption (A 14), and tensor, pipeline, expert and sequence
-parallelism (A 12, refused by ``require_supported_training``).
+parallelism (A 12.2 on, refused by ``require_supported_training``).
 """
 
 from __future__ import annotations
@@ -384,7 +386,7 @@ class ClassifierTrainer:
         local_bs = multihost.per_process_batch_size(batch_size)
         train_step = step_lib.make_train_step(
             self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
-            accum=tcfg.grad_accum_steps,
+            accum=tcfg.grad_accum_steps, seed=tcfg.seed,
         )
         batches = pipeline_lib.device_prefetch(
             stream, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth, registry=registry

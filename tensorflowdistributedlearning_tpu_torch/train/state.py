@@ -10,6 +10,17 @@ rank 0's state to every rank after init and after every restore, the step
 averages the gradients before the one update, and
 :func:`pmean_batch_stats` averages the BN running statistics after it, so
 the replicas stay bitwise equal.
+
+Under ``TrainConfig.weight_update_sharding`` (ZeRO-1, ``parallel/zero.py``)
+over more than one rank the state carries a :class:`zero.ZeroLayout`
+(``zero``): the parameters and BN statistics stay whole on every rank, the
+optimizer's slots and the EMA hold this rank's slices, and the update runs
+sharded. :meth:`TrainState.state_dict` gathers the slots and the EMA whole,
+in the replicated format, and :meth:`TrainState.load_state_dict` slices a
+whole state: a checkpoint does not depend on the layout, and restores into
+a replicated state or a ZeRO-1 one at any world size. Both, like
+:meth:`TrainState.eval_params` (which gathers the EMA) and
+:func:`replicate`, are collectives then: every rank calls them.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
 from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost, zero as zero_lib
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -39,6 +50,8 @@ class TrainState:
     # the parameters' gradients as one buffer (``.grad`` are views into it),
     # made by :meth:`flatten_grads` for the data-parallel step's all-reduce
     flat_grad: Optional[torch.Tensor] = None
+    # the ZeRO-1 layout; None when the update is replicated
+    zero: Optional[zero_lib.ZeroLayout] = None
 
     def flatten_grads(self) -> torch.Tensor:
         """The flat gradient buffer, allocated on the first call."""
@@ -54,13 +67,17 @@ class TrainState:
             self.flat_grad.zero_()
         else:
             self.optimizer.zero_grad(set_to_none=True)
+            self.model.zero_grad(set_to_none=True)
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``: optional
         global-norm clip, lr = ``schedule(step)``, the update, the EMA, and
-        ``step += 1``."""
+        ``step += 1``; sharded under ZeRO-1."""
         from tensorflowdistributedlearning_tpu_torch.train.step import clip_by_global_norm
 
+        if self.zero is not None:
+            zero_lib.apply_gradients_sharded(self)
+            return
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         if self.grad_clip_norm:
             clip_by_global_norm(params, self.grad_clip_norm)
@@ -78,15 +95,20 @@ class TrainState:
     @contextlib.contextmanager
     def eval_params(self):
         """The eval/export view: the EMA parameters swapped in for the
-        duration when an EMA is tracked, the live ones otherwise."""
+        duration when an EMA is tracked, the live ones otherwise. Under
+        ZeRO-1 the EMA's slices are gathered whole first (every rank)."""
         if self.ema is None:
             yield self.model
             return
+        ema = self.ema
+        if self.zero is not None:
+            names = sorted(self.ema)
+            ema = dict(zip(names, self.zero.gather([(n, self.ema[n]) for n in names])))
         live = {}
         with torch.no_grad():
             for name, p in self.model.named_parameters():
                 live[name] = p.detach().clone()
-                p.copy_(self.ema[name])
+                p.copy_(ema[name])
         try:
             yield self.model
         finally:
@@ -95,14 +117,19 @@ class TrainState:
                     p.copy_(live[name])
 
     def state_dict(self) -> Dict:
+        """The whole state in the replicated format (under ZeRO-1 the slots
+        and the EMA gathered, a collective)."""
+        optimizer, ema = self.optimizer.state_dict(), self.ema
+        if self.zero is not None:
+            optimizer, ema = zero_lib.whole_state(self.zero, self.optimizer, self.ema)
         out = {
             "step": self.step,
             "model": self.model.state_dict(),
             "optimizer_type": type(self.optimizer).__name__,
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": optimizer,
         }
-        if self.ema is not None:
-            out["ema"] = self.ema
+        if ema is not None:
+            out["ema"] = ema
         return out
 
     def load_state_dict(self, state: Dict) -> None:
@@ -112,16 +139,20 @@ class TrainState:
                 f"the checkpoint holds {state.get('optimizer_type')} state, the run uses {type(self.optimizer).__name__}"
             )
         self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
         if (self.ema is None) != ("ema" not in state):
             raise KeyError("checkpoint and state disagree on whether a parameter EMA is tracked")
         if self.ema is not None:
             missing = set(self.ema) ^ set(state["ema"])
             if missing:
                 raise KeyError(f"EMA entries differ: {sorted(missing)[:5]}")
-            with torch.no_grad():
-                for name, e in self.ema.items():
-                    e.copy_(state["ema"][name])
+        if self.zero is not None:
+            zero_lib.load_whole_state(self, state["optimizer"], state.get("ema"))
+        else:
+            self.optimizer.load_state_dict(state["optimizer"])
+            if self.ema is not None:
+                with torch.no_grad():
+                    for name, e in self.ema.items():
+                        e.copy_(state["ema"][name])
         self.step = int(state["step"])
 
 
@@ -177,7 +208,7 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
     ema = None
     if train_config.ema_decay:
         ema = {name: p.detach().clone() for name, p in model.named_parameters()}
-    return TrainState(
+    state = TrainState(
         model=model,
         optimizer=make_optimizer(train_config, model),
         schedule=make_lr_schedule(train_config),
@@ -186,13 +217,30 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
         ema_decay=train_config.ema_decay,
         ema=ema,
     )
+    if train_config.weight_update_sharding and collectives.world_size() > 1:
+        zero_lib.shard_state(state, train_config)
+    return state
 
 
 def replicate(state: TrainState) -> TrainState:
     """Copy rank 0's state to every rank, in place (returned): parameters,
     BN running statistics, optimizer state, EMA and update count. A no-op
-    without a process group."""
+    without a process group. Under ZeRO-1 rank 0's whole state (its
+    :meth:`TrainState.state_dict`) is broadcast and every rank takes its
+    slices of it."""
     if not collectives.is_initialized():
+        return state
+    if state.zero is not None:
+        whole = state.state_dict()
+        tensors = list(whole["model"].values())
+        for i in sorted(whole["optimizer"]["state"], key=int):
+            slots = whole["optimizer"]["state"][i]
+            tensors += [v for _, v in sorted(slots.items()) if isinstance(v, torch.Tensor)]
+        if state.ema is not None:
+            tensors += [whole["ema"][name] for name in sorted(whole["ema"])]
+        collectives.broadcast_(tensors)
+        whole["step"] = int(multihost.broadcast_object(state.step))
+        state.load_state_dict(whole)
         return state
     tensors = list(state.model.state_dict().values())
     for p in state.model.parameters():

@@ -37,10 +37,12 @@ import dataclasses
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+from tensorflowdistributedlearning_tpu_torch.models.layers import dropout_key
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
 from tensorflowdistributedlearning_tpu_torch.ops import metrics as metrics_lib
@@ -211,11 +213,34 @@ class Lars(torch.optim.Optimizer):
 
     def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay, masked=True))
+        # ids of the leaves that are one rank's slice of a parameter
+        # (ZeRO-1, ``parallel/zero.py``): their norms sum over the ranks
+        self.sharded: set = set()
+
+    def _sharded_norms(self) -> Dict[int, tuple]:
+        """``{id(leaf): (|p|, |u|)}`` of the masked sliced leaves, the norms
+        of the whole parameter and update: each slice's squared sums, one
+        all-reduce over the ranks, the square root."""
+        todo = []
+        for group in self.param_groups:
+            if not group["masked"]:
+                continue
+            for p in group["params"]:
+                if id(p) in self.sharded and p.grad is not None:
+                    u = p.grad + group["weight_decay"] * p if group["weight_decay"] else p.grad
+                    todo.append((p, torch.sum(p * p), torch.sum(u * u)))
+        if not todo:
+            return {}
+        sums = torch.stack([s for _, ps, us in todo for s in (ps, us)])
+        collectives.psum_(sums)
+        norms = torch.sqrt(sums)
+        return {id(p): (norms[2 * i], norms[2 * i + 1]) for i, (p, _, _) in enumerate(todo)}
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Lars.step takes no closure")
+        sharded = self._sharded_norms()
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
@@ -224,8 +249,11 @@ class Lars(torch.optim.Optimizer):
                 if group["masked"]:
                     if group["weight_decay"]:
                         u = u + group["weight_decay"] * p
-                    p_norm = torch.linalg.vector_norm(p)
-                    u_norm = torch.linalg.vector_norm(u)
+                    if id(p) in sharded:
+                        p_norm, u_norm = sharded[id(p)]
+                    else:
+                        p_norm = torch.linalg.vector_norm(p)
+                        u_norm = torch.linalg.vector_norm(u)
                     ratio = LARS_TRUST_COEFFICIENT * p_norm / (u_norm + LARS_EPS)
                     u = u * torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
                 u = u * -group["lr"]
@@ -237,12 +265,16 @@ class Lars(torch.optim.Optimizer):
         return None
 
 
-def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
+def make_optimizer(
+    cfg: TrainConfig, model: nn.Module, leaves: Optional[Dict[str, torch.Tensor]] = None
+) -> torch.optim.Optimizer:
     """The configured optimizer over ``model``'s parameters, in two param
     groups (decayed kernels first, then the rest) when ``weight_decay > 0``,
     and always for ``lars`` (its masked kernels, then the rest). The lr is
-    set per update by :meth:`TrainState.apply_gradients`."""
-    named = list(model.named_parameters())
+    set per update by :meth:`TrainState.apply_gradients`. ``leaves`` (a
+    ZeRO-1 layout's, ``parallel/zero.py``) puts each parameter's update
+    leaf, by name, in its place, in the same groups and order."""
+    named = [(n, leaves[n] if leaves is not None else p) for n, p in model.named_parameters()]
     if cfg.optimizer == "lars":
         mask = kernel_decay_mask(model)
         groups = [
@@ -266,6 +298,53 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module) -> torch.optim.Optimizer:
     if cfg.weight_decay:
         return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _scalar_dtype() -> torch.dtype:
+    """The dtype torch's Adam keeps its ``step`` in."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+
+
+def _slot_shapes(optimizer: torch.optim.Optimizer, group: Dict, p: torch.Tensor) -> Dict[str, tuple]:
+    """``{slot: (shape, dtype)}`` that ``optimizer``'s first update
+    allocates for the leaf ``p``: Adam's ``step`` (a host scalar),
+    ``exp_avg`` and ``exp_avg_sq``; SGD's ``momentum_buffer`` (with
+    momentum); LARS's ``trace``."""
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return {"step": ((), _scalar_dtype()), "exp_avg": (tuple(p.shape), p.dtype),
+                "exp_avg_sq": (tuple(p.shape), p.dtype)}
+    if isinstance(optimizer, torch.optim.SGD):
+        return {"momentum_buffer": (tuple(p.shape), p.dtype)} if group["momentum"] else {}
+    if isinstance(optimizer, Lars):
+        return {"trace": (tuple(p.shape), p.dtype)}
+    raise TypeError(f"no slot rule for {type(optimizer).__name__}")
+
+
+def init_optimizer_slots(optimizer: torch.optim.Optimizer) -> None:
+    """Allocate, as zeros, every slot that ``optimizer``'s first update
+    would allocate and that it does not hold yet (torch allocates its slots
+    lazily; optax's ``init`` at once). The first update from a zero slot is
+    the update from none: Adam's moments start at 0, and a zero trace or
+    momentum buffer plus the first update is that update."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            for key, (shape, dtype) in _slot_shapes(optimizer, group, p).items():
+                if key not in state:
+                    device = torch.device("cpu") if key == "step" else p.device
+                    state[key] = torch.zeros(shape, dtype=dtype, device=device)
+
+
+def optimizer_slot_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """Bytes of the slots ``optimizer`` holds once it has taken an update
+    (:func:`init_optimizer_slots`' allocation), whether or not torch has
+    allocated them yet; under ZeRO-1 its leaves are this rank's slices."""
+    total = 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            for shape, dtype in _slot_shapes(optimizer, group, p).values():
+                total += math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return total
 
 
 def clip_by_global_norm(params, max_norm: float) -> None:
@@ -365,13 +444,25 @@ def split_batch(batch: Dict[str, torch.Tensor], accum: int):
     ]
 
 
+def dropout_seed(seed: int, step: int, rank: int, chunk: int) -> int:
+    """The dropout stream's seed for one forward: a pure function of
+    (``TrainConfig.seed``, the update count, the rank, the accumulation
+    chunk), the four things the JAX step folds into its ``dropout`` key
+    (``fold_in(fold_in(fold_in(key(seed), step), batch index), chunk)``).
+    A resumed run draws what the uninterrupted one drew; ranks draw their
+    own masks for their own rows."""
+    return int(np.random.SeedSequence([seed, step, rank, chunk]).generate_state(1, np.uint64)[0] >> 1)
+
+
 def make_train_step(
     task, *, data_parallel: bool = False, weight_decay: float = 0.0, apply_weight_decay: bool = False,
-    accum: int = 1,
+    accum: int = 1, seed: int = 0,
 ):
     """``step(state, batch) -> (state, metrics)``: forward and backward in
     training mode, one optimizer update, metric contributions computed from
-    the pre-update logits (as the JAX step computes them).
+    the pre-update logits (as the JAX step computes them). Each chunk's
+    forward runs under the ``layers.dropout_key`` of :func:`dropout_seed`
+    (``seed`` is ``TrainConfig.seed``).
 
     ``accum`` > 1 (``TrainConfig.grad_accum_steps``): the batch splits into
     ``accum`` chunks (:func:`split_batch`), each run forward and backward in
@@ -386,29 +477,32 @@ def make_train_step(
     averaged over the ranks before the update, so clipping, the update and
     the EMA see the gradient of the global-batch mean loss; the BN running
     statistics are averaged after the update and the metric states summed.
-    Without a group every reduction is the identity."""
+    Without a group every reduction is the identity. A state under ZeRO-1
+    (``state.zero``, ``parallel/zero.py``) takes its update sharded, on
+    the same averaged gradient."""
 
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
 
-    def chunk_step(state, chunk: Dict[str, torch.Tensor]) -> Metrics:
-        loss, logits = forward_backward(
-            state, task, chunk, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
-        )
+    def chunk_step(state, chunk: Dict[str, torch.Tensor], index: int) -> Metrics:
+        with dropout_key(dropout_seed(seed, state.step, collectives.rank(), index)):
+            loss, logits = forward_backward(
+                state, task, chunk, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
+            )
         with torch.no_grad():
             return _metric_deltas(task.metric_scores(logits, chunk), loss)
 
     def step(state, batch: Dict[str, torch.Tensor]):
-        if data_parallel or accum > 1:
+        if data_parallel or accum > 1 or state.zero is not None:
             state.flatten_grads()
         if accum == 1:
-            metrics = chunk_step(state, batch)
+            metrics = chunk_step(state, batch, 0)
         else:
             chunks = split_batch(batch, accum)
             total = torch.zeros_like(state.flat_grad)
             metrics = None
-            for chunk in chunks:
-                metrics = merge_metrics(metrics, chunk_step(state, chunk))
+            for index, chunk in enumerate(chunks):
+                metrics = merge_metrics(metrics, chunk_step(state, chunk, index))
                 total.add_(state.flat_grad / accum)
             state.flat_grad.copy_(total)
         if data_parallel:

@@ -23,7 +23,8 @@ coordinator arguments; ``parallel/multihost.py``) every rank trains a
 replica on its own device: it loads its round-robin share of the fold's
 train and eval ids (``host_shard``), draws ``batch_size / world`` rows per
 step, and runs the data-parallel step (gradient mean, BN-statistics mean,
-metric sums). Eval runs the same number of steps on every rank
+metric sums; under ``weight_update_sharding`` the update is ZeRO-1's,
+``parallel/zero.py``). Eval runs the same number of steps on every rank
 (``eval_num_batches``, ``valid = 0`` padding) and sums the metrics, so every
 rank holds the global metrics and takes the same export decision. Rank 0
 alone writes files and logs; prediction and serving refuse to run
@@ -111,15 +112,22 @@ def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
-def state_bytes(state: TrainState) -> Dict[str, int]:
-    """The memory event's exact state accounting on the card: parameters
-    (and the EMA) and the optimizer's slots as allocated now (torch's Adam
-    allocates its moments at the first update)."""
-    params = tensor_bytes(state.model.parameters())
+def state_bytes(state: TrainState, weight_update_sharding: bool = False) -> Dict[str, int]:
+    """The memory event's state accounting per device, as the JAX package's
+    ``tree_bytes_per_device`` gives it: the parameters; and the optimizer
+    state, which is the slots as they stand after init (Adam's two moments
+    and its step, SGD's and LARS's trace, counted at their size before
+    torch allocates them at the first update) and the EMA, this rank's
+    slices of both under ZeRO-1. ``weight_update_sharding`` is the
+    configuration's. The scalar counters differ: optax keeps one ``count``
+    per counting transform, torch's Adam a ``step`` per parameter."""
+    from tensorflowdistributedlearning_tpu_torch.train.step import optimizer_slot_bytes
+
+    opt = optimizer_slot_bytes(state.optimizer)
     if state.ema is not None:
-        params += tensor_bytes(state.ema.values())
-    opt = tensor_bytes(v for slots in state.optimizer.state.values() for v in slots.values())
-    return {"params_bytes_per_device": params, "opt_state_bytes_per_device": opt, "weight_update_sharding": False}
+        opt += tensor_bytes(state.ema.values())
+    return {"params_bytes_per_device": tensor_bytes(state.model.parameters()), "opt_state_bytes_per_device": opt,
+            "weight_update_sharding": bool(weight_update_sharding)}
 
 
 def setup_step_telemetry(tel, trainer, state: TrainState, batch_size: int, every_windows: int) -> None:
@@ -127,7 +135,7 @@ def setup_step_telemetry(tel, trainer, state: TrainState, batch_size: int, every
     memory event, JAX's ``6 · params · global_batch`` step pricing (and the
     gradient all-reduce's ``2 · params`` bytes over more than one rank),
     and the cadence profiler."""
-    tel.memory_event(**state_bytes(state))
+    tel.memory_event(**state_bytes(state, trainer.train_config.weight_update_sharding))
     if not tel.enabled:
         return
     world = multihost.process_count()
@@ -329,7 +337,7 @@ class Trainer:
 
         train_step = step_lib.make_train_step(
             self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
-            accum=tcfg.grad_accum_steps,
+            accum=tcfg.grad_accum_steps, seed=tcfg.seed,
         )
         is_main = multihost.is_main()
         # the registry's queues are drained per window, which rank 0 alone

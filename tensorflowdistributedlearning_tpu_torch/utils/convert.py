@@ -210,7 +210,8 @@ def load_optax_state(state, opt_state, config: ModelConfig) -> None:
       the gradients, which SGD's buffer is) or :class:`train.step.Lars`'s
       ``trace`` (the trace of the lr-scaled updates, as optax keeps it);
 
-    and an ``EmaTrackerState``'s ``ema`` the state's EMA. Raises when the
+    and an ``EmaTrackerState``'s ``ema`` the state's EMA; a ZeRO-1 state
+    takes this rank's slices of each. Raises when the
     chain holds no such slot or more than one, when the port runs another
     optimizer, or when the two disagree on whether an EMA is tracked."""
     from tensorflowdistributedlearning_tpu_torch.train.step import Lars
@@ -233,24 +234,32 @@ def load_optax_state(state, opt_state, config: ModelConfig) -> None:
         )
     if (state.ema is None) != (not emas):
         raise ValueError("the optax state and the port's state disagree on whether a parameter EMA is tracked")
-    params = dict(state.model.named_parameters())
+    # the optimizer's leaves: the parameters, or under ZeRO-1 this rank's
+    # slices of them (``parallel/zero.py``), whose slots are the same slices
+    zero = state.zero
+    leaves = zero.leaves if zero is not None else dict(state.model.named_parameters())
+
+    def share(name: str, whole: torch.Tensor) -> torch.Tensor:
+        whole = whole.to(leaves[name].device)
+        return whole if zero is None else zero.slice(name, whole).clone()
+
     if adam:
         mu = params_from_flax(adam[0].mu, config)
         nu = params_from_flax(adam[0].nu, config)
         count = float(np.asarray(adam[0].count))
-        for name, p in params.items():
+        for name, p in leaves.items():
             state.optimizer.state[p] = {
                 "step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": mu[name].to(p.device),
-                "exp_avg_sq": nu[name].to(p.device),
+                "exp_avg": share(name, mu[name]),
+                "exp_avg_sq": share(name, nu[name]),
             }
     else:
         trace = params_from_flax(traces[0].trace, config)
         key = "trace" if isinstance(state.optimizer, Lars) else "momentum_buffer"
-        for name, p in params.items():
-            state.optimizer.state[p] = {key: trace[name].to(p.device)}
+        for name, p in leaves.items():
+            state.optimizer.state[p] = {key: share(name, trace[name])}
     if emas:
         ema = params_from_flax(emas[0].ema, config)
         with torch.no_grad():
             for name, e in state.ema.items():
-                e.copy_(ema[name])
+                e.copy_(share(name, ema[name]))

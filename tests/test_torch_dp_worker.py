@@ -25,6 +25,18 @@ parameters after the update, the summed metrics), then
 ``ClassifierTrainer.fit`` of the tiny ViT under the group and what its
 serving restore raises there.
 
+``zero``: ZeRO-1 (``parallel/zero.py``) beside the replicated
+data-parallel step from ``DIR/init.pt`` on this rank's rows of
+``DIR/batches.npz``, under the Adam chain (clip, AdamW, EMA), Nesterov SGD
+with sync BN and LARS: the ZeRO state after each step (and its
+replicated twin's, which under LARS starts each step from the ZeRO
+state), the whole state the ZeRO one gathers, a ZeRO
+checkpoint in ``DIR/ckpt`` (written by rank 0) and, when ``DIR/whole``
+holds a replicated checkpoint, that checkpoint restored into this rank's
+shards; then ``ClassifierTrainer.fit`` of a narrow Xception-41 classifier
+under ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted, with the dropout
+masks each forward drew (``tests/test_torch_zero1.py``).
+
 ``trainer``: ``Trainer.train`` of the tiny model over the dataset in
 ``DIR/data``, its no-op re-run, and what must raise under the group. Every
 directory made, file opened for writing, renamed or removed under the model
@@ -257,6 +269,115 @@ def _fit_mode(rank: int, world: int, directory: str):
     return out
 
 
+ZERO_CONFIGS = {
+    # the everything-on chain of the JAX package's ZeRO-1 tests
+    "adam": dict(optimizer="adam", lr=1e-2, weight_decay=1e-4, ema_decay=0.9, grad_clip_norm=1.0),
+    "sgd": dict(SGD, sync_batch_norm=True),
+    "lars": dict(optimizer="lars", lr=0.5, weight_decay=1e-4, sgd_momentum=0.9),
+}
+ZERO_FIT = dict(optimizer="adam", lr=1e-3, weight_decay=1e-4, ema_decay=0.9, grad_clip_norm=1.0,
+                augmentation="none", checkpoint_every_steps=2, seed=7, weight_update_sharding=True)
+
+
+def zero_fit_model():
+    """The narrow Xception-41 classifier of the ZeRO fit (its dropout live)."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+
+    model = configs.get_preset("xception41_imagenet").model
+    return dataclasses.replace(model, width_multiplier=0.0625, input_shape=(32, 32), num_classes=10,
+                               dtype="float32")
+
+
+def _whole(state):
+    """The state's whole optimizer state and EMA, replicated format."""
+    sd = state.state_dict()
+    return {"optimizer": sd["optimizer"], "ema": sd.get("ema"), "step": sd["step"]}
+
+
+def _zero_mode(rank: int, world: int, directory: str):
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.models import xception
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    cfg = ModelConfig(**TINY)
+    init = torch.load(os.path.join(directory, "init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "batches.npz"))
+    images, labels = data["images"], data["labels"]
+    rows = mesh.shard_rows(images.shape[1], rank, world)
+    task = _bce_task()
+    out = {}
+    for name, kw in ZERO_CONFIGS.items():
+        rep = replicate(_state(cfg, kw, init))
+        zero = replicate(_state(cfg, dict(kw, weight_update_sharding=True), init))
+        assert rep.zero is None and zero.zero is not None
+        train_step = step_lib.make_train_step(task, data_parallel=True)
+        run = {"rep": [], "zero": [], "losses": []}
+        for k in range(images.shape[0]):
+            batch = {"images": torch.from_numpy(images[k, rows]), "labels": torch.from_numpy(labels[k, rows])}
+            if name == "lars" and k:
+                # LARS is held step by step: the twin starts where ZeRO is
+                rep.load_state_dict(zero.state_dict())
+            _, m_rep = train_step(rep, batch)
+            _, m_zero = train_step(zero, batch)
+            run["rep"].append(_snapshot(rep))
+            run["zero"].append(_snapshot(zero))
+            run["losses"].append((step_lib.compute_metrics(m_rep)["loss"], step_lib.compute_metrics(m_zero)["loss"]))
+        run["rep_whole"], run["zero_whole"] = _whole(rep), _whole(zero)
+        run["slots"] = {k: [v for v in slots.values() if isinstance(v, torch.Tensor)]
+                        for k, slots in zero.optimizer.state_dict()["state"].items()}
+        run["dims"] = dict(zero.zero.dims)
+        out[name] = run
+        if name == "adam":
+            with zero.eval_params() as model:
+                run["eval_params"] = {k: v.detach().clone() for k, v in model.named_parameters()}
+            run["after_eval_params"] = _snapshot(zero)
+            ckpt = CheckpointManager(os.path.join(directory, "ckpt"), save_every_steps=1)
+            run["saved"] = ckpt.save(zero)
+            whole_dir = os.path.join(directory, "whole")
+            if os.path.isdir(whole_dir):
+                restored = CheckpointManager(whole_dir).restore_latest(
+                    _state(cfg, dict(kw, weight_update_sharding=True), init))
+                run["restored"] = {"whole": _whole(restored), "model": _snapshot(restored),
+                                   "ema": {k: v.clone() for k, v in restored.ema.items()},
+                                   "slots": {k: dict(v) for k, v in restored.optimizer.state_dict()["state"].items()}}
+
+    # fit under ZeRO-1: 2 + 2 steps resumed against 4, recording the masks
+    masks = []
+    plain = xception.Xception41._dropout
+
+    def recording(self, x):
+        y = plain(self, x)
+        if self.training:
+            # the kept features, and the features that could be kept
+            masks.append(torch.stack([y != 0, x != 0]))
+        return y
+
+    xception.Xception41._dropout = recording
+    fit = {}
+    try:
+        for run, stops in (("resumed", (2, 4)), ("straight", (4,))):
+            model_dir = os.path.join(directory, f"fit-{run}")
+            del masks[:]
+            for stop in stops:
+                tcfg = TrainConfig(**ZERO_FIT, n_devices=world)
+                trainer = ClassifierTrainer(model_dir, None, zero_fit_model(), tcfg, device="cpu")
+                fit[f"{run}_{stop}"] = trainer.fit(batch_size=8, steps=stop).final_metrics
+            fit[f"{run}_masks"] = [m.clone() for m in masks]
+    finally:
+        xception.Xception41._dropout = plain
+    out["fit"] = fit
+    out["fit_config"] = dataclasses.asdict(zero_fit_model())
+    return out
+
+
 def _trainer_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
@@ -315,7 +436,8 @@ def main(argv) -> int:
     from tensorflowdistributedlearning_tpu_torch.parallel import multihost
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
-    out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode}[mode](
+    out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
+           "zero": _zero_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

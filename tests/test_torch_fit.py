@@ -227,23 +227,28 @@ def test_data_the_port_cannot_read_yet_is_refused(tmp_path):
                                            ("resnet50_imagenet", "queue A 4"), ("resnet50_bf16_8k", "queue A 12"),
                                            ("xception41_imagenet", "queue A 11")])
 def test_presets_the_port_does_not_train_are_refused(tmp_path, monkeypatch, preset, match):
-    """The MoE ViT and ``resnet50_bf16_8k`` (ZeRO-1) stay refused, each
-    naming queue A 12. The ResNet classifier presets that queue A 4 brought
-    and ``xception41_imagenet`` (queue A 11) train through ``fit_preset``:
-    ``cifar10_smoke`` as it is, and ``resnet50_imagenet`` and
-    ``xception41_imagenet`` (accepted at full size) at 1/16 width on 32x32
-    inputs, a CPU's size."""
-    if match == "queue A 12":
+    """The MoE ViT stays refused, naming queue A 12. ``resnet50_bf16_8k``,
+    refused until its ZeRO-1 was ported (queue A 12.1), trains through
+    ``fit_preset`` with ``weight_update_sharding`` on (one process: every
+    leaf whole, the memory event says so), as do the ResNet classifier
+    presets that queue A 4 brought and ``xception41_imagenet`` (queue A
+    11): ``cifar10_smoke`` as it is, the others (accepted at full size) at
+    1/16 width on 32x32 inputs, a CPU's size."""
+    if preset == "vit_s16_moe_imagenet":
         with pytest.raises(NotImplementedError, match=match):
             tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
         return
     full = tconfigs.get_preset(preset)
     tfit.require_supported_training(full.model, full.train)
-    if preset in ("resnet50_imagenet", "xception41_imagenet"):
+    if preset in ("resnet50_imagenet", "xception41_imagenet", "resnet50_bf16_8k"):
         small = dataclasses.replace(full.model, width_multiplier=0.0625, input_shape=(32, 32))
         monkeypatch.setitem(tconfigs.PRESETS, preset, dataclasses.replace(full, model=small))
     res = tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
     assert res.steps == 1 and all(np.isfinite(v) for v in res.final_metrics.values())
+    if preset == "resnet50_bf16_8k":
+        with open(tmp_path / "telemetry.jsonl") as f:
+            memory = [e for e in map(json.loads, f) if e["event"] == "memory" and "weight_update_sharding" in e]
+        assert memory and all(e["weight_update_sharding"] for e in memory)
 
 
 def test_other_refusals(tmp_path):

@@ -341,14 +341,25 @@ def test_remat_moves_running_statistics_once():
 
 
 def test_large_batch_preset_trains_but_for_zero1():
-    """``resnet50_bf16_8k``: remat, LARS and bf16 are ported; its ZeRO-1
-    weight-update sharding is refused, naming queue A 12."""
+    """``resnet50_bf16_8k``: remat, LARS, bf16 and, since queue A 12.1, its
+    ZeRO-1 weight-update sharding are ported: the preset is accepted as it
+    is, and its state over two ranks is a ZeRO-1 state (the model at 1/16
+    width: LARS over this rank's slices, whose norms it reduces, and about
+    half the replicated optimizer bytes)."""
     from tensorflowdistributedlearning_tpu_torch import configs as tconfigs
+    from tensorflowdistributedlearning_tpu_torch.parallel import zero
+    from tensorflowdistributedlearning_tpu_torch.train.step import Lars, optimizer_slot_bytes
 
     preset = tconfigs.get_preset("resnet50_bf16_8k")
-    with pytest.raises(NotImplementedError, match="ZeRO-1 \\(queue A 12\\)"):
-        require_supported_training(preset.model, preset.train)
-    require_supported_training(preset.model, dataclasses.replace(preset.train, weight_update_sharding=False))
+    assert preset.train.weight_update_sharding
+    require_supported_training(preset.model, preset.train)
+    small = dataclasses.replace(preset.model, width_multiplier=0.0625, input_shape=(32, 32))
+    replicated = create_train_state(small, preset.train, "cpu", generator=torch.Generator().manual_seed(0))
+    whole = optimizer_slot_bytes(replicated.optimizer)
+    state = zero.shard_state(replicated, preset.train, world=2, rank=1)
+    assert isinstance(state.optimizer, Lars) and state.zero is not None
+    assert state.optimizer.sharded == {id(state.zero.leaves[n]) for n in state.zero.sharded}
+    assert whole / 2 <= optimizer_slot_bytes(state.optimizer) < 0.55 * whole
 
 
 def test_fit_preset_with_lars_and_accumulation(tmp_path, monkeypatch):

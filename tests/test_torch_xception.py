@@ -34,6 +34,7 @@ classifier's dropout draws nothing. Tolerances, stated where used:
 from __future__ import annotations
 
 import dataclasses
+import os
 import types
 from unittest import mock
 
@@ -51,9 +52,10 @@ from tensorflowdistributedlearning_tpu.ops import losses as jlosses
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
 from tensorflowdistributedlearning_tpu_torch.models import empty_model, model_for
 from tensorflowdistributedlearning_tpu_torch.models import xception as txception
-from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, dropout_key
 from tensorflowdistributedlearning_tpu_torch.ops import losses as tlosses
 from tensorflowdistributedlearning_tpu_torch.train.state import template_train_state
+from tensorflowdistributedlearning_tpu_torch.train.step import dropout_seed
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, kernel_leaves, params_from_flax
 
 SEG = dict(backbone="xception", width_multiplier=0.125, base_depth=16, input_shape=(33, 33),
@@ -271,22 +273,96 @@ def test_batch_statistics_gradients_match_flax_in_float64(name):
 def test_dropout_keeps_half_the_features_at_keep_prob_half():
     """The classifier's pre-logits dropout at ``DEFAULT_KEEP_PROB`` (0.5):
     flax's rule (kept values scaled by 1/keep_prob, the rest 0), drawn from
-    the module's own seeded generator, only in training mode."""
+    the generator of the ``dropout_key`` in force (the module keeps no
+    stream), only in training mode; a training draw without a key raises."""
     cfg = ModelConfig(**CLS)
     with torch.device("cpu"):
         model = model_for(cfg)
     assert model.keep_prob == txception.DEFAULT_KEEP_PROB == jxception.DEFAULT_KEEP_PROB == 0.5
     x = torch.ones(64, 4096)
     model.train()
-    y = model._dropout(x)
+    with dropout_key(11):
+        y = model._dropout(x)
+        assert not torch.equal(model._dropout(x), y)  # the key's stream moves on
     kept = y != 0
     assert abs(float(kept.float().mean()) - 0.5) < 0.01
     assert torch.equal(y[kept], torch.full_like(y[kept], 2.0))
     model2 = model_for(cfg).train()
-    assert torch.equal(model2._dropout(x), y)  # same seed, same mask
-    assert not torch.equal(model._dropout(x), y)  # the generator moves on
+    with dropout_key(11):
+        assert torch.equal(model2._dropout(x), y)  # same key, same mask
+    with dropout_key(12):
+        assert not torch.equal(model2._dropout(x), y)
+    with pytest.raises(RuntimeError, match="dropout_key"):
+        model._dropout(x)
     model.eval()
     assert torch.equal(model._dropout(x), x)
+
+
+_PLAIN_DROPOUT = txception.Xception41._dropout
+
+
+def _narrow_classifier():
+    return ModelConfig(**dict(CLS, width_multiplier=0.0625, input_shape=(32, 32)))
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op torch thread for the duration: the narrow classifier's
+    multithreaded CPU backward crashes in a process that has run XLA:CPU
+    (it does not without JAX)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _fit_masks(monkeypatch, model_dir, stops, seed=42):
+    """``ClassifierTrainer.fit`` of the narrow classifier to each of
+    ``stops`` in turn (a resume between them), recording every training
+    mask; returns the masks and the last checkpoint."""
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+
+    masks = []
+
+    def recording(self, x):
+        y = _PLAIN_DROPOUT(self, x)
+        if self.training:
+            masks.append(torch.stack([y != 0, x != 0]))
+        return y
+
+    monkeypatch.setattr(txception.Xception41, "_dropout", recording)
+    tcfg = TrainConfig(optimizer="adam", lr=1e-3, ema_decay=0.9, augmentation="none", checkpoint_every_steps=1,
+                       seed=seed, telemetry=False)
+    for stop in stops:
+        ClassifierTrainer(model_dir, None, _narrow_classifier(), tcfg, device="cpu").fit(batch_size=4, steps=stop)
+    state = torch.load(os.path.join(model_dir, "checkpoints", str(stops[-1]), "state.pt"), weights_only=True)
+    return masks, state
+
+
+def test_resumed_fit_continues_the_dropout_stream(monkeypatch, tmp_path, one_thread):
+    """C 3: the masks are keyed by (seed, step, rank, chunk), not drawn from
+    a stream the module owns, so a 1 + 1-step resumed ``fit`` draws and
+    trains what 2 uninterrupted steps do, bit for bit."""
+    resumed, end_resumed = _fit_masks(monkeypatch, str(tmp_path / "a"), (1, 2))
+    straight, end_straight = _fit_masks(monkeypatch, str(tmp_path / "b"), (2,))
+    assert len(resumed) == len(straight) == 2
+    assert all(torch.equal(a, b) for a, b in zip(resumed, straight))
+    assert not torch.equal(straight[0][0], straight[1][0])  # each step its own mask
+    assert end_resumed["step"] == end_straight["step"] == 2
+    for part in ("model", "ema"):
+        for k, v in end_straight[part].items():
+            assert torch.equal(end_resumed[part][k], v), (part, k)
+
+
+def test_train_config_seed_reaches_the_masks(monkeypatch, tmp_path, one_thread):
+    a, _ = _fit_masks(monkeypatch, str(tmp_path / "a"), (1,), seed=1)
+    b, _ = _fit_masks(monkeypatch, str(tmp_path / "b"), (1,), seed=2)
+    assert not torch.equal(a[0][0], b[0][0])
+    assert float(a[0][0].sum()) > 0
+    for chunk in range(2):
+        assert dropout_seed(1, 0, 0, chunk) != dropout_seed(2, 0, 0, chunk)
+    seeds = {dropout_seed(1, step, rank, chunk) for step in range(3) for rank in range(2) for chunk in range(2)}
+    assert len(seeds) == 12
 
 
 def test_meta_build_and_template_state_draw_nothing(monkeypatch):
