@@ -298,6 +298,22 @@ Phases, each fatal on failure (exit 1, no result line):
              without remat (ms per step, peak device memory), then one
              remat step bit for bit one plain step under deterministic
              algorithms.
+12. train-tp — tensor parallelism (model_parallel 2) of the full-width
+             segmenter on gloo ranks sharing the card (``chip_smoke.py
+             tp-rank ...``, the warm build directory), global batch 8:
+             two ranks hold the step against the one-rank step from the
+             same state for 3 steps (deterministic algorithms; the one-rank
+             step computed by the ranks' channel blocks, so its forward is
+             theirs to the bit: loss 1e-5, gradient leaves 1e-4·max|g_leaf|
+             + 1e-6, BN statistics 1e-5; the plain one-rank step's loss and
+             statistics held too, its gradient reported),
+             time it and its channel gathers, then run Trainer.train (2
+             folds x 2 steps) with every depthwise and BN launch counted
+             and the first step's calls on the channel slices held against
+             the plain versions, their memory events the rule's bytes to
+             the byte; then four ranks as a (2, 2) grid take 2 steps with
+             and without ZeRO-1, bit for bit, each rank's optimizer bytes
+             the rule's.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -461,6 +477,10 @@ PREDICT_IMAGES = 128
 DP_IMAGES = 192
 DP_FOLDS = 2
 DP_STEPS = 5
+# timed steps of the data-parallel phases (the medians skip the first);
+# cut from 6 and 4 in PR 17 to pay for train-tp
+DP_TIMED_ALTERNATIONS = 4
+DP_TIMED_STEPS = 3
 DP_RANKS = 2
 DP_TIMEOUT_S = 600
 TOL_DX = 1e-5
@@ -3812,7 +3832,7 @@ def dp_world_one(torch, card: str, root: str, data: str, ids, device: str, model
 
     # times: the two steps alternately on one batch, then the all-reduce alone
     ms = {"dp": [], "single": []}
-    for _ in range(6):
+    for _ in range(DP_TIMED_ALTERNATIONS):
         for name, step, state in (("dp", dp_step, dp), ("single", single_step, single)):
             ms[name].append(host_ms(torch, lambda: step(state, fixed[0]), reps=1, warmup=0))
     out["ms_dp"], out["ms_single"] = statistics.median(ms["dp"][1:]), statistics.median(ms["single"][1:])
@@ -3821,7 +3841,8 @@ def dp_world_one(torch, card: str, root: str, data: str, ids, device: str, model
     out["allreduce_ms"] = timer.ms(lambda: collectives.pmean_(flat)) if timer is not None else host_ms(
         torch, lambda: collectives.pmean_(flat))
     log(f"train-dp: {out['ms_dp']:.3f} ms per one-rank data-parallel step vs {out['ms_single']:.3f} ms single-device "
-        f"at batch {batch} (median of 5, alternating); gradient all-reduce of {flat.numel()} float32 "
+        f"at batch {batch} (median of {DP_TIMED_ALTERNATIONS - 1}, alternating); gradient all-reduce of "
+        f"{flat.numel()} float32 "
         f"({nbytes / 1e6:.1f} MB) {out['allreduce_ms']:.4f} ms, bound {out['allreduce_bound_ms']:.4f} ms "
         f"(read and write once at 3.35 TB/s) [{card}]")
     return out
@@ -3971,12 +3992,12 @@ def dp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
                 if rank == 0:
                     out[f"first_{name}"] = dp_emulation(torch, cfg, tcfg, dev, task, whole, world, loss, grads,
                                                         stats, per_rank=not sync)
-            times = [host_ms(torch, lambda: step(state, local), reps=1, warmup=0) for _ in range(steps - 1)]
+            times = [host_ms(torch, lambda: step(state, local), reps=1, warmup=0) for _ in range(DP_TIMED_STEPS - 1)]
             out[f"digest_{name}"] = state_digest(state.model)
             out[f"ms_{name}"] = statistics.median(times)
             if not sync:
                 flat = state.flat_grad
-                out["allreduce_ms"] = host_ms(torch, lambda: collectives.pmean_(flat))
+                out["allreduce_ms"] = host_ms(torch, lambda: collectives.pmean_(flat), reps=3)
                 out["allreduce_mb"] = flat.numel() * flat.element_size() / 1e6
                 del flat
             del state, grads, stats
@@ -4184,7 +4205,7 @@ def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: i
     builds = [round(o.get("build_s", 0.0), 3) for o in outs]
     log(f"train-dp2: {DP_RANKS} gloo ranks sharing {device} at batch {batch // DP_RANKS} each (global {batch}): "
         f"{r0['ms_off']:.3f} ms per step with per-rank BN, {r0['ms_on']:.3f} ms with synchronized BN (rank 0, median "
-        f"of {steps - 1}); host-staged gradient all-reduce of {r0['allreduce_mb']:.1f} MB {r0['allreduce_ms']:.3f} ms; "
+        f"of {DP_TIMED_STEPS - 1}); host-staged gradient all-reduce of {r0['allreduce_mb']:.1f} MB {r0['allreduce_ms']:.3f} ms; "
         f"cold kernel builds racing in one directory {builds} s; {wall:.3f} s in all [{card}]")
     log(f"train-dp2: Trainer.train on every rank, {DP_FOLDS} folds x {steps} steps, {r0['train_s']:.3f} s; each rank's "
         f"{len(r0['ledger_train'])} train steps launched {PER_TRAIN_STEP} each; metrics equal on every rank "
@@ -5155,7 +5176,7 @@ def train_lars_phase(torch, card: str, device: str = "cuda", cfg=None, batch: in
 # gloo ranks that share the card, replicated and sharded, then its preset
 # through fit_preset with a resume
 ZERO_RANKS = 2
-ZERO_STEPS = 5  # timed steps per mode at global batch 64
+ZERO_STEPS = 3  # timed steps per mode at global batch 64 (5 until PR 17)
 ZERO_HELD_STEPS = 3  # lockstep steps under deterministic algorithms
 ZERO_FIT_STOP = 2
 ZERO_FIT_STEPS = 4
@@ -5237,7 +5258,7 @@ def zero_rank(torch, rank: int, world: int, store: str, root: str, device: str, 
                        **state_bytes(state, mode == "zero"))
             if mode == "zero":
                 layout = state.zero
-                rec["all_gather_ms"] = host_ms(torch, layout.gather_params)
+                rec["all_gather_ms"] = host_ms(torch, layout.gather_params, reps=3)
                 rec["all_gather_mb"] = zero.all_gather_bytes(layout) / 1e6
                 rec["sharded"], rec["whole"] = len(layout.sharded), len(layout.dims) - len(layout.sharded)
                 # the slots of the leaves every rank keeps whole (LARS: a trace each)
@@ -5477,6 +5498,606 @@ def zero_rank_main(argv) -> int:
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+# tensor parallelism: the segmenter through Trainer.train on ranks that
+# share the card (gloo), and its composition with ZeRO-1
+TP_DEGREE = 2
+TP_ZERO_RANKS = 4  # a (2, 2) grid
+TP_BATCH = 8  # global; cut from 64 by the host-staged gathers (PERF.md §4)
+TP_IMAGES = 32
+TP_FOLDS = 2
+TP_TRAIN_STEPS = 2  # per fold
+TP_HELD_STEPS = 3
+TP_TIMED_STEPS = 2
+TP_ZERO_STEPS = 2
+TP_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def timed_collectives(torch, collectives):
+    """For the duration, every all-gather (the channel gathers, forward and
+    backward) and every sum over a group that is not the default one (the
+    replicated inputs' backward, over the model group; the metric sums over
+    every rank are left out) of ``parallel/collectives.py`` is timed with
+    the card synchronized around it; yields ``{kind: [calls, seconds,
+    bytes landed or reduced]}``."""
+    rec = {"gather": [0, 0.0, 0], "allreduce": [0, 0.0, 0]}
+    real_gather, real_psum = collectives.all_gather, collectives.psum_
+
+    def timed(kind, fn, nbytes):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        r = rec[kind]
+        r[0], r[1], r[2] = r[0] + 1, r[1] + time.perf_counter() - t0, r[2] + nbytes(out)
+        return out
+
+    def gather(flat, group=None):
+        return timed("gather", lambda: real_gather(flat, group), lambda out: out.numel() * out.element_size())
+
+    def psum(tensors, group=None):
+        if group is None:
+            return real_psum(tensors, group)
+        ts = [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
+        return timed("allreduce", lambda: real_psum(tensors, group),
+                     lambda _: sum(t.numel() * t.element_size() for t in ts))
+
+    with mock.patch.object(collectives, "all_gather", gather), mock.patch.object(collectives, "psum_", psum):
+        yield rec
+
+
+def whole_digest(whole) -> str:
+    """sha256 of a whole state dict: step, model, optimizer, EMA."""
+    h = hashlib.sha256()
+    h.update(str(whole["step"]).encode())
+    for name, t in whole["model"].items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    h.update(optimizer_digest(whole["optimizer"]).encode())
+    for name in sorted(whole.get("ema") or {}):
+        h.update(whole["ema"][name].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def tree_copy(torch, obj):
+    """``obj`` (nested dicts and lists of tensors and plain values) with
+    every tensor cloned."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: tree_copy(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(tree_copy(torch, v) for v in obj)
+    return obj
+
+
+def tp_units(model) -> dict:
+    """``{module name: kind}`` of the tensor-parallel layers of a sliced
+    model (those whose ``tp`` is set): ``channelwise`` (BatchNorm, the
+    depthwise conv), ``pointwise`` (a split-separable conv's pointwise
+    pair) or ``column`` (a conv, ``ConvBN``, a Dense)."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, DepthwiseConv2D, SplitSeparableConv2D
+
+    kinds = {}
+    for name, m in model.named_modules():
+        if getattr(m, "tp", None) is None:
+            continue
+        kinds[name] = ("channelwise" if isinstance(m, (BatchNorm, DepthwiseConv2D))
+                       else "pointwise" if isinstance(m, SplitSeparableConv2D) else "column")
+    return kinds
+
+
+@contextlib.contextmanager
+def split_channel_blocks(torch, model, units, dims, tp: int):
+    """For the duration, every layer of the whole ``model`` named in
+    ``units`` (:func:`tp_units`) computes as the ``tp`` ranks of the
+    tensor-parallel step compute it: block by block of its output channels,
+    each block with that block of its leaves (``dims``: the leaves' sliced
+    dimensions, ``tensor.tensor_parallel_specs``) on the whole input (a
+    contracting layer) or on that block of it (a per-channel layer, as a
+    contiguous copy), the blocks concatenated; a contracting layer's blocks'
+    input cotangents are summed before they reach the input, as the model
+    group's all-reduce sums them. One process then runs the ranks'
+    forward to the bit, and the one-rank step under it is what the
+    tensor-parallel step is held against (as :func:`dp_emulation` splits
+    the batch for the data-parallel step)."""
+
+    class Replicas(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, n):
+            return tuple(x.view_as(x) for _ in range(n))
+
+        @staticmethod
+        def backward(ctx, *gs):
+            total = gs[0]
+            for g in gs[1:]:
+                total = total + g
+            return total, None
+
+    modules = dict(model.named_modules())
+    names = {id(m): n for n, m in model.named_modules()}
+
+    def leaves(members):
+        out = []
+        for sub in members:
+            prefix = names[id(sub)]
+            for is_param, store in ((True, sub._parameters), (False, sub._buffers)):
+                for n, t in store.items():
+                    if t is not None and dims.get(f"{prefix}.{n}") is not None:
+                        out.append((store, n, dims[f"{prefix}.{n}"], is_param))
+            out += leaves(list(sub.children()))
+        return out
+
+    def blockwise(fn, items, args_of):
+        outs = []
+        for m in range(tp):
+            saved = []
+            for store, n, dim, is_param in items:
+                t = store[n]
+                k = t.shape[dim] // tp
+                view = t.narrow(dim, m * k, k)
+                saved.append((store, n, t))
+                store[n] = view.contiguous() if is_param else view
+            try:
+                outs.append(fn(*args_of(m)))
+            finally:
+                for store, n, t in saved:
+                    store[n] = t
+        return torch.cat(outs, dim=-1)
+
+    def block_of(t, m):
+        if t is None:
+            return None
+        k = t.shape[-1] // tp
+        return t.narrow(-1, m * k, k).contiguous()
+
+    patched = []
+    for name, kind in units.items():
+        mod = modules[name]
+        if kind == "channelwise":
+            items = leaves([mod])
+            if hasattr(mod, "running_mean"):
+                def fwd(x, act="relu", residual=None, local=mod._forward, items=items):
+                    return blockwise(local, items, lambda m: (block_of(x, m), act, block_of(residual, m)))
+            else:
+                def fwd(x, local=mod._forward, items=items):
+                    return blockwise(local, items, lambda m: (block_of(x, m),))
+            attr = "forward"
+        else:
+            members = [mod.pointwise, mod.pointwise_bn] if kind == "pointwise" else [mod]
+            attr = "_pointwise" if kind == "pointwise" else "forward"
+            local = getattr(mod, attr if kind == "pointwise" else "_forward")
+
+            def fwd(x, local=local, items=leaves(members)):
+                xs = Replicas.apply(x, tp)
+                return blockwise(local, items, lambda m: (xs[m],))
+        setattr(mod, attr, fwd)
+        patched.append((mod, attr))
+    try:
+        yield
+    finally:
+        for mod, attr in patched:
+            delattr(mod, attr)
+
+
+def tp_collective_bytes(cfg, rows: int, tp: int):
+    """``(bytes landed, calls)`` of the channel all-gathers and ``(bytes
+    reduced, calls)`` of the input-cotangent sums of one rank in one
+    training step on ``rows`` rows, from the shapes alone: a meta-device
+    forward of the whole model with the input and output of each layer
+    that the rule gives a tensor-parallel form (:func:`tp_units` of a copy
+    cut by it) recorded. A layer's whole output lands in the forward; a
+    per-channel layer's whole input cotangent lands in the backward; a
+    contracting layer's input cotangent is summed, unless its input needs
+    no gradient (the images)."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowdistributedlearning_tpu_torch.models import model_for
+    from tensorflowdistributedlearning_tpu_torch.parallel import tensor
+
+    # the plain depthwise version: the kernels take no meta tensors, and the
+    # shapes are the same
+    cfg = dataclasses.replace(cfg, use_pallas_depthwise=False)
+    with torch.device("meta"):
+        sliced, whole = model_for(cfg), model_for(cfg)
+    tensor.shard_model(sliced, tensor.layout_for(sliced, tp, 0))
+    modules = dict(whole.named_modules())
+    count = {"gather": [0, 0], "allreduce": [0, 0]}
+
+    def add(kind, t):
+        count[kind][0] += t.numel() * t.element_size()
+        count[kind][1] += 1
+
+    def hook(kind):
+        def record(module, args, out):
+            add("gather", out)
+            if kind == "channelwise":
+                add("gather", args[0])
+            elif args[0].requires_grad:
+                add("allreduce", args[0])
+
+        return record
+
+    for name, kind in tp_units(sliced).items():
+        modules[name].register_forward_hook(hook(kind))
+    whole.train()
+    whole(torch.empty((rows,) + tuple(cfg.input_shape) + (cfg.input_channels,), device="meta"))
+    return count
+
+
+def tp_rule_bytes(cfg, dp: int, tp: int, zero: bool):
+    """The rule's per-rank bytes for ``cfg`` under Adam without an EMA (the
+    Trainer's default): ``(params, opt_state)`` on every rank of a (dp, tp)
+    grid, from the shapes alone (a meta-device model cut by the
+    tensor-parallel rule, then the ZeRO-1 rule): a sliced leaf holds 1/tp
+    (and 1/dp of its slots under ZeRO-1); Adam keeps two moments and a
+    float32 step per parameter."""
+    import torch
+
+    from tensorflowdistributedlearning_tpu_torch.models import model_for
+    from tensorflowdistributedlearning_tpu_torch.parallel import tensor, zero as zero_lib
+
+    with torch.device("meta"):
+        model = model_for(cfg)
+    layout = tensor.layout_for(model, tp, 0)
+    tensor.shard_model(model, layout)
+    dims = zero_lib.weight_update_specs(model, dp, layout) if zero and dp > 1 else {}
+    params = opt = 0
+    for name, p in model.named_parameters():
+        params += p.numel() * 4
+        opt += 2 * 4 * p.numel() // (dp if dims.get(name) is not None else 1) + 4
+    return params, opt
+
+
+def tp_rank(torch, rank: int, world: int, store: str, root: str, device: str, model_kwargs, size: int, batch: int):
+    """One rank of ``train-tp``. At ``world`` = 2 (a (1, 2) grid): the
+    tensor-parallel step held step by step against the one-rank step from
+    the same state (rank 0 runs both), the step's ms, its gathers' ms and
+    MB, then Trainer.train with its launches counted and its depthwise and
+    BN calls recorded. At ``world`` = 4 (a (2, 2) grid): the step with and
+    without ZeRO-1, and the whole states' digests."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger_with_errors
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer, state_bytes
+
+    dev = torch.device(device if device == "cpu" else "cuda:0")
+    multihost.initialize(store, world, rank, backend="gloo", timeout=300)
+    out = {"rank": rank}
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        lay = mesh.init_mesh(TP_DEGREE)
+        out["layout"] = [lay.dp, lay.tp, lay.data_index, lay.model_index]
+        data = os.path.join(root, "data")
+        ids = sorted(f[:-4] for f in os.listdir(os.path.join(data, "images")))
+        cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+        task = smooth_task()
+        fixed = dp_batches(torch, data, ids, batch, TP_HELD_STEPS, dev)
+        rows = mesh.shard_rows(batch)
+        local = [{k: v[rows] for k, v in b.items()} for b in fixed]
+        step = step_lib.make_train_step(task, data_parallel=True)
+        # one seeded draw of the whole model, every state loaded from it
+        init = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(SEED + 71)).state_dict()
+
+        def fresh(**kw):
+            return create_train_state(cfg, TrainConfig(seed=SEED % 1000 + 7, **kw), dev, state_dict=init)
+
+        if world == TP_ZERO_RANKS:
+            for mode, kw in (("tp", {}), ("zero", {"weight_update_sharding": True})):
+                state = fresh(model_parallel=TP_DEGREE, **kw)
+                losses, times = [], []
+                with deterministic_algorithms(torch):
+                    for k in range(TP_ZERO_STEPS):
+                        t0 = time.perf_counter()
+                        _, metrics = step(state, local[k])
+                        losses.append(step_lib.compute_metrics(metrics)["loss"])
+                        times.append((time.perf_counter() - t0) * 1e3)
+                out[mode] = {"digest": whole_digest(state.state_dict()), "losses": losses, "ms": times,
+                             "zero": state.zero is not None, **state_bytes(state, bool(kw))}
+                del state
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            multihost.barrier()
+            return out
+
+        # the tensor-parallel step against the one-rank step from the same
+        # state, step by step: held against it under the ranks' channel
+        # blocks (split_channel_blocks: the ranks' forward to the bit), and
+        # the plain one-rank step beside it (its gradient read, not held: a
+        # rounding-level change takes a ReLU or max-pool kink the other way)
+        state = fresh(model_parallel=TP_DEGREE)
+        one = fresh() if rank == 0 else None
+        del init
+        single = step_lib.make_train_step(task)
+        units = tp_units(state.model)
+        held = []
+
+        def one_rank_step(whole, k, split):
+            # the model's state: the step's loss, gradient and BN statistics
+            # do not read the optimizer's
+            one.model.load_state_dict(whole)
+            with split_channel_blocks(torch, one.model, units, state.tp.dims, TP_DEGREE) if split \
+                    else contextlib.nullcontext():
+                _, m1 = single(one, fixed[k])
+            return (step_lib.compute_metrics(m1)["loss"], {n: p.grad.clone() for n, p in one.model.named_parameters()},
+                    {n: b.clone() for n, b in one.model.named_buffers()})
+
+        with deterministic_algorithms(torch):
+            for k in range(TP_HELD_STEPS):
+                # copies: a replicated leaf's entry is the live tensor, which the step updates
+                whole = tree_copy(torch, state.model_state_dict())
+                _, metrics = step(state, local[k])
+                loss = step_lib.compute_metrics(metrics)["loss"]
+                names = [n for n, _ in state.model.named_parameters()]
+                grads = dict(zip(names, state.tp.gather([(n, p.grad) for n, p in state.model.named_parameters()])))
+                stats = state.model_state_dict()
+                if one is not None:
+                    rec = {}
+                    for what, split in (("split", True), ("plain", False)):
+                        want_loss, want_g, want_s = one_rank_step(whole, k, split)
+                        d_loss = abs(loss - want_loss)
+                        d_stats = max((stats[n] - b).abs().max().item() for n, b in want_s.items())
+                        check(d_loss <= TOL_LOSS and d_stats <= 1e-5,
+                              f"train-tp held step {k} vs the {what} one-rank step: loss {loss} vs {want_loss}, BN "
+                              f"statistics {d_stats} apart")
+                        if split:
+                            worst = worst_gradient(want_g, grads, f"train-tp held step {k} vs the one-rank step")
+                        else:
+                            worst = max((grads[n] - g).abs().max().item() / (1e-4 * g.abs().max().item() + 1e-6)
+                                        for n, g in want_g.items())
+                        rec[what] = {"d_loss": d_loss, "worst_gradient": worst, "d_stats": d_stats}
+                    held.append(rec)
+                del whole, grads, stats
+        out["held"] = held
+
+        # ms per step on a resident batch, then one step's collectives timed
+        times = [host_ms(torch, lambda: step(state, local[0]), reps=1, warmup=0) for _ in range(TP_TIMED_STEPS + 1)]
+        out["step_ms"] = statistics.median(times[1:])
+        if one is not None:
+            out["one_rank_ms"] = statistics.median(
+                [host_ms(torch, lambda: single(one, fixed[0]), reps=1, warmup=0) for _ in range(TP_TIMED_STEPS + 1)][1:])
+        with timed_collectives(torch, collectives) as rec:
+            step(state, local[0])
+        out["collectives"] = rec
+        del state, one
+        if rank == 0:
+            # the (2, 2) grid's ranks may start now: what follows is not timed
+            with open(os.path.join(root, "tp2-timed"), "w"):
+                pass
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # the main path: Trainer.train, counts from 0 just before, read just after
+        tcfg = TrainConfig(n_folds=TP_FOLDS, seed=SEED % 1000 + 8, checkpoint_every_steps=TP_TRAIN_STEPS, save_best=1,
+                           n_devices=world, model_parallel=TP_DEGREE)
+        model_dir = os.path.join(root, "model-tp")
+        trainer = Trainer(model_dir, data, train_config=tcfg, device=dev, input_shape=(size, size), **model_kwargs)
+        ledger = LaunchLedger(kernels, step_lib, Trainer)
+        with ledger.patch(), record_kernel_calls(torch, RANK_HELD) as recorded:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out["metrics"] = trainer.train(ids, batch_size=batch, steps=TP_TRAIN_STEPS)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["train_s"] = time.perf_counter() - t0
+            out["launches"] = kernels.launch_counts()
+        out["params"] = trainer.params
+        out["ledger_train"], out["ledger_eval"] = ledger.train, ledger.eval + ledger.summary
+        if dev.type == "cuda":  # on the CPU the plain versions ran: nothing to hold
+            out["held_calls"] = hold_rank_calls(torch, recorded, batch)
+        del recorded
+        events, errors = read_ledger_with_errors(
+            os.path.join(model_dir, "telemetry.jsonl" if rank == 0 else f"telemetry-{rank}.jsonl"))
+        out["memory_events"] = [{k: e.get(k) for k in ("params_bytes_per_device", "opt_state_bytes_per_device")}
+                                for e in events if e["event"] == "memory" and "opt_state_bytes_per_device" in e]
+        out["ledger_errors"] = errors
+        out["mesh"] = next((e.get("mesh") for e in events if e["event"] == "run_header"), None)
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def tp_start(root: str, world: int, device: str, model_kwargs, size: int, batch: int):
+    """Start ``world`` ranks of ``chip_smoke.py tp-rank ...`` sharing the
+    card on the warm build directory; ``(processes, logs)``."""
+    store = f"file://{os.path.join(root, f'store-tp{world}')}"
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(open(os.path.join(root, f"tp{world}-rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "tp-rank", str(rank), str(world), store, root, device,
+             json.dumps(model_kwargs), str(size), str(batch)],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+        ))
+    return procs, logs
+
+
+def tp_finish(root: str, world: int, procs, logs, deadline: float):
+    """Wait for the ranks until ``deadline`` (``time.perf_counter``), kill
+    any still running, and return their outputs, rank by rank."""
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    outs = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(root, f"tp{world}-rank{rank}.log")) as f:
+            text = f.read()
+        check(p.returncode == 0, f"tp rank {rank} of {world} exited {p.returncode}:\n{text[-3000:]}")
+        with open(os.path.join(root, f"tp{world}-rank{rank}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def train_tp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TP_IMAGES,
+                   size: int = 101, batch: int = TP_BATCH):
+    """Tensor parallelism of the segmenter (``model_parallel`` 2): two gloo
+    ranks sharing the card, then four as a (2, 2) grid with and without
+    ZeRO-1. ``model_kwargs`` and ``device="cpu"`` rehearse it small."""
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+
+    model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True)
+    cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
+    on_card = device == "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tp-") as root:
+        write_salt_dataset(os.path.join(root, "data"), n_images, size, SEED + 73)
+        t0 = time.perf_counter()
+        deadline = t0 + TP_TIMEOUT_S
+        two = tp_start(root, TP_DEGREE, device, model_kwargs, size, batch)
+        four = None
+        try:
+            # the grid starts once the two ranks' timed steps are done, beside
+            # their Trainer.train (its wall time is read, not held)
+            marker = os.path.join(root, "tp2-timed")
+            while four is None and time.perf_counter() < deadline and all(p.poll() is None for p in two[0]):
+                if os.path.exists(marker):
+                    four = tp_start(root, TP_ZERO_RANKS, device, model_kwargs, size, batch)
+                else:
+                    time.sleep(0.2)
+            outs = tp_finish(root, TP_DEGREE, *two, deadline)
+            t1 = time.perf_counter()
+            check(four is not None, "train-tp: the two ranks never reached their untimed part")
+            grid = tp_finish(root, TP_ZERO_RANKS, *four, deadline)
+        finally:
+            for procs, logs in [x for x in (two, four) if x is not None]:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for f in logs:
+                    f.close()
+        t2 = time.perf_counter()
+    r0 = outs[0]
+    params_bytes, opt_bytes = tp_rule_bytes(cfg, 1, TP_DEGREE, zero=False)
+    _, zero_opt_bytes = tp_rule_bytes(cfg, TP_ZERO_RANKS // TP_DEGREE, TP_DEGREE, zero=True)
+    for o in outs:
+        what = f"train-tp rank {o['rank']}"
+        check(o["layout"] == [1, TP_DEGREE, 0, o["rank"]], f"{what}: layout {o['layout']}")
+        check(o["metrics"] == r0["metrics"], f"{what}: metrics {o['metrics']} vs rank 0's {r0['metrics']}")
+        check(all(np.isfinite(v) for m in o["metrics"] for v in m.values()), f"{what}: {o['metrics']}")
+        check_trainer_launches(o["ledger_train"], o["ledger_eval"], o["launches"], TP_FOLDS, TP_TRAIN_STEPS, what)
+        check(o["ledger_errors"] == 0 and o["mesh"] == {"data": 1, "model": TP_DEGREE},
+              f"{what}: ledger errors {o['ledger_errors']}, mesh {o['mesh']}")
+        check(len(o["memory_events"]) >= TP_FOLDS and all(
+            e == {"params_bytes_per_device": params_bytes, "opt_state_bytes_per_device": opt_bytes}
+            for e in o["memory_events"]),
+            f"{what}: memory events {o['memory_events']}, the rule says {params_bytes} / {opt_bytes} bytes")
+    check(len(r0["held"]) == TP_HELD_STEPS, f"train-tp: {len(r0['held'])} held steps")
+    for o in grid:
+        what = f"train-tp (2, 2) rank {o['rank']}"
+        check(o["layout"] == [TP_ZERO_RANKS // TP_DEGREE, TP_DEGREE, o["rank"] // TP_DEGREE, o["rank"] % TP_DEGREE],
+              f"{what}: layout {o['layout']}")
+        check(o["zero"]["zero"] and not o["tp"]["zero"], f"{what}: ZeRO-1 layout {o['zero']['zero']}")
+        check(o["zero"]["digest"] == o["tp"]["digest"] == grid[0]["tp"]["digest"]
+              and o["zero"]["losses"] == o["tp"]["losses"],
+              f"{what}: {TP_ZERO_STEPS} ZeRO-1 steps not bit for bit the tensor-parallel steps: "
+              f"{o['zero']['digest']} / {o['tp']['digest']}, losses {o['zero']['losses']} / {o['tp']['losses']}")
+        check(o["tp"]["params_bytes_per_device"] == params_bytes and o["tp"]["opt_state_bytes_per_device"] == opt_bytes
+              and o["zero"]["opt_state_bytes_per_device"] == zero_opt_bytes,
+              f"{what}: bytes {o['tp']} / {o['zero']}, the rule says {params_bytes} / {opt_bytes} / {zero_opt_bytes}")
+        check(all(np.isfinite(o[m]["losses"]).all() for m in ("tp", "zero")), f"{what}: losses")
+    held_err = {}
+    for o in outs if on_card else ():
+        h = o["held_calls"]
+        log(f"train-tp rank {o['rank']}: its Trainer.train's first step's {RANK_HELD['depthwise_conv2d_forward']} "
+            f"depthwise forward, dx and dw calls on its channel slices {h['shapes']} and its first eval forward's "
+            f"{RANK_HELD['bn_act_folded']} fused_bn_act calls held against the plain versions: forward max|err| "
+            f"{h['depthwise_conv2d']:.3g}, dx {h['depthwise_conv2d_dx']:.3g}, dw {h['depthwise_conv2d_dw']:.3g}, BN "
+            f"{h['fused_bn_act']:.3g} (forward, dx and BN bitwise the earlier kernels, dw bitwise a relaunch)")
+        for plan in h["dw_plans"]:
+            log(f"train-tp rank {o['rank']}: dw {plan}")
+        for name in ("depthwise_conv2d", "depthwise_conv2d_dx", "depthwise_conv2d_dw", "fused_bn_act"):
+            held_err[name] = max(held_err.get(name, 0.0), h[name])
+    col = r0["collectives"]
+    shapes = tp_collective_bytes(cfg, batch, TP_DEGREE)
+    for kind in ("gather", "allreduce"):
+        check([col[kind][2], col[kind][0]] == shapes[kind],
+              f"train-tp: one step's {kind}s moved {col[kind][2]} bytes in {col[kind][0]} calls, the shapes' count "
+              f"{shapes[kind][0]} in {shapes[kind][1]}")
+    gather_mb, gather_ms = col["gather"][2] / 1e6, col["gather"][1] * 1e3
+    reduce_mb, reduce_ms = col["allreduce"][2] / 1e6, col["allreduce"][1] * 1e3
+    held = r0["held"]
+
+    def listed(what, key, fmt):
+        return ", ".join(format(h[what][key], fmt) for h in held)
+
+    log(f"train-tp: the {TP_DEGREE}-rank step against the one-rank step from the same state, {TP_HELD_STEPS} steps "
+        f"under deterministic algorithms: under the ranks' channel blocks |dloss| {listed('split', 'd_loss', '.3g')}, "
+        f"worst gradient leaf at {listed('split', 'worst_gradient', '.3f')} of its tolerance, BN statistics "
+        f"{listed('split', 'd_stats', '.3g')} apart; against the plain one-rank step |dloss| "
+        f"{listed('plain', 'd_loss', '.3g')}, BN statistics {listed('plain', 'd_stats', '.3g')}, worst gradient leaf "
+        f"at {listed('plain', 'worst_gradient', '.3f')} of the tolerance (reported)")
+    log(f"train-tp: tgs_salt ({r0['params']} parameters, float32) on {TP_DEGREE} gloo ranks sharing {device} at "
+        f"model_parallel {TP_DEGREE}, global batch {batch}: {r0['step_ms']:.3f} ms per step (rank 0, median of "
+        f"{TP_TIMED_STEPS}), the one-rank step {r0['one_rank_ms']:.3f} ms; one step's {col['gather'][0]} channel "
+        f"all-gathers land {gather_mb:.1f} MB in {gather_ms:.3f} ms and its {col['allreduce'][0]} input-cotangent "
+        f"sums reduce {reduce_mb:.1f} MB in {reduce_ms:.3f} ms (host-staged, the card synchronized around each; "
+        f"both byte counts the shapes', tp_collective_bytes) "
+        f"[{card}]")
+    log(f"train-tp: Trainer.train on both ranks, {TP_FOLDS} folds x {TP_TRAIN_STEPS} steps, {r0['train_s']:.3f} s; "
+        f"each rank's {len(r0['ledger_train'])} train steps launched {PER_TRAIN_STEP} each, its "
+        f"{len(r0['ledger_eval'])} eval forwards {PER_EVAL_FORWARD} each; memory events {params_bytes} parameter and "
+        f"{opt_bytes} optimizer bytes per rank, the rule's to the byte; metrics equal on both ranks "
+        f"{json.dumps(r0['metrics'])}; {t1 - t0:.3f} s for the ranks (the grid's beside their Trainer.train) "
+        f"[{card}]")
+    g0 = grid[0]
+    log(f"train-tp: (2, 2) grid of {TP_ZERO_RANKS} gloo ranks at global batch {batch}: {TP_ZERO_STEPS} steps with "
+        f"ZeRO-1 bit for bit the tensor-parallel steps (digest {g0['zero']['digest']}, losses {g0['zero']['losses']}); "
+        f"optimizer bytes per rank {opt_bytes} without ZeRO-1, "
+        f"{', '.join(str(o['zero']['opt_state_bytes_per_device']) for o in grid)} with it (the rule: "
+        f"{zero_opt_bytes}); step ms {[round(x, 3) for x in g0['tp']['ms']]} / {[round(x, 3) for x in g0['zero']['ms']]}; "
+        f"{t2 - t0:.3f} s for both launches [{card}]")
+    return {"launches": r0["launches"], "held": held_err, "step_ms": r0["step_ms"], "one_rank_ms": r0["one_rank_ms"],
+            "gather_mb": gather_mb, "gather_ms": gather_ms, "gather_calls": col["gather"][0],
+            "allreduce_mb": reduce_mb, "allreduce_ms": reduce_ms, "allreduce_calls": col["allreduce"][0],
+            "params_bytes_per_rank": params_bytes, "opt_bytes_per_rank": opt_bytes,
+            "zero_opt_bytes_per_rank": zero_opt_bytes, "held_steps": held, "train_s": r0["train_s"],
+            "ranks_s": t1 - t0, "phase_ranks_s": t2 - t0,
+            "grid_step_ms": {m: g0[m]["ms"] for m in ("tp", "zero")}}
+
+
+def tp_rank_main(argv) -> int:
+    """``chip_smoke.py tp-rank RANK WORLD STORE ROOT DEVICE MODEL_KWARGS SIZE
+    BATCH``: one rank of ``train-tp``; writes ``ROOT/tp{WORLD}-rank{RANK}.json``."""
+    import torch
+
+    rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    model_kwargs, size, batch = json.loads(argv[5]), int(argv[6]), int(argv[7])
+    for key in ("n_blocks",):
+        if key in model_kwargs:
+            model_kwargs[key] = tuple(model_kwargs[key])
+    try:
+        out = tp_rank(torch, rank, world, store, root, device, model_kwargs, size, batch)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(root, f"tp{world}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
 
 
 # Xception-41: the segmenter through Trainer.train with every observability
@@ -5988,6 +6609,9 @@ def main() -> int:
         zero1 = train_zero1_phase(torch, card)
         mark("train-zero1")
         torch.cuda.empty_cache()
+        tp = train_tp_phase(torch, card)
+        mark("train-tp")
+        torch.cuda.empty_cache()
         xception = train_xception_phase(torch, card)
         mark("train-xception")
         torch.cuda.empty_cache()
@@ -5996,7 +6620,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    for name, e in dp["train-dp2"]["held"].items():
+    for name, e in list(dp["train-dp2"]["held"].items()) + list(tp["held"].items()):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     paths = {"serve": served["launches"], "serve-obs": observed["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
              "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
@@ -6006,7 +6630,7 @@ def main() -> int:
              "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
              "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
              "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
-             "train-zero1": zero1["launches"],
+             "train-zero1": zero1["launches"], "train-tp": tp["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
              "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
     def launches(name, counts):
@@ -6037,6 +6661,7 @@ def main() -> int:
                       "fit_records": {k: v for k, v in fit_records.items() if not k.endswith("launches")},
                       "train_lars": {k: v for k, v in lars.items() if k != "launches"},
                       "train_zero1": {k: v for k, v in zero1.items() if k != "launches"},
+                      "train_tp": {k: v for k, v in tp.items() if k not in ("launches", "held")},
                       "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
                       "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6045,6 +6670,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["dp-rank"]:
-        sys.exit(dp_rank_main(sys.argv[2:]))
-    sys.exit(zero_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["zero-rank"] else main())
+    ranks = {"dp-rank": dp_rank_main, "zero-rank": zero_rank_main, "tp-rank": tp_rank_main}
+    sys.exit(ranks[sys.argv[1]](sys.argv[2:]) if sys.argv[1:2] and sys.argv[1] in ranks else main())

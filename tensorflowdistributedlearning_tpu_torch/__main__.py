@@ -76,6 +76,7 @@ def cmd_train(args) -> int:
         eval_throttle_secs=args.eval_throttle_secs,
         n_devices=args.n_devices,
         sync_batch_norm=args.sync_bn,
+        model_parallel=args.model_parallel,
         weight_update_sharding=args.weight_update_sharding,
         **_loop_overrides(args),
     )
@@ -151,6 +152,7 @@ def cmd_fit(args) -> int:
         grad_clip_norm=args.grad_clip,
         grad_accum_steps=args.grad_accum,
         eval_holdout_fraction=args.eval_holdout_fraction,
+        model_parallel=args.model_parallel,
         weight_update_sharding=args.weight_update_sharding,
         data_service_workers=args.data_workers,
         prefetch_depth=args.prefetch_depth,
@@ -568,6 +570,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "one device")
     t.add_argument("--sync-bn", action="store_true",
                    help="synchronized BatchNorm: training statistics over the global batch instead of per rank")
+    t.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor parallelism: shard the parameters, BN statistics and optimizer state over this many "
+                   "ranks per replica (channel slices; the K-fold trainer keeps per-replica BatchNorm)")
     t.add_argument("--weight-update-sharding", action="store_true",
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(per-rank optimizer bytes drop ~world-fold; the update's numerics are the replicated one's)")
@@ -599,6 +604,9 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--eval-holdout-fraction", type=float, default=None,
                    help="with record shards and no val split: hold out this fraction of train shards as the eval "
                    "split")
+    f.add_argument("--model-parallel", type=int, default=None,
+                   help="tensor parallelism: shard the parameters, BN statistics and optimizer state over this many "
+                   "ranks per replica (BatchNorm statistics over the global batch; default: the preset's)")
     f.add_argument("--weight-update-sharding", action="store_true", default=None,
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(default: the preset's; resnet50_bf16_8k sets it)")

@@ -272,9 +272,16 @@ class TrainConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.model_parallel > 1 and self.sequence_parallel > 1:
-            raise ValueError("model_parallel and sequence_parallel cannot both exceed 1")
+            raise ValueError(
+                "model_parallel and sequence_parallel cannot both exceed 1: the GSPMD tensor-parallel step and "
+                "the shard_map spatial step are different execution strategies"
+            )
         if self.pipeline_parallel > 1 and (self.model_parallel > 1 or self.sequence_parallel > 1):
-            raise ValueError("pipeline_parallel cannot combine with model_parallel or sequence_parallel")
+            raise ValueError(
+                "pipeline_parallel cannot combine with model_parallel or sequence_parallel: the GPipe stage "
+                "runner, the GSPMD tensor-parallel step, and the shard_map spatial step are different execution "
+                "strategies over the same mesh axes"
+            )
         if self.pipeline_microbatches is not None and (
             self.pipeline_microbatches < self.pipeline_parallel or self.pipeline_parallel == 1
         ):
@@ -309,7 +316,10 @@ class TrainConfig:
         if self.grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}")
         if self.grad_accum_steps > 1 and (self.model_parallel > 1 or self.pipeline_parallel > 1):
-            raise ValueError("grad_accum_steps > 1 runs inside the data/spatial-parallel step only")
+            raise ValueError(
+                "grad_accum_steps > 1 runs inside the shard_map data/spatial-parallel step; the GSPMD "
+                "tensor-parallel and pipeline strategies define their own batch math"
+            )
         for name in ("train_log_every_steps", "checkpoint_every_steps"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
@@ -354,12 +364,16 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
 # training knobs of the JAX package that later slices of the port bring,
 # with the ROADMAP queue item that brings each
 _LATER_TRAINING = (
-    (lambda c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
+    (lambda m, c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
     (
-        lambda c: max(c.sequence_parallel, c.model_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
-        "sequence/model/pipeline/expert parallelism (queue A 12)",
+        lambda m, c: max(c.sequence_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
+        "sequence/pipeline/expert parallelism (queue A 12)",
     ),
-    (lambda c: c.compile_cache_dir is not None, "compile_cache_dir (no compile cache in eager PyTorch)"),
+    (
+        lambda m, c: c.model_parallel > 1 and m.backbone != "resnet",
+        "tensor parallelism (model_parallel > 1) of the Xception-41 and ViT models (queue A 12.2)",
+    ),
+    (lambda m, c: c.compile_cache_dir is not None, "compile_cache_dir (no compile cache in eager PyTorch)"),
 )
 
 
@@ -371,13 +385,15 @@ def require_supported_training(model_config: ModelConfig, train_config: TrainCon
     experts; float32 or bfloat16 compute; ``remat`` per residual unit or
     transformer block) with Adam, SGD or LARS, ``grad_accum_steps`` >= 1,
     on one device or data-parallel, with or without ZeRO-1's sharded
-    weight update (``weight_update_sharding``, ``parallel/zero.py``), under
-    every observability knob; it refuses what :func:`require_supported`
-    refuses, the planner and the model-parallel axes (queue A 12), and
-    ``compile_cache_dir``."""
+    weight update (``weight_update_sharding``, ``parallel/zero.py``), and
+    the ResNet models also tensor-parallel (``model_parallel`` > 1,
+    ``parallel/tensor.py``), under every observability knob; it refuses
+    what :func:`require_supported` refuses, the planner and the sequence,
+    pipeline and expert axes (queue A 12), tensor parallelism of the
+    Xception-41 and ViT models (queue A 12.2), and ``compile_cache_dir``."""
     require_supported(model_config)
     for test, what in _LATER_TRAINING:
-        if test(train_config):
+        if test(model_config, train_config):
             raise NotImplementedError(
-                f"{what} is not ported yet; the port trains data-parallel only (see ROADMAP.md)"
+                f"{what} is not ported yet; the port trains data- and tensor-parallel only (see ROADMAP.md)"
             )

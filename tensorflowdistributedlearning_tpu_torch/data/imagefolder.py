@@ -73,8 +73,8 @@ class ImageFolder:
                            labels=self.labels[rows], class_names=self.class_names)
 
     def host_shard(self) -> "ImageFolder":
-        """This rank's shard."""
-        return self.shard(multihost.process_index(), multihost.process_count())
+        """This rank's shard (of its data slot, ``multihost.data_slot``)."""
+        return self.shard(*multihost.data_slot())
 
     def decode(self, rows: Sequence[int]) -> np.ndarray:
         """The given rows as [n, H, W, C] float32 in [0, 1]."""

@@ -103,11 +103,13 @@ class InMemoryDataset:
 
 def host_shard(ids: Sequence[str]) -> List[str]:
     """The ids this process is responsible for in a data-parallel run: the
-    round-robin share ``ids[rank::world]``; everything in a single process."""
-    n = multihost.process_count()
+    round-robin share ``ids[index::degree]`` of its data slot
+    (``multihost.data_slot``: the rank of the world without tensor
+    parallelism); everything in a single process."""
+    index, n = multihost.data_slot()
     if n == 1:
         return list(ids)
-    return list(ids)[multihost.process_index() :: n]
+    return list(ids)[index::n]
 
 
 def train_batches(

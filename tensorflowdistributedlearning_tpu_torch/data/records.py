@@ -360,10 +360,10 @@ def host_shard_paths(
 ) -> List[str]:
     """This process's round-robin subset of the sorted shard files (the
     static assignment; ``data.service.epoch_shard_assignment`` re-deals
-    every epoch). The default slot is this rank's."""
+    every epoch). The default slot is this rank's data slot
+    (``multihost.data_slot``)."""
     if process_index is None or process_count is None:
-        info = multihost.process_info()
-        process_index, process_count = info["process_index"], info["process_count"]
+        process_index, process_count = multihost.data_slot()
     return [p for i, p in enumerate(sorted(paths)) if i % process_count == process_index]
 
 

@@ -173,8 +173,7 @@ class ClassificationRecordSource:
         if not paths:
             raise ValueError("ClassificationRecordSource needs shard paths")
         if process_index is None or process_count is None:
-            info = multihost.process_info()
-            process_index, process_count = info["process_index"], info["process_count"]
+            process_index, process_count = multihost.data_slot()
         if len(paths) < process_count:
             raise ValueError(
                 f"{len(paths)} record shard(s) for {process_count} processes "

@@ -41,8 +41,17 @@ through their modules, so the int8-compute serving path can swap a module
 
 Stochastic layers (Xception-41's pre-logits dropout) own no random state:
 a training-mode draw takes its generator from :func:`dropout_key`, which
-the train step sets for each forward from (seed, step, rank, accumulation
-chunk), as the JAX step folds those into its ``dropout`` PRNG key.
+the train step sets for each forward from (seed, step, data index,
+accumulation chunk), as the JAX step folds those into its ``dropout`` PRNG
+key.
+
+Tensor parallelism (``parallel/tensor.py``): a layer whose ``tp`` is set
+holds this rank's channel slices of its parameters and runs through
+``tp.column`` (convs, ``ConvBN``, Dense, the pointwise half of
+:class:`SplitSeparableConv2D`) or ``tp.channelwise`` (BatchNorm, the
+depthwise conv); its input and output are whole. A layer with ``tp``
+None computes on whatever parameters it holds, so the members of a
+tensor-parallel ``ConvBN`` compute this rank's channels.
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as checkpoint_lib
 
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
 
 
 # the key of the forward in progress: {"seed": int, device: its generator}
@@ -83,7 +92,7 @@ def dropout_generator(device: torch.device) -> torch.Generator:
     if key is None:
         raise RuntimeError(
             "a training-mode dropout draw needs a key: run the forward under models.layers.dropout_key(seed) "
-            "(the train step keys it by seed, step, rank and accumulation chunk)"
+            "(the train step keys it by seed, step, data index and accumulation chunk)"
         )
     device = torch.device(device)
     if device not in key:
@@ -112,11 +121,16 @@ class Dense(nn.Linear):
     """flax ``nn.Dense`` with ``dtype``: ``weight`` [out, in] (flax's
     ``kernel`` transposed), product then bias add in the compute dtype."""
 
+    tp = None
+
     def __init__(self, in_features: int, out_features: int, dtype=None):
         super().__init__(in_features, out_features)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.column(self._forward, x) if self.tp is not None else self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = promote_dtype(x, self.dtype)
         y = torch.matmul(x.to(dt), self.weight.to(dt).t())
         return y + self.bias.to(dt)
@@ -225,12 +239,16 @@ class Conv2dSame(nn.Conv2d):
     Parameters as ``nn.Conv2d``'s (OIHW)."""
 
     same_padding = "SAME"
+    tp = None
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.column(self._forward, x) if self.tp is not None else self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
             return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0], self.groups)
@@ -253,8 +271,9 @@ class SpaceToDepthConv(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def folded_weight(self) -> torch.Tensor:
-        """The 2x2 filter over ``4 * C`` channels, OIHW."""
-        c, f = self.in_channels, self.out_channels
+        """The 2x2 filter over ``4 * C`` channels, OIHW (of the filters
+        this module holds: a tensor-parallel rank's slice of them)."""
+        f, c = self.weight.shape[:2]
         k44 = F.pad(self.weight.permute(2, 3, 1, 0), (0, 0, 0, 0, 0, 1, 0, 1))  # HWIO, high edge
         k2 = k44.reshape(2, 2, 2, 2, c, f).permute(0, 2, 1, 3, 4, 5).reshape(2, 2, 4 * c, f)
         return k2.permute(3, 2, 0, 1)
@@ -286,7 +305,14 @@ class BatchNorm(nn.Module):
     parameter or buffer changes. With bfloat16 parameters and statistics
     (the quantized serving specs) it is flax's unfolded form instead
     (:func:`kernels.bn_act_unfolded`). Either mode returns
-    ``compute_dtype``: the float32 result rounded once in bf16 compute."""
+    ``compute_dtype``: the float32 result rounded once in bf16 compute.
+
+    ``sync`` reduces over the data group of ``parallel/mesh.py`` (the
+    default group without tensor parallelism); ``tp`` runs the layer on
+    this rank's channels (statistics, running statistics and, in eval
+    mode, the fused kernel all on the slice)."""
+
+    tp = None
 
     def __init__(
         self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99, sync: bool = False,
@@ -341,7 +367,7 @@ class BatchNorm(nn.Module):
         mean = xf.mean(dim=(0, 1, 2))
         mean_sq = (xf * xf).mean(dim=(0, 1, 2))
         if self.sync and collectives.is_initialized():
-            mean, mean_sq = collectives.pmean(torch.stack([mean, mean_sq]))
+            mean, mean_sq = collectives.pmean(torch.stack([mean, mean_sq]), mesh.data_group())
         return mean, mean_sq
 
     def _batch_normalize(self, x: torch.Tensor) -> torch.Tensor:
@@ -361,6 +387,11 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
 
     def forward(self, x: torch.Tensor, act: str = "relu", residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.channelwise(lambda xs, rs: self._forward(xs, act, rs), x, residual)
+        return self._forward(x, act, residual)
+
+    def _forward(self, x: torch.Tensor, act: str, residual: Optional[torch.Tensor]) -> torch.Tensor:
         dt = self.compute_dtype
         if self.training:
             y = self._batch_normalize(x)
@@ -401,6 +432,20 @@ def split_moments(world: int) -> Iterator[None]:
 
 
 @contextlib.contextmanager
+def synced_batch_norm(module: nn.Module, on: bool = True) -> Iterator[None]:
+    """For the duration (when ``on``), the BatchNorms under ``module`` take
+    their training statistics over the data group, as ``sync`` does."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm) and not m.sync] if on else []
+    for m in bns:
+        m.sync = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync = False
+
+
+@contextlib.contextmanager
 def _running_stats_frozen(module: nn.Module) -> Iterator[None]:
     """For the duration, the BatchNorms under ``module`` normalise with
     their batch statistics as in training but leave the running statistics
@@ -436,6 +481,8 @@ class ConvBN(nn.Module):
     stride-2 rate-1 conv and raises for any other, as the JAX ``ConvBN``
     does."""
 
+    tp = None
+
     def __init__(
         self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
         rate: int = 1, bn_epsilon: float = 1e-3, bn_scale: bool = True, bn_decay: float = 0.99,
@@ -456,6 +503,9 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(features, bn_epsilon, bn_scale, bn_decay, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.column(self._forward, x) if self.tp is not None else self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x), act="relu")
 
 
@@ -465,7 +515,11 @@ class DepthwiseConv2D(nn.Module):
     ``use_kernel=True`` takes :func:`kernels.depthwise_conv2d` (the CUDA
     kernels, forward and backward, on a CUDA tensor); False the grouped-conv
     plain version. Input and filter are cast to ``compute_dtype`` (the
-    kernels' bf16 arms in bf16 compute), then the bias is added in it."""
+    kernels' bf16 arms in bf16 compute), then the bias is added in it.
+    Under ``tp`` the kernel gets this rank's channels of the input, a
+    fresh contiguous tensor."""
+
+    tp = None
 
     def __init__(
         self, channels: int, kernel_size: int = 3, rate: int = 1, use_kernel: bool = False,
@@ -481,6 +535,9 @@ class DepthwiseConv2D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.channelwise(self._forward, x) if self.tp is not None else self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         dw = kernels.depthwise_conv2d if self.use_kernel else kernels.depthwise_conv2d_plain
         return dw(x.to(dt).contiguous(), self.weight.to(dt), self.rate) + self.bias.to(dt)
@@ -489,7 +546,10 @@ class DepthwiseConv2D(nn.Module):
 class SplitSeparableConv2D(nn.Module):
     """Depthwise (+ bias, relu) then pointwise 1x1 (no bias) + BN + relu;
     submodule names ``depthwise``/``pointwise``/``pointwise_bn`` match the
-    flax tree."""
+    flax tree. Under tensor parallelism the depthwise conv has its own
+    ``tp``, and this module's ``tp`` runs the pointwise pair."""
+
+    tp = None
 
     def __init__(
         self, in_channels: int, features: int, kernel_size: int = 3, rate: int = 1,
@@ -503,4 +563,7 @@ class SplitSeparableConv2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.depthwise(x))
+        return self.tp.column(self._pointwise, x) if self.tp is not None else self._pointwise(x)
+
+    def _pointwise(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise_bn(self.pointwise(x), act="relu")

@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of the JAX
-package's ``parallel``): the process group and its helpers
-(:mod:`.multihost`), the batch axis (:mod:`.mesh`) and the collectives of
-the data-parallel step (:mod:`.collectives`)."""
+"""Data and tensor parallelism over ``torch.distributed`` (counterpart of
+the JAX package's ``parallel``): the process group and its helpers
+(:mod:`.multihost`), the (batch, model) layout of the ranks
+(:mod:`.mesh`), the collectives of the steps (:mod:`.collectives`),
+ZeRO-1 (:mod:`.zero`) and tensor parallelism (:mod:`.tensor`)."""
 
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
 

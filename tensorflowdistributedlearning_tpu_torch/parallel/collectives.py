@@ -1,14 +1,23 @@
-"""Collectives of the data-parallel step (counterpart of the JAX package's
-``parallel/collectives.py``).
+"""Collectives of the data- and tensor-parallel steps (counterpart of the
+JAX package's ``parallel/collectives.py``).
 
 The JAX package reduces over a named mesh axis with ``lax.psum`` /
 ``lax.pmean`` inside ``shard_map``; here a rank is a process that owns one
 device, and the same reductions are explicit ``torch.distributed``
-all-reduces over the default process group. Every function is a no-op when
-no group is initialized (one process), so the single-device step pays
-nothing.
+collectives over a group: ``group=None`` is the default group (every
+rank), and a mesh axis is one of ``parallel/mesh.py``'s groups. Every
+function is a no-op when no process group is initialized (one process) or
+the group holds one rank, so the single-device step pays nothing.
 
-ZeRO-1's parameter gather is :func:`all_gather` of one flat buffer.
+ZeRO-1's parameter gather is :func:`all_gather` of one flat buffer. The
+tensor-parallel layers (``parallel/tensor.py``) go through three
+differentiable collectives over the model group: :func:`gather_channels`
+(the all-gather of a layer's output channels; backward, this rank's slice
+of the cotangent), :func:`mark_replicated` (identity; backward, the sum of
+the group's cotangents) and :func:`slice_channels` (this rank's channels of
+a replicated input; backward, the all-gather of the cotangent). Under gloo
+a collective of a CUDA tensor is staged through the host, as
+:func:`all_gather` does.
 
 A list of tensors is reduced as one collective: the tensors of one dtype are
 packed into a flat buffer, all-reduced and copied back. The trainer keeps its
@@ -18,7 +27,7 @@ step all-reduces its gradient once, not once per parameter.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -31,14 +40,19 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def world_size() -> int:
-    """The ranks of the default group (1 without one)."""
-    return dist.get_world_size() if is_initialized() else 1
+def world_size(group=None) -> int:
+    """The ranks of ``group`` (default: the default group; 1 without one)."""
+    return dist.get_world_size(group) if is_initialized() else 1
 
 
 def rank() -> int:
     """This process's rank in the default group (0 without one)."""
     return dist.get_rank() if is_initialized() else 0
+
+
+def _active(group) -> bool:
+    """Whether a collective over ``group`` has anything to do."""
+    return is_initialized() and dist.get_world_size(group) > 1
 
 
 def collective_device() -> torch.device:
@@ -53,110 +67,216 @@ def _as_list(tensors: Tensors) -> List[torch.Tensor]:
     return [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
 
 
-def _reduce_(tensors: Tensors, op) -> None:
-    """All-reduce ``tensors`` in place with ``op``, one collective per
-    (dtype, device) group."""
+def _reduce_(tensors: Tensors, op, group=None) -> None:
+    """All-reduce ``tensors`` in place with ``op`` over ``group``, one
+    collective per (dtype, device) group."""
     tensors = _as_list(tensors)
     if len(tensors) == 1 and tensors[0].is_contiguous():
-        dist.all_reduce(tensors[0], op=op)
+        dist.all_reduce(tensors[0], op=op, group=group)
         return
-    groups: Dict[tuple, List[torch.Tensor]] = {}
+    by_kind: Dict[tuple, List[torch.Tensor]] = {}
     for t in tensors:
-        groups.setdefault((t.dtype, t.device), []).append(t)
-    for group in groups.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=op)
+        by_kind.setdefault((t.dtype, t.device), []).append(t)
+    for members in by_kind.values():
+        flat = torch.cat([t.reshape(-1) for t in members])
+        dist.all_reduce(flat, op=op, group=group)
         offset = 0
-        for t in group:
+        for t in members:
             t.copy_(flat[offset : offset + t.numel()].view_as(t))
             offset += t.numel()
 
 
-def psum_(tensors: Tensors) -> None:
-    """Sum ``tensors`` over every rank, in place (the metric reduction,
-    ``lax.psum``)."""
-    if is_initialized():
-        _reduce_(tensors, dist.ReduceOp.SUM)
+def psum_(tensors: Tensors, group=None) -> None:
+    """Sum ``tensors`` over the ranks of ``group``, in place (the metric
+    reduction, ``lax.psum``)."""
+    if _active(group):
+        _reduce_(tensors, dist.ReduceOp.SUM, group)
 
 
-def pmean_(tensors: Tensors) -> None:
-    """Mean of ``tensors`` over every rank, in place (the gradient and
-    BN-statistics reduction, ``lax.pmean``): a sum, then a divide by the
-    world size."""
-    if not is_initialized():
+def pmean_(tensors: Tensors, group=None) -> None:
+    """Mean of ``tensors`` over the ranks of ``group``, in place (the
+    gradient and BN-statistics reduction, ``lax.pmean``): a sum, then a
+    divide by the group's size."""
+    if not _active(group):
         return
     tensors = _as_list(tensors)
-    _reduce_(tensors, dist.ReduceOp.SUM)
-    w = float(world_size())
+    _reduce_(tensors, dist.ReduceOp.SUM, group)
+    w = float(world_size(group))
     for t in tensors:
         t.div_(w)
 
 
-def pmax_(tensors: Tensors) -> None:
-    """Elementwise maximum of ``tensors`` over every rank, in place."""
-    if is_initialized():
-        _reduce_(tensors, dist.ReduceOp.MAX)
+def pmax_(tensors: Tensors, group=None) -> None:
+    """Elementwise maximum of ``tensors`` over the ranks of ``group``, in
+    place."""
+    if _active(group):
+        _reduce_(tensors, dist.ReduceOp.MAX, group)
 
 
-def broadcast_(tensors: Tensors, src: int = 0) -> None:
-    """Overwrite ``tensors`` with rank ``src``'s values, in place, one
-    collective per dtype. Tensors the backend cannot carry (a CPU tensor
-    under NCCL, e.g. an optimizer's step count) are staged through
-    :func:`collective_device`."""
-    if not is_initialized():
+def broadcast_(tensors: Tensors, src: int = 0, group=None) -> None:
+    """Overwrite ``tensors`` with global rank ``src``'s values (a member of
+    ``group``), in place, one collective per dtype. Tensors the backend
+    cannot carry (a CPU tensor under NCCL, e.g. an optimizer's step count)
+    are staged through :func:`collective_device`."""
+    if not _active(group):
         return
     device = collective_device()
-    groups: Dict[torch.dtype, List[torch.Tensor]] = {}
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in _as_list(tensors):
-        groups.setdefault(t.dtype, []).append(t)
-    for dtype, group in groups.items():
-        flat = torch.cat([t.detach().reshape(-1).to(device) for t in group])
-        dist.broadcast(flat, src=src)
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for members in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1).to(device) for t in members])
+        dist.broadcast(flat, src=src, group=group)
         offset = 0
         with torch.no_grad():
-            for t in group:
+            for t in members:
                 t.copy_(flat[offset : offset + t.numel()].view(t.shape))
                 offset += t.numel()
 
 
-def all_gather(flat: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``flat`` (one dimension, the same size on every rank) as
-    the rows of a ``[world, n]`` tensor on ``flat``'s device, one
-    collective (ZeRO-1's parameter gather). Under a backend that cannot
-    carry ``flat`` where it lies (gloo, for ranks that share a card) the
-    collective runs on :func:`collective_device` and the result is copied
-    back."""
-    if not is_initialized():
+def all_gather(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``flat`` (one dimension, the same size on every rank of
+    ``group``) as the rows of a ``[ranks, n]`` tensor on ``flat``'s device,
+    in the group's rank order, one collective (ZeRO-1's parameter gather).
+    Under a backend that cannot carry ``flat`` where it lies (gloo, for
+    ranks that share a card) the collective runs on
+    :func:`collective_device` and the result is copied back."""
+    if not _active(group):
         return flat.reshape(1, -1)
     device = collective_device()
     send = flat if flat.device == device else flat.to(device)
-    out = torch.empty((world_size(), flat.numel()), dtype=flat.dtype, device=device)
-    dist.all_gather(list(out.unbind(0)), send)
+    out = torch.empty((world_size(group), flat.numel()), dtype=flat.dtype, device=device)
+    dist.all_gather(list(out.unbind(0)), send.contiguous(), group=group)
     return out if out.device == flat.device else out.to(flat.device)
 
 
-class _PMean(torch.autograd.Function):
-    """y = (1/W) Σ_s x_s on every rank. Each rank's loss reads y, and the
-    step's objective is the mean of the ranks' losses, so the cotangent of
-    x_r is (1/W) Σ_s dL_s/dy: the backward is the same mean."""
+def gather_blocks(items: Sequence[Tuple[torch.Tensor, int]], group=None) -> List[torch.Tensor]:
+    """The whole tensors of ``(this rank's block, its dimension)`` pairs:
+    block r of each from rank r of ``group``, one all-gather per (dtype,
+    device). Every rank of the group calls it with the same shapes in the
+    same order."""
+    n = world_size(group)
+    out: List[Optional[torch.Tensor]] = [None] * len(items)
+    by_kind: Dict[tuple, List[int]] = {}
+    for i, (t, _) in enumerate(items):
+        by_kind.setdefault((t.dtype, t.device), []).append(i)
+    for idx in by_kind.values():
+        blocks = all_gather(torch.cat([items[i][0].reshape(-1) for i in idx]), group)
+        offset = 0
+        for i in idx:
+            t, dim = items[i]
+            k = t.shape[dim]
+            shape = list(t.shape)
+            shape[dim] = k * n
+            whole = torch.empty(shape, dtype=t.dtype, device=t.device)
+            for r in range(n):
+                whole.narrow(dim, r * k, k).copy_(blocks[r, offset:offset + t.numel()].view(t.shape))
+            out[i] = whole
+            offset += t.numel()
+    return out
+
+
+def _all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated on the last dimension,
+    in the group's rank order."""
+    n = world_size(group)
+    blocks = all_gather(x.reshape(-1), group).view((n,) + tuple(x.shape))
+    return blocks.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (n * x.shape[-1],))
+
+
+def _own_block(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the last dimension of ``x`` (the group's size
+    blocks, in its rank order), contiguous."""
+    k = x.shape[-1] // world_size(group)
+    return x.narrow(-1, dist.get_rank(group) * k, k).contiguous()
+
+
+class _GatherChannels(torch.autograd.Function):
+    """y = the concatenation of the group's x on the last dimension. Every
+    rank's loss reads the whole y the same way, so the cotangent of x is
+    this rank's block of the cotangent of y."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _all_gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _own_block(g, ctx.group), None
+
+
+class _MarkReplicated(torch.autograd.Function):
+    """y = x, where x is the same on every rank of the group and each
+    rank's y feeds its own output channels: the cotangent of x is the sum
+    of the ranks' cotangents of y."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.contiguous().clone()
+        psum_(g, ctx.group)
+        return g, None
+
+
+class _SliceChannels(torch.autograd.Function):
+    """y = this rank's block of the last dimension of x (x the same on
+    every rank of the group): the cotangent of x is the concatenation of
+    the ranks' cotangents of y."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _own_block(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _all_gather_last(g.contiguous(), ctx.group), None
+
+
+def gather_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-gather of the last dimension over ``group``."""
+    return _GatherChannels.apply(x, group) if _active(group) else x
+
+
+def mark_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity whose backward sums the cotangent over ``group``."""
+    return _MarkReplicated.apply(x, group) if _active(group) else x
+
+
+def slice_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the last dimension, whose backward all-gathers
+    the cotangent over ``group``."""
+    return _SliceChannels.apply(x, group) if _active(group) else x
+
+
+class _PMean(torch.autograd.Function):
+    """y = (1/W) Σ_s x_s on every rank of the group. Each rank's loss reads
+    y, and the step's objective is the mean of the ranks' losses, so the
+    cotangent of x_r is (1/W) Σ_s dL_s/dy: the backward is the same mean."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         y = x.clone()
-        pmean_(y)
+        pmean_(y, group)
         return y
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, g: torch.Tensor):
         g = g.contiguous().clone()
-        pmean_(g)
-        return g
+        pmean_(g, ctx.group)
+        return g, None
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable mean of ``x`` over every rank (synchronized BatchNorm's
-    statistics): ``x`` itself without a group."""
-    return _PMean.apply(x) if is_initialized() else x
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable mean of ``x`` over the ranks of ``group``
+    (synchronized BatchNorm's statistics): ``x`` itself without a group."""
+    return _PMean.apply(x, group) if _active(group) else x
 
 
 def flat_grad_buffer(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:

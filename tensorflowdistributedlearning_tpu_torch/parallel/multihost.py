@@ -15,12 +15,12 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -130,6 +130,18 @@ def process_info() -> Dict[str, int]:
     return {"process_index": process_index(), "process_count": n, "local_device_count": 1, "global_device_count": n}
 
 
+def data_slot() -> Tuple[int, int]:
+    """``(this rank's data index, the data-parallel degree)``: the slot of
+    the input pipeline, which splits batches, ids, record shards and seeds
+    over the data positions (``parallel/mesh.py``), so the ranks of one
+    model group read the same rows. Without tensor parallelism it is
+    ``(process_index(), process_count())``."""
+    lay = mesh.layout()
+    if lay.tp == 1:
+        return process_index(), process_count()
+    return lay.data_index, lay.dp
+
+
 def local_device_index(rank: Optional[int] = None) -> int:
     """This rank's CUDA device index: ``LOCAL_RANK`` when the launcher set
     it, else the rank modulo the visible cards."""
@@ -162,8 +174,9 @@ def require_world_size(n_devices: Optional[int]) -> None:
 
 
 def per_process_batch_size(global_batch: int) -> int:
-    """This process's share of every global batch (``global_batch / process_count``)."""
-    p = process_count()
+    """This process's share of every global batch (``global_batch`` over
+    the data-parallel degree, :func:`data_slot`)."""
+    p = data_slot()[1]
     if global_batch % p != 0:
         raise ValueError(f"Global batch size {global_batch} must be divisible by the process count {p}")
     return global_batch // p
@@ -174,8 +187,8 @@ def eval_num_batches(global_n: int, per_process_batch: int) -> int:
     round-robin over the processes (``data.pipeline.host_shard``): the
     largest shard, ``ceil(global_n / P)``, sets the count, so every rank
     enters the same number of collectives; smaller shards pad with valid=0
-    batches."""
-    p = process_count()
+    batches. P is the data-parallel degree (:func:`data_slot`)."""
+    p = data_slot()[1]
     max_shard = -(-global_n // p)
     return max(1, -(-max_shard // per_process_batch))
 

@@ -4,10 +4,12 @@ state (counterpart of the JAX package's ``parallel/zero.py``).
 In plain data parallelism every rank holds the whole optimizer state
 (Adam's two moments, the SGD or LARS momentum trace, the parameter EMA) and
 runs the same update W times. Under ``TrainConfig.weight_update_sharding``
-rank r of W keeps and updates only its 1/W slice of every slot and of the
-EMA, then all-gathers the updated parameter slices, so every rank ends the
-step with the whole parameters: "Automatic Cross-Replica Sharding of Weight
-Update in Data-Parallel Training" (arXiv:2004.13336).
+data position d of dp keeps and updates only its 1/dp slice of every slot
+and of the EMA, then all-gathers the updated parameter slices over the
+data group (``parallel/mesh.py``), so every rank ends the step with its
+whole parameters: "Automatic Cross-Replica Sharding of Weight Update in
+Data-Parallel Training" (arXiv:2004.13336). Without tensor parallelism the
+data group is every rank.
 
 - The spec rule (:func:`weight_update_spec_for_degrees`): a leaf shards on
   its largest dimension that the data-parallel degree divides (the first
@@ -20,6 +22,13 @@ Update in Data-Parallel Training" (arXiv:2004.13336).
   (a ``[3, 3, 64, 64]`` filter shards ``C_in`` in both packages, where the
   port's own ``[64, 64, 3, 3]`` order would pick ``C_out``). The bytes a
   rank holds are the same under either order; the elements are not.
+  Under tensor parallelism (``tp > 1``, ``parallel/tensor.py``) the rule
+  is JAX's composition: a leaf keeps its model-axis shard of the trailing
+  dimension, the batch axis takes the largest dimension the model axis
+  left that dp divides, and when none does and ``tp·dp`` divides the
+  trailing dimension the two axes stack there as ``(model, batch)``:
+  rank ``(d, m)`` holds block ``m·dp + d``. Either way the data slice is
+  a slice of the rank's tensor-parallel slice.
 - The layout (:class:`ZeroLayout`): parameters and BN buffers stay whole on
   every rank (JAX's ``param_placement_specs``). A sharded parameter's
   update leaf is this rank's slice of it, a view into one contiguous
@@ -34,16 +43,16 @@ Update in Data-Parallel Training" (arXiv:2004.13336).
   parameters' slices. Adam, AdamW and SGD are elementwise, so the step is
   bit for bit the replicated one; LARS reads ‖p‖ and ‖u‖ of the whole
   leaf, which a slice gets from one all-reduce of the slices' squared sums
-  (another summation order: within a bound, not bit for bit).
+  over the groups it is sliced over (another summation order: within a
+  bound, not bit for bit).
 - Checkpoints do not depend on the layout: :func:`whole_state` gathers
   the slots and the EMA into the replicated format, and
   :func:`load_whole_state` slices a whole state into this rank's leaves.
 
 As in the JAX package the gradient is all-reduced whole and then sliced; a
-reduce-scatter in its place is a later change. The tensor-parallel
-composition of the rule (JAX's ``tp > 1``) comes with ``parallel/tensor.py``.
-Collectives go through :mod:`.collectives` (gloo on the CPU and for ranks
-that share a card, NCCL otherwise).
+reduce-scatter in its place is a later change. Collectives go through
+:mod:`.collectives` (gloo on the CPU and for ranks that share a card, NCCL
+otherwise).
 """
 
 from __future__ import annotations
@@ -54,23 +63,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
 from tensorflowdistributedlearning_tpu_torch.parallel.mesh import largest_divisible_dim
 
 
 def weight_update_spec_for_degrees(shape: Sequence[int], *, dp: int, tp: int = 1) -> Optional[int]:
-    """The dimension of a leaf of ``shape`` (in flax's order) that ZeRO-1
-    shards over ``dp`` data-parallel ranks, or None (the leaf stays whole):
-    JAX's ``weight_update_spec_for_degrees`` at ``tp = 1``, whose spec
-    names the batch axis at this dimension."""
-    if tp != 1:
-        raise NotImplementedError(
-            "the tensor-parallel composition of the ZeRO-1 specs is not ported yet: it comes with "
-            "parallel/tensor.py (queue A 12.2)"
-        )
+    """The dimension of a leaf of ``shape`` (in flax's order) that the
+    batch axis of ZeRO-1 shards over ``dp`` data-parallel positions, or
+    None (no data slice): where JAX's ``weight_update_spec_for_degrees``
+    names the batch axis, alone or stacked as ``(model, batch)`` on the
+    trailing dimension. The model axis's dimension is
+    ``tensor.model_dim(shape, tp)``."""
+    from tensorflowdistributedlearning_tpu_torch.parallel.tensor import model_dim
+
     if dp <= 1:
         return None
-    return largest_divisible_dim(tuple(shape), dp)
+    shape = tuple(shape)
+    taken = model_dim(shape, tp) if tp > 1 else None
+    dim = largest_divisible_dim(shape, dp, taken=None if taken is None else {taken})
+    if dim is None and taken is not None and shape[-1] % (tp * dp) == 0:
+        return taken
+    return dim
 
 
 def flax_layout(module: nn.Module, name: str, shape: Tuple[int, ...]) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -96,16 +109,27 @@ def flax_layout(module: nn.Module, name: str, shape: Tuple[int, ...]) -> Tuple[T
     return tuple(flax_shape), axes
 
 
-def weight_update_specs(model: nn.Module, dp: int) -> Dict[str, Optional[int]]:
-    """``{parameter name: the port dimension it shards on, or None}`` over
-    ``dp`` ranks. The parameters' gradients, optimizer slots and EMA
-    entries have their parameter's shape and take its spec."""
+def weight_update_specs(model: nn.Module, dp: int, tp=None) -> Dict[str, Optional[int]]:
+    """``{parameter name: the port dimension its data slice is cut on, or
+    None}`` over ``dp`` data positions. ``tp`` (a
+    ``tensor.TensorParallelLayout``) says which of ``model``'s parameters
+    are model-axis slices: the rule reads their whole shape, and the data
+    slice is cut from the rank's slice. The parameters' gradients,
+    optimizer slots and EMA entries have their parameter's shape and take
+    its spec."""
     specs: Dict[str, Optional[int]] = {}
     for mod_name, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
+            full = f"{mod_name}.{name}" if mod_name else name
             flax_shape, axes = flax_layout(module, name, tuple(p.shape))
-            dim = weight_update_spec_for_degrees(flax_shape, dp=dp)
-            specs[f"{mod_name}.{name}" if mod_name else name] = None if dim is None else axes.index(dim)
+            degree = 1
+            if tp is not None:
+                degree = tp.degree
+                if tp.dims[full] is not None:
+                    flax_shape = list(flax_shape)
+                    flax_shape[axes[tp.dims[full]]] *= tp.degree
+            dim = weight_update_spec_for_degrees(flax_shape, dp=dp, tp=degree)
+            specs[full] = None if dim is None else axes.index(dim)
     return specs
 
 
@@ -122,14 +146,23 @@ class ZeroLayout:
     """This rank's share of the weight update: for every parameter of
     ``model`` its update leaf (:attr:`leaves`: this rank's slice of a
     sharded parameter, a view into :attr:`flat`, or the parameter itself)
-    and its shard dimension (:attr:`dims`). ``world`` and ``rank`` default
-    to the process group's; a layout made without a group (for its
-    accounting) gathers nothing."""
+    and its shard dimension (:attr:`dims`). ``world`` and ``rank`` are the
+    data-parallel degree and this rank's data index, ``group`` the data
+    group, all by default the process's mesh (``parallel/mesh.py``); ``tp``
+    is the state's tensor-parallel layout when ``model`` holds model-axis
+    slices. A layout made without a group (for its accounting) gathers
+    nothing."""
 
-    def __init__(self, model: nn.Module, world: Optional[int] = None, rank: Optional[int] = None):
-        self.world = collectives.world_size() if world is None else int(world)
+    def __init__(self, model: nn.Module, world: Optional[int] = None, rank: Optional[int] = None, group=None,
+                 tp=None):
+        if world is None:
+            lay = mesh.layout()
+            world, rank, group = lay.dp, lay.data_index, lay.data_group
+        self.world = int(world)
         self.rank = collectives.rank() if rank is None else int(rank)
-        self.dims = weight_update_specs(model, self.world)
+        self.group = group
+        self.tp = tp
+        self.dims = weight_update_specs(model, self.world, tp)
         self.params: Dict[str, nn.Parameter] = dict(model.named_parameters())
         sizes: Dict[tuple, int] = {}
         for name, p in self.params.items():
@@ -206,7 +239,7 @@ class ZeroLayout:
         """All-gather the leaf buffers (one collective per dtype) and write
         every rank's block into the parameters' slices."""
         for key, flat in self.flat.items():
-            blocks = collectives.all_gather(flat)
+            blocks = collectives.all_gather(flat, self.group)
             for r in range(self.world):
                 for e in self.entries[key]:
                     k = e.param.shape[e.dim] // self.world
@@ -218,38 +251,24 @@ class ZeroLayout:
         pairs (a slot, an EMA entry), in order: one all-gather per dtype
         over every rank, which must call it with the same names in the same
         order. A whole leaf's tensor comes back as it is."""
-        out: List[Optional[torch.Tensor]] = [None] * len(items)
-        groups: Dict[tuple, List[int]] = {}
-        for i, (name, t) in enumerate(items):
-            if self.dims[name] is None:
-                out[i] = t
-            else:
-                groups.setdefault((t.dtype, t.device), []).append(i)
-        for idx in groups.values():
-            flat = torch.cat([items[i][1].reshape(-1) for i in idx])
-            blocks = collectives.all_gather(flat)
-            offset = 0
-            for i in idx:
-                name, t = items[i]
-                dim, n = self.dims[name], t.numel()
-                whole = torch.empty(self.params[name].shape, dtype=t.dtype, device=t.device)
-                k = t.shape[dim]
-                for r in range(self.world):
-                    whole.narrow(dim, r * k, k).copy_(blocks[r, offset:offset + n].view(t.shape))
-                out[i] = whole
-                offset += n
+        out: List[torch.Tensor] = [t for _, t in items]
+        idx = [i for i, (name, _) in enumerate(items) if self.dims[name] is not None]
+        wholes = collectives.gather_blocks([(items[i][1], self.dims[items[i][0]]) for i in idx], self.group)
+        for i, whole in zip(idx, wholes):
+            out[i] = whole
         return out
 
 
-def shard_state(state, train_config, world: Optional[int] = None, rank: Optional[int] = None):
-    """``state`` (a replicated ``TrainState``) under ZeRO-1 over ``world``
-    ranks as rank ``rank`` (default: the process group's), in place and
-    returned: the layout, the configured optimizer over its leaves with
-    every slot allocated (sliced from ``state``'s slots where it had any),
-    and the EMA sliced. JAX's ``shard_state_weight_update``."""
+def shard_state(state, train_config, world: Optional[int] = None, rank: Optional[int] = None, group=None):
+    """``state`` (a ``TrainState``, replicated or already cut to its
+    tensor-parallel slices) under ZeRO-1 over ``world`` data positions as
+    position ``rank`` (default: the process's mesh and its data group), in
+    place and returned: the layout, the configured optimizer over its
+    leaves with every slot allocated (sliced from ``state``'s slots where
+    it had any), and the EMA sliced. JAX's ``shard_state_weight_update``."""
     from tensorflowdistributedlearning_tpu_torch.train.step import init_optimizer_slots, make_optimizer
 
-    layout = ZeroLayout(state.model, world, rank)
+    layout = ZeroLayout(state.model, world, rank, group, tp=state.tp)
     whole_optimizer = state.optimizer.state_dict()
     state.optimizer = make_optimizer(train_config, state.model, leaves=layout.leaves)
     bind(layout, state.optimizer)
@@ -263,12 +282,18 @@ def shard_state(state, train_config, world: Optional[int] = None, rank: Optional
 
 
 def bind(layout: ZeroLayout, optimizer: torch.optim.Optimizer) -> None:
-    """Tell a LARS optimizer which of its leaves are slices, whose norms
-    it then reduces over the ranks."""
+    """Tell a LARS optimizer which of its leaves are data slices and which
+    model-axis slices, whose norms it then reduces over the data group,
+    the model group, or every rank for a leaf sliced both ways."""
     from tensorflowdistributedlearning_tpu_torch.train.step import Lars
 
     if isinstance(optimizer, Lars):
         optimizer.sharded = {id(layout.leaves[name]) for name in layout.sharded}
+        optimizer.data_group = layout.group
+        if layout.tp is not None:
+            optimizer.model_sharded = {id(layout.leaves[name]) for name in layout.leaves
+                                       if layout.tp.dims[name] is not None}
+            optimizer.model_group = layout.tp.group
 
 
 def apply_gradients_sharded(state) -> None:
@@ -281,7 +306,8 @@ def apply_gradients_sharded(state) -> None:
 
     layout = state.zero
     if state.grad_clip_norm:
-        clip_by_global_norm(layout.params_in_order(state.optimizer), state.grad_clip_norm)
+        params = layout.params_in_order(state.optimizer)
+        clip_by_global_norm(params, state.grad_clip_norm, *_model_sliced(state))
     lr = state.schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -294,6 +320,15 @@ def apply_gradients_sharded(state) -> None:
                 e.copy_(e * state.ema_decay + leaf * (1.0 - state.ema_decay))
     layout.gather_params()
     state.step += 1
+
+
+def _model_sliced(state) -> Tuple[set, object]:
+    """``(ids of the model-axis slices among the parameters, the model
+    group)`` of ``state``, the clip's reduction (empty without tensor
+    parallelism)."""
+    from tensorflowdistributedlearning_tpu_torch.parallel.tensor import sharded_param_ids
+
+    return sharded_param_ids(state), (state.tp.group if state.tp is not None else None)
 
 
 def _sharded_slots(layout: ZeroLayout, names: List[str], opt_state: Dict) -> List[Tuple[int, str, str]]:
@@ -359,5 +394,6 @@ def load_whole_state(state, optimizer_state: Dict, ema: Optional[Dict[str, torch
 
 
 def all_gather_bytes(layout: ZeroLayout) -> int:
-    """Bytes one step's parameter all-gather lands on each rank."""
+    """Bytes one step's parameter all-gather lands on each rank (its data
+    group's blocks)."""
     return sum(flat.numel() * flat.element_size() * layout.world for flat in layout.flat.values())

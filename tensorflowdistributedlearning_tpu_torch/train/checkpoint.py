@@ -21,9 +21,11 @@ In a data-parallel run rank 0 alone writes and deletes; the other ranks
 take its decision (whether a step was saved, whether an export was kept)
 through a broadcast that returns only after rank 0 has written, so no rank
 reads a half-written step. Every rank restores; the trainer then
-``replicate``s rank 0's state. Under ZeRO-1 every rank joins the gather of
-the whole state that rank 0 writes (a periodic step, or the EMA of a best
-export), after the same broadcast decision.
+``replicate``s rank 0's state. Under ZeRO-1 or tensor parallelism every
+rank joins the gather of the whole state that rank 0 writes (a periodic
+step, or the eval view of a best export), after the same broadcast
+decision; a restore slices the whole state into the rank's layout, so the
+files do not depend on ``(dp, tp)``.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ class CheckpointManager:
     def save(self, state: TrainState) -> bool:
         """Save the state at its step now; re-offering a saved step is a
         no-op. Keeps the newest ``max_to_keep`` steps."""
-        if state.zero is not None:
+        if state.sharded:
             # the whole state is a gather every rank joins: decide first
             if not multihost.broadcast_object(self.writer and state.step not in self.all_steps()):
                 return False
@@ -233,21 +235,26 @@ class CheckpointManager:
         """Offer the eval view of ``state`` (EMA parameters when tracked) with
         its eval ``metrics``; it stays only if it ranks in the top
         ``save_best`` on the best metric. Returns whether it was kept."""
-        if state.zero is not None:
-            # the eval view gathers the EMA: every rank enters it
+        if state.sharded:
+            # the eval view's whole state dict is a gather every rank joins:
+            # decide first
+            if not multihost.broadcast_object(self.writer and state.step not in self.best_steps()):
+                return multihost.broadcast_object(False)
             with state.eval_params() as model:
-                kept = self._export_best(state, metrics, model) if self.writer else False
+                # copies: the live parameters return to the model on exit
+                model_sd = {k: v.detach().clone() for k, v in state.model_state_dict(model).items()}
+            kept = self._export_best(state, metrics, model_sd) if self.writer else False
             return multihost.broadcast_object(kept)
         return multihost.broadcast_object(self._export_best(state, metrics) if self.writer else False)
 
-    def _export_best(self, state: TrainState, metrics: Dict[str, float], model=None) -> bool:
-        """Write the eval view (``model`` when the caller entered it) as a
-        best export if it ranks."""
+    def _export_best(self, state: TrainState, metrics: Dict[str, float], model_sd=None) -> bool:
+        """Write the eval view (``model_sd``, its whole state dict, when the
+        caller gathered it) as a best export if it ranks."""
         kept = self.best_steps()
         if state.step in kept:
             return False
-        with state.eval_params() if model is None else contextlib.nullcontext(model) as model:
-            payload = {"step": state.step, "model": model.state_dict()}
+        with contextlib.nullcontext() if model_sd is not None else state.eval_params() as model:
+            payload = {"step": state.step, "model": model_sd if model_sd is not None else model.state_dict()}
             _write_step(self._best_dir, state.step, payload, {k: float(v) for k, v in metrics.items()})
         kept[state.step] = float(metrics[self.best_metric])
         sign = 1.0 if self.greater_is_better else -1.0

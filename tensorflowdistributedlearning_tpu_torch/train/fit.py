@@ -23,7 +23,12 @@ the BN running statistics' mean where the model has BatchNorm, the metric
 sums; under ``weight_update_sharding`` the update is ZeRO-1's,
 ``parallel/zero.py``: each rank updates its slices of the optimizer state
 and the EMA and all-gathers the parameters), and rank 0 alone writes.
-Serving restores refuse to run under more than one rank.
+Serving restores refuse to run under more than one rank. Under
+``model_parallel = tp`` > 1 the ResNet classifiers train tensor-parallel
+on a ``(world / tp, tp)`` grid (``parallel/tensor.py``): the ranks of a
+model group hold the channel slices of one replica and share its data
+slot, and the step is JAX's ``make_train_step_gspmd``, whose BatchNorm
+statistics span the global batch (``tensor.make_train_step_gspmd``).
 
 Input, in the JAX package's order of preference (``data_dir`` may hold any
 of them; a stream is this rank's share):
@@ -53,8 +58,9 @@ alerts, cadence profiles), TensorBoard scalars in ``train/`` and ``eval/``
 (rank 0), dispatch-ahead with deferred window fetches
 (``train/async_loop.py``), and a health abort that writes the final
 checkpoint before it re-raises. Left out, each a ROADMAP item: fault
-injection and preemption (A 14), and tensor, pipeline, expert and sequence
-parallelism (A 12.2 on, refused by ``require_supported_training``).
+injection and preemption (A 14), pipeline, expert and sequence
+parallelism and tensor parallelism of the ViT and Xception-41 (A 12.2 on,
+refused by ``require_supported_training``).
 """
 
 from __future__ import annotations
@@ -83,7 +89,8 @@ from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
 from tensorflowdistributedlearning_tpu_torch.data import synthetic as synthetic_lib
 from tensorflowdistributedlearning_tpu_torch.obs import health as health_lib
 from tensorflowdistributedlearning_tpu_torch.obs import telemetry as obs_lib
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
+from tensorflowdistributedlearning_tpu_torch.parallel import tensor as tensor_lib
 from tensorflowdistributedlearning_tpu_torch.train import async_loop
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
@@ -144,7 +151,9 @@ class ClassifierTrainer:
         require_supported_training(model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
         multihost.require_world_size(self.train_config.n_devices)
+        mesh.init_mesh(self.train_config.model_parallel)
         self.data_parallel = collectives.is_initialized()
+        self.tensor_parallel = self.train_config.model_parallel > 1
         self.device = resolve_device(device)
         self.task = step_lib.ClassificationTask(label_smoothing=self.train_config.label_smoothing)
         self._n_params: Optional[int] = None
@@ -221,7 +230,7 @@ class ClassifierTrainer:
         ds.paths = records_lib.host_shard_paths(ds.paths)
         if not ds.paths:
             raise ValueError(
-                f"{split} has {n_shards} record shard(s) for {multihost.process_count()} processes — every process "
+                f"{split} has {n_shards} record shard(s) for {multihost.data_slot()[1]} processes — every process "
                 "needs at least one; re-shard the dataset (write_classification_shards(shards>=process_count))"
             )
         return ds
@@ -250,7 +259,7 @@ class ClassifierTrainer:
         local_bs = multihost.per_process_batch_size(batch_size)
         # the streams without an index key fold the resume point into their
         # seed, so a resumed run does not replay the first batches
-        seed = tcfg.seed + multihost.process_index() + 7919 * start_step
+        seed = tcfg.seed + multihost.data_slot()[0] + 7919 * start_step
         use_service = tcfg.data_service_workers > 0
         records_ds = self._open_records("train", host_shard=not use_service)
         if records_ds is not None:
@@ -280,7 +289,7 @@ class ClassifierTrainer:
             # geometry runs on the device (_prepare_train): the host decodes and normalises
             return imagefolder.train_batches(train_split.host_shard(), local_bs, seed=seed, steps=steps,
                                              augment=False), None
-        return self._synthetic(local_bs, tcfg.seed + multihost.process_index(), steps, start_index=start_step,
+        return self._synthetic(local_bs, tcfg.seed + multihost.data_slot()[0], steps, start_index=start_step,
                                index_keyed=True), None
 
     def _prepare_train(self, step: int, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -289,7 +298,7 @@ class ClassifierTrainer:
         policy = self.train_config.augmentation
         if policy == "none":
             return batch
-        seed = augment_seed(self.train_config.seed, 0, step, multihost.process_index())
+        seed = augment_seed(self.train_config.seed, 0, step, multihost.data_slot()[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return augment_lib.prepare_classification_batch(gen, batch, policy)
 
@@ -305,7 +314,7 @@ class ClassifierTrainer:
         return self._counted(template_train_state(self.model_config, self.train_config, self.device))
 
     def _counted(self, state: TrainState) -> TrainState:
-        self._n_params = sum(p.numel() for p in state.model.parameters())
+        self._n_params = state.param_count()
         return state
 
     def _checkpointer(self) -> CheckpointManager:
@@ -384,10 +393,15 @@ class ClassifierTrainer:
         tcfg = self.train_config
         tel = self._telemetry
         local_bs = multihost.per_process_batch_size(batch_size)
-        train_step = step_lib.make_train_step(
-            self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
-            accum=tcfg.grad_accum_steps, seed=tcfg.seed,
-        )
+        if self.tensor_parallel:
+            train_step = tensor_lib.make_train_step_gspmd(
+                self.task, weight_decay=self.model_config.weight_decay, seed=tcfg.seed
+            )
+        else:
+            train_step = step_lib.make_train_step(
+                self.task, data_parallel=self.data_parallel, weight_decay=self.model_config.weight_decay,
+                accum=tcfg.grad_accum_steps, seed=tcfg.seed,
+            )
         batches = pipeline_lib.device_prefetch(
             stream, lambda b: pipeline_lib.to_device(b, self.device), depth=tcfg.prefetch_depth, registry=registry
         )
@@ -517,7 +531,10 @@ class ClassifierTrainer:
         by ``valid``) on the device under the ``eval`` span, at most
         ``dispatch_ahead_steps`` (at least 1) batches in flight; one
         device-to-host copy per pass, then the ``eval`` event."""
-        eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
+        if self.tensor_parallel:
+            eval_step = tensor_lib.make_eval_step_gspmd(self.task)
+        else:
+            eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
         tel = self._telemetry
         t0 = time.perf_counter()
         with tel.span(obs_lib.SPAN_EVAL):

@@ -21,6 +21,16 @@ whole state: a checkpoint does not depend on the layout, and restores into
 a replicated state or a ZeRO-1 one at any world size. Both, like
 :meth:`TrainState.eval_params` (which gathers the EMA) and
 :func:`replicate`, are collectives then: every rank calls them.
+
+Under ``TrainConfig.model_parallel`` (tensor parallelism,
+``parallel/tensor.py``) the state carries a
+:class:`tensor.TensorParallelLayout` (``tp``): the parameters, the BN
+running statistics, the slots and the EMA are this rank's channel slices
+(ZeRO-1 then slices the slots and the EMA over the data group), the
+update, the BN statistics' mean and the metrics reduce over the data
+group, and :meth:`TrainState.state_dict` gathers every slice over the
+model group: the checkpoint format stays the replicated one at any
+``(dp, tp)``.
 """
 
 from __future__ import annotations
@@ -34,7 +44,9 @@ import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
 from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost, zero as zero_lib
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
+from tensorflowdistributedlearning_tpu_torch.parallel import tensor as tensor_lib
+from tensorflowdistributedlearning_tpu_torch.parallel import zero as zero_lib
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -52,6 +64,34 @@ class TrainState:
     flat_grad: Optional[torch.Tensor] = None
     # the ZeRO-1 layout; None when the update is replicated
     zero: Optional[zero_lib.ZeroLayout] = None
+    # the tensor-parallel layout; None without tensor parallelism
+    tp: Optional[tensor_lib.TensorParallelLayout] = None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any part of the state is a slice (ZeRO-1 or tensor
+        parallelism): its whole form is then a collective."""
+        return self.zero is not None or self.tp is not None
+
+    def param_count(self) -> int:
+        """The whole model's parameter count (the slices' wholes under
+        tensor parallelism)."""
+        if self.tp is None:
+            return sum(p.numel() for p in self.model.parameters())
+        return sum(self.tp.whole_numel(n, p) for n, p in self.model.named_parameters())
+
+    def model_state_dict(self, model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+        """The whole ``state_dict`` of ``model`` (default: the state's; an
+        eval view of it), gathered over the model group under tensor
+        parallelism (a collective then)."""
+        sd = (self.model if model is None else model).state_dict()
+        return sd if self.tp is None else self.tp.whole_state_dict(sd)
+
+    def optimizer_names(self):
+        """The parameter names of the optimizer's leaves, in its index order."""
+        if self.zero is not None:
+            return self.zero.names_in_order(self.optimizer)
+        return tensor_lib.optimizer_names(self.model, self.optimizer)
 
     def flatten_grads(self) -> torch.Tensor:
         """The flat gradient buffer, allocated on the first call."""
@@ -80,7 +120,8 @@ class TrainState:
             return
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         if self.grad_clip_norm:
-            clip_by_global_norm(params, self.grad_clip_norm)
+            clip_by_global_norm(params, self.grad_clip_norm, tensor_lib.sharded_param_ids(self),
+                                self.tp.group if self.tp is not None else None)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -96,7 +137,8 @@ class TrainState:
     def eval_params(self):
         """The eval/export view: the EMA parameters swapped in for the
         duration when an EMA is tracked, the live ones otherwise. Under
-        ZeRO-1 the EMA's slices are gathered whole first (every rank)."""
+        ZeRO-1 the EMA's slices are gathered whole first (every rank);
+        under tensor parallelism the view holds this rank's slices."""
         if self.ema is None:
             yield self.model
             return
@@ -118,13 +160,20 @@ class TrainState:
 
     def state_dict(self) -> Dict:
         """The whole state in the replicated format (under ZeRO-1 the slots
-        and the EMA gathered, a collective)."""
+        and the EMA gathered over the data group, under tensor parallelism
+        every slice over the model group: a collective)."""
         optimizer, ema = self.optimizer.state_dict(), self.ema
+        names = self.optimizer_names()
         if self.zero is not None:
             optimizer, ema = zero_lib.whole_state(self.zero, self.optimizer, self.ema)
+        if self.tp is not None:
+            optimizer = tensor_lib.whole_optimizer_state(self.tp, names, optimizer)
+            if ema is not None:
+                ema_names = sorted(ema)
+                ema = dict(zip(ema_names, self.tp.gather([(n, ema[n]) for n in ema_names])))
         out = {
             "step": self.step,
-            "model": self.model.state_dict(),
+            "model": self.model_state_dict(),
             "optimizer_type": type(self.optimizer).__name__,
             "optimizer": optimizer,
         }
@@ -138,21 +187,27 @@ class TrainState:
             raise KeyError(
                 f"the checkpoint holds {state.get('optimizer_type')} state, the run uses {type(self.optimizer).__name__}"
             )
-        self.model.load_state_dict(state["model"], strict=True)
         if (self.ema is None) != ("ema" not in state):
             raise KeyError("checkpoint and state disagree on whether a parameter EMA is tracked")
         if self.ema is not None:
             missing = set(self.ema) ^ set(state["ema"])
             if missing:
                 raise KeyError(f"EMA entries differ: {sorted(missing)[:5]}")
+        model_sd, optimizer, ema = state["model"], state["optimizer"], state.get("ema")
+        if self.tp is not None:
+            model_sd = self.tp.slice_state_dict(model_sd)
+            optimizer = tensor_lib.slice_optimizer_state(self.tp, self.optimizer_names(), optimizer)
+            if ema is not None:
+                ema = {n: self.tp.slice(n, e) for n, e in ema.items()}
+        self.model.load_state_dict(model_sd, strict=True)
         if self.zero is not None:
-            zero_lib.load_whole_state(self, state["optimizer"], state.get("ema"))
+            zero_lib.load_whole_state(self, optimizer, ema)
         else:
-            self.optimizer.load_state_dict(state["optimizer"])
+            self.optimizer.load_state_dict(optimizer)
             if self.ema is not None:
                 with torch.no_grad():
                     for name, e in self.ema.items():
-                        e.copy_(state["ema"][name])
+                        e.copy_(ema[name])
         self.step = int(state["step"])
 
 
@@ -201,7 +256,10 @@ def template_train_state(model_config: ModelConfig, train_config: TrainConfig, d
 
 def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainState:
     """``model`` in training mode with the configured optimizer, schedule,
-    clip and EMA (a copy of its parameters) at update count ``step``."""
+    clip and EMA (a copy of its parameters) at update count ``step``; cut
+    to this rank's slices under ``model_parallel`` > 1 (the process's mesh,
+    ``parallel/mesh.py``) and under ZeRO-1 over more than one data
+    position."""
     from tensorflowdistributedlearning_tpu_torch.train.step import make_lr_schedule, make_optimizer
 
     model.train()
@@ -217,7 +275,10 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
         ema_decay=train_config.ema_decay,
         ema=ema,
     )
-    if train_config.weight_update_sharding and collectives.world_size() > 1:
+    if train_config.model_parallel > 1:
+        mesh.init_mesh(train_config.model_parallel)
+        tensor_lib.shard_state_tensor_parallel(state, train_config)
+    if train_config.weight_update_sharding and mesh.data_parallel_degree() > 1:
         zero_lib.shard_state(state, train_config)
     return state
 
@@ -225,12 +286,12 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
 def replicate(state: TrainState) -> TrainState:
     """Copy rank 0's state to every rank, in place (returned): parameters,
     BN running statistics, optimizer state, EMA and update count. A no-op
-    without a process group. Under ZeRO-1 rank 0's whole state (its
-    :meth:`TrainState.state_dict`) is broadcast and every rank takes its
-    slices of it."""
+    without a process group. Under ZeRO-1 or tensor parallelism rank 0's
+    whole state (its :meth:`TrainState.state_dict`, gathered first) is
+    broadcast and every rank takes its slices of it."""
     if not collectives.is_initialized():
         return state
-    if state.zero is not None:
+    if state.sharded:
         whole = state.state_dict()
         tensors = list(whole["model"].values())
         for i in sorted(whole["optimizer"]["state"], key=int):
@@ -258,6 +319,6 @@ def batch_stat_buffers(model: nn.Module):
 
 
 def pmean_batch_stats(model: nn.Module) -> None:
-    """Average the BN running statistics over every rank, in place (one
+    """Average the BN running statistics over the data group, in place (one
     collective), as the JAX step ``pmean``s its new ``batch_stats``."""
-    collectives.pmean_(batch_stat_buffers(model))
+    collectives.pmean_(batch_stat_buffers(model), mesh.data_group())

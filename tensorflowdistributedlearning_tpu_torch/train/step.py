@@ -6,7 +6,10 @@ eager PyTorch on one device that updates the :class:`TrainState` in place
 and returns its metric contributions as device-resident ``Mean`` states, so
 the loop never waits on the device until it reads them. In a data-parallel
 run each rank runs the step on its shard, with the JAX step's collectives
-made explicit (``make_train_step(data_parallel=True)``).
+made explicit (``make_train_step(data_parallel=True)``) over the data group
+of ``parallel/mesh.py``; under tensor parallelism (``parallel/tensor.py``)
+the ranks of a model group run the step on the same rows, their layers'
+collectives inside the forward and backward.
 
 Semantics kept from the JAX package:
 
@@ -42,11 +45,12 @@ import torch
 import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
-from tensorflowdistributedlearning_tpu_torch.models.layers import dropout_key
+from tensorflowdistributedlearning_tpu_torch.models.layers import dropout_key, synced_batch_norm
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
 from tensorflowdistributedlearning_tpu_torch.ops import metrics as metrics_lib
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
+from tensorflowdistributedlearning_tpu_torch.parallel import tensor as tensor_lib
 from tensorflowdistributedlearning_tpu_torch.train.state import pmean_batch_stats
 
 Metrics = Dict[str, metrics_lib.Mean]
@@ -213,28 +217,39 @@ class Lars(torch.optim.Optimizer):
 
     def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay, masked=True))
-        # ids of the leaves that are one rank's slice of a parameter
-        # (ZeRO-1, ``parallel/zero.py``): their norms sum over the ranks
+        # ids of the leaves that are one rank's slice of a parameter: over
+        # the data group (ZeRO-1, ``parallel/zero.py``) and over the model
+        # group (tensor parallelism); their norms sum over those ranks
         self.sharded: set = set()
+        self.model_sharded: set = set()
+        self.data_group = None
+        self.model_group = None
 
     def _sharded_norms(self) -> Dict[int, tuple]:
         """``{id(leaf): (|p|, |u|)}`` of the masked sliced leaves, the norms
         of the whole parameter and update: each slice's squared sums, one
-        all-reduce over the ranks, the square root."""
-        todo = []
+        all-reduce over the ranks that hold the leaf's slices (the data
+        group, the model group, or every rank for a leaf sliced both
+        ways), the square root."""
+        todo: Dict[str, list] = {"data": [], "model": [], "both": []}
         for group in self.param_groups:
             if not group["masked"]:
                 continue
             for p in group["params"]:
-                if id(p) in self.sharded and p.grad is not None:
+                kind = {(True, False): "data", (False, True): "model", (True, True): "both"}.get(
+                    (id(p) in self.sharded, id(p) in self.model_sharded))
+                if kind is not None and p.grad is not None:
                     u = p.grad + group["weight_decay"] * p if group["weight_decay"] else p.grad
-                    todo.append((p, torch.sum(p * p), torch.sum(u * u)))
-        if not todo:
-            return {}
-        sums = torch.stack([s for _, ps, us in todo for s in (ps, us)])
-        collectives.psum_(sums)
-        norms = torch.sqrt(sums)
-        return {id(p): (norms[2 * i], norms[2 * i + 1]) for i, (p, _, _) in enumerate(todo)}
+                    todo[kind].append((p, torch.sum(p * p), torch.sum(u * u)))
+        out = {}
+        for kind, over in (("data", self.data_group), ("model", self.model_group), ("both", None)):
+            if not todo[kind]:
+                continue
+            sums = torch.stack([s for _, ps, us in todo[kind] for s in (ps, us)])
+            collectives.psum_(sums, over)
+            norms = torch.sqrt(sums)
+            out.update({id(p): (norms[2 * i], norms[2 * i + 1]) for i, (p, _, _) in enumerate(todo[kind])})
+        return out
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -347,13 +362,23 @@ def optimizer_slot_bytes(optimizer: torch.optim.Optimizer) -> int:
     return total
 
 
-def clip_by_global_norm(params, max_norm: float) -> None:
+def clip_by_global_norm(params, max_norm: float, sharded: frozenset = frozenset(), group=None) -> None:
     """``optax.clip_by_global_norm`` in place: gradients unchanged when their
-    global l2 norm is below ``max_norm``, else ``g / norm * max_norm``."""
+    global l2 norm is below ``max_norm``, else ``g / norm * max_norm``.
+    ``sharded`` holds the ids of the parameters that are this rank's slice
+    of a leaf split over ``group`` (tensor parallelism): their squared sums
+    are summed over the group once, each whole leaf's counted once."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    if sharded:
+        whole = [p.grad for p in params if p.grad is not None and id(p) not in sharded]
+        sliced = torch.stack([torch.sum(p.grad.float() * p.grad.float()) for p in params
+                              if p.grad is not None and id(p) in sharded]).sum()
+        collectives.psum_(sliced, group)
+        norm = torch.sqrt(sum((torch.sum(g.float() * g.float()) for g in whole), sliced))
+    else:
+        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -422,7 +447,10 @@ def forward_backward(
 
 def psum_metrics(metrics: Metrics) -> Metrics:
     """Total the metric states over every rank, in place (one collective;
-    the JAX step's ``_psum_metrics``)."""
+    the JAX step's ``_psum_metrics``). Under tensor parallelism the ranks of
+    a model group hold states of the same rows, so every total and count is
+    ``tp`` times the data group's and the means are the same: summed over
+    every rank, they are one on every rank."""
     collectives.psum_([t for m in metrics.values() for t in (m.total, m.count)])
     return metrics
 
@@ -444,19 +472,20 @@ def split_batch(batch: Dict[str, torch.Tensor], accum: int):
     ]
 
 
-def dropout_seed(seed: int, step: int, rank: int, chunk: int) -> int:
+def dropout_seed(seed: int, step: int, index: int, chunk: int) -> int:
     """The dropout stream's seed for one forward: a pure function of
-    (``TrainConfig.seed``, the update count, the rank, the accumulation
-    chunk), the four things the JAX step folds into its ``dropout`` key
-    (``fold_in(fold_in(fold_in(key(seed), step), batch index), chunk)``).
-    A resumed run draws what the uninterrupted one drew; ranks draw their
-    own masks for their own rows."""
-    return int(np.random.SeedSequence([seed, step, rank, chunk]).generate_state(1, np.uint64)[0] >> 1)
+    (``TrainConfig.seed``, the update count, the data index, the
+    accumulation chunk), the four things the JAX step folds into its
+    ``dropout`` key (``fold_in(fold_in(fold_in(key(seed), step), batch
+    index), chunk)``). A resumed run draws what the uninterrupted one drew;
+    data positions draw their own masks for their own rows, and the ranks
+    of one model group the same ones."""
+    return int(np.random.SeedSequence([seed, step, index, chunk]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def make_train_step(
     task, *, data_parallel: bool = False, weight_decay: float = 0.0, apply_weight_decay: bool = False,
-    accum: int = 1, seed: int = 0,
+    accum: int = 1, seed: int = 0, global_batch_norm: bool = False,
 ):
     """``step(state, batch) -> (state, metrics)``: forward and backward in
     training mode, one optimizer update, metric contributions computed from
@@ -479,13 +508,23 @@ def make_train_step(
     statistics are averaged after the update and the metric states summed.
     Without a group every reduction is the identity. A state under ZeRO-1
     (``state.zero``, ``parallel/zero.py``) takes its update sharded, on
-    the same averaged gradient."""
+    the same averaged gradient.
+
+    The gradient and the BN running statistics reduce over the data group
+    (``parallel/mesh.py``): under tensor parallelism each rank's are its
+    channel slice's, and the whole leaves' are averaged over the model
+    group too (``tensor.pmean_replicated``). ``global_batch_norm``
+    (``fit``'s tensor-parallel step, ``tensor.make_train_step_gspmd``)
+    takes the BN statistics of every forward over the global batch, the
+    data group's mean of the moments, so the running statistics need no
+    mean after the update."""
 
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
 
     def chunk_step(state, chunk: Dict[str, torch.Tensor], index: int) -> Metrics:
-        with dropout_key(dropout_seed(seed, state.step, collectives.rank(), index)):
+        with dropout_key(dropout_seed(seed, state.step, mesh.data_index(), index)), \
+                synced_batch_norm(state.model, global_batch_norm):
             loss, logits = forward_backward(
                 state, task, chunk, weight_decay=weight_decay, apply_weight_decay=apply_weight_decay
             )
@@ -506,10 +545,12 @@ def make_train_step(
                 total.add_(state.flat_grad / accum)
             state.flat_grad.copy_(total)
         if data_parallel:
-            collectives.pmean_(state.flat_grad)
+            collectives.pmean_(state.flat_grad, mesh.data_group())
+        tensor_lib.pmean_replicated(state)
         state.apply_gradients()
         if data_parallel:
-            pmean_batch_stats(state.model)
+            if not global_batch_norm:
+                pmean_batch_stats(state.model)
             psum_metrics(metrics)
         return state, metrics
 
@@ -519,7 +560,8 @@ def make_train_step(
 def make_eval_step(task, *, data_parallel: bool = False):
     """``step(model, batch) -> metrics``: inference-mode forward (BN on its
     running statistics) and per-example losses, weighted by ``batch['valid']``
-    when present; ``data_parallel`` sums the metric states over the ranks."""
+    when present; ``data_parallel`` sums the metric states over the
+    ranks."""
 
     def step(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Metrics:
         model.eval()

@@ -30,6 +30,13 @@ rank holds the global metrics and takes the same export decision. Rank 0
 alone writes files and logs; prediction and serving refuse to run
 multi-process, as in the JAX package.
 
+Tensor-parallel under ``model_parallel = tp`` > 1 (``parallel/tensor.py``;
+JAX's ``make_train_step(auto_model=True)``): the ranks form a ``(world /
+tp, tp)`` grid (``parallel/mesh.py``); the ranks of one model group hold
+the channel slices of one replica and share its data slot (ids, rows,
+augmentation and dropout draws by data index), the step reduces over the
+data group with per-tower BatchNorm, and checkpoints and exports are whole.
+
 The fold's train batches: with ``TrainConfig.data_service_workers`` > 0
 (the default, 2) the streaming data service over the fold's arrays
 (``data/service.py``, ``ArrayBatchSource``, seed ``seed + fold``): batch i
@@ -78,7 +85,7 @@ from tensorflowdistributedlearning_tpu_torch.data import service as service_lib
 from tensorflowdistributedlearning_tpu_torch.obs import health as health_lib
 from tensorflowdistributedlearning_tpu_torch.obs import telemetry as obs_lib
 from tensorflowdistributedlearning_tpu_torch.obs.profiler import ContinuousProfiler
-from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
 from tensorflowdistributedlearning_tpu_torch.train import async_loop
 from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
@@ -99,10 +106,10 @@ _MODEL_FIELDS = {f.name for f in dataclasses.fields(ModelConfig)}
 def augment_seed(seed: int, fold: int, step: int, rank: int = 0) -> int:
     """The augmentation generator's seed for one train step: a pure function
     of (seed + fold, step), so a resumed fold draws what the uninterrupted
-    run drew at the same step. A rank > 0 folds its rank in, so the shards
-    of one global batch draw different augmentations (the JAX package draws
-    the whole global batch from one key); rank 0 draws what one process
-    draws."""
+    run drew at the same step. A data index (``rank``) > 0 folds itself in,
+    so the shards of one global batch draw different augmentations (the JAX
+    package draws the whole global batch from one key) and the ranks of a
+    model group the same ones; data index 0 draws what one process draws."""
     entropy = [seed + fold, step] + ([rank] if rank else [])
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
@@ -139,6 +146,7 @@ def setup_step_telemetry(tel, trainer, state: TrainState, batch_size: int, every
     if not tel.enabled:
         return
     world = multihost.process_count()
+    # this rank's parameters: its slices under tensor parallelism
     params_bytes = tensor_bytes(state.model.parameters())
     tel.set_step_flops(
         6.0 * float(trainer.params) * float(batch_size), n_devices=world,
@@ -150,10 +158,12 @@ def setup_step_telemetry(tel, trainer, state: TrainState, batch_size: int, every
 
 def run_info(task: str, steps: int, batch_size: int, model_config: ModelConfig, train_config: TrainConfig,
              **extra) -> Dict:
-    """The run header's JAX keys (no ``plan``: the planner is queue A 12)."""
+    """The run header's JAX keys (no ``plan``: the planner is queue A 12);
+    the mesh names the model axis under tensor parallelism."""
+    lay = mesh.layout()
     return {
         "task": task, "steps": steps, "global_batch": batch_size, **extra,
-        "mesh": {"data": multihost.process_count()},
+        "mesh": {"data": lay.dp, **({"model": lay.tp} if lay.tp > 1 else {})},
         "model_config": dataclasses.asdict(model_config),
         "train_config": dataclasses.asdict(train_config),
     }
@@ -190,7 +200,8 @@ class Trainer:
     ``device`` is CUDA (the rank's GPU under a process group) unless the
     caller asks for the CPU. ``n_devices`` is the world size: None takes the
     process group the launcher set up (one process without one), any other
-    value must equal it."""
+    value must equal it. ``TrainConfig.model_parallel`` lays the world out
+    as ``(world / tp, tp)``."""
 
     def __init__(
         self,
@@ -221,6 +232,7 @@ class Trainer:
         require_supported_training(self.model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
         multihost.require_world_size(self.train_config.n_devices)
+        mesh.init_mesh(self.train_config.model_parallel)
         self.data_parallel = collectives.is_initialized()
         self.device = resolve_device(device)
         self.task = step_lib.SegmentationTask()
@@ -249,7 +261,7 @@ class Trainer:
         return self._counted(template_train_state(self.model_config, self.train_config, self.device))
 
     def _counted(self, state: TrainState) -> TrainState:
-        self._n_params = sum(p.numel() for p in state.model.parameters())
+        self._n_params = state.param_count()
         return state
 
     def _require_single_process(self) -> None:
@@ -350,7 +362,7 @@ class Trainer:
                 # sidecar records it, so a resume under another world size
                 # re-deals explicitly
                 service_lib.ArrayBatchSource(
-                    {"images": train_ds.images, "masks": train_ds.masks}, process_count=multihost.process_count()
+                    {"images": train_ds.images, "masks": train_ds.masks}, process_count=multihost.data_slot()[1]
                 ),
                 batch_size=local_bs, seed=tcfg.seed + fold, workers=tcfg.data_service_workers,
                 start_batch=start_step, registry=registry,
@@ -487,7 +499,7 @@ class Trainer:
         """On-device augmentation + Laplacian channel: {'images', 'masks'} ->
         {'images', 'labels'}, drawn from the step's (and rank's) own
         generator."""
-        seed = augment_seed(self.train_config.seed, fold, step, multihost.process_index())
+        seed = augment_seed(self.train_config.seed, fold, step, multihost.data_slot()[0])
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return augment_lib.augment_batch(gen, raw["images"], raw["masks"], self.augment_config)
 

@@ -20,7 +20,9 @@ unfilled, or a shape that disagrees raises. :func:`from_flax_train_state`
 carries a whole JAX ``TrainState`` across (params, batch_stats and the
 step), and :func:`load_optax_state` its optax Adam moments or SGD / LARS
 momentum trace and parameter EMA, so both packages can train on from one
-state, mid-trajectory too. Inputs are nested dicts of numpy
+state, mid-trajectory too; :func:`from_flax_tensor_parallel` cuts such a
+state, placed by the JAX package for tensor parallelism, to one rank's
+channel slices. Inputs are nested dicts of numpy
 arrays or flat ``"a/b/c"``-keyed mappings (what :func:`load_flax_npz` reads
 from an ``.npz`` that holds ``flatten_dict({"params": ..., "batch_stats":
 ...}, sep="/")``).
@@ -263,3 +265,18 @@ def load_optax_state(state, opt_state, config: ModelConfig) -> None:
         with torch.no_grad():
             for name, e in state.ema.items():
                 e.copy_(share(name, ema[name]))
+
+
+def from_flax_tensor_parallel(train_state, config: ModelConfig, tp: int, model_index: int) -> Tuple[
+        Dict[str, torch.Tensor], int]:
+    """``(state_dict, step)`` of model index ``model_index`` of ``tp``: a
+    JAX ``TrainState`` placed for tensor parallelism (its leaves global
+    arrays, which ``np.asarray`` reads whole, or host arrays) carried
+    across (:func:`from_flax_train_state`) and cut to that rank's channel
+    slices (``parallel/tensor.py``), the elements of JAX's shard on each
+    device of that model index."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import tensor as tensor_lib
+
+    state_dict, step = from_flax_train_state(train_state, config)
+    layout = tensor_lib.TensorParallelLayout(tensor_lib.tensor_parallel_specs(_template(config), tp), tp, model_index)
+    return {k: v.clone() for k, v in layout.slice_state_dict(state_dict).items()}, step

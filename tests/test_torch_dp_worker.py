@@ -37,6 +37,19 @@ shards; then ``ClassifierTrainer.fit`` of a narrow Xception-41 classifier
 under ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted, with the dropout
 masks each forward drew (``tests/test_torch_zero1.py``).
 
+``tp``: tensor parallelism (``parallel/tensor.py``) at ``model_parallel``
+2 over the W ranks (``(1, 2)`` at W = 2, ``(2, 2)`` at W = 4): the sliced
+segmenter's forward, the ``Trainer`` step and ``fit``'s step
+(``tensor.make_train_step_gspmd``, with and without ZeRO-1) from
+``DIR/tp_init.pt`` on this rank's rows of ``DIR/tp_batches.npz`` (the
+whole gradient and state after one plain-SGD step at lr 1, so the update
+is the gradient), two Adam steps with and without ZeRO-1, a checkpoint in
+``DIR/tp-ckpt`` and, when ``DIR/tp-whole`` holds a replicated checkpoint,
+that checkpoint restored into this rank's slices; ``Trainer.train`` over
+``DIR/data``; and ``ClassifierTrainer.fit`` of the tiny ResNet classifier
+under ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted
+(``tests/test_torch_tensor_parallel.py``).
+
 ``trainer``: ``Trainer.train`` of the tiny model over the dataset in
 ``DIR/data``, its no-op re-run, and what must raise under the group. Every
 directory made, file opened for writing, renamed or removed under the model
@@ -226,9 +239,9 @@ def _accum_mode(rank: int, world: int, directory: str):
     calls = []
     real = collectives.pmean_
 
-    def counted(tensors):
+    def counted(tensors, *args, **kwargs):
         calls.append(1)
-        return real(tensors)
+        return real(tensors, *args, **kwargs)
 
     collectives.pmean_ = counted
     try:
@@ -378,6 +391,110 @@ def _zero_mode(rank: int, world: int, directory: str):
     return out
 
 
+TP = 2
+TP_CLS = dict(n_blocks=(1, 1, 1, 1), block_layout="classic", block_type="basic_block", stem_space_to_depth=True,
+              width_multiplier=0.125, num_classes=10, input_shape=(32, 32), input_channels=3, output_stride=None)
+# one plain SGD step at lr 1: the update is minus the gradient
+TP_SGD = dict(optimizer="sgd", lr=1.0, sgd_momentum=0.0, lr_decay_steps=10_000)
+TP_ADAM = dict(optimizer="adam", lr=1e-2, weight_decay=1e-4, ema_decay=0.9, grad_clip_norm=1.0)
+TP_FIT = dict(optimizer="adam", lr=1e-3, ema_decay=0.9, grad_clip_norm=1.0, augmentation="none",
+              checkpoint_every_steps=2, seed=7, model_parallel=TP, weight_update_sharding=True)
+
+
+def _whole_grads(state):
+    """The step's gradient (after its data-group mean), whole."""
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = [p.grad.detach().clone() for _, p in state.model.named_parameters()]
+    if state.tp is not None:
+        grads = state.tp.gather(list(zip(names, grads)))
+    return dict(zip(names, grads))
+
+
+def _tp_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, tensor
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    lay = mesh.init_mesh(TP)
+    init = torch.load(os.path.join(directory, "tp_init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "tp_batches.npz"))
+    seg, cls = ModelConfig(**TINY), ModelConfig(**TP_CLS)
+    out = {"layout": (lay.dp, lay.tp, lay.data_index, lay.model_index)}
+
+    def state_of(cfg, kw, which):
+        return replicate(_state(cfg, dict(kw, model_parallel=TP), init[which]))
+
+    def rows(prefix):
+        r = mesh.shard_rows(len(data[f"{prefix}_labels"]))
+        return {"images": torch.from_numpy(data[f"{prefix}_images"][r]),
+                "labels": torch.from_numpy(data[f"{prefix}_labels"][r])}
+
+    # the sliced segmenter's forward on the whole batch, eval and train mode
+    state = state_of(seg, TP_SGD, "seg")
+    out["slices"] = {k: v.clone() for k, v in state.model.state_dict().items()}
+    images = torch.from_numpy(data["seg_images"])
+    with torch.no_grad():
+        out["logits_eval"] = state.model.eval()(images)
+        out["logits_train"] = state.model.train()(images)
+    out["stats_after_forward"] = state.model_state_dict()
+
+    # the Trainer's step (per-tower BN) and fit's (global-batch BN), one
+    # plain SGD step at lr 1 each; fit's also under ZeRO-1
+    for name, cfg, which, make, kw in (
+        ("trainer", seg, "seg", lambda: step_lib.make_train_step(_bce_task(), data_parallel=True), {}),
+        ("fit", cls, "cls", lambda: tensor.make_train_step_gspmd(step_lib.ClassificationTask()), {}),
+        ("fit_zero", cls, "cls", lambda: tensor.make_train_step_gspmd(step_lib.ClassificationTask()),
+         {"weight_update_sharding": True}),
+    ):
+        state = state_of(cfg, dict(TP_SGD, **kw), which)
+        state, metrics = make()(state, rows(which))
+        out[name] = {"loss": step_lib.compute_metrics(metrics)["loss"], "grads": _whole_grads(state),
+                     "state": state.model_state_dict()}
+
+    # Adam with clip and EMA: ZeRO-1 over the data group against the TP step
+    run = {}
+    for mode, kw in (("tp", {}), ("zero", {"weight_update_sharding": True})):
+        state = state_of(cls, dict(TP_ADAM, **kw), "cls")
+        train_step = tensor.make_train_step_gspmd(step_lib.ClassificationTask())
+        for _ in range(2):
+            state, metrics = train_step(state, rows("cls"))
+        run[mode] = state.state_dict()
+        run[f"{mode}_loss"] = step_lib.compute_metrics(metrics)["loss"]
+        if mode == "zero":
+            out["saved"] = CheckpointManager(os.path.join(directory, "tp-ckpt"), save_every_steps=1).save(state)
+            whole_dir = os.path.join(directory, "tp-whole")
+            if os.path.isdir(whole_dir):
+                restored = CheckpointManager(whole_dir).restore_latest(state_of(cls, dict(TP_ADAM, **kw), "cls"))
+                out["restored"] = {"whole": restored.state_dict(),
+                                   "slices": {k: v.clone() for k, v in restored.model.state_dict().items()}}
+    out["adam"] = run
+
+    # Trainer.train at model_parallel 2 over DIR/data
+    trainer = Trainer(os.path.join(directory, "tp-trainer"), os.path.join(directory, "data"),
+                      train_config=TrainConfig(n_folds=2, seed=0, checkpoint_every_steps=2, eval_throttle_secs=0,
+                                               save_best=2, model_parallel=TP, n_devices=world),
+                      device="cpu", input_shape=(32, 32), **{k: v for k, v in TINY.items() if k != "input_shape"})
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+
+    out["trainer_results"] = trainer.train(pipeline_lib.discover_ids(os.path.join(directory, "data")), batch_size=4,
+                                           steps=2)
+    out["trainer_params"] = trainer.params
+
+    # fit under TP and ZeRO-1: 2 + 2 steps resumed against 4
+    fit = {}
+    for name, stops in (("resumed", (2, 4)), ("straight", (4,))):
+        for stop in stops:
+            t = ClassifierTrainer(os.path.join(directory, f"tp-fit-{name}"), None, cls,
+                                  TrainConfig(**TP_FIT, n_devices=world), device="cpu")
+            fit[f"{name}_{stop}"] = t.fit(batch_size=8, steps=stop).final_metrics
+    out["fit_runs"] = fit
+    return out
+
+
 def _trainer_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
@@ -437,7 +554,7 @@ def main(argv) -> int:
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
     out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
-           "zero": _zero_mode}[mode](
+           "zero": _zero_mode, "tp": _tp_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

@@ -147,10 +147,14 @@ def test_augment_seed_is_a_function_of_fold_and_step():
 
 def test_trainer_rejects_what_the_slice_does_not_run(salt, tmp_path):
     data, _ = salt
-    for kw in (dict(model_parallel=2), dict(sequence_parallel=2),
-               dict(pipeline_parallel=2, pipeline_microbatches=2), dict(expert_parallel=2)):
+    for kw in (dict(sequence_parallel=2), dict(pipeline_parallel=2, pipeline_microbatches=2),
+               dict(expert_parallel=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP|queue"):
             _trainer(str(tmp_path), data, **kw)
+    # model_parallel, refused here until tensor parallelism was ported (queue
+    # A 12.2), is taken; one process cannot lay out two model positions
+    with pytest.raises(ValueError, match="not divisible by model_parallel"):
+        _trainer(str(tmp_path), data, model_parallel=2)
     # grad_accum_steps and lars, once refused here, are taken (queue A 4),
     # and ZeRO-1's weight_update_sharding (queue A 12.1)
     for kw in (dict(grad_accum_steps=2), dict(optimizer="lars"), dict(weight_update_sharding=True)):

@@ -92,9 +92,16 @@ def test_spec_rule_is_jax_at_tp_1(shape, dp):
 
 
 def test_spec_rule_refuses_tensor_parallel_and_keeps_dp_1_whole():
+    """dp 1 keeps a leaf whole at any tp; since the tensor-parallel rule
+    was ported, tp > 1 is JAX's composition (the batch axis beside the
+    model axis, or stacked onto it), no longer refused; the parity sweep
+    is ``tests/test_torch_tensor_parallel.py``."""
     assert zero.weight_update_spec_for_degrees((16, 8), dp=1) is None
-    with pytest.raises(NotImplementedError, match="A 12.2"):
-        zero.weight_update_spec_for_degrees((16, 8), dp=2, tp=2)
+    assert zero.weight_update_spec_for_degrees((16, 8), dp=1, tp=2) is None
+    assert jzero.weight_update_spec_for_degrees((16, 8), dp=2, tp=2) == P(jmesh.BATCH_AXIS, jmesh.MODEL_AXIS)
+    assert zero.weight_update_spec_for_degrees((16, 8), dp=2, tp=2) == 0
+    assert jzero.weight_update_spec_for_degrees((3, 8), dp=2, tp=2) == P(None, (jmesh.MODEL_AXIS, jmesh.BATCH_AXIS))
+    assert zero.weight_update_spec_for_degrees((3, 8), dp=2, tp=2) == 1
 
 
 def _fill(jm, shape, fill):
