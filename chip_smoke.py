@@ -314,6 +314,22 @@ Phases, each fatal on failure (exit 1, no result line):
              the byte; then four ranks as a (2, 2) grid take 2 steps with
              and without ZeRO-1, bit for bit, each rank's optimizer bytes
              the rule's.
+13. train-pp — pipeline parallelism (pipeline_parallel 2, 4 microbatches,
+             bubble (K-1)/(M+K-1) = 0.2) of vit_s16_imagenet and
+             xception41_imagenet at full width (bf16, 224x224x3) on two
+             gloo ranks sharing the card (``chip_smoke.py pp-rank ...``),
+             global batch 64 (dp = 1): per model 2 pipelined steps bit for
+             bit the one-rank schedule (``local_stages``) on both ranks
+             under deterministic algorithms, the plain one-rank step's
+             first-step gap reported (the ViT's loss held within one bf16
+             step), ms per step beside both one-rank steps, one step's
+             activation sends and receives, output broadcast and gradient
+             assembly timed with their bytes held to the shapes' count, the
+             ranks' states equal; then fit_preset 2 steps resumed to 4 on
+             both ranks with every attention (ViT) and eval BN (Xception)
+             launch counted per step and per eval forward and the first
+             calls held against the plain versions; the export served
+             through the plain model in this process.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -324,6 +340,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -466,6 +483,13 @@ TOL_VIT_BF16 = 2e-2
 VIT_BATCH = 64
 VIT_FIT_STEPS = 20
 VIT_FIT_EVERY = 10
+# timed HTTP requests per size in each ViT serving spec
+VIT_HTTP_REPS = 1
+# the fit-vit dispatch arms: steps per arm, the timed span and the window
+# (short, to keep the run's time for the train-pp phase)
+VIT_ARM_STEPS = 8
+VIT_ARM_TIMED = (2, 6)
+VIT_ARM_WINDOW = 4
 TRAIN_BATCH = 64
 TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
@@ -480,7 +504,7 @@ DP_STEPS = 5
 # timed steps of the data-parallel phases (the medians skip the first);
 # cut from 6 and 4 in PR 17 to pay for train-tp
 DP_TIMED_ALTERNATIONS = 4
-DP_TIMED_STEPS = 3
+DP_TIMED_STEPS = 2
 DP_RANKS = 2
 DP_TIMEOUT_S = 600
 TOL_DX = 1e-5
@@ -493,6 +517,9 @@ TOL_LOSS = 1e-5
 # versions within one bf16 step (float32 sums in another order, one
 # rounding); the BN arm bit for bit for its piecewise-linear activations
 TOL_BF16_STEPS = 1
+# steps on a resident batch timed by train-bf16 and fit-resnet50 (the median
+# skips the first two)
+RESIDENT_STEPS = 7
 BF16_ROWS = ("depthwise_conv2d_bf16", "depthwise_conv2d_dx_bf16", "depthwise_conv2d_dw_bf16", "fused_bn_act_bf16_act")
 BF16_PRESET = "tgs_salt_bf16"
 R50_PRESET = "resnet50_classic_imagenet"
@@ -524,7 +551,7 @@ FR_SHARDS = 16
 FR_HOLDOUT = 0.125
 FR_STOP = 10
 FR_WORKERS = (1, 2, 4)
-FR_SERVICE_BATCHES = 12
+FR_SERVICE_BATCHES = 8  # batches timed per worker count
 FR_FOLDER_CLASSES = 8
 FR_FOLDER_STEPS = 5
 PER_BF16_TRAIN_STEP = {**PER_TRAIN_STEP, "depthwise_conv2d_bf16": 3, "depthwise_conv2d_dx_bf16": 3,
@@ -942,6 +969,11 @@ def post(url: str, payload: dict, timeout: float = 300.0):
         return e.code, json.loads(e.read())
 
 
+# timed requests per bucket over HTTP (bucket 64 at its own count) and engine
+# forwards per bucket (few, to keep the run's time for the train-pp phase)
+HTTP_REPS, HTTP_REPS_64, ENGINE_REPS = 3, 1, 5
+
+
 def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
     from tensorflowdistributedlearning_tpu_torch.serve import (
@@ -985,7 +1017,7 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
             for b in engine.buckets:
                 x = make_instances(torch, b, SEED + 100 + b).tolist()
                 lat = []
-                for _ in range(3 if b == 64 else 5):
+                for _ in range(HTTP_REPS_64 if b == 64 else HTTP_REPS):
                     t0 = time.perf_counter()
                     status, _ = post(url, {"instances": x})
                     lat.append(time.perf_counter() - t0)
@@ -1003,7 +1035,7 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
             for b in engine.buckets:
                 x = make_instances(torch, b, SEED + 200 + b)
                 lat = []
-                for _ in range(7):
+                for _ in range(ENGINE_REPS):
                     t0 = time.perf_counter()
                     engine.infer(x)
                     lat.append(time.perf_counter() - t0)
@@ -1079,8 +1111,10 @@ def serve_phase(torch, model, cfg, card: str, device: str = "cuda"):
 
 OBS_REQUESTS = 20  # per SLO window: the tracker's min_requests
 OBS_CLIENTS = 8
-OBS_SEQUENTIAL_S = 2.0  # bucket-1 requests one at a time, seconds per arm
-OBS_LOOP_S = 4.0  # closed-loop clients, seconds per arm
+# bucket-1 requests one at a time, then closed-loop clients, seconds per arm
+# (short, to keep the run's time for the train-pp phase)
+OBS_SEQUENTIAL_S = 1.0
+OBS_LOOP_S = 2.5
 OBS_PROFILE_S = 3  # the /admin/profile capture under load
 
 
@@ -2389,7 +2423,7 @@ def serve_vit_spec(torch, model, cfg, spec, card, root, buckets, http_sizes, see
         for b in http_sizes:
             x = make_vit_instances(b, seed + b, shape)
             lat = []
-            for _ in range(2):
+            for _ in range(VIT_HTTP_REPS):
                 t0 = time.perf_counter()
                 status, body = post(server.url + "/v1/predict", {"instances": x.tolist()})
                 lat.append(time.perf_counter() - t0)
@@ -2879,7 +2913,8 @@ def fit_vit_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int =
             f"{per['flash_attention_tc']} tensor-core attention kernels")
         out["serve_max_dprobs"] = served
         if on_card:
-            out["arms"] = dispatch_arms(torch, card, cfg, tcfg, batch, steps, os.path.join(root, "arms"))
+            out["arms"] = dispatch_arms(torch, card, cfg, tcfg, batch, VIT_ARM_STEPS, os.path.join(root, "arms"),
+                                        timed=VIT_ARM_TIMED, log_every=VIT_ARM_WINDOW)
     return out
 
 
@@ -3497,7 +3532,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         state = create_train_state(cfg, tcfg, device, generator=torch.Generator().manual_seed(SEED))
         train_step = step_lib.make_train_step(step_lib.SegmentationTask())
         losses, times = [], []
-        for _ in range(10):
+        for _ in range(RESIDENT_STEPS):
             t0 = time.perf_counter()
             state, metrics = train_step(state, fixed)
             losses.append(step_lib.compute_metrics(metrics)["loss"])  # the host copy waits for the step
@@ -4494,7 +4529,7 @@ def train_bf16_phase(torch, card: str, timer, device: str = "cuda", model_kwargs
         state = create_train_state(cfg, tcfg, device, generator=torch.Generator().manual_seed(SEED + 32))
         train_step = step_lib.make_train_step(step_lib.SegmentationTask())
         losses, times = [], []
-        for _ in range(10):
+        for _ in range(RESIDENT_STEPS):
             t0 = time.perf_counter()
             state, metrics = train_step(state, fixed)
             losses.append(step_lib.compute_metrics(metrics)["loss"])
@@ -4502,7 +4537,7 @@ def train_bf16_phase(torch, card: str, timer, device: str = "cuda", model_kwargs
         check(all(np.isfinite(losses)), f"train-bf16: non-finite losses {losses}")
         ms = statistics.median(times[2:]) * 1e3
         out.update(step_ms=ms, images_per_s=batch / ms * 1e3, train_s=train_s)
-        log(f"train-bf16: {ms:.3f} ms per step (median of steps 3-10), {batch / ms * 1e3:.3f} images/s at batch "
+        log(f"train-bf16: {ms:.3f} ms per step (median of steps 3-{RESIDENT_STEPS}), {batch / ms * 1e3:.3f} images/s at batch "
             f"{batch}; losses {[round(v, 5) for v in losses]} [{card}]")
         if on_card:
             lines, stats = profile_steps(torch, train_step, state, fixed)
@@ -4849,7 +4884,7 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
     train_step = step_lib.make_train_step(step_lib.ClassificationTask(label_smoothing=preset.train.label_smoothing),
                                           weight_decay=cfg.weight_decay)
     times, losses = [], []
-    for _ in range(10):
+    for _ in range(RESIDENT_STEPS):
         t0 = time.perf_counter()
         state, metrics = train_step(state, fixed)
         losses.append(step_lib.compute_metrics(metrics)["loss"])
@@ -4857,7 +4892,7 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
     check(all(np.isfinite(losses)), f"fit-resnet50: non-finite losses {losses}")
     ms = statistics.median(times[2:]) * 1e3
     out.update(step_ms=ms, images_per_s=batch / ms * 1e3)
-    log(f"fit-resnet50: train step on a resident batch of {batch}: {ms:.3f} ms (median of steps 3-10), "
+    log(f"fit-resnet50: train step on a resident batch of {batch}: {ms:.3f} ms (median of steps 3-{RESIDENT_STEPS}), "
         f"{batch / ms * 1e3:.3f} images/s [{card}]")
     if on_card:
         lines, stats = profile_steps(torch, train_step, state, fixed)
@@ -5176,7 +5211,7 @@ def train_lars_phase(torch, card: str, device: str = "cuda", cfg=None, batch: in
 # gloo ranks that share the card, replicated and sharded, then its preset
 # through fit_preset with a resume
 ZERO_RANKS = 2
-ZERO_STEPS = 3  # timed steps per mode at global batch 64 (5 until PR 17)
+ZERO_STEPS = 2  # timed steps per mode at global batch 64
 ZERO_HELD_STEPS = 3  # lockstep steps under deterministic algorithms
 ZERO_FIT_STOP = 2
 ZERO_FIT_STEPS = 4
@@ -5509,7 +5544,7 @@ TP_IMAGES = 32
 TP_FOLDS = 2
 TP_TRAIN_STEPS = 2  # per fold
 TP_HELD_STEPS = 3
-TP_TIMED_STEPS = 2
+TP_TIMED_STEPS = 1
 TP_ZERO_STEPS = 2
 TP_TIMEOUT_S = 300
 
@@ -5926,9 +5961,10 @@ def tp_start(root: str, world: int, device: str, model_kwargs, size: int, batch:
     return procs, logs
 
 
-def tp_finish(root: str, world: int, procs, logs, deadline: float):
+def tp_finish(root: str, world: int, procs, logs, deadline: float, prefix: str = "tp"):
     """Wait for the ranks until ``deadline`` (``time.perf_counter``), kill
-    any still running, and return their outputs, rank by rank."""
+    any still running, and return their outputs
+    (``ROOT/{prefix}{world}-rank{rank}.json``), rank by rank."""
     try:
         for p in procs:
             try:
@@ -5944,10 +5980,10 @@ def tp_finish(root: str, world: int, procs, logs, deadline: float):
             f.close()
     outs = []
     for rank, p in enumerate(procs):
-        with open(os.path.join(root, f"tp{world}-rank{rank}.log")) as f:
+        with open(os.path.join(root, f"{prefix}{world}-rank{rank}.log")) as f:
             text = f.read()
-        check(p.returncode == 0, f"tp rank {rank} of {world} exited {p.returncode}:\n{text[-3000:]}")
-        with open(os.path.join(root, f"tp{world}-rank{rank}.json")) as f:
+        check(p.returncode == 0, f"{prefix} rank {rank} of {world} exited {p.returncode}:\n{text[-3000:]}")
+        with open(os.path.join(root, f"{prefix}{world}-rank{rank}.json")) as f:
             outs.append(json.load(f))
     return outs
 
@@ -6095,6 +6131,494 @@ def tp_rank_main(argv) -> int:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     with open(os.path.join(root, f"tp{world}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+# pipeline parallelism: vit_s16_imagenet and xception41_imagenet at full
+# width as 2-stage GPipe pipelines (4 microbatches) on two gloo ranks sharing
+# the card, global batch 64 (dp = 1)
+PP_STAGES = 2
+PP_MICROBATCHES = 4
+PP_BATCH = 64
+PP_HELD_STEPS = 2
+PP_TIMED_STEPS = 2
+PP_FIT_STOP = 2
+PP_FIT_STEPS = 4
+PP_HELD_CALLS = 4  # attention / BN calls of each rank's fit held against plain
+PP_TIMEOUT_S = 300
+PP_PRESETS = (VIT_PRESET, "xception41_imagenet")  # X41_PRESET, defined with the Xception phases
+
+
+@contextlib.contextmanager
+def timed_pipeline_collectives(torch, collectives, stage_group):
+    """For the duration, every point-to-point send and receive of the
+    pipeline, its output broadcast and each sum over the stage group (the
+    gradient's assembly, and Xception's middle statistics) is timed with
+    the card synchronized around it; yields ``{kind: [calls, seconds,
+    bytes]}``."""
+    rec = {k: [0, 0.0, 0] for k in ("send", "recv", "broadcast", "assembly", "stats")}
+    real = {n: getattr(collectives, n) for n in ("send", "recv", "broadcast_", "psum_")}
+
+    def nbytes(tensors):
+        ts = [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def timed(kind, fn, n):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        r = rec[kind]
+        r[0], r[1], r[2] = r[0] + 1, r[1] + time.perf_counter() - t0, r[2] + n
+        return out
+
+    def send(t, dst, group=None):
+        return timed("send", lambda: real["send"](t, dst, group), nbytes(t))
+
+    def recv(like, src, group=None):
+        return timed("recv", lambda: real["recv"](like, src, group), nbytes(like))
+
+    def broadcast_(tensors, src=0, group=None):
+        if group is not stage_group:
+            return real["broadcast_"](tensors, src, group)
+        return timed("broadcast", lambda: real["broadcast_"](tensors, src, group), nbytes(tensors))
+
+    def psum_(tensors, group=None):
+        if group is not stage_group:
+            return real["psum_"](tensors, group)
+        kind = "assembly" if isinstance(tensors, torch.Tensor) else "stats"
+        return timed(kind, lambda: real["psum_"](tensors, group), nbytes(tensors))
+
+    with mock.patch.multiple(collectives, send=send, recv=recv, broadcast_=broadcast_, psum_=psum_):
+        yield rec
+
+
+def pp_shape_bytes(cfg, batch: int, n_params: int, stats_numel: int) -> dict:
+    """One pipelined step's bytes per rank of 2 stages from the shapes
+    alone: each rank sends one direction of one hop (stage 0 the
+    activations, stage 1 their cotangents) and receives the other, the
+    output broadcast is the whole local batch's stage output, the gradient
+    assembly the float32 parameters, the statistics' sum the middle units'
+    float32 running statistics."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import scaled_width
+
+    h, w = cfg.input_shape
+    if cfg.backbone == "vit":
+        act = (h // cfg.patch_size) * (w // cfg.patch_size) * scaled_width(cfg.embed_dim, cfg.width_multiplier)
+    else:
+        act = (h // 16) * (w // 16) * scaled_width(728, cfg.width_multiplier)
+    hop = batch * act * (2 if cfg.dtype == "bfloat16" else 4)
+    return {"send": hop, "recv": hop, "broadcast": hop, "assembly": 4 * n_params, "stats": 4 * stats_numel}
+
+
+@contextlib.contextmanager
+def pipeline_step_ledger(torch, kernels, pipeline_step):
+    """Wraps the pipeline's step builders: each train step's and eval
+    forward's kernel launches are recorded as deltas; yields ``(train,
+    eval)``."""
+    train, evals = [], []
+
+    def wrap(make, sink):
+        def maker(*a, **kw):
+            inner = make(*a, **kw)
+
+            def step(*x, **y):
+                before = kernels.launch_counts()
+                out = inner(*x, **y)
+                after = kernels.launch_counts()
+                sink.append({k: after[k] - before[k] for k in after})
+                return out
+
+            return step
+
+        return maker
+
+    with mock.patch.multiple(pipeline_step, make_train_step_pipeline=wrap(pipeline_step.make_train_step_pipeline, train),
+                             make_eval_step_pipeline=wrap(pipeline_step.make_eval_step_pipeline, evals)):
+        yield train, evals
+
+
+@contextlib.contextmanager
+def record_attention_calls(torch, limit: int):
+    """The first ``limit`` ``flash_attention`` calls while it runs as
+    before: their inputs and output (cloned)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+
+    calls, real = [], fa.flash_attention
+
+    def recording(q, k, v, *, causal=False):
+        out = real(q, k, v, causal=causal)
+        if len(calls) < limit:
+            calls.append({"q": q.detach().clone(), "k": k.detach().clone(), "v": v.detach().clone(),
+                          "out": out.detach().clone(), "causal": causal})
+        return out
+
+    with mock.patch.object(fa, "flash_attention", recording):
+        yield calls
+
+
+def pp_per_rank_launches(torch, cfg, on_card: bool):
+    """A rank's kernel launches per pipelined train step and per eval
+    forward: the ViT's bf16 attention once per block of its stage and
+    microbatch; Xception's eval-mode BN once per BN of the entry and exit
+    flows and of its stage's units per microbatch (its training BN is
+    plain)."""
+    from tensorflowdistributedlearning_tpu_torch.models import model_for
+    from tensorflowdistributedlearning_tpu_torch.models import xception as xc
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+
+    zero = {k: 0 for k in kernels.launch_counts()}
+    if not on_card:
+        return zero, zero
+    if cfg.backbone == "vit":
+        n = cfg.vit_layers // PP_STAGES * PP_MICROBATCHES
+        per = dict(zero, flash_attention=n, flash_attention_tc=n)
+        return per, per
+    with torch.device("meta"):
+        model = model_for(cfg)
+    count = lambda m: sum(isinstance(b, BatchNorm) for b in m.modules())  # noqa: E731
+    units = xc.middle_units(model)[: xc.MIDDLE_FLOW_UNITS // PP_STAGES]
+    n = count(xc.XceptionEntryFlow(model)) + count(xc.XceptionExitHead(model)) + PP_MICROBATCHES * sum(
+        count(u) for u in units)
+    return zero, dict(zero, fused_bn_act=n, fused_bn_act_bf16_act=n)
+
+
+def pp_model_run(torch, name: str, cfg, dev, batch: int, root: str, rank: int) -> dict:
+    """One model's part of a ``train-pp`` rank: the pipelined step held
+    against the one-rank schedule (rank 0 runs both) and reported against
+    the plain one-rank step, times, one step's transfers, the state digest,
+    then ``fit_preset`` 2 + 2 steps with the launches counted and the
+    kernels' calls recorded."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.models import xception as xc
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger_with_errors
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import pipeline_step
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    on_card = dev.type == "cuda"
+    preset = configs.get_preset(name)
+    tcfg = dataclasses.replace(preset.train, pipeline_parallel=PP_STAGES, pipeline_microbatches=PP_MICROBATCHES,
+                               seed=SEED % 1000 + 91)
+    task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+    init = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(SEED + 91)).state_dict()
+    rng = np.random.default_rng(SEED + 92)
+    fixed = [pipeline_lib.to_device(synthetic_classification_batch(
+        rng, batch, cfg.input_shape, cfg.input_channels, cfg.num_classes), dev) for _ in range(PP_HELD_STEPS)]
+    state = create_train_state(cfg, tcfg, dev, state_dict=init)
+    one = create_train_state(cfg, tcfg, dev, state_dict=init) if rank == 0 else None
+    plain = create_train_state(cfg, dataclasses.replace(tcfg, pipeline_parallel=1, pipeline_microbatches=None), dev,
+                               state_dict=init) if rank == 0 else None
+    del init
+    step = pipeline_step.make_train_step_pipeline(task, cfg, PP_MICROBATCHES, seed=tcfg.seed)
+    local = pipeline_step.make_train_step_pipeline(task, cfg, PP_MICROBATCHES, seed=tcfg.seed, local_stages=PP_STAGES)
+    single = step_lib.make_train_step(task, seed=tcfg.seed)
+    out = {"n_params": state.param_count(), "held": []}
+
+    def grads(s):
+        return {n: p.grad.detach().clone() for n, p in s.model.named_parameters()}
+
+    # the pipelined step against the one-rank schedule, step by step from one
+    # state, and the plain one-rank step's gap at the first (reported)
+    with deterministic_algorithms(torch):
+        for k in range(PP_HELD_STEPS):
+            _, metrics = step(state, fixed[k])
+            rec = {"loss": step_lib.compute_metrics(metrics)["loss"], "digest": state_digest(state.model),
+                   "opt_digest": optimizer_digest(state.optimizer.state_dict())}
+            if one is not None:
+                _, m1 = local(one, fixed[k])
+                rec["one_rank"] = {"loss": step_lib.compute_metrics(m1)["loss"], "digest": state_digest(one.model),
+                                   "opt_digest": optimizer_digest(one.optimizer.state_dict())}
+                if k == 0:
+                    _, m2 = single(plain, fixed[0])
+                    want, got = grads(plain), grads(state)
+                    rec["plain"] = {
+                        "loss": step_lib.compute_metrics(m2)["loss"],
+                        "worst_gradient": max((got[n] - g).abs().max().item() / (1e-4 * g.abs().max().item() + 1e-6)
+                                              for n, g in want.items()),
+                    }
+                    del want, got
+            out["held"].append(rec)
+    del plain
+
+    # ms per step on a resident batch; one step's transfers
+    out["step_ms"] = statistics.median(
+        [host_ms(torch, lambda: step(state, fixed[0]), reps=1, warmup=0) for _ in range(PP_TIMED_STEPS + 1)][1:])
+    if one is not None:
+        out["one_rank_ms"] = statistics.median(
+            [host_ms(torch, lambda: local(one, fixed[0]), reps=1, warmup=0) for _ in range(PP_TIMED_STEPS + 1)][1:])
+        out["plain_ms"] = statistics.median(
+            [host_ms(torch, lambda: single(one, fixed[0]), reps=1, warmup=0) for _ in range(PP_TIMED_STEPS + 1)][1:])
+    # the ranks enter the timed step together (rank 0 timed the one-rank steps alone)
+    multihost.barrier()
+    with timed_pipeline_collectives(torch, collectives, mesh.stage_group()) as rec:
+        step(state, fixed[0])
+    out["transfers"] = rec
+    stats = 0
+    if cfg.backbone == "xception":
+        stats = sum(b.numel() for n, b in state.model.backbone.named_buffers() if n.startswith(xc.MIDDLE_FLOW_PREFIX))
+    out["shape_bytes"] = pp_shape_bytes(cfg, batch, out["n_params"], stats)
+    out["final_digest"] = state_digest(state.model)
+    del state, one, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the main path: fit_preset 2 steps, then resumed to 4; counts from 0
+    # just before, read just after
+    model_dir = os.path.join(root, f"fit-{name}")
+    fit = {}
+    with contextlib.ExitStack() as stack, mock.patch.dict(
+            configs.PRESETS, {name: dataclasses.replace(preset, model=cfg)}):
+        train_deltas, eval_deltas = stack.enter_context(pipeline_step_ledger(torch, kernels, pipeline_step))
+        attention = stack.enter_context(record_attention_calls(torch, PP_HELD_CALLS))
+        bn = stack.enter_context(record_kernel_calls(torch, {"bn_act_folded": PP_HELD_CALLS}))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for stop in (PP_FIT_STOP, PP_FIT_STEPS):
+            r = fit_preset(name, model_dir, steps=stop, batch_size=batch, device=dev, pipeline_parallel=PP_STAGES,
+                           pipeline_microbatches=PP_MICROBATCHES, checkpoint_every_steps=PP_FIT_STOP,
+                           train_log_every_steps=PP_FIT_STOP, seed=tcfg.seed)
+            fit[str(stop)] = {"steps": r.steps, "final_metrics": r.final_metrics}
+        if on_card:
+            torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["launches"] = kernels.launch_counts()
+    out["fit"] = fit
+    out["train_deltas"], out["eval_deltas"] = train_deltas, eval_deltas
+    out["model_dir"] = model_dir
+    held = {}
+    if on_card:
+        if attention:
+            held["flash_attention"] = max(hold_attention_forward(torch, c, f"train-pp {name} rank {rank} attention")
+                                          for c in attention)
+        if bn["bn_act_folded"]:
+            held["fused_bn_act_bf16_act"] = hold_bn_calls(torch, bn["bn_act_folded"], f"train-pp {name} rank {rank}")
+    out["held_calls"] = held
+    out["n_attention_calls"], out["n_bn_calls"] = len(attention), len(bn["bn_act_folded"])
+    events, errors = read_ledger_with_errors(
+        os.path.join(model_dir, "telemetry.jsonl" if rank == 0 else f"telemetry-{rank}.jsonl"))
+    out["ledger_errors"] = errors
+    out["mesh"] = [e.get("mesh") for e in events if e["event"] == "run_header"]
+    return out
+
+
+def pp_rank(torch, rank: int, world: int, store: str, root: str, device: str, cfgs, batch: int):
+    """One rank of ``train-pp`` at ``pipeline_parallel`` 2: for each model,
+    :func:`pp_model_run`."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, multihost
+
+    dev = torch.device(device if device == "cpu" else "cuda:0")
+    multihost.initialize(store, world, rank, backend="gloo", timeout=300)
+    out = {"rank": rank}
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        lay = mesh.init_mesh(PP_STAGES, pipeline=True)
+        out["layout"] = [lay.dp, lay.tp, lay.data_index, lay.model_index, mesh.pipeline_parallel_degree(),
+                         mesh.model_parallel_degree()]
+        for name, cfg in cfgs.items():
+            out[name] = pp_model_run(torch, name, cfg, dev, batch, root, rank)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def pp_configs(overrides=None) -> dict:
+    """``{preset: ModelConfig}`` of the phase's models: the presets' own,
+    or with ``overrides`` (``{preset: {field: value}}``, a CPU rehearsal's
+    narrow copies)."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+
+    overrides = overrides or {}
+    out = {}
+    for name in PP_PRESETS:
+        kw = dict(overrides.get(name, {}))
+        if "input_shape" in kw:
+            kw["input_shape"] = tuple(kw["input_shape"])
+        out[name] = dataclasses.replace(configs.get_preset(name).model, **kw)
+    return out
+
+
+def train_pp_phase(torch, card: str, device: str = "cuda", overrides=None, batch: int = PP_BATCH):
+    """Pipeline parallelism (``pipeline_parallel`` 2, 4 microbatches) of
+    ViT-S/16 and the Xception-41 classifier: two gloo ranks sharing the
+    card, each ``chip_smoke.py pp-rank ...`` on the warm build directory;
+    then each fit's export served through the plain model in this process.
+    ``overrides`` (narrow copies of the presets' models) and
+    ``device="cpu"`` rehearse it small."""
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, ClassifierTrainer
+
+    on_card = device == "cuda"
+    cfgs = pp_configs(overrides)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-pp-") as root:
+        store = f"file://{os.path.join(root, 'store')}"
+        procs, logs = [], []
+        try:
+            for rank in range(PP_STAGES):
+                logs.append(open(os.path.join(root, f"pp{PP_STAGES}-rank{rank}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "pp-rank", str(rank), str(PP_STAGES), store, root,
+                     device, json.dumps(overrides or {}), str(batch)],
+                    stdout=logs[-1], stderr=subprocess.STDOUT,
+                ))
+            outs = tp_finish(root, PP_STAGES, procs, logs, t0 + PP_TIMEOUT_S, prefix="pp")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        t1 = time.perf_counter()
+        result = {"bubble": pipeline_lib.bubble_fraction(PP_STAGES, PP_MICROBATCHES), "ranks_s": t1 - t0,
+                  "models": {}}
+        launches = {k: 0 for k in kernels.launch_counts()}
+        held = {}
+        for name, cfg in cfgs.items():
+            r0, r1 = outs[0][name], outs[1][name]
+            what = f"train-pp {name}"
+            check(outs[0]["layout"] == [1, PP_STAGES, 0, 0, PP_STAGES, 1] and
+                  outs[1]["layout"] == [1, PP_STAGES, 0, 1, PP_STAGES, 1],
+                  f"{what}: layouts {outs[0]['layout']} / {outs[1]['layout']}")
+            check(len(r0["held"]) == PP_HELD_STEPS, f"{what}: {len(r0['held'])} held steps")
+            for k, (h0, h1) in enumerate(zip(r0["held"], r1["held"])):
+                one = h0["one_rank"]
+                check(h0["loss"] == h1["loss"] == one["loss"] and np.isfinite(h0["loss"]),
+                      f"{what} held step {k}: losses {h0['loss']} / {h1['loss']}, one-rank schedule {one['loss']}")
+                check(h0["digest"] == h1["digest"] == one["digest"] and h0["opt_digest"] == h1["opt_digest"] ==
+                      one["opt_digest"], f"{what} held step {k}: states {h0['digest']} / {h1['digest']}, one-rank "
+                      f"{one['digest']}; optimizer {h0['opt_digest']} / {h1['opt_digest']} / {one['opt_digest']}")
+            check(r0["final_digest"] == r1["final_digest"], f"{what}: the ranks' states part after the timed steps")
+            plain = r0["held"][0]["plain"]
+            d_plain = abs(plain["loss"] - r0["held"][0]["loss"])
+            if cfg.backbone == "vit":
+                spacing = 2.0 ** (math.floor(math.log2(abs(plain["loss"]))) - 7)
+                check(d_plain <= spacing, f"{what}: |dloss| {d_plain} against the plain one-rank step, over one bf16 "
+                      f"step ({spacing})")
+            for i, o in enumerate((r0, r1)):
+                for kind, want in o["shape_bytes"].items():
+                    got = o["transfers"][kind][2]
+                    check(got == want, f"{what} rank {i}: one step's {kind} moved {got} bytes, the shapes' count {want}")
+            per_step, per_eval = pp_per_rank_launches(torch, cfg, on_card)
+            for o in (r0, r1):
+                rank_what = f"{what} rank {0 if o is r0 else 1}"
+                check([f["steps"] for f in o["fit"].values()] == [PP_FIT_STOP, PP_FIT_STEPS] and all(
+                    np.isfinite(v) for f in o["fit"].values() for v in f["final_metrics"].values()),
+                      f"{rank_what}: fit {o['fit']}")
+                check(o["fit"] == r0["fit"], f"{rank_what}: fit results {o['fit']} against rank 0's {r0['fit']}")
+                check(len(o["train_deltas"]) == PP_FIT_STEPS and len(o["eval_deltas"]) == 2 * EVAL_SYNTHETIC_BATCHES,
+                      f"{rank_what}: {len(o['train_deltas'])} train steps, {len(o['eval_deltas'])} eval forwards")
+                for i, delta in enumerate(o["train_deltas"] + o["eval_deltas"]):
+                    want = per_step if i < PP_FIT_STEPS else per_eval
+                    check({k: delta[k] for k in want} == want, f"{rank_what} train step or eval forward {i}: "
+                          f"launches {delta}, expected {want}")
+                check(o["ledger_errors"] == 0 and o["mesh"] == [{"data": 1, "model": PP_STAGES}] * 2,
+                      f"{rank_what}: ledger errors {o['ledger_errors']}, mesh {o['mesh']}")
+                if on_card:
+                    calls = o["n_attention_calls"] if cfg.backbone == "vit" else o["n_bn_calls"]
+                    check(calls == PP_HELD_CALLS, f"{rank_what}: {calls} kernel calls held")
+                for k, e in o["held_calls"].items():
+                    held[k] = max(held.get(k, 0.0), e)
+            for k, v in r0["launches"].items():
+                launches[k] += v
+
+            # the fit's checkpoint through the plain model in this process
+            trainer = ClassifierTrainer(r0["model_dir"], None, cfg, configs.get_preset(name).train, device=device)
+            serve = trainer.serving_fn()
+            x = make_vit_instances(batch, SEED + 93, (*cfg.input_shape, cfg.input_channels))
+            got = {k: v.cpu().numpy() for k, v in serve(x).items()}
+            best = trainer._restore_best_host()
+            with best.eval_params() as model, torch.no_grad(), \
+                    mock.patch.object(fa, "flash_attention", fa.flash_attention_plain), \
+                    mock.patch.object(kernels, "bn_act_folded", kernels.bn_act_folded_plain):
+                model.eval()
+                kernels.reset_launch_counts()
+                logits = model(torch.from_numpy(x).to(device)).float()
+                check(sum(kernels.launch_counts().values()) == 0, f"{what}: the plain forward launched")
+                want = torch.softmax(logits, -1).cpu().numpy()
+            d = float(np.abs(got["probabilities"] - want).max())
+            top2 = np.sort(want, -1)[:, -2:]
+            apart = top2[:, 1] - top2[:, 0] > 2 * TOL_VIT_BF16
+            check(d <= TOL_VIT_BF16 and np.array_equal(got["class"][apart], want.argmax(-1)[apart]),
+                  f"{what}: the export's answers {d} from the plain model's")
+            check_classes(got["probabilities"], got["class"], f"{what} serve")
+            del trainer, best
+            tr = {k: {"calls": r0["transfers"][k][0], "ms": r0["transfers"][k][1] * 1e3,
+                      "mb": r0["transfers"][k][2] / 1e6} for k in r0["transfers"]}
+            tr1 = {k: {"calls": r1["transfers"][k][0], "ms": r1["transfers"][k][1] * 1e3,
+                       "mb": r1["transfers"][k][2] / 1e6} for k in r1["transfers"]}
+            result["models"][name] = {
+                "n_params": r0["n_params"], "step_ms": r0["step_ms"], "step_ms_rank1": r1["step_ms"],
+                "one_rank_ms": r0["one_rank_ms"], "plain_ms": r0["plain_ms"], "transfers_rank0": tr,
+                "transfers_rank1": tr1, "held_losses": [h["loss"] for h in r0["held"]], "plain_d_loss": d_plain,
+                "plain_worst_gradient": plain["worst_gradient"], "fit_s": r0["fit_s"], "serve_dprobs": d,
+                "final_metrics": r0["fit"][str(PP_FIT_STEPS)]["final_metrics"],
+            }
+            m = result["models"][name]
+            log(f"train-pp {name} ({m['n_params']} parameters, {cfg.dtype}) on {PP_STAGES} gloo ranks sharing {device} "
+                f"at pipeline_parallel {PP_STAGES}, {PP_MICROBATCHES} microbatches, global batch {batch}: "
+                f"{PP_HELD_STEPS} steps bit for bit the one-rank schedule on both ranks under deterministic "
+                f"algorithms (losses {m['held_losses']}); the plain one-rank step's first loss {plain['loss']} "
+                f"(|dloss| {d_plain:.3g}), worst gradient leaf {plain['worst_gradient']:.3f} of the train-step "
+                f"tolerance (reported) [{card}]")
+            log(f"train-pp {name}: {m['step_ms']:.3f} ms per pipelined step (rank 0, median of {PP_TIMED_STEPS}; rank 1 "
+                f"{m['step_ms_rank1']:.3f}), the one-rank schedule {m['one_rank_ms']:.3f} ms, the plain one-rank step "
+                f"{m['plain_ms']:.3f} ms; bubble (K-1)/(M+K-1) = {result['bubble']:.3f} [{card}]")
+            log(f"train-pp {name}: one step's transfers, rank 0 / rank 1 (host-staged, the card synchronized around "
+                f"each; a receive's and a sum's ms include the wait for the other rank; bytes the shapes' count): "
+                + "; ".join(
+                    f"{k} {tr[k]['calls']}/{tr1[k]['calls']} calls {tr[k]['mb']:.1f}/{tr1[k]['mb']:.1f} MB "
+                    f"{tr[k]['ms']:.3f}/{tr1[k]['ms']:.3f} ms" for k in tr) + f" [{card}]")
+            log(f"train-pp {name}: fit_preset {PP_FIT_STOP} steps, then resumed to {PP_FIT_STEPS}, on both ranks "
+                f"{m['fit_s']:.3f} s (rank 0); each train step launched {per_step if on_card else {}} and each eval "
+                f"forward {per_eval if on_card else {}} per rank (nonzero counts held); final "
+                f"{json.dumps(m['final_metrics'])}; the export served through the plain model, max|dprobs| {d:.3g} "
+                f"[{card}]")
+    result["launches"] = launches
+    result["held"] = held
+    result["phase_s"] = time.perf_counter() - t0
+    return result
+
+
+def pp_rank_main(argv) -> int:
+    """``chip_smoke.py pp-rank RANK WORLD STORE ROOT DEVICE OVERRIDES BATCH``:
+    one rank of ``train-pp``; writes ``ROOT/pp{WORLD}-rank{RANK}.json``."""
+    # cuBLAS's deterministic workspace, read when the first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    cfgs, batch = pp_configs(json.loads(argv[5])), int(argv[6])
+    try:
+        out = pp_rank(torch, rank, world, store, root, device, cfgs, batch)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(root, f"pp{world}-rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
@@ -6612,6 +7136,9 @@ def main() -> int:
         tp = train_tp_phase(torch, card)
         mark("train-tp")
         torch.cuda.empty_cache()
+        pp = train_pp_phase(torch, card)
+        mark("train-pp")
+        torch.cuda.empty_cache()
         xception = train_xception_phase(torch, card)
         mark("train-xception")
         torch.cuda.empty_cache()
@@ -6620,7 +7147,7 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    for name, e in list(dp["train-dp2"]["held"].items()) + list(tp["held"].items()):
+    for name, e in list(dp["train-dp2"]["held"].items()) + list(tp["held"].items()) + list(pp["held"].items()):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     paths = {"serve": served["launches"], "serve-obs": observed["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
              "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
@@ -6630,7 +7157,7 @@ def main() -> int:
              "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
              "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
              "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
-             "train-zero1": zero1["launches"], "train-tp": tp["launches"],
+             "train-zero1": zero1["launches"], "train-tp": tp["launches"], "train-pp": pp["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
              "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
     def launches(name, counts):
@@ -6662,6 +7189,7 @@ def main() -> int:
                       "train_lars": {k: v for k, v in lars.items() if k != "launches"},
                       "train_zero1": {k: v for k, v in zero1.items() if k != "launches"},
                       "train_tp": {k: v for k, v in tp.items() if k not in ("launches", "held")},
+                      "train_pp": {k: v for k, v in pp.items() if k not in ("launches", "held")},
                       "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
                       "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6670,5 +7198,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    ranks = {"dp-rank": dp_rank_main, "zero-rank": zero_rank_main, "tp-rank": tp_rank_main}
+    ranks = {"dp-rank": dp_rank_main, "zero-rank": zero_rank_main, "tp-rank": tp_rank_main, "pp-rank": pp_rank_main}
     sys.exit(ranks[sys.argv[1]](sys.argv[2:]) if sys.argv[1:2] and sys.argv[1] in ranks else main())

@@ -153,6 +153,8 @@ def cmd_fit(args) -> int:
         grad_accum_steps=args.grad_accum,
         eval_holdout_fraction=args.eval_holdout_fraction,
         model_parallel=args.model_parallel,
+        pipeline_parallel=args.pipeline_parallel,
+        pipeline_microbatches=args.pipeline_microbatches,
         weight_update_sharding=args.weight_update_sharding,
         data_service_workers=args.data_workers,
         prefetch_depth=args.prefetch_depth,
@@ -607,6 +609,12 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--model-parallel", type=int, default=None,
                    help="tensor parallelism: shard the parameters, BN statistics and optimizer state over this many "
                    "ranks per replica (BatchNorm statistics over the global batch; default: the preset's)")
+    f.add_argument("--pipeline-parallel", type=int, default=None,
+                   help="GPipe pipeline parallelism over ViT blocks or the Xception-41 classifier's middle flow: "
+                   "this many stages per replica, a rank each (default: the preset's)")
+    f.add_argument("--pipeline-microbatches", type=int, default=None,
+                   help="microbatches per local batch for the pipeline schedule (default: one per stage; set >> "
+                   "stages to shrink the fill/drain bubble)")
     f.add_argument("--weight-update-sharding", action="store_true", default=None,
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(default: the preset's; resnet50_bf16_8k sets it)")

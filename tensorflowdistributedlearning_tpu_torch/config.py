@@ -366,8 +366,8 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
 _LATER_TRAINING = (
     (lambda m, c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
     (
-        lambda m, c: max(c.sequence_parallel, c.pipeline_parallel, c.expert_parallel) > 1,
-        "sequence/pipeline/expert parallelism (queue A 12)",
+        lambda m, c: max(c.sequence_parallel, c.expert_parallel) > 1,
+        "sequence/expert parallelism (queue A 12)",
     ),
     (
         lambda m, c: c.model_parallel > 1 and m.backbone != "resnet",
@@ -385,15 +385,25 @@ def require_supported_training(model_config: ModelConfig, train_config: TrainCon
     experts; float32 or bfloat16 compute; ``remat`` per residual unit or
     transformer block) with Adam, SGD or LARS, ``grad_accum_steps`` >= 1,
     on one device or data-parallel, with or without ZeRO-1's sharded
-    weight update (``weight_update_sharding``, ``parallel/zero.py``), and
-    the ResNet models also tensor-parallel (``model_parallel`` > 1,
-    ``parallel/tensor.py``), under every observability knob; it refuses
-    what :func:`require_supported` refuses, the planner and the sequence,
-    pipeline and expert axes (queue A 12), tensor parallelism of the
-    Xception-41 and ViT models (queue A 12.2), and ``compile_cache_dir``."""
+    weight update (``weight_update_sharding``, ``parallel/zero.py``), the
+    ResNet models also tensor-parallel (``model_parallel`` > 1,
+    ``parallel/tensor.py``), and the ViT and Xception-41 classifiers also
+    as GPipe pipelines (``pipeline_parallel`` > 1, ``fit`` only:
+    ``train/pipeline_step.py``, whose ``validate_pipeline_config`` raises
+    the JAX package's ``ValueError`` for any other model), under every
+    observability knob; it refuses what :func:`require_supported` refuses,
+    the planner and the sequence and expert axes (queue A 12), tensor
+    parallelism of the Xception-41 and ViT models (queue A 12.2), and
+    ``compile_cache_dir``."""
     require_supported(model_config)
     for test, what in _LATER_TRAINING:
         if test(model_config, train_config):
             raise NotImplementedError(
-                f"{what} is not ported yet; the port trains data- and tensor-parallel only (see ROADMAP.md)"
+                f"{what} is not ported yet; the port trains data-, tensor- and pipeline-parallel only "
+                "(see ROADMAP.md)"
             )
+    if train_config.pipeline_parallel > 1:
+        from tensorflowdistributedlearning_tpu_torch.train.pipeline_step import validate_pipeline_config
+
+        validate_pipeline_config(model_config, train_config.pipeline_parallel,
+                                 train_config.pipeline_microbatches or train_config.pipeline_parallel)

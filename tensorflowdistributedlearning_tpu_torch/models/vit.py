@@ -183,11 +183,89 @@ class ViTClassifier(nn.Module):
             raise ValueError(
                 f"input {tuple(x.shape)} does not match the configured input_shape {self.config.input_shape} (NHWC)"
             )
-        x = x.to(self.dtype)
-        tokens = self.patch_embed(x)
-        tokens = tokens + self.pos_embedding.to(self.dtype)[None]
+        tokens = embed_tokens(self.config, self, x)
         for block in self.blocks():
             tokens = remat_call(block, tokens, self.config.remat)
-        tokens = self.ln_final(tokens)
-        pooled = tokens.float().mean(dim=1)
-        return self.logits(pooled)
+        return head_logits(self.config, self, tokens)
+
+
+# -- pipeline parallelism (train/pipeline_step.py) ----------------------------
+#
+# The block stack is the GPipe runner's homogeneous-stage case
+# (parallel/pipeline.py): stage k of K applies blocks kG+1..kG+G, G = L/K.
+# The stage functions are functional, as the JAX package's: a block's
+# parameters are a dict of tensors under the block's own names (``ln1.weight``,
+# ``attn.qkv.weight``, ...), applied by ``torch.func.functional_call`` to a
+# parameterless template block built from the config. The embed and the head
+# take the canonical ViTClassifier as their parameters (the counterpart of
+# its flax tree). The pipelined forward ignores ``remat``, as JAX's does.
+
+
+def pipeline_stage_fn(config: ModelConfig):
+    """``stage_fn(params, x)``: ONE transformer block of ``config`` (embed
+    width, MLP width, compute dtype and attention arm as
+    :class:`ViTClassifier` builds them) applied with ``params``, a dict of
+    its parameters by their names in the block."""
+    embed = scaled_width(config.embed_dim, config.width_multiplier)
+    with torch.device("meta"):
+        block = TransformerBlock(embed, config.num_heads, int(embed * config.mlp_ratio), compute_dtype_of(config),
+                                 config.use_fused_attention)
+
+    def stage_fn(params, x: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(block, params, (x,))
+
+    return stage_fn
+
+
+def grouped_pipeline_stage_fn(config: ModelConfig, layers_per_stage: int):
+    """``stage_fn(params, x)`` over the grouped stacking: ``params`` a dict
+    of ``[layers_per_stage, ...]`` tensors (always the group axis, even at
+    1), the blocks applied in order."""
+    base = pipeline_stage_fn(config)
+
+    def stage_fn(params, x: torch.Tensor) -> torch.Tensor:
+        for i in range(layers_per_stage):
+            x = base({name: p[i] for name, p in params.items()}, x)
+        return x
+
+    return stage_fn
+
+
+def block_params(params, index: int):
+    """Block ``index`` (1-based) of ``params`` (the canonical names of a
+    ViTClassifier's parameters, e.g. ``dict(model.named_parameters())``):
+    its tensors by their names in the block."""
+    prefix = f"block{index}."
+    return {name[len(prefix):]: t for name, t in params.items() if name.startswith(prefix)}
+
+
+def stack_vit_block_params(params, n_layers: int, n_stages=None):
+    """The blocks of ``params`` (canonical names, ``block1..blockN``)
+    stacked for the runner: ``[L, ...]`` per leaf with ``n_stages`` None,
+    else the grouped ``[K, L/K, ...]`` of :func:`grouped_pipeline_stage_fn`.
+    Differentiable: a stacked leaf's gradient reaches its blocks."""
+    from tensorflowdistributedlearning_tpu_torch.parallel.pipeline import stack_stage_params
+
+    stacked = stack_stage_params([block_params(params, i + 1) for i in range(n_layers)])
+    if n_stages is None:
+        return stacked
+    if n_layers % n_stages:
+        raise ValueError(f"{n_layers} ViT layers not divisible into {n_stages} pipeline stages")
+    group = n_layers // n_stages
+    return {name: leaf.reshape((n_stages, group) + tuple(leaf.shape[1:])) for name, leaf in stacked.items()}
+
+
+def embed_tokens(config: ModelConfig, params: "ViTClassifier", x: torch.Tensor) -> torch.Tensor:
+    """Patch embedding plus position embeddings in the compute dtype: the
+    pre-block half of :meth:`ViTClassifier.forward`, with ``params`` the
+    classifier whose parameters apply."""
+    dtype = compute_dtype_of(config)
+    tokens = params.patch_embed(x.to(dtype))
+    return tokens + params.pos_embedding[: tokens.shape[1]].to(dtype)[None]
+
+
+def head_logits(config: ModelConfig, params: "ViTClassifier", tokens: torch.Tensor) -> torch.Tensor:
+    """Final LayerNorm, float32 mean pool and the ``logits`` Dense: the
+    post-block half of :meth:`ViTClassifier.forward`."""
+    pooled = params.ln_final(tokens).float().mean(dim=1)
+    return params.logits(pooled)

@@ -22,6 +22,11 @@ is involved. The ASPP's split-separable convs take the depthwise kernels
 under ``use_pallas_depthwise``, and every BatchNorm in eval mode the
 ``bn_act`` kernel, as in the ResNet.
 
+The classifier's pipeline-parallel decomposition (JAX ``:421-579``):
+:class:`XceptionEntryFlow` and :class:`XceptionExitHead` are views over
+the canonical :class:`Xception41`, the middle flow's 8 units go over the
+stage group (``grouped_middle_stage_fn``, ``train/pipeline_step.py``).
+
 Module names mirror the flax tree (``backbone.entry_block1_unit1.
 separable_conv1.depthwise.weight`` is flax's ``params/backbone/
 entry_block1_unit1/separable_conv1/depthwise/kernel``), so
@@ -273,17 +278,178 @@ class Xception41(nn.Module):
         self.logits = Dense(self.backbone.out_channels, config.num_classes, None) if config.num_classes else None
 
     def _dropout(self, x: torch.Tensor) -> torch.Tensor:
-        """flax ``nn.Dropout(1 - keep_prob)``: ``x / keep_prob`` where a
-        uniform draw is below ``keep_prob``, else 0; the draw from
-        :func:`layers.dropout_generator`."""
-        if not self.training or self.keep_prob >= 1.0:
-            return x
-        keep = torch.rand(x.shape, generator=dropout_generator(x.device), device=x.device) < self.keep_prob
-        return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))
+        return dropout(x, self.keep_prob, self.training)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         features = self.backbone(x)["features"]
-        pooled = features.float().mean(dim=(1, 2)).to(features.dtype).float()
+        pooled = global_pool(features)
         if self.logits is None:
             return pooled
         return self.logits(self._dropout(pooled))
+
+
+def dropout(x: torch.Tensor, keep_prob: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout(1 - keep_prob)``: ``x / keep_prob`` where a uniform
+    draw is below ``keep_prob``, else 0, in training mode only; the draw
+    from :func:`layers.dropout_generator`."""
+    if not training or keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=dropout_generator(x.device), device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def global_pool(features: torch.Tensor) -> torch.Tensor:
+    """The classifier's mean pool: float32 sums, in the compute dtype, as
+    ``jnp.mean``, then float32."""
+    return features.float().mean(dim=(1, 2)).to(features.dtype).float()
+
+
+# -- pipeline parallelism of the classifier (train/pipeline_step.py) ---------
+#
+# The middle flow (8 identical 728-wide sum-skip units) is the GPipe runner's
+# homogeneous-stage case (parallel/pipeline.py) and runs over the stage group;
+# the entry flow (root + the three conv-skip blocks) and the exit flow with the
+# head run replicated on every stage. The flows are views over the canonical
+# Xception41: their submodules are its own, under its names, so checkpoints,
+# serving export and eval stay interchangeable with every other strategy.
+
+MIDDLE_FLOW_UNITS = 8
+MIDDLE_FLOW_PREFIX = "middle_block1_unit"
+
+
+class XceptionEntryFlow(nn.Module):
+    """Root convs and entry blocks 1-3 of a canonical :class:`Xception41`
+    (its backbone's modules, under their names): NHWC images to the
+    middle flow's input, in the compute dtype."""
+
+    def __init__(self, model: Xception41):
+        super().__init__()
+        backbone = model.backbone
+        self.compute_dtype = backbone.compute_dtype
+        self.conv1_1, self.conv1_2 = backbone.conv1_1, backbone.conv1_2
+        self.unit_names = [n for n in backbone.unit_names if n.startswith("entry_")]
+        for name in self.unit_names:
+            self.add_module(name, getattr(backbone, name))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv1_2(self.conv1_1(x.to(self.compute_dtype)))
+        for name in self.unit_names:
+            x = getattr(self, name)(x)
+        return x
+
+
+class XceptionExitHead(nn.Module):
+    """Exit blocks 1-2, the global pool, the pre-logits dropout (the
+    classifier's ``keep_prob``) and the ``logits`` Dense of a canonical
+    :class:`Xception41` (its modules, under their names)."""
+
+    def __init__(self, model: Xception41):
+        super().__init__()
+        backbone = model.backbone
+        self.keep_prob = model.keep_prob
+        self.unit_names = [n for n in backbone.unit_names if n.startswith("exit_")]
+        for name in self.unit_names:
+            self.add_module(name, getattr(backbone, name))
+        self.logits = model.logits
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self.unit_names:
+            x = getattr(self, name)(x)
+        return self.logits(dropout(global_pool(x), self.keep_prob, self.training))
+
+
+def middle_unit_module(config: ModelConfig, device=None) -> XceptionUnit:
+    """One 728-wide sum-skip middle-flow unit of ``config`` (classifier
+    layout: stride 1, rate 1), with its BatchNorm settings and compute
+    dtype: the computation and parameter shapes all 8 units share."""
+    wm = config.width_multiplier
+    width = scaled_width(728, wm)
+    spec = XceptionUnitSpec(depth_list=(width, width, width), skip_connection_type="sum", stride=1)
+    unit = XceptionUnit(width, spec, 1, bn_decay=config.batch_norm_decay, bn_epsilon=config.batch_norm_epsilon,
+                        bn_scale=config.batch_norm_scale, compute_dtype=compute_dtype_of(config))
+    return unit if device is None else unit.to(device)
+
+
+def middle_units(model: Xception41):
+    """The canonical model's 8 middle-flow units, in order."""
+    return [getattr(model.backbone, f"{MIDDLE_FLOW_PREFIX}{i + 1}") for i in range(MIDDLE_FLOW_UNITS)]
+
+
+def stack_middle_unit_tree(backbone_tree, n_stages: int):
+    """The 8 middle units' entries of ``backbone_tree`` (a mapping by the
+    backbone's names, ``middle_block1_unit{1..8}.<name>``: parameters or
+    BN statistics) stacked into the grouped ``{<name>: [K, 8/K, ...]}``
+    the stages take their slots of."""
+    if MIDDLE_FLOW_UNITS % n_stages:
+        raise ValueError(f"{MIDDLE_FLOW_UNITS} middle-flow units not divisible into {n_stages} pipeline stages")
+    units = []
+    for i in range(MIDDLE_FLOW_UNITS):
+        prefix = f"{MIDDLE_FLOW_PREFIX}{i + 1}."
+        units.append({n[len(prefix):]: t for n, t in backbone_tree.items() if n.startswith(prefix)})
+    group = MIDDLE_FLOW_UNITS // n_stages
+    return {name: torch.stack([u[name] for u in units]).reshape((n_stages, group) + tuple(units[0][name].shape))
+            for name in units[0]}
+
+
+def unstack_middle_unit_tree(stacked_tree):
+    """Reverse :func:`stack_middle_unit_tree`: ``{<name>: [K, G, ...]}`` to
+    the backbone's ``{middle_block1_unit{n}.<name>: tensor}``."""
+    out = {}
+    for name, leaf in stacked_tree.items():
+        flat = leaf.reshape((MIDDLE_FLOW_UNITS,) + tuple(leaf.shape[2:]))
+        for i in range(MIDDLE_FLOW_UNITS):
+            out[f"{MIDDLE_FLOW_PREFIX}{i + 1}.{name}"] = flat[i]
+    return out
+
+
+def _batch_norms(units):
+    return [m for unit in units for m in unit.modules() if isinstance(m, BatchNorm)]
+
+
+def grouped_middle_stage_fn(config: ModelConfig, units_per_stage: int, train: bool):
+    """The stage function over a stage's bundle, which here is its
+    ``units_per_stage`` consecutive middle units themselves (their
+    parameters and running statistics; JAX's bundle is their stacked
+    trees): the units applied in order.
+
+    Train form (for ``pipeline_apply_aux``): ``stage_fn(units, x) -> (y,
+    new_stats)``; BatchNorm normalizes with the microbatch's statistics
+    (the GPipe regime) and ``new_stats`` is the running statistics each BN
+    (in module order, mean then variance) would hold after this
+    microbatch's update from the values it holds at the call, which are
+    restored after it. Eval form (for ``pipeline_apply``): the running
+    statistics, nothing moved."""
+
+    def check(units):
+        if len(units) != units_per_stage:
+            raise ValueError(f"a stage of {units_per_stage} middle units got {len(units)}")
+
+    def train_stage_fn(units, x: torch.Tensor):
+        check(units)
+        bns = _batch_norms(units)
+        held = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in bns]
+        for unit in units:
+            x = unit(x)
+        new = [t.clone() for bn in bns for t in (bn.running_mean, bn.running_var)]
+        with torch.no_grad():
+            for bn, (mean, var) in zip(bns, held):
+                bn.running_mean.copy_(mean)
+                bn.running_var.copy_(var)
+        return x, new
+
+    def eval_stage_fn(units, x: torch.Tensor) -> torch.Tensor:
+        check(units)
+        for unit in units:
+            x = unit(x)
+        return x
+
+    return train_stage_fn if train else eval_stage_fn
+
+
+def set_running_stats(units, stats) -> None:
+    """Write ``stats`` (the train stage function's order: each BN's mean
+    then variance) into the units' BatchNorm running statistics."""
+    with torch.no_grad():
+        for bn, mean, var in zip(_batch_norms(units), stats[0::2], stats[1::2]):
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)

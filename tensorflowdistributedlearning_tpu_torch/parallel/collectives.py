@@ -10,6 +10,9 @@ function is a no-op when no process group is initialized (one process) or
 the group holds one rank, so the single-device step pays nothing.
 
 ZeRO-1's parameter gather is :func:`all_gather` of one flat buffer. The
+pipeline's activations and their cotangents move between neighbouring
+stages by :func:`send` and :func:`recv` (point to point, staged through
+the host under gloo like :func:`all_gather`). The
 tensor-parallel layers (``parallel/tensor.py``) go through three
 differentiable collectives over the model group: :func:`gather_channels`
 (the all-gather of a layer's output channels; backward, this rank's slice
@@ -148,6 +151,24 @@ def all_gather(flat: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty((world_size(group), flat.numel()), dtype=flat.dtype, device=device)
     dist.all_gather(list(out.unbind(0)), send.contiguous(), group=group)
     return out if out.device == flat.device else out.to(flat.device)
+
+
+def send(t: torch.Tensor, dst: int, group=None) -> None:
+    """Send ``t`` to global rank ``dst`` (a member of ``group``); returns
+    when the backend has taken it. Under a backend that cannot carry ``t``
+    where it lies (gloo, for ranks that share a card) it goes through
+    :func:`collective_device`."""
+    device = collective_device()
+    dist.send(t.detach().to(device).contiguous(), dst, group=group)
+
+
+def recv(like: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device holding what global
+    rank ``src`` (a member of ``group``) sent with :func:`send`."""
+    device = collective_device()
+    out = torch.empty(like.shape, dtype=like.dtype, device=device)
+    dist.recv(out, src, group=group)
+    return out if out.device == like.device else out.to(like.device)
 
 
 def gather_blocks(items: Sequence[Tuple[torch.Tensor, int]], group=None) -> List[torch.Tensor]:

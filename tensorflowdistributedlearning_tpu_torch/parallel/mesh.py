@@ -2,13 +2,21 @@
 ``parallel/mesh.py``, cut to the data and model axes).
 
 The JAX package reshapes its devices as ``(dp, model, sequence)``; here a
-rank owns one device, so under ``model_parallel = tp`` rank r of W is data
-index ``r // tp`` and model index ``r % tp`` (:class:`Layout`). The ranks
-of one data index form a model group: they hold the channel slices of one
-replica (``parallel/tensor.py``) and read the same rows. The ranks of one
-model index form a data group: they hold the same slices, average their
-gradients and BN statistics, and sum their metrics. At ``tp = 1`` the data
-group is the default group and there is no model group.
+rank owns one device, so with a model axis of size ``tp`` rank r of W is
+data index ``r // tp`` and model index ``r % tp`` (:class:`Layout`). The
+ranks of one data index form a model group and read the same rows. The
+ranks of one model index form a data group: they average their gradients
+and BN statistics and sum their metrics. At ``tp = 1`` the data group is
+the default group and there is no model group.
+
+Two strategies ride the model axis, as in the JAX package's ``fit``
+(``make_mesh(model_parallel=max(model_parallel, pipeline_parallel))``):
+tensor parallelism, whose model group holds the channel slices of one
+replica (``parallel/tensor.py``), and pipeline parallelism, whose model
+group is the stage group of one replica: stage k is model index k
+(``parallel/pipeline.py``). :attr:`Layout.pipeline` tells them apart;
+:func:`model_parallel_degree` is the tensor-parallel degree alone and
+:func:`pipeline_parallel_degree` the stage count alone.
 
 A global batch lies over the data axis in contiguous blocks: data index d
 of dp owns rows ``[d·B/dp, (d+1)·B/dp)`` (:func:`shard_rows`), the rows
@@ -34,12 +42,16 @@ class Layout:
     (``None`` for the default group, and for no model group at ``tp = 1``)."""
 
     world: int
+    # the model axis's size: the tensor-parallel degree, or the stage count
+    # under ``pipeline``
     tp: int
     rank: int
     model_group: Any = None
     data_group: Any = None
     # the default group the groups were made in (None without one)
     world_group: Any = None
+    # whether the model group is a pipeline's stage group
+    pipeline: bool = False
 
     @property
     def dp(self) -> int:
@@ -61,19 +73,22 @@ def _world_group():
     return dist.group.WORLD if collectives.is_initialized() else None
 
 
-def init_mesh(model_parallel: int = 1) -> Layout:
+def init_mesh(model_parallel: int = 1, *, pipeline: bool = False) -> Layout:
     """Lay the ranks of the process group out as ``(world / tp, tp)`` and
-    make this process's layout the one every helper here reads. Every rank
-    calls it with the same degree (it makes every group, in one order).
-    Raises when the degree does not divide the world, with the JAX
-    package's ``make_mesh`` text."""
+    make this process's layout the one every helper here reads; with
+    ``pipeline`` the model axis holds pipeline stages. Every rank calls it
+    with the same arguments (it makes every group, in one order). Raises
+    when the degree does not divide the world, with the JAX package's
+    ``make_mesh`` text."""
     global _LAYOUT
     tp = int(model_parallel)
+    pipeline = bool(pipeline) and tp > 1
     world, rank = collectives.world_size(), collectives.rank()
     if tp < 1 or world % tp != 0:
         raise ValueError(f"{world} devices not divisible by model_parallel*sequence_parallel={tp}")
     current = _LAYOUT
-    if current is not None and current.world_group is _world_group() and (current.world, current.tp) == (world, tp):
+    if current is not None and current.world_group is _world_group() and (
+            current.world, current.tp, current.pipeline) == (world, tp, pipeline):
         return current
     model_group = data_group = None
     if tp > 1:
@@ -86,8 +101,17 @@ def init_mesh(model_parallel: int = 1) -> Layout:
             g = dist.new_group([d * tp + m for d in range(dp)])
             if m == rank % tp:
                 data_group = g
-    _LAYOUT = Layout(world, tp, rank, model_group, data_group, _world_group())
+    _LAYOUT = Layout(world, tp, rank, model_group, data_group, _world_group(), pipeline)
     return _LAYOUT
+
+
+def init_mesh_for(train_config) -> Layout:
+    """:func:`init_mesh` for a ``TrainConfig``: the model axis is the larger
+    of ``model_parallel`` and ``pipeline_parallel`` (``TrainConfig``
+    refuses both above 1), a stage group under the latter, as the JAX
+    package's ``fit`` builds its mesh."""
+    pp = train_config.pipeline_parallel
+    return init_mesh(max(train_config.model_parallel, pp), pipeline=pp > 1)
 
 
 def layout() -> Layout:
@@ -106,8 +130,16 @@ def data_parallel_degree() -> int:
 
 
 def model_parallel_degree() -> int:
-    """The tensor-parallel degree (1 without :func:`init_mesh`)."""
-    return layout().tp
+    """The tensor-parallel degree (1 without :func:`init_mesh`, and under
+    pipeline parallelism)."""
+    lay = layout()
+    return 1 if lay.pipeline else lay.tp
+
+
+def pipeline_parallel_degree() -> int:
+    """The pipeline's stage count (1 without a stage group)."""
+    lay = layout()
+    return lay.tp if lay.pipeline else 1
 
 
 def data_index() -> int:
@@ -116,7 +148,8 @@ def data_index() -> int:
 
 
 def model_index() -> int:
-    """This rank's position on the model axis (its channel slice)."""
+    """This rank's position on the model axis (its channel slice, or its
+    pipeline stage)."""
     return layout().model_index
 
 
@@ -128,9 +161,16 @@ def data_group():
 
 
 def model_group():
-    """The group of the ranks that hold one replica's channel slices (None
-    at ``tp = 1``)."""
+    """The group of the ranks that hold one replica's channel slices or
+    pipeline stages (None at ``tp = 1``)."""
     return layout().model_group
+
+
+def stage_group():
+    """The pipeline's stage group: the model group under pipeline
+    parallelism, else None."""
+    lay = layout()
+    return lay.model_group if lay.pipeline else None
 
 
 def local_batch_size(global_batch: int, degree: Optional[int] = None) -> int:

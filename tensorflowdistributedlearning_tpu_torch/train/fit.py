@@ -29,6 +29,12 @@ on a ``(world / tp, tp)`` grid (``parallel/tensor.py``): the ranks of a
 model group hold the channel slices of one replica and share its data
 slot, and the step is JAX's ``make_train_step_gspmd``, whose BatchNorm
 statistics span the global batch (``tensor.make_train_step_gspmd``).
+Under ``pipeline_parallel = K`` > 1 the ViT and the Xception-41
+classifier train as K-stage GPipe pipelines on a ``(world / K, K)`` grid
+(``parallel/pipeline.py``, ``train/pipeline_step.py``): the ranks of a
+stage group share a data slot, split the local batch into
+``pipeline_microbatches`` (default K) microbatches, and keep the whole
+parameters replicated, so checkpoints are the plain strategy's.
 
 Input, in the JAX package's order of preference (``data_dir`` may hold any
 of them; a stream is this rank's share):
@@ -58,9 +64,9 @@ alerts, cadence profiles), TensorBoard scalars in ``train/`` and ``eval/``
 (rank 0), dispatch-ahead with deferred window fetches
 (``train/async_loop.py``), and a health abort that writes the final
 checkpoint before it re-raises. Left out, each a ROADMAP item: fault
-injection and preemption (A 14), pipeline, expert and sequence
-parallelism and tensor parallelism of the ViT and Xception-41 (A 12.2 on,
-refused by ``require_supported_training``).
+injection and preemption (A 14), expert and sequence parallelism and
+tensor parallelism of the ViT and Xception-41 (A 12, refused by
+``require_supported_training``).
 """
 
 from __future__ import annotations
@@ -151,9 +157,16 @@ class ClassifierTrainer:
         require_supported_training(model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
         multihost.require_world_size(self.train_config.n_devices)
-        mesh.init_mesh(self.train_config.model_parallel)
+        mesh.init_mesh_for(self.train_config)
         self.data_parallel = collectives.is_initialized()
         self.tensor_parallel = self.train_config.model_parallel > 1
+        # GPipe stages over ViT blocks or Xception's middle flow; the
+        # parameters stay in the canonical replicated tree
+        self.pipeline_parallel = self.train_config.pipeline_parallel > 1
+        if self.pipeline_parallel:
+            from tensorflowdistributedlearning_tpu_torch.train.pipeline_step import validate_pipeline_config
+
+            validate_pipeline_config(model_config, self.train_config.pipeline_parallel, self._pp_microbatches)
         self.device = resolve_device(device)
         self.task = step_lib.ClassificationTask(label_smoothing=self.train_config.label_smoothing)
         self._n_params: Optional[int] = None
@@ -166,6 +179,13 @@ class ClassifierTrainer:
         if self._n_params is None:
             raise AttributeError("fit() must build the model first")
         return self._n_params
+
+    @property
+    def _pp_microbatches(self) -> int:
+        """Microbatches per local batch of the pipeline (default: one per
+        stage)."""
+        tcfg = self.train_config
+        return tcfg.pipeline_microbatches or tcfg.pipeline_parallel
 
     def _log(self, msg: str, *args) -> None:
         if multihost.is_main():
@@ -334,7 +354,11 @@ class ClassifierTrainer:
         ``TrainConfig.eval_every_steps``, then to ``checkpoint_every_steps``."""
         tcfg = self.train_config
         validate_training_data_format(tcfg)
-        multihost.per_process_batch_size(batch_size)  # fail fast, clear message
+        local_bs = multihost.per_process_batch_size(batch_size)  # fail fast, clear message
+        if self.pipeline_parallel and local_bs % self._pp_microbatches:
+            raise ValueError(
+                f"per-replica batch {local_bs} not divisible into {self._pp_microbatches} pipeline microbatches"
+            )
         # a layout fault of the eval split shows now, not at the first eval
         self._open_records("val")
         eval_every = eval_every_steps or tcfg.eval_every_steps or tcfg.checkpoint_every_steps
@@ -396,6 +420,12 @@ class ClassifierTrainer:
         if self.tensor_parallel:
             train_step = tensor_lib.make_train_step_gspmd(
                 self.task, weight_decay=self.model_config.weight_decay, seed=tcfg.seed
+            )
+        elif self.pipeline_parallel:
+            from tensorflowdistributedlearning_tpu_torch.train import pipeline_step
+
+            train_step = pipeline_step.make_train_step_pipeline(
+                self.task, self.model_config, self._pp_microbatches, seed=tcfg.seed
             )
         else:
             train_step = step_lib.make_train_step(
@@ -533,6 +563,10 @@ class ClassifierTrainer:
         device-to-host copy per pass, then the ``eval`` event."""
         if self.tensor_parallel:
             eval_step = tensor_lib.make_eval_step_gspmd(self.task)
+        elif self.pipeline_parallel:
+            from tensorflowdistributedlearning_tpu_torch.train import pipeline_step
+
+            eval_step = pipeline_step.make_eval_step_pipeline(self.task, self.model_config, self._pp_microbatches)
         else:
             eval_step = step_lib.make_eval_step(self.task, data_parallel=self.data_parallel)
         tel = self._telemetry
@@ -635,7 +669,8 @@ def fit_preset(
     """Train a named classification preset (the ``fit`` command).
     ``overrides`` are ``TrainConfig`` fields (``optimizer``, ``lr``,
     ``augmentation``, ``ema_decay``, ``grad_clip_norm``,
-    ``grad_accum_steps``, ``eval_holdout_fraction``,
+    ``grad_accum_steps``, ``model_parallel``, ``pipeline_parallel``,
+    ``pipeline_microbatches``, ``eval_holdout_fraction``,
     ``data_service_workers``, ...); None keeps
     the preset's value, and a knob the port does not run yet raises
     ``NotImplementedError`` from ``require_supported_training``. Swapping

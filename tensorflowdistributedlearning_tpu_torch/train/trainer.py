@@ -201,7 +201,8 @@ class Trainer:
     caller asks for the CPU. ``n_devices`` is the world size: None takes the
     process group the launcher set up (one process without one), any other
     value must equal it. ``TrainConfig.model_parallel`` lays the world out
-    as ``(world / tp, tp)``."""
+    as ``(world / tp, tp)``; ``pipeline_parallel`` > 1 raises (the pipeline
+    is ``fit``'s alone)."""
 
     def __init__(
         self,
@@ -229,6 +230,13 @@ class Trainer:
         )
         # the reference trainer passed crop_probability=0
         self.augment_config = augment_config or augment_lib.AugmentConfig(crop_probability=0.0)
+        if self.train_config.pipeline_parallel > 1:
+            # JAX's Trainer ignores the field; a pipeline is fit's alone
+            raise NotImplementedError(
+                f"pipeline_parallel={self.train_config.pipeline_parallel}: the K-fold Trainer does not pipeline "
+                "(ROADMAP.md, standing findings); ClassifierTrainer.fit (the fit command, fit_preset) is the "
+                "pipeline's only entry point"
+            )
         require_supported_training(self.model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
         multihost.require_world_size(self.train_config.n_devices)

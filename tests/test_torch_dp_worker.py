@@ -50,6 +50,19 @@ that checkpoint restored into this rank's slices; ``Trainer.train`` over
 under ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted
 (``tests/test_torch_tensor_parallel.py``).
 
+``pp``: pipeline parallelism (``parallel/pipeline.py``,
+``train/pipeline_step.py``): the runner over all W ranks as one stage
+group on the toy stages of ``DIR/pp_toy.npz`` (forward, gradients summed
+over the group, aux means); then at ``pipeline_parallel`` 2 (``(1, 2)`` at
+W = 2, ``(2, 2)`` at W = 4) from ``DIR/pp_init.pt`` on this rank's rows of
+``DIR/pp_batches.npz``: one plain-SGD step at lr 1 of the ViT (the update
+is the gradient; at W = 2 rank 0 also runs the one-rank schedule), the
+Xception-41 classifier's in float64 without dropout and with it beside the
+plain data-parallel step, both eval steps with ``valid`` weights; then
+``ClassifierTrainer.fit`` of the narrow ViT and Xception-41 at
+``pipeline_parallel`` 2, 2 + 2 steps resumed and 4 uninterrupted
+(``tests/test_torch_pipeline.py``).
+
 ``trainer``: ``Trainer.train`` of the tiny model over the dataset in
 ``DIR/data``, its no-op re-run, and what must raise under the group. Every
 directory made, file opened for writing, renamed or removed under the model
@@ -80,6 +93,12 @@ def launch(mode: str, world: int, directory: str, timeout: float = 240.0):
     """Run ``world`` ranks of ``mode`` over ``directory`` and return their
     results, rank by rank. Every rank is killed if any is still running
     when the call returns; a rank that fails raises with its output."""
+    return finish(start(mode, world, directory), timeout)
+
+
+def start(mode: str, world: int, directory: str):
+    """Start ``world`` ranks of ``mode`` over ``directory``; :func:`finish`
+    collects them."""
     import subprocess
 
     store = os.path.join(directory, f"store-{mode}")
@@ -92,6 +111,13 @@ def launch(mode: str, world: int, directory: str, timeout: float = 240.0):
         )
         for rank in range(world)
     ]
+    return mode, world, directory, procs
+
+
+def finish(started, timeout: float = 240.0):
+    """The results of :func:`start`'s ranks, rank by rank (see
+    :func:`launch`)."""
+    mode, world, directory, procs = started
     try:
         for rank, p in enumerate(procs):
             out, _ = p.communicate(timeout=timeout)
@@ -495,6 +521,135 @@ def _tp_mode(rank: int, world: int, directory: str):
     return out
 
 
+PP = 2
+PP_VIT = dict(backbone="vit", num_classes=4, input_shape=(16, 16), input_channels=3, patch_size=4, embed_dim=32,
+              vit_layers=4, num_heads=4, output_stride=None)
+PP_XC = dict(backbone="xception", num_classes=4, input_shape=(64, 64), input_channels=3, width_multiplier=0.125,
+             output_stride=None, dtype="float32")
+PP_M = 4
+PP_FIT = dict(optimizer="adam", lr=1e-3, ema_decay=0.9, grad_clip_norm=1.0, augmentation="none",
+              checkpoint_every_steps=2, seed=5, pipeline_parallel=PP, pipeline_microbatches=2)
+
+
+def pp_toy_stage(p, x):
+    """The runner tests' toy stage: a 3x3 SAME conv, bias, relu (NHWC)."""
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1), p["b"], padding=1)
+    return torch.relu(y.permute(0, 2, 3, 1))
+
+
+def _float64(model):
+    """``model`` computing in float64 (parameters, statistics and every
+    layer's compute dtype)."""
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return model
+
+
+def _pp_mode(rank: int, world: int, directory: str):
+    from unittest import mock
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
+    from tensorflowdistributedlearning_tpu_torch.parallel import pipeline as pp
+    from tensorflowdistributedlearning_tpu_torch.train import pipeline_step
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    out = {}
+    # the runner: all W ranks one stage group, K = W
+    toy = np.load(os.path.join(directory, "pp_toy.npz"))
+    lay = mesh.init_mesh(world, pipeline=True)
+    out["runner_layout"] = (lay.dp, lay.tp, mesh.pipeline_parallel_degree(), mesh.model_parallel_degree())
+    stacked = {"w": torch.from_numpy(toy["w"]).requires_grad_(), "b": torch.from_numpy(toy["b"]).requires_grad_()}
+    x = torch.from_numpy(toy["x"]).requires_grad_()
+    y = pp.make_pipeline_fn(pp_toy_stage)(stacked, x)
+    torch.sum(torch.from_numpy(toy["w_out"]) * y).backward()
+    grads = [stacked["w"].grad, stacked["b"].grad]
+    out["runner_own_slot_only"] = all(
+        float(g[j].abs().max()) == 0.0 for g in grads for j in range(world) if j != mesh.model_index())
+    collectives.psum_(grads, mesh.stage_group())
+    out["runner"] = {"out": y.detach(), "grad_w": grads[0], "grad_b": grads[1], "grad_x": x.grad}
+    my = {k: v[mesh.model_index()].detach() for k, v in stacked.items()}
+    _, aux = pp.pipeline_apply_aux(lambda p, h: (lambda o: (o, [o.mean(dim=(0, 1, 2))]))(pp_toy_stage(p, h)), my,
+                                   x.detach())
+    out["runner_aux"] = aux[0]
+    try:
+        pp.make_pipeline_fn(pp_toy_stage)({k: v[:1] for k, v in stacked.items()}, x)
+    except ValueError as e:
+        out["runner_stage_count"] = str(e)
+
+    # the train and eval steps at pipeline_parallel 2
+    lay = mesh.init_mesh(PP, pipeline=True)
+    out["layout"] = (lay.dp, lay.tp, lay.data_index, lay.model_index, mesh.pipeline_parallel_degree())
+    init = torch.load(os.path.join(directory, "pp_init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "pp_batches.npz"))
+    task = step_lib.ClassificationTask()
+
+    def rows(prefix):
+        r = mesh.shard_rows(len(data[f"{prefix}_labels"]))
+        return {k: torch.from_numpy(data[f"{prefix}_{k}"][r]) for k in ("images", "labels", "valid")
+                if f"{prefix}_{k}" in data}
+
+    def result(state, metrics):
+        return {"loss": step_lib.compute_metrics(metrics)["loss"],
+                "grads": {n: p.grad.detach().clone() for n, p in state.model.named_parameters()},
+                "state": _snapshot(state)}
+
+    vit = ModelConfig(**PP_VIT)
+    batch = rows("vit")
+    state = replicate(_state(vit, TP_SGD, init["vit"]))
+    state, metrics = pipeline_step.make_train_step_pipeline(task, vit, PP_M)(state, batch)
+    out["vit"] = result(state, metrics)
+    if rank == 0 and lay.dp == 1:
+        one = _state(vit, TP_SGD, init["vit"])
+        one, m1 = pipeline_step.make_train_step_pipeline(task, vit, PP_M, local_stages=PP)(one, batch)
+        out["vit_one_rank"] = result(one, m1)
+    model = _state(vit, TP_SGD, init["vit"]).model
+    ev = rows("vit_eval")
+    out["vit_eval"] = step_lib.compute_metrics(pipeline_step.make_eval_step_pipeline(task, vit, PP_M)(model, ev))
+
+    # Xception-41 in float64: without dropout against JAX, with it against
+    # the plain data-parallel step (the same masks)
+    xc = ModelConfig(**PP_XC)
+    batch = {k: v.double() if k == "images" else v for k, v in rows(f"xc{world}").items()}
+    with mock.patch.object(torch.Tensor, "float", torch.Tensor.double):
+        for name, keep, make in (
+            ("xc", 1.0, lambda: pipeline_step.make_train_step_pipeline(task, xc, PP_M, seed=3)),
+            ("xc_dropout", 0.5, lambda: pipeline_step.make_train_step_pipeline(task, xc, PP_M, seed=3)),
+            ("xc_plain", 0.5, lambda: step_lib.make_train_step(task, data_parallel=True, seed=3)),
+        ):
+            state = _state(xc, TP_SGD, init["xc"])
+            _float64(state.model).keep_prob = keep
+            state.flat_grad = None
+            state.optimizer = step_lib.make_optimizer(TrainConfig(**TP_SGD), state.model)
+            state, metrics = make()(state, batch)
+            out[name] = result(state, metrics)
+    model = _state(xc, TP_SGD, init["xc"]).model
+    model.keep_prob = 1.0
+    out["xc_eval"] = step_lib.compute_metrics(
+        pipeline_step.make_eval_step_pipeline(task, xc, PP_M)(model, rows(f"xc{world}_eval")))
+
+    # fit at pipeline_parallel 2: 2 + 2 steps resumed against 4, both models
+    fit = {}
+    for key, cfg in (("vit", ModelConfig(**dict(VIT_TINY, vit_layers=2))), ("xc", zero_fit_model())):
+        for name, stops in (("resumed", (2, 4)), ("straight", (4,))):
+            for stop in stops:
+                t = ClassifierTrainer(os.path.join(directory, f"pp-fit-{key}-{name}"), None, cfg,
+                                      TrainConfig(**PP_FIT, n_devices=world), device="cpu")
+                fit[f"{key}_{name}_{stop}"] = t.fit(batch_size=8, steps=stop).final_metrics
+    out["fit_runs"] = fit
+    try:
+        ClassifierTrainer(os.path.join(directory, "pp-fit-odd"), None, ModelConfig(**dict(VIT_TINY, vit_layers=2)),
+                          TrainConfig(**dict(PP_FIT, pipeline_microbatches=4)), device="cpu").fit(
+            batch_size=6 * lay.dp, steps=1)
+    except ValueError as e:
+        out["fit_batch_error"] = str(e)
+    return out
+
+
 def _trainer_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
@@ -554,7 +709,7 @@ def main(argv) -> int:
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
     out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
-           "zero": _zero_mode, "tp": _tp_mode}[mode](
+           "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

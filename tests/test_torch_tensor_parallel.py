@@ -31,8 +31,8 @@ on the CPU.
   uninterrupted one; every rank's memory event is JAX's
   ``tree_bytes_per_device`` of its placed state.
 - The refusals: JAX's ``ValueError`` texts for tensor parallelism with the
-  sequence axis, the pipeline and accumulation; the axes that stay
-  refused name queue A 12.
+  sequence axis, the pipeline and accumulation, and for the segmenter's
+  pipeline; the axes that stay refused name queue A 12.
 """
 
 from __future__ import annotations
@@ -560,10 +560,19 @@ def test_jax_value_errors_and_the_axes_that_stay_refused():
     seg = ModelConfig(**worker.TINY)
     require_supported_training(seg, TrainConfig(model_parallel=2))
     require_supported_training(ModelConfig(**worker.TP_CLS), TrainConfig(model_parallel=2, weight_update_sharding=True))
-    for kw in (dict(sequence_parallel=2), dict(pipeline_parallel=2, pipeline_microbatches=2),
-               dict(expert_parallel=2), dict(parallelism="auto")):
+    for kw in (dict(sequence_parallel=2), dict(expert_parallel=2), dict(parallelism="auto")):
         with pytest.raises(NotImplementedError, match="queue A 12"):
             require_supported_training(seg, TrainConfig(**kw))
+    # the pipeline is fit's, for the ViT and Xception-41 classifiers: the
+    # ResNet segmenter keeps JAX's refusal, its text
+    from tensorflowdistributedlearning_tpu.train import pipeline_step as jpipeline_step
+
+    with pytest.raises(ValueError) as want:
+        jpipeline_step.validate_pipeline_config(jconfig.ModelConfig(**JSEG), 2, 2)
+    with pytest.raises(ValueError) as got:
+        require_supported_training(seg, TrainConfig(pipeline_parallel=2, pipeline_microbatches=2))
+    assert str(got.value) == str(want.value)
+    assert "does not support backbone='resnet'" in str(got.value)
     for model in (worker.zero_fit_model(), ModelConfig(**worker.VIT_TINY)):
         with pytest.raises(NotImplementedError, match="queue A 12.2"):
             require_supported_training(model, TrainConfig(model_parallel=2))
