@@ -145,8 +145,8 @@ Phases, each fatal on failure (exit 1, no result line):
    fit-vit — ClassifierTrainer.fit on the same preset (its TrainConfig:
              AdamW 1e-3, weight decay 0.1, clip 1.0, label smoothing 0.1,
              flip_crop, cosine with warmup), full width and depth, on the
-             index-keyed synthetic stream: 20 steps at batch 64, a
-             checkpoint and an eval (4 batches) every 10, best export on
+             index-keyed synthetic stream: 10 steps at batch 64, a
+             checkpoint and an eval (4 batches) every 5, best export on
              metrics/top1; checks the checkpoint and export steps, finite
              metrics, 12 tensor-core attention launches per train step and
              per eval forward and nothing else; prints the wall time and
@@ -195,15 +195,15 @@ Phases, each fatal on failure (exit 1, no result line):
              101x101, a third of the masks empty) and its train.csv, takes
              the ids and coverage classes from load_tgs_training_set (the
              training script's loader) and runs Trainer.train
-             on the full-width model, batch 64, 2 folds of 20 steps,
-             checkpoints and evals every 10 steps; checks every fold's
+             on the full-width model, batch 64, 2 folds of 10 steps,
+             checkpoints and evals every 5 steps; checks every fold's
              checkpoints and best export, finite metrics, exactly 3/3/3
              depthwise forward/dx/dw and 0 BN+act and 0 sigmoid-mask
              launches per train step (3 depthwise and 59 BN+act per eval
              forward), and that a re-run is a no-op resume. The folds feed
              through the data service (TrainConfig's default 2 workers):
-             fold 0 stopped at step 10 (data_state-10.json written) and
-             resumed to 20 is handed batches 10-19 equal, by sha256 of
+             fold 0 stopped at step 5 (data_state-5.json written) and
+             resumed to 10 is handed batches 5-9 equal, by sha256 of
              the images and masks, to the uninterrupted fold's. Then 10 steps
              on one fixed batch must lower the loss (ms per step, images/s);
              torch.profiler over 3 steps gives the device idle share; one
@@ -224,7 +224,7 @@ Phases, each fatal on failure (exit 1, no result line):
              fold 0's export, equal to engine.infer on the same images.
 8. dp      — data-parallel training on 192 TGS-layout images of the
              seed, full width, global batch 64. One NCCL rank in this
-             process (a file:// store): Trainer.train, 2 folds x 5 steps,
+             process (a file:// store): Trainer.train, 2 folds x 3 steps,
              3/3/3 depthwise launches per train step as in 7; under
              PyTorch's deterministic algorithms 3 steps from one state bit
              for bit 3 single-device steps (and those repeatable), the
@@ -241,9 +241,9 @@ Phases, each fatal on failure (exit 1, no result line):
              plain whole-batch step beside it) under sigmoid cross entropy
              under deterministic algorithms (loss 1e-5, every gradient leaf
              1e-4·max|g| + 1e-6, BN statistics 1e-5),
-             the replicas' digests equal after 5 steps, ms per step and the
+             the replicas' digests equal after 3 steps, ms per step and the
              host-staged all-reduce; then Trainer.train on both ranks
-             (2 folds x 5 steps, 3/3/3 launches per train step, equal
+             (2 folds x 3 steps, 3/3/3 launches per train step, equal
              metrics).
 
 9. train-bf16 — tgs_salt_bf16 (the segmenter in bf16 compute, full width
@@ -258,11 +258,11 @@ Phases, each fatal on failure (exit 1, no result line):
              images and fold 0's export through the engine at bucket 64.
 10. fit-resnet50 — resnet50_classic_imagenet (full width and depth, bf16,
              space-to-depth stem) through fit_preset on synthetic
-             ImageNet-shaped data (20 steps at batch 64, the preset's SGD
+             ImageNet-shaped data (10 steps at batch 64, the preset's SGD
              recipe, one eval, the float32 export), a restore, that export
              through the engine; then the restored state with its running
              statistics re-estimated from 4 training-mode forwards and its
-             logits scaled to std 3 (20 steps leave the statistics near
+             logits scaled to std 3 (10 steps leave the statistics near
              their init and every softmax saturated): each of the 52 BN
              calls of its eval forward at batch 64 held bit for bit against
              the plain version, its float32 export through the engine
@@ -279,13 +279,13 @@ Phases, each fatal on failure (exit 1, no result line):
              from the seed in 16 record shards with .idx sidecars,
              eval_holdout_fraction 0.125 (2 shards, 96 images; the second
              eval batch half padding), the data service's default 2
-             workers, 20 steps at batch 64, one eval, the best export.
+             workers, 10 steps at batch 64, one eval, the best export.
              Prints the decoder in use (native, or data/png.py where
              native/io.cc does not build). Checks: shard 0's records read
              back decode to the pixels written; 2 eval forwards over
              exactly 96 valid rows, 52 bf16 BN launches each, none per
-             train step; a run stopped at step 10 writes
-             data_state-10.json and, resumed, draws batches 10-19 equal to
+             train step; a run stopped at step 5 writes
+             data_state-5.json and, resumed, draws batches 5-9 equal to
              the uninterrupted stream's; the service alone gives batches
              0-3 equal at 1, 2 and 4 workers. Times: the service alone at
              1/2/4 workers (images/s, no model), fit's train loop
@@ -330,6 +330,27 @@ Phases, each fatal on failure (exit 1, no result line):
              launch counted per step and per eval forward and the first
              calls held against the plain versions; the export served
              through the plain model in this process.
+14. train-moe — expert parallelism and the Switch-MoE ViT:
+             vit_s16_moe_imagenet at full width (bf16, 224x224x3, 12
+             blocks, every other one an 8-expert top-1 MoE, 71 694 184
+             parameters). The step on a resident batch of 64 with every
+             expert local, alone on the host (ms, idle share, peak memory,
+             the first loss beside ViT-S/16's, each MoE layer's load
+             balance and fractions); then 8 gloo ranks sharing the card
+             start (``chip_smoke.py moe-rank ...``, held until the
+             one-card part is done) while seeded weights are exported and
+             served by the engine at buckets 1 and 64 (the engine's logits
+             within one bf16 step, at each row's scale, of the plain
+             model's) and fit_preset trains with every expert local, 2
+             steps resumed to 4 at batch 64 (12 attention launches per
+             train step and eval forward); then the ranks at
+             expert_parallel 8, dp 1, global batch 64: 2 steps held
+             against the one-card dense step from the same state (loss
+             within one bf16 step, every gradient leaf within
+             2e-2·max|leaf|), the ranks' states equal, ms per step, one
+             step's 24 all-to-alls of [8, 1960, 384] bf16 (12.04 MB) and
+             its gradient all-reduce timed with their bytes held to the
+             shapes' count.
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -478,11 +499,11 @@ PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # (calibrated logits, std 3) plus equal classes where the top two are apart
 TOL_VIT_F32 = 1e-5
 TOL_VIT_BF16 = 2e-2
-# ViT training: fit 20 steps at batch 64 with a checkpoint and an eval
-# every 10; the train step timed on a resident batch of 64
+# ViT training: fit 10 steps at batch 64 with a checkpoint and an eval
+# every 5; the train step timed on a resident batch of 64
 VIT_BATCH = 64
-VIT_FIT_STEPS = 20
-VIT_FIT_EVERY = 10
+VIT_FIT_STEPS = 10
+VIT_FIT_EVERY = 5
 # timed HTTP requests per size in each ViT serving spec
 VIT_HTTP_REPS = 1
 # the fit-vit dispatch arms: steps per arm, the timed span and the window
@@ -493,14 +514,14 @@ VIT_ARM_WINDOW = 4
 TRAIN_BATCH = 64
 TRAIN_IMAGES = 256
 TRAIN_FOLDS = 2
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10
 PREDICT_IMAGES = 128
 # data-parallel phase: 2 folds x 5 steps per run at global batch 64; 192
 # images give each fold 96 train and 96 eval images, and three fixed
 # batches for the one-rank step check
 DP_IMAGES = 192
 DP_FOLDS = 2
-DP_STEPS = 5
+DP_STEPS = 3
 # timed steps of the data-parallel phases (the medians skip the first);
 # cut from 6 and 4 in PR 17 to pay for train-tp
 DP_TIMED_ALTERNATIONS = 4
@@ -511,7 +532,7 @@ TOL_DX = 1e-5
 TOL_DW_REL = 1e-4
 TOL_LOSS = 1e-5
 # bf16 compute: tgs_salt_bf16 through Trainer.train (2 folds x 10 steps),
-# resnet50_classic_imagenet through fit_preset (20 steps at batch 64), and
+# resnet50_classic_imagenet through fit_preset (10 steps at batch 64), and
 # resnet50_bf16_8k's model and LARS recipe with remat and accumulation (5
 # steps at batch 64, without ZeRO-1). The bf16 arms hold their plain
 # versions within one bf16 step (float32 sums in another order, one
@@ -526,7 +547,7 @@ R50_PRESET = "resnet50_classic_imagenet"
 LARS_PRESET = "resnet50_bf16_8k"
 BF16_TRAIN_STEPS = 10
 R50_BATCH = 64
-R50_FIT_STEPS = 20
+R50_FIT_STEPS = 10
 R50_CALIBRATION_BATCHES = 4
 # the ResNet-50's bfloat16 serving spec (bf16 BN parameters and statistics,
 # flax's unfolded BN in bf16 arithmetic) against its float32 spec: the
@@ -549,7 +570,7 @@ LARS_STEPS = 5
 FR_IMAGES = 768
 FR_SHARDS = 16
 FR_HOLDOUT = 0.125
-FR_STOP = 10
+FR_STOP = 5
 FR_WORKERS = (1, 2, 4)
 FR_SERVICE_BATCHES = 8  # batches timed per worker count
 FR_FOLDER_CLASSES = 8
@@ -1113,8 +1134,8 @@ OBS_REQUESTS = 20  # per SLO window: the tracker's min_requests
 OBS_CLIENTS = 8
 # bucket-1 requests one at a time, then closed-loop clients, seconds per arm
 # (short, to keep the run's time for the train-pp phase)
-OBS_SEQUENTIAL_S = 1.0
-OBS_LOOP_S = 2.5
+OBS_SEQUENTIAL_S = 0.5
+OBS_LOOP_S = 1.5
 OBS_PROFILE_S = 3  # the /admin/profile capture under load
 
 
@@ -2827,12 +2848,15 @@ def fit_vit_phase(torch, card: str, device: str = "cuda", cfg=None, batch: int =
     ``every``, best export on metrics/top1; then the restored best state
     served through ``serving_fn`` in float32 and bfloat16 and exported
     through the engine."""
+    import dataclasses
+
     from tensorflowdistributedlearning_tpu_torch.ops import kernels
     from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
     from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
     from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, ClassifierTrainer
 
     preset_cfg, tcfg = vit_train_config(every)
+    tcfg = dataclasses.replace(tcfg, train_log_every_steps=steps)  # one window: the ledger's steps sum to the run
     cfg = cfg or preset_cfg
     on_card = device == "cuda"
     per = PER_VIT_FORWARD if on_card else {k: 0 for k in PER_VIT_FORWARD}
@@ -3410,7 +3434,7 @@ def observe_prefetch(pipeline_lib, digests, waits=None):
 
 
 def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TRAIN_IMAGES,
-                size: int = 101, batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS, every: int = 10,
+                size: int = 101, batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS, every: int = 5,
                 n_test: int = PREDICT_IMAGES):
     """Trainer.train on the full-width model (the main training path), then
     the learning, profile, kernel-vs-plain and serve checks."""
@@ -3428,7 +3452,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
     model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True)
     cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
     tcfg = TrainConfig(n_folds=TRAIN_FOLDS, seed=SEED % 1000, checkpoint_every_steps=every, eval_every_steps=every,
-                       save_best=2)
+                       save_best=2, train_log_every_steps=steps)
     results = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as root:
         data, model_dir = os.path.join(root, "data"), os.path.join(root, "model")
@@ -3495,7 +3519,7 @@ def train_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_ima
         log(f"train: re-run is a no-op resume (launches {rerun}, checkpoints untouched, same eval)")
 
         # the fold stream is the data service's (data_service_workers=2, the
-        # default): fold 0 stopped at step 10 and resumed to 20 is handed
+        # default): fold 0 stopped at step ``every`` and resumed to ``steps`` is handed
         # what the uninterrupted fold 0 was, batch for batch
         check(tcfg.data_service_workers == 2, f"data_service_workers {tcfg.data_service_workers}")
         check(len(fed) == TRAIN_FOLDS * steps, f"{len(fed)} batches fed to the uninterrupted run")
@@ -4714,7 +4738,7 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             result = fit_preset(R50_PRESET, model_dir, steps=steps, batch_size=batch, eval_every_steps=steps,
-                                export_serving="float32", device=device)
+                                export_serving="float32", device=device, train_log_every_steps=steps)
             if on_card:
                 torch.cuda.synchronize()
             fit_s = time.perf_counter() - t0
@@ -4757,8 +4781,8 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             f"the restored model's forward")
         del engine
 
-        # the served state: 20 steps at decay 0.99 leave the running statistics
-        # 82% at their init, so the eval-mode logits are huge and every softmax
+        # the served state: 10 steps at decay 0.99 leave the running statistics
+        # 90% at their init, so the eval-mode logits are huge and every softmax
         # saturates; the running statistics are re-estimated from training-mode
         # forwards and the logits scaled to std 3, so probabilities and
         # classes can show a serving fault
@@ -4970,7 +4994,7 @@ def fit_records_phase(torch, card: str, device: str = "cuda", cfg=None, batch: i
             f"record shards with .idx sidecars in {write_s:.3f} s ({sum(os.path.getsize(p) for p in paths) / 2**20:.1f} "
             f"MiB); shard 0's {len(rows)} records decode ({out['decoder']}) to the pixels written")
 
-        overrides = dict(eval_holdout_fraction=FR_HOLDOUT)
+        overrides = dict(eval_holdout_fraction=FR_HOLDOUT, train_log_every_steps=steps)
         trainer = ClassifierTrainer(os.path.join(root, "probe"), data, cfg, dataclasses.replace(tcfg, **overrides),
                                     device=device)
         train_paths = trainer._open_records("train", host_shard=False).paths
@@ -5037,7 +5061,7 @@ def fit_records_phase(torch, card: str, device: str = "cuda", cfg=None, batch: i
         log(f"fit-records: train loop {loop_ips:.1f} images/s (host clock, batches 2-{len(waits) - 1}); the host "
             f"waited {blocked:.3f} s on the next batch, {blocked / fit_s:.4f} of fit's wall time [{card}]")
 
-        # a run stopped at step 10 writes its sidecar; resumed, it draws the
+        # a run stopped at step ``stop`` writes its sidecar; resumed, it draws the
         # uninterrupted stream's batches 10-19
         resumed_dir = os.path.join(root, "model-resumed")
         parts = []
@@ -6142,7 +6166,7 @@ PP_STAGES = 2
 PP_MICROBATCHES = 4
 PP_BATCH = 64
 PP_HELD_STEPS = 2
-PP_TIMED_STEPS = 2
+PP_TIMED_STEPS = 1
 PP_FIT_STOP = 2
 PP_FIT_STEPS = 4
 PP_HELD_CALLS = 4  # attention / BN calls of each rank's fit held against plain
@@ -6624,6 +6648,499 @@ def pp_rank_main(argv) -> int:
 
 
 
+# expert parallelism: the Switch-MoE ViT served, trained on one card with
+# every expert local, and trained at expert_parallel 8 on gloo ranks that
+# share the card
+MOE_PRESET = "vit_s16_moe_imagenet"
+MOE_BATCH = 64
+MOE_BUCKETS = (1, 64)
+MOE_FIT_STOP = 2
+MOE_FIT_STEPS = 4
+MOE_TIMED_STEPS = 5  # steps on a resident batch; the median skips the first two
+MOE_EP = 8  # ranks of the expert group: one expert each
+MOE_EP_BATCH = 64  # global; dp = 1, so every rank holds the whole batch
+MOE_EP_HELD_STEPS = 2
+MOE_EP_TIMEOUT_S = 300
+# a gradient leaf of a bf16 step within 2e-2·max|leaf| of its reference (the
+# port's bf16 leaf bound, tests/test_torch_vit_train_step.py)
+TOL_MOE_GRAD = 2e-2
+# JAX's own bound on a load-balancing value (tests/test_expert.py): E·Σ f·P is
+# 1 at a uniform split and not bounded below by 1
+MOE_BALANCE_MIN = 0.99
+
+
+def bf16_spacing(x: float) -> float:
+    """One bf16 step at the magnitude of ``x``."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def moe_a2a_bytes(cfg, batch: int, world: int) -> int:
+    """One all-to-all's bytes on a rank: the ``[E, C, D]`` dispatch buffer in
+    the compute dtype, C = ceil(batch · tokens · factor / E)."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import scaled_width
+    from tensorflowdistributedlearning_tpu_torch.parallel.expert import capacity_of
+
+    h, w = cfg.input_shape
+    tokens = batch * (h // cfg.patch_size) * (w // cfg.patch_size)
+    d = scaled_width(cfg.embed_dim, cfg.width_multiplier)
+    return world * capacity_of(tokens, world, cfg.moe_capacity_factor) * d * (2 if cfg.dtype == "bfloat16" else 4)
+
+
+def drawn_state(torch, cfg, tcfg, device, seed: int):
+    """A fresh training state of ``cfg`` whose weights are drawn on
+    ``device`` from ``seed`` (a CPU draw of the MoE preset's 71.7M
+    parameters takes seconds)."""
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    with torch.device(device):
+        model = build_model(cfg, device, generator=torch.Generator(device).manual_seed(seed))
+    return create_train_state(cfg, tcfg, device, state_dict=model.state_dict())
+
+
+def moe_balance(torch, model, images):
+    """Each MoE layer's load-balancing value (its recorded aux loss over the
+    weight) and dispatch fractions from one training-mode forward of
+    ``images`` without gradients, in the layers' collection order."""
+    from tensorflowdistributedlearning_tpu_torch.models import vit
+
+    model.train()
+    with torch.no_grad():
+        model(images)
+    layers = vit.moe_layers(model)
+    aux = vit.pop_aux_losses(model)
+    return [{"balance": float(a) / m.aux_weight, "fractions": [round(float(f), 5) for f in m.expert_fraction]}
+            for m, a in zip(layers, aux)]
+
+
+@contextlib.contextmanager
+def timed_expert_collectives(torch, collectives):
+    """For the duration, each all-to-all and each all-reduce of the step is
+    timed with the card synchronized around it; yields ``{kind: [calls,
+    seconds, bytes]}``."""
+    rec = {"all_to_all": [0, 0.0, 0], "all_reduce": [0, 0.0, 0]}
+    real_a2a, real_reduce = collectives._all_to_all_single, collectives._reduce_
+
+    def timed(kind, fn, n):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        r = rec[kind]
+        r[0], r[1], r[2] = r[0] + 1, r[1] + time.perf_counter() - t0, r[2] + n
+        return out
+
+    def a2a(x, group):
+        return timed("all_to_all", lambda: real_a2a(x, group), x.numel() * x.element_size())
+
+    def reduce_(tensors, op, group=None):
+        ts = [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
+        return timed("all_reduce", lambda: real_reduce(tensors, op, group), sum(t.numel() * t.element_size() for t in ts))
+
+    with mock.patch.multiple(collectives, _all_to_all_single=a2a, _reduce_=reduce_):
+        yield rec
+
+
+def moe_rank(torch, rank: int, world: int, store: str, root: str, device: str, cfg, batch: int):
+    """One rank of ``train-moe``'s expert-parallel part: the preset's train
+    step at ``expert_parallel`` = ``world`` (one expert per rank, dp 1)
+    from ``ROOT/moe_init.pt`` on the seeded batch, once ``ROOT/go`` exists.
+    Rank 0 runs the one-card dense step on a copy of the state before each
+    held step and holds the loss and every gradient leaf against it; the
+    last held step is timed (the ranks enter it together); then one step
+    with its all-to-alls and all-reduces timed, the launches of each step
+    and the state's digest."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    t_start = time.perf_counter()
+    dev = torch.device(device if device == "cpu" else "cuda:0")
+    on_card = dev.type == "cuda"
+    multihost.initialize(store, world, rank, backend="gloo", timeout=MOE_EP_TIMEOUT_S)
+    out = {"rank": rank}
+    try:
+        if on_card:
+            torch.cuda.set_device(0)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tcfg = dataclasses.replace(configs.get_preset(MOE_PRESET).train, expert_parallel=world, seed=SEED % 1000 + 101)
+        init = torch.load(os.path.join(root, "moe_init.pt"), weights_only=True)
+        state = create_train_state(cfg, tcfg, dev, state_dict=init)
+        dense = create_train_state(cfg, dataclasses.replace(tcfg, expert_parallel=1), dev,
+                                   state_dict=init) if rank == 0 else None
+        del init
+        lay = mesh.layout()
+        out["layout"] = [lay.dp, lay.tp, lay.data_index, lay.model_index, mesh.expert_parallel_degree()]
+        fixed = pipeline_lib.to_device(synthetic_classification_batch(
+            np.random.default_rng(SEED + 103), batch, cfg.input_shape, cfg.input_channels, cfg.num_classes), dev)
+        task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+        step = step_lib.make_train_step(task, data_parallel=True, weight_decay=cfg.weight_decay, seed=tcfg.seed)
+        # the step's gradient before the update clips it
+        grads = {}
+        apply = state.apply_gradients
+
+        def snapshot_then_apply():
+            if rank == 0:
+                grads.update({n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
+            apply()
+
+        state.apply_gradients = snapshot_then_apply
+        out["setup_s"] = time.perf_counter() - t_start  # the process's own start (imports) not included
+        while not os.path.exists(os.path.join(root, "go")):
+            time.sleep(0.05)
+        multihost.barrier()
+        out["held"], out["step_launches"] = [], []
+        for k in range(MOE_EP_HELD_STEPS):
+            rec = {}
+            if dense is not None:
+                dense.model.load_state_dict(state.model.state_dict())
+                loss, _ = step_lib.forward_backward(dense, task, fixed)
+                rec["dense_loss"] = float(loss)
+            multihost.barrier()
+            if on_card:
+                torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            _, metrics = step(state, fixed)
+            rec["loss"] = step_lib.compute_metrics(metrics)["loss"]  # the host copy waits for the step
+            out["step_ms"] = (time.perf_counter() - t0) * 1e3
+            after = kernels.launch_counts()
+            out["step_launches"].append({n: after[n] - before[n] for n in after})
+            if dense is not None:
+                worst, where = 0.0, None
+                for n, p in dense.model.named_parameters():
+                    share = float((grads[n] - p.grad).abs().max()) / (TOL_MOE_GRAD * float(p.grad.abs().max()) + 1e-12)
+                    if share > worst:
+                        worst, where = share, n
+                rec["worst_gradient"], rec["worst_leaf"] = worst, where
+                grads.clear()
+            out["held"].append(rec)
+        del dense
+        if on_card:
+            torch.cuda.empty_cache()
+        multihost.barrier()
+        with timed_expert_collectives(torch, collectives) as rec:
+            step(state, fixed)
+        out["transfers"] = rec
+        out["final_digest"] = state_digest(state.model)
+        if on_card:
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def moe_rank_main(argv) -> int:
+    """``chip_smoke.py moe-rank RANK WORLD STORE ROOT DEVICE CONFIG BATCH``:
+    one rank of ``train-moe``'s expert-parallel part (CONFIG a ModelConfig
+    as JSON); writes ``ROOT/moe{WORLD}-rank{RANK}.json``."""
+    import torch
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+
+    rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    cfg, batch = ModelConfig.from_json(argv[5]), int(argv[6])
+    try:
+        out = moe_rank(torch, rank, world, store, root, device, cfg, batch)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(root, f"moe{world}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def train_moe_phase(torch, card: str, device: str = "cuda", cfg=None, dense_cfg=None, batch: int = MOE_BATCH,
+                    ep: int = MOE_EP, ep_batch: int = MOE_EP_BATCH, buckets=MOE_BUCKETS):
+    """vit_s16_moe_imagenet (bf16, 224x224x3, 12 blocks of which 6 are
+    8-expert Switch MoE, 71 694 184 parameters) at full width: the step on
+    a resident batch with every expert local (ms, idle share, peak memory,
+    the first loss beside ViT-S/16's, each MoE layer's balance and
+    fractions), timed before any rank starts; then ``ep`` gloo ranks
+    sharing the card at ``expert_parallel`` = ``ep`` (dp 1, global batch
+    ``ep_batch``) start and wait while (a) an export of seeded weights is
+    served by the engine at buckets 1 and 64 against the plain model and
+    (b) fit_preset trains with every expert local, 2 steps then resumed to
+    4; then (c) the ranks take 2 steps held against the one-card dense
+    step, the ranks' states equal, ms per step and the all-to-alls' bytes
+    and ms. ``cfg``, ``dense_cfg`` and ``device="cpu"`` rehearse it small."""
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+
+    on_card = device == "cuda"
+    preset = configs.get_preset(MOE_PRESET)
+    cfg = cfg or preset.model
+    dense_cfg = dense_cfg or configs.get_preset(VIT_PRESET).model
+    per = PER_VIT_FORWARD if on_card else {k: 0 for k in PER_VIT_FORWARD}
+    shape = (*cfg.input_shape, cfg.input_channels)
+    n_moe = sum(1 for i in range(cfg.vit_layers) if i % 2 == 1)
+    t0 = time.perf_counter()
+    out = _moe_resident(torch, cfg, dense_cfg, card, device, batch, n_moe)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-") as root:
+        # seeded weights drawn on the device, the logits calibrated to std 3
+        with torch.device(device):
+            model = build_model(cfg, device, generator=torch.Generator(device).manual_seed(SEED + 101))
+        calibrate_logits(torch, model.eval(), torch.from_numpy(make_vit_instances(8, SEED + 102, shape)).to(device))
+        out["n_params"] = sum(p.numel() for p in model.parameters())
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, os.path.join(root, "moe_init.pt"))
+        store = f"file://{os.path.join(root, 'store')}"
+        procs, logs = [], []
+        try:
+            for rank in range(ep):
+                logs.append(open(os.path.join(root, f"moe{ep}-rank{rank}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "moe-rank", str(rank), str(ep), store, root, device,
+                     cfg.to_json(), str(ep_batch)],
+                    stdout=logs[-1], stderr=subprocess.STDOUT,
+                ))
+            out.update(_moe_serve(torch, model, cfg, card, root, device, per, buckets))
+            del model
+            if on_card:
+                torch.cuda.empty_cache()
+            out.update(_moe_fit(torch, cfg, card, root, device, per, batch))
+            t_go = time.perf_counter()
+            with open(os.path.join(root, "go"), "w"):
+                pass
+            outs = tp_finish(root, ep, procs, logs, t_go + MOE_EP_TIMEOUT_S, prefix="moe")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        out["ep"] = _moe_ep_checks(outs, cfg, card, device, per, ep, ep_batch, n_moe, time.perf_counter() - t_go)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"train-moe: {out['phase_s']:.1f} s in all (resident step {out['resident_s']:.1f} s, serve "
+        f"{out['serve_s']:.1f} s, fit {out['fit_s']:.1f} s, {ep} ranks {out['ep']['ranks_s']:.1f} s after the go) "
+        f"[{card}]")
+    return out
+
+
+def _moe_serve(torch, model, cfg, card: str, root: str, device: str, per, buckets):
+    """(a): the export served by the engine at each bucket, a full bucket of
+    seeded instances each, against the plain model on the same batch: the
+    engine's logits (recorded at its serving head) within one bf16 step at
+    the magnitude of their row's largest plain logit, the probabilities
+    within the bf16 ViT bound, the class where the top two lie apart; 12
+    attention launches per forward."""
+    from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.serving import export_serving_artifact
+
+    t0 = time.perf_counter()
+    manifest = export_serving_artifact(model, cfg, os.path.join(root, "export"))
+    engine = InferenceEngine.from_artifact(os.path.dirname(manifest), device=device, buckets=buckets)
+    head = step_lib.ClassificationTask.serve_predictions
+    recorded = []
+
+    def recording(task, logits):
+        recorded.append(logits.detach().float().cpu())
+        return head(task, logits)
+
+    out = {"serve_launches": {k: 0 for k in kernels.launch_counts()}, "serve": {}}
+    for b in buckets:
+        x = make_vit_instances(b, SEED + 104 + b, (*cfg.input_shape, cfg.input_channels))
+        kernels.reset_launch_counts()
+        recorded.clear()
+        with mock.patch.object(step_lib.ClassificationTask, "serve_predictions", recording):
+            got = engine.infer(x)
+        launched = kernels.launch_counts()
+        check({k: launched[k] for k in per} == per, f"train-moe serve bucket {b}: launches {launched}, expected {per}")
+        check(len(recorded) == 1 and recorded[0].shape == (b, cfg.num_classes),
+              f"train-moe serve bucket {b}: {len(recorded)} serving-head calls")
+        for k, v in launched.items():
+            out["serve_launches"][k] += v
+        with torch.no_grad(), mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+            want = model.eval()(torch.from_numpy(x).to(device)).float().cpu()
+        check(kernels.launch_counts() == launched, "train-moe: the plain forward launched")
+        d = (recorded[0] - want).abs().amax(dim=-1)
+        step = torch.exp2(torch.floor(torch.log2(want.abs().amax(dim=-1))) - 7)
+        check(bool((d <= step).all()), f"train-moe serve bucket {b}: engine logits {float(d.max())} from the plain "
+              f"model's, over one bf16 step at the row's scale ({float(step[int((d - step).argmax())])})")
+        want_p = torch.softmax(want, -1).numpy()
+        dp = float(np.abs(got["probabilities"] - want_p).max())
+        top2 = np.sort(want_p, -1)[:, -2:]
+        apart = top2[:, 1] - top2[:, 0] > 2 * TOL_VIT_BF16
+        check(dp <= TOL_VIT_BF16 and np.array_equal(got["class"][apart], want_p.argmax(-1)[apart]),
+              f"train-moe serve bucket {b}: probabilities {dp} from the plain model's")
+        check_classes(got["probabilities"], got["class"], f"train-moe serve bucket {b}")
+        out["serve"][str(b)] = {"max_dlogit": float(d.max()), "max_dlogit_over_step": float((d / step).max()),
+                                "max_dprobs": dp}
+    out["serve_s"] = time.perf_counter() - t0
+    log(f"train-moe: {MOE_PRESET} ({sum(p.numel() for p in model.parameters())} parameters, {cfg.dtype}, "
+        f"{cfg.moe_experts} experts in every other of {cfg.vit_layers} blocks) exported from seeded weights and served "
+        f"by the engine: " + "; ".join(
+            f"bucket {b} max|dlogit| {v['max_dlogit']:.3g} against the plain model ({v['max_dlogit_over_step']:.3f} "
+            f"of one bf16 step at the row's scale), max|dprobs| {v['max_dprobs']:.3g}" for b, v in out["serve"].items())
+        + f"; {per['flash_attention_tc']} tensor-core attention launches per forward [{card}]")
+    return out
+
+
+def _moe_fit(torch, cfg, card: str, root: str, device: str, per, batch: int):
+    """(b): fit_preset with every expert local, 2 steps then resumed to 4,
+    every train step's and eval forward's launches counted."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import EVAL_SYNTHETIC_BATCHES, fit_preset
+
+    on_card = device == "cuda"
+    preset = configs.get_preset(MOE_PRESET)
+    t0 = time.perf_counter()
+    model_dir = os.path.join(root, "fit")
+    ledger = LaunchLedger(kernels, step_lib)
+    fit = {}
+    with ledger.patch(), mock.patch.dict(configs.PRESETS, {MOE_PRESET: dataclasses.replace(preset, model=cfg)}):
+        kernels.reset_launch_counts()
+        for stop in (MOE_FIT_STOP, MOE_FIT_STEPS):
+            r = fit_preset(MOE_PRESET, model_dir, steps=stop, batch_size=batch, device=device,
+                           checkpoint_every_steps=MOE_FIT_STOP, train_log_every_steps=MOE_FIT_STOP)
+            fit[str(stop)] = {"steps": r.steps, "final_metrics": r.final_metrics}
+        if on_card:
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    fit_s = time.perf_counter() - t0
+    check([f["steps"] for f in fit.values()] == [MOE_FIT_STOP, MOE_FIT_STEPS] and all(
+        np.isfinite(v) for f in fit.values() for v in f["final_metrics"].values()), f"train-moe fit: {fit}")
+    n_evals = 2 * EVAL_SYNTHETIC_BATCHES
+    check(len(ledger.train) == MOE_FIT_STEPS and len(ledger.eval) == n_evals,
+          f"train-moe fit: {len(ledger.train)} train steps and {len(ledger.eval)} eval forwards recorded")
+    for i, delta in enumerate(ledger.train + ledger.eval):
+        delta = {k: delta[k] for k in per}
+        check(delta == per, f"train-moe fit step or eval forward {i}: launches {delta}, expected {per}")
+    log(f"train-moe: fit_preset {MOE_PRESET}, every expert local, {MOE_FIT_STOP} steps then resumed to "
+        f"{MOE_FIT_STEPS} at batch {batch}: {fit_s:.3f} s (evals, checkpoints and the restore included; the "
+        f"expert-parallel ranks start meanwhile); each of the {MOE_FIT_STEPS} train steps and {n_evals} eval forwards "
+        f"launched {per['flash_attention_tc']} tensor-core attention kernels; final "
+        f"{json.dumps(fit[str(MOE_FIT_STEPS)]['final_metrics'])} [{card}]")
+    return {"fit": fit, "fit_s": fit_s, "launches": launches}
+
+
+def _moe_resident(torch, cfg, dense_cfg, card: str, device: str, batch: int, n_moe: int):
+    """The step on a resident batch with every expert local, alone on the
+    host: ms, idle share, peak memory, the first loss beside ViT-S/16's on
+    the same batch, each MoE layer's balance and fractions at init."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    fixed = pipeline_lib.to_device(synthetic_classification_batch(
+        np.random.default_rng(SEED + 105), batch, cfg.input_shape, cfg.input_channels, cfg.num_classes), dev)
+    tcfg = dataclasses.replace(configs.get_preset(MOE_PRESET).train, seed=SEED % 1000 + 105)
+    task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+    dense = drawn_state(torch, dense_cfg, tcfg, dev, SEED + 106)
+    _, m = step_lib.make_train_step(task, weight_decay=dense_cfg.weight_decay)(dense, fixed)
+    dense_loss = step_lib.compute_metrics(m)["loss"]
+    del dense
+    state = drawn_state(torch, cfg, tcfg, dev, SEED + 107)
+    balance = moe_balance(torch, state.model, fixed["images"])
+    check(len(balance) == n_moe and all(MOE_BALANCE_MIN <= b["balance"] < cfg.moe_experts and
+                                        abs(sum(b["fractions"]) - 1.0) <= 1e-4 for b in balance),
+          f"train-moe: the MoE layers' balance values and fractions {balance}")
+    step = step_lib.make_train_step(task, weight_decay=cfg.weight_decay)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(MOE_TIMED_STEPS):
+        t1 = time.perf_counter()
+        _, metrics = step(state, fixed)
+        losses.append(step_lib.compute_metrics(metrics)["loss"])  # the host copy waits for the step
+        times.append(time.perf_counter() - t1)
+    check(all(np.isfinite(losses)), f"train-moe: losses {losses}")
+    ms = statistics.median(times[2:]) * 1e3
+    out = {"step_ms": ms, "images_per_s": batch / ms * 1e3, "first_loss": losses[0], "dense_first_loss": dense_loss,
+           "balance": balance}
+    if on_card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        lines, stats = profile_steps(torch, step, state, fixed)
+        for line in lines:
+            log(f"profile train-moe: {line} [{card}]")
+        if stats is not None:
+            stats["idle_unprofiled"] = max(0.0, 1 - stats["device_ms"] / ms)
+        out["profile"] = stats
+    idle = out.get("profile") or {}
+    log(f"train-moe: the step on a resident batch of {batch}, every expert local: {ms:.3f} ms (median of steps "
+        f"3-{MOE_TIMED_STEPS}), {batch / ms * 1e3:.3f} images/s, device idle "
+        f"{idle.get('idle_unprofiled', float('nan')):.3f} of the unprofiled step, peak memory "
+        f"{out.get('peak_gb', float('nan')):.3f} GB; first loss {losses[0]:.5f} beside ViT-S/16's {dense_loss:.5f} on "
+        f"the same batch [{card}]")
+    log(f"train-moe: load balance E·Σf·P and dispatch fractions of the {n_moe} MoE layers (flax's collection order) "
+        "at init: " + "; ".join(f"{b['balance']:.4f} {b['fractions']}" for b in balance))
+    del state, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+    out["resident_s"] = time.perf_counter() - t0
+    return out
+
+
+def _moe_ep_checks(outs, cfg, card, device, per, ep, batch, n_moe, ranks_s):
+    """(c)'s checks over the ranks' outputs, and its lines."""
+    on_card = device == "cuda"
+    what = f"train-moe expert_parallel {ep}"
+    r0 = outs[0]
+    for r, o in enumerate(outs):
+        check(o["layout"] == [1, ep, 0, r, ep], f"{what} rank {r}: layout {o['layout']}")
+        check(o["final_digest"] == r0["final_digest"],
+              f"{what}: rank {r}'s state parts from rank 0's ({o['final_digest']} / {r0['final_digest']})")
+        check(len(o["step_launches"]) == MOE_EP_HELD_STEPS and all(
+            {k: d[k] for k in per} == per for d in o["step_launches"]),
+              f"{what} rank {r}: step launches {o['step_launches']}, expected {per}")
+    nbytes = moe_a2a_bytes(cfg, batch, ep)
+    for r, o in enumerate(outs):
+        calls, _, got = o["transfers"]["all_to_all"]
+        check(calls == 4 * n_moe and got == 4 * n_moe * nbytes,
+              f"{what} rank {r}: {calls} all-to-alls of {got} bytes, the shapes' count {4 * n_moe} of {nbytes}")
+    for k, h in enumerate(r0["held"]):
+        d = abs(h["loss"] - h["dense_loss"])
+        check(np.isfinite(h["loss"]) and d <= bf16_spacing(h["dense_loss"]),
+              f"{what} held step {k}: loss {h['loss']} against the one-card dense step's {h['dense_loss']}, over one "
+              "bf16 step")
+        check(h["worst_gradient"] <= 1.0, f"{what} held step {k}: gradient leaf {h['worst_leaf']} at "
+              f"{h['worst_gradient']:.3f} of {TOL_MOE_GRAD}·max|leaf| from the one-card dense step's")
+    a2a, red = r0["transfers"]["all_to_all"], r0["transfers"]["all_reduce"]
+    out = {"ranks_s": ranks_s, "step_ms": r0["step_ms"], "step_ms_ranks": [o["step_ms"] for o in outs],
+           "held": r0["held"], "all_to_all": {"calls": a2a[0], "mb": a2a[2] / 1e6, "ms": a2a[1] * 1e3},
+           "all_reduce": {"calls": red[0], "mb": red[2] / 1e6, "ms": red[1] * 1e3},
+           "peak_gb_rank0": r0.get("peak_gb"), "launches": r0["step_launches"][0],
+           "setup_s": [round(o["setup_s"], 3) for o in outs]}
+    log(f"train-moe: expert_parallel {ep} on {ep} gloo ranks sharing {device} (dp 1, each rank the whole global "
+        f"batch {batch}): {MOE_EP_HELD_STEPS} steps held against the one-card dense step from the same state: losses "
+        f"{[round(h['loss'], 6) for h in r0['held']]} vs {[round(h['dense_loss'], 6) for h in r0['held']]} (within "
+        f"one bf16 step), worst gradient leaf {max(h['worst_gradient'] for h in r0['held']):.3f} of "
+        f"{TOL_MOE_GRAD}·max|leaf|; the {ep} ranks' states equal after the steps [{card}]")
+    log(f"train-moe: {r0['step_ms']:.3f} ms per expert-parallel step (rank 0, the last held step; ranks "
+        f"{min(out['step_ms_ranks']):.3f}-{max(out['step_ms_ranks']):.3f}); one step's {a2a[0]} all-to-alls of "
+        f"{nbytes / 1e6:.2f} MB ({ep} x {nbytes // ep // (2 if cfg.dtype == 'bfloat16' else 4) // cfg.embed_dim} x "
+        f"{cfg.embed_dim} {cfg.dtype}) {a2a[2] / 1e6:.1f} MB in {a2a[1] * 1e3:.3f} ms and {red[0]} all-reduce(s) of "
+        f"{red[2] / 1e6:.1f} MB in {red[1] * 1e3:.3f} ms (host-staged, the card synchronized around each); peak "
+        f"memory of rank 0 {r0.get('peak_gb', float('nan')):.3f} GB; {per['flash_attention_tc']} tensor-core "
+        f"attention launches per step on every rank; each rank's set-up (group, state) {min(out['setup_s']):.1f}-"
+        f"{max(out['setup_s']):.1f} s [{card}]")
+    return out
+
+
 # Xception-41: the segmenter through Trainer.train with every observability
 # knob on, and the classifier preset through fit_preset
 XC_STEPS = 20
@@ -6638,7 +7155,7 @@ XC_NAN_IMAGES = 64
 # step): at most this ratio, and at most 1
 MFU_IMPLIED_RATIO = 1.25
 X41_PRESET = "xception41_imagenet"
-X41_STEPS = 20
+X41_STEPS = 10
 
 
 def xception_counts(per, n_bn: int) -> dict:
@@ -7139,6 +7656,9 @@ def main() -> int:
         pp = train_pp_phase(torch, card)
         mark("train-pp")
         torch.cuda.empty_cache()
+        moe = train_moe_phase(torch, card)
+        mark("train-moe")
+        torch.cuda.empty_cache()
         xception = train_xception_phase(torch, card)
         mark("train-xception")
         torch.cuda.empty_cache()
@@ -7158,6 +7678,7 @@ def main() -> int:
              "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
              "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
              "train-zero1": zero1["launches"], "train-tp": tp["launches"], "train-pp": pp["launches"],
+             "serve-moe": moe["serve_launches"], "train-moe": moe["launches"], "train-moe-ep": moe["ep"]["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
              "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
     def launches(name, counts):
@@ -7190,6 +7711,7 @@ def main() -> int:
                       "train_zero1": {k: v for k, v in zero1.items() if k != "launches"},
                       "train_tp": {k: v for k, v in tp.items() if k not in ("launches", "held")},
                       "train_pp": {k: v for k, v in pp.items() if k not in ("launches", "held")},
+                      "train_moe": {k: v for k, v in moe.items() if not k.endswith("launches")},
                       "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
                       "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7198,5 +7720,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    ranks = {"dp-rank": dp_rank_main, "zero-rank": zero_rank_main, "tp-rank": tp_rank_main, "pp-rank": pp_rank_main}
+    ranks = {"dp-rank": dp_rank_main, "zero-rank": zero_rank_main, "tp-rank": tp_rank_main, "pp-rank": pp_rank_main,
+             "moe-rank": moe_rank_main}
     sys.exit(ranks[sys.argv[1]](sys.argv[2:]) if sys.argv[1:2] and sys.argv[1] in ranks else main())

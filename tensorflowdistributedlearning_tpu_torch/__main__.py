@@ -155,6 +155,7 @@ def cmd_fit(args) -> int:
         model_parallel=args.model_parallel,
         pipeline_parallel=args.pipeline_parallel,
         pipeline_microbatches=args.pipeline_microbatches,
+        expert_parallel=args.expert_parallel,
         weight_update_sharding=args.weight_update_sharding,
         data_service_workers=args.data_workers,
         prefetch_depth=args.prefetch_depth,
@@ -615,6 +616,9 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--pipeline-microbatches", type=int, default=None,
                    help="microbatches per local batch for the pipeline schedule (default: one per stage; set >> "
                    "stages to shrink the fill/drain bubble)")
+    f.add_argument("--expert-parallel", type=int, default=None,
+                   help="expert parallelism for MoE presets: one expert per rank with all-to-all dispatch (must "
+                   "equal the preset's moe_experts; default: the preset's, every expert local)")
     f.add_argument("--weight-update-sharding", action="store_true", default=None,
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(default: the preset's; resnet50_bf16_8k sets it)")

@@ -7,10 +7,10 @@ JSON config drives both packages. The port serves and trains the ResNet
 family (the segmenter and the classifier, every block layout, block type
 and stem, float32 or bfloat16 compute, with or without ``remat``; on one
 device, or data-parallel over ranks with per-rank or synchronized
-BatchNorm) and the ViT classifier in float32 or bfloat16; the knobs it does
-not run yet are rejected by
-:func:`require_supported` and :func:`require_supported_training` with the
-queue item that will bring them.
+BatchNorm), the Xception-41 models and the ViT classifier, its Switch-MoE
+variant included, in float32 or bfloat16; the knobs it does not run yet
+are rejected by :func:`require_supported_training` with the queue item
+that will bring them.
 """
 
 from __future__ import annotations
@@ -124,30 +124,18 @@ class ModelConfig:
         return cls.from_dict(json.loads(text))
 
 
-# knobs of the JAX package that later slices of the port bring, with the
-# ROADMAP queue item that brings each
-_LATER = (
-    (lambda c: c.moe_experts > 0, "moe_experts > 0, the Switch-MoE ViT (queue A 12)"),
-)
-
-
 def require_supported(config: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet, naming the ROADMAP item that brings it. It runs the ResNet
-    segmenter and classifier (``num_classes``) at every block layout,
-    block type and stem, the Xception-41 segmenter and classifier
+    run. It runs every model the JAX package builds: the ResNet segmenter
+    and classifier (``num_classes``) at every block layout, block type and
+    stem, the Xception-41 segmenter and classifier
     (``backbone="xception"``), and the ViT classifier (``backbone="vit"``,
-    with or without ``use_fused_attention``), each in float32 or bfloat16
-    compute; it refuses the MoE ViT. A ViT
+    with or without ``use_fused_attention``, dense or with the Switch-MoE
+    blocks of ``moe_experts``), each in float32 or bfloat16 compute. A ViT
     without ``num_classes`` raises ``ValueError`` when it is built, as the
     JAX model does when it is applied. A fused-attention ViT must have a
-    head width that the attention kernels are built for."""
-    for test, what in _LATER:
-        if test(config):
-            raise NotImplementedError(
-                f"{what} is not ported yet; the port runs the ResNet and Xception-41 segmenters and "
-                "classifiers and the ViT classifier (see ROADMAP.md)"
-            )
+    head width that the attention kernels are built for (queue C 2 of
+    ROADMAP.md)."""
     if config.backbone == "vit" and config.use_fused_attention:
         _require_kernel_head_dim(config)
 
@@ -297,7 +285,8 @@ class TrainConfig:
             self.model_parallel > 1 or self.sequence_parallel > 1 or self.pipeline_parallel > 1
         ):
             raise ValueError(
-                "expert_parallel cannot combine with model_parallel, sequence_parallel, or pipeline_parallel"
+                "expert_parallel cannot combine with model_parallel, sequence_parallel, or pipeline_parallel: each "
+                "owns the model/sequence mesh axes as a different execution strategy"
             )
         if self.augmentation not in ("flip_crop", "crop", "none", "mixup", "cutmix"):
             raise ValueError(f"Unknown augmentation {self.augmentation!r}")
@@ -364,11 +353,8 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
 # training knobs of the JAX package that later slices of the port bring,
 # with the ROADMAP queue item that brings each
 _LATER_TRAINING = (
-    (lambda m, c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12)"),
-    (
-        lambda m, c: max(c.sequence_parallel, c.expert_parallel) > 1,
-        "sequence/expert parallelism (queue A 12)",
-    ),
+    (lambda m, c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12.5)"),
+    (lambda m, c: c.sequence_parallel > 1, "sequence parallelism (queue A 12.4)"),
     (
         lambda m, c: c.model_parallel > 1 and m.backbone != "resnet",
         "tensor parallelism (model_parallel > 1) of the Xception-41 and ViT models (queue A 12.2)",
@@ -381,27 +367,34 @@ def require_supported_training(model_config: ModelConfig, train_config: TrainCon
     """Raise ``NotImplementedError`` for a model or training configuration
     the port does not train yet, naming the ROADMAP item that brings it. It
     trains every model :func:`require_supported` accepts (the ResNet and
-    Xception-41 segmenters and classifiers, the ViT classifier without
-    experts; float32 or bfloat16 compute; ``remat`` per residual unit or
+    Xception-41 segmenters and classifiers, the ViT classifier, dense or
+    Switch-MoE; float32 or bfloat16 compute; ``remat`` per residual unit or
     transformer block) with Adam, SGD or LARS, ``grad_accum_steps`` >= 1,
     on one device or data-parallel, with or without ZeRO-1's sharded
     weight update (``weight_update_sharding``, ``parallel/zero.py``), the
     ResNet models also tensor-parallel (``model_parallel`` > 1,
-    ``parallel/tensor.py``), and the ViT and Xception-41 classifiers also
-    as GPipe pipelines (``pipeline_parallel`` > 1, ``fit`` only:
+    ``parallel/tensor.py``), the dense ViT and the Xception-41 classifier
+    also as GPipe pipelines (``pipeline_parallel`` > 1, ``fit`` only:
     ``train/pipeline_step.py``, whose ``validate_pipeline_config`` raises
-    the JAX package's ``ValueError`` for any other model), under every
-    observability knob; it refuses what :func:`require_supported` refuses,
-    the planner and the sequence and expert axes (queue A 12), tensor
-    parallelism of the Xception-41 and ViT models (queue A 12.2), and
-    ``compile_cache_dir``."""
+    the JAX package's ``ValueError`` for any other model), and the MoE ViT
+    also expert-parallel (``expert_parallel`` > 1, one expert per rank of
+    the model axis, ``parallel/expert.py``; it must equal ``moe_experts``,
+    or this raises the JAX ``fit``'s ``ValueError``), under every
+    observability knob; it refuses the planner (queue A 12.5), the sequence
+    axis (queue A 12.4), tensor parallelism of the Xception-41 and ViT
+    models (queue A 12.2), and ``compile_cache_dir``."""
     require_supported(model_config)
     for test, what in _LATER_TRAINING:
         if test(model_config, train_config):
             raise NotImplementedError(
-                f"{what} is not ported yet; the port trains data-, tensor- and pipeline-parallel only "
+                f"{what} is not ported yet; the port trains data-, tensor-, pipeline- and expert-parallel only "
                 "(see ROADMAP.md)"
             )
+    if train_config.expert_parallel > 1 and train_config.expert_parallel != model_config.moe_experts:
+        raise ValueError(
+            f"expert_parallel={train_config.expert_parallel} requires moe_experts={train_config.expert_parallel} "
+            f"(one expert per shard); got moe_experts={model_config.moe_experts}"
+        )
     if train_config.pipeline_parallel > 1:
         from tensorflowdistributedlearning_tpu_torch.train.pipeline_step import validate_pipeline_config
 

@@ -8,9 +8,10 @@ descriptions; ``tests/test_torch_vit.py`` holds every preset's
 :meth:`Preset.to_dict` equal to the JAX one. The comments that give the
 provenance of each value are the JAX package's. What the port runs of each preset is what
 :func:`config.require_supported` and :func:`config.require_supported_training`
-accept: every preset but ``vit_s16_moe_imagenet`` (queue A 12);
-``resnet50_bf16_8k`` trains with its ZeRO-1 weight-update sharding
-(``parallel/zero.py``) at whatever world size the caller launches.
+accept: every preset; ``resnet50_bf16_8k`` trains with its ZeRO-1
+weight-update sharding (``parallel/zero.py``) at whatever world size the
+caller launches, and ``vit_s16_moe_imagenet`` with every expert local or,
+under ``expert_parallel`` 8, one expert per rank (``parallel/expert.py``).
 """
 
 from __future__ import annotations

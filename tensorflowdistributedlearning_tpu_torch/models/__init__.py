@@ -26,7 +26,7 @@ from tensorflowdistributedlearning_tpu_torch.models.resnet import (
     ResNetClassifier,
     ResNetSegmentation,
 )
-from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, PatchEmbed, ViTClassifier
+from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, MoEMlp, PatchEmbed, ViTClassifier
 from tensorflowdistributedlearning_tpu_torch.models.xception import (
     SeparableConvSame,
     Xception41,
@@ -84,7 +84,9 @@ def init_vit_weights(model: ViTClassifier, generator: torch.Generator) -> nn.Mod
     """flax's initializers for the ViT, drawn from ``generator``: Dense and
     patch-conv kernels lecun-normal (variance_scaling(1.0, fan_in,
     truncated_normal)), biases zero, LayerNorm scale one / bias zero,
-    ``pos_embedding`` normal with stddev 0.02."""
+    ``pos_embedding`` normal with stddev 0.02; an MoE layer's router normal
+    with stddev 0.02 and its expert matrices lecun-normal over each
+    expert's fan-in (``lecun_normal(batch_axis=(0,))``)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (Dense, PatchEmbed)):
@@ -94,6 +96,12 @@ def init_vit_weights(model: ViTClassifier, generator: torch.Generator) -> nn.Mod
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, MoEMlp):
+                m.router.normal_(0.0, 0.02, generator=generator)
+                for w in (m.w_in, m.w_out):
+                    _trunc_normal(w, math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD, generator)
+                m.b_in.zero_()
+                m.b_out.zero_()
         model.pos_embedding.normal_(0.0, 0.02, generator=generator)
     return model
 

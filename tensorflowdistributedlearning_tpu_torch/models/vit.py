@@ -34,6 +34,19 @@ Each cast of a parameter to the compute dtype is a differentiable
 gradients (the bf16 cotangent cast back), as flax's promotion does under
 ``jax.grad``.
 
+With ``moe_experts`` set, every other block's MLP (``block2``,
+``block4``, ...) is the Switch-style top-1 mixture of experts
+:class:`MoEMlp` (module ``moe``, raw parameters under flax's leaf names
+``router``, ``w_in``, ``b_in``, ``w_out``, ``b_out``): the router runs once
+in float32, the experts in the compute dtype, every expert on this device
+(``parallel/expert.dense_moe_apply``) or, with an expert group set, one
+expert per rank of it (``parallel/expert.moe_apply``). In training mode it
+records its weighted load-balancing loss (``aux_loss``) and its dispatch
+fractions (``expert_fraction``), the JAX layer's ``aux_loss`` and
+``intermediates`` collections; the train step adds every recorded loss to
+its objective (:func:`pop_aux_losses`). A routing pool is one forward's
+tokens.
+
 Attention is :func:`ops.flash_attention.flash_attention` under
 ``use_fused_attention`` (the hand-written kernel on CUDA) and its plain
 version otherwise; both keep float32 math, return the compute dtype and
@@ -45,7 +58,10 @@ package leaves them to XLA. Under ``int8-compute`` the Dense layers become
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -54,6 +70,7 @@ from tensorflowdistributedlearning_tpu_torch.models.layers import (
     Dense, compute_dtype_of, promote_dtype, remat_call, scaled_width,
 )
 from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+from tensorflowdistributedlearning_tpu_torch.parallel import expert as expert_lib
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -127,21 +144,117 @@ class MultiHeadSelfAttention(nn.Module):
         return self.proj(out.reshape(b, t, self.embed))
 
 
-class TransformerBlock(nn.Module):
-    """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+class MoEMlp(nn.Module):
+    """The Switch-style top-1 mixture-of-experts FFN (arXiv:2101.03961) in
+    place of a block's dense MLP (the JAX package's ``MoEMlp``). Its
+    parameters are flax's leaves as they are, not Dense layers: the
+    float32 ``router`` ``[D, E]`` and the stacked experts ``w_in [E, D,
+    F]``, ``b_in [E, F]``, ``w_out [E, F, D]``, ``b_out [E, D]``, so the
+    int8 serving paths, which route Dense layers and quantize kernels,
+    leave them float as the JAX package does.
 
-    def __init__(self, embed: int, num_heads: int, mlp_dim: int, dtype=None, use_fused: bool = False):
+    ``expert_group`` None computes every expert here; a group of E ranks
+    (``parallel/mesh.expert_group``) runs expert r on rank r under the
+    all-to-all dispatch, with the same numerics. In training mode the
+    forward records ``aux_weight · load_balance_loss`` (``aux_loss``) and
+    the dispatch fractions (``expert_fraction``) of its routing."""
+
+    def __init__(self, embed: int, mlp_dim: int, n_experts: int, capacity_factor: float = 1.25,
+                 aux_weight: float = 0.01, dtype=None):
+        super().__init__()
+        self.router = nn.Parameter(torch.zeros(embed, n_experts))
+        self.w_in = nn.Parameter(torch.zeros(n_experts, embed, mlp_dim))
+        self.b_in = nn.Parameter(torch.zeros(n_experts, mlp_dim))
+        self.w_out = nn.Parameter(torch.zeros(n_experts, mlp_dim, embed))
+        self.b_out = nn.Parameter(torch.zeros(n_experts, embed))
+        self.capacity_factor = capacity_factor
+        self.aux_weight = aux_weight
+        self.dtype = dtype
+        self.expert_group = None
+        self.aux_loss: Optional[torch.Tensor] = None
+        self.expert_fraction: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def expert_fn(p, xs: torch.Tensor) -> torch.Tensor:
+        """One expert's FFN: product then bias (two roundings in bf16, as
+        flax's), tanh-GELU, product then bias."""
+        h = F.gelu(torch.matmul(xs, p["w_in"]) + p["b_in"], approximate="tanh")
+        return torch.matmul(h, p["w_out"]) + p["b_out"]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        tokens = x.reshape(b * t, d)
+        # one float32 routing feeds the balance loss and the dispatch, so a
+        # near tie goes where the loss saw it go
+        gate_logits = tokens.float() @ self.router.float()
+        if self.training:
+            self.aux_loss = self.aux_weight * expert_lib.load_balance_loss(gate_logits)
+            with torch.no_grad():
+                self.expert_fraction = expert_lib.expert_fractions(gate_logits)
+        dt = self.dtype or torch.float32
+        names = ("w_in", "b_in", "w_out", "b_out")
+        tokens = tokens.to(dt)
+        if self.expert_group is None:
+            stacked = {n: getattr(self, n).to(dt) for n in names}
+            out = expert_lib.dense_moe_apply(self.expert_fn, stacked, self.router, tokens,
+                                             capacity_factor=self.capacity_factor, gate_logits=gate_logits)
+        else:
+            index = dist.get_rank(self.expert_group)
+            mine = {n: getattr(self, n)[index].to(dt) for n in names}
+            out = expert_lib.moe_apply(self.expert_fn, mine, self.router, tokens, capacity_factor=self.capacity_factor,
+                                       group=self.expert_group, gate_logits=gate_logits)
+        return out.reshape(b, t, d)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``; with
+    ``moe_experts`` the MLP is :class:`MoEMlp` (module ``moe``)."""
+
+    def __init__(self, embed: int, num_heads: int, mlp_dim: int, dtype=None, use_fused: bool = False,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25, moe_aux_weight: float = 0.01):
         super().__init__()
         self.ln1 = LayerNorm(embed, dtype)
         self.attn = MultiHeadSelfAttention(embed, num_heads, dtype, use_fused)
         self.ln2 = LayerNorm(embed, dtype)
-        self.mlp_in = Dense(embed, mlp_dim, dtype)
-        self.mlp_out = Dense(mlp_dim, embed, dtype)
+        if moe_experts:
+            self.moe = MoEMlp(embed, mlp_dim, moe_experts, moe_capacity_factor, moe_aux_weight, dtype)
+        else:
+            self.mlp_in = Dense(embed, mlp_dim, dtype)
+            self.mlp_out = Dense(mlp_dim, embed, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
+        if hasattr(self, "moe"):
+            return x + self.moe(self.ln2(x))
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
         return x + self.mlp_out(h)
+
+
+def moe_layers(model: nn.Module) -> List[MoEMlp]:
+    """The :class:`MoEMlp` layers of ``model``, by module name in the
+    order of the JAX package's collections (flax sorts the names, so
+    ``block10`` comes before ``block2``)."""
+    named = sorted(((n, m) for n, m in model.named_modules() if isinstance(m, MoEMlp)), key=lambda nm: nm[0])
+    return [m for _, m in named]
+
+
+def set_expert_group(model: nn.Module, group) -> None:
+    """Run the MoE layers of ``model`` one expert per rank of ``group``
+    (None: every expert here)."""
+    for m in moe_layers(model):
+        m.expert_group = group
+
+
+def pop_aux_losses(model: nn.Module) -> List[torch.Tensor]:
+    """The auxiliary losses the last training-mode forward recorded (the
+    JAX package's ``aux_loss`` collection, in its order), cleared: the
+    train step adds them to its objective."""
+    out = []
+    for m in moe_layers(model):
+        if m.aux_loss is not None:
+            out.append(m.aux_loss)
+            m.aux_loss = None
+    return out
 
 
 class ViTClassifier(nn.Module):
@@ -167,9 +280,14 @@ class ViTClassifier(nn.Module):
         self.pos_embedding = nn.Parameter(torch.zeros((h // p) * (w // p), embed))
         mlp_dim = int(embed * config.mlp_ratio)
         for i in range(config.vit_layers):
+            # Switch-style placement: every other block's FFN is the MoE
+            # (block2, block4, ...), as in the JAX package
+            is_moe = config.moe_experts > 0 and i % 2 == 1
             self.add_module(
                 f"block{i + 1}",
-                TransformerBlock(embed, config.num_heads, mlp_dim, dtype, config.use_fused_attention),
+                TransformerBlock(embed, config.num_heads, mlp_dim, dtype, config.use_fused_attention,
+                                 config.moe_experts if is_moe else 0, config.moe_capacity_factor,
+                                 config.moe_aux_weight),
             )
         self.ln_final = LayerNorm(embed, dtype)
         self.logits = Dense(embed, config.num_classes, None)

@@ -20,7 +20,9 @@ of the cotangent), :func:`mark_replicated` (identity; backward, the sum of
 the group's cotangents) and :func:`slice_channels` (this rank's channels of
 a replicated input; backward, the all-gather of the cotangent). Under gloo
 a collective of a CUDA tensor is staged through the host, as
-:func:`all_gather` does.
+:func:`all_gather` does. Expert parallelism (``parallel/expert.py``)
+moves its dispatch buffers with :func:`all_to_all`, whose backward is the
+same all-to-all of the cotangent.
 
 A list of tensors is reduced as one collective: the tensors of one dtype are
 packed into a flat buffer, all-reduced and copied back. The trainer keeps its
@@ -227,6 +229,37 @@ class _GatherChannels(torch.autograd.Function):
         return _own_block(g, ctx.group), None
 
 
+def _all_to_all_single(x: torch.Tensor, group) -> torch.Tensor:
+    """Block j of axis 0 of ``x`` (the group's size equal blocks) sent to
+    rank j of ``group``; the blocks received, in the group's rank order, on
+    axis 0. Under a backend that cannot carry ``x`` where it lies it runs
+    on :func:`collective_device`. The blocks travel as bytes (a copy
+    carries no arithmetic, and gloo moves no bf16)."""
+    device = collective_device()
+    send = x.detach().to(device).contiguous().view(torch.uint8)
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group)
+    out = out.view(x.dtype)
+    return out if out.device == x.device else out.to(x.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    """y = the all-to-all of x over axis 0 (``lax.all_to_all(x, split_axis=0,
+    concat_axis=0)``): block j of this rank's x becomes block r of rank j's
+    y. The blocks are equal, so the map is a permutation of the group's
+    blocks, and its transpose, the cotangent of x, is the same all-to-all
+    of the cotangent of y."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return _all_to_all_single(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _all_to_all_single(g, ctx.group), None
+
+
 class _MarkReplicated(torch.autograd.Function):
     """y = x, where x is the same on every rank of the group and each
     rank's y feeds its own output channels: the cotangent of x is the sum
@@ -267,6 +300,16 @@ def gather_channels(x: torch.Tensor, group) -> torch.Tensor:
 def mark_replicated(x: torch.Tensor, group) -> torch.Tensor:
     """Identity whose backward sums the cotangent over ``group``."""
     return _MarkReplicated.apply(x, group) if _active(group) else x
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable all-to-all of axis 0 over ``group`` (its size must
+    divide axis 0): ``x`` itself without a group."""
+    if not _active(group):
+        return x
+    if x.shape[0] % world_size(group):
+        raise ValueError(f"all_to_all: axis 0 of {tuple(x.shape)} does not split over {world_size(group)} ranks")
+    return _AllToAll.apply(x, group)
 
 
 def slice_channels(x: torch.Tensor, group) -> torch.Tensor:

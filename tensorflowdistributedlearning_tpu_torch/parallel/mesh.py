@@ -9,14 +9,18 @@ ranks of one model index form a data group: they average their gradients
 and BN statistics and sum their metrics. At ``tp = 1`` the data group is
 the default group and there is no model group.
 
-Two strategies ride the model axis, as in the JAX package's ``fit``
-(``make_mesh(model_parallel=max(model_parallel, pipeline_parallel))``):
-tensor parallelism, whose model group holds the channel slices of one
-replica (``parallel/tensor.py``), and pipeline parallelism, whose model
-group is the stage group of one replica: stage k is model index k
-(``parallel/pipeline.py``). :attr:`Layout.pipeline` tells them apart;
-:func:`model_parallel_degree` is the tensor-parallel degree alone and
-:func:`pipeline_parallel_degree` the stage count alone.
+Three strategies ride the model axis, as in the JAX package's ``fit``
+(``make_mesh(model_parallel=max(model_parallel, pipeline_parallel,
+expert_parallel))``): tensor parallelism, whose model group holds the
+channel slices of one replica (``parallel/tensor.py``), pipeline
+parallelism, whose model group is the stage group of one replica: stage k
+is model index k (``parallel/pipeline.py``), and expert parallelism, whose
+model group is the expert group of one replica: model index e computes
+expert e of every MoE layer (``parallel/expert.py``).
+:attr:`Layout.pipeline` and :attr:`Layout.expert` tell them apart;
+:func:`model_parallel_degree` is the tensor-parallel degree alone,
+:func:`pipeline_parallel_degree` the stage count alone and
+:func:`expert_parallel_degree` the expert count alone.
 
 A global batch lies over the data axis in contiguous blocks: data index d
 of dp owns rows ``[d·B/dp, (d+1)·B/dp)`` (:func:`shard_rows`), the rows
@@ -52,6 +56,8 @@ class Layout:
     world_group: Any = None
     # whether the model group is a pipeline's stage group
     pipeline: bool = False
+    # whether the model group is an expert group
+    expert: bool = False
 
     @property
     def dp(self) -> int:
@@ -73,22 +79,24 @@ def _world_group():
     return dist.group.WORLD if collectives.is_initialized() else None
 
 
-def init_mesh(model_parallel: int = 1, *, pipeline: bool = False) -> Layout:
+def init_mesh(model_parallel: int = 1, *, pipeline: bool = False, expert: bool = False) -> Layout:
     """Lay the ranks of the process group out as ``(world / tp, tp)`` and
     make this process's layout the one every helper here reads; with
-    ``pipeline`` the model axis holds pipeline stages. Every rank calls it
+    ``pipeline`` the model axis holds pipeline stages, with ``expert`` the
+    experts of the MoE layers. Every rank calls it
     with the same arguments (it makes every group, in one order). Raises
     when the degree does not divide the world, with the JAX package's
     ``make_mesh`` text."""
     global _LAYOUT
     tp = int(model_parallel)
     pipeline = bool(pipeline) and tp > 1
+    expert = bool(expert) and tp > 1
     world, rank = collectives.world_size(), collectives.rank()
     if tp < 1 or world % tp != 0:
         raise ValueError(f"{world} devices not divisible by model_parallel*sequence_parallel={tp}")
     current = _LAYOUT
     if current is not None and current.world_group is _world_group() and (
-            current.world, current.tp, current.pipeline) == (world, tp, pipeline):
+            current.world, current.tp, current.pipeline, current.expert) == (world, tp, pipeline, expert):
         return current
     model_group = data_group = None
     if tp > 1:
@@ -101,17 +109,18 @@ def init_mesh(model_parallel: int = 1, *, pipeline: bool = False) -> Layout:
             g = dist.new_group([d * tp + m for d in range(dp)])
             if m == rank % tp:
                 data_group = g
-    _LAYOUT = Layout(world, tp, rank, model_group, data_group, _world_group(), pipeline)
+    _LAYOUT = Layout(world, tp, rank, model_group, data_group, _world_group(), pipeline, expert)
     return _LAYOUT
 
 
 def init_mesh_for(train_config) -> Layout:
-    """:func:`init_mesh` for a ``TrainConfig``: the model axis is the larger
-    of ``model_parallel`` and ``pipeline_parallel`` (``TrainConfig``
-    refuses both above 1), a stage group under the latter, as the JAX
-    package's ``fit`` builds its mesh."""
-    pp = train_config.pipeline_parallel
-    return init_mesh(max(train_config.model_parallel, pp), pipeline=pp > 1)
+    """:func:`init_mesh` for a ``TrainConfig``: the model axis is the
+    largest of ``model_parallel``, ``pipeline_parallel`` and
+    ``expert_parallel`` (``TrainConfig`` refuses two of them above 1), a
+    stage group under the second and an expert group under the third, as
+    the JAX package's ``fit`` builds its mesh."""
+    pp, ep = train_config.pipeline_parallel, train_config.expert_parallel
+    return init_mesh(max(train_config.model_parallel, pp, ep), pipeline=pp > 1, expert=ep > 1)
 
 
 def layout() -> Layout:
@@ -131,15 +140,21 @@ def data_parallel_degree() -> int:
 
 def model_parallel_degree() -> int:
     """The tensor-parallel degree (1 without :func:`init_mesh`, and under
-    pipeline parallelism)."""
+    pipeline or expert parallelism)."""
     lay = layout()
-    return 1 if lay.pipeline else lay.tp
+    return 1 if lay.pipeline or lay.expert else lay.tp
 
 
 def pipeline_parallel_degree() -> int:
     """The pipeline's stage count (1 without a stage group)."""
     lay = layout()
     return lay.tp if lay.pipeline else 1
+
+
+def expert_parallel_degree() -> int:
+    """The experts' group size (1 without an expert group)."""
+    lay = layout()
+    return lay.tp if lay.expert else 1
 
 
 def data_index() -> int:
@@ -171,6 +186,22 @@ def stage_group():
     parallelism, else None."""
     lay = layout()
     return lay.model_group if lay.pipeline else None
+
+
+def expert_group():
+    """The MoE layers' expert group: the model group under expert
+    parallelism, else None."""
+    lay = layout()
+    return lay.model_group if lay.expert else None
+
+
+def gradient_group():
+    """The group the step averages its gradient over: the data group,
+    or every rank under expert parallelism, whose model group's ranks hold
+    the same rows and split the experts' gradients between them
+    (``parallel/expert.py``)."""
+    lay = layout()
+    return lay.world_group if lay.expert else lay.data_group
 
 
 def local_batch_size(global_batch: int, degree: Optional[int] = None) -> int:

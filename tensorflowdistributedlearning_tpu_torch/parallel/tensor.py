@@ -266,8 +266,9 @@ def layout_for(model: nn.Module, degree: Optional[int] = None, index: Optional[i
     ``index`` (default: the process's mesh, and its model group)."""
     if degree is None:
         lay = mesh.layout()
-        if lay.pipeline:
-            raise ValueError("the model group is a pipeline's stage group: no tensor-parallel layout")
+        if lay.pipeline or lay.expert:
+            kind = "a pipeline's stage group" if lay.pipeline else "an expert group"
+            raise ValueError(f"the model group is {kind}: no tensor-parallel layout")
         degree, index, group = lay.tp, lay.model_index, lay.model_group
     return TensorParallelLayout(tensor_parallel_specs(model, degree), degree, index, group)
 

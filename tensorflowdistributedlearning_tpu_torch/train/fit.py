@@ -34,7 +34,16 @@ classifier train as K-stage GPipe pipelines on a ``(world / K, K)`` grid
 (``parallel/pipeline.py``, ``train/pipeline_step.py``): the ranks of a
 stage group share a data slot, split the local batch into
 ``pipeline_microbatches`` (default K) microbatches, and keep the whole
-parameters replicated, so checkpoints are the plain strategy's.
+parameters replicated, so checkpoints are the plain strategy's. Under
+``expert_parallel = E`` > 1 (it must equal ``moe_experts``) the Switch-MoE
+ViT trains on a ``(world / E, E)`` grid (``parallel/expert.py``): the
+ranks of an expert group share a data slot, each computes one expert of
+every MoE layer under the all-to-all dispatch, in training and in eval as
+the JAX package's ``fit`` does, and the step averages the gradient over
+every rank, which is the dense step's gradient per data slot; the
+parameters stay whole and replicated, so checkpoints are the plain
+strategy's and the exports serve through the plain model, every expert
+local.
 
 Input, in the JAX package's order of preference (``data_dir`` may hold any
 of them; a stream is this rank's share):
@@ -64,7 +73,7 @@ alerts, cadence profiles), TensorBoard scalars in ``train/`` and ``eval/``
 (rank 0), dispatch-ahead with deferred window fetches
 (``train/async_loop.py``), and a health abort that writes the final
 checkpoint before it re-raises. Left out, each a ROADMAP item: fault
-injection and preemption (A 14), expert and sequence parallelism and
+injection and preemption (A 14), sequence parallelism, the planner and
 tensor parallelism of the ViT and Xception-41 (A 12, refused by
 ``require_supported_training``).
 """
@@ -670,7 +679,7 @@ def fit_preset(
     ``overrides`` are ``TrainConfig`` fields (``optimizer``, ``lr``,
     ``augmentation``, ``ema_decay``, ``grad_clip_norm``,
     ``grad_accum_steps``, ``model_parallel``, ``pipeline_parallel``,
-    ``pipeline_microbatches``, ``eval_holdout_fraction``,
+    ``pipeline_microbatches``, ``expert_parallel``, ``eval_holdout_fraction``,
     ``data_service_workers``, ...); None keeps
     the preset's value, and a knob the port does not run yet raises
     ``NotImplementedError`` from ``require_supported_training``. Swapping

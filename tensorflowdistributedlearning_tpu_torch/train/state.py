@@ -22,6 +22,11 @@ a replicated state or a ZeRO-1 one at any world size. Both, like
 :meth:`TrainState.eval_params` (which gathers the EMA) and
 :func:`replicate`, are collectives then: every rank calls them.
 
+Under ``TrainConfig.expert_parallel`` the state is the replicated one:
+its MoE layers run one expert per rank of the expert group
+(``parallel/expert.py``), and every rank holds and updates every expert's
+parameters, as the JAX package's replicated tree.
+
 Under ``TrainConfig.model_parallel`` (tensor parallelism,
 ``parallel/tensor.py``) the state carries a
 :class:`tensor.TensorParallelLayout` (``tp``): the parameters, the BN
@@ -44,6 +49,7 @@ import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
 from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm
+from tensorflowdistributedlearning_tpu_torch.models.vit import set_expert_group
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, multihost
 from tensorflowdistributedlearning_tpu_torch.parallel import tensor as tensor_lib
 from tensorflowdistributedlearning_tpu_torch.parallel import zero as zero_lib
@@ -259,7 +265,8 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
     clip and EMA (a copy of its parameters) at update count ``step``; cut
     to this rank's slices under ``model_parallel`` > 1 (the process's mesh,
     ``parallel/mesh.py``) and under ZeRO-1 over more than one data
-    position."""
+    position; under ``expert_parallel`` > 1 its MoE layers dispatch over
+    the mesh's expert group, the parameters whole on every rank."""
     from tensorflowdistributedlearning_tpu_torch.train.step import make_lr_schedule, make_optimizer
 
     model.train()
@@ -278,6 +285,9 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
     if train_config.model_parallel > 1:
         mesh.init_mesh(train_config.model_parallel)
         tensor_lib.shard_state_tensor_parallel(state, train_config)
+    if train_config.expert_parallel > 1:
+        mesh.init_mesh_for(train_config)
+        set_expert_group(model, mesh.expert_group())
     if train_config.weight_update_sharding and mesh.data_parallel_degree() > 1:
         zero_lib.shard_state(state, train_config)
     return state

@@ -31,7 +31,11 @@ Semantics kept from the JAX package:
 - ``grad_accum_steps`` (``make_train_step(accum=)``) splits the batch into
   chunks run in order against the same parameters (BN statistics moving
   chunk by chunk), sums their gradients as ``a + g / accum``, merges their
-  metrics, and takes one update (one all-reduce, data-parallel).
+  metrics, and takes one update (one all-reduce, data-parallel);
+- the auxiliary losses a model records in its training forward (the MoE
+  ViT's load balancing, ``models.vit.pop_aux_losses``, the JAX step's
+  ``aux_loss`` collection) join each chunk's objective and its ``loss``
+  metric.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ import torch
 import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
-from tensorflowdistributedlearning_tpu_torch.models.layers import dropout_key, synced_batch_norm
+from tensorflowdistributedlearning_tpu_torch.models.layers import DepthwiseConv2D, dropout_key, synced_batch_norm
+from tensorflowdistributedlearning_tpu_torch.models.vit import MoEMlp, pop_aux_losses
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.ops import losses as losses_lib
 from tensorflowdistributedlearning_tpu_torch.ops import metrics as metrics_lib
@@ -183,18 +188,24 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 # -- optimizer ---------------------------------------------------------------
 
 
-def kernel_decay_mask(model: nn.Module) -> Dict[str, bool]:
-    """``{parameter name: decayed}``: True only for the weights flax names
-    ``kernel`` (``nn.Conv2d``, depthwise and Dense weights, the ViT's patch
-    conv); BN and LayerNorm scale and bias, every bias and the ViT's
-    ``pos_embedding`` stay undecayed."""
-    from tensorflowdistributedlearning_tpu_torch.models.layers import DepthwiseConv2D
+# the MoE layer's weight matrices and router, the JAX package's
+# _DECAYED_LEAF_NAMES beside ``kernel``
+MOE_DECAYED = frozenset({"w_in", "w_out", "router"})
 
+
+def kernel_decay_mask(model: nn.Module) -> Dict[str, bool]:
+    """``{parameter name: decayed}``: True only for the weight matrices, the
+    leaves flax names ``kernel`` (``nn.Conv2d``, depthwise and Dense
+    weights, the ViT's patch conv) and an MoE layer's ``w_in``, ``w_out``
+    and ``router``; BN and LayerNorm scale and bias, every bias (the MoE
+    ``b_in`` and ``b_out`` too) and the ViT's ``pos_embedding`` stay
+    undecayed."""
     mask = {}
     for mod_name, module in model.named_modules():
         for name, _ in module.named_parameters(recurse=False):
             full = f"{mod_name}.{name}" if mod_name else name
-            mask[full] = name == "weight" and isinstance(module, (nn.Conv2d, nn.Linear, DepthwiseConv2D))
+            mask[full] = (name == "weight" and isinstance(module, (nn.Conv2d, nn.Linear, DepthwiseConv2D))) or (
+                isinstance(module, MoEMlp) and name in MOE_DECAYED)
     return mask
 
 
@@ -433,12 +444,15 @@ def forward_backward(
 ):
     """The training-mode forward and backward of one batch: gradients land in
     the parameters' ``.grad``, BN running statistics move; returns the loss
-    and the (detached) logits. The optimizer is not touched."""
+    (the model's recorded auxiliary losses included) and the (detached)
+    logits. The optimizer is not touched."""
     model = state.model
     model.train()
     state.zero_grad()
     logits = model(batch["images"])
     loss = task.loss(logits, batch)
+    for aux in pop_aux_losses(model):
+        loss = loss + aux
     if apply_weight_decay and weight_decay:
         loss = loss + weight_decay * _l2_penalty(model)
     loss.backward()
@@ -513,7 +527,10 @@ def make_train_step(
     The gradient and the BN running statistics reduce over the data group
     (``parallel/mesh.py``): under tensor parallelism each rank's are its
     channel slice's, and the whole leaves' are averaged over the model
-    group too (``tensor.pmean_replicated``). ``global_batch_norm``
+    group too (``tensor.pmean_replicated``). Under expert parallelism the
+    gradient is averaged over every rank (``mesh.gradient_group``): the
+    ranks of an expert group hold the same rows, and their mean is the
+    dense step's gradient (``parallel/expert.py``). ``global_batch_norm``
     (``fit``'s tensor-parallel step, ``tensor.make_train_step_gspmd``)
     takes the BN statistics of every forward over the global batch, the
     data group's mean of the moments, so the running statistics need no
@@ -545,7 +562,7 @@ def make_train_step(
                 total.add_(state.flat_grad / accum)
             state.flat_grad.copy_(total)
         if data_parallel:
-            collectives.pmean_(state.flat_grad, mesh.data_group())
+            collectives.pmean_(state.flat_grad, mesh.gradient_group())
         tensor_lib.pmean_replicated(state)
         state.apply_gradients()
         if data_parallel:

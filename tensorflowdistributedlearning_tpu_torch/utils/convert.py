@@ -9,7 +9,9 @@ port's ``state_dict`` by name (the port's modules mirror the flax tree):
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 - for the ViT: Dense ``kernel [in, out]`` -> ``weight [out, in]``, LayerNorm
   ``scale``/``bias`` -> ``weight``/``bias``, ``pos_embedding`` as it is,
-  the patch conv as any conv; its ``batch_stats`` are empty;
+  the patch conv as any conv; its ``batch_stats`` are empty; an MoE
+  layer's ``blockN/moe/{router, w_in, b_in, w_out, b_out}`` as they are
+  (the port keeps flax's leaves and shapes);
 - for the ResNet classifier: ``backbone/...`` as the segmenter's (basic
   blocks' ``preact``, ``shortcut``, ``conv1``, ``conv2`` included), the
   space-to-depth stem's canonical ``conv/kernel`` [3, 3, C, F] as any conv
@@ -92,6 +94,9 @@ def _sources(module: nn.Module, path: str):
         yield "bias", "params", f"{path}/bias", None
     elif isinstance(module, vit.ViTClassifier):
         yield "pos_embedding", "params", "pos_embedding", None
+    elif isinstance(module, vit.MoEMlp):
+        for name in ("router", "w_in", "b_in", "w_out", "b_out"):
+            yield name, "params", f"{path}/{name}", None
     elif isinstance(module, DepthwiseConv2D):
         yield "weight", "params", f"{path}/kernel", lambda a: _squeeze_depthwise(a, path)
         yield "bias", "params", f"{path}/bias", None

@@ -63,6 +63,20 @@ plain data-parallel step, both eval steps with ``valid`` weights; then
 ``pipeline_parallel`` 2, 2 + 2 steps resumed and 4 uninterrupted
 (``tests/test_torch_pipeline.py``).
 
+``moe``: ``parallel/expert.moe_apply`` over all W ranks as one expert
+group (expert r on rank r) on the arrays of ``DIR/moe.npz``: the output
+and the gradients of a weighted sum of it (this rank's expert, the router,
+the tokens) at two capacity factors, and what an over-wide router raises
+(``tests/test_torch_expert.py``).
+
+``ep``: expert parallelism at ``expert_parallel`` 2 (``(1, 2)`` at W = 2,
+``(2, 2)`` at W = 4) from ``DIR/ep_init.pt`` on this rank's rows of
+``DIR/ep_batch.npz``: one plain-SGD step at lr 1 of the Switch-MoE ViT
+(the update is the gradient), with ZeRO-1 and with ``grad_accum_steps``
+2; the eval step; then ``ClassifierTrainer.fit`` at ``expert_parallel``
+2, with and without ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted
+(``tests/test_torch_vit_moe.py``).
+
 ``trainer``: ``Trainer.train`` of the tiny model over the dataset in
 ``DIR/data``, its no-op re-run, and what must raise under the group. Every
 directory made, file opened for writing, renamed or removed under the model
@@ -650,6 +664,80 @@ def _pp_mode(rank: int, world: int, directory: str):
     return out
 
 
+def moe_expert_fn(p, x):
+    """The expert-parallel tests' expert: ``tanh(x @ w + b)``."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+MOE_FACTORS = {"moe": 1.25, "drop": 0.25}
+
+
+def _moe_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.parallel import expert, mesh
+
+    data = dict(np.load(os.path.join(directory, "moe.npz")))
+    lay = mesh.init_mesh(world, expert=True)
+    out = {"layout": [lay.dp, lay.tp, lay.model_index, mesh.expert_parallel_degree(), mesh.model_parallel_degree()]}
+    group = mesh.expert_group()
+    for name, factor in MOE_FACTORS.items():
+        leaves = {k: torch.from_numpy(data[k]).requires_grad_() for k in ("gate", "x")}
+        mine = {k: torch.from_numpy(data[k][lay.model_index]).requires_grad_() for k in ("w", "b")}
+        y = expert.moe_apply(moe_expert_fn, mine, leaves["gate"], leaves["x"], capacity_factor=factor, group=group)
+        (torch.from_numpy(data["w_out"]) * y).sum().backward()
+        out[name] = {"out": y.detach(), **{k: t.grad for k, t in {**mine, **leaves}.items()}}
+    try:
+        expert.moe_apply(moe_expert_fn, mine, torch.zeros(data["gate"].shape[0], 2 * world),
+                         torch.from_numpy(data["x"]), group=group)
+    except ValueError as e:
+        out["wide_error"] = str(e)
+    return out
+
+
+EP = 2
+EP_VIT = dict(backbone="vit", num_classes=4, input_shape=(16, 16), input_channels=3, patch_size=4, embed_dim=32,
+              vit_layers=4, num_heads=4, output_stride=None, moe_experts=EP, moe_capacity_factor=2.0)
+EP_FIT = dict(optimizer="adam", lr=1e-3, ema_decay=0.9, grad_clip_norm=1.0, augmentation="none",
+              checkpoint_every_steps=2, seed=9, expert_parallel=EP)
+
+
+def _ep_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.models import vit
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    init = torch.load(os.path.join(directory, "ep_init.pt"), weights_only=False)
+    cfg = ModelConfig(**EP_VIT)
+    lay = mesh.init_mesh(EP, expert=True)
+    batch = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(directory, "ep_batch.npz")).items()}
+    rows = {k: v[mesh.shard_rows(len(v))] for k, v in batch.items()}
+    task = step_lib.ClassificationTask()
+    out = {"layout": [lay.dp, lay.tp, lay.data_index, lay.model_index, mesh.expert_parallel_degree()]}
+    for name, kw, accum in (("ep", {}, 1), ("ep_zero", dict(weight_update_sharding=True), 1), ("ep_accum", {}, 2)):
+        state = replicate(_state(cfg, dict(TP_SGD, expert_parallel=EP, **kw), init))
+        out[f"{name}_groups"] = sorted({str(m.expert_group is not None) for m in vit.moe_layers(state.model)})
+        out[f"{name}_zero"] = state.zero is not None
+        state, metrics = step_lib.make_train_step(task, data_parallel=True, accum=accum)(state, rows)
+        out[name] = {"params": _snapshot(state), "metrics": step_lib.compute_metrics(metrics),
+                     "fractions": [m.expert_fraction for m in vit.moe_layers(state.model)]}
+    model = replicate(_state(cfg, dict(TP_SGD, expert_parallel=EP), init)).model
+    eval_rows = dict(rows, valid=torch.ones(len(rows["labels"])))
+    out["eval"] = step_lib.compute_metrics(step_lib.make_eval_step(task, data_parallel=True)(model, eval_rows))
+
+    fit = {}
+    for zero in (False, True):
+        for name, stops in (("resumed", (2, 4)), ("straight", (4,))):
+            for stop in stops:
+                t = ClassifierTrainer(os.path.join(directory, f"ep-fit-{zero}-{name}"), None, cfg,
+                                      TrainConfig(**EP_FIT, weight_update_sharding=zero, n_devices=world),
+                                      device="cpu")
+                fit[f"{zero}_{name}_{stop}"] = t.fit(batch_size=8, steps=stop).final_metrics
+    out["fit_runs"] = fit
+    return out
+
+
 def _trainer_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
@@ -709,7 +797,7 @@ def main(argv) -> int:
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
     out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
-           "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode}[mode](
+           "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode, "moe": _moe_mode, "ep": _ep_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

@@ -227,21 +227,23 @@ def test_data_the_port_cannot_read_yet_is_refused(tmp_path):
                                            ("resnet50_imagenet", "queue A 4"), ("resnet50_bf16_8k", "queue A 12"),
                                            ("xception41_imagenet", "queue A 11")])
 def test_presets_the_port_does_not_train_are_refused(tmp_path, monkeypatch, preset, match):
-    """The MoE ViT stays refused, naming queue A 12. ``resnet50_bf16_8k``,
-    refused until its ZeRO-1 was ported (queue A 12.1), trains through
-    ``fit_preset`` with ``weight_update_sharding`` on (one process: every
-    leaf whole, the memory event says so), as do the ResNet classifier
-    presets that queue A 4 brought and ``xception41_imagenet`` (queue A
-    11): ``cifar10_smoke`` as it is, the others (accepted at full size) at
-    1/16 width on 32x32 inputs, a CPU's size."""
-    if preset == "vit_s16_moe_imagenet":
-        with pytest.raises(NotImplementedError, match=match):
-            tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
-        return
+    """Every preset trains now, each refused until the queue item ``match``
+    names: ``vit_s16_moe_imagenet`` (queue A 12.3) with every expert local,
+    ``resnet50_bf16_8k`` (queue A 12.1) through ``fit_preset`` with
+    ``weight_update_sharding`` on (one process: every leaf whole, the
+    memory event says so), the ResNet classifier presets (queue A 4) and
+    ``xception41_imagenet`` (queue A 11): ``cifar10_smoke`` as it is, the
+    others (accepted at full size) at a CPU's size: the convolutional ones
+    at 1/16 width on 32x32 inputs, the MoE ViT at 2 layers (one MoE, 8
+    experts) 96 wide on 32x32 inputs (4 tokens of 6 heads of 16)."""
     full = tconfigs.get_preset(preset)
     tfit.require_supported_training(full.model, full.train)
     if preset in ("resnet50_imagenet", "xception41_imagenet", "resnet50_bf16_8k"):
         small = dataclasses.replace(full.model, width_multiplier=0.0625, input_shape=(32, 32))
+        monkeypatch.setitem(tconfigs.PRESETS, preset, dataclasses.replace(full, model=small))
+    if preset == "vit_s16_moe_imagenet":
+        assert match in "queue A 12.3" and full.model.moe_experts == 8
+        small = dataclasses.replace(full.model, embed_dim=96, vit_layers=2, input_shape=(32, 32))
         monkeypatch.setitem(tconfigs.PRESETS, preset, dataclasses.replace(full, model=small))
     res = tfit.fit_preset(preset, str(tmp_path), steps=1, batch_size=8, device="cpu")
     assert res.steps == 1 and all(np.isfinite(v) for v in res.final_metrics.values())

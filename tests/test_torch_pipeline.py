@@ -478,13 +478,23 @@ def test_jax_value_error_texts():
         with pytest.raises(ValueError) as got:
             TrainConfig(**kw)
         assert str(got.value) == str(want.value)
-    # require_supported_training gives validate's text; sequence, expert and auto stay refused
+    # require_supported_training gives validate's text; sequence and auto
+    # stay refused; the expert axis (queue A 12.3) is taken by the MoE ViT
+    # only, with JAX's texts for a dense ViT and for the pipeline beside it
     with pytest.raises(ValueError, match="does not support backbone='resnet'"):
         require_supported_training(ModelConfig(**resnet), TrainConfig(pipeline_parallel=2))
     require_supported_training(ModelConfig(**vit), TrainConfig(pipeline_parallel=2, pipeline_microbatches=4))
-    for kw in (dict(sequence_parallel=2), dict(expert_parallel=2), dict(parallelism="auto")):
+    for kw in (dict(sequence_parallel=2), dict(parallelism="auto")):
         with pytest.raises(NotImplementedError, match="queue A 12"):
             require_supported_training(ModelConfig(**vit), TrainConfig(**kw))
+    with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2 .*got moe_experts=0"):
+        require_supported_training(ModelConfig(**vit), TrainConfig(expert_parallel=2))
+    require_supported_training(ModelConfig(**dict(vit, moe_experts=2)), TrainConfig(expert_parallel=2))
+    with pytest.raises(ValueError) as want:
+        jconfig.TrainConfig(expert_parallel=2, pipeline_parallel=2)
+    with pytest.raises(ValueError) as got:
+        TrainConfig(expert_parallel=2, pipeline_parallel=2)
+    assert str(got.value) == str(want.value)
     # the runner's local batch: the text of JAX's traced step
     jmesh = make_mesh(2, model_parallel=2)
     bad = {"images": np.zeros((6, 16, 16, 3), np.float32), "labels": np.zeros((6,), np.int32)}

@@ -322,20 +322,23 @@ def test_model_config_rejects_what_jax_rejects(kwargs):
      {"block_layout": "classic", "n_blocks": (3, 4, 6, 3)}],
 )
 def test_later_slices_raise_not_implemented(kwargs):
-    """The MoE ViT (queue A 12) stays refused; the ResNet knobs queue A 4
-    brought (the classification head, bf16 compute, the space-to-depth
-    stem, basic blocks, the classic layout) and the Xception backbone
-    (queue A 11) are accepted, and a narrow model of each builds and runs
-    (the parity tests are ``tests/test_torch_resnet_classifier.py``,
-    ``tests/test_torch_resnet_bf16.py`` and ``tests/test_torch_xception.py``)."""
+    """Each knob a later slice brought is accepted, and a narrow model of
+    each builds and runs: the ResNet knobs of queue A 4 (the classification
+    head, bf16 compute, the space-to-depth stem, basic blocks, the classic
+    layout), the Xception backbone (queue A 11) and the Switch-MoE ViT
+    (queue A 12.3) (the parity tests are
+    ``tests/test_torch_resnet_classifier.py``,
+    ``tests/test_torch_resnet_bf16.py``, ``tests/test_torch_xception.py``
+    and ``tests/test_torch_vit_moe.py``)."""
     cfg = ModelConfig(**kwargs)
-    if cfg.moe_experts:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            require_supported(cfg)
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, "cpu")
-        return
     require_supported(cfg)
+    if cfg.moe_experts:
+        model = build_model(dataclasses.replace(cfg, embed_dim=32, num_heads=2, input_shape=(32, 32)), "cpu")
+        assert [n for n, m in model.named_modules() if n.endswith(".moe")] == [
+            f"block{i}.moe" for i in range(2, cfg.vit_layers + 1, 2)]
+        out = model(torch.zeros(2, 32, 32, 2))
+        assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
+        return
     narrow = dataclasses.replace(cfg, width_multiplier=0.125, base_depth=16, input_shape=(32, 32),
                                  n_blocks=(1, 1, 1, 1) if cfg.block_layout == "classic" else (1, 1, 1))
     out = build_model(narrow, "cpu")(torch.randn(2, 32, 32, 2))

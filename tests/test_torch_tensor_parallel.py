@@ -560,9 +560,21 @@ def test_jax_value_errors_and_the_axes_that_stay_refused():
     seg = ModelConfig(**worker.TINY)
     require_supported_training(seg, TrainConfig(model_parallel=2))
     require_supported_training(ModelConfig(**worker.TP_CLS), TrainConfig(model_parallel=2, weight_update_sharding=True))
-    for kw in (dict(sequence_parallel=2), dict(expert_parallel=2), dict(parallelism="auto")):
+    for kw in (dict(sequence_parallel=2), dict(parallelism="auto")):
         with pytest.raises(NotImplementedError, match="queue A 12"):
             require_supported_training(seg, TrainConfig(**kw))
+    # the expert axis (queue A 12.3) takes the MoE ViT only: JAX's fit text
+    # for any other model, and JAX's combination text beside tensor parallelism
+    with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2"):
+        require_supported_training(seg, TrainConfig(expert_parallel=2))
+    with pytest.raises(ValueError) as want:
+        jconfig.TrainConfig(expert_parallel=2, model_parallel=2)
+    with pytest.raises(ValueError) as got:
+        TrainConfig(expert_parallel=2, model_parallel=2)
+    assert str(got.value) == str(want.value)
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh as tmesh
+
+    assert tmesh.model_parallel_degree() == 1 and tmesh.expert_parallel_degree() == 1
     # the pipeline is fit's, for the ViT and Xception-41 classifiers: the
     # ResNet segmenter keeps JAX's refusal, its text
     from tensorflowdistributedlearning_tpu.train import pipeline_step as jpipeline_step

@@ -147,10 +147,12 @@ def test_augment_seed_is_a_function_of_fold_and_step():
 
 def test_trainer_rejects_what_the_slice_does_not_run(salt, tmp_path):
     data, _ = salt
-    for kw in (dict(sequence_parallel=2), dict(pipeline_parallel=2, pipeline_microbatches=2),
-               dict(expert_parallel=2)):
+    for kw in (dict(sequence_parallel=2), dict(pipeline_parallel=2, pipeline_microbatches=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP|queue"):
             _trainer(str(tmp_path), data, **kw)
+    # the expert axis (queue A 12.3) takes the MoE ViT only: JAX's fit text
+    with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2 .*got moe_experts=0"):
+        _trainer(str(tmp_path), data, expert_parallel=2)
     # model_parallel, refused here until tensor parallelism was ported (queue
     # A 12.2), is taken; one process cannot lay out two model positions
     with pytest.raises(ValueError, match="not divisible by model_parallel"):

@@ -117,9 +117,10 @@ def test_vit_is_supported_for_serving_but_not_training(dtype, fused):
 
 
 def test_preset_model_is_supported():
+    """Both ViT presets: the Switch-MoE one, refused until queue A 12.3,
+    builds too (its parity tests are ``tests/test_torch_vit_moe.py``)."""
     require_supported(tconfigs.get_preset("vit_s16_imagenet").model)
-    with pytest.raises(NotImplementedError, match="queue A 12"):
-        require_supported(tconfigs.get_preset("vit_s16_moe_imagenet").model)
+    require_supported(tconfigs.get_preset("vit_s16_moe_imagenet").model)
 
 
 @pytest.mark.parametrize(
