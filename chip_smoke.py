@@ -232,8 +232,11 @@ Phases, each fatal on failure (exit 1, no result line):
              steps, alternating, and the gradient all-reduce alone (CUDA
              events) beside 2 x 166.9 MB over 3.35 TB/s. Then two gloo
              ranks sharing the card, each a subprocess of this script
-             (``dp-rank``) that builds the kernels into one cold directory
-             at the same time as the other: per-rank and synchronized BN,
+             (``dp-rank``) loading the warm build (beside this process's
+             own build at the start, two processes, ``cold-build``, built
+             the libraries of this path into one cold directory at the
+             same time as each other and loaded them): per-rank and
+             synchronized BN,
              the first step against its single-process emulation on rank 0
              (the ranks' rows forward and backward, gradients and
              statistics averaged; for synchronized BN the whole batch with
@@ -302,7 +305,7 @@ Phases, each fatal on failure (exit 1, no result line):
              segmenter on gloo ranks sharing the card (``chip_smoke.py
              tp-rank ...``, the warm build directory), global batch 8:
              two ranks hold the step against the one-rank step from the
-             same state for 3 steps (deterministic algorithms; the one-rank
+             same state for 2 steps (deterministic algorithms; the one-rank
              step computed by the ranks' channel blocks, so its forward is
              theirs to the bit: loss 1e-5, gradient leaves 1e-4·max|g_leaf|
              + 1e-6, BN statistics 1e-5; the plain one-rank step's loss and
@@ -351,6 +354,31 @@ Phases, each fatal on failure (exit 1, no result line):
              step's 24 all-to-alls of [8, 1960, 384] bf16 (12.04 MB) and
              its gradient all-reduce timed with their bytes held to the
              shapes' count.
+15. train-sp — sequence parallelism (sequence_parallel 2, dp 1) on two
+             gloo ranks sharing the card (``chip_smoke.py sp-rank ...``):
+             (a) tgs_salt at full width and depth on 112x112 (101 does not
+             divide by output stride 8 x 2), batch 64: one step held
+             against the one-rank step computed on the ranks' row blocks
+             (``split_row_blocks``, built with its own geometry: loss
+             1e-5, gradient leaves 1e-4·max|g_leaf| + 1e-6, BN statistics
+             1e-5; the plain one-rank step's loss and statistics held, its
+             gradient's relative gap within 4x a witness's, the plain step
+             on images one ulp above), which convs take the halo or the all-gather
+             (at least one each), one step with its halo shifts, row
+             gathers, their backward sums and all-reduces timed, then 3
+             steps timed alone beside the one-rank step's, peak memory
+             against the one-rank step's; Trainer.train 2 folds x 2 steps
+             with every launch counted per step and eval forward, each
+             rank's first step's depthwise fwd/dx/dw calls and first eval
+             forward's BN calls held against the plain versions (as
+             train-dp2's), and Trainer.predict on both ranks held within
+             1e-5 of this process's plain predict of the same checkpoints;
+             (b) ViT-S/16 at full width (bf16), one step held against the
+             one-card step (loss within one bf16 step, every leaf within
+             2e-2·max|leaf|), its ring rotations timed, 3 steps timed,
+             fit_preset 2 steps; (c) ring attention alone at [64, 196, 6,
+             64] against attention_reference on the card (f32 1e-5, bf16
+             one step).
 
 Prints the kernel table as one JSON line, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -4030,7 +4058,7 @@ def dp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
             t0 = time.perf_counter()
-            build()  # every rank builds into one cold directory at once
+            build()  # loads the warm build, or builds it cold racing the other rank
             out["build_s"] = time.perf_counter() - t0
         data = os.path.join(root, "data")
         ids = sorted(f[:-4] for f in os.listdir(os.path.join(data, "images")))
@@ -4194,11 +4222,70 @@ def dp_emulation(torch, cfg, tcfg, dev, task, whole, world: int, loss, grads, st
     return out
 
 
-def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: int, batch: int, steps: int):
+# the kernel libraries the data-parallel path launches (depthwise fwd/dx,
+# dw, BN): what two processes build cold into one directory at once
+COLD_LIBS = ("depthwise", "depthwise_dw", "bn_act")
+
+
+def start_cold_builds(directory: str):
+    """Starts DP_RANKS processes (``chip_smoke.py cold-build DIR K``) that
+    build :data:`COLD_LIBS` into the one cold ``directory`` at once; their
+    build times land in ``DIR/cold-build-K.json``."""
+    env = dict(os.environ, TFDL_TORCH_BUILD_DIR=directory)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "cold-build", directory, str(k)], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for k in range(DP_RANKS)]
+
+
+def finish_cold_builds(procs, directory: str, timeout: float = 600.0):
+    """Waits for :func:`start_cold_builds`' processes; each must exit 0.
+    Returns their build times (s)."""
+    deadline = time.perf_counter() + timeout
+    texts = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            texts.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"cold build {k} exited {p.returncode}:\n{text[-3000:]}")
+    times = []
+    for k in range(len(procs)):
+        with open(os.path.join(directory, f"cold-build-{k}.json")) as f:
+            times.append(json.load(f)["build_s"])
+    return times
+
+
+def cold_build_main(argv) -> int:
+    """``chip_smoke.py cold-build DIR K``: builds :data:`COLD_LIBS` into
+    ``TFDL_TORCH_BUILD_DIR`` (DIR), loads every entry point of them, and
+    writes ``DIR/cold-build-K.json``."""
+    from tensorflowdistributedlearning_tpu_torch.ops import _build, kernels
+
+    every = _build.sources()
+    t0 = time.perf_counter()
+    with mock.patch.object(_build, "sources", lambda: {n: every[n] for n in COLD_LIBS}):
+        _build.build_all()
+        for fn_name, (lib, _) in kernels._signatures.items():
+            if lib in COLD_LIBS:
+                kernels._entry(fn_name)
+    with open(os.path.join(argv[0], f"cold-build-{argv[1]}.json"), "w") as f:
+        json.dump({"build_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: int, batch: int, steps: int,
+                 cold=None):
     """Two gloo ranks on the one card, each a subprocess of this script
-    (``chip_smoke.py dp-rank ...``) building the kernels into one cold
-    directory at once."""
-    env = dict(os.environ, TFDL_TORCH_BUILD_DIR=os.path.join(root, "build-cold"))
+    (``chip_smoke.py dp-rank ...``). ``cold``: the build times of
+    :func:`start_cold_builds`' processes, and the ranks load the warm
+    build; without it the ranks build the kernels into one cold directory
+    at once."""
+    env = dict(os.environ) if cold else dict(os.environ, TFDL_TORCH_BUILD_DIR=os.path.join(root, "build-cold"))
     store = f"file://{os.path.join(root, 'store-dp2')}"
     procs, logs = [], []
     t0 = time.perf_counter()
@@ -4261,11 +4348,15 @@ def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: i
             log(f"train-dp2 rank {o['rank']}: dw {plan}")
         for name in ("depthwise_conv2d", "depthwise_conv2d_dx", "depthwise_conv2d_dw", "fused_bn_act"):
             held[name] = max(held.get(name, 0.0), h[name])
-    builds = [round(o.get("build_s", 0.0), 3) for o in outs]
+    loads = [round(o.get("build_s", 0.0), 3) for o in outs]
+    builds = [round(t, 3) for t in cold] if cold else loads
+    where = (f"cold builds of {'/'.join(COLD_LIBS)} racing in one directory {builds} s (two processes beside this "
+             f"one's build at the start), the ranks' loads of the warm build {loads} s") if cold else \
+        f"cold kernel builds racing in one directory {builds} s"
     log(f"train-dp2: {DP_RANKS} gloo ranks sharing {device} at batch {batch // DP_RANKS} each (global {batch}): "
         f"{r0['ms_off']:.3f} ms per step with per-rank BN, {r0['ms_on']:.3f} ms with synchronized BN (rank 0, median "
         f"of {DP_TIMED_STEPS - 1}); host-staged gradient all-reduce of {r0['allreduce_mb']:.1f} MB {r0['allreduce_ms']:.3f} ms; "
-        f"cold kernel builds racing in one directory {builds} s; {wall:.3f} s in all [{card}]")
+        f"{where}; {wall:.3f} s in all [{card}]")
     log(f"train-dp2: Trainer.train on every rank, {DP_FOLDS} folds x {steps} steps, {r0['train_s']:.3f} s; each rank's "
         f"{len(r0['ledger_train'])} train steps launched {PER_TRAIN_STEP} each; metrics equal on every rank "
         f"{json.dumps(r0['metrics'])} [{card}]")
@@ -4274,9 +4365,9 @@ def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: i
 
 
 def dp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = DP_IMAGES,
-             size: int = 101, batch: int = TRAIN_BATCH, steps: int = DP_STEPS, timer=None):
+             size: int = 101, batch: int = TRAIN_BATCH, steps: int = DP_STEPS, timer=None, cold=None):
     """Data-parallel training: one NCCL rank in this process, then two gloo
-    ranks sharing the card."""
+    ranks sharing the card (``cold``: see :func:`dp_two_ranks`)."""
     from tensorflowdistributedlearning_tpu_torch.parallel import multihost
 
     model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True)
@@ -4291,7 +4382,7 @@ def dp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images
             multihost.shutdown()
         if device == "cuda":
             torch.cuda.empty_cache()
-        two = dp_two_ranks(torch, card, root, device, model_kwargs, size, batch, steps)
+        two = dp_two_ranks(torch, card, root, device, model_kwargs, size, batch, steps, cold=cold)
     return {"train-dp": one, "train-dp2": two}
 
 
@@ -5567,7 +5658,7 @@ TP_BATCH = 8  # global; cut from 64 by the host-staged gathers (PERF.md §4)
 TP_IMAGES = 32
 TP_FOLDS = 2
 TP_TRAIN_STEPS = 2  # per fold
-TP_HELD_STEPS = 3
+TP_HELD_STEPS = 2  # cut from 3 to pay for train-sp
 TP_TIMED_STEPS = 1
 TP_ZERO_STEPS = 2
 TP_TIMEOUT_S = 300
@@ -7141,6 +7232,661 @@ def _moe_ep_checks(outs, cfg, card, device, per, ep, batch, n_moe, ranks_s):
     return out
 
 
+# sequence parallelism: the full-width segmenter and ViT-S/16 H-sharded over
+# two gloo ranks sharing the card (dp 1, sp 2), and ring attention alone
+SP_DEGREE = 2
+SP_SIZE = 112  # the smallest height >= tgs_salt's 101 that degree 2 admits (output_stride 8 x 2)
+SP_BATCH = 64
+SP_IMAGES = 128  # 2 folds: 64 train and 64 eval ids each
+SP_TEST_IMAGES = 64
+SP_FOLDS = 2
+SP_STEPS = 2  # per fold, one checkpoint and one eval at the end (cut from 3)
+SP_TIMED_REPS = 3  # sharded and one-rank steps timed alone, after a warm-up
+SP_WITNESS_FACTOR = 4  # the plain one-rank step's gradient gap against the one-ulp witness's
+SP_VIT_FIT_STEPS = 2
+SP_RING_SHAPE = (64, 196, 6, 64)  # ViT-S/16's attention at batch 64: [B, S, H, D]
+SP_TIMEOUT_S = 300
+TOL_RING_F32 = 1e-5
+
+
+@contextlib.contextmanager
+def timed_sequence_collectives(torch, collectives):
+    """For the duration, every collective of the sequence axis is timed with
+    the card synchronized around it: the shifts (halo rows, ring
+    rotations), the row gathers and their backward's sums, and every
+    all-reduce over a group (BatchNorm moments, the gradient mean); yields
+    ``{kind: [calls, seconds, bytes]}`` (bytes received, landed or
+    reduced)."""
+    rec = {"shift": [0, 0.0, 0], "gather": [0, 0.0, 0], "scatter": [0, 0.0, 0], "allreduce": [0, 0.0, 0]}
+    real = {"_p2p": collectives._p2p, "_gather_dim": collectives._gather_dim,
+            "_sum_own_block": collectives._sum_own_block, "pmean_": collectives.pmean_}
+
+    def timed(kind, fn, nbytes):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        r = rec[kind]
+        r[0], r[1], r[2] = r[0] + 1, r[1] + time.perf_counter() - t0, r[2] + nbytes(out)
+        return out
+
+    def size(t):
+        return 0 if t is None else t.numel() * t.element_size()
+
+    def p2p(x, dst, src, group):
+        return timed("shift", lambda: real["_p2p"](x, dst, src, group), size)
+
+    def gather_dim(x, group, dim):
+        return timed("gather", lambda: real["_gather_dim"](x, group, dim), size)
+
+    def sum_own_block(x, group, dim):
+        return timed("scatter", lambda: real["_sum_own_block"](x, group, dim), lambda _: size(x))
+
+    def pmean(tensors, group=None):
+        ts = [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
+        return timed("allreduce", lambda: real["pmean_"](tensors, group), lambda _: sum(size(t) for t in ts))
+
+    with mock.patch.multiple(collectives, _p2p=p2p, _gather_dim=gather_dim, _sum_own_block=sum_own_block,
+                             pmean_=pmean):
+        yield rec
+
+
+@contextlib.contextmanager
+def record_conv_paths(torch, model):
+    """For the duration, the first call of each H-sharded k x k conv of
+    ``model`` records ``(name, H_local, rate, stride, path)``: ``halo`` or
+    ``gather`` (``spatial.uses_gather``)."""
+    from tensorflowdistributedlearning_tpu_torch.models.layers import Conv2dSame
+    from tensorflowdistributedlearning_tpu_torch.parallel import spatial
+
+    seen, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, Conv2dSame) and m.spatial and m.kernel_size[0] > 1:
+            def hook(mod, args, name=name):
+                if name not in seen:
+                    h, k, rate = args[0].shape[1], mod.kernel_size[0], mod.dilation[0]
+                    seen[name] = (name, h, rate, mod.stride[0], "gather" if spatial.uses_gather(h, k, rate) else "halo")
+            hooks.append(m.register_forward_pre_hook(hook))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def split_row_blocks(torch, model, sp: int):
+    """For the duration, the plain (one-rank) segmenter ``model`` computes
+    its backbone as the ``sp`` ranks of the sequence-parallel step compute
+    it, with its own geometry (nothing of ``parallel/spatial.py``): every
+    k x k convolution pads the whole input as the plain layer does (flax's
+    SAME: total ``max((ceil(H/s) - 1)·s + ek - H, 0)`` for the dilated
+    extent ``ek``, the low side ``total // 2``; slim's ``fixed_padding``,
+    total ``ek - 1``, for a strided depthwise), then computes each row
+    block's output rows from the padded rows they read, ``[i·r·s, i·r·s +
+    (r - 1)·s + ek)`` for ``r`` output rows a block, as one ``F.conv2d`` of
+    the shape a rank's halo exchange gives it; where the halo ``(ek - 1) //
+    2`` exceeds the block a rank gathers the rows, so the whole padded
+    input is convolved and each block's rows kept. A 1 x 1 conv runs block
+    by block; every BatchNorm's moments are the mean of the blocks'
+    moments; the blocks are then put together. The forward is then the
+    ranks' to the bit (elementwise ops and the max pool are exact block by
+    block), and only the backward's sums over the rows are grouped
+    otherwise: what the sequence-parallel step is held against (as
+    :func:`split_channel_blocks` holds the tensor-parallel step)."""
+    import torch.nn.functional as F
+
+    from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, Conv2dSame
+    from tensorflowdistributedlearning_tpu_torch.models.xception import DepthwiseConvSame
+
+    def pads(n, ek, stride, fixed):
+        total = ek - 1 if fixed else max((-(-n // stride) - 1) * stride + ek - n, 0)
+        return total // 2, total - total // 2
+
+    def conv_blocks(mod, x):
+        k = mod.kernel_size[0]
+        h = x.shape[1] // sp
+        if k == 1:
+            blocks = [x.narrow(1, s * h, h).contiguous() for s in range(sp)]
+            return torch.cat([Conv2dSame._forward(mod, b) for b in blocks], dim=1)
+        dt = mod.compute_dtype
+        w, stride, rate = mod.weight.to(dt), mod.stride[0], mod.dilation[0]
+        ek = (k - 1) * rate + 1
+        fixed = isinstance(mod, DepthwiseConvSame) and stride > 1
+        ph, pw = pads(x.shape[1], ek, stride, fixed), pads(x.shape[2], ek, stride, fixed)
+        padded = F.pad(x.float() if dt == torch.float32 else x.to(dt), (0, 0, pw[0], pw[1], ph[0], ph[1]))
+
+        def conv(t):
+            return F.conv2d(t.permute(0, 3, 1, 2), w, None, stride=stride, dilation=rate,
+                            groups=mod.groups).permute(0, 2, 3, 1)
+
+        rows = h // stride
+        if (ek - 1) // 2 > h:
+            whole = conv(padded)
+            outs = [whole.narrow(1, s * rows, rows).contiguous() for s in range(sp)]
+        else:
+            outs = [conv(padded.narrow(1, s * rows * stride, (rows - 1) * stride + ek).contiguous())
+                    for s in range(sp)]
+        y = torch.cat(outs, dim=1)
+        return y if mod.bias is None else y + mod.bias.to(dt)
+
+    def moments(xf):
+        h = xf.shape[1] // sp
+        total = None
+        for s in range(sp):
+            b = xf.narrow(1, s * h, h).contiguous()
+            st = torch.stack([b.mean(dim=(0, 1, 2)), (b * b).mean(dim=(0, 1, 2))])
+            total = st if total is None else total + st
+        total = total.div_(float(sp))
+        return total[0], total[1]
+
+    patched = []
+    for m in model.backbone.modules():
+        if isinstance(m, Conv2dSame):
+            m._forward = lambda x, mod=m: conv_blocks(mod, x)
+            patched.append((m, "_forward"))
+        elif isinstance(m, BatchNorm):
+            m._moments = moments
+            patched.append((m, "_moments"))
+    try:
+        yield
+    finally:
+        for m, attr in patched:
+            delattr(m, attr)
+
+
+def rep_ms(torch, fn, reps: int, warmup: int = 0):
+    """``[median, min, max]`` of ``reps`` host wall times of ``fn`` (ms)
+    after ``warmup`` untimed calls, the device synchronized around each."""
+    times = [host_ms(torch, fn, reps=1, warmup=0) for _ in range(warmup + reps)][warmup:]
+    return [statistics.median(times), min(times), max(times)]
+
+
+def gradient_gap(torch, want, got) -> dict:
+    """How far the gradient ``got`` lies from ``want``: the worst leaf's
+    max|err| as a share of 1e-4·max|want_leaf| + 1e-6 (the train-step
+    bound) and its name, the leaves beyond that bound, and the relative
+    norm ||got - want|| / ||want|| over every leaf."""
+    worst, name, beyond, num, den = 0.0, None, 0, 0.0, 0.0
+    for n, w in want.items():
+        d = got[n] - w
+        share = d.abs().max().item() / (1e-4 * w.abs().max().item() + 1e-6)
+        beyond += share > 1.0
+        if share > worst:
+            worst, name = share, n
+        num += float(d.double().square().sum())
+        den += float(w.double().square().sum())
+    return {"worst_gradient": worst, "worst_leaf": name, "beyond": int(beyond), "leaves": len(want),
+            "rel_norm": math.sqrt(num / den) if den else 0.0}
+
+
+def sp_peak(torch, fn):
+    """``fn()`` and this process's peak device memory during it (GB; nan on
+    the CPU)."""
+    if not torch.cuda.is_available():
+        return fn(), float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def sp_segmenter(torch, rank: int, root: str, dev, seg_kwargs, size: int, batch: int) -> dict:
+    """(a)'s held step, timings and collectives, then the main path:
+    Trainer.train and Trainer.predict at sequence_parallel 2."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.models import build_model
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    on_card = dev.type == "cuda"
+    data = os.path.join(root, "data")
+    ids = sorted(f[:-4] for f in os.listdir(os.path.join(data, "images")))
+    cfg = ModelConfig(input_shape=(size, size), **seg_kwargs)
+    task = smooth_task()
+    fixed = dp_batches(torch, data, ids, batch, 1, dev)[0]
+    # one seeded draw on the card, the same on both ranks
+    with torch.device(dev):
+        init = build_model(cfg, dev, generator=torch.Generator(dev).manual_seed(SEED + 81)).state_dict()
+    tcfg = TrainConfig(seed=SEED % 1000 + 81)
+    state = create_train_state(cfg, dataclasses.replace(tcfg, sequence_parallel=SP_DEGREE), dev, state_dict=init)
+    step = step_lib.make_train_step(task, data_parallel=True)
+    out = {"n_params": sum(p.numel() for p in state.model.parameters())}
+    # one held step: the sharded step against the one-rank step from the same
+    # state and batch (rank 0 runs both)
+    with deterministic_algorithms(torch), record_conv_paths(torch, state.model) as paths:
+        (_, metrics), out["peak_gb"] = sp_peak(torch, lambda: step(state, fixed))
+    out["paths"] = list(paths.values())
+    loss = step_lib.compute_metrics(metrics)["loss"]
+    grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in state.model.named_buffers()}
+    one = single = None
+    if rank == 0:
+        # the one-rank step from the same state, computed the ranks' way
+        # (split_row_blocks: their forward to the bit) and plainly, and a
+        # witness: the plain step on images one float32 ulp above. The plain
+        # step's gradient is read against the tolerance, not held: at full
+        # width a rounding-level change takes ReLU or max-pool kinks the
+        # other way and moves the stem's gradient by percents (ROADMAP queue
+        # C); the witness measures how far rounding alone moves it
+        one = create_train_state(cfg, tcfg, dev, state_dict=init)
+        single = step_lib.make_train_step(task)
+        nudged = dict(fixed, images=torch.nextafter(fixed["images"], torch.full_like(fixed["images"], math.inf)))
+        held, plain_g = {}, None
+        for what in ("split", "plain", "witness"):
+            one.model.load_state_dict(init)
+            with deterministic_algorithms(torch), \
+                    split_row_blocks(torch, one.model, SP_DEGREE) if what == "split" else contextlib.nullcontext():
+                (_, m1), peak = sp_peak(torch, lambda: single(one, nudged if what == "witness" else fixed))
+            want_loss = step_lib.compute_metrics(m1)["loss"]
+            want_g = {n: p.grad.detach().clone() for n, p in one.model.named_parameters()}
+            if what == "witness":
+                # the nudged plain step against the plain step
+                held[what] = gradient_gap(torch, plain_g, want_g) | {"d_loss": abs(want_loss - held_loss)}
+                continue
+            d_loss = abs(loss - want_loss)
+            d_stats = max((stats[n] - b).abs().max().item() for n, b in one.model.named_buffers())
+            check(d_loss <= TOL_LOSS and d_stats <= 1e-5,
+                  f"train-sp held step vs the {what} one-rank step: loss {loss} vs {want_loss}, BN statistics "
+                  f"{d_stats} apart")
+            held[what] = gradient_gap(torch, want_g, grads) | {"d_loss": d_loss, "d_stats": d_stats}
+            if what == "split":
+                worst_gradient(want_g, grads, "train-sp held step vs the one-rank step on the ranks' blocks")
+            else:
+                out["one_rank_peak_gb"], plain_g, held_loss = peak, want_g, want_loss
+        out["held"] = dict(held, loss=loss)
+        # the plain step's gap is rounding's: within SP_WITNESS_FACTOR of
+        # how far one ulp of input moves the plain gradient (a wrong halo,
+        # gather or backward sum moves it by the gradient's own size)
+        check(held["plain"]["rel_norm"] <= SP_WITNESS_FACTOR * held["witness"]["rel_norm"],
+              f"train-sp held step vs the plain one-rank step: ||dg||/||g|| {held['plain']['rel_norm']:.3g}, more "
+              f"than {SP_WITNESS_FACTOR}x the witness's {held['witness']['rel_norm']:.3g}")
+        del plain_g, want_g, nudged
+    del init, grads, stats
+    # the step with its collectives timed (the card synchronized around
+    # each; also the default algorithms' warm-up), then SP_TIMED_REPS steps
+    # timed alone; the ranks enter each together. Then the one-rank step
+    # alone, a warm-up and SP_TIMED_REPS
+    multihost.barrier()
+    with timed_sequence_collectives(torch, collectives) as rec:
+        step(state, fixed)
+    out["collectives"] = rec
+    multihost.barrier()
+    out["step_ms"] = rep_ms(torch, lambda: step(state, fixed), SP_TIMED_REPS)
+    if one is not None:
+        out["one_rank_ms"] = rep_ms(torch, lambda: single(one, fixed), SP_TIMED_REPS, warmup=1)
+    multihost.barrier()
+    del state, one, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the main path: Trainer.train, then Trainer.predict; counts from 0 just
+    # before each, read just after
+    tcfg = TrainConfig(n_folds=SP_FOLDS, seed=SEED % 1000 + 82, checkpoint_every_steps=SP_STEPS, save_best=1,
+                       eval_throttle_secs=0, n_devices=SP_DEGREE, sequence_parallel=SP_DEGREE)
+    trainer = Trainer(os.path.join(root, "model-sp"), data, train_config=tcfg, device=dev, input_shape=(size, size),
+                      **seg_kwargs)
+    ledger = LaunchLedger(kernels, step_lib, Trainer)
+    with ledger.patch():
+        with record_kernel_calls(torch, RANK_HELD) as recorded:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out["metrics"] = trainer.train(ids, batch_size=batch, steps=SP_STEPS)
+            if on_card:
+                torch.cuda.synchronize()
+            out["train_s"] = time.perf_counter() - t0
+            out["launches"] = kernels.launch_counts()
+        if on_card:  # on the CPU the plain versions ran: nothing to hold
+            # the first train step's depthwise calls (the head, on gathered
+            # whole maps) and the first eval forward's BN calls (the
+            # backbone's on this rank's row blocks, the head's whole)
+            out["held_calls"] = hold_rank_calls(torch, recorded, batch)
+        del recorded
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        pred = trainer.predict(os.path.join(root, "test"), batch_size=batch)
+        out["predict_s"] = time.perf_counter() - t0
+        out["predict_launches"] = kernels.launch_counts()
+    out["ledger_train"], out["ledger_eval"], out["ledger_predict"] = ledger.train, ledger.eval, ledger.predict
+    np.save(os.path.join(root, f"sp-predict-rank{rank}.npy"), pred["probabilities"])
+    out["predict_ids"] = pred["ids"]
+    return out
+
+
+def sp_vit(torch, rank: int, root: str, dev, overrides, batch: int) -> dict:
+    """(b): ViT-S/16's step at sequence_parallel 2 held against the
+    one-card plain step (rank 0), its ms and ring rotations, then
+    fit_preset 2 steps with the launches counted."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+
+    on_card = dev.type == "cuda"
+    preset = configs.get_preset(VIT_PRESET)
+    cfg = dataclasses.replace(preset.model, **(overrides or {}))
+    tcfg = dataclasses.replace(preset.train, seed=SEED % 1000 + 83)
+    fixed = pipeline_lib.to_device(synthetic_classification_batch(
+        np.random.default_rng(SEED + 83), batch, cfg.input_shape, cfg.input_channels, cfg.num_classes), dev)
+    task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+    init = drawn_state(torch, cfg, tcfg, dev, SEED + 84).model.state_dict()
+    state = create_train_state(cfg, dataclasses.replace(tcfg, sequence_parallel=SP_DEGREE), dev, state_dict=init)
+    step = step_lib.make_train_step(task, data_parallel=True, weight_decay=cfg.weight_decay)
+    (_, metrics), peak = sp_peak(torch, lambda: step(state, fixed))
+    out = {"peak_gb": peak, "n_params": sum(p.numel() for p in state.model.parameters())}
+    loss = step_lib.compute_metrics(metrics)["loss"]
+    grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    one = single = None
+    if rank == 0:
+        one = create_train_state(cfg, tcfg, dev, state_dict=init)
+        single = step_lib.make_train_step(task, weight_decay=cfg.weight_decay)
+        (_, m1), out["one_rank_peak_gb"] = sp_peak(torch, lambda: single(one, fixed))
+        want_loss = step_lib.compute_metrics(m1)["loss"]
+        worst = max(float((grads[n] - p.grad).abs().max()) / (TOL_MOE_GRAD * float(p.grad.abs().max()) + 1e-12)
+                    for n, p in one.model.named_parameters())
+        check(np.isfinite(loss) and abs(loss - want_loss) <= bf16_spacing(want_loss) and worst <= 1.0,
+              f"train-sp ViT-S/16 held step vs the one-card step: loss {loss} vs {want_loss}, worst gradient leaf at "
+              f"{worst:.3f} of {TOL_MOE_GRAD}·max|leaf|")
+        out["held"] = {"loss": loss, "one_card_loss": want_loss, "worst_gradient": worst}
+    del init, grads
+    # timed as the segmenter's step is
+    multihost.barrier()
+    with timed_sequence_collectives(torch, collectives) as rec:
+        step(state, fixed)
+    out["collectives"] = rec
+    multihost.barrier()
+    out["step_ms"] = rep_ms(torch, lambda: step(state, fixed), SP_TIMED_REPS)
+    if one is not None:
+        out["one_rank_ms"] = rep_ms(torch, lambda: single(one, fixed), SP_TIMED_REPS, warmup=1)
+    multihost.barrier()
+    del state, one, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the main path: fit_preset, counts from 0 just before, read just after
+    with mock.patch.dict(configs.PRESETS, {VIT_PRESET: dataclasses.replace(preset, model=cfg)}):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fit_preset(VIT_PRESET, os.path.join(root, "fit-vit-sp"), steps=SP_VIT_FIT_STEPS, batch_size=batch,
+                       device=dev, sequence_parallel=SP_DEGREE, seed=tcfg.seed, train_log_every_steps=1)
+        if on_card:
+            torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["fit_launches"] = kernels.launch_counts()
+    out["fit"] = {"steps": r.steps, "final_metrics": r.final_metrics}
+    return out
+
+
+def sp_ring(torch, rank: int, dev, shape) -> dict:
+    """(c): ring attention alone on this rank's block of seeded global Q/K/V
+    against ``attention_reference`` of the whole on the card, float32 and
+    bf16, timed beside the reference."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
+    from tensorflowdistributedlearning_tpu_torch.parallel.ring_attention import attention_reference, ring_attention
+
+    out = {}
+    g = torch.Generator(dev).manual_seed(SEED + 85)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    blk = shape[1] // SP_DEGREE
+
+    def local(t):
+        return t[:, rank * blk:(rank + 1) * blk].contiguous()
+
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        got = ring_attention(local(qd), local(kd), local(vd))
+        want = attention_reference(qd, kd, vd)[:, rank * blk:(rank + 1) * blk]
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            check(got.dtype == dtype and err <= TOL_RING_F32, f"train-sp ring attention {name}: max|err| {err}")
+        else:
+            check_bf16_step(torch, got, want, attention_atol(vd.float()), f"train-sp ring attention {name}")
+        multihost.barrier()
+        # one timed call each: the checked calls were the warm-up
+        ring_ms = host_ms(torch, lambda: ring_attention(local(qd), local(kd), local(vd)), reps=1, warmup=0)
+        ref_ms = host_ms(torch, lambda: attention_reference(qd, kd, vd), reps=1, warmup=0)
+        out[name] = {"max_abs_err": err, "ms": ring_ms, "reference_ms": ref_ms}
+    return out
+
+
+def sp_rank(torch, rank: int, world: int, store: str, root: str, device: str, params) -> dict:
+    """One rank of ``train-sp`` at (dp, sp) = (1, 2): (a) the segmenter,
+    (b) ViT-S/16, (c) ring attention alone."""
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, multihost
+
+    dev = torch.device(device if device == "cpu" else "cuda:0")
+    multihost.initialize(store, world, rank, backend="gloo", timeout=300)
+    out = {"rank": rank}
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        lay = mesh.init_mesh(SP_DEGREE, sequence=True)
+        out["layout"] = [lay.dp, lay.tp, lay.data_index, mesh.sequence_index()]
+        seg_kwargs = dict(params["seg"])
+        if "n_blocks" in seg_kwargs:
+            seg_kwargs["n_blocks"] = tuple(seg_kwargs["n_blocks"])
+        t0 = time.perf_counter()
+        out["seg"] = sp_segmenter(torch, rank, root, dev, seg_kwargs, params["size"], params["batch"])
+        t1 = time.perf_counter()
+        out["vit"] = sp_vit(torch, rank, root, dev, params.get("vit"), params["vit_batch"])
+        t2 = time.perf_counter()
+        out["ring"] = sp_ring(torch, rank, dev, tuple(params["ring_shape"]))
+        out["laps_s"] = [t1 - t0, t2 - t1, time.perf_counter() - t2]
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def sp_rank_main(argv) -> int:
+    """``chip_smoke.py sp-rank RANK WORLD STORE ROOT DEVICE PARAMS``: one
+    rank of ``train-sp`` (PARAMS as JSON); writes
+    ``ROOT/sp{WORLD}-rank{RANK}.json``."""
+    import torch
+
+    rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    try:
+        out = sp_rank(torch, rank, world, store, root, device, json.loads(argv[5]))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    with open(os.path.join(root, f"sp{world}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def sp_collective_line(rec) -> str:
+    parts = []
+    for kind, label in (("shift", "shifts"), ("gather", "row gathers"), ("scatter", "gathers' backward sums"),
+                        ("allreduce", "all-reduces")):
+        calls, secs, nbytes = rec[kind]
+        parts.append(f"{calls} {label} {nbytes / 1e6:.2f} MB in {secs * 1e3:.3f} ms")
+    return ", ".join(parts)
+
+
+def train_sp_phase(torch, card: str, device: str = "cuda", seg_kwargs=None, vit_overrides=None, size: int = SP_SIZE,
+                   batch: int = SP_BATCH, vit_batch: int = SP_BATCH, n_images: int = SP_IMAGES,
+                   n_test: int = SP_TEST_IMAGES, ring_shape=SP_RING_SHAPE):
+    """Sequence parallelism (sequence_parallel 2, dp 1) on two gloo ranks
+    sharing the card (``chip_smoke.py sp-rank ...``): (a) tgs_salt at full
+    width and depth on 112 x 112 (the one cut: 101 does not divide by
+    output_stride 8 x 2): one step held against the one-rank step, Trainer.train
+    2 folds x 2 steps with a checkpoint and an eval, Trainer.predict held
+    against this process's plain predict of the same checkpoints; (b)
+    ViT-S/16 at full width: one step held against the one-card step,
+    fit_preset 2 steps; (c) ring attention alone at [64, 196, 6, 64].
+    ``seg_kwargs``, ``vit_overrides`` and ``device="cpu"`` rehearse it
+    small."""
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    on_card = device == "cuda"
+    tgs = configs.get_preset("tgs_salt").model
+    seg_kwargs = dict(seg_kwargs or {k: getattr(tgs, k) for k in ("n_blocks", "base_depth", "width_multiplier",
+                                                                   "output_stride")}, use_pallas_depthwise=True)
+    params = {"seg": seg_kwargs, "size": size, "batch": batch, "vit": vit_overrides, "vit_batch": vit_batch,
+              "ring_shape": list(ring_shape)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sp-") as root:
+        write_salt_dataset(os.path.join(root, "data"), n_images, size, SEED + 86)
+        write_salt_dataset(os.path.join(root, "test"), n_test, size, SEED + 87)
+        shutil.rmtree(os.path.join(root, "test", "masks"))
+        store = f"file://{os.path.join(root, 'store')}"
+        procs, logs = [], []
+        try:
+            for rank in range(SP_DEGREE):
+                logs.append(open(os.path.join(root, f"sp{SP_DEGREE}-rank{rank}.log"), "w"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "sp-rank", str(rank), str(SP_DEGREE), store, root,
+                     device, json.dumps(params)],
+                    stdout=logs[-1], stderr=subprocess.STDOUT,
+                ))
+            outs = tp_finish(root, SP_DEGREE, procs, logs, t0 + SP_TIMEOUT_S, prefix="sp")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        t1 = time.perf_counter()
+        # the same checkpoints' plain predict in this process
+        tcfg = TrainConfig(n_folds=SP_FOLDS, seed=SEED % 1000 + 82)
+        plain = Trainer(os.path.join(root, "model-sp"), os.path.join(root, "data"), train_config=tcfg,
+                        device=trainer_device(torch, device), input_shape=(size, size), **seg_kwargs)
+        whole = plain.predict(os.path.join(root, "test"), batch_size=batch)
+        sharded = [np.load(os.path.join(root, f"sp-predict-rank{r}.npy")) for r in range(SP_DEGREE)]
+    per_step = PER_TRAIN_STEP if on_card else {k: 0 for k in PER_TRAIN_STEP}
+    per_eval = PER_EVAL_FORWARD if on_card else {k: 0 for k in PER_EVAL_FORWARD}
+    r0 = outs[0]
+    seg, vit = r0["seg"], r0["vit"]
+    for o in outs:
+        what = f"train-sp rank {o['rank']}"
+        check(o["layout"] == [1, SP_DEGREE, 0, o["rank"]], f"{what}: layout {o['layout']}")
+        s = o["seg"]
+        check(s["metrics"] == seg["metrics"] and all(np.isfinite(v) for m in s["metrics"] for v in m.values()),
+              f"{what}: metrics {s['metrics']} vs rank 0's {seg['metrics']}")
+        check(len(s["ledger_train"]) == SP_FOLDS * SP_STEPS and all(d == per_step for d in s["ledger_train"]),
+              f"{what}: train step launches {s['ledger_train']}, expected {per_step} each")
+        check(len(s["ledger_eval"]) >= SP_FOLDS and all(d == per_eval for d in s["ledger_eval"]),
+              f"{what}: eval forward launches {s['ledger_eval']}, expected {per_eval} each")
+        want = {k: per_step[k] * len(s["ledger_train"]) + per_eval[k] * len(s["ledger_eval"]) for k in s["launches"]}
+        check(s["launches"] == want, f"{what}: Trainer.train launches {s['launches']}, expected {want}")
+        n_pred = len(s["ledger_predict"])
+        check(n_pred == SP_FOLDS * 4 * -(-n_test // batch) and all(d == per_eval for d in s["ledger_predict"]),
+              f"{what}: {n_pred} predict forwards launched {s['ledger_predict']}")
+        check(s["predict_ids"] == whole["ids"], f"{what}: predict ids")
+        check(any(p[-1] == "gather" for p in s["paths"]) and any(p[-1] == "halo" for p in s["paths"]),
+              f"{what}: conv paths {s['paths']}")
+        check(o["vit"]["fit"] == vit["fit"] and o["vit"]["fit"]["steps"] == SP_VIT_FIT_STEPS
+              and all(np.isfinite(v) for v in o["vit"]["fit"]["final_metrics"].values()),
+              f"{what}: fit {o['vit']['fit']} vs rank 0's {vit['fit']}")
+        check(all(v == 0 for v in o["vit"]["fit_launches"].values()),
+              f"{what}: the H-sharded ViT launched {o['vit']['fit_launches']} (ring attention is plain tensor ops)")
+    pred_err = max(float(np.abs(p - whole["probabilities"]).max()) for p in sharded)
+    check(pred_err <= TOL_PROBS, f"train-sp: Trainer.predict on the ranks vs the plain predict of the same "
+                                 f"checkpoints: max|err| {pred_err}")
+    launches = {k: sum(o["seg"]["launches"][k] + o["seg"]["predict_launches"][k] + o["vit"]["fit_launches"][k]
+                       for o in outs[:1]) for k in seg["launches"]}
+    halo = [p for p in seg["paths"] if p[-1] == "halo"]
+
+    def peaks(part):
+        return ", ".join(format(o[part]["peak_gb"], ".3f") for o in outs)
+
+    gathered = [p for p in seg["paths"] if p[-1] == "gather"]
+    log(f"train-sp: the segmenter's {len(seg['paths'])} H-sharded k x k convs at {size}x{size} over {SP_DEGREE} "
+        f"ranks: {len(halo)} take the halo exchange, {len(gathered)} the all-gather fallback (where the halo, the rate, exceeds H_local): "
+        + "; ".join(f"{n} H_local {h} rate {r} stride {s} {p}" for n, h, r, s, p in seg["paths"]))
+    h = seg["held"]
+    hs, hp, hw = h["split"], h["plain"], h["witness"]
+
+    def timed(ms):
+        return f"{ms[0]:.3f} ms (median of {SP_TIMED_REPS}, {ms[1]:.3f}-{ms[2]:.3f})"
+
+    def gap(g):
+        return (f"worst gradient leaf at {g['worst_gradient']:.3f} of the tolerance ({g['worst_leaf']}), "
+                f"{g['beyond']} of {g['leaves']} leaves beyond it, ||dg||/||g|| {g['rel_norm']:.3g}")
+
+    log(f"train-sp: tgs_salt ({seg['n_params']} parameters, float32, {size}x{size}x2) on {SP_DEGREE} gloo ranks "
+        f"sharing {device} at sequence_parallel {SP_DEGREE}, batch {batch}: one step from the same state under "
+        f"deterministic algorithms against the one-rank step computed on the ranks' row blocks (split_row_blocks, "
+        f"its own geometry): |dloss| {hs['d_loss']:.3g}, BN statistics {hs['d_stats']:.3g} apart, "
+        f"{gap(hs)} (held: every leaf within 1e-4·max|leaf| + 1e-6); against the plain one-rank step |dloss| "
+        f"{hp['d_loss']:.3g}, BN statistics {hp['d_stats']:.3g} (held), {gap(hp)} (held: ||dg||/||g|| within "
+        f"{SP_WITNESS_FACTOR}x the witness's); the witness, the "
+        f"plain step on images one float32 ulp above against the plain step: |dloss| {hw['d_loss']:.3g}, {gap(hw)} "
+        f"[{card}]")
+    log(f"train-sp: the segmenter's step {timed(seg['step_ms'])} on rank 0 (rank 1 {timed(outs[-1]['seg']['step_ms'])}), "
+        f"the one-rank step {timed(seg['one_rank_ms'])}; peak memory per rank {peaks('seg')} GB, the one-rank "
+        f"step's {seg['one_rank_peak_gb']:.3f} GB [{card}]")
+    held_err = {}
+    for o in outs if on_card else ():
+        hc = o["seg"]["held_calls"]
+        log(f"train-sp rank {o['rank']}: its Trainer.train's first step's {RANK_HELD['depthwise_conv2d_forward']} "
+            f"depthwise forward, dx and dw calls on the head's gathered maps {hc['shapes']} and its first eval "
+            f"forward's {RANK_HELD['bn_act_folded']} fused_bn_act calls (the backbone's on its row blocks, the "
+            f"head's whole) held against the plain versions: forward max|err| {hc['depthwise_conv2d']:.3g}, dx "
+            f"{hc['depthwise_conv2d_dx']:.3g}, dw {hc['depthwise_conv2d_dw']:.3g}, BN {hc['fused_bn_act']:.3g} "
+            f"(forward, dx and BN bitwise the earlier kernels, dw bitwise a relaunch)")
+        for plan in hc["dw_plans"]:
+            log(f"train-sp rank {o['rank']}: dw {plan}")
+        for name in ("depthwise_conv2d", "depthwise_conv2d_dx", "depthwise_conv2d_dw", "fused_bn_act"):
+            held_err[name] = max(held_err.get(name, 0.0), hc[name])
+    log(f"train-sp: the segmenter step's collectives on rank 0, a step of its own before the timed ones (host-staged, the card synchronized around each): "
+        f"{sp_collective_line(seg['collectives'])} [{card}]")
+    log(f"train-sp: Trainer.train {SP_FOLDS} folds x {SP_STEPS} steps on both ranks, {seg['train_s']:.3f} s, each "
+        f"train step launched {per_step}, each eval forward {per_eval}; metrics equal on both ranks "
+        f"{json.dumps(seg['metrics'])}; Trainer.predict ({SP_FOLDS} folds x 4 transforms over {n_test} images, "
+        f"{len(seg['ledger_predict'])} forwards) {seg['predict_s']:.3f} s on the ranks, their probabilities within "
+        f"{pred_err:.3g} of the plain predict of the same checkpoints [{card}]")
+    hv = vit["held"]
+    log(f"train-sp: ViT-S/16 ({vit['n_params']} parameters, bf16) at sequence_parallel {SP_DEGREE}, "
+        f"{vit_batch} images: one step against the one-card step from the same state: loss {hv['loss']:.6f} vs "
+        f"{hv['one_card_loss']:.6f}, worst gradient leaf at {hv['worst_gradient']:.3f} of "
+        f"{TOL_MOE_GRAD}·max|leaf|; {timed(vit['step_ms'])} per step, the one-card step {timed(vit['one_rank_ms'])}; "
+        f"peak memory per rank {peaks('vit')} GB, the one-card step's "
+        f"{vit['one_rank_peak_gb']:.3f} GB; one step's collectives {sp_collective_line(vit['collectives'])}; "
+        f"fit_preset {SP_VIT_FIT_STEPS} steps {vit['fit_s']:.3f} s, final {json.dumps(vit['fit']['final_metrics'])} "
+        f"[{card}]")
+    ring = r0["ring"]
+    log(f"train-sp: ring attention alone at {list(ring_shape)} over {SP_DEGREE} ranks: float32 max|err| "
+        f"{ring['float32']['max_abs_err']:.3g} (bound {TOL_RING_F32}), bf16 within one bf16 step "
+        f"(max|err| {ring['bfloat16']['max_abs_err']:.3g}); ms float32 {ring['float32']['ms']:.3f} / bf16 "
+        f"{ring['bfloat16']['ms']:.3f} on a rank's block, attention_reference of the whole "
+        f"{ring['float32']['reference_ms']:.3f} / {ring['bfloat16']['reference_ms']:.3f} ms [{card}]")
+    log(f"train-sp: launches on the main path (rank 0: Trainer.train, Trainer.predict, fit_preset) {launches}; "
+        f"rank laps (a, b, c) {[round(x, 1) for x in r0['laps_s']]} s; {t1 - t0:.1f} s for the ranks, "
+        f"{time.perf_counter() - t0:.1f} s in all [{card}]")
+    return {"launches": launches, "held_calls": held_err, "phase_s": time.perf_counter() - t0, "ranks_s": t1 - t0,
+            "seg_step_ms": seg["step_ms"], "seg_one_rank_ms": seg["one_rank_ms"], "seg_held": h,
+            "seg_peak_gb": [o["seg"]["peak_gb"] for o in outs], "seg_one_rank_peak_gb": seg["one_rank_peak_gb"],
+            "seg_collectives": seg["collectives"], "conv_paths": seg["paths"], "train_s": seg["train_s"],
+            "predict_s": seg["predict_s"], "predict_err": pred_err,
+            "vit_step_ms": vit["step_ms"], "vit_one_card_ms": vit["one_rank_ms"], "vit_held": hv,
+            "vit_peak_gb": [o["vit"]["peak_gb"] for o in outs], "vit_one_card_peak_gb": vit["one_rank_peak_gb"],
+            "vit_collectives": vit["collectives"], "vit_fit_s": vit["fit_s"], "ring": ring, "laps_s": r0["laps_s"]}
+
+
+
 # Xception-41: the segmenter through Trainer.train with every observability
 # knob on, and the classifier preset through fit_preset
 XC_STEPS = 20
@@ -7557,6 +8303,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: torch is not importable: {e}", file=sys.stderr)
         return 1
+    cold_dir, cold_procs = None, []
     try:
         card = probe(torch)
         torch.backends.cudnn.allow_tf32 = False
@@ -7566,7 +8313,14 @@ def main() -> int:
             from tensorflowdistributedlearning_tpu_torch.models import build_model
         except ImportError as e:
             raise SmokeFailure(f"the port package is not importable from {os.getcwd()}: {e}")
+        # beside this process's build, two processes build the data-parallel
+        # path's libraries into one cold directory at once, racing each other
+        cold_dir = tempfile.mkdtemp(prefix="chip-smoke-cold-")
+        cold_procs = start_cold_builds(cold_dir)
         build()
+        cold = finish_cold_builds(cold_procs, cold_dir)
+        log(f"build: the two cold builds of {'/'.join(COLD_LIBS)} racing in one directory beside it "
+            f"{[round(t, 3) for t in cold]} s")
         mark("build")
         cfg = ModelConfig(use_pallas_depthwise=True)
         gen = torch.Generator().manual_seed(SEED)
@@ -7625,7 +8379,7 @@ def main() -> int:
         trained = train_phase(torch, card)
         mark("train")
         torch.cuda.empty_cache()
-        dp = dp_phase(torch, card, timer=timer)
+        dp = dp_phase(torch, card, timer=timer, cold=cold)
         mark("dp")
         torch.cuda.empty_cache()
         trained16 = train_bf16_phase(torch, card, timer)
@@ -7659,6 +8413,9 @@ def main() -> int:
         moe = train_moe_phase(torch, card)
         mark("train-moe")
         torch.cuda.empty_cache()
+        sp = train_sp_phase(torch, card)
+        mark("train-sp")
+        torch.cuda.empty_cache()
         xception = train_xception_phase(torch, card)
         mark("train-xception")
         torch.cuda.empty_cache()
@@ -7667,7 +8424,15 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    for name, e in list(dp["train-dp2"]["held"].items()) + list(tp["held"].items()) + list(pp["held"].items()):
+    finally:
+        for p in cold_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if cold_dir is not None:
+            shutil.rmtree(cold_dir, ignore_errors=True)
+    for name, e in (list(dp["train-dp2"]["held"].items()) + list(tp["held"].items()) + list(pp["held"].items())
+                    + list(sp["held_calls"].items())):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     paths = {"serve": served["launches"], "serve-obs": observed["launches"], "serve-int8-compute": int8_counts, "train": trained["launches"],
              "predict": trained["predict_launches"], "predict-artifact": trained["artifact_launches"],
@@ -7679,6 +8444,7 @@ def main() -> int:
              "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
              "train-zero1": zero1["launches"], "train-tp": tp["launches"], "train-pp": pp["launches"],
              "serve-moe": moe["serve_launches"], "train-moe": moe["launches"], "train-moe-ep": moe["ep"]["launches"],
+             "train-sp": sp["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
              "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
     def launches(name, counts):
@@ -7712,6 +8478,7 @@ def main() -> int:
                       "train_tp": {k: v for k, v in tp.items() if k not in ("launches", "held")},
                       "train_pp": {k: v for k, v in pp.items() if k not in ("launches", "held")},
                       "train_moe": {k: v for k, v in moe.items() if not k.endswith("launches")},
+                      "train_sp": {k: v for k, v in sp.items() if k not in ("launches", "held_calls")},
                       "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
                       "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7721,5 +8488,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     ranks = {"dp-rank": dp_rank_main, "zero-rank": zero_rank_main, "tp-rank": tp_rank_main, "pp-rank": pp_rank_main,
-             "moe-rank": moe_rank_main}
+             "moe-rank": moe_rank_main, "sp-rank": sp_rank_main, "cold-build": cold_build_main}
     sys.exit(ranks[sys.argv[1]](sys.argv[2:]) if sys.argv[1:2] and sys.argv[1] in ranks else main())

@@ -77,6 +77,7 @@ def cmd_train(args) -> int:
         n_devices=args.n_devices,
         sync_batch_norm=args.sync_bn,
         model_parallel=args.model_parallel,
+        sequence_parallel=args.sequence_parallel,
         weight_update_sharding=args.weight_update_sharding,
         **_loop_overrides(args),
     )
@@ -156,6 +157,7 @@ def cmd_fit(args) -> int:
         pipeline_parallel=args.pipeline_parallel,
         pipeline_microbatches=args.pipeline_microbatches,
         expert_parallel=args.expert_parallel,
+        sequence_parallel=args.sequence_parallel,
         weight_update_sharding=args.weight_update_sharding,
         data_service_workers=args.data_workers,
         prefetch_depth=args.prefetch_depth,
@@ -576,6 +578,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--model-parallel", type=int, default=1,
                    help="tensor parallelism: shard the parameters, BN statistics and optimizer state over this many "
                    "ranks per replica (channel slices; the K-fold trainer keeps per-replica BatchNorm)")
+    t.add_argument("--sequence-parallel", type=int, default=1,
+                   help="spatial (sequence) parallelism: shard every image's rows over this many ranks per replica "
+                   "(halo-exchange convolutions, BatchNorm over the group; the input height must divide by "
+                   "output_stride x this)")
     t.add_argument("--weight-update-sharding", action="store_true",
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(per-rank optimizer bytes drop ~world-fold; the update's numerics are the replicated one's)")
@@ -619,6 +625,9 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--expert-parallel", type=int, default=None,
                    help="expert parallelism for MoE presets: one expert per rank with all-to-all dispatch (must "
                    "equal the preset's moe_experts; default: the preset's, every expert local)")
+    f.add_argument("--sequence-parallel", type=int, default=None,
+                   help="spatial (sequence) parallelism: shard every image's rows over this many ranks per replica "
+                   "(halo-exchange convolutions; ring attention for the ViT presets; default: the preset's)")
     f.add_argument("--weight-update-sharding", action="store_true", default=None,
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(default: the preset's; resnet50_bf16_8k sets it)")

@@ -291,7 +291,11 @@ class TrainConfig:
         if self.augmentation not in ("flip_crop", "crop", "none", "mixup", "cutmix"):
             raise ValueError(f"Unknown augmentation {self.augmentation!r}")
         if self.augmentation in ("mixup", "cutmix") and (self.sequence_parallel > 1 or self.pipeline_parallel > 1):
-            raise ValueError(f"augmentation={self.augmentation!r} needs the data/tensor-parallel step")
+            raise ValueError(
+                f"augmentation={self.augmentation!r} pairs examples through extra per-example batch fields "
+                "(labels_b/lam), which the sequence-parallel and pipeline execution strategies do not thread; use "
+                "the data/tensor-parallel step"
+            )
         if self.lr_schedule not in ("exponential", "cosine"):
             raise ValueError(f"Unknown lr_schedule {self.lr_schedule!r}")
         if self.optimizer not in ("adam", "sgd", "lars"):
@@ -354,7 +358,6 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
 # with the ROADMAP queue item that brings each
 _LATER_TRAINING = (
     (lambda m, c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12.5)"),
-    (lambda m, c: c.sequence_parallel > 1, "sequence parallelism (queue A 12.4)"),
     (
         lambda m, c: c.model_parallel > 1 and m.backbone != "resnet",
         "tensor parallelism (model_parallel > 1) of the Xception-41 and ViT models (queue A 12.2)",
@@ -376,25 +379,33 @@ def require_supported_training(model_config: ModelConfig, train_config: TrainCon
     ``parallel/tensor.py``), the dense ViT and the Xception-41 classifier
     also as GPipe pipelines (``pipeline_parallel`` > 1, ``fit`` only:
     ``train/pipeline_step.py``, whose ``validate_pipeline_config`` raises
-    the JAX package's ``ValueError`` for any other model), and the MoE ViT
+    the JAX package's ``ValueError`` for any other model), the MoE ViT
     also expert-parallel (``expert_parallel`` > 1, one expert per rank of
     the model axis, ``parallel/expert.py``; it must equal ``moe_experts``,
-    or this raises the JAX ``fit``'s ``ValueError``), under every
-    observability knob; it refuses the planner (queue A 12.5), the sequence
-    axis (queue A 12.4), tensor parallelism of the Xception-41 and ViT
-    models (queue A 12.2), and ``compile_cache_dir``."""
+    or this raises the JAX ``fit``'s ``ValueError``), and every dense model
+    also H-sharded over a sequence axis (``sequence_parallel`` > 1,
+    ``parallel/spatial.py`` and ``parallel/ring_attention.py``, with or
+    without ZeRO-1 over the data axis; ``validate_spatial_config`` raises
+    the JAX package's ``ValueError`` for an input height the degree does
+    not admit and for the MoE ViT), under every observability knob; it
+    refuses the planner (queue A 12.5), tensor parallelism of the
+    Xception-41 and ViT models (queue A 12.2), and ``compile_cache_dir``."""
     require_supported(model_config)
     for test, what in _LATER_TRAINING:
         if test(model_config, train_config):
             raise NotImplementedError(
-                f"{what} is not ported yet; the port trains data-, tensor-, pipeline- and expert-parallel only "
-                "(see ROADMAP.md)"
+                f"{what} is not ported yet; the port trains data-, tensor-, pipeline-, expert- and "
+                "sequence-parallel only (see ROADMAP.md)"
             )
     if train_config.expert_parallel > 1 and train_config.expert_parallel != model_config.moe_experts:
         raise ValueError(
             f"expert_parallel={train_config.expert_parallel} requires moe_experts={train_config.expert_parallel} "
             f"(one expert per shard); got moe_experts={model_config.moe_experts}"
         )
+    if train_config.sequence_parallel > 1:
+        from tensorflowdistributedlearning_tpu_torch.parallel.spatial import validate_spatial_config
+
+        validate_spatial_config(model_config, train_config.sequence_parallel)
     if train_config.pipeline_parallel > 1:
         from tensorflowdistributedlearning_tpu_torch.train.pipeline_step import validate_pipeline_config
 

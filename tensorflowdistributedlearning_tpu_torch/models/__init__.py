@@ -1,6 +1,7 @@
 """Model factory (counterpart of ``tensorflowdistributedlearning_tpu/models``):
 the ResNet and Xception-41 segmenters and classifiers and the ViT
-classifier."""
+classifier, plain or H-sharded over the sequence group
+(:func:`set_spatial`, the JAX ``build_model``'s ``spatial_axis_name``)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ import torch.nn as nn
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, require_supported
 from tensorflowdistributedlearning_tpu_torch.models.layers import (
     BatchNorm,
+    Conv2dSame,
     ConvBN,
+    SpaceToDepthConv,
     Dense,
     DepthwiseConv2D,
     SplitSeparableConv2D,
@@ -26,7 +29,13 @@ from tensorflowdistributedlearning_tpu_torch.models.resnet import (
     ResNetClassifier,
     ResNetSegmentation,
 )
-from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, MoEMlp, PatchEmbed, ViTClassifier
+from tensorflowdistributedlearning_tpu_torch.models.vit import (
+    LayerNorm,
+    MoEMlp,
+    MultiHeadSelfAttention,
+    PatchEmbed,
+    ViTClassifier,
+)
 from tensorflowdistributedlearning_tpu_torch.models.xception import (
     SeparableConvSame,
     Xception41,
@@ -129,15 +138,45 @@ def _set_sync_batch_norm(model: nn.Module, sync: bool) -> nn.Module:
     return model
 
 
-def empty_model(config: ModelConfig, device: DeviceLike = None, *, sync_batch_norm: bool = False) -> nn.Module:
+def set_spatial(model: nn.Module) -> nn.Module:
+    """Mark ``model``'s H-sharded layers for sequence parallelism, in
+    place: for the CNNs the backbone's convs (a k x k one
+    then runs through the halo exchange), its BatchNorms (statistics over
+    the sequence group) and its stem pool, and the network's gather before
+    the segmentation head or global mean before the classifier's logits;
+    for the ViT the classifier (position slice, pooled mean) and its
+    attention layers (ring attention). The parameters do not change, so a
+    plain model's weights and checkpoints serve as they are (the JAX
+    ``SpatialConv``'s "param tree is identical to nn.Conv"). Raises the
+    JAX ``ConvBN``'s ``ValueError`` for a space-to-depth stem."""
+    if isinstance(model, ViTClassifier):
+        marked = [model] + [m for m in model.modules() if isinstance(m, MultiHeadSelfAttention)]
+    else:
+        backbone = model.backbone
+        if any(isinstance(m, SpaceToDepthConv) for m in backbone.modules()):
+            raise ValueError(
+                "space_to_depth reshapes H into channels and cannot compose "
+                "with an H-sharded (sequence-parallel) conv"
+            )
+        marked = [model, backbone] + [m for m in backbone.modules() if isinstance(m, (Conv2dSame, BatchNorm))]
+    for m in marked:
+        m.spatial = True
+    return model
+
+
+def empty_model(
+    config: ModelConfig, device: DeviceLike = None, *, sync_batch_norm: bool = False, spatial: bool = False
+) -> nn.Module:
     """The network of ``config`` with its tensors allocated on ``device``
     (CUDA when None) and left uninitialised, in eval mode: built on
     ``torch.device("meta")``, then ``to_empty``. It draws nothing, so it is
     the template of a restore, whose strict ``load_state_dict`` overwrites
-    every tensor."""
+    every tensor. ``spatial``: :func:`set_spatial`."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = model_for(config)
+    if spatial:
+        set_spatial(model)
     return _set_sync_batch_norm(model, sync_batch_norm).to_empty(device=device).eval()
 
 
@@ -147,14 +186,19 @@ def build_model(
     *,
     generator: Optional[torch.Generator] = None,
     sync_batch_norm: bool = False,
+    spatial: bool = False,
 ) -> nn.Module:
     """The network for ``config`` (:func:`model_for`), initialised from
     ``generator`` (seed 0 when None), in eval mode on ``device`` (CUDA when
     None; raises without it). ``sync_batch_norm``: every BatchNorm takes its
     training statistics over the global batch of a data-parallel run (the
-    JAX package's ``bn_axis_name=BATCH_AXIS``)."""
+    JAX package's ``bn_axis_name=BATCH_AXIS``). ``spatial``: H-sharded over
+    the sequence group (:func:`set_spatial`), with the plain network's
+    weights (the draw does not depend on it)."""
     device = resolve_device(device)
     model = _set_sync_batch_norm(model_for(config), sync_batch_norm)
+    if spatial:
+        set_spatial(model)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if isinstance(model, ViTClassifier):
@@ -179,6 +223,7 @@ __all__ = [
     "init_vit_weights",
     "init_weights",
     "model_for",
+    "set_spatial",
     "subsample",
     "upsample",
 ]

@@ -52,6 +52,15 @@ holds this rank's channel slices of its parameters and runs through
 depthwise conv); its input and output are whole. A layer with ``tp``
 None computes on whatever parameters it holds, so the members of a
 tensor-parallel ``ConvBN`` compute this rank's channels.
+
+Sequence parallelism (``parallel/spatial.py``): a layer whose ``spatial``
+is set runs on this rank's block of the rows. A :class:`Conv2dSame` with
+a kernel above 1x1 then runs through the halo exchange with the same
+parameters (the JAX package's ``SpatialConv``, whose "param tree is
+identical to nn.Conv"), and a :class:`BatchNorm` takes its statistics
+over the sequence group (over every rank under ``sync``), as the JAX package's
+``bn_axis_name`` of ``SEQUENCE_AXIS`` (or ``(BATCH, SEQUENCE)``) does.
+``models.set_spatial`` marks a model's H-sharded layers.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from torch.utils import checkpoint as checkpoint_lib
 
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
+from tensorflowdistributedlearning_tpu_torch.parallel import spatial as spatial_lib
 
 
 # the key of the forward in progress: {"seed": int, device: its generator}
@@ -240,6 +250,8 @@ class Conv2dSame(nn.Conv2d):
 
     same_padding = "SAME"
     tp = None
+    # H-sharded over the sequence group (``models.set_spatial``)
+    spatial = False
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -248,8 +260,20 @@ class Conv2dSame(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tp.column(self._forward, x) if self.tp is not None else self._forward(x)
 
+    def _spatial_forward(self, x: torch.Tensor, phase: str) -> torch.Tensor:
+        """:func:`spatial_lib.spatial_conv2d` of this rank's block in the
+        compute dtype, then the bias added in it (the JAX ``SpatialConv``)."""
+        dt = self.compute_dtype
+        y = spatial_lib.spatial_conv2d(
+            x.float() if dt == torch.float32 else x.to(dt), self.weight.to(dt), stride=self.stride[0],
+            rate=self.dilation[0], groups=self.groups, phase=phase,
+        )
+        return y if self.bias is None else y + self.bias.to(dt)
+
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.spatial and self.kernel_size[0] > 1:
+            return self._spatial_forward(x, "same")
         if dt == torch.float32:
             return conv2d_same(x.float(), self.weight, self.bias, self.stride[0], self.dilation[0], self.groups)
         y = conv2d_same(x.to(dt), self.weight.to(dt), None, self.stride[0], self.dilation[0], self.groups)
@@ -313,6 +337,8 @@ class BatchNorm(nn.Module):
     mode, the fused kernel all on the slice)."""
 
     tp = None
+    # statistics over the sequence group (models.set_spatial)
+    spatial = False
 
     def __init__(
         self, num_features: int, eps: float = 1e-3, scale: bool = True, decay: float = 0.99, sync: bool = False,
@@ -363,11 +389,17 @@ class BatchNorm(nn.Module):
 
     def _moments(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``E[x], E[x²]`` over (B, H, W) of the float32 input, over the
-        global batch under ``sync``."""
+        global batch under ``sync``; a ``spatial`` layer's over the
+        sequence group's row blocks (equal blocks: the mean of their
+        moments), under ``sync`` over every rank."""
         mean = xf.mean(dim=(0, 1, 2))
         mean_sq = (xf * xf).mean(dim=(0, 1, 2))
-        if self.sync and collectives.is_initialized():
-            mean, mean_sq = collectives.pmean(torch.stack([mean, mean_sq]), mesh.data_group())
+        if (self.sync or self.spatial) and collectives.is_initialized():
+            if self.spatial:
+                group = mesh.layout().world_group if self.sync else mesh.sequence_group()
+            else:
+                group = mesh.data_group()
+            mean, mean_sq = collectives.pmean(torch.stack([mean, mean_sq]), group)
         return mean, mean_sq
 
     def _batch_normalize(self, x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,14 @@ conv2.bn.running_var`` is flax's ``batch_stats/backbone/block1_unit1/conv2/
 bn/var``), so ``utils/convert.py`` maps one onto the other by name. Unlike
 flax, torch modules are built with their input widths, so each module here
 is given the channel count it receives.
+
+Sequence parallelism (``models.set_spatial``; the JAX modules'
+``spatial_axis_name``): the backbone runs on this rank's block of the rows,
+its k x k convs through the halo exchange (``Conv2dSame.spatial``), its
+stem pool through ``spatial_max_pool`` and its BatchNorms over the
+sequence group; the segmenter all-gathers ``features`` and the skip before
+the head, which then runs on whole maps on every rank of the group, and
+the classifier pools with ``spatial_global_mean``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, require_supported
+from tensorflowdistributedlearning_tpu_torch.parallel import spatial as spatial_lib
 from tensorflowdistributedlearning_tpu_torch.models.layers import (
     BatchNorm,
     Conv2dSame,
@@ -227,6 +236,9 @@ class ResNetBackbone(nn.Module):
     end-point dict ('root', each 'block{i}', 'block1_unit1_residual',
     'features')."""
 
+    # H-sharded over the sequence group (models.set_spatial)
+    spatial = False
+
     def __init__(self, config: ModelConfig, multi_grid: Tuple[int, int, int] = SEGMENTATION_MULTI_GRID):
         super().__init__()
         require_supported(config)
@@ -264,7 +276,7 @@ class ResNetBackbone(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         end_points: Dict[str, torch.Tensor] = {}
         x = self.conv1_3(self.conv1_2(self.conv1_1(x.to(self.compute_dtype))))
-        x = max_pool_same(x, 3, 2)
+        x = spatial_lib.spatial_max_pool(x, 3, 2) if self.spatial else max_pool_same(x, 3, 2)
         x = self.postnorm(x, act="relu")
         end_points["root"] = x
         last_of = {unit: block for block, unit in self.block_ends.items()}
@@ -325,6 +337,8 @@ class ResNetSegmentation(nn.Module):
     head's submodules (``aspp``, ``decoder_conv_1x1``, ``decoder_conv_3x3``)
     sit at the top level, as ``deeplab_head`` binds them in flax."""
 
+    spatial = False
+
     def __init__(self, config: ModelConfig):
         super().__init__()
         require_supported(config)
@@ -341,7 +355,12 @@ class ResNetSegmentation(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         end_points = self.backbone(x)
-        return deeplab_head(self, end_points["features"], end_points["block1_unit1_residual"])
+        features, skip = end_points["features"], end_points["block1_unit1_residual"]
+        if self.spatial:
+            # the head's upsamplings and the per-image loss need whole maps
+            features = spatial_lib.spatial_gather(features)
+            skip = spatial_lib.spatial_gather(skip)
+        return deeplab_head(self, features, skip)
 
 
 def deeplab_head(net: nn.Module, features: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
@@ -363,6 +382,8 @@ class ResNetClassifier(nn.Module):
     as ``jnp.mean``), then the float32 Dense ``logits``. Returns [B,
     num_classes] float32 logits."""
 
+    spatial = False
+
     def __init__(self, config: ModelConfig):
         super().__init__()
         require_supported(config)
@@ -374,5 +395,8 @@ class ResNetClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         features = self.backbone(x)["features"]
-        pooled = features.float().mean(dim=(1, 2)).to(features.dtype)
+        if self.spatial:
+            pooled = spatial_lib.spatial_global_mean(features)
+        else:
+            pooled = features.float().mean(dim=(1, 2)).to(features.dtype)
         return self.logits(pooled.float())

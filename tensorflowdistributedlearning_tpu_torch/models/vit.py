@@ -54,10 +54,19 @@ carry gradients (the kernel through its ``autograd.Function``).
 The patch conv and the Dense products stay ``torch.matmul``, as the JAX
 package leaves them to XLA. Under ``int8-compute`` the Dense layers become
 ``ops.quant_kernels.QuantLinear`` at load time.
+
+Sequence parallelism (``models.set_spatial``; the JAX modules'
+``spatial_axis_name``): the input is this rank's block of the rows; its
+patches are tokens ``[index·T_local, (index + 1)·T_local)`` of the
+row-major global sequence, so the position table is sliced there; the
+attention is :func:`parallel.ring_attention.ring_attention` over the
+sequence group (``use_fused_attention`` is ignored with a warning, as in
+the JAX package), and the pooled tokens are averaged over the group.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional
 
 import torch
@@ -70,7 +79,9 @@ from tensorflowdistributedlearning_tpu_torch.models.layers import (
     Dense, compute_dtype_of, promote_dtype, remat_call, scaled_width,
 )
 from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
+from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh
 from tensorflowdistributedlearning_tpu_torch.parallel import expert as expert_lib
+from tensorflowdistributedlearning_tpu_torch.parallel.ring_attention import ring_attention
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -121,7 +132,11 @@ class PatchEmbed(nn.Conv2d):
 class MultiHeadSelfAttention(nn.Module):
     """QKV projection, softmax attention, output projection. The qkv output
     is laid out ``[B, T, 3, H, hd]``; q, k and v are strided views of it,
-    which the kernel reads in place."""
+    which the kernel reads in place. A ``spatial`` layer attends its
+    tokens to the whole sequence by ring attention over the sequence
+    group."""
+
+    spatial = False
 
     def __init__(self, embed: int, num_heads: int, dtype=None, use_fused: bool = False,
                  num_prefix_tokens: int = 0):
@@ -139,6 +154,15 @@ class MultiHeadSelfAttention(nn.Module):
         b, t, _ = x.shape
         qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, self.embed // self.num_heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if self.spatial:
+            if self.use_fused:
+                warnings.warn(
+                    "use_fused_attention is ignored under sequence parallelism: the ring formulation owns the "
+                    "attention math there",
+                    stacklevel=2,
+                )
+            out = ring_attention(q, k, v)
+            return self.proj(out.reshape(b, t, self.embed))
         attend = fa.flash_attention if self.use_fused else fa.flash_attention_plain
         out = attend(q, k, v)
         return self.proj(out.reshape(b, t, self.embed))
@@ -259,7 +283,10 @@ def pop_aux_losses(model: nn.Module) -> List[torch.Tensor]:
 
 class ViTClassifier(nn.Module):
     """``[B, H, W, C] -> [B, num_classes]`` logits (float32, or the int8
-    kernel's bf16 under ``int8-compute``)."""
+    kernel's bf16 under ``int8-compute``). ``spatial``: the input is this
+    rank's block of the rows (see the module's docstring)."""
+
+    spatial = False
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -297,7 +324,9 @@ class ViTClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = self.config.input_shape
-        if x.dim() != 4 or x.shape[1] != h or x.shape[2] != w:
+        if self.spatial:
+            check_spatial_input(self.config, x)
+        elif x.dim() != 4 or x.shape[1] != h or x.shape[2] != w:
             raise ValueError(
                 f"input {tuple(x.shape)} does not match the configured input_shape {self.config.input_shape} (NHWC)"
             )
@@ -379,11 +408,36 @@ def embed_tokens(config: ModelConfig, params: "ViTClassifier", x: torch.Tensor) 
     classifier whose parameters apply."""
     dtype = compute_dtype_of(config)
     tokens = params.patch_embed(x.to(dtype))
-    return tokens + params.pos_embedding[: tokens.shape[1]].to(dtype)[None]
+    t_local = tokens.shape[1]
+    offset = mesh.sequence_index() * t_local if getattr(params, "spatial", False) else 0
+    return tokens + params.pos_embedding[offset:offset + t_local].to(dtype)[None]
 
 
 def head_logits(config: ModelConfig, params: "ViTClassifier", tokens: torch.Tensor) -> torch.Tensor:
     """Final LayerNorm, float32 mean pool and the ``logits`` Dense: the
     post-block half of :meth:`ViTClassifier.forward`."""
     pooled = params.ln_final(tokens).float().mean(dim=1)
+    if getattr(params, "spatial", False):
+        # equal blocks: the global token mean is the mean of the blocks'
+        pooled = collectives.pmean(pooled, mesh.sequence_group())
     return params.logits(pooled)
+
+
+def check_spatial_input(config: ModelConfig, x: torch.Tensor) -> None:
+    """The JAX ViT's checks of an H-sharded input: the whole width, the
+    sequence degree's blocks adding up to the configured height, whole
+    patches in each block."""
+    h_total, w_total = config.input_shape
+    p = config.patch_size
+    h_local, w_actual = x.shape[1], x.shape[2]
+    if w_actual != w_total:
+        raise ValueError(f"input width {w_actual} != configured input_shape width {w_total}")
+    degree = mesh.sequence_parallel_degree()
+    if h_local * degree != h_total:
+        raise ValueError(
+            f"per-shard height {h_local} x sequence degree {degree} != configured input height {h_total}"
+        )
+    if h_local % p:
+        raise ValueError(
+            f"per-shard height {h_local} not divisible by patch_size {p} — lower sequence_parallel or the patch size"
+        )

@@ -39,6 +39,15 @@ The classifier's dropout draws its masks from the generator of the
 folds them into its PRNG key: the module holds no random state, so a
 resumed run continues the uninterrupted stream. The bits cannot match
 ``jax.random``'s; the keying does.
+
+Under sequence parallelism (``models.set_spatial``) the backbone runs on
+this rank's block of the rows: its convs, the grouped depthwise ones too,
+through the halo exchange (``Conv2dSame.spatial``; a strided depthwise
+conv in the ``fixed`` phase), its BatchNorms over the sequence group. The
+segmenter all-gathers ``features`` and the skip before the head; the
+classifier pools with ``spatial_global_mean``, and every rank of a
+sequence group draws the same dropout mask (the key holds no sequence
+index).
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from tensorflowdistributedlearning_tpu_torch.models.layers import (
     scaled_width,
 )
 from tensorflowdistributedlearning_tpu_torch.models.resnet import ASPP, deeplab_head
+from tensorflowdistributedlearning_tpu_torch.parallel import spatial as spatial_lib
 
 # pre-logits dropout keep probability (the JAX package's single source)
 DEFAULT_KEEP_PROB = 0.5
@@ -78,6 +88,9 @@ class DepthwiseConvSame(Conv2dSame):
                          compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial:
+            # grouped, through the halo exchange: SAME at stride 1, fixed_padding + VALID at a stride
+            return self._spatial_forward(x, "fixed" if self.stride[0] > 1 else "same")
         if self.stride[0] == 1:
             return super().forward(x)
         dt = self.compute_dtype
@@ -244,6 +257,9 @@ class XceptionSegmentation(nn.Module):
     ``decoder_conv_1x1``, ``decoder_conv_3x3``) sit at the top level, as
     in flax."""
 
+    # H-sharded backbone, whole-map head (models.set_spatial)
+    spatial = False
+
     def __init__(self, config: ModelConfig):
         super().__init__()
         require_supported(config)
@@ -259,7 +275,11 @@ class XceptionSegmentation(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         end_points = self.backbone(x)
-        return deeplab_head(self, end_points["features"], end_points["entry_block1"])
+        features, skip = end_points["features"], end_points["entry_block1"]
+        if self.spatial:
+            features = spatial_lib.spatial_gather(features)
+            skip = spatial_lib.spatial_gather(skip)
+        return deeplab_head(self, features, skip)
 
 
 class Xception41(nn.Module):
@@ -268,6 +288,9 @@ class Xception41(nn.Module):
     float32 the pre-logits dropout (training mode only, ``keep_prob``) and
     the Dense ``logits``. Without ``num_classes`` it returns the pooled
     features."""
+
+    # H-sharded backbone, pooled with spatial_global_mean (models.set_spatial)
+    spatial = False
 
     def __init__(self, config: ModelConfig, keep_prob: float = DEFAULT_KEEP_PROB):
         super().__init__()
@@ -282,7 +305,7 @@ class Xception41(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         features = self.backbone(x)["features"]
-        pooled = global_pool(features)
+        pooled = spatial_lib.spatial_global_mean(features).float() if self.spatial else global_pool(features)
         if self.logits is None:
             return pooled
         return self.logits(self._dropout(pooled))

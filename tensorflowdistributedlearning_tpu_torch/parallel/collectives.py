@@ -24,6 +24,20 @@ a collective of a CUDA tensor is staged through the host, as
 moves its dispatch buffers with :func:`all_to_all`, whose backward is the
 same all-to-all of the cotangent.
 
+The sequence axis (``parallel/spatial.py``, ``parallel/ring_attention.py``)
+adds four differentiable collectives whose backward is the transpose of
+the forward map, as JAX's autodiff transposes ``ppermute``,
+``all_gather`` and ``psum_scatter``: :func:`shift` (each rank's tensor to
+the rank ``offset`` after it in the group, as an open chain whose ends
+receive zeros or as a ring; backward, the opposite shift),
+:func:`all_gather_dim` (the group's blocks concatenated along one
+dimension; backward, the sum of every rank's cotangent, this rank's block
+of it), :func:`reduce_scatter` (the sum over the group, this rank's block;
+backward, the all-gather of the cotangent) and :func:`ring_all_gather`
+(the all-gather as n - 1 ring shifts). A shift posts its send and its
+receive together (``dist.batch_isend_irecv``), so a ring of them cannot
+deadlock; at degree 2 the next and the previous rank are one rank.
+
 A list of tensors is reduced as one collective: the tensors of one dtype are
 packed into a flat buffer, all-reduced and copied back. The trainer keeps its
 gradients in such a buffer from the start (:func:`flat_grad_buffer`), so a
@@ -359,3 +373,169 @@ def flat_grad_buffer(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
         p.grad = flat[offset : offset + p.numel()].view_as(p)
         offset += p.numel()
     return flat
+
+
+# -- the sequence axis: ring shifts and blockwise gathers ---------------------
+
+
+def _global_rank(group, r: int) -> int:
+    """The global rank of rank ``r`` of ``group`` (None: the default group)."""
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def _p2p(x: torch.Tensor, dst: Optional[int], src: Optional[int], group) -> Optional[torch.Tensor]:
+    """Send ``x`` to rank ``dst`` of ``group`` and receive a tensor of its
+    shape and dtype from rank ``src``, both posted before either is waited
+    on (None: no such half). The payload travels as bytes through
+    :func:`collective_device` (a copy carries no arithmetic, and gloo moves
+    no bf16). Returns what was received on ``x``'s device, or None."""
+    device = collective_device()
+    ops, out = [], None
+    nbytes = x.numel() * x.element_size()
+    if src is not None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        ops.append(dist.P2POp(dist.irecv, out, _global_rank(group, src), group))
+    if dst is not None:
+        payload = x.detach().to(device).contiguous().reshape(-1).view(torch.uint8)
+        ops.append(dist.P2POp(dist.isend, payload, _global_rank(group, dst), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if out is None:
+        return None
+    out = out.view(x.dtype).view(x.shape)
+    return out if out.device == x.device else out.to(x.device)
+
+
+def _shift_value(x: torch.Tensor, offset: int, ring: bool, group) -> torch.Tensor:
+    """Rank r's result: rank ``r - offset``'s ``x`` (modulo the group's
+    size on a ring; zeros where the open chain has no such rank)."""
+    n, r = world_size(group), dist.get_rank(group)
+    dst, src = r + offset, r - offset
+    if ring:
+        dst, src = dst % n, src % n
+    else:
+        dst = dst if 0 <= dst < n else None
+        src = src if 0 <= src < n else None
+    got = _p2p(x, dst, src, group)
+    return torch.zeros_like(x) if got is None else got
+
+
+class _Shift(torch.autograd.Function):
+    """y_r = x_{r - offset} (ring: modulo n; open chain: 0 off its ends).
+    The map moves blocks between ranks, so its transpose moves the
+    cotangents back: the same shift by ``-offset``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, offset: int, ring: bool) -> torch.Tensor:
+        ctx.group, ctx.offset, ctx.ring = group, offset, ring
+        return _shift_value(x, offset, ring, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _shift_value(g.contiguous(), -ctx.offset, ctx.ring, ctx.group), None, None, None
+
+
+def shift(x: torch.Tensor, group=None, *, offset: int = 1, ring: bool = False) -> torch.Tensor:
+    """Differentiable shift over ``group``: rank r receives rank ``r -
+    offset``'s ``x`` (``lax.ppermute`` with the pairs ``(i, i + offset)``).
+    ``ring`` wraps around; the open chain gives the ranks with no sender
+    zeros (the halo exchange's boundary). Without a group the ring is the
+    identity and the open chain zeros."""
+    if not _active(group):
+        return x if ring else torch.zeros_like(x)
+    return _Shift.apply(x, group, int(offset), bool(ring))
+
+
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in its rank order."""
+    n = world_size(group)
+    # as bytes: a gather carries no arithmetic, and gloo moves no bf16
+    raw = all_gather(x.contiguous().reshape(-1).view(torch.uint8), group)
+    blocks = raw.view(x.dtype).view((n,) + tuple(x.shape))
+    shape = list(x.shape)
+    shape[dim] *= n
+    return blocks.movedim(0, dim).reshape(shape)
+
+
+def _sum_own_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of the group's ``x``
+    (one all-reduce through :func:`collective_device`, then the block)."""
+    device = collective_device()
+    # a 16-bit sum is taken in float32 and rounded once
+    wide = torch.float32 if x.element_size() < 4 and x.is_floating_point() else x.dtype
+    total = x.detach().to(device=device, dtype=wide).contiguous().clone()
+    dist.all_reduce(total, group=group)
+    k = x.shape[dim] // world_size(group)
+    own = total.narrow(dim, dist.get_rank(group) * k, k).contiguous()
+    return own.to(device=x.device, dtype=x.dtype)
+
+
+class _AllGatherDim(torch.autograd.Function):
+    """y = the group's x concatenated along ``dim``, on every rank. Each
+    rank's y feeds its own loss, so the cotangent of x_r is the sum over
+    the ranks of their cotangents' block r (``lax.all_gather``'s
+    transpose, ``psum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _sum_own_block(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """y_r = block r along ``dim`` of the sum of the group's x
+    (``lax.psum_scatter(tiled=True)``): the cotangent of every x_s is the
+    concatenation of the ranks' cotangents of y."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim = group, dim
+        return _sum_own_block(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+def all_gather_dim(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Differentiable tiled all-gather of ``x`` along ``dim`` over
+    ``group`` (``lax.all_gather(axis=dim, tiled=True)``); ``x`` itself
+    without a group."""
+    if not _active(group):
+        return x
+    return _AllGatherDim.apply(x, group, dim % x.dim())
+
+
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Differentiable ``psum_scatter``: the sum over ``group``, this rank's
+    block of ``dim`` (whose size must divide by the group's); ``x`` itself
+    without a group."""
+    if not _active(group):
+        return x
+    if x.shape[dim] % world_size(group):
+        raise ValueError(
+            f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not split over {world_size(group)} ranks"
+        )
+    return _ReduceScatter.apply(x, group, dim % x.dim())
+
+
+def ring_all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The all-gather of ``x`` along ``dim`` as n - 1 ring shifts (each
+    rank's block hops one rank at a time): block s of the result is rank
+    s's ``x``. Differentiable through :func:`shift`."""
+    n = world_size(group) if _active(group) else 1
+    if n == 1:
+        return x
+    idx = dist.get_rank(group)
+    blocks: List[Optional[torch.Tensor]] = [None] * n
+    blocks[idx] = block = x
+    for hop in range(n - 1):
+        block = shift(block, group, offset=1, ring=True)
+        # the block received at hop i left rank (idx - 1 - i) mod n
+        blocks[(idx - 1 - hop) % n] = block
+    return torch.cat(blocks, dim=dim)

@@ -1,5 +1,5 @@
 """The (batch, model) layout of the ranks (counterpart of the JAX package's
-``parallel/mesh.py``, cut to the data and model axes).
+``parallel/mesh.py``, its model and sequence axes in one slot).
 
 The JAX package reshapes its devices as ``(dp, model, sequence)``; here a
 rank owns one device, so with a model axis of size ``tp`` rank r of W is
@@ -9,18 +9,25 @@ ranks of one model index form a data group: they average their gradients
 and BN statistics and sum their metrics. At ``tp = 1`` the data group is
 the default group and there is no model group.
 
-Three strategies ride the model axis, as in the JAX package's ``fit``
+Four strategies ride the model axis, as in the JAX package's ``fit``
 (``make_mesh(model_parallel=max(model_parallel, pipeline_parallel,
-expert_parallel))``): tensor parallelism, whose model group holds the
-channel slices of one replica (``parallel/tensor.py``), pipeline
-parallelism, whose model group is the stage group of one replica: stage k
-is model index k (``parallel/pipeline.py``), and expert parallelism, whose
-model group is the expert group of one replica: model index e computes
-expert e of every MoE layer (``parallel/expert.py``).
-:attr:`Layout.pipeline` and :attr:`Layout.expert` tell them apart;
-:func:`model_parallel_degree` is the tensor-parallel degree alone,
-:func:`pipeline_parallel_degree` the stage count alone and
-:func:`expert_parallel_degree` the expert count alone.
+expert_parallel))``) and its sequence axis, which the JAX package never
+combines with the other three (``TrainConfig``): tensor parallelism,
+whose model group holds the channel slices of one replica
+(``parallel/tensor.py``), pipeline parallelism, whose model group is the
+stage group of one replica: stage k is model index k
+(``parallel/pipeline.py``), expert parallelism, whose model group is the
+expert group of one replica: model index e computes expert e of every MoE
+layer (``parallel/expert.py``), and sequence
+parallelism, whose model group is the sequence group of one replica:
+model index s holds the s-th block of every image's rows
+(``parallel/spatial.py``, :func:`shard_batch_spatial`), the JAX
+package's ``(dp, 1, sp)`` device order.
+:attr:`Layout.pipeline`, :attr:`Layout.expert` and
+:attr:`Layout.sequence` tell them apart; :func:`model_parallel_degree` is
+the tensor-parallel degree alone, :func:`pipeline_parallel_degree` the
+stage count alone, :func:`expert_parallel_degree` the expert count alone
+and :func:`sequence_parallel_degree` the sequence degree alone.
 
 A global batch lies over the data axis in contiguous blocks: data index d
 of dp owns rows ``[d·B/dp, (d+1)·B/dp)`` (:func:`shard_rows`), the rows
@@ -58,6 +65,8 @@ class Layout:
     pipeline: bool = False
     # whether the model group is an expert group
     expert: bool = False
+    # whether the model group is a sequence group
+    sequence: bool = False
 
     @property
     def dp(self) -> int:
@@ -79,11 +88,14 @@ def _world_group():
     return dist.group.WORLD if collectives.is_initialized() else None
 
 
-def init_mesh(model_parallel: int = 1, *, pipeline: bool = False, expert: bool = False) -> Layout:
+def init_mesh(
+    model_parallel: int = 1, *, pipeline: bool = False, expert: bool = False, sequence: bool = False
+) -> Layout:
     """Lay the ranks of the process group out as ``(world / tp, tp)`` and
     make this process's layout the one every helper here reads; with
     ``pipeline`` the model axis holds pipeline stages, with ``expert`` the
-    experts of the MoE layers. Every rank calls it
+    experts of the MoE layers, with ``sequence`` the row blocks of the
+    sequence axis. Every rank calls it
     with the same arguments (it makes every group, in one order). Raises
     when the degree does not divide the world, with the JAX package's
     ``make_mesh`` text."""
@@ -91,12 +103,14 @@ def init_mesh(model_parallel: int = 1, *, pipeline: bool = False, expert: bool =
     tp = int(model_parallel)
     pipeline = bool(pipeline) and tp > 1
     expert = bool(expert) and tp > 1
+    sequence = bool(sequence) and tp > 1
     world, rank = collectives.world_size(), collectives.rank()
     if tp < 1 or world % tp != 0:
         raise ValueError(f"{world} devices not divisible by model_parallel*sequence_parallel={tp}")
     current = _LAYOUT
     if current is not None and current.world_group is _world_group() and (
-            current.world, current.tp, current.pipeline, current.expert) == (world, tp, pipeline, expert):
+            current.world, current.tp, current.pipeline, current.expert, current.sequence) == (
+                world, tp, pipeline, expert, sequence):
         return current
     model_group = data_group = None
     if tp > 1:
@@ -109,18 +123,19 @@ def init_mesh(model_parallel: int = 1, *, pipeline: bool = False, expert: bool =
             g = dist.new_group([d * tp + m for d in range(dp)])
             if m == rank % tp:
                 data_group = g
-    _LAYOUT = Layout(world, tp, rank, model_group, data_group, _world_group(), pipeline, expert)
+    _LAYOUT = Layout(world, tp, rank, model_group, data_group, _world_group(), pipeline, expert, sequence)
     return _LAYOUT
 
 
 def init_mesh_for(train_config) -> Layout:
     """:func:`init_mesh` for a ``TrainConfig``: the model axis is the
-    largest of ``model_parallel``, ``pipeline_parallel`` and
-    ``expert_parallel`` (``TrainConfig`` refuses two of them above 1), a
-    stage group under the second and an expert group under the third, as
-    the JAX package's ``fit`` builds its mesh."""
-    pp, ep = train_config.pipeline_parallel, train_config.expert_parallel
-    return init_mesh(max(train_config.model_parallel, pp, ep), pipeline=pp > 1, expert=ep > 1)
+    largest of ``model_parallel``, ``pipeline_parallel``,
+    ``expert_parallel`` and ``sequence_parallel`` (``TrainConfig`` refuses
+    two of them above 1), a stage group under the second, an expert group
+    under the third and a sequence group under the fourth, as the JAX
+    package's trainers build their mesh."""
+    pp, ep, sp = train_config.pipeline_parallel, train_config.expert_parallel, train_config.sequence_parallel
+    return init_mesh(max(train_config.model_parallel, pp, ep, sp), pipeline=pp > 1, expert=ep > 1, sequence=sp > 1)
 
 
 def layout() -> Layout:
@@ -140,9 +155,9 @@ def data_parallel_degree() -> int:
 
 def model_parallel_degree() -> int:
     """The tensor-parallel degree (1 without :func:`init_mesh`, and under
-    pipeline or expert parallelism)."""
+    pipeline, expert or sequence parallelism)."""
     lay = layout()
-    return 1 if lay.pipeline or lay.expert else lay.tp
+    return 1 if lay.pipeline or lay.expert or lay.sequence else lay.tp
 
 
 def pipeline_parallel_degree() -> int:
@@ -155,6 +170,12 @@ def expert_parallel_degree() -> int:
     """The experts' group size (1 without an expert group)."""
     lay = layout()
     return lay.tp if lay.expert else 1
+
+
+def sequence_parallel_degree() -> int:
+    """The sequence axis's size (1 without a sequence group)."""
+    lay = layout()
+    return lay.tp if lay.sequence else 1
 
 
 def data_index() -> int:
@@ -188,6 +209,20 @@ def stage_group():
     return lay.model_group if lay.pipeline else None
 
 
+def sequence_group():
+    """The sequence axis's group: the model group under sequence
+    parallelism, else None."""
+    lay = layout()
+    return lay.model_group if lay.sequence else None
+
+
+def sequence_index() -> int:
+    """This rank's position on the sequence axis: which block of the rows
+    it holds (0 without a sequence group)."""
+    lay = layout()
+    return lay.model_index if lay.sequence else 0
+
+
 def expert_group():
     """The MoE layers' expert group: the model group under expert
     parallelism, else None."""
@@ -199,9 +234,11 @@ def gradient_group():
     """The group the step averages its gradient over: the data group,
     or every rank under expert parallelism, whose model group's ranks hold
     the same rows and split the experts' gradients between them
-    (``parallel/expert.py``)."""
+    (``parallel/expert.py``), and under sequence parallelism, whose ranks'
+    gradients each hold sp times their share of one loss
+    (``train/step.py``)."""
     lay = layout()
-    return lay.world_group if lay.expert else lay.data_group
+    return lay.world_group if lay.expert or lay.sequence else lay.data_group
 
 
 def local_batch_size(global_batch: int, degree: Optional[int] = None) -> int:
@@ -222,6 +259,27 @@ def shard_rows(global_batch: int, index: Optional[int] = None, degree: Optional[
     index = data_index() if index is None else index
     local = local_batch_size(global_batch, degree)
     return slice(index * local, (index + 1) * local)
+
+
+def shard_batch_spatial(tree, *, rows: bool = True):
+    """This rank's part of a batch under sequence parallelism (the JAX
+    package's ``shard_batch_spatial``): ``images`` get this data index's
+    rows (:func:`shard_rows`; ``rows=False`` keeps every row, for a batch
+    that already holds the data slot's rows only) and this sequence index's
+    block of H; every other entry gets the rows only. H must divide by the
+    sequence degree."""
+    sp, s = sequence_parallel_degree(), sequence_index()
+    out = {}
+    for key, x in tree.items():
+        if rows and getattr(x, "ndim", 0):
+            x = x[shard_rows(x.shape[0])]
+        if key == "images":
+            if x.shape[1] % sp != 0:
+                raise ValueError(f"Spatial extent {x.shape[1]} must be divisible by the sequence-parallel degree {sp}")
+            h = x.shape[1] // sp
+            x = x[:, s * h:(s + 1) * h]
+        out[key] = x
+    return out
 
 
 def largest_divisible_dim(shape: Sequence[int], degree: int, *, taken: Optional[set] = None) -> Optional[int]:

@@ -43,7 +43,13 @@ the JAX package's ``fit`` does, and the step averages the gradient over
 every rank, which is the dense step's gradient per data slot; the
 parameters stay whole and replicated, so checkpoints are the plain
 strategy's and the exports serve through the plain model, every expert
-local.
+local. Under ``sequence_parallel = sp`` > 1 every dense model trains
+H-sharded on a ``(world / sp, sp)`` grid (``parallel/spatial.py``; the
+ViT through ``parallel/ring_attention.py``): the ranks of a sequence group
+share a data slot and augment the whole images, each forwards its block of
+the rows in the step, and the step averages the gradient over every rank;
+the parameters stay whole, so checkpoints and exports are the plain
+strategy's.
 
 Input, in the JAX package's order of preference (``data_dir`` may hold any
 of them; a stream is this rank's share):

@@ -266,7 +266,11 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
     to this rank's slices under ``model_parallel`` > 1 (the process's mesh,
     ``parallel/mesh.py``) and under ZeRO-1 over more than one data
     position; under ``expert_parallel`` > 1 its MoE layers dispatch over
-    the mesh's expert group, the parameters whole on every rank."""
+    the mesh's expert group, the parameters whole on every rank; under
+    ``sequence_parallel`` > 1 its backbone runs H-sharded over the mesh's
+    sequence group (``models.set_spatial``), the parameters whole on every
+    rank (the JAX trainers' plain twin for init: the draw is the plain
+    network's)."""
     from tensorflowdistributedlearning_tpu_torch.train.step import make_lr_schedule, make_optimizer
 
     model.train()
@@ -288,6 +292,11 @@ def _state_of(model: nn.Module, train_config: TrainConfig, step: int) -> TrainSt
     if train_config.expert_parallel > 1:
         mesh.init_mesh_for(train_config)
         set_expert_group(model, mesh.expert_group())
+    if train_config.sequence_parallel > 1:
+        from tensorflowdistributedlearning_tpu_torch.models import set_spatial
+
+        mesh.init_mesh_for(train_config)
+        set_spatial(model)
     if train_config.weight_update_sharding and mesh.data_parallel_degree() > 1:
         zero_lib.shard_state(state, train_config)
     return state

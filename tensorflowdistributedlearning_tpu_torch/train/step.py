@@ -11,6 +11,30 @@ of ``parallel/mesh.py``; under tensor parallelism (``parallel/tensor.py``)
 the ranks of a model group run the step on the same rows, their layers'
 collectives inside the forward and backward.
 
+Under sequence parallelism (``sequence_parallel = sp`` > 1,
+``parallel/spatial.py``) the ranks of a sequence group take the same rows
+and each its block of the images' rows (:func:`spatial_batch`, for a
+model that ``models.set_spatial`` marked); the model
+gathers the blocks before its head, so every rank of the group computes
+the same whole logits and the same loss. Every collective's backward is
+the transpose of its forward (JAX's autodiff through ``shard_map``), so
+the sum over all ranks of their gradients is the gradient of the sum of
+all ranks' losses: sp times the data group's. The flat gradient is
+therefore averaged over every rank, the data ranks times the sequence ranks
+(``mesh.gradient_group``), which is JAX's ``_mean_grads`` (the automatic
+psum, then the divide by each axis's size). It holds leaf by leaf: a
+backbone leaf's gradient on each rank is sp times its block's share (the
+gather's backward sums the group's sp equal cotangents), a head leaf's is
+the whole gradient on each rank, and either way the mean over the
+sequence ranks is the data group's gradient. ``collectives.pmean``'s
+backward is the same mean whichever of the two objectives a docstring
+names, so the BatchNorm statistics follow the same rule. The BN running
+statistics are identical on the ranks of a sequence group (their
+statistics are taken over it), so their mean over the data group is their
+mean over every rank; the metric states are summed over the data group
+only; the dropout stream is keyed by the data index, never the sequence
+index, so the ranks of a group draw one mask.
+
 Semantics kept from the JAX package:
 
 - the segmenter's objective is the per-image Lovász hinge alone, the
@@ -464,9 +488,23 @@ def psum_metrics(metrics: Metrics) -> Metrics:
     the JAX step's ``_psum_metrics``). Under tensor parallelism the ranks of
     a model group hold states of the same rows, so every total and count is
     ``tp`` times the data group's and the means are the same: summed over
-    every rank, they are one on every rank."""
-    collectives.psum_([t for m in metrics.values() for t in (m.total, m.count)])
+    every rank, they are one on every rank. Under sequence parallelism the
+    states are summed over the data group only (the JAX step's psum over
+    the batch axis; the ranks of a sequence group hold the same states)."""
+    group = mesh.data_group() if mesh.sequence_parallel_degree() > 1 else None
+    collectives.psum_([t for m in metrics.values() for t in (m.total, m.count)], group)
     return metrics
+
+
+def spatial_batch(batch: Dict[str, torch.Tensor], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``batch`` (the data slot's rows, whole images) as ``model`` takes
+    it on this rank: an H-sharded model (``models.set_spatial``) its
+    sequence index's block of the images' rows, every other entry whole
+    (``mesh.shard_batch_spatial``); ``batch`` itself for a plain model or
+    without a sequence axis."""
+    if getattr(model, "spatial", False) and mesh.sequence_parallel_degree() > 1:
+        return mesh.shard_batch_spatial(batch, rows=False)
+    return batch
 
 
 def split_batch(batch: Dict[str, torch.Tensor], accum: int):
@@ -549,6 +587,7 @@ def make_train_step(
             return _metric_deltas(task.metric_scores(logits, chunk), loss)
 
     def step(state, batch: Dict[str, torch.Tensor]):
+        batch = spatial_batch(batch, state.model)
         if data_parallel or accum > 1 or state.zero is not None:
             state.flatten_grads()
         if accum == 1:
@@ -582,6 +621,7 @@ def make_eval_step(task, *, data_parallel: bool = False):
 
     def step(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Metrics:
         model.eval()
+        batch = spatial_batch(batch, model)
         with torch.no_grad():
             logits = model(batch["images"])
             loss = task.loss_per_example(logits, batch)
@@ -592,11 +632,13 @@ def make_eval_step(task, *, data_parallel: bool = False):
 
 
 def make_predict_step(task):
-    """``step(model, batch) -> predictions`` in inference mode."""
+    """``step(model, batch) -> predictions`` in inference mode (under
+    sequence parallelism each rank forwards its block of the rows, and
+    every rank of the group returns the whole predictions)."""
 
     def step(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.no_grad():
-            return task.predictions(model(batch["images"]))
+            return task.predictions(model(spatial_batch(batch, model)["images"]))
 
     return step

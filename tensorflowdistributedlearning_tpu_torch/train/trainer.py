@@ -37,6 +37,17 @@ the channel slices of one replica and share its data slot (ids, rows,
 augmentation and dropout draws by data index), the step reduces over the
 data group with per-tower BatchNorm, and checkpoints and exports are whole.
 
+Sequence-parallel under ``sequence_parallel = sp`` > 1
+(``parallel/spatial.py``; JAX's ``make_train_step(spatial=True)``): the
+ranks form the same grid with a sequence group in the model slot; the
+ranks of one group share a data slot, augment the whole images (and add
+the Laplacian channel) from the data index's generator, and each takes
+its block of the rows in the step (``step.spatial_batch``). The backbone
+runs H-sharded, its BatchNorm over the group; eval and the fold x TTA
+``predict`` are H-sharded the same way, and ``predict`` runs on every rank
+of the process group (each rank restores the fold's checkpoint and
+returns the whole ensemble).
+
 The fold's train batches: with ``TrainConfig.data_service_workers`` > 0
 (the default, 2) the streaming data service over the fold's arrays
 (``data/service.py``, ``ArrayBatchSource``, seed ``seed + fold``): batch i
@@ -200,9 +211,9 @@ class Trainer:
     ``device`` is CUDA (the rank's GPU under a process group) unless the
     caller asks for the CPU. ``n_devices`` is the world size: None takes the
     process group the launcher set up (one process without one), any other
-    value must equal it. ``TrainConfig.model_parallel`` lays the world out
-    as ``(world / tp, tp)``; ``pipeline_parallel`` > 1 raises (the pipeline
-    is ``fit``'s alone)."""
+    value must equal it. ``TrainConfig.model_parallel`` (or
+    ``sequence_parallel``) lays the world out as ``(world / tp, tp)``;
+    ``pipeline_parallel`` > 1 raises (the pipeline is ``fit``'s alone)."""
 
     def __init__(
         self,
@@ -240,7 +251,7 @@ class Trainer:
         require_supported_training(self.model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
         multihost.require_world_size(self.train_config.n_devices)
-        mesh.init_mesh(self.train_config.model_parallel)
+        mesh.init_mesh_for(self.train_config)
         self.data_parallel = collectives.is_initialized()
         self.device = resolve_device(device)
         self.task = step_lib.SegmentationTask()
@@ -272,8 +283,10 @@ class Trainer:
         self._n_params = state.param_count()
         return state
 
-    def _require_single_process(self) -> None:
-        if multihost.process_count() > 1:
+    def _require_single_process(self, sequence_ok: bool = False) -> None:
+        """Raise under a process group, unless ``sequence_ok`` and the ranks
+        form sequence groups (H-sharded prediction runs on every rank)."""
+        if multihost.process_count() > 1 and not (sequence_ok and mesh.sequence_parallel_degree() > 1):
             raise RuntimeError(_SINGLE_PROCESS)
 
     def _checkpointer(self, fold: int) -> CheckpointManager:
@@ -593,15 +606,17 @@ class Trainer:
 
         Returns ``{"ids", "probabilities" [N,H,W,1], "masks" [N,H,W,1]}``
         as numpy float32 arrays, ``[N,1,H,W]`` under ``data_format="NCHW"``;
-        the masks are ``mean > task.threshold``. Single-process only."""
-        self._require_single_process()
+        the masks are ``mean > task.threshold``. Single-process only, or
+        every rank of a sequence-parallel process group (each forwards its
+        block of the rows; every rank returns the whole ensemble)."""
+        self._require_single_process(sequence_ok=True)
         transforms = augment_lib.TTA_TRANSFORMS if tta else ("none",)
         folds = list(folds) if folds is not None else list(range(self.train_config.n_folds))
         test_ds = pipeline_lib.InMemoryDataset.from_directory(test_dir, with_masks=False)
         total = None
         n_members = 0
         for fold in folds:
-            state = self.restore_fold(fold)
+            state = self._restore_fold(fold, sequence_ok=True)
             with state.eval_params() as model:
                 for transformation in transforms:
                     probs = self._predict_one(model, test_ds, batch_size, transformation)
@@ -642,7 +657,10 @@ class Trainer:
         periodic checkpoint), loaded into a template that draws no weights;
         raises if the fold was never trained, and under a process group of
         more than one rank."""
-        self._require_single_process()
+        return self._restore_fold(fold)
+
+    def _restore_fold(self, fold: int, sequence_ok: bool = False) -> TrainState:
+        self._require_single_process(sequence_ok)
         return self._checkpointer(fold).restore_best_or_raise(
             self._template_state(), hint=f"train fold {fold} first"
         )

@@ -34,6 +34,8 @@ from tensorflowdistributedlearning_tpu_torch.train import async_loop as tloop
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
 from tests.conftest import make_salt_dataset
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = dict(n_blocks=(1, 1, 1), input_shape=(32, 32), base_depth=16, width_multiplier=0.125, use_pallas_depthwise=True)
 

@@ -30,6 +30,8 @@ from tensorflowdistributedlearning_tpu_torch.data import service as tsvc
 from tensorflowdistributedlearning_tpu_torch.train.checkpoint import CheckpointManager
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
 from tests.conftest import make_salt_dataset
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 HW = 12
 

@@ -77,6 +77,29 @@ the tokens) at two capacity factors, and what an over-wide router raises
 2, with and without ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted
 (``tests/test_torch_vit_moe.py``).
 
+``spops``: the sequence axis's operations (``parallel/spatial.py``) with
+all W ranks as one sequence group, each on its block of the rows of the
+arrays in ``DIR/spops.npz``: every case of ``spatial_conv2d`` in
+``SP_CONV_CASES`` (halo or gather path), the halo exchange, the max pool,
+the global mean, the gather, ``ring_all_gather`` and ``reduce_scatter``,
+each output and the gradients of a weighted sum of it
+(``tests/test_torch_spatial.py``).
+
+``ring``: ``parallel/ring_attention.make_ring_attention`` with all W ranks
+as one sequence group on the global Q/K/V and masks of ``DIR/ring.npz``,
+for each case of ``RING_CASES``: this rank's output block and the
+gradients of a weighted sum of it (``tests/test_torch_ring_attention.py``).
+
+``sp``: sequence parallelism at ``sequence_parallel`` 2 (``(1, 2)`` at W =
+2, ``(2, 2)`` at W = 4) from ``DIR/sp_init.pt`` and ``DIR/sp_batches.npz``:
+at W = 2 the eval-mode forward of each network of ``SP_MODELS`` on its
+row blocks; one plain-SGD step at lr 1 of the narrow segmenter (the
+update is the gradient) and the plain gradient of this data index's rows;
+at W = 4 two Adam steps with and without ZeRO-1; at W = 2
+``Trainer.train`` over ``DIR/data`` with its ``predict`` over
+``DIR/test``, and ``ClassifierTrainer.fit`` of the tiny ViT
+(``tests/test_torch_spatial_model.py``).
+
 ``trainer``: ``Trainer.train`` of the tiny model over the dataset in
 ``DIR/data``, its no-op re-run, and what must raise under the group. Every
 directory made, file opened for writing, renamed or removed under the model
@@ -87,10 +110,12 @@ rename).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 TIMEOUT_S = 60.0
@@ -101,6 +126,34 @@ VIT_TINY = dict(backbone="vit", num_classes=10, input_shape=(16, 16), input_chan
                 num_heads=2, vit_layers=2, output_stride=None, use_fused_attention=True)
 VIT_ADAMW = dict(optimizer="adam", lr=1e-3, weight_decay=0.1, grad_clip_norm=1.0, label_smoothing=0.1,
                  lr_schedule="cosine", lr_warmup_steps=1, lr_decay_steps=10, augmentation="none")
+
+
+# torch's intra-op thread count in a test process before any module changes it
+DEFAULT_TORCH_THREADS = torch.get_num_threads()
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """For the duration, ``n`` torch intra-op threads (the count restored
+    after). The test modules that compute on the CPU take one: under the
+    suite's six loaded workers on one host, OpenMP loops at the default
+    count spin against each other (one float64 backward took 85.9 s loaded
+    against 0.35 s idle, ``tests/test_torch_xception.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for every test of a module that imports
+    this fixture (autouse; the count restored after the module): see
+    :func:`torch_threads`."""
+    with torch_threads(1):
+        yield
 
 
 def launch(mode: str, world: int, directory: str, timeout: float = 240.0):
@@ -738,6 +791,153 @@ def _ep_mode(rank: int, world: int, directory: str):
     return out
 
 
+# (stride, rate, groups, phase) of the spatial_conv2d cases; on 16 rows a
+# rate-8 halo exceeds the 4-row blocks of 4 ranks and rate 16 every block,
+# so both paths run
+SP_CONV_CASES = ((1, 1, 1, "same"), (2, 1, 1, "same"), (1, 2, 1, "same"), (1, 4, 1, "same"), (1, 8, 1, "same"),
+                 (1, 16, 1, "same"), (2, 1, 4, "fixed"), (1, 2, 4, "same"), (2, 2, 1, "fixed"), (2, 16, 1, "same"))
+SP_HALO = 2
+
+
+def _sp_blocks(x: torch.Tensor, rank: int, world: int, dim: int = 1) -> torch.Tensor:
+    k = x.shape[dim] // world
+    return x.narrow(dim, rank * k, k)
+
+
+def _grad_case(fn, inputs, cotangent):
+    """``fn(*inputs)`` with every input a fresh leaf; the output and each
+    input's gradient of ``sum(output * cotangent)``."""
+    leaves = [t.detach().clone().requires_grad_(t.is_floating_point()) for t in inputs]
+    y = fn(*leaves)
+    (y * cotangent).sum().backward()
+    return {"y": y.detach(), "grads": [t.grad for t in leaves]}
+
+
+def _spops_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, spatial
+
+    lay = mesh.init_mesh(world, sequence=True)
+    data = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(directory, "spops.npz")).items()}
+    x = data["x"]
+    xl = _sp_blocks(x, rank, world)
+    out = {"layout": (lay.dp, lay.tp, lay.data_index, mesh.sequence_index(), mesh.sequence_parallel_degree())}
+    out["conv"] = [
+        dict(_grad_case(lambda a, w: spatial.spatial_conv2d(a, w, stride=s, rate=r, groups=g, phase=ph),
+                        (xl, data[f"w{i}"]), _sp_blocks(data[f"g{i}"], rank, world)),
+             gather=spatial.uses_gather(xl.shape[1], 3, r))
+        for i, (s, r, g, ph) in enumerate(SP_CONV_CASES)
+    ]
+    out["halo"] = _grad_case(lambda a: spatial.halo_exchange(a, SP_HALO), (xl,), data["g_halo"][rank])
+    out["pool"] = _grad_case(lambda a: spatial.spatial_max_pool(a, 3, 2), (xl,), _sp_blocks(data["g_pool"], rank, world))
+    out["mean"] = _grad_case(lambda a: spatial.spatial_global_mean(a), (xl,), data["g_mean"][rank])
+    out["gather"] = _grad_case(lambda a: spatial.spatial_gather(a), (xl,), data["g_gather"][rank])
+    out["ring_gather"] = _grad_case(lambda a: spatial.ring_all_gather(a, axis=1), (xl,), data["g_gather"][rank])
+    out["scatter"] = _grad_case(lambda a: spatial.reduce_scatter(a, axis=1), (data["y_scatter"][rank],),
+                                _sp_blocks(data["g_scatter"], rank, world))
+    return out
+
+
+# (causal, masked, segmented) of the ring-attention cases
+RING_CASES = {"plain": (False, False, False), "causal": (True, False, False), "masked": (False, True, False),
+              "segmented": (False, False, True), "composed": (True, True, True)}
+
+
+def _ring_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh
+    from tensorflowdistributedlearning_tpu_torch.parallel.ring_attention import make_ring_attention
+
+    mesh.init_mesh(world, sequence=True)
+    data = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(directory, "ring.npz")).items()}
+    out = {}
+    for name, (causal, masked, segmented) in RING_CASES.items():
+        fn = make_ring_attention(causal=causal, masked=masked, segmented=segmented)
+        extras = ([data["kv_mask"]] if masked else []) + ([data["segment_ids"]] if segmented else [])
+        out[name] = _grad_case(lambda q, k, v, *e: fn(q, k, v, *e), [data["q"], data["k"], data["v"], *extras],
+                               _sp_blocks(data["g"], rank, world))
+        out[name]["grads"] = out[name]["grads"][:3]
+    return out
+
+
+SP = 2
+SP_SEG = dict(n_blocks=(1, 1, 1), input_shape=(32, 32), base_depth=16, width_multiplier=0.125,
+              use_pallas_depthwise=True)
+SP_MODELS = {
+    "resnet_seg": SP_SEG,
+    "resnet_cls": dict(n_blocks=(1, 1, 1), input_shape=(64, 64), input_channels=3, base_depth=16,
+                       width_multiplier=0.125, num_classes=10),
+    "xception_seg": dict(backbone="xception", input_shape=(32, 32), base_depth=16, width_multiplier=0.0625),
+    "xception_cls": dict(backbone="xception", input_shape=(64, 64), input_channels=3, width_multiplier=0.0625,
+                         num_classes=10, output_stride=None),
+    "vit": VIT_TINY,
+}
+SP_FIT = dict(VIT_ADAMW, checkpoint_every_steps=2, seed=5, sequence_parallel=SP)
+SP_TRAINER = dict(n_folds=2, seed=0, checkpoint_every_steps=2, eval_throttle_secs=0, save_best=2,
+                  train_log_every_steps=1)
+
+
+def _sp_mode(rank: int, world: int, directory: str):
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.models import empty_model
+    from tensorflowdistributedlearning_tpu_torch.parallel import mesh, spatial
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import ClassifierTrainer
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    lay = mesh.init_mesh(SP, sequence=True)
+    init = torch.load(os.path.join(directory, "sp_init.pt"), weights_only=False)
+    data = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(directory, "sp_batches.npz")).items()}
+    out = {"layout": (lay.dp, lay.tp, lay.data_index, mesh.sequence_index(), mesh.sequence_parallel_degree())}
+    placed = mesh.shard_batch_spatial({"images": data["seg_images"], "labels": data["seg_labels"]})
+    out["placed"] = {k: v.clone() for k, v in placed.items()}
+    seg = ModelConfig(**SP_SEG)
+    rows = {k: data[f"seg_{k}"][mesh.shard_rows(len(data["seg_labels"]))] for k in ("images", "labels")}
+    if world == 2:
+        fwd = {}
+        for name, kw in SP_MODELS.items():
+            model = empty_model(ModelConfig(**kw), "cpu", spatial=True)
+            model.load_state_dict(init[name])
+            with torch.no_grad():
+                fwd[name] = model(spatial.shard_spatial(data[f"{name}_images"]))
+        out["forward"] = fwd
+
+    state = replicate(_state(seg, dict(TP_SGD, sequence_parallel=SP), init["step"]))
+    before = _snapshot(state)
+    state, metrics = step_lib.make_train_step(_bce_task(), data_parallel=True)(state, rows)
+    after = state.model_state_dict()
+    names = [n for n, _ in state.model.named_parameters()]
+    out["step"] = {"loss": step_lib.compute_metrics(metrics)["loss"], "state": after,
+                   "grads": {n: before[n] - after[n] for n in names}}
+    plain = _state(seg, TP_SGD, init["step"])
+    loss, _ = step_lib.forward_backward(plain, _bce_task(), rows)
+    out["plain_share"] = {"loss": float(loss), "grads": {n: p.grad.clone() for n, p in plain.model.named_parameters()},
+                          "state": plain.model_state_dict()}
+
+    if world == 4:
+        run = {}
+        for name, kw in (("replicated", {}), ("zero", {"weight_update_sharding": True})):
+            state = replicate(_state(seg, dict(TP_ADAM, sequence_parallel=SP, **kw), init["step"]))
+            out[f"{name}_sharded"] = state.zero is not None
+            train_step = step_lib.make_train_step(_bce_task(), data_parallel=True)
+            for _ in range(2):
+                state, _ = train_step(state, rows)
+            run[name] = state.state_dict()
+        out["adam"] = run
+        return out
+
+    data_dir = os.path.join(directory, "data")
+    model = {k: v for k, v in SP_SEG.items()}
+    trainer = Trainer(os.path.join(directory, "sp-model"), data_dir,
+                      train_config=TrainConfig(**SP_TRAINER, sequence_parallel=SP), device="cpu", **model)
+    out["train"] = trainer.train(pipeline_lib.discover_ids(data_dir), batch_size=4, steps=2)
+    out["predict"] = trainer.predict(os.path.join(directory, "test"), batch_size=4)
+    vit = ClassifierTrainer(os.path.join(directory, "sp-fit"), None, ModelConfig(**VIT_TINY),
+                            TrainConfig(**SP_FIT, n_devices=world), device="cpu")
+    out["fit"] = vit.fit(batch_size=8, steps=2).final_metrics
+    return out
+
+
 def _trainer_mode(rank: int, world: int, directory: str):
     from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
     from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
@@ -797,7 +997,8 @@ def main(argv) -> int:
 
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
     out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
-           "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode, "moe": _moe_mode, "ep": _ep_mode}[mode](
+           "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode, "moe": _moe_mode, "ep": _ep_mode,
+           "spops": _spops_mode, "ring": _ring_mode, "sp": _sp_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

@@ -32,6 +32,8 @@ from tensorflowdistributedlearning_tpu_torch import parallel as tparallel
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives
 from tensorflowdistributedlearning_tpu_torch.parallel import expert as tmoe
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 E = 2  # experts = ranks of the expert group
 D = 8

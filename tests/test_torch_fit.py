@@ -51,6 +51,8 @@ from tensorflowdistributedlearning_tpu_torch.train import step as tstep
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = worker.VIT_TINY
 ADAMW = worker.VIT_ADAMW
@@ -263,7 +265,9 @@ def test_other_refusals(tmp_path):
         tfit.fit_preset("tgs_salt", str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="explicit --lr"):
         tfit.fit_preset("vit_s16_imagenet", str(tmp_path), optimizer="sgd", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A 12"):
+    # the sequence axis (queue A 12.4) is taken: one process cannot lay out
+    # two sequence positions, and says so with JAX's make_mesh text
+    with pytest.raises(ValueError, match=r"1 devices not divisible by model_parallel\*sequence_parallel=2"):
         tfit.ClassifierTrainer(str(tmp_path), None, cfg, TrainConfig(sequence_parallel=2), device="cpu")
     # remat, once refused here, trains (queue A 4): one step of the remat ViT
     remat = tfit.ClassifierTrainer(str(tmp_path / "remat"), None, dataclasses.replace(cfg, remat=True),

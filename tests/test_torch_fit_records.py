@@ -44,6 +44,8 @@ from tensorflowdistributedlearning_tpu_torch.train import fit as tfit
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = worker.VIT_TINY
 ADAMW = worker.VIT_ADAMW

@@ -12,10 +12,18 @@ from numpy seeds. Tolerances:
   order;
 - bfloat16 inputs: both sides compute in float32 and round the output once
   to bf16, so they agree within one bf16 step (rtol 2**-7, atol 1e-6).
+
+The JAX oracles are compiled in this process: the suite's persistent
+compilation cache (the root ``conftest.py``) holds XLA:CPU executables
+written on other hosts, which the loader warns were built for other
+machine features. A run that loaded the kernel's executable from it held
+the plain version 2.6e-5 from the kernel, where an in-process compile of
+the same inputs agrees within 3e-7 (``_fresh_jax_compiles``).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,9 +33,26 @@ from tensorflowdistributedlearning_tpu.ops.flash_attention import flash_attentio
 from tensorflowdistributedlearning_tpu.parallel.ring_attention import attention_reference
 from tensorflowdistributedlearning_tpu_torch.ops import flash_attention as fa
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 RTOL, ATOL = 2e-5, 2e-6
 BF16_STEP = 2.0 ** -7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_compiles():
+    """For this module: no executable from the persistent compilation cache,
+    and none from an earlier module's in-memory cache; the setting is
+    restored after."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jax.clear_caches()
+        jax.config.update("jax_enable_compilation_cache", was)
 
 
 def _qkv(seed, b=2, t=64, h=2, d=16):

@@ -29,6 +29,8 @@ from tensorflowdistributedlearning_tpu_torch.data import kaggle as tkaggle
 from tensorflowdistributedlearning_tpu_torch.examples import train_tgs_salt
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
 from tests.conftest import make_salt_dataset
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 MODEL = dict(input_shape=(32, 32), n_blocks=(1, 1, 1), base_depth=8)
 

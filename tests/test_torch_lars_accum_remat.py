@@ -54,7 +54,9 @@ from tensorflowdistributedlearning_tpu_torch.utils.convert import (
     params_from_flax,
 )
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_train_step import _flax_variables, _JaxBceTask
+
 
 CLASSIFIER = dict(num_classes=10, input_shape=(32, 32), input_channels=3, output_stride=None,
                   width_multiplier=0.125, n_blocks=(1, 1, 1, 1), block_layout="classic", stem_space_to_depth=True)

@@ -45,7 +45,9 @@ from tensorflowdistributedlearning_tpu_torch.train import step as tstep
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_train_step import _flax_variables, _JaxBceTask
+
 
 GLOBAL_BATCH, STEPS, EVAL_N, EVAL_BATCH = 8, 3, 9, 4
 LR = worker.SGD["lr"]

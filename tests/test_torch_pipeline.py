@@ -80,7 +80,9 @@ from tensorflowdistributedlearning_tpu_torch.train.state import create_train_sta
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, params_from_flax
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_tensor_parallel import _fill
+
 
 PP, M = worker.PP, worker.PP_M
 WORLDS = [2, 4]
@@ -478,15 +480,16 @@ def test_jax_value_error_texts():
         with pytest.raises(ValueError) as got:
             TrainConfig(**kw)
         assert str(got.value) == str(want.value)
-    # require_supported_training gives validate's text; sequence and auto
-    # stay refused; the expert axis (queue A 12.3) is taken by the MoE ViT
-    # only, with JAX's texts for a dense ViT and for the pipeline beside it
+    # require_supported_training gives validate's text; auto stays refused
+    # and the sequence axis (queue A 12.4) is taken; the expert axis (queue
+    # A 12.3) is taken by the MoE ViT only, with JAX's texts for a dense ViT
+    # and for the pipeline beside it
     with pytest.raises(ValueError, match="does not support backbone='resnet'"):
         require_supported_training(ModelConfig(**resnet), TrainConfig(pipeline_parallel=2))
     require_supported_training(ModelConfig(**vit), TrainConfig(pipeline_parallel=2, pipeline_microbatches=4))
-    for kw in (dict(sequence_parallel=2), dict(parallelism="auto")):
-        with pytest.raises(NotImplementedError, match="queue A 12"):
-            require_supported_training(ModelConfig(**vit), TrainConfig(**kw))
+    with pytest.raises(NotImplementedError, match="queue A 12"):
+        require_supported_training(ModelConfig(**vit), TrainConfig(parallelism="auto"))
+    require_supported_training(ModelConfig(**vit), TrainConfig(sequence_parallel=2))
     with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2 .*got moe_experts=0"):
         require_supported_training(ModelConfig(**vit), TrainConfig(expert_parallel=2))
     require_supported_training(ModelConfig(**dict(vit, moe_experts=2)), TrainConfig(expert_parallel=2))

@@ -40,6 +40,8 @@ from tensorflowdistributedlearning_tpu_torch.models.resnet import ResNetSegmenta
 from tensorflowdistributedlearning_tpu_torch.ops import kernels as tk
 from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
 from tensorflowdistributedlearning_tpu_torch.train import quantize as tq
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 ACTS = ["none", "relu", "relu6", "sigmoid", "gelu"]
 

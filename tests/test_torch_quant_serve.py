@@ -52,6 +52,8 @@ from tensorflowdistributedlearning_tpu_torch.train import serving
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax
 from tests.conftest import make_salt_dataset
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = dict(n_blocks=(1, 1, 1), width_multiplier=0.125, base_depth=16, input_shape=(33, 33))
 SPECS = ("float32", "bfloat16", "int8", "int8-compute")

@@ -30,6 +30,8 @@ from tensorflowdistributedlearning_tpu_torch.models import build_model, layers a
 from tensorflowdistributedlearning_tpu_torch.models import resnet as tresnet
 from tensorflowdistributedlearning_tpu_torch.train.step import SegmentationTask
 from tensorflowdistributedlearning_tpu_torch.utils.convert import flatten, from_flax, load_flax_npz
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = dict(n_blocks=(1, 1, 1), width_multiplier=0.125, base_depth=16)
 

@@ -52,6 +52,8 @@ from tensorflowdistributedlearning_tpu_torch.train import step as tstep
 from tensorflowdistributedlearning_tpu_torch.train import serving
 from tensorflowdistributedlearning_tpu_torch.train.serving import export_serving_artifact, load_serving_artifact
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, kernel_leaves
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 BASE = dict(num_classes=10, input_shape=(32, 32), input_channels=3, output_stride=None, width_multiplier=0.125)
 VARIANTS = {

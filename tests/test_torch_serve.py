@@ -28,6 +28,8 @@ from tensorflowdistributedlearning_tpu_torch.serve import (
 )
 from tensorflowdistributedlearning_tpu_torch.train import serving
 from tensorflowdistributedlearning_tpu_torch.utils.devices import resolve_device
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = ModelConfig(n_blocks=(1, 1, 1), width_multiplier=0.125, base_depth=8, input_shape=(17, 17),
                    use_pallas_depthwise=True)

@@ -65,10 +65,12 @@ from tensorflowdistributedlearning_tpu_torch.train.state import create_train_sta
 from tensorflowdistributedlearning_tpu_torch.train.trainer import state_bytes
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, from_flax_tensor_parallel
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
 from tests.conftest import make_salt_dataset
 from tests.test_torch_parallel import JTINY, _global_batches
 from tests.test_torch_train_step import _flax_variables, _JaxBceTask
 from tests.test_torch_zero1 import SHAPES, _same
+
 
 TP = worker.TP
 JSEG = dict(JTINY, use_pallas_depthwise=True)
@@ -560,9 +562,12 @@ def test_jax_value_errors_and_the_axes_that_stay_refused():
     seg = ModelConfig(**worker.TINY)
     require_supported_training(seg, TrainConfig(model_parallel=2))
     require_supported_training(ModelConfig(**worker.TP_CLS), TrainConfig(model_parallel=2, weight_update_sharding=True))
-    for kw in (dict(sequence_parallel=2), dict(parallelism="auto")):
-        with pytest.raises(NotImplementedError, match="queue A 12"):
-            require_supported_training(seg, TrainConfig(**kw))
+    with pytest.raises(NotImplementedError, match="queue A 12"):
+        require_supported_training(seg, TrainConfig(parallelism="auto"))
+    # the sequence axis (queue A 12.4) is taken: 33 x 33 gets JAX's
+    # validate_spatial_config text at degree 2
+    with pytest.raises(ValueError, match=r"divisible by stride\*sequence_parallel = 8\*2 = 16, got 33"):
+        require_supported_training(seg, TrainConfig(sequence_parallel=2))
     # the expert axis (queue A 12.3) takes the MoE ViT only: JAX's fit text
     # for any other model, and JAX's combination text beside tensor parallelism
     with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2"):

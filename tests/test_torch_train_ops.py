@@ -22,6 +22,8 @@ from tensorflowdistributedlearning_tpu_torch.models import layers as tlayers
 from tensorflowdistributedlearning_tpu_torch.ops import kernels as tk
 from tensorflowdistributedlearning_tpu_torch.ops import losses as tlosses
 from tensorflowdistributedlearning_tpu_torch.ops import metrics as tmetrics
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 
 @pytest.fixture(autouse=True)

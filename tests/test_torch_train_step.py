@@ -46,6 +46,8 @@ from tensorflowdistributedlearning_tpu_torch.ops import losses as tlosses
 from tensorflowdistributedlearning_tpu_torch.train import step as tstep
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, from_flax_train_state
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = dict(n_blocks=(1, 1, 1), input_shape=(33, 33), base_depth=16, width_multiplier=0.125)
 

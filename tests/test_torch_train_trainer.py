@@ -29,6 +29,8 @@ from tensorflowdistributedlearning_tpu_torch.train.state import create_train_sta
 from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer, augment_seed
 from tests import test_torch_dp_worker as torch_dp_worker
 from tests.conftest import make_salt_dataset
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(n_blocks=(1, 1, 1), input_shape=(32, 32), base_depth=16, width_multiplier=0.125, use_pallas_depthwise=True)
@@ -147,9 +149,12 @@ def test_augment_seed_is_a_function_of_fold_and_step():
 
 def test_trainer_rejects_what_the_slice_does_not_run(salt, tmp_path):
     data, _ = salt
-    for kw in (dict(sequence_parallel=2), dict(pipeline_parallel=2, pipeline_microbatches=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP|queue"):
-            _trainer(str(tmp_path), data, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP|queue"):
+        _trainer(str(tmp_path), data, pipeline_parallel=2, pipeline_microbatches=2)
+    # the sequence axis (queue A 12.4) is taken; one process cannot lay out
+    # two sequence positions
+    with pytest.raises(ValueError, match=r"not divisible by model_parallel\*sequence_parallel=2"):
+        _trainer(str(tmp_path), data, sequence_parallel=2)
     # the expert axis (queue A 12.3) takes the MoE ViT only: JAX's fit text
     with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2 .*got moe_experts=0"):
         _trainer(str(tmp_path), data, expert_parallel=2)
@@ -176,10 +181,12 @@ def test_train_cli_end_to_end(salt, tmp_path, capsys):
     args = ["train", "--data-dir", data, "--model-dir", model_dir, "--batch-size", "4", "--steps", "2",
             "--n-fold", "2", "--input-shape", "32", "32", "--n-blocks", "1", "1", "1", "--base-depth", "8",
             "--checkpoint-every", "2", "--eval-throttle-secs", "0", "--use-pallas-depthwise"]
+    # the command at this module's one torch thread, so that the in-process
+    # re-run below evaluates the same final state to the same bits
     proc = subprocess.run(
         [sys.executable, "-m", "tensorflowdistributedlearning_tpu_torch", *args, "--device", "cpu",
          "--export-serving"],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
+        cwd=REPO, capture_output=True, text=True, timeout=600, env=dict(os.environ, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [line for line in proc.stdout.splitlines() if line.strip()]

@@ -44,6 +44,8 @@ from tensorflowdistributedlearning_tpu_torch.models import build_model, model_fo
 from tensorflowdistributedlearning_tpu_torch.models import vit as tvit
 from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.utils.convert import flatten, from_flax, kernel_leaves
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY_VIT = dict(backbone="vit", num_classes=10, input_shape=(32, 32), input_channels=3, patch_size=8,
                 embed_dim=32, num_heads=2, vit_layers=2, output_stride=None)

@@ -70,9 +70,11 @@ from tensorflowdistributedlearning_tpu_torch.train.serving import export_serving
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, kernel_leaves, params_from_flax
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
 from tests import test_torch_vit_serve as vserve
 from tests.test_expert import MOE_CFG_KW
 from tests.test_torch_vit import tiny_vit_pair
+
 
 BATCH = 8
 WORLDS = (2, 4)

@@ -60,6 +60,8 @@ from tensorflowdistributedlearning_tpu_torch.train import quantize as tq
 from tensorflowdistributedlearning_tpu_torch.train import serving
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, kernel_leaves
 from tests.test_torch_vit import tiny_vit_pair
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 SPECS = ("float32", "bfloat16", "int8", "int8-compute")
 TOLS = {  # (compute dtype, spec class) -> (max, mean)

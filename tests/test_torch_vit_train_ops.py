@@ -35,6 +35,8 @@ from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.ops import losses as tlosses
 from tensorflowdistributedlearning_tpu_torch.ops import metrics as tmetrics
 from tensorflowdistributedlearning_tpu_torch.train import step as tstep
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TOL_CE = 1e-6
 BF16_STEP = 2.0 ** -7

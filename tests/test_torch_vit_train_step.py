@@ -57,6 +57,8 @@ from tensorflowdistributedlearning_tpu_torch.ops import kernels
 from tensorflowdistributedlearning_tpu_torch.train import step as tstep
 from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, from_flax_train_state, load_optax_state
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 TINY = dict(backbone="vit", num_classes=10, input_shape=(16, 16), input_channels=3, patch_size=4, embed_dim=32,
             num_heads=2, vit_layers=2, output_stride=None, use_fused_attention=True)

@@ -57,6 +57,8 @@ from tensorflowdistributedlearning_tpu_torch.ops import losses as tlosses
 from tensorflowdistributedlearning_tpu_torch.train.state import template_train_state
 from tensorflowdistributedlearning_tpu_torch.train.step import dropout_seed
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, kernel_leaves, params_from_flax
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
+
 
 SEG = dict(backbone="xception", width_multiplier=0.125, base_depth=16, input_shape=(33, 33),
            use_pallas_depthwise=True)

@@ -60,8 +60,10 @@ from tensorflowdistributedlearning_tpu_torch.train.state import create_train_sta
 from tensorflowdistributedlearning_tpu_torch.train.trainer import state_bytes
 from tensorflowdistributedlearning_tpu_torch.utils.convert import from_flax, params_from_flax
 from tests import test_torch_dp_worker as worker
+from tests.test_torch_dp_worker import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_parallel import JTINY, LR, _global_batches, _max_diff
 from tests.test_torch_train_step import _flax_variables, _JaxBceTask
+
 
 VIT = dict(backbone="vit", num_classes=4, input_shape=(16, 16), input_channels=3, patch_size=4, embed_dim=32,
            vit_layers=2, num_heads=4, output_stride=None)
