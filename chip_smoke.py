@@ -5662,6 +5662,11 @@ TP_HELD_STEPS = 2  # cut from 3 to pay for train-sp
 TP_TIMED_STEPS = 1
 TP_ZERO_STEPS = 2
 TP_TIMEOUT_S = 300
+# the ViT arm: vit_s16_imagenet at full width and depth on the same two ranks
+TP_VIT_BATCH = 16  # global; cut from 64 by the host-staged gathers (PERF.md §4)
+TP_VIT_TIMED_STEPS = 2  # the first with its collectives timed, the second alone
+TP_VIT_FIT_STEPS = 2
+TP_VIT_HELD_CALLS = 4  # attention calls of each rank's fit held against plain
 
 
 @contextlib.contextmanager
@@ -5729,15 +5734,20 @@ def tp_units(model) -> dict:
     """``{module name: kind}`` of the tensor-parallel layers of a sliced
     model (those whose ``tp`` is set): ``channelwise`` (BatchNorm, the
     depthwise conv), ``pointwise`` (a split-separable conv's pointwise
-    pair) or ``column`` (a conv, ``ConvBN``, a Dense)."""
+    pair), ``leaves`` (the ViT's LayerNorm and position table, the MoE
+    layer's leaves: gathered whole where they are used) or ``column`` (a
+    conv, ``ConvBN``, a Dense, the ViT's patch conv, whose whole input's
+    cotangent is summed)."""
     from tensorflowdistributedlearning_tpu_torch.models.layers import BatchNorm, DepthwiseConv2D, SplitSeparableConv2D
+    from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, MoEMlp, ViTClassifier
 
     kinds = {}
     for name, m in model.named_modules():
         if getattr(m, "tp", None) is None:
             continue
         kinds[name] = ("channelwise" if isinstance(m, (BatchNorm, DepthwiseConv2D))
-                       else "pointwise" if isinstance(m, SplitSeparableConv2D) else "column")
+                       else "pointwise" if isinstance(m, SplitSeparableConv2D)
+                       else "leaves" if isinstance(m, (LayerNorm, ViTClassifier, MoEMlp)) else "column")
     return kinds
 
 
@@ -5851,9 +5861,9 @@ def tp_collective_bytes(cfg, rows: int, tp: int):
     from tensorflowdistributedlearning_tpu_torch.models import model_for
     from tensorflowdistributedlearning_tpu_torch.parallel import tensor
 
-    # the plain depthwise version: the kernels take no meta tensors, and the
-    # shapes are the same
-    cfg = dataclasses.replace(cfg, use_pallas_depthwise=False)
+    # the plain depthwise and attention versions: the kernels take no meta
+    # tensors, and the shapes are the same
+    cfg = dataclasses.replace(cfg, use_pallas_depthwise=False, use_fused_attention=False)
     with torch.device("meta"):
         sliced, whole = model_for(cfg), model_for(cfg)
     tensor.shard_model(sliced, tensor.layout_for(sliced, tp, 0))
@@ -5866,6 +5876,11 @@ def tp_collective_bytes(cfg, rows: int, tp: int):
 
     def hook(kind):
         def record(module, args, out):
+            if kind == "leaves":
+                # the parameters gathered whole; their backward moves nothing
+                for name, p in module.named_parameters(recurse=False):
+                    add("gather", p)
+                return
             add("gather", out)
             if kind == "channelwise":
                 add("gather", args[0])
@@ -5905,13 +5920,117 @@ def tp_rule_bytes(cfg, dp: int, tp: int, zero: bool):
     return params, opt
 
 
-def tp_rank(torch, rank: int, world: int, store: str, root: str, device: str, model_kwargs, size: int, batch: int):
+def tp_vit(torch, rank: int, root: str, dev, overrides, batch: int) -> dict:
+    """The ViT arm of a ``train-tp`` rank at (1, 2): ViT-S/16's step held
+    against the one-card step from the same state (rank 0), its ms, one
+    step's gathers and input-cotangent sums, then ``fit_preset`` with
+    ``parallelism='auto'`` pinned at ``model_parallel`` 2 (the planner
+    validates the layout and writes the header's ``plan``), its launches
+    counted and its attention calls recorded, and the rank's memory and
+    watermark events against the plan's prediction."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.data.synthetic import synthetic_classification_batch
+    from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger_with_errors
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, multihost, tensor
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import create_train_state
+    from tensorflowdistributedlearning_tpu_torch.train.step import _slot_shapes
+
+    on_card = dev.type == "cuda"
+    preset = configs.get_preset(VIT_PRESET)
+    cfg = dataclasses.replace(preset.model, **(overrides or {}))
+    tcfg = dataclasses.replace(preset.train, seed=SEED % 1000 + 87)
+    fixed = pipeline_lib.to_device(synthetic_classification_batch(
+        np.random.default_rng(SEED + 87), batch, cfg.input_shape, cfg.input_channels, cfg.num_classes), dev)
+    task = step_lib.ClassificationTask(label_smoothing=tcfg.label_smoothing)
+    init = drawn_state(torch, cfg, tcfg, dev, SEED + 88).model.state_dict()
+    state = create_train_state(cfg, dataclasses.replace(tcfg, model_parallel=TP_DEGREE), dev, state_dict=init)
+    step = tensor.make_train_step_gspmd(task, weight_decay=cfg.weight_decay, seed=tcfg.seed)
+    _, metrics = step(state, fixed)
+    loss = step_lib.compute_metrics(metrics)["loss"]
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = dict(zip(names, state.tp.gather([(n, p.grad) for n, p in state.model.named_parameters()])))
+    out = {"n_params": state.param_count()}
+    one = single = None
+    if rank == 0:
+        one = create_train_state(cfg, tcfg, dev, state_dict=init)
+        single = step_lib.make_train_step(task, weight_decay=cfg.weight_decay, seed=tcfg.seed)
+        _, m1 = single(one, fixed)
+        want_loss = step_lib.compute_metrics(m1)["loss"]
+        worst = max(float((grads[n] - p.grad).abs().max()) / (TOL_MOE_GRAD * float(p.grad.abs().max()) + 1e-12)
+                    for n, p in one.model.named_parameters())
+        check(np.isfinite(loss) and abs(loss - want_loss) <= bf16_spacing(want_loss) and worst <= 1.0,
+              f"train-tp ViT-S/16 held step vs the one-card step: loss {loss} vs {want_loss}, worst gradient leaf at "
+              f"{worst:.3f} of {TOL_MOE_GRAD}·max|leaf|")
+        out["held"] = {"loss": loss, "one_card_loss": want_loss, "worst_gradient": worst}
+    del init, grads
+    multihost.barrier()
+    # the timed steps: the first with each collective timed, the card
+    # synchronized around it, the rest alone
+    with timed_collectives(torch, collectives) as rec:
+        out["collective_step_ms"] = rep_ms(torch, lambda: step(state, fixed), 1)
+    out["collectives"] = rec
+    multihost.barrier()
+    out["step_ms"] = rep_ms(torch, lambda: step(state, fixed), TP_VIT_TIMED_STEPS - 1)
+    if one is not None:
+        # the held step warmed it
+        out["one_rank_ms"] = rep_ms(torch, lambda: single(one, fixed), TP_VIT_TIMED_STEPS)
+    multihost.barrier()
+    del state, one, fixed
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the main path: fit_preset through the planner, counts from 0 just
+    # before, read just after
+    model_dir = os.path.join(root, "fit-vit-tp")
+    with mock.patch.dict(configs.PRESETS, {VIT_PRESET: dataclasses.replace(preset, model=cfg)}), \
+            record_attention_calls(torch, TP_VIT_HELD_CALLS) as attention:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fit_preset(VIT_PRESET, model_dir, steps=TP_VIT_FIT_STEPS, batch_size=batch, device=dev,
+                       parallelism="auto", model_parallel=TP_DEGREE, seed=tcfg.seed, train_log_every_steps=1)
+        if on_card:
+            torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["launches"] = kernels.launch_counts()
+    out["fit"] = {"steps": r.steps, "final_metrics": r.final_metrics}
+    out["held_calls"] = {}
+    if on_card and attention:
+        out["held_calls"]["flash_attention"] = max(
+            hold_attention_forward(torch, c, f"train-tp ViT rank {rank} attention") for c in attention)
+    out["n_attention_calls"] = len(attention)
+    events, errors = read_ledger_with_errors(
+        os.path.join(model_dir, "telemetry.jsonl" if rank == 0 else f"telemetry-{rank}.jsonl"))
+    header = next((e for e in events if e["event"] == "run_header"), {})
+    out["ledger_errors"], out["mesh"], out["plan"] = errors, header.get("mesh"), header.get("plan")
+    out["memory_events"] = [{k: e.get(k) for k in ("params_bytes_per_device", "opt_state_bytes_per_device")}
+                            for e in events if e["event"] == "memory" and "opt_state_bytes_per_device" in e]
+    out["watermarks"] = [{k: e.get(k) for k in ("phase", "peak_bytes", "predicted_bytes_per_device",
+                                                "measured_minus_predicted_bytes")}
+                         for e in events if e["event"] == "memory_watermark"]
+    # torch's Adam keeps a float32 step per parameter, optax two int32 counts
+    probe = create_train_state(cfg, dataclasses.replace(tcfg, model_parallel=TP_DEGREE), dev)
+    out["torch_step_bytes"] = sum(4 for g in probe.optimizer.param_groups for p in g["params"]
+                                  for shape, _ in _slot_shapes(probe.optimizer, g, p).values() if tuple(shape) == ())
+    out["optax_count_bytes"] = 8 if tcfg.optimizer == "adam" else 4
+    del probe
+    return out
+
+
+def tp_rank(torch, rank: int, world: int, store: str, root: str, device: str, model_kwargs, size: int, batch: int,
+            vit=None):
     """One rank of ``train-tp``. At ``world`` = 2 (a (1, 2) grid): the
     tensor-parallel step held step by step against the one-rank step from
     the same state (rank 0 runs both), the step's ms, its gathers' ms and
-    MB, then Trainer.train with its launches counted and its depthwise and
-    BN calls recorded. At ``world`` = 4 (a (2, 2) grid): the step with and
-    without ZeRO-1, and the whole states' digests."""
+    MB, the ViT arm (:func:`tp_vit`; ``vit`` holds its ``overrides`` and
+    ``batch``), then Trainer.train with its launches counted and its
+    depthwise and BN calls recorded. At ``world`` = 4 (a (2, 2) grid): the
+    step with and without ZeRO-1, and the whole states' digests."""
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
     from tensorflowdistributedlearning_tpu_torch.models import build_model
     from tensorflowdistributedlearning_tpu_torch.obs.ledger import read_ledger_with_errors
@@ -5935,7 +6054,7 @@ def tp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
         ids = sorted(f[:-4] for f in os.listdir(os.path.join(data, "images")))
         cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
         task = smooth_task()
-        fixed = dp_batches(torch, data, ids, batch, TP_HELD_STEPS, dev)
+        fixed = dp_batches(torch, data, ids, batch, max(TP_HELD_STEPS, TP_ZERO_STEPS), dev)
         rows = mesh.shard_rows(batch)
         local = [{k: v[rows] for k, v in b.items()} for b in fixed]
         step = step_lib.make_train_step(task, data_parallel=True)
@@ -6023,6 +6142,11 @@ def tp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
             step(state, local[0])
         out["collectives"] = rec
         del state, one
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["vit"] = tp_vit(torch, rank, root, dev, (vit or {}).get("overrides"), (vit or {}).get("batch", TP_VIT_BATCH))
+        out["vit"]["arm_s"] = time.perf_counter() - t0
         if rank == 0:
             # the (2, 2) grid's ranks may start now: what follows is not timed
             with open(os.path.join(root, "tp2-timed"), "w"):
@@ -6061,7 +6185,7 @@ def tp_rank(torch, rank: int, world: int, store: str, root: str, device: str, mo
     return out
 
 
-def tp_start(root: str, world: int, device: str, model_kwargs, size: int, batch: int):
+def tp_start(root: str, world: int, device: str, model_kwargs, size: int, batch: int, vit=None):
     """Start ``world`` ranks of ``chip_smoke.py tp-rank ...`` sharing the
     card on the warm build directory; ``(processes, logs)``."""
     store = f"file://{os.path.join(root, f'store-tp{world}')}"
@@ -6070,7 +6194,7 @@ def tp_start(root: str, world: int, device: str, model_kwargs, size: int, batch:
         logs.append(open(os.path.join(root, f"tp{world}-rank{rank}.log"), "w"))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "tp-rank", str(rank), str(world), store, root, device,
-             json.dumps(model_kwargs), str(size), str(batch)],
+             json.dumps(model_kwargs), str(size), str(batch), json.dumps(vit or {})],
             stdout=logs[-1], stderr=subprocess.STDOUT,
         ))
     return procs, logs
@@ -6103,21 +6227,149 @@ def tp_finish(root: str, world: int, procs, logs, deadline: float, prefix: str =
     return outs
 
 
+def tp_vit_checks(torch, card: str, device: str, outs, overrides, batch: int) -> dict:
+    """The ViT arm's checks and lines over the two ranks' outputs; returns
+    its numbers, with ``held`` (kernel name: max|err| of the attention
+    calls held) and ``launches`` (rank 0's fit)."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+
+    cfg = dataclasses.replace(configs.get_preset(VIT_PRESET).model, **(overrides or {}))
+    r0 = outs[0]["vit"]
+    held = {}
+    for o in outs:
+        v, what = o["vit"], f"train-tp ViT rank {o['rank']}"
+        check(v["fit"]["steps"] == TP_VIT_FIT_STEPS and all(np.isfinite(x) for x in v["fit"]["final_metrics"].values()),
+              f"{what}: fit {v['fit']}")
+        check(v["fit"]["final_metrics"] == r0["fit"]["final_metrics"], f"{what}: metrics apart from rank 0's")
+        check(v["ledger_errors"] == 0 and v["mesh"] == {"batch": 1, "model": TP_DEGREE, "sequence": 1},
+              f"{what}: ledger errors {v['ledger_errors']}, mesh {v['mesh']}")
+        plan = v["plan"] or {}
+        check(plan.get("source") == "auto" and plan.get("feasible") and plan["layout"]["model_parallel"] == TP_DEGREE
+              and plan["layout"]["data_parallel"] == 1, f"{what}: header plan {plan}")
+        pred = plan["predicted"]
+        check(v["memory_events"] and all(
+            e["params_bytes_per_device"] == pred["params_bytes_per_chip"]
+            and e["opt_state_bytes_per_device"] - v["torch_step_bytes"] + v["optax_count_bytes"]
+            == pred["opt_state_bytes_per_chip"] for e in v["memory_events"]),
+            f"{what}: memory events {v['memory_events']} against the plan's {pred} (torch's steps "
+            f"{v['torch_step_bytes']} bytes, optax's counts {v['optax_count_bytes']})")
+        fa = v["launches"].get("flash_attention", 0)
+        if device == "cuda":
+            check(fa > 0 and fa % cfg.vit_layers == 0, f"{what}: {fa} flash_attention launches in fit")
+            check(v["n_attention_calls"] == TP_VIT_HELD_CALLS, f"{what}: {v['n_attention_calls']} attention calls held")
+            for name, e in v["held_calls"].items():
+                held[name] = max(held.get(name, 0.0), e)
+    col = r0["collectives"]
+    shapes = tp_collective_bytes(cfg, batch, TP_DEGREE)
+    if configs.get_preset(VIT_PRESET).train.grad_clip_norm:
+        # the clip's sum of the sliced leaves' squares over the model group
+        shapes["allreduce"] = [shapes["allreduce"][0] + 4, shapes["allreduce"][1] + 1]
+    for kind in ("gather", "allreduce"):
+        check([col[kind][2], col[kind][0]] == shapes[kind],
+              f"train-tp ViT: one step's {kind}s moved {col[kind][2]} bytes in {col[kind][0]} calls, the shapes' "
+              f"count {shapes[kind][0]} in {shapes[kind][1]}")
+    h = r0["held"]
+    pred = r0["plan"]["predicted"]
+    marks = r0["watermarks"]
+    log(f"train-tp ViT: the {TP_DEGREE}-rank step against the one-card step from the same state: loss {h['loss']} vs "
+        f"{h['one_card_loss']} (one bf16 step allowed), worst gradient leaf at {h['worst_gradient']:.3f} of "
+        f"{TOL_MOE_GRAD}·max|leaf|; each rank's first {TP_VIT_HELD_CALLS} fit attention calls held against the plain "
+        f"version, max|err| {held.get('flash_attention', 0.0):.3g}")
+    log(f"train-tp ViT: {VIT_PRESET} ({r0['n_params']} parameters, {cfg.dtype}, {cfg.input_shape[0]}x"
+        f"{cfg.input_shape[1]}) on {TP_DEGREE} gloo ranks sharing {device} at model_parallel {TP_DEGREE}, global batch "
+        f"{batch}: {r0['step_ms'][0]:.3f} ms per step alone (rank 0), {r0['collective_step_ms'][0]:.3f} ms with its "
+        f"collectives timed; the one-card step {r0['one_rank_ms'][0]:.3f} ms (median of {TP_VIT_TIMED_STEPS}); that "
+        f"step's {col['gather'][0]} all-gathers land {col['gather'][2] / 1e6:.1f} MB in {col['gather'][1] * 1e3:.3f} ms and "
+        f"its {col['allreduce'][0]} input-cotangent sums reduce {col['allreduce'][2] / 1e6:.1f} MB in "
+        f"{col['allreduce'][1] * 1e3:.3f} ms (both byte counts the shapes') [{card}]")
+    log(f"train-tp ViT: fit_preset(parallelism='auto', model_parallel={TP_DEGREE}) {TP_VIT_FIT_STEPS} steps in "
+        f"{r0['fit_s']:.3f} s, launches {json.dumps({k: c for k, c in r0['launches'].items() if c})}; the plan "
+        f"predicts {pred['params_bytes_per_chip']} parameter and {pred['opt_state_bytes_per_chip']} optimizer bytes per "
+        f"rank, each rank's memory events {[o['vit']['memory_events'][0] for o in outs]} (the torch Adam steps' "
+        f"{r0['torch_step_bytes']} bytes for optax's {r0['optax_count_bytes']}); watermarks "
+        f"{json.dumps(marks[-2:]) if marks else 'none'}; arm {r0['arm_s']:.3f} s [{card}]")
+    return {"held": held, "launches": r0["launches"], "step_ms": r0["step_ms"], "one_rank_ms": r0["one_rank_ms"],
+            "collective_step_ms": r0["collective_step_ms"], "gather_mb": col["gather"][2] / 1e6, "gather_ms": col["gather"][1] * 1e3, "gather_calls": col["gather"][0],
+            "allreduce_mb": col["allreduce"][2] / 1e6, "allreduce_ms": col["allreduce"][1] * 1e3,
+            "allreduce_calls": col["allreduce"][0], "held_step": h, "fit_s": r0["fit_s"], "arm_s": r0["arm_s"],
+            "predicted": pred, "memory_events": [o["vit"]["memory_events"][0] for o in outs],
+            "measured_minus_predicted_bytes": [m.get("measured_minus_predicted_bytes") for m in marks][-1:]}
+
+
+def plan_commands(torch, card: str, device: str) -> dict:
+    """The ``plan`` command in this process, on one card (``--device
+    cpu`` rehearses it): ``--preset vit_s16_imagenet --json`` and
+    ``--preset tgs_salt`` (the table), each with the memory budget the card
+    reports; exit 0, a feasible chosen layout, the budget the card's.
+    Before them the trainers' header plan (``train.trainer.run_plan``,
+    which every run with telemetry on makes on every rank) is timed for
+    the presets of ``dp``, ``train-moe`` and ``train-sp``, each profile
+    uncached and the first with the planner's imports, as a rank's first
+    run pays them."""
+    import dataclasses
+    import io
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.__main__ import main as cli_main
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import run_plan
+
+    args = ["--device", device]
+    limit = torch.cuda.mem_get_info(0)[1] if device == "cuda" else None
+    out = {"header_plan_s": {}}
+    for name in ("tgs_salt", MOE_PRESET, VIT_PRESET):
+        pre = configs.get_preset(name)
+        # earlier phases of this process may have profiled the preset
+        if "tensorflowdistributedlearning_tpu_torch.parallel.planner" in sys.modules:
+            sys.modules["tensorflowdistributedlearning_tpu_torch.parallel.planner"]._profile_model_cached.cache_clear()
+        t0 = time.perf_counter()
+        run_plan(None, pre.model, dataclasses.replace(pre.train, telemetry=True), pre.global_batch, device)
+        out["header_plan_s"][name] = time.perf_counter() - t0
+    for name, extra in ((VIT_PRESET, ["--json"]), ("tgs_salt", [])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["plan", "--preset", name, *extra, *args])
+        text = buf.getvalue()
+        check(rc == 0, f"train-tp: plan --preset {name} exited {rc}: {text[-500:]}")
+        if extra:
+            plan = json.loads(text)
+            check(plan["feasible"] and plan["topology"]["hbm_bytes_per_device"] == limit,
+                  f"train-tp: plan --preset {name}: feasible {plan['feasible']}, budget "
+                  f"{plan['topology']['hbm_bytes_per_device']} against the card's {limit}")
+            out[name] = {k: plan[k] for k in ("layout", "predicted", "headroom_frac", "score") if k in plan}
+            log(f"train-tp: plan --preset {name} --json: {json.dumps(out[name])} [{card}]")
+        else:
+            check("chosen" in text and "parallelism plan" in text, f"train-tp: plan --preset {name}: {text[-500:]}")
+            for line in text.splitlines():
+                log(f"train-tp: plan --preset {name}: {line}")
+        out[f"{name}_s"] = time.perf_counter() - t0
+    log(f"train-tp: the trainers' header plan, each profile uncached (the first with the planner's imports): "
+        f"{json.dumps(out['header_plan_s'])} s; then the plan commands {out[f'{VIT_PRESET}_s']:.3f} and "
+        f"{out['tgs_salt_s']:.3f} s [{card}]")
+    return out
+
+
 def train_tp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_images: int = TP_IMAGES,
-                   size: int = 101, batch: int = TP_BATCH):
-    """Tensor parallelism of the segmenter (``model_parallel`` 2): two gloo
-    ranks sharing the card, then four as a (2, 2) grid with and without
-    ZeRO-1. ``model_kwargs`` and ``device="cpu"`` rehearse it small."""
+                   size: int = 101, batch: int = TP_BATCH, vit_overrides=None, vit_batch: int = TP_VIT_BATCH):
+    """Tensor parallelism (``model_parallel`` 2) of the segmenter and of
+    ViT-S/16: two gloo ranks sharing the card, then four as a (2, 2) grid
+    with and without ZeRO-1; before them the ``plan`` command on the card.
+    ``model_kwargs``, ``vit_overrides`` and ``device="cpu"`` rehearse it
+    small."""
     from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
 
     model_kwargs = dict(model_kwargs or {}, use_pallas_depthwise=True)
     cfg = ModelConfig(input_shape=(size, size), **model_kwargs)
     on_card = device == "cuda"
+    vit = {"overrides": dict(vit_overrides or {}), "batch": vit_batch}
+    planned = plan_commands(torch, card, device)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-tp-") as root:
         write_salt_dataset(os.path.join(root, "data"), n_images, size, SEED + 73)
         t0 = time.perf_counter()
         deadline = t0 + TP_TIMEOUT_S
-        two = tp_start(root, TP_DEGREE, device, model_kwargs, size, batch)
+        two = tp_start(root, TP_DEGREE, device, model_kwargs, size, batch, vit)
         four = None
         try:
             # the grid starts once the two ranks' timed steps are done, beside
@@ -6150,7 +6402,7 @@ def train_tp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_
         check(o["metrics"] == r0["metrics"], f"{what}: metrics {o['metrics']} vs rank 0's {r0['metrics']}")
         check(all(np.isfinite(v) for m in o["metrics"] for v in m.values()), f"{what}: {o['metrics']}")
         check_trainer_launches(o["ledger_train"], o["ledger_eval"], o["launches"], TP_FOLDS, TP_TRAIN_STEPS, what)
-        check(o["ledger_errors"] == 0 and o["mesh"] == {"data": 1, "model": TP_DEGREE},
+        check(o["ledger_errors"] == 0 and o["mesh"] == {"batch": 1, "model": TP_DEGREE, "sequence": 1},
               f"{what}: ledger errors {o['ledger_errors']}, mesh {o['mesh']}")
         check(len(o["memory_events"]) >= TP_FOLDS and all(
             e == {"params_bytes_per_device": params_bytes, "opt_state_bytes_per_device": opt_bytes}
@@ -6214,6 +6466,9 @@ def train_tp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_
         f"{opt_bytes} optimizer bytes per rank, the rule's to the byte; metrics equal on both ranks "
         f"{json.dumps(r0['metrics'])}; {t1 - t0:.3f} s for the ranks (the grid's beside their Trainer.train) "
         f"[{card}]")
+    vit_out = tp_vit_checks(torch, card, device, outs, vit_overrides, vit_batch)
+    for name, e in vit_out.pop("held").items():
+        held_err[name] = max(held_err.get(name, 0.0), e)
     g0 = grid[0]
     log(f"train-tp: (2, 2) grid of {TP_ZERO_RANKS} gloo ranks at global batch {batch}: {TP_ZERO_STEPS} steps with "
         f"ZeRO-1 bit for bit the tensor-parallel steps (digest {g0['zero']['digest']}, losses {g0['zero']['losses']}); "
@@ -6227,21 +6482,25 @@ def train_tp_phase(torch, card: str, device: str = "cuda", model_kwargs=None, n_
             "params_bytes_per_rank": params_bytes, "opt_bytes_per_rank": opt_bytes,
             "zero_opt_bytes_per_rank": zero_opt_bytes, "held_steps": held, "train_s": r0["train_s"],
             "ranks_s": t1 - t0, "phase_ranks_s": t2 - t0,
-            "grid_step_ms": {m: g0[m]["ms"] for m in ("tp", "zero")}}
+            "grid_step_ms": {m: g0[m]["ms"] for m in ("tp", "zero")}, "vit": vit_out, "plan": planned}
 
 
 def tp_rank_main(argv) -> int:
     """``chip_smoke.py tp-rank RANK WORLD STORE ROOT DEVICE MODEL_KWARGS SIZE
-    BATCH``: one rank of ``train-tp``; writes ``ROOT/tp{WORLD}-rank{RANK}.json``."""
+    BATCH [VIT]``: one rank of ``train-tp`` (VIT: the ViT arm's overrides and
+    batch as JSON); writes ``ROOT/tp{WORLD}-rank{RANK}.json``."""
     import torch
 
     rank, world, store, root, device = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     model_kwargs, size, batch = json.loads(argv[5]), int(argv[6]), int(argv[7])
+    vit = json.loads(argv[8]) if len(argv) > 8 else {}
     for key in ("n_blocks",):
         if key in model_kwargs:
             model_kwargs[key] = tuple(model_kwargs[key])
+    if "input_shape" in vit.get("overrides", {}):
+        vit["overrides"]["input_shape"] = tuple(vit["overrides"]["input_shape"])
     try:
-        out = tp_rank(torch, rank, world, store, root, device, model_kwargs, size, batch)
+        out = tp_rank(torch, rank, world, store, root, device, model_kwargs, size, batch, vit)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6651,7 +6910,7 @@ def train_pp_phase(torch, card: str, device: str = "cuda", overrides=None, batch
                     want = per_step if i < PP_FIT_STEPS else per_eval
                     check({k: delta[k] for k in want} == want, f"{rank_what} train step or eval forward {i}: "
                           f"launches {delta}, expected {want}")
-                check(o["ledger_errors"] == 0 and o["mesh"] == [{"data": 1, "model": PP_STAGES}] * 2,
+                check(o["ledger_errors"] == 0 and o["mesh"] == [{"batch": 1, "model": PP_STAGES, "sequence": 1}] * 2,
                       f"{rank_what}: ledger errors {o['ledger_errors']}, mesh {o['mesh']}")
                 if on_card:
                     calls = o["n_attention_calls"] if cfg.backbone == "vit" else o["n_bn_calls"]
@@ -7241,7 +7500,7 @@ SP_IMAGES = 128  # 2 folds: 64 train and 64 eval ids each
 SP_TEST_IMAGES = 64
 SP_FOLDS = 2
 SP_STEPS = 2  # per fold, one checkpoint and one eval at the end (cut from 3)
-SP_TIMED_REPS = 3  # sharded and one-rank steps timed alone, after a warm-up
+SP_TIMED_REPS = 2  # sharded and one-rank steps timed alone, after a warm-up (cut from 3, PERF.md §4)
 SP_WITNESS_FACTOR = 4  # the plain one-rank step's gradient gap against the one-ulp witness's
 SP_VIT_FIT_STEPS = 2
 SP_RING_SHAPE = (64, 196, 6, 64)  # ViT-S/16's attention at batch 64: [B, S, H, D]
@@ -7889,7 +8148,7 @@ def train_sp_phase(torch, card: str, device: str = "cuda", seg_kwargs=None, vit_
 
 # Xception-41: the segmenter through Trainer.train with every observability
 # knob on, and the classifier preset through fit_preset
-XC_STEPS = 20
+XC_STEPS = 10  # per fold; cut from 20 to pay for train-tp's ViT arm (PERF.md §4)
 XC_EVERY = 10
 XC_LOG_EVERY = 5
 XC_TRACE_RATE = 0.25
@@ -8442,7 +8701,8 @@ def main() -> int:
              "serve-bf16": trained16["engine_launches"], "fit-resnet50": fitted50["launches"],
              "serve-resnet50": fitted50["serve_launches"], "fit-records": fit_records["launches"],
              "fit-imagefolder": fit_records["folder_launches"], "train-lars": lars["launches"],
-             "train-zero1": zero1["launches"], "train-tp": tp["launches"], "train-pp": pp["launches"],
+             "train-zero1": zero1["launches"], "train-tp": tp["launches"], "train-tp-vit": tp["vit"]["launches"],
+             "train-pp": pp["launches"],
              "serve-moe": moe["serve_launches"], "train-moe": moe["launches"], "train-moe-ep": moe["ep"]["launches"],
              "train-sp": sp["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
-``cli.py``; the port carries ``train``, ``fit``, ``predict``, ``serve``,
-``convert``, ``quantize-check`` and ``records-index``).
+``cli.py``; the port carries ``train``, ``fit``, ``plan``, ``predict``,
+``serve``, ``convert``, ``quantize-check`` and ``records-index``).
 
     python -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
@@ -11,6 +11,9 @@
         --preset vit_s16_imagenet --model-dir MODEL_DIR --steps 1000 --batch-size 64 --export-serving
     python -m tensorflowdistributedlearning_tpu_torch fit \\
         --preset resnet50_classic_imagenet --data-dir RECORDS --model-dir MODEL_DIR --eval-holdout-fraction 0.1
+    python -m tensorflowdistributedlearning_tpu_torch fit \\
+        --preset vit_s16_imagenet --model-dir MODEL_DIR --parallelism auto --model-parallel 2
+    python -m tensorflowdistributedlearning_tpu_torch plan --preset vit_s16_imagenet --json
     python -m tensorflowdistributedlearning_tpu_torch records-index RECORDS
     python -m tensorflowdistributedlearning_tpu_torch predict \\
         --model-dir MODEL_DIR --test-dir TEST --n-fold 5 --output pred.npz --submission submission.csv
@@ -79,13 +82,11 @@ def cmd_train(args) -> int:
         model_parallel=args.model_parallel,
         sequence_parallel=args.sequence_parallel,
         weight_update_sharding=args.weight_update_sharding,
+        parallelism=args.parallelism,
+        hbm_budget_gb=args.hbm_budget_gb,
         **_loop_overrides(args),
     )
-    trainer = Trainer(
-        args.model_dir,
-        args.data_dir,
-        train_config=tcfg,
-        device=args.device,
+    model_kwargs = dict(
         input_shape=tuple(args.input_shape),
         n_blocks=tuple(args.n_blocks),
         base_depth=args.base_depth,
@@ -94,6 +95,28 @@ def cmd_train(args) -> int:
         block_type=args.block_type,
         dtype=args.dtype,
     )
+    plan_header = None
+    if tcfg.parallelism == "auto":
+        # derive the layout before the Trainer lays out its ranks; the
+        # flags set explicitly stay pinned
+        import dataclasses
+
+        from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+        from tensorflowdistributedlearning_tpu_torch.parallel import planner as planner_lib
+
+        pinned = {}
+        if args.sequence_parallel != 1:
+            pinned["sequence_parallel"] = args.sequence_parallel
+        if args.model_parallel != 1:
+            pinned["model_parallel"] = args.model_parallel
+        if args.weight_update_sharding:
+            pinned["weight_update_sharding"] = True
+        run_plan = planner_lib.plan(ModelConfig(**model_kwargs), tcfg, args.batch_size, pinned=pinned, source="auto",
+                                    device=args.device)
+        tcfg = dataclasses.replace(tcfg, **run_plan.overrides())
+        plan_header = run_plan.header()
+    trainer = Trainer(args.model_dir, args.data_dir, train_config=tcfg, device=args.device, plan=plan_header,
+                      **model_kwargs)
     results = trainer.train(ids, batch_size=args.batch_size, steps=args.steps)
     out = {"folds": results, "n_params": trainer.params}
     if args.export_serving and results:
@@ -165,6 +188,8 @@ def cmd_fit(args) -> int:
         trace_sample_rate=args.trace_sample_rate,
         nan_guard=args.nan_guard,
         profile_every_windows=args.profile_every_windows,
+        parallelism=args.parallelism,
+        hbm_budget_gb=args.hbm_budget_gb,
     )
     summary = {"preset": args.preset, "steps": result.steps, "n_params": result.n_params,
                "final_metrics": result.final_metrics}
@@ -174,6 +199,87 @@ def cmd_fit(args) -> int:
     if multihost.is_main():
         print(json.dumps(summary))
     return 0
+
+
+def cmd_plan(args) -> int:
+    """Print the parallelism planner's candidate table (or the full JSON
+    plan): how ``--parallelism auto`` would lay this model out on this
+    topology, with exact predicted bytes per device and a named reason for
+    every rejected candidate. Exit status: 0 a feasible layout exists, 1 the
+    planner found none (or the pinned layout is infeasible), 2 usage."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.parallel import multihost
+    from tensorflowdistributedlearning_tpu_torch.parallel import planner as planner_lib
+
+    multihost.initialize(
+        args.coordinator_address, args.num_processes, args.process_id, backend=multihost.backend_for(args.device)
+    )
+    if args.preset:
+        from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+
+        try:
+            preset = get_preset(args.preset)
+        except ValueError as e:
+            print(f"plan: {e}", file=sys.stderr)
+            return 2
+        mcfg, tcfg = preset.model, preset.train
+        batch = args.batch_size or preset.global_batch
+    else:
+        mcfg = ModelConfig(
+            backbone=args.backbone,
+            input_shape=tuple(args.input_shape),
+            n_blocks=tuple(args.n_blocks),
+            base_depth=args.base_depth,
+            block_type=args.block_type,
+            dtype=args.dtype,
+            num_classes=args.num_classes,
+        )
+        tcfg = TrainConfig()
+        batch = args.batch_size or 64
+    replace = {"n_devices": args.n_devices}
+    if args.grad_accum is not None:
+        replace["grad_accum_steps"] = args.grad_accum
+    if args.hbm_gb is not None:
+        replace["hbm_budget_gb"] = args.hbm_gb
+    # the preset's own layout stripped: the table shows what auto picks,
+    # with only the flags given pinned on top
+    replace.update(model_parallel=1, pipeline_parallel=1, sequence_parallel=1, expert_parallel=1,
+                   weight_update_sharding=False)
+    tcfg = dataclasses.replace(tcfg, **replace)
+    pinned = {
+        key: value
+        for key, value in (
+            ("model_parallel", args.model_parallel),
+            ("pipeline_parallel", args.pipeline_parallel),
+            ("sequence_parallel", args.sequence_parallel),
+            ("expert_parallel", args.expert_parallel),
+            ("weight_update_sharding", args.weight_update_sharding),
+        )
+        if value is not None
+    }
+    margin = None
+    if args.measured_margin_from:
+        margin = planner_lib.measured_margin_from_workdir(args.measured_margin_from)
+        if margin is None:
+            print(f"plan: no measured watermark residual under {args.measured_margin_from} (CPU backends ledger "
+                  "none) — planning without margin", file=sys.stderr)
+    measured_costs = None
+    if args.measured_costs_from:
+        measured_costs = planner_lib.measured_costs_from_workdir(args.measured_costs_from)
+        if measured_costs is None:
+            print(f"plan: no op_roofline events under {args.measured_costs_from} — run with "
+                  "--profile-every-windows N to ledger roofline captures, then re-plan", file=sys.stderr)
+            return 2
+    try:
+        result = planner_lib.plan(mcfg, tcfg, batch, pinned=pinned, measured_margin_bytes=margin,
+                                  measured_costs=measured_costs, device=args.device)
+    except planner_lib.PlanError as e:
+        print(f"plan: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(result.to_json()) if args.json else planner_lib.render_plan_table(result))
+    return 0 if result.chosen.feasible else 1
 
 
 def cmd_records_index(args) -> int:
@@ -235,6 +341,20 @@ def _add_host_loop(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile-every-windows", type=int, default=None,
                    help="capture a torch.profiler trace of a few train steps every N log windows and ledger "
                    "profile_capture / op_roofline events; 0 disables (the config's default)")
+
+
+def _add_planner(p: argparse.ArgumentParser) -> None:
+    """The layout-selection flags of ``train`` and ``fit``
+    (``parallel/planner.py``)."""
+    p.add_argument("--parallelism", choices=("explicit", "auto"), default="explicit",
+                   help="'auto' derives the whole (dp, tp, pp, spatial, zero1) layout from the model's exact "
+                   "param/opt-state accounting, the per-device memory budget and the topology "
+                   "(parallel/planner.py); any parallelism flag set explicitly stays pinned. 'explicit' (default) "
+                   "runs the flags as given, validated through the same planner. Either way the plan rides the "
+                   "run header; inspect the candidates with the plan command")
+    p.add_argument("--hbm-budget-gb", type=float, default=None,
+                   help="per-device memory budget in GiB for the planner's feasibility gate (default: the card's "
+                   "memory over the ranks that share it; CPU ranks report none)")
 
 
 def _add_process_group(p: argparse.ArgumentParser) -> None:
@@ -586,6 +706,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ZeRO-1: shard the optimizer state and the weight update over the data-parallel ranks "
                    "(per-rank optimizer bytes drop ~world-fold; the update's numerics are the replicated one's)")
     _add_host_loop(t)
+    _add_planner(t)
     _add_process_group(t)
     t.set_defaults(fn=cmd_train)
 
@@ -639,8 +760,54 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("--device", default=None,
                    help="torch device (default: cuda, this rank's GPU in a process group; no CPU fallback); "
                    "cpu ranks use gloo")
+    _add_planner(f)
     _add_process_group(f)
     f.set_defaults(fn=cmd_fit)
+
+    pl = sub.add_parser(
+        "plan",
+        help="print the parallelism planner's candidate table for a model + batch + topology: chosen layout, "
+        "predicted params/opt/activation bytes per device (params and optimizer state exact), headroom against "
+        "the memory budget, and why each rejected candidate lost (parallel/planner.py)",
+    )
+    pl.add_argument("--preset", default=None,
+                    help="plan for a named preset's model and train config (batch defaults to the preset's)")
+    pl.add_argument("--batch-size", type=int, default=None, help="global batch (default: the preset's, else 64)")
+    pl.add_argument("--n-devices", type=int, default=None,
+                    help="devices to plan for (default: the world size; a rank owns one device)")
+    pl.add_argument("--hbm-gb", type=float, default=None,
+                    help="per-device memory budget in GiB (default: the card's memory over the ranks that share "
+                    "it; CPU ranks report none — feasibility is then divisibility-only)")
+    pl.add_argument("--grad-accum", type=int, default=None)
+    # pin any subset of the layout; the planner fills the rest by score
+    pl.add_argument("--model-parallel", type=int, default=None)
+    pl.add_argument("--pipeline-parallel", type=int, default=None)
+    pl.add_argument("--sequence-parallel", type=int, default=None)
+    pl.add_argument("--expert-parallel", type=int, default=None)
+    pl.add_argument("--weight-update-sharding", action="store_true", default=None)
+    # model flags for planning without a preset (train's)
+    pl.add_argument("--backbone", choices=("resnet", "xception", "vit"), default="resnet")
+    pl.add_argument("--input-shape", type=int, nargs=2, default=(101, 101))
+    pl.add_argument("--n-blocks", type=int, nargs="+", default=(3, 4, 6))
+    pl.add_argument("--base-depth", type=int, default=256)
+    pl.add_argument("--block-type", choices=("bottleneck", "basic_block"), default="bottleneck")
+    pl.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    pl.add_argument("--num-classes", type=int, default=None,
+                    help="classification head (default: the segmentation head, like train)")
+    pl.add_argument("--measured-margin-from", default=None, metavar="WORKDIR",
+                    help="add the measured-vs-predicted memory_watermark residual a prior run ledgered in WORKDIR "
+                    "to every candidate's budget check")
+    pl.add_argument("--measured-costs-from", default=None, metavar="WORKDIR",
+                    help="score candidates with the achieved FLOP/s and collective bytes/s of the op_roofline "
+                    "events a prior run ledgered in WORKDIR (--profile-every-windows) instead of the analytic "
+                    "constants; exits 2 when WORKDIR has none")
+    pl.add_argument("--json", action="store_true",
+                    help="the full machine-readable plan (chosen layout and every candidate's verdict)")
+    pl.add_argument("--device", default=None,
+                    help="the device whose topology is planned for (default: cuda, its name and memory; cpu: "
+                    "CPU ranks)")
+    _add_process_group(pl)
+    pl.set_defaults(fn=cmd_plan)
 
     pr = sub.add_parser("predict", help="fold x TTA ensemble prediction")
     pr.add_argument("--model-dir", required=True, help="the trained folds (fold{K}/...); ignored with --artifact-dir")

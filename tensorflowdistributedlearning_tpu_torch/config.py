@@ -354,49 +354,81 @@ def validate_training_data_format(cfg: TrainConfig) -> None:
         )
 
 
-# training knobs of the JAX package that later slices of the port bring,
-# with the ROADMAP queue item that brings each
-_LATER_TRAINING = (
-    (lambda m, c: c.parallelism == "auto", "parallelism='auto', the planner (queue A 12.5)"),
+# training configurations the port refuses, with the ROADMAP item that
+# names each
+_REFUSED_TRAINING = (
     (
-        lambda m, c: c.model_parallel > 1 and m.backbone != "resnet",
-        "tensor parallelism (model_parallel > 1) of the Xception-41 and ViT models (queue A 12.2)",
+        lambda m, c: c.model_parallel > 1 and m.backbone == "xception",
+        "tensor parallelism (model_parallel > 1) of the Xception-41 models (queue A 12.2) is not trained: the JAX "
+        "package's own tensor-parallel step cannot train them (its dropout raises flax's InvalidRngError; "
+        "ROADMAP.md, standing findings); the port trains data-, tensor-, pipeline-, expert- and "
+        "sequence-parallel otherwise",
     ),
-    (lambda m, c: c.compile_cache_dir is not None, "compile_cache_dir (no compile cache in eager PyTorch)"),
+    (
+        lambda m, c: c.compile_cache_dir is not None,
+        "compile_cache_dir (no compile cache in eager PyTorch) is not ported yet; the port trains data-, tensor-, "
+        "pipeline-, expert- and sequence-parallel only (see ROADMAP.md)",
+    ),
 )
 
 
-def require_supported_training(model_config: ModelConfig, train_config: TrainConfig) -> None:
+# the Switch-MoE ViT's tensor-parallel step beside data parallelism, which
+# needs the process group's size
+_MOE_TP_BESIDE_DP = (
+    "tensor parallelism (model_parallel > 1) of the Switch-MoE ViT beside data parallelism (queue A 12.2) is not "
+    "trained: the JAX package's tensor-parallel step routes the global batch's tokens as one pool, and the port "
+    "routes each data index's rows as its own, so capacity and drops would differ (ROADMAP.md, standing "
+    "findings); the port trains it tensor-parallel at data_parallel 1, and data- or expert-parallel"
+)
+
+
+def require_supported_layout(model_config: ModelConfig, train_config: TrainConfig, n_devices: int) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port refuses
+    only on ``n_devices`` ranks: the Switch-MoE ViT at ``model_parallel``
+    > 1 with a data-parallel degree above 1."""
+    tp = train_config.model_parallel
+    if model_config.moe_experts and tp > 1 and n_devices // tp > 1:
+        raise NotImplementedError(_MOE_TP_BESIDE_DP)
+
+
+def require_supported_training(model_config: ModelConfig, train_config: TrainConfig,
+                               n_devices: Optional[int] = None) -> None:
     """Raise ``NotImplementedError`` for a model or training configuration
-    the port does not train yet, naming the ROADMAP item that brings it. It
-    trains every model :func:`require_supported` accepts (the ResNet and
-    Xception-41 segmenters and classifiers, the ViT classifier, dense or
-    Switch-MoE; float32 or bfloat16 compute; ``remat`` per residual unit or
+    the port does not train, naming the ROADMAP item. It trains every
+    model :func:`require_supported` accepts (the ResNet and Xception-41
+    segmenters and classifiers, the ViT classifier, dense or Switch-MoE;
+    float32 or bfloat16 compute; ``remat`` per residual unit or
     transformer block) with Adam, SGD or LARS, ``grad_accum_steps`` >= 1,
     on one device or data-parallel, with or without ZeRO-1's sharded
     weight update (``weight_update_sharding``, ``parallel/zero.py``), the
-    ResNet models also tensor-parallel (``model_parallel`` > 1,
-    ``parallel/tensor.py``), the dense ViT and the Xception-41 classifier
-    also as GPipe pipelines (``pipeline_parallel`` > 1, ``fit`` only:
-    ``train/pipeline_step.py``, whose ``validate_pipeline_config`` raises
-    the JAX package's ``ValueError`` for any other model), the MoE ViT
-    also expert-parallel (``expert_parallel`` > 1, one expert per rank of
-    the model axis, ``parallel/expert.py``; it must equal ``moe_experts``,
-    or this raises the JAX ``fit``'s ``ValueError``), and every dense model
-    also H-sharded over a sequence axis (``sequence_parallel`` > 1,
+    ResNet models and the dense ViT also tensor-parallel
+    (``model_parallel`` > 1, ``parallel/tensor.py``), the MoE ViT so at
+    data_parallel 1 (given ``n_devices``, the ranks' count,
+    :func:`require_supported_layout` refuses it beside data parallelism:
+    queue A 12.2), the dense ViT and the
+    Xception-41 classifier also as GPipe pipelines (``pipeline_parallel`` >
+    1, ``fit`` only: ``train/pipeline_step.py``, whose
+    ``validate_pipeline_config`` raises the JAX package's ``ValueError``
+    for any other model), the MoE ViT also expert-parallel
+    (``expert_parallel`` > 1, one expert per rank of the model axis,
+    ``parallel/expert.py``; it must equal ``moe_experts``, or this raises
+    the JAX ``fit``'s ``ValueError``), and every dense model also H-sharded
+    over a sequence axis (``sequence_parallel`` > 1,
     ``parallel/spatial.py`` and ``parallel/ring_attention.py``, with or
     without ZeRO-1 over the data axis; ``validate_spatial_config`` raises
     the JAX package's ``ValueError`` for an input height the degree does
-    not admit and for the MoE ViT), under every observability knob; it
-    refuses the planner (queue A 12.5), tensor parallelism of the
-    Xception-41 and ViT models (queue A 12.2), and ``compile_cache_dir``."""
+    not admit and for the MoE ViT), under every observability knob, with
+    the layout given or planned (``parallelism='auto'``,
+    ``parallel/planner.py``; the trainers take it resolved). It refuses
+    tensor parallelism of the Xception-41 models, which the JAX package's
+    step cannot train either (queue A 12.2's standing finding), and
+    ``compile_cache_dir``."""
     require_supported(model_config)
-    for test, what in _LATER_TRAINING:
+    for test, what in _REFUSED_TRAINING:
         if test(model_config, train_config):
-            raise NotImplementedError(
-                f"{what} is not ported yet; the port trains data-, tensor-, pipeline-, expert- and "
-                "sequence-parallel only (see ROADMAP.md)"
-            )
+            raise NotImplementedError(what)
+    if n_devices is not None:
+        require_supported_layout(model_config, train_config, n_devices)
     if train_config.expert_parallel > 1 and train_config.expert_parallel != model_config.moe_experts:
         raise ValueError(
             f"expert_parallel={train_config.expert_parallel} requires moe_experts={train_config.expert_parallel} "

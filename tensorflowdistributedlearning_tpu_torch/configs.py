@@ -17,7 +17,7 @@ under ``expert_parallel`` 8, one expert per rank (``parallel/expert.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
 
@@ -267,3 +267,13 @@ def get_preset(name: str) -> Preset:
             f"Unknown preset {name!r}; available: {sorted(PRESETS)}"
         )
     return PRESETS[name]
+
+
+def resnet_depth_blocks(depth: int) -> Tuple[int, int, int]:
+    """Stage sizes for the standard ResNet depths (the units before the
+    3-unit atrous stage; (3, 4, 6) is ResNet-50), the JAX package's
+    ``configs.resnet_depth_blocks``."""
+    table = {50: (3, 4, 6), 101: (3, 4, 23), 152: (3, 8, 36)}
+    if depth not in table:
+        raise ValueError(f"Unsupported ResNet depth {depth}; choose from {sorted(table)}")
+    return table[depth]

@@ -34,11 +34,15 @@ from tensorflowdistributedlearning_tpu_torch.models.vit import (
     MoEMlp,
     MultiHeadSelfAttention,
     PatchEmbed,
+    TransformerBlock,
     ViTClassifier,
+    pipeline_stage_fn,
+    stack_vit_block_params,
 )
 from tensorflowdistributedlearning_tpu_torch.models.xception import (
     SeparableConvSame,
     Xception41,
+    XceptionBackbone,
     XceptionSegmentation,
 )
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -214,8 +218,10 @@ __all__ = [
     "ResNetClassifier",
     "ResNetSegmentation",
     "SplitSeparableConv2D",
+    "TransformerBlock",
     "ViTClassifier",
     "Xception41",
+    "XceptionBackbone",
     "XceptionSegmentation",
     "build_model",
     "empty_model",
@@ -223,7 +229,9 @@ __all__ = [
     "init_vit_weights",
     "init_weights",
     "model_for",
+    "pipeline_stage_fn",
     "set_spatial",
+    "stack_vit_block_params",
     "subsample",
     "upsample",
 ]

@@ -55,6 +55,12 @@ The patch conv and the Dense products stay ``torch.matmul``, as the JAX
 package leaves them to XLA. Under ``int8-compute`` the Dense layers become
 ``ops.quant_kernels.QuantLinear`` at load time.
 
+Tensor parallelism (``parallel/tensor.py``): every leaf whose trailing
+flax dimension the degree divides is this rank's slice; the Dense layers
+and the patch conv take the column form, the LayerNorm leaves, the
+position table and the MoE leaves are gathered where they are used, and
+attention runs on whole heads on every rank (its input is whole).
+
 Sequence parallelism (``models.set_spatial``; the JAX modules'
 ``spatial_axis_name``): the input is this rank's block of the rows; its
 patches are tokens ``[index·T_local, (index + 1)·T_local)`` of the
@@ -88,7 +94,14 @@ LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=...)`` over the last axis (see the module
-    note): ``weight`` is flax's ``scale``."""
+    note): ``weight`` is flax's ``scale``.
+
+    Under ``tp`` (``parallel/tensor.py``) ``weight`` and ``bias`` are this
+    rank's channel slices, gathered whole where the layer runs: the input
+    is whole on every rank of the model group, so each rank computes the
+    whole output, and each keeps its own block of the leaves' gradients."""
+
+    tp = None
 
     def __init__(self, features: int, dtype=None, eps: float = LAYER_NORM_EPS):
         super().__init__()
@@ -98,12 +111,15 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if self.tp is not None:
+            weight, bias = self.tp.gather(weight), self.tp.gather(bias)
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         mean2 = (xf * xf).mean(dim=-1, keepdim=True)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean) * mul + self.bias.float()
+        mul = torch.rsqrt(var + self.eps) * weight.float()
+        y = (xf - mean) * mul + bias.float()
         return y.to(promote_dtype(x, self.dtype))
 
 
@@ -112,7 +128,10 @@ class PatchEmbed(nn.Conv2d):
     input, returning tokens ``[B, (H/p)(W/p), E]`` in row-major patch order.
     ``weight`` is OIHW (flax's HWIO ``kernel`` transposed). Computed as one
     product of the patches with the filter flattened in (kh, kw, c) order,
-    then the bias added."""
+    then the bias added. Under ``tp`` the filter and bias are this rank's
+    output channels (the column form of ``parallel/tensor.py``)."""
+
+    tp = None
 
     def __init__(self, in_channels: int, embed: int, patch: int, dtype=None):
         super().__init__(in_channels, embed, patch, stride=patch)
@@ -120,6 +139,9 @@ class PatchEmbed(nn.Conv2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.column(self._forward, x) if self.tp is not None else self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         p = self.patch
         dt = promote_dtype(x, self.dtype)
@@ -181,7 +203,14 @@ class MoEMlp(nn.Module):
     (``parallel/mesh.expert_group``) runs expert r on rank r under the
     all-to-all dispatch, with the same numerics. In training mode the
     forward records ``aux_weight · load_balance_loss`` (``aux_loss``) and
-    the dispatch fractions (``expert_fraction``) of its routing."""
+    the dispatch fractions (``expert_fraction``) of its routing.
+
+    Under ``tp`` (tensor parallelism) every leaf is this rank's slice of
+    its trailing dimension, the JAX package's rule; the forward gathers
+    the leaves whole and computes as one rank does (the gather's backward
+    keeps this rank's block of each leaf's gradient)."""
+
+    tp = None
 
     def __init__(self, embed: int, mlp_dim: int, n_experts: int, capacity_factor: float = 1.25,
                  aux_weight: float = 0.01, dtype=None):
@@ -207,26 +236,30 @@ class MoEMlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
+        names = ("router", "w_in", "b_in", "w_out", "b_out")
+        leaves = {n: getattr(self, n) for n in names}
+        if self.tp is not None:
+            leaves = {n: self.tp.gather(v) for n, v in leaves.items()}
         tokens = x.reshape(b * t, d)
         # one float32 routing feeds the balance loss and the dispatch, so a
         # near tie goes where the loss saw it go
-        gate_logits = tokens.float() @ self.router.float()
+        gate_logits = tokens.float() @ leaves["router"].float()
         if self.training:
             self.aux_loss = self.aux_weight * expert_lib.load_balance_loss(gate_logits)
             with torch.no_grad():
                 self.expert_fraction = expert_lib.expert_fractions(gate_logits)
         dt = self.dtype or torch.float32
-        names = ("w_in", "b_in", "w_out", "b_out")
         tokens = tokens.to(dt)
         if self.expert_group is None:
-            stacked = {n: getattr(self, n).to(dt) for n in names}
-            out = expert_lib.dense_moe_apply(self.expert_fn, stacked, self.router, tokens,
+            stacked = {n: leaves[n].to(dt) for n in names[1:]}
+            out = expert_lib.dense_moe_apply(self.expert_fn, stacked, leaves["router"], tokens,
                                              capacity_factor=self.capacity_factor, gate_logits=gate_logits)
         else:
             index = dist.get_rank(self.expert_group)
-            mine = {n: getattr(self, n)[index].to(dt) for n in names}
-            out = expert_lib.moe_apply(self.expert_fn, mine, self.router, tokens, capacity_factor=self.capacity_factor,
-                                       group=self.expert_group, gate_logits=gate_logits)
+            mine = {n: leaves[n][index].to(dt) for n in names[1:]}
+            out = expert_lib.moe_apply(self.expert_fn, mine, leaves["router"], tokens,
+                                       capacity_factor=self.capacity_factor, group=self.expert_group,
+                                       gate_logits=gate_logits)
         return out.reshape(b, t, d)
 
 
@@ -284,9 +317,12 @@ def pop_aux_losses(model: nn.Module) -> List[torch.Tensor]:
 class ViTClassifier(nn.Module):
     """``[B, H, W, C] -> [B, num_classes]`` logits (float32, or the int8
     kernel's bf16 under ``int8-compute``). ``spatial``: the input is this
-    rank's block of the rows (see the module's docstring)."""
+    rank's block of the rows (see the module's docstring). ``tp``
+    (tensor parallelism): ``pos_embedding`` is this rank's slice of the
+    embedding width, gathered whole where it is added."""
 
     spatial = False
+    tp = None
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -410,7 +446,10 @@ def embed_tokens(config: ModelConfig, params: "ViTClassifier", x: torch.Tensor) 
     tokens = params.patch_embed(x.to(dtype))
     t_local = tokens.shape[1]
     offset = mesh.sequence_index() * t_local if getattr(params, "spatial", False) else 0
-    return tokens + params.pos_embedding[offset:offset + t_local].to(dtype)[None]
+    pos = params.pos_embedding
+    if getattr(params, "tp", None) is not None:
+        pos = params.tp.gather(pos)
+    return tokens + pos[offset:offset + t_local].to(dtype)[None]
 
 
 def head_logits(config: ModelConfig, params: "ViTClassifier", tokens: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ package's sources."""
 from tensorflowdistributedlearning_tpu_torch.native.loader import (
     decode_image_batch,
     decode_image_blobs,
+    decode_png_batch,
     decoder,
     native_available,
 )
 
-__all__ = ["decode_image_batch", "decode_image_blobs", "decoder", "native_available"]
+__all__ = ["decode_image_batch", "decode_image_blobs", "decode_png_batch", "decoder", "native_available"]

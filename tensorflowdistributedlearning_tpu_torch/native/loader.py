@@ -99,6 +99,11 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _bind_io(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.tfdl_decode_png_batch.restype = ctypes.c_int
+    lib.tfdl_decode_png_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
     lib.tfdl_decode_image_batch.restype = ctypes.c_int
     lib.tfdl_decode_image_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.POINTER(ctypes.c_float),
@@ -276,6 +281,34 @@ def decode_image_blobs(
     )
     if rc != 0:
         raise ValueError(f"native decode failed for {names[rc - 1]} (not a PNG/JPEG the decoder reads)")
+    return out
+
+
+def decode_png_batch(
+    paths: Sequence[str], h: int, w: int, channels: int = 1, n_threads: Optional[int] = None
+) -> np.ndarray:
+    """Decode fixed-size PNGs (the TGS-salt contract: every file already
+    h x w) into [N, h, w, channels] float32 in [0, 1]: the native
+    multithreaded decoder when it built, else ``data/png.py`` (the JAX
+    package's ``decode_png_batch``; its PIL path has no counterpart).
+    ``decode_image_batch`` takes other sizes and JPEGs."""
+    paths = [os.fspath(p) for p in paths]
+    out = np.empty((len(paths), h, w, channels), np.float32)
+    if not paths:
+        return out
+    lib = io_library()
+    if lib is None:
+        for i, p in enumerate(paths):
+            with open(p, "rb") as f:
+                out[i] = _decode_png_py(f.read(), h, w, channels, p)
+        return out
+    c_paths = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+    rc = lib.tfdl_decode_png_batch(
+        c_paths, len(paths), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w, channels,
+        n_threads or min(len(paths), os.cpu_count() or 1),
+    )
+    if rc != 0:
+        raise ValueError(f"native PNG decode failed for {paths[rc - 1]!r}")
     return out
 
 

@@ -86,10 +86,23 @@ def _as_list(tensors: Tensors) -> List[torch.Tensor]:
     return [tensors] if isinstance(tensors, torch.Tensor) else list(tensors)
 
 
+def _gloo() -> bool:
+    return is_initialized() and dist.get_backend() == "gloo"
+
+
 def _reduce_(tensors: Tensors, op, group=None) -> None:
     """All-reduce ``tensors`` in place with ``op`` over ``group``, one
-    collective per (dtype, device) group."""
+    collective per (dtype, device) group. Under gloo a bfloat16 group is
+    reduced in float32 and rounded back once (gloo reduces no bfloat16 on
+    every build)."""
     tensors = _as_list(tensors)
+    if _gloo() and any(t.dtype == torch.bfloat16 for t in tensors):
+        wide = [t.float() if t.dtype == torch.bfloat16 else t for t in tensors]
+        _reduce_(wide, op, group)
+        for t, f in zip(tensors, wide):
+            if f is not t:
+                t.copy_(f)
+        return
     if len(tensors) == 1 and tensors[0].is_contiguous():
         dist.all_reduce(tensors[0], op=op, group=group)
         return
@@ -162,6 +175,14 @@ def all_gather(flat: torch.Tensor, group=None) -> torch.Tensor:
     :func:`collective_device` and the result is copied back."""
     if not _active(group):
         return flat.reshape(1, -1)
+    if flat.dtype == torch.bfloat16 and _gloo():
+        # the bytes travel (a copy carries no arithmetic; gloo moves no
+        # bfloat16 on every build)
+        return _gather_rows(flat.contiguous().view(torch.uint8), group).view(torch.bfloat16)
+    return _gather_rows(flat, group)
+
+
+def _gather_rows(flat: torch.Tensor, group) -> torch.Tensor:
     device = collective_device()
     send = flat if flat.device == device else flat.to(device)
     out = torch.empty((world_size(group), flat.numel()), dtype=flat.dtype, device=device)

@@ -46,6 +46,11 @@ import torch.distributed as dist
 
 from tensorflowdistributedlearning_tpu_torch.parallel import collectives
 
+# the JAX package's mesh axis names
+BATCH_AXIS = "batch"
+MODEL_AXIS = "model"
+SEQUENCE_AXIS = "sequence"
+
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
@@ -105,8 +110,7 @@ def init_mesh(
     expert = bool(expert) and tp > 1
     sequence = bool(sequence) and tp > 1
     world, rank = collectives.world_size(), collectives.rank()
-    if tp < 1 or world % tp != 0:
-        raise ValueError(f"{world} devices not divisible by model_parallel*sequence_parallel={tp}")
+    require_divisible(tp, world)
     current = _LAYOUT
     if current is not None and current.world_group is _world_group() and (
             current.world, current.tp, current.pipeline, current.expert, current.sequence) == (
@@ -127,6 +131,21 @@ def init_mesh(
     return _LAYOUT
 
 
+def require_divisible(degree: int, world: Optional[int] = None) -> None:
+    """Raise, with the JAX package's ``make_mesh`` text, unless the model
+    axis's ``degree`` divides the world (default: the process group's)."""
+    world = collectives.world_size() if world is None else world
+    if degree < 1 or world % degree != 0:
+        raise ValueError(f"{world} devices not divisible by model_parallel*sequence_parallel={degree}")
+
+
+def model_axis_degree(train_config) -> int:
+    """The model axis's size for a ``TrainConfig``: the largest of its
+    tensor, pipeline, expert and sequence degrees."""
+    c = train_config
+    return max(c.model_parallel, c.pipeline_parallel, c.expert_parallel, c.sequence_parallel)
+
+
 def init_mesh_for(train_config) -> Layout:
     """:func:`init_mesh` for a ``TrainConfig``: the model axis is the
     largest of ``model_parallel``, ``pipeline_parallel``,
@@ -135,7 +154,7 @@ def init_mesh_for(train_config) -> Layout:
     under the third and a sequence group under the fourth, as the JAX
     package's trainers build their mesh."""
     pp, ep, sp = train_config.pipeline_parallel, train_config.expert_parallel, train_config.sequence_parallel
-    return init_mesh(max(train_config.model_parallel, pp, ep, sp), pipeline=pp > 1, expert=ep > 1, sequence=sp > 1)
+    return init_mesh(model_axis_degree(train_config), pipeline=pp > 1, expert=ep > 1, sequence=sp > 1)
 
 
 def layout() -> Layout:
@@ -146,6 +165,15 @@ def layout() -> Layout:
     if current is not None and current.world_group is _world_group() and current.world == world:
         return current
     return Layout(world, 1, collectives.rank(), None, None, _world_group())
+
+
+def axis_sizes(lay: Optional[Layout] = None) -> dict:
+    """``{axis name: size}`` of the JAX package's mesh for ``lay`` (default:
+    this process's layout), always all three axes: ``batch`` the
+    data-parallel degree, ``model`` the tensor, pipeline or expert degree,
+    ``sequence`` the sequence degree (the run header's ``mesh``)."""
+    lay = layout() if lay is None else lay
+    return {BATCH_AXIS: lay.dp, MODEL_AXIS: 1 if lay.sequence else lay.tp, SEQUENCE_AXIS: lay.tp if lay.sequence else 1}
 
 
 def data_parallel_degree() -> int:

@@ -24,8 +24,14 @@ collectives. Here the collectives are written out:
   channels of the replicated input, so no communication comes before its
   kernel, and all-gathers its output (:meth:`TensorParallel.channelwise`).
   BatchNorm keeps its statistics and running statistics on its channel
-  slice. A layer whose leaves the rule leaves whole runs replicated. Every
-  activation between layers is whole on every rank of the model group.
+  slice. The ViT's patch conv takes the column form; its LayerNorm's
+  leaves (its statistics span the whole row), its position table and the
+  Switch-MoE layer's leaves are gathered whole where they are used
+  (parameters, not activations: a gather of 196 x 384 floats against one
+  of the tokens), and the layer runs its plain form on the whole input.
+  Attention runs on whole heads on every rank. A layer
+  whose leaves the rule leaves whole runs replicated. Every activation
+  between layers is whole on every rank of the model group.
 - The state (:func:`shard_state_tensor_parallel`): the parameters, the BN
   running statistics, the optimizer slots and the EMA are this rank's
   slices; ``TrainState.state_dict`` gathers them into the replicated
@@ -37,8 +43,9 @@ collectives. Here the collectives are written out:
   ``fit`` runs :func:`make_train_step_gspmd`, whose BatchNorm statistics
   span the global batch (JAX's whole-step ``jit``).
 
-Xception-41 (grouped convs) and the ViT have no tensor-parallel form yet:
-``config.require_supported_training`` refuses them (queue A 12.2), and
+Xception-41 (grouped convs) has no tensor-parallel form: the JAX
+package's own step cannot train it tensor-parallel (queue A 12.2's
+standing finding), ``config.require_supported_training`` refuses it, and
 :func:`shard_model` raises for any layer it has no form for.
 """
 
@@ -207,6 +214,7 @@ def shard_model(model: nn.Module, layout: TensorParallelLayout) -> nn.Module:
         DepthwiseConv2D,
         SplitSeparableConv2D,
     )
+    from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm, MoEMlp, PatchEmbed, ViTClassifier
 
     ctx = TensorParallel(layout.degree, layout.index, layout.group)
     prefix = {id(m): n for n, m in model.named_modules()}
@@ -216,8 +224,8 @@ def shard_model(model: nn.Module, layout: TensorParallelLayout) -> nn.Module:
         p = prefix[id(module)]
         return [f"{p}.{n}" if p else n for n, _, _, _ in _named_leaves(module)]
 
-    def unit(module: nn.Module, members: Sequence[nn.Module]) -> None:
-        names = [n for m in members for n in leaves(m)]
+    def unit(module: nn.Module, members: Sequence[nn.Module], names: Optional[List[str]] = None) -> None:
+        names = names if names is not None else [n for m in members for n in leaves(m)]
         sharded = {layout.dims[n] is not None for n in names}
         if len(sharded) != 1:
             raise ValueError(f"{prefix[id(module)]}: the leaves of one layer disagree on the tensor-parallel rule")
@@ -231,14 +239,21 @@ def shard_model(model: nn.Module, layout: TensorParallelLayout) -> nn.Module:
         elif isinstance(module, SplitSeparableConv2D):
             visit(module.depthwise)
             unit(module, [module.pointwise, module.pointwise_bn])
-        elif isinstance(module, (Dense, DepthwiseConv2D, BatchNorm)) or (
+        elif isinstance(module, (Dense, DepthwiseConv2D, BatchNorm, LayerNorm, PatchEmbed, MoEMlp)) or (
             isinstance(module, Conv2dSame) and module.groups == 1
         ):
             unit(module, [module])
+        elif isinstance(module, ViTClassifier):
+            # its own leaf, the position table, is gathered where it is added
+            p = prefix[id(module)]
+            unit(module, [], [f"{p}.pos_embedding" if p else "pos_embedding"])
+            for child in module.children():
+                visit(child)
         elif _owns_leaves(module):
             raise NotImplementedError(
                 f"{prefix[id(module)] or type(module).__name__} ({type(module).__name__}) has no tensor-parallel "
-                "form yet (queue A 12.2)"
+                "form (queue A 12.2: the grouped convs of Xception-41, which the JAX package's step cannot train "
+                "tensor-parallel either)"
             )
         else:
             for child in module.children():
@@ -373,7 +388,8 @@ def make_train_step_gspmd(task, *, weight_decay: float = 0.0, seed: int = 0):
     whole-step ``jit`` computes them over the global tensor), the gradient
     averaged over the data group, the update (ZeRO-1's when the state has
     a layout) and the metric sums. JAX's step applies the model with no
-    ``rngs``; only the ResNet classifiers train here, which draw nothing."""
+    ``rngs``; the ResNet classifiers and the ViT train here, which draw
+    nothing."""
     from tensorflowdistributedlearning_tpu_torch.train.step import make_train_step
 
     return make_train_step(task, data_parallel=True, weight_decay=weight_decay, seed=seed, global_batch_norm=True)

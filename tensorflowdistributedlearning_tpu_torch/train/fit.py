@@ -78,9 +78,11 @@ checkpoint, memory, ``resumed`` and ``data_redeal`` events, traces, health
 alerts, cadence profiles), TensorBoard scalars in ``train/`` and ``eval/``
 (rank 0), dispatch-ahead with deferred window fetches
 (``train/async_loop.py``), and a health abort that writes the final
-checkpoint before it re-raises. Left out, each a ROADMAP item: fault
-injection and preemption (A 14), sequence parallelism, the planner and
-tensor parallelism of the ViT and Xception-41 (A 12, refused by
+checkpoint before it re-raises. The run header carries the planner's
+``plan`` (``parallel/planner.py``): the one ``fit_preset`` resolved, else
+the explicit layout's validation with telemetry on. Left out: fault
+injection and preemption (A 14); tensor parallelism of the Xception-41
+classifier, which JAX's own step cannot train (refused by
 ``require_supported_training``).
 """
 
@@ -99,6 +101,7 @@ import torch
 from tensorflowdistributedlearning_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
+    require_supported_layout,
     require_supported_training,
     validate_training_data_format,
 )
@@ -125,7 +128,9 @@ from tensorflowdistributedlearning_tpu_torch.train.trainer import (
     augment_seed,
     close_telemetry,
     open_telemetry,
+    require_resolved_parallelism,
     run_info,
+    run_plan,
     setup_step_telemetry,
 )
 from tensorflowdistributedlearning_tpu_torch.utils.devices import DeviceLike, resolve_device
@@ -159,6 +164,7 @@ class ClassifierTrainer:
         model_config: ModelConfig,
         train_config: Optional[TrainConfig] = None,
         device: DeviceLike = None,
+        plan: Optional[Dict] = None,
     ):
         if model_config.num_classes is None:
             raise ValueError(
@@ -169,9 +175,13 @@ class ClassifierTrainer:
         self.data_dir = data_dir
         self.model_config = model_config
         self.train_config = train_config or TrainConfig()
+        require_resolved_parallelism(self.train_config, plan, "ClassifierTrainer",
+                                     "fit_preset / the fit CLI do this automatically")
+        self._plan = plan
         require_supported_training(model_config, self.train_config)
         multihost.initialize(backend=multihost.backend_for(device))
         multihost.require_world_size(self.train_config.n_devices)
+        require_supported_layout(model_config, self.train_config, collectives.world_size())
         mesh.init_mesh_for(self.train_config)
         self.data_parallel = collectives.is_initialized()
         self.tensor_parallel = self.train_config.model_parallel > 1
@@ -377,8 +387,10 @@ class ClassifierTrainer:
         # a layout fault of the eval split shows now, not at the first eval
         self._open_records("val")
         eval_every = eval_every_steps or tcfg.eval_every_steps or tcfg.checkpoint_every_steps
+        plan = run_plan(self._plan, self.model_config, tcfg, batch_size, self.device)
         self._telemetry = open_telemetry(
-            self.model_dir, tcfg, run_info("classification", steps, batch_size, self.model_config, tcfg), self.device
+            self.model_dir, tcfg, run_info("classification", steps, batch_size, self.model_config, tcfg, plan),
+            self.device,
         )
         try:
             return self._fit_instrumented(batch_size, steps, eval_every)
@@ -686,14 +698,24 @@ def fit_preset(
     ``augmentation``, ``ema_decay``, ``grad_clip_norm``,
     ``grad_accum_steps``, ``model_parallel``, ``pipeline_parallel``,
     ``pipeline_microbatches``, ``expert_parallel``, ``eval_holdout_fraction``,
-    ``data_service_workers``, ...); None keeps
-    the preset's value, and a knob the port does not run yet raises
-    ``NotImplementedError`` from ``require_supported_training``. Swapping
-    the optimizer needs an explicit ``lr`` (preset learning rates are tuned
-    for their optimizer). ``export_serving`` (a serving spec) exports the
-    best state after training into ``export_dir`` (default under
-    ``model_dir``)."""
+    ``data_service_workers``, ``parallelism``, ``hbm_budget_gb``, ...);
+    None keeps the preset's value, and a knob the port does not run yet
+    raises ``NotImplementedError`` from ``require_supported_training``.
+    Swapping the optimizer needs an explicit ``lr`` (preset learning rates
+    are tuned for their optimizer). ``export_serving`` (a serving spec)
+    exports the best state after training into ``export_dir`` (default
+    under ``model_dir``).
+
+    Every layout goes through the parallelism planner before the trainer
+    exists, as in the JAX package: ``parallelism='auto'`` derives it
+    (``model_parallel``, ``pipeline_parallel``, ``sequence_parallel`` and
+    ``expert_parallel`` above 1, and ``weight_update_sharding`` when given,
+    stay pinned; a prior run's ledgered rooflines in ``model_dir`` price
+    the candidates), an explicit one is validated, so an indivisible
+    layout fails here with its named constraint; the plan rides the run
+    header."""
     from tensorflowdistributedlearning_tpu_torch.configs import get_preset
+    from tensorflowdistributedlearning_tpu_torch.parallel import planner as planner_lib
 
     preset = get_preset(preset_name)
     if preset.model.num_classes is None:
@@ -710,9 +732,34 @@ def fit_preset(
     given = {k: v for k, v in overrides.items() if v is not None}
     if given:
         train_cfg = dataclasses.replace(train_cfg, **given)
-    trainer = ClassifierTrainer(model_dir, data_dir, preset.model, train_cfg, device=device)
-    result = trainer.fit(batch_size=batch_size or preset.global_batch, steps=steps,
-                         eval_every_steps=eval_every_steps)
+    # the topology must see every rank, as the trainer's mesh will; the
+    # degrees asked for must lay out over them (the mesh's text)
+    multihost.initialize(backend=multihost.backend_for(device))
+    multihost.require_world_size(train_cfg.n_devices)
+    global_batch = batch_size or preset.global_batch
+    if train_cfg.parallelism == "auto":
+        # pin only what the caller asked for; the preset's own layout is
+        # what auto derives again
+        pinned = {k: given[k] for k in ("model_parallel", "pipeline_parallel", "sequence_parallel",
+                                        "expert_parallel") if given.get(k, 1) != 1}
+        if "weight_update_sharding" in given:
+            pinned["weight_update_sharding"] = given["weight_update_sharding"]
+        mesh.require_divisible(max([1] + [v for k, v in pinned.items() if k != "weight_update_sharding"]))
+        try:
+            measured = planner_lib.measured_costs_from_workdir(model_dir)
+        except Exception:  # noqa: BLE001 — a torn ledger must not block
+            measured = None
+        plan = planner_lib.plan(preset.model, train_cfg, global_batch, pinned=pinned, source="auto",
+                                measured_costs=measured, device=device)
+        train_cfg = dataclasses.replace(train_cfg, **plan.overrides())
+    else:
+        # the port's refusals and the validators' JAX texts first, then the
+        # mesh's, then the planner's named constraints
+        require_supported_training(preset.model, train_cfg, collectives.world_size())
+        mesh.require_divisible(mesh.model_axis_degree(train_cfg))
+        plan = planner_lib.validate_config(preset.model, train_cfg, global_batch, device=device)
+    trainer = ClassifierTrainer(model_dir, data_dir, preset.model, train_cfg, device=device, plan=plan.header())
+    result = trainer.fit(batch_size=global_batch, steps=steps, eval_every_steps=eval_every_steps)
     if export_serving is not None:
         result.serving_artifact = os.path.dirname(trainer.export_serving(export_dir, serving_dtype=export_serving))
     return result

@@ -168,16 +168,49 @@ def setup_step_telemetry(tel, trainer, state: TrainState, batch_size: int, every
 
 
 def run_info(task: str, steps: int, batch_size: int, model_config: ModelConfig, train_config: TrainConfig,
-             **extra) -> Dict:
-    """The run header's JAX keys (no ``plan``: the planner is queue A 12);
-    the mesh names the model axis under tensor parallelism."""
-    lay = mesh.layout()
+             plan: Optional[Dict] = None, **extra) -> Dict:
+    """The run header's JAX keys: the mesh's three axes as the JAX
+    package's trainers write them (``mesh.axis_sizes``), and ``plan``, the
+    parallelism planner's header (``parallel/planner.py``), when there is
+    one."""
     return {
         "task": task, "steps": steps, "global_batch": batch_size, **extra,
-        "mesh": {"data": lay.dp, **({"model": lay.tp} if lay.tp > 1 else {})},
+        "mesh": mesh.axis_sizes(),
         "model_config": dataclasses.asdict(model_config),
         "train_config": dataclasses.asdict(train_config),
+        **({"plan": plan} if plan else {}),
     }
+
+
+def run_plan(plan: Optional[Dict], model_config: ModelConfig, train_config: TrainConfig, batch_size: int,
+             device=None) -> Optional[Dict]:
+    """The run header's ``plan``: ``plan`` when the caller resolved one,
+    else, with telemetry on, the planner's validation of the explicit
+    layout (best-effort, as the JAX package's trainers: the mesh already
+    checked divisibility, so a planner failure costs the header its plan,
+    not the run). ``device`` is the trainer's, whose topology is read."""
+    if plan is not None or not train_config.telemetry:
+        return plan
+    from tensorflowdistributedlearning_tpu_torch.parallel import planner as planner_lib
+
+    try:
+        return planner_lib.validate_config(model_config, train_config, batch_size, device=device).header()
+    except Exception as e:  # noqa: BLE001 — the plan is telemetry here
+        logger.warning("parallelism plan unavailable: %s", e)
+        return None
+
+
+def require_resolved_parallelism(train_config: TrainConfig, plan: Optional[Dict], trainer: str,
+                                 resolver: str) -> None:
+    """The JAX trainers' refusal of an unresolved ``parallelism='auto'``:
+    the mesh is built from the explicit degrees, so 'auto' must be planned
+    (and its plan handed in) before the trainer exists."""
+    if train_config.parallelism == "auto" and plan is None:
+        raise ValueError(
+            f"parallelism='auto' must be resolved before constructing {trainer}: plan the layout first "
+            f"({resolver}; programmatically, call parallel.planner.plan(model_config, train_config, global_batch), "
+            "apply plan.overrides() onto the config, and pass plan=plan.header())"
+        )
 
 
 def open_telemetry(model_dir: str, train_config: TrainConfig, info: Dict, device) -> obs_lib.Telemetry:
@@ -213,7 +246,11 @@ class Trainer:
     process group the launcher set up (one process without one), any other
     value must equal it. ``TrainConfig.model_parallel`` (or
     ``sequence_parallel``) lays the world out as ``(world / tp, tp)``;
-    ``pipeline_parallel`` > 1 raises (the pipeline is ``fit``'s alone)."""
+    ``pipeline_parallel`` > 1 raises (the pipeline is ``fit``'s alone).
+    ``parallelism='auto'`` must come resolved, with the planner's header
+    as ``plan`` (the ``train`` command does this), as in the JAX
+    package; the run header carries ``plan``, the explicit layout's
+    validation when none was given and telemetry is on."""
 
     def __init__(
         self,
@@ -228,6 +265,7 @@ class Trainer:
         train_config: Optional[TrainConfig] = None,
         augment_config: Optional[augment_lib.AugmentConfig] = None,
         device: DeviceLike = None,
+        plan: Optional[Dict] = None,
         **kwargs,
     ):
         unknown = set(kwargs) - _MODEL_FIELDS
@@ -241,6 +279,8 @@ class Trainer:
         )
         # the reference trainer passed crop_probability=0
         self.augment_config = augment_config or augment_lib.AugmentConfig(crop_probability=0.0)
+        require_resolved_parallelism(self.train_config, plan, "Trainer", "the train CLI does this automatically")
+        self._plan = plan
         if self.train_config.pipeline_parallel > 1:
             # JAX's Trainer ignores the field; a pipeline is fit's alone
             raise NotImplementedError(
@@ -316,10 +356,12 @@ class Trainer:
             )
         manifests = multihost.broadcast_object(manifests)
         tcfg = self.train_config
+        plan = run_plan(self._plan, self.model_config, tcfg, batch_size, self.device)
         # one ledger for the K-fold run; events carry their fold
         self._telemetry = open_telemetry(
             self.model_dir, tcfg,
-            run_info("segmentation", steps, batch_size, self.model_config, tcfg, n_folds=tcfg.n_folds), self.device,
+            run_info("segmentation", steps, batch_size, self.model_config, tcfg, plan, n_folds=tcfg.n_folds),
+            self.device,
         )
         try:
             results = []

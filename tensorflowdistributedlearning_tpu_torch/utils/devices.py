@@ -8,7 +8,7 @@ without a word. Under a process group ``None`` is the rank's own GPU.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -35,3 +35,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
 
+
+
+def get_available_devices(platform: Optional[str] = None) -> List[str]:
+    """Device name strings, ``['CUDA:0', ...]`` for the cards this process
+    sees and ``['CPU:0']`` for the host, the JAX package's
+    ``get_available_devices`` form (``{PLATFORM}:{id}``). ``platform``
+    (``'cuda'``/``'gpu'`` or ``'cpu'``) filters; without it the cards come
+    first and the CPU only when there is no card, as JAX lists its default
+    backend's devices."""
+    cuda = [f"CUDA:{i}" for i in range(torch.cuda.device_count())] if torch.cuda.is_available() else []
+    if platform is None:
+        return cuda or ["CPU:0"]
+    platform = platform.lower()
+    if platform in ("cuda", "gpu"):
+        return cuda
+    if platform == "cpu":
+        return ["CPU:0"]
+    raise ValueError(f"unknown platform {platform!r}: 'cuda' (or 'gpu') or 'cpu'")

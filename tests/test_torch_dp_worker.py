@@ -50,6 +50,16 @@ that checkpoint restored into this rank's slices; ``Trainer.train`` over
 under ZeRO-1, 2 + 2 steps resumed and 4 uninterrupted
 (``tests/test_torch_tensor_parallel.py``).
 
+``vtp``: tensor parallelism of the ViT at ``model_parallel`` 2 (``(1, 2)``
+at W = 2, ``(2, 2)`` at W = 4): a LayerNorm alone from ``DIR/vtp_init.pt``
+(its output, gradients, and the output local statistics would give), the
+sliced ViT's and MoE ViT's forward on the whole ``DIR/vtp_batch.npz`` and
+``fit``'s step on this rank's rows (one plain-SGD step at lr 1, the ViT
+also under ZeRO-1 and in bf16 compute; the MoE ViT's only at W = 2, and at
+W = 4 the refusals of ``fit_preset``, given and planned), then
+``fit_preset`` of the tiny ViT with ``parallelism='auto'`` at
+``model_parallel`` 2 (``tests/test_torch_vit_tensor_parallel.py``).
+
 ``pp``: pipeline parallelism (``parallel/pipeline.py``,
 ``train/pipeline_step.py``): the runner over all W ranks as one stage
 group on the toy stages of ``DIR/pp_toy.npz`` (forward, gradients summed
@@ -990,6 +1000,103 @@ def _trainer_mode(rank: int, world: int, directory: str):
     return out
 
 
+# the JAX package's tiny ViT (tests/test_vit.py) and its Switch-MoE twin
+VTP_VIT = dict(backbone="vit", num_classes=4, input_shape=(16, 16), input_channels=3, patch_size=4, embed_dim=32,
+               vit_layers=2, num_heads=4, output_stride=None)
+VTP_MOE = dict(VTP_VIT, moe_experts=2)
+VTP_FIT = dict(optimizer="adam", lr=1e-3, ema_decay=0.9, grad_clip_norm=1.0, augmentation="none",
+               checkpoint_every_steps=2, seed=7)
+VTP_PRESET = "vit_tiny_tensor_parallel"
+
+
+def vtp_preset():
+    """A tiny ViT preset for ``fit_preset`` (put into ``configs.PRESETS``)."""
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig, TrainConfig
+
+    return configs.Preset(model=ModelConfig(**VTP_VIT), train=TrainConfig(**VTP_FIT), global_batch=8,
+                          description="the JAX package's tiny ViT")
+
+
+def _moe_refusals(directory: str, cfg):
+    """The texts ``fit_preset`` raises for a tiny MoE ViT preset at
+    ``model_parallel`` TP beside data parallelism: given, and planned."""
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.train.fit import fit_preset
+
+    configs.PRESETS[VTP_PRESET + "_moe"] = dataclasses.replace(vtp_preset(), model=cfg)
+    out = {}
+    for how in ("explicit", "auto"):
+        try:
+            fit_preset(VTP_PRESET + "_moe", os.path.join(directory, f"vtp-moe-{how}"), steps=1, device="cpu",
+                       parallelism=how, model_parallel=TP)
+            out[how] = None
+        except NotImplementedError as e:
+            out[how] = str(e)
+    return out
+
+
+def _vtp_mode(rank: int, world: int, directory: str):
+    import dataclasses
+
+    from tensorflowdistributedlearning_tpu_torch import configs
+    from tensorflowdistributedlearning_tpu_torch.config import ModelConfig
+    from tensorflowdistributedlearning_tpu_torch.models.vit import LayerNorm
+    from tensorflowdistributedlearning_tpu_torch.parallel import collectives, mesh, tensor
+    from tensorflowdistributedlearning_tpu_torch.train import step as step_lib
+    from tensorflowdistributedlearning_tpu_torch.train.fit import fit_preset
+    from tensorflowdistributedlearning_tpu_torch.train.state import replicate
+
+    lay = mesh.init_mesh(TP)
+    init = torch.load(os.path.join(directory, "vtp_init.pt"), weights_only=False)
+    data = np.load(os.path.join(directory, "vtp_batch.npz"))
+    out = {"layout": (lay.dp, lay.tp, lay.data_index, lay.model_index)}
+
+    # LayerNorm alone at tp 2: its output and gradients, and the output of
+    # the mistake it must not make (statistics of the local channels, each
+    # rank normalising its own channels by them)
+    ln = LayerNorm(data["ln_x"].shape[-1])
+    ln.load_state_dict(init["ln"])
+    layout = tensor.layout_for(ln, TP, lay.model_index, lay.model_group)
+    tensor.shard_model(ln, layout)
+    x = torch.from_numpy(data["ln_x"]).requires_grad_()
+    y = ln(x)
+    (y * torch.from_numpy(data["ln_cotangent"])).sum().backward()
+    grads = layout.gather([("weight", ln.weight.grad), ("bias", ln.bias.grad)])
+    k = ln.weight.shape[0]
+    mine = x.detach().narrow(-1, lay.model_index * k, k)
+    local = torch.nn.functional.layer_norm(mine, (k,), ln.weight.detach(), ln.bias.detach(), ln.eps)
+    out["ln"] = {"y": y.detach(), "dx": x.grad, "dweight": grads[0], "dbias": grads[1],
+                 "local_statistics": collectives.gather_channels(local, lay.model_group)}
+
+    rows = mesh.shard_rows(len(data["labels"]))
+    batch = {"images": torch.from_numpy(data["images"][rows]), "labels": torch.from_numpy(data["labels"][rows])}
+    for name, which, kw in (("vit", "vit", {}), ("vit_zero", "vit", {"weight_update_sharding": True}),
+                            ("moe", "moe", {}), ("vit_bf16", "vit", {})):
+        cfg = ModelConfig(**(VTP_MOE if which == "moe" else VTP_VIT))
+        if name == "vit_bf16":
+            cfg = dataclasses.replace(cfg, dtype="bfloat16")
+        state = replicate(_state(cfg, dict(TP_SGD, model_parallel=TP, **kw), init[which]))
+        with torch.no_grad():
+            logits = state.model.eval()(torch.from_numpy(data["images"]))
+        if which == "moe" and lay.dp > 1:
+            out[name] = {"logits": logits, "refused": _moe_refusals(directory, cfg)}
+            continue
+        state, metrics = tensor.make_train_step_gspmd(step_lib.ClassificationTask())(state, batch)
+        out[name] = {"logits": logits, "loss": step_lib.compute_metrics(metrics)["loss"],
+                     "grads": _whole_grads(state), "state": state.model_state_dict(),
+                     "slices": {n: tuple(t.shape) for n, t in state.model.state_dict().items()}}
+
+    # fit_preset at model_parallel 2 through the planner
+    configs.PRESETS[VTP_PRESET] = vtp_preset()
+    fit = fit_preset(VTP_PRESET, os.path.join(directory, "vtp-fit"), steps=2, device="cpu", parallelism="auto",
+                     model_parallel=TP, n_devices=world)
+    out["fit"] = {"metrics": fit.final_metrics, "n_params": fit.n_params}
+    return out
+
+
 def main(argv) -> int:
     mode, rank, world, store, directory = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
     torch.set_num_threads(1)
@@ -998,7 +1105,7 @@ def main(argv) -> int:
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
     out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
            "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode, "moe": _moe_mode, "ep": _ep_mode,
-           "spops": _spops_mode, "ring": _ring_mode, "sp": _sp_mode}[mode](
+           "spops": _spops_mode, "ring": _ring_mode, "sp": _sp_mode, "vtp": _vtp_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

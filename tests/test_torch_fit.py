@@ -327,9 +327,9 @@ def test_fit_preset_applies_overrides_and_keeps_the_rest(tmp_path, tiny_preset, 
     seen = {}
     real = tfit.ClassifierTrainer.__init__
 
-    def spy(self, model_dir, data_dir, model_config, train_config=None, device=None):
+    def spy(self, model_dir, data_dir, model_config, train_config=None, device=None, plan=None):
         seen["tcfg"] = train_config
-        real(self, model_dir, data_dir, model_config, train_config, device)
+        real(self, model_dir, data_dir, model_config, train_config, device, plan)
 
     monkeypatch.setattr(tfit.ClassifierTrainer, "__init__", spy)
     tfit.fit_preset(tiny_preset, str(tmp_path), steps=1, batch_size=4, device="cpu", lr=2e-3, ema_decay=None)

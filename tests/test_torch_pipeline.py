@@ -480,15 +480,14 @@ def test_jax_value_error_texts():
         with pytest.raises(ValueError) as got:
             TrainConfig(**kw)
         assert str(got.value) == str(want.value)
-    # require_supported_training gives validate's text; auto stays refused
-    # and the sequence axis (queue A 12.4) is taken; the expert axis (queue
+    # require_supported_training gives validate's text; auto (queue A 12.5)
+    # and the sequence axis (queue A 12.4) are taken; the expert axis (queue
     # A 12.3) is taken by the MoE ViT only, with JAX's texts for a dense ViT
     # and for the pipeline beside it
     with pytest.raises(ValueError, match="does not support backbone='resnet'"):
         require_supported_training(ModelConfig(**resnet), TrainConfig(pipeline_parallel=2))
     require_supported_training(ModelConfig(**vit), TrainConfig(pipeline_parallel=2, pipeline_microbatches=4))
-    with pytest.raises(NotImplementedError, match="queue A 12"):
-        require_supported_training(ModelConfig(**vit), TrainConfig(parallelism="auto"))
+    require_supported_training(ModelConfig(**vit), TrainConfig(parallelism="auto"))
     require_supported_training(ModelConfig(**vit), TrainConfig(sequence_parallel=2))
     with pytest.raises(ValueError, match=r"expert_parallel=2 requires moe_experts=2 .*got moe_experts=0"):
         require_supported_training(ModelConfig(**vit), TrainConfig(expert_parallel=2))

@@ -32,7 +32,8 @@ on the CPU.
   ``tree_bytes_per_device`` of its placed state.
 - The refusals: JAX's ``ValueError`` texts for tensor parallelism with the
   sequence axis, the pipeline and accumulation, and for the segmenter's
-  pipeline; the axes that stay refused name queue A 12.
+  pipeline; Xception-41's tensor parallelism, which stays refused, names
+  queue A 12.2.
 """
 
 from __future__ import annotations
@@ -518,7 +519,7 @@ def test_trainer_trains_tensor_parallel(runs, world):
     d = os.path.join(runs[world]["dir"], "tp-trainer")
     with open(os.path.join(d, "telemetry.jsonl")) as f:
         header = json.loads(f.readline())
-    assert header["mesh"] == {"data": world // TP, "model": TP}
+    assert header["mesh"] == {"batch": world // TP, "model": TP, "sequence": 1}
     state = _ckpt(os.path.join(d, "fold0"), 2)
     assert set(state["model"]) == set(build_model(ModelConfig(**dict(worker.TINY, input_shape=(32, 32))),
                                                   "cpu").state_dict())
@@ -562,8 +563,8 @@ def test_jax_value_errors_and_the_axes_that_stay_refused():
     seg = ModelConfig(**worker.TINY)
     require_supported_training(seg, TrainConfig(model_parallel=2))
     require_supported_training(ModelConfig(**worker.TP_CLS), TrainConfig(model_parallel=2, weight_update_sharding=True))
-    with pytest.raises(NotImplementedError, match="queue A 12"):
-        require_supported_training(seg, TrainConfig(parallelism="auto"))
+    # the planner (queue A 12.5) is taken: the trainers take 'auto' resolved
+    require_supported_training(seg, TrainConfig(parallelism="auto"))
     # the sequence axis (queue A 12.4) is taken: 33 x 33 gets JAX's
     # validate_spatial_config text at degree 2
     with pytest.raises(ValueError, match=r"divisible by stride\*sequence_parallel = 8\*2 = 16, got 33"):
@@ -590,9 +591,11 @@ def test_jax_value_errors_and_the_axes_that_stay_refused():
         require_supported_training(seg, TrainConfig(pipeline_parallel=2, pipeline_microbatches=2))
     assert str(got.value) == str(want.value)
     assert "does not support backbone='resnet'" in str(got.value)
-    for model in (worker.zero_fit_model(), ModelConfig(**worker.VIT_TINY)):
-        with pytest.raises(NotImplementedError, match="queue A 12.2"):
-            require_supported_training(model, TrainConfig(model_parallel=2))
+    # the ViT's tensor parallelism is taken; Xception-41's stays refused
+    # (JAX's own step cannot train it), naming queue A 12.2
+    require_supported_training(ModelConfig(**worker.VIT_TINY), TrainConfig(model_parallel=2))
+    with pytest.raises(NotImplementedError, match="queue A 12.2"):
+        require_supported_training(worker.zero_fit_model(), TrainConfig(model_parallel=2))
     # one process cannot lay out two model positions: JAX's make_mesh text
     with pytest.raises(ValueError, match="not divisible by model_parallel"):
         create_train_state(seg, TrainConfig(model_parallel=2), "cpu", generator=torch.Generator().manual_seed(0))
@@ -639,8 +642,8 @@ def test_place_batch_gspmd_takes_this_data_positions_rows():
 def test_model_parallel_flag_reaches_the_trainers(command, tmp_path):
     """``--model-parallel 2`` on the ``train`` and ``fit`` commands reaches
     ``TrainConfig.model_parallel``: one process cannot lay out two model
-    positions, and says so with JAX's ``make_mesh`` text; ``vit`` stays
-    refused, naming queue A 12.2."""
+    positions, and says so with JAX's ``make_mesh`` text, the ViT preset
+    too (its tensor parallelism is ported)."""
     from tensorflowdistributedlearning_tpu_torch.__main__ import main as cli_main
 
     if command == "train":
@@ -652,6 +655,6 @@ def test_model_parallel_flag_reaches_the_trainers(command, tmp_path):
     with pytest.raises(ValueError, match="1 devices not divisible by model_parallel"):
         cli_main([*args, "--model-parallel", "2", "--device", "cpu"])
     if command == "fit":
-        with pytest.raises(NotImplementedError, match="queue A 12.2"):
+        with pytest.raises(ValueError, match="1 devices not divisible by model_parallel"):
             cli_main(["fit", "--preset", "vit_s16_imagenet", "--model-dir", str(tmp_path / "v"), "--model-parallel",
                       "2", "--device", "cpu"])

@@ -7,9 +7,10 @@ on the same seeded data, from the same flax weights, with augmentation off
 (the packages cannot draw the same augmentations), goes through JAX's and
 the port's ``Trainer.train`` (2 folds x 4 steps) and ``fit`` (4 steps):
 windows every 2 steps, checkpoints every 2, every span traced,
-``TFDL_PEAK_FLOPS`` set in both. JAX's planner is made to fail, so its
-header has no ``plan``, as the port's has none (queue A 12). Checked:
+``TFDL_PEAK_FLOPS`` set in both. Checked:
 
+- both run headers carry JAX's three-key ``mesh`` and the same planner
+  ``plan`` (the explicit layout validated on one CPU device);
 - the ledgers hold the same event kinds with the same field names per kind
   (``jax_version`` against ``torch_version`` in the fingerprint aside);
 - the windows' scalars are each window's last step's (the TensorBoard
@@ -97,7 +98,6 @@ def runs(tmp_path_factory):
     data, _, ids = make_salt_dataset(root / "salt", n_images=16, shape=(32, 32))
     mp = pytest.MonkeyPatch()
     mp.setenv("TFDL_PEAK_FLOPS", str(PEAK))
-    mp.setattr(jplanner, "validate_config", _no_plan)
     mp.setattr(jvit, "_fused_platform_ok", lambda: True)
     steps = []
     real_step = tstep.make_train_step
@@ -154,6 +154,15 @@ def test_ledgers_have_jaxs_event_kinds_and_fields(runs, run):
     assert [e["event"] for e in tev if e["event"] not in ("trace", "compile", "cost", "memory")] == [
         e["event"] for e in jev if e["event"] not in ("trace", "compile", "cost", "memory")]
     assert tev[-1]["event"] == "run_end" and not tev[-1].get("interrupted")
+
+
+@pytest.mark.parametrize("run", ["train", "fit"])
+def test_run_headers_carry_jaxs_mesh_and_plan(runs, run):
+    jdir, tdir = runs["dirs"][run]
+    jheader, theader = jobs.read_ledger(jdir)[0], read_ledger(tdir)[0]
+    assert theader["mesh"] == jheader["mesh"] == {"batch": 1, "model": 1, "sequence": 1}
+    assert theader["plan"] == jheader["plan"]
+    assert theader["plan"]["source"] == "explicit" and theader["plan"]["feasible"]
 
 
 def test_window_scalars_are_the_last_steps_and_match_jax(runs):
