@@ -415,6 +415,17 @@ TOL_DEPTHWISE = 1e-5
 TOL_BN = 1e-6
 TOL_PROBS = 1e-5
 PKG = "tensorflowdistributedlearning_tpu_torch"
+# (int8 convs, int8 Dense layers) of each full-depth model served as
+# int8-compute: JAX's interceptor count (tests/test_torch_int8_models.py
+# counts it with jax.eval_shape and holds the port's rule to it)
+INT8_ARM_BUCKETS = (1, BUCKET)
+INT8_ARM_REPS = 3  # engine forwards a spec a turn, two turns each
+INT8_LAYERS = {
+    "resnet50_classic_imagenet": (51, 1),
+    "tgs_salt_bf16": (52, 0),
+    "xception41_imagenet": (40, 1),
+    "xception41_segmenter": (50, 0),
+}
 REPLACES = {
     "depthwise_conv2d": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:138",
     "depthwise_conv2d_dx": "tensorflowdistributedlearning_tpu/ops/pallas_kernels.py:170",
@@ -477,10 +488,10 @@ ARM_LAUNCHES = {
 }
 # the kernels no main path calls, held directly against their plain
 # versions: fused_bias_act (the JAX package has no caller of it),
-# int8_matmul's conv route (the path's K are all multiples of 16),
-# int8_conv2d's (every path conv has Cin a multiple of 32) and dw's tile
-# route (every path dw has C % 4 == 0, aligned bases and a band that fits)
-OFF_PATH = ("fused_bias_act", "int8_matmul_conv", "int8_conv2d_conv", "depthwise_conv2d_dw_tile")
+# int8_matmul's conv route (the path's K are all multiples of 16) and dw's
+# tile route (every path dw has C % 4 == 0, aligned bases and a band that
+# fits); int8_conv2d's conv route is on the Xception int8-compute paths
+OFF_PATH = ("fused_bias_act", "int8_matmul_conv", "depthwise_conv2d_dw_tile")
 _NO_BF16 = {"depthwise_conv2d_bf16": 0, "depthwise_conv2d_dx_bf16": 0, "depthwise_conv2d_dw_bf16": 0,
             "fused_bn_act_bf16_act": 0}
 _NO_QUANT = {"fused_bn_act_bf16": 0, "fused_bias_act": 0, "int8_conv2d": 0, "int8_conv2d_gemm": 0,
@@ -1556,6 +1567,7 @@ def serve_obs_phase(torch, model, cfg, card: str, device: str = "cuda"):
 
         # the ledger
         events = read_ledger(workdir)
+        keep_ledgers(workdir, "serve-obs")
         kinds = [e["event"] for e in events]
         check(kinds[0] == "run_header" and kinds[-1] == "run_end" and "serve_start" in kinds,
               f"serve-obs ledger kinds {sorted(set(kinds))}")
@@ -2195,6 +2207,249 @@ def int8_phase(torch, model, cfg, card: str, timer=None, device: str = "cuda"):
         rows["fused_bn_act_bf16"] = bn_unfolded_checks(torch, calls["bn"], timer, card)
         rows["fused_bias_act"] = fused_bias_act_checks(torch, timer, card)
     return counts, rows
+
+
+# where the phases leave copies of their run ledgers and profiler captures
+# for the readers phase (set by main; None in a rehearsal of one phase)
+KEEP_LEDGERS = None
+
+
+def keep_ledgers(workdir: str, name: str) -> None:
+    """Copy ``workdir``'s run ledgers (``telemetry.jsonl``,
+    ``telemetry-{i}.jsonl``) and its ``profile/`` captures under
+    ``KEEP_LEDGERS/name``, before the phase's temporary directory goes."""
+    if KEEP_LEDGERS is None:
+        return
+    dst = os.path.join(KEEP_LEDGERS, name)
+    os.makedirs(dst, exist_ok=True)
+    for f in os.listdir(workdir):
+        if f.startswith("telemetry") and f.endswith(".jsonl"):
+            shutil.copy2(os.path.join(workdir, f), dst)
+    if os.path.isdir(os.path.join(workdir, "profile")):
+        shutil.copytree(os.path.join(workdir, "profile"), os.path.join(dst, "profile"))
+
+
+def run_cli(argv):
+    """``(rc, stdout)`` of the port's command line run in this process."""
+    import io
+
+    from tensorflowdistributedlearning_tpu_torch import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def readers_phase(torch, card: str, root: str, device: str = "cuda") -> dict:
+    """The port's telemetry readers on the card host, over the ledgers the
+    phases left under ``root`` (``keep_ledgers``): ``telemetry-report`` of
+    each workdir as text and ``--json`` (the trainers' windows, the serve
+    tier's windows, the two dp ranks' fleet section naming both, the
+    trace section from the Xception trainer's cadence captures'
+    ``ops.json``, read whole and through ``--trace-dir`` of one capture),
+    ``--export-trace``, ``--register`` of two fits and ``--compare`` of
+    them by workdir and by run id, and ``telemetry-top --once`` of each.
+    Every command exits 0 with its sections non-empty. On the CPU
+    (``device="cpu"``, a rehearsal) a capture holds no kernel."""
+    out = {"workdirs": sorted(os.listdir(root)), "commands": 0}
+    t0 = time.perf_counter()
+
+    def cmd(argv, what):
+        rc, text = run_cli(argv)
+        out["commands"] += 1
+        check(rc == 0 and text.strip(), f"readers {what}: rc {rc}, {len(text)} characters of output")
+        return text
+
+    for name in out["workdirs"]:
+        wd = os.path.join(root, name)
+        text = cmd(["telemetry-report", wd], f"report {name}")
+        check("no ledger" not in text and text.count("\n") >= 3, f"readers report {name}: {text[:200]}")
+        report = json.loads(cmd(["telemetry-report", wd, "--json"], f"report --json {name}"))
+        check(report.get("header") and (report["run"]["windows"] or report.get("serve") or report.get("fleet")),
+              f"readers report --json {name}: sections {sorted(report)}")
+        frame = cmd(["telemetry-top", wd, "--once"], f"top {name}")
+        check("no ledgers yet" not in frame, f"readers top {name}: {frame[:200]}")
+        if name == "train-dp2":
+            procs = [row["process_index"] for row in report["fleet"]["per_process"]]
+            check(procs == [0, 1], f"readers: the dp fleet section names processes {procs}")
+            out["fleet_processes"] = procs
+        if name == "train-xception":
+            trace = report["trace"]
+            on_card = device == "cuda"
+            check(trace and (bool(trace["top_ops"] and trace["buckets_ms"]) and "note" not in trace) == on_card,
+                  f"readers: train-xception's trace section {trace}")
+            captures = sorted(os.listdir(os.path.join(wd, "profile")))
+            one = json.loads(cmd(["telemetry-report", wd, "--json", "--trace-dir",
+                                  os.path.join(wd, "profile", captures[0]), "--top", "3"], "report --trace-dir"))
+            check(len(one["trace"]["top_ops"]) == (3 if on_card else 0), f"readers --trace-dir: {one['trace']}")
+            out["trace_ms"] = trace["buckets_ms"]
+            out["trace_top"] = trace["top_ops"][0]["name"] if on_card else None
+            log(f"readers: train-xception's {len(captures)} captures' ops.json: kernel ms by bucket "
+                f"{json.dumps(trace['buckets_ms'])}, top kernel {out['trace_top']} [{card}]")
+        if name == "serve-obs":
+            path = os.path.join(root, "serve-obs.trace.json")
+            written = json.loads(cmd(["telemetry-report", wd, "--export-trace", path], "--export-trace"))
+            check(written["span_events"] > 0 and os.path.getsize(path) > 0, f"readers --export-trace: {written}")
+            out["span_events"] = written["span_events"]
+    registry = os.path.join(root, "registry")
+    fits = [os.path.join(root, n) for n in ("fit-resnet50", "fit-xception")]
+    rows = [json.loads(cmd(["telemetry-report", wd, "--register", "--registry-dir", registry], "--register"))
+            for wd in fits]
+    check(all(r["run_id"] and r["config_hash"] for r in rows), f"readers --register: {rows}")
+    for refs in (fits, [r["run_id"] for r in rows]):
+        cmp = json.loads(cmd(["telemetry-report", "--compare", *refs, "--registry-dir", registry, "--json"],
+                             "--compare"))
+        check(cmp["deltas"], f"readers --compare {refs}: {cmp}")
+    cmd(["telemetry-report", "--compare", *fits], "--compare text")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"readers: {out['commands']} telemetry-report / telemetry-top commands over {out['workdirs']} exit 0 with "
+        f"their sections, in {out['seconds']:.3f} s; the dp fleet names processes {out.get('fleet_processes')}, "
+        f"{out.get('span_events')} span events exported [{card}]")
+    return out
+
+
+def int8_arm(torch, name: str, art: str, card: str, device: str = "cuda", expect=None, bf16_art=None,
+             seed: int = SEED + 300):
+    """One phase's trained model served from its ``int8-compute`` export
+    ``art`` at buckets 1 and 64 through the engine (the arm's path: counts
+    from 0 just before, read just after, no HTTP): the loaded model's
+    ``QuantConv2d`` / ``QuantLinear`` counts against ``expect`` (JAX's
+    interceptor count, ``INT8_LAYERS``); every int8 conv and matmul call of
+    the bucket-64 forward held bit for bit against its plain arm and timed
+    by route (the launch alone: quantized operands, the epilogue; CUDA
+    events, L2 flushed); each bucket's answers against the forward of the
+    same loaded model through the plain versions; with ``bf16_art`` (the
+    same weights under the bfloat16 spec) both engines' bucket-64 forwards
+    timed in turns (bfloat16, int8-compute, int8-compute, bfloat16).
+    ``device="cpu"`` rehearses it (no launches, no timing)."""
+    from tensorflowdistributedlearning_tpu_torch.ops import kernels
+    from tensorflowdistributedlearning_tpu_torch.ops import quant_kernels as qk
+    from tensorflowdistributedlearning_tpu_torch.serve import InferenceEngine
+    from tensorflowdistributedlearning_tpu_torch.train import serving
+
+    on_card = device == "cuda"
+    manifest = serving.read_manifest(art)
+    check(serving.serving_spec(manifest) == "int8-compute", f"int8 {name}: {art} is not an int8-compute artifact")
+    shape = tuple(manifest["input_shape"][1:])
+    engine = InferenceEngine.from_artifact(art, device=device, buckets=INT8_ARM_BUCKETS)
+    qmodel = serving.load_model(art, device)
+    layers = (sum(isinstance(m, qk.QuantConv2d) for m in qmodel.modules()),
+              sum(isinstance(m, qk.QuantLinear) for m in qmodel.modules()))
+    check(expect is None or layers == tuple(expect),
+          f"int8 {name}: {layers[0]} int8 convs and {layers[1]} int8 Dense loaded, JAX's interceptor routes {expect}")
+    engine.warmup()
+    rng = np.random.default_rng(seed)
+    xs = {b: rng.normal(size=(b, *shape)).astype(np.float32) for b in INT8_ARM_BUCKETS}
+    served, serve_ms = {}, {}
+    # the arm's path: counts from 0 just before, read just after
+    kernels.reset_launch_counts()
+    for b in INT8_ARM_BUCKETS:
+        t0 = time.perf_counter()
+        served[b] = engine.infer(xs[b])
+        serve_ms[b] = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    forwards = len(INT8_ARM_BUCKETS)
+    if on_card:
+        check(counts["int8_conv2d"] == layers[0] * forwards and counts["int8_matmul"] == layers[1] * forwards,
+              f"int8 {name}: launches {counts} in {forwards} forwards of {layers} int8 layers")
+    per_forward = {k: v / forwards for k, v in counts.items() if v}
+    versus = None
+    if bf16_art is not None:
+        engine16 = InferenceEngine.from_artifact(bf16_art, device=device, buckets=(BUCKET,))
+        engine16.warmup()
+        lat = {"bfloat16": [], "int8-compute": []}
+        for spec in ("bfloat16", "int8-compute", "int8-compute", "bfloat16"):
+            e = engine16 if spec == "bfloat16" else engine
+            for _ in range(INT8_ARM_REPS):
+                t0 = time.perf_counter()
+                e.infer(xs[BUCKET])
+                lat[spec].append(time.perf_counter() - t0)
+        versus = {spec: statistics.median(v) * 1e3 for spec, v in lat.items()}
+        del engine16
+
+    # the answers against the same loaded model through the plain versions
+    def matmul_nk_plain(x, wk, w_scale, *, bias=None, act="none", out_dtype=None):
+        return qk.int8_matmul_plain(x, wk.t(), w_scale, bias=bias, act=act, out_dtype=out_dtype)
+
+    plain = {"depthwise_conv2d": kernels.depthwise_conv2d_plain, "bn_act_folded": kernels.bn_act_folded_plain,
+             "bn_act_unfolded": kernels.bn_act_unfolded_plain, "fused_sigmoid_mask": kernels.fused_sigmoid_mask_plain}
+    dprobs = 0.0
+    with mock.patch.multiple(kernels, **plain), mock.patch.object(qk, "int8_conv2d_ohwi", qk.int8_conv2d_ohwi_plain), \
+            mock.patch.object(qk, "int8_matmul_nk", matmul_nk_plain):
+        ref_serve = serving.make_serving_fn(qmodel, device, act_dtype=torch.bfloat16)
+        before = kernels.launch_counts()
+        for b in INT8_ARM_BUCKETS:
+            ref = {k: v.cpu().numpy() for k, v in ref_serve(xs[b]).items()}
+            got = served[b]
+            check(got["probabilities"].shape == ref["probabilities"].shape
+                  and bool(np.isfinite(got["probabilities"]).all()), f"int8 {name} bucket {b}: {got['probabilities'].shape}")
+            d = float(np.abs(got["probabilities"] - ref["probabilities"]).max())
+            dprobs = max(dprobs, d)
+            check(d <= TOL_PROBS, f"int8 {name} bucket {b}: probabilities {d} from the plain-arm forward")
+            if "class" in got:
+                check_classes(got["probabilities"], got["class"], f"int8 {name} bucket {b}")
+        check(kernels.launch_counts() == before, f"int8 {name}: the plain-arm forward launched a kernel")
+
+    # every int8 call of the bucket-64 forward, bit for bit its plain arm, timed by route
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: calls.append((args[0].contiguous(), mod)))
+             for m in qmodel.modules() if isinstance(m, (qk.QuantConv2d, qk.QuantLinear))]
+    x64 = torch.from_numpy(xs[BUCKET]).to(device, torch.bfloat16)
+    try:
+        with torch.inference_mode():
+            qmodel(x64)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(calls) == sum(layers), f"int8 {name}: {len(calls)} int8 calls in one forward of {layers} layers")
+    timer = Timer(torch) if on_card else None
+    routes = {}
+    with torch.inference_mode():
+        for i, (x, mod) in enumerate(calls):
+            if isinstance(mod, qk.QuantLinear):
+                got = qk.int8_matmul_nk(x, mod.weight_q, mod.w_scale, bias=mod.bias, out_dtype=torch.bfloat16)
+                want = qk.int8_matmul_plain(x, mod.weight_q.t(), mod.w_scale, bias=mod.bias, out_dtype=torch.bfloat16)
+                xq, xs_ = qk.quantize_activations(x)
+                xq = xq.reshape(-1, x.shape[-1])
+                route = f"matmul_{qk.matmul_route(x.shape[-1])}"
+                out = torch.empty_like(got).reshape(xq.shape[0], -1)
+
+                def launch():
+                    qk._launch_matmul(xq, xs_, mod.weight_q, mod.w_scale, mod.bias, out, "none")
+            else:
+                got = qk.int8_conv2d_ohwi(x, mod.weight_q, mod.w_scale, mod.pads, bias=mod.bias, out_dtype=torch.bfloat16)
+                want = qk.int8_conv2d_ohwi_plain(x, mod.weight_q, mod.w_scale, mod.pads, bias=mod.bias,
+                                                 out_dtype=torch.bfloat16)
+                xq, xs_ = qk.quantize_activations(x)
+                out = torch.empty_like(got)
+                cout, kh, kw, cin = mod.weight_q.shape
+                route = qk.conv_route(kh, kw, cin, mod.pads, xq.data_ptr() % 16 == 0 and mod.weight_q.data_ptr() % 16 == 0)
+
+                def launch():
+                    qk._launch_conv(xq, xs_, mod.weight_q, mod.w_scale, mod.bias, out, mod.pads, "none")
+            check(bits_equal(torch, got, want), f"int8 {name} call {i} {tuple(x.shape)} ({route}): kernel != plain "
+                  f"({int((got != want).sum())} elements differ)")
+            r = routes.setdefault(route, {"calls": 0, "ms": 0.0, "cin": {}})
+            r["calls"] += 1
+            r["cin"][x.shape[-1]] = r["cin"].get(x.shape[-1], 0) + 1
+            if timer is not None:
+                r["ms"] += timer.ms(launch)
+    total = sum(r["ms"] for r in routes.values())
+    log(f"int8 {name}: the int8-compute export loaded {layers[0]} int8 convs and {layers[1]} int8 Dense "
+        f"(JAX's interceptor: {expect}); buckets {'/'.join(map(str, INT8_ARM_BUCKETS))} through the engine "
+        f"{' / '.join(f'{serve_ms[b]:.3f}' for b in INT8_ARM_BUCKETS)} ms, launches per forward "
+        f"{json.dumps(per_forward)}; answers max|dprobs| {dprobs:.3g} from the plain-arm forward [{card}]")
+    if versus is not None:
+        log(f"int8 {name}: engine forward at bucket {BUCKET} (pad, H2D, forward, D2H), median of {2 * INT8_ARM_REPS} "
+            f"in turns: int8-compute {versus['int8-compute']:.3f} ms, bfloat16 spec {versus['bfloat16']:.3f} ms, "
+            f"ratio {versus['int8-compute'] / versus['bfloat16']:.3f} [{card}]")
+    for route, r in sorted(routes.items()):
+        share = f", {r['ms'] / total:.3f} of the int8 time" if total else ""
+        log(f"int8 {name}: route {route}: {r['calls']} calls per bucket-{BUCKET} forward (Cin {json.dumps(r['cin'])}), "
+            f"each bit for bit its plain arm, {r['ms']:.4f} ms summed{share} [{card}]")
+    return {"launches": counts, "forwards": forwards, "layers": list(layers), "serve_ms": serve_ms, "versus": versus,
+            "routes": {k: {"calls": r["calls"], "ms": r["ms"]} for k, r in routes.items()}, "dprobs": dprobs}
 
 
 # -- the ViT-S/16 classifier ------------------------------------------------------
@@ -4327,6 +4582,7 @@ def dp_two_ranks(torch, card: str, root: str, device: str, model_kwargs, size: i
     for o in outs:
         check_trainer_launches(o["ledger_train"], o["ledger_eval"], o["launches"], DP_FOLDS, steps,
                                f"train-dp2 rank {o['rank']}")
+    keep_ledgers(os.path.join(root, "model-dp2"), "train-dp2")
     for name in ("off", "on"):
         e = r0[f"first_{name}"]
         plain = (f"; against the plain whole-batch step |dloss| {e['plain_d_loss']:.3g}, BN statistics "
@@ -4731,6 +4987,12 @@ def train_bf16_phase(torch, card: str, timer, device: str = "cuda", model_kwargs
         log(f"train-bf16: fold 0's export through the engine at bucket {batch}: {engine_ms:.3f} ms (pad, H2D, forward, "
             f"D2H), max|dprobs| {d:.3g} from the restored model, launches {per_eval['depthwise_conv2d_bf16']} bf16 "
             f"depthwise + {per_eval['fused_bn_act_bf16_act']} bf16 BN + 1 sigmoid-mask [{card}]")
+        del engine, best
+        # fold 0's best as int8-compute
+        art8 = os.path.dirname(trainer.export_serving(0, serving_dtype="int8-compute"))
+        art16 = os.path.dirname(trainer.export_serving(0, serving_dtype="bfloat16"))
+        out["int8"] = int8_arm(torch, BF16_PRESET, art8, card, device,
+                               expect=INT8_LAYERS[BF16_PRESET] if cfg == preset else None, bf16_art=art16)
     return out
 
 
@@ -4844,6 +5106,7 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             check(delta == per_fwd, f"fit-resnet50 eval forward {i}: launches {delta}, expected {per_fwd}")
         out.update(launches=counts, fit_s=fit_s, n_params=result.n_params, final_metrics=result.final_metrics)
         check_run_ledger(model_dir, steps, 1, "fit-resnet50")
+        keep_ledgers(model_dir, "fit-resnet50")
         log(f"fit-resnet50: fit_preset {R50_PRESET} ({result.n_params} parameters), {steps} steps at batch {batch} "
             f"on synthetic data ({preset.train.optimizer}, lr {preset.train.lr}, {preset.train.lr_schedule} with "
             f"{preset.train.lr_warmup_steps} warmup steps), one eval, the float32 export: {fit_s:.3f} s wall; final "
@@ -4889,7 +5152,8 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             out["logit_std"] = float(logits.float().std())
             art = os.path.join(root, "served")
             art16 = os.path.join(root, "served-bfloat16")
-            for directory, spec in ((art, "float32"), (art16, "bfloat16")):
+            art8 = os.path.join(root, "served-int8-compute")
+            for directory, spec in ((art, "float32"), (art16, "bfloat16"), (art8, "int8-compute")):
                 serving.export_serving_artifact(model, cfg, directory, metadata={"step": best.step}, serving_dtype=spec)
         del best
         out["bn_held_err"] = hold_bn_calls(torch, bn["bn_act_folded"], "fit-resnet50 eval forward")
@@ -4990,6 +5254,10 @@ def fit_resnet50_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
         log(f"fit-resnet50: bfloat16 spec through the engine at bucket {batch}: max|dprobs| {d16:.3g} from its plain "
             f"forward; from the float32 spec logits {gap:.4g} of their std apart (bound {TOL_R50_BF16_SPEC}), "
             f"max|dprobs| {d32:.3g}; {want16['fused_bn_act_bf16']} BN launches with bf16 parameters")
+        del engine, engine16, plain16
+        # the same served state as int8-compute
+        out["int8"] = int8_arm(torch, R50_PRESET, art8, card, device,
+                               expect=INT8_LAYERS[R50_PRESET] if cfg is preset.model else None, bf16_art=art16)
 
     # the step on a resident batch
     state = create_train_state(cfg, preset.train, device, generator=torch.Generator().manual_seed(SEED + 43))
@@ -8256,6 +8524,7 @@ def train_xception_phase(torch, card: str, device: str = "cuda", model_kwargs=No
 
         # the ledger
         events = check_run_ledger(model_dir, TRAIN_FOLDS * steps, n_evals, "train-xception")
+        keep_ledgers(model_dir, "train-xception")
         mems = [e for e in events if e["event"] == "memory"]
         check(len(mems) >= TRAIN_FOLDS, f"train-xception: {len(mems)} memory events")
         if on_card:
@@ -8369,6 +8638,13 @@ def train_xception_phase(torch, card: str, device: str = "cuda", model_kwargs=No
         out["serve_launches"] = served
         log(f"train-xception: fold 0's export through the engine at bucket {batch}: launches {per_serve}, max|dprobs| "
             f"{d:.3g} from the forward through the plain versions [{card}]")
+        del engine
+        # fold 0's best as int8-compute
+        full = cfg == ModelConfig(input_shape=(101, 101), backbone="xception", output_stride=8, use_pallas_depthwise=True)
+        art8 = os.path.dirname(trainer.export_serving(0, serving_dtype="int8-compute"))
+        art16 = os.path.dirname(trainer.export_serving(0, serving_dtype="bfloat16"))
+        out["int8"] = int8_arm(torch, "xception41_segmenter", art8, card, device,
+                               expect=INT8_LAYERS["xception41_segmenter"] if full else None, bf16_art=art16)
 
         # the step on a resident batch: ms, images/s, idle share
         dataset = pipeline_lib.InMemoryDataset.from_directory(data, ids=ids[:batch])
@@ -8481,6 +8757,7 @@ def fit_xception_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             want = per_step if i < steps else per_fwd
             check({k: delta[k] for k in want} == want, f"fit-xception step or eval forward {i}: launches {delta}")
         check_run_ledger(model_dir, steps, 1, "fit-xception", windows=steps // log_every)
+        keep_ledgers(model_dir, "fit-xception")
         out.update(launches=counts, fit_s=fit_s, n_params=result.n_params, final_metrics=result.final_metrics)
         log(f"fit-xception: fit_preset {X41_PRESET} ({result.n_params} parameters, bf16 compute), {steps} steps at "
             f"batch {batch} on synthetic data ({preset.train.optimizer}, lr {preset.train.lr}), one eval, the float32 "
@@ -8497,7 +8774,10 @@ def fit_xception_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
             estimate_bn_statistics(torch, model, [torch.from_numpy(c).to(device) for c in calib])
             calibrate_logits(torch, model.eval(), xt)
             art = os.path.join(root, "served")
-            serving.export_serving_artifact(model, cfg, art, metadata={"step": best.step}, serving_dtype="float32")
+            art8 = os.path.join(root, "served-int8-compute")
+            art16 = os.path.join(root, "served-bfloat16")
+            for directory, spec in ((art, "float32"), (art8, "int8-compute"), (art16, "bfloat16")):
+                serving.export_serving_artifact(model, cfg, directory, metadata={"step": best.step}, serving_dtype=spec)
         del best
         engine = InferenceEngine.from_artifact(art, device=device, buckets=(batch,))
         kernels.reset_launch_counts()
@@ -8521,6 +8801,10 @@ def fit_xception_phase(torch, card: str, device: str = "cuda", cfg=None, batch: 
         log(f"fit-xception: the export (running statistics re-estimated, logits at std 3) through the engine at "
             f"bucket {batch}: {per_fwd['fused_bn_act_bf16_act']} bf16-activation BN + act launches, max|dprobs| {d:.3g} "
             f"and top-1 on {int(apart.sum())} of {batch} rows equal to the forward through the plain versions [{card}]")
+        del engine, plain_model
+        # the same served state as int8-compute
+        out["int8"] = int8_arm(torch, X41_PRESET, art8, card, device,
+                               expect=INT8_LAYERS[X41_PRESET] if cfg is preset.model else None, bf16_art=art16)
 
     # the step on a resident batch
     state = create_train_state(cfg, preset.train, device, generator=torch.Generator().manual_seed(SEED + 73))
@@ -8562,7 +8846,9 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: torch is not importable: {e}", file=sys.stderr)
         return 1
+    global KEEP_LEDGERS
     cold_dir, cold_procs = None, []
+    KEEP_LEDGERS = tempfile.mkdtemp(prefix="chip-smoke-ledgers-")
     try:
         card = probe(torch)
         torch.backends.cudnn.allow_tf32 = False
@@ -8680,6 +8966,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         x41 = fit_xception_phase(torch, card)
         mark("fit-xception")
+        readers = readers_phase(torch, card, KEEP_LEDGERS)
+        mark("readers")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -8690,6 +8978,7 @@ def main() -> int:
                 p.wait()
         if cold_dir is not None:
             shutil.rmtree(cold_dir, ignore_errors=True)
+        shutil.rmtree(KEEP_LEDGERS, ignore_errors=True)
     for name, e in (list(dp["train-dp2"]["held"].items()) + list(tp["held"].items()) + list(pp["held"].items())
                     + list(sp["held_calls"].items())):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
@@ -8706,7 +8995,10 @@ def main() -> int:
              "serve-moe": moe["serve_launches"], "train-moe": moe["launches"], "train-moe-ep": moe["ep"]["launches"],
              "train-sp": sp["launches"],
              "train-xception": xception["launches"], "serve-xception": xception["serve_launches"],
-             "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"]}
+             "fit-xception": x41["launches"], "serve-xception41": x41["serve_launches"],
+             **{f"serve-int8-{key}": phase["int8"].pop("launches")
+                for key, phase in (("bf16", trained16), ("resnet50", fitted50), ("xception", xception),
+                                   ("xception41", x41))}}
     def launches(name, counts):
         return ARM_LAUNCHES[name](counts) if name in ARM_LAUNCHES else counts.get(name, 0)
 
@@ -8740,7 +9032,8 @@ def main() -> int:
                       "train_moe": {k: v for k, v in moe.items() if not k.endswith("launches")},
                       "train_sp": {k: v for k, v in sp.items() if k not in ("launches", "held_calls")},
                       "train_xception": {k: v for k, v in xception.items() if not k.endswith("launches")},
-                      "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")}}))
+                      "fit_xception": {k: v for k, v in x41.items() if not k.endswith("launches")},
+                      "readers": readers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

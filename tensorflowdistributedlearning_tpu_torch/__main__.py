@@ -1,6 +1,7 @@
 """Command line of the PyTorch port (counterpart of the JAX package's
 ``cli.py``; the port carries ``train``, ``fit``, ``plan``, ``predict``,
-``serve``, ``convert``, ``quantize-check`` and ``records-index``).
+``serve``, ``convert``, ``quantize-check``, ``records-index``,
+``telemetry-report`` and ``telemetry-top``).
 
     python -m tensorflowdistributedlearning_tpu_torch train \\
         --data-dir DATA --model-dir MODEL_DIR --batch-size 64 --n-fold 5 --steps 10000 \\
@@ -29,6 +30,9 @@
         --registry registry.json --workdir WORKDIR --trace-sample-rate 0.01 --slo-p99-ms 50
     python -m tensorflowdistributedlearning_tpu_torch quantize-check \\
         --reference-dir F32_ARTIFACT --candidate-dir INT8_ARTIFACT
+    python -m tensorflowdistributedlearning_tpu_torch telemetry-report MODEL_DIR [--json]
+    python -m tensorflowdistributedlearning_tpu_torch telemetry-report --compare RUN_A RUN_B
+    python -m tensorflowdistributedlearning_tpu_torch telemetry-top WORKDIR --once
 """
 
 from __future__ import annotations
@@ -311,6 +315,57 @@ _LOOP_FLAGS = (
     ("nan_guard", "nan_guard"),
     ("profile_every_windows", "profile_every_windows"),
 )
+
+
+def cmd_telemetry_report(args) -> int:
+    """The goodput report of a workdir's run ledgers (``obs/report.py``),
+    and the front door of the cross-run registry and run-vs-run compare
+    (``obs/compare.py``): JAX's ``cmd_telemetry_report``. rc 2 for a
+    missing workdir or ledger, 1 for a ``ValueError``."""
+    from tensorflowdistributedlearning_tpu_torch.obs import compare as compare_lib
+    from tensorflowdistributedlearning_tpu_torch.obs.report import report_workdir
+
+    try:
+        if args.compare:
+            ref_a, ref_b = args.compare
+            result = compare_lib.compare_workdirs(ref_a, ref_b, registry_dir=args.registry_dir)
+            print(json.dumps(result) if args.json else compare_lib.render_compare(result))
+            return 0
+        if args.workdir is None:
+            print("telemetry-report: a workdir is required unless --compare is given", file=sys.stderr)
+            return 2
+        if args.export_trace:
+            from tensorflowdistributedlearning_tpu_torch.obs.trace import write_chrome_trace
+
+            # raises the no-ledger FileNotFoundError itself
+            n = write_chrome_trace(args.workdir, args.export_trace)
+            print(json.dumps({"written": args.export_trace, "span_events": n}))
+            return 0
+        if args.register:
+            if not args.registry_dir:
+                print("telemetry-report: --register requires --registry-dir", file=sys.stderr)
+                return 2
+            print(json.dumps(compare_lib.register_run(args.registry_dir, args.workdir)))
+            return 0
+        kwargs = {}
+        if args.straggler_threshold is not None:
+            kwargs["straggler_threshold"] = args.straggler_threshold
+        print(report_workdir(args.workdir, trace_dir=args.trace_dir, top=args.top, as_json=args.json, **kwargs))
+    except FileNotFoundError as e:
+        print(f"telemetry-report: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        print(f"telemetry-report: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_telemetry_top(args) -> int:
+    """The live console over a workdir's merged ledgers (``obs/top.py``);
+    ``--once`` prints one frame."""
+    from tensorflowdistributedlearning_tpu_torch.obs.top import top
+
+    return top(args.workdir, interval_s=args.interval, once=args.once)
 
 
 def _loop_overrides(args) -> dict:
@@ -924,6 +979,43 @@ def build_parser() -> argparse.ArgumentParser:
     ri.add_argument("data_dir", help="directory holding *.tfrecord shards")
     ri.add_argument("--glob", default="*.tfrecord", help="shard filename pattern (default: *.tfrecord)")
     ri.set_defaults(fn=cmd_records_index)
+
+    rep = sub.add_parser(
+        "telemetry-report",
+        help="render the goodput report from a workdir's run ledgers (and the profiler captures under it)",
+    )
+    rep.add_argument("workdir", nargs="?", default=None,
+                     help="the workdir holding telemetry.jsonl (and telemetry-{i}.jsonl per extra process, merged); "
+                     "optional with --compare")
+    rep.add_argument("--trace-dir", default=None,
+                     help="a profiler capture directory to read ops.json from (default: search the workdir)")
+    rep.add_argument("--top", type=int, default=10, help="device kernels to list from the captures")
+    rep.add_argument("--json", action="store_true", help="machine-readable output")
+    rep.add_argument("--export-trace", default=None, metavar="OUT_JSON",
+                     help="instead of the report, export the last run's sampled trace spans as Chrome/Perfetto "
+                     "trace-event JSON")
+    rep.add_argument("--straggler-threshold", type=float, default=None,
+                     help="a window alerts when the slowest process's mean step time exceeds this multiple of "
+                     "the median (default 1.25)")
+    rep.add_argument("--registry-dir", default=None, metavar="DIR",
+                     help="cross-run registry ({DIR}/runs.jsonl): --register appends this workdir's summary row; "
+                     "--compare operands may be registered run ids")
+    rep.add_argument("--register", action="store_true",
+                     help="append the workdir's run summary to the registry and print the row")
+    rep.add_argument("--compare", nargs=2, metavar=("RUN_A", "RUN_B"), default=None,
+                     help="instead of the report, emit noise-aware deltas between two runs (workdirs, or "
+                     "registered run ids with --registry-dir)")
+    rep.set_defaults(fn=cmd_telemetry_report)
+
+    tp = sub.add_parser(
+        "telemetry-top",
+        help="live console over a workdir's merged run ledgers; --once prints a single frame",
+    )
+    tp.add_argument("workdir", help="the workdir whose telemetry.jsonl / telemetry-{i}.jsonl ledgers to tail")
+    tp.add_argument("--interval", type=float, default=2.0, help="seconds between frame refreshes")
+    tp.add_argument("--once", action="store_true",
+                    help="print one frame and exit (an empty workdir renders a 'no ledgers yet' frame, rc 0)")
+    tp.set_defaults(fn=cmd_telemetry_top)
     return p
 
 

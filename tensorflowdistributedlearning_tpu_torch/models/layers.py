@@ -228,14 +228,58 @@ def subsample(x: torch.Tensor, stride: int) -> torch.Tensor:
     return x[:, ::stride, ::stride, :]
 
 
+def _bilinear_weights(m: int, n: int, device=None) -> torch.Tensor:
+    """[m, n] float32: the weight of input row i in output row j when
+    ``jax.image.resize(method="bilinear")`` scales m rows to n (n >= m),
+    computed as its ``compute_weight_mat`` computes it, op by op in float32
+    (half-pixel centres, the triangle kernel, each column normalised by its
+    sum, columns that sample outside the input zeroed)."""
+    f32 = torch.float32
+    inv = torch.tensor(1.0 / (n / m), dtype=f32, device=device)
+    sample = (torch.arange(n, dtype=f32, device=device) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(m, dtype=f32, device=device)[:, None]).abs()
+    weights = torch.clamp(1 - dist, min=0)
+    total = weights.sum(dim=0, keepdim=True)
+    eps = float(torch.finfo(f32).eps)
+    weights = torch.where(total.abs() > 1000.0 * eps, weights / torch.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], weights, 0)
+
+
+def _resize_bf16(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``jax.image.resize(x, method="bilinear")`` of an NHWC tensor of bf16
+    values (held as bf16 or float32) as JAX computes it for bf16: the
+    weights rounded to bf16, one axis contracted, then the other, each
+    product sum rounded to bf16. ``jnp.einsum`` contracts first the axis
+    whose order costs fewer multiply-adds (the rows on a tie). Each output
+    sums at most two nonzero products of bf16 values, exact in float32, so
+    the float32 contractions round once, as a bf16 dot with float32
+    accumulation does. Returns bf16."""
+    _, h, w, _ = x.shape
+    wh = _bilinear_weights(h, out_h, x.device).to(torch.bfloat16).float()
+    ww = _bilinear_weights(w, out_w, x.device).to(torch.bfloat16).float()
+    x = x.float()
+    if h * w * out_h + out_h * w * out_w <= h * w * out_w + h * out_w * out_h:
+        y = torch.einsum("nhwc,hk->nkwc", x, wh).to(torch.bfloat16)
+        return torch.einsum("nkwc,wl->nklc", y.float(), ww).to(torch.bfloat16)
+    y = torch.einsum("nhwc,wl->nhlc", x, ww).to(torch.bfloat16)
+    return torch.einsum("nhlc,hk->nklc", y.float(), wh).to(torch.bfloat16)
+
+
 def upsample(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear upsampling with symmetric edge padding: pad 1 px, resize to
-    (h+4, w+4) with half-pixel centers, trim 2 px per side. For upsampling,
+    (h+4, w+4) with half-pixel centers, trim 2 px per side, in ``x``'s
+    dtype. For upsampling a float32 tensor,
     ``jax.image.resize(method="bilinear")`` and
     ``F.interpolate(mode="bilinear", align_corners=False)`` sample the same
     points with the same weights (their anti-aliasing only differs when
-    shrinking, which no call site does)."""
+    shrinking, which no call site does). A bf16 tensor is resized as JAX
+    resizes it, in bf16 (:func:`_resize_bf16`, bit for bit JAX's forward);
+    its float32 copy is padded (the same values), so the padding's
+    backward sums the reflected rows' gradients in float32."""
     h, w = int(out_hw[0]), int(out_hw[1])
+    if x.dtype == torch.bfloat16:
+        return _resize_bf16(fixed_padding(x.float(), 3, mode="symmetric"), h + 4, w + 4)[:, 2:-2, 2:-2, :]
     x = fixed_padding(x, 3, mode="symmetric")
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(h + 4, w + 4), mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)[:, 2:-2, 2:-2, :]

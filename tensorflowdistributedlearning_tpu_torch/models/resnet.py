@@ -325,9 +325,9 @@ class ASPP(nn.Module):
 
 
 def upsample_to(x: torch.Tensor, out_hw, dtype: torch.dtype) -> torch.Tensor:
-    """:func:`upsample` in float32 (of a bf16 input too), cast to ``dtype``:
-    the JAX head's ``upsample(...).astype(dtype)``."""
-    return upsample(x.float() if x.dtype == torch.bfloat16 else x, out_hw).to(dtype)
+    """:func:`upsample` of ``x``, cast to ``dtype``: the JAX head's
+    ``upsample(...).astype(dtype)``."""
+    return upsample(x, out_hw).to(dtype)
 
 
 class ResNetSegmentation(nn.Module):

@@ -1,10 +1,10 @@
 """Telemetry of the port (counterpart of the JAX package's ``obs``): the
 metrics registry, the run ledger, the trainers' and the server's spans,
 traces, health monitors, the capacity meter, continuous profiling over
-``torch.profiler`` and the fleet's ledger discovery, under the JAX
-package's exported names. The ledger readers (``obs.compare``, the rest
-of ``obs.fleet``) come with queue A 14.1, recompile tracking
-(``obs.recompile``) with queue A 13's remainder."""
+``torch.profiler``, and the ledger readers (``obs.report``, the fleet
+merge, the cross-run registry and compare, ``obs.top``), under the JAX
+package's exported names. Recompile tracking (``obs.recompile``) comes
+with queue A 13's remainder."""
 
 from tensorflowdistributedlearning_tpu_torch.obs.capacity import (
     COST_EVENT,
@@ -12,7 +12,19 @@ from tensorflowdistributedlearning_tpu_torch.obs.capacity import (
     CostMeter,
     WatermarkTracker,
 )
-from tensorflowdistributedlearning_tpu_torch.obs.fleet import ProcessLedger, discover_ledgers
+from tensorflowdistributedlearning_tpu_torch.obs.compare import (
+    compare_workdirs,
+    load_registry,
+    register_run,
+    run_summary,
+)
+from tensorflowdistributedlearning_tpu_torch.obs.fleet import (
+    STRAGGLER_ALERT_EVENT,
+    ProcessLedger,
+    discover_ledgers,
+    fleet_section,
+    fleet_summary,
+)
 from tensorflowdistributedlearning_tpu_torch.obs.health import (
     HEALTH_ALERT_EVENT,
     HeadroomMonitor,
@@ -72,6 +84,7 @@ __all__ = [
     "SPAN_EVAL",
     "SPAN_FETCH_WAIT",
     "SPAN_STEP",
+    "STRAGGLER_ALERT_EVENT",
     "TRACE_EVENT",
     "WATERMARK_EVENT",
     "CostMeter",
@@ -96,13 +109,19 @@ __all__ = [
     "Tracer",
     "WatermarkTracker",
     "build_roofline",
+    "compare_workdirs",
     "discover_ledgers",
     "export_chrome_trace",
+    "fleet_section",
+    "fleet_summary",
     "flush_all_ledgers",
+    "load_registry",
     "per_process_filename",
     "read_ledger",
     "read_ledger_with_errors",
+    "register_run",
     "resolve_peak_flops",
+    "run_summary",
     "time_summary",
     "write_chrome_trace",
 ]

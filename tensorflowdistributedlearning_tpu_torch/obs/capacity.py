@@ -331,38 +331,83 @@ class CostMeter:
 
 
 def aggregate_cost_events(events: List[Dict]) -> Optional[Dict]:
-    """A ledger's serving ``cost`` events as one section (the JAX report's
-    ``serve`` sub-section); None when the run ledgered no serving cost."""
-    serve = [e for e in events if e.get("event") == COST_EVENT and e.get("scope") == "serve"]
-    if not serve:
+    """Report-side aggregation of a ledger's ``cost`` events: one dict with
+    ``train`` / ``serve`` sub-sections (stable keys — the ``telemetry-report
+    --json`` schema). None when the run ledgered no cost."""
+    cost = [e for e in events if e.get("event") == COST_EVENT]
+    if not cost:
         return None
-    last = serve[-1]
-    window_s = sum(e.get("window_s", 0.0) for e in serve)
-    requests = sum(e.get("requests", 0) for e in serve)
-    n_chips = last.get("n_chips") or 1
-    section: Dict = {
-        "n_chips": n_chips,
-        "chip_seconds_total": round(last.get("chip_seconds_total", 0.0), 3),
-        "requests": requests,
-    }
-    if window_s:
-        section["rps_per_chip"] = round(requests / window_s / n_chips, 3)
-        section["duty_cycle"] = round(sum(e.get("chip_seconds", 0.0) for e in serve) / (window_s * n_chips), 4)
-    rows = [e for e in serve if "chip_seconds_per_request" in e]
-    if rows:
-        weights = [e.get("requests", 1) for e in rows]
-        total_w = sum(weights) or 1
-
-        def merged(key: str) -> float:
-            return sum(e["chip_seconds_per_request"][key] * w for e, w in zip(rows, weights)) / total_w
-
-        section["chip_seconds_per_request"] = {
-            "mean": round(merged("mean"), 9),
-            "p50": round(merged("p50"), 9),
-            "p90": round(merged("p90"), 9),
-            "p99_worst_window": round(max(e["chip_seconds_per_request"]["p99"] for e in rows), 9),
+    out: Dict = {"events": len(cost)}
+    train = [e for e in cost if e.get("scope") == "train"]
+    serve = [e for e in cost if e.get("scope") == "serve"]
+    if train:
+        last = train[-1]
+        total_chip_s = last.get("chip_seconds_total", 0.0)
+        steps = sum(
+            e.get("chip_seconds", 0.0) / e["chip_seconds_per_step"]
+            for e in train
+            if e.get("chip_seconds_per_step")
+        )
+        section: Dict = {
+            "n_chips": last.get("n_chips"),
+            "chip_seconds_total": round(total_chip_s, 3),
         }
-    return {"events": len(serve), "serve": section}
+        if steps:
+            section["chip_seconds_per_step"] = round(
+                sum(e.get("chip_seconds", 0.0) for e in train) / steps, 6
+            )
+        examples = sum(e.get("examples", 0) for e in train)
+        window_chip_s = sum(e.get("chip_seconds", 0.0) for e in train)
+        if examples and window_chip_s:
+            section["examples_per_chip_second"] = round(
+                examples / window_chip_s, 2
+            )
+        out["train"] = section
+    if serve:
+        last = serve[-1]
+        window_s = sum(e.get("window_s", 0.0) for e in serve)
+        requests = sum(e.get("requests", 0) for e in serve)
+        n_chips = last.get("n_chips") or 1
+        section = {
+            "n_chips": n_chips,
+            "chip_seconds_total": round(
+                last.get("chip_seconds_total", 0.0), 3
+            ),
+            "requests": requests,
+        }
+        if window_s:
+            section["rps_per_chip"] = round(
+                requests / window_s / n_chips, 3
+            )
+            section["duty_cycle"] = round(
+                sum(e.get("chip_seconds", 0.0) for e in serve)
+                / (window_s * n_chips),
+                4,
+            )
+        per_req = [
+            e["chip_seconds_per_request"]
+            for e in serve
+            if "chip_seconds_per_request" in e
+        ]
+        if per_req:
+            weights = [e.get("requests", 1) for e in serve if "chip_seconds_per_request" in e]
+            total_w = sum(weights) or 1
+
+            def merged(key: str) -> float:
+                return sum(
+                    s[key] * w for s, w in zip(per_req, weights)
+                ) / total_w
+
+            section["chip_seconds_per_request"] = {
+                "mean": round(merged("mean"), 9),
+                "p50": round(merged("p50"), 9),
+                "p90": round(merged("p90"), 9),
+                # percentile merging across windows is approximate everywhere
+                # else in the report (step_time_ms) — worst window for p99
+                "p99_worst_window": round(max(s["p99"] for s in per_req), 9),
+            }
+        out["serve"] = section
+    return out
 
 
 def aggregate_watermark_events(events: List[Dict]) -> Optional[Dict]:

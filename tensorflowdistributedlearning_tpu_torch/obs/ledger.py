@@ -4,9 +4,9 @@ same file names, event schema and failure stance).
 ``{workdir}/telemetry.jsonl`` is append-only, one JSON object per line, each
 carrying ``event`` (the kind) and ``t`` (``time.time()``). A run writes a
 ``run_header`` first, then its events, and a ``run_end``; readers anchor on
-the LAST ``run_header`` (:func:`last_run_events`), so the JAX package's
-``telemetry-report`` reads a port workdir unchanged
-(``docs/LEDGER_SCHEMA.md``).
+the LAST ``run_header`` (:func:`last_run_events`), so the port's
+``telemetry-report`` (``obs/report.py``) and the JAX package's read a port
+workdir alike (``docs/LEDGER_SCHEMA.md``).
 
 Telemetry never takes the producer down: an unwritable workdir degrades to
 one logged warning and every later ``event()`` is a no-op.

@@ -485,36 +485,45 @@ class QuantLinear(nn.Module):
         return int8_matmul_nk(x, self.weight_q, self.w_scale, bias=self.bias, act="none", out_dtype=self.out_dtype)
 
 
+def int8_targets(model: nn.Module, weight_names) -> Dict[str, Tuple[nn.Module, str, nn.Module]]:
+    """``{path: (parent, child name, layer)}`` of the layers of ``model``
+    that the interceptor's rule routes when every weight in
+    ``weight_names`` (``{module}.weight`` keys) has an int8 record: each
+    ``nn.Linear`` (the rule's ``nn.Dense`` arm) and each conv
+    :func:`int8_eligible` takes. Grouped, strided or dilated convs and
+    layers of other classes (the space-to-depth stem) are left out."""
+    out: Dict[str, Tuple[nn.Module, str, nn.Module]] = {}
+    for name, module in model.named_modules():
+        for child_name, child in module.named_children():
+            path = f"{name}.{child_name}" if name else child_name
+            if f"{path}.weight" in weight_names and (isinstance(child, nn.Linear) or int8_eligible(child)):
+                out[path] = (module, child_name, child)
+    return out
+
+
 def swap_int8_layers(model: nn.Module, records: Dict[str, Dict[str, torch.Tensor]],
                      biases: Dict[str, torch.Tensor], act_dtype: torch.dtype = torch.bfloat16) -> int:
     """The interceptor's rule as a module swap: every layer of ``model``
     with a ``{"q", "scale"}`` record (keyed ``{module}.weight``, the weight
-    in the port's layout, the record's f32 scale) and its bias from
-    ``biases`` (keyed ``{module}.bias``; the bf16 leaf, used as f32) becomes
+    in the port's layout, the record's f32 scale) that :func:`int8_targets`
+    takes, its bias from ``biases`` (keyed ``{module}.bias``; the bf16
+    leaf, used as f32, as JAX's fused epilogue uses it), becomes
 
-    - a :class:`QuantConv2d` when it is an eligible conv
-      (:func:`int8_eligible`, the filter OIHW);
     - a :class:`QuantLinear` when it is an ``nn.Linear`` (the weight
       [out, in]): every ``nn.Dense`` with a record goes through
-      ``int8_matmul``, the classifier's ``logits`` included.
+      ``int8_matmul``, the classifiers' ``logits`` included;
+    - a :class:`QuantConv2d` when it is an eligible conv (the filter OIHW).
 
     Both return ``act_dtype``. Other layers keep their dequantized float
     path. Returns the number of layers swapped."""
-    swapped = 0
-    for name, module in list(model.named_modules()):
-        for child_name, child in list(module.named_children()):
-            path = f"{name}.{child_name}" if name else child_name
-            rec = records.get(f"{path}.weight")
-            if rec is None:
-                continue
-            bias = biases.get(f"{path}.bias") if child.bias is not None else None
-            if isinstance(child, nn.Linear):
-                quant = QuantLinear(rec["q"], rec["scale"], bias, act_dtype)
-            elif int8_eligible(child):
-                kh, kw = child.kernel_size
-                quant = QuantConv2d(rec["q"], rec["scale"], bias, _conv_pads(child.same_padding, kh, kw), act_dtype)
-            else:
-                continue
-            setattr(module, child_name, quant.to(child.weight.device))
-            swapped += 1
-    return swapped
+    targets = int8_targets(model, records)
+    for path, (module, child_name, child) in targets.items():
+        rec = records[f"{path}.weight"]
+        bias = biases.get(f"{path}.bias") if child.bias is not None else None
+        if isinstance(child, nn.Linear):
+            quant = QuantLinear(rec["q"], rec["scale"], bias, act_dtype)
+        else:
+            kh, kw = child.kernel_size
+            quant = QuantConv2d(rec["q"], rec["scale"], bias, _conv_pads(child.same_padding, kh, kw), act_dtype)
+        setattr(module, child_name, quant.to(child.weight.device))
+    return len(targets)

@@ -127,20 +127,6 @@ def quantize_leaf_int8(weight: torch.Tensor, axis: int) -> Dict[str, torch.Tenso
             "scale": torch.from_numpy(rec["scale"]), "axis": axis}
 
 
-def require_int8_compute_supported(config: ModelConfig) -> None:
-    """Refuse ``int8-compute`` for the models whose int8 serving path is
-    not ported yet: the ResNet classifier, the bf16-compute ResNets and the
-    Xception-41 models (queue A 17 of ROADMAP.md). ``int8`` storage serves
-    them dequantized."""
-    if config.backbone == "xception" or (
-        config.backbone == "resnet" and (config.num_classes is not None or config.dtype == "bfloat16")
-    ):
-        raise NotImplementedError(
-            "int8-compute serving of the ResNet classifier, of the bf16-compute ResNets and of Xception-41 is not "
-            "ported yet (queue A 17 of ROADMAP.md); serve them as float32, bfloat16 or int8"
-        )
-
-
 def quantize_state(state: Mapping[str, torch.Tensor], serving_spec: str, config: ModelConfig):
     """``(qstate, section)`` for export. ``float32`` returns the state
     untouched; ``bfloat16`` casts every float tensor; ``int8`` and
@@ -150,8 +136,6 @@ def quantize_state(state: Mapping[str, torch.Tensor], serving_spec: str, config:
     from tensorflowdistributedlearning_tpu_torch.utils.convert import kernel_leaves
 
     storage, compute = parse_serving_spec(serving_spec)
-    if compute == "int8":
-        require_int8_compute_supported(config)
     section: Dict[str, Any] = {
         "dtype": storage,
         "compute_dtype": compute,

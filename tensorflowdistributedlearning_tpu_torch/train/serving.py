@@ -78,7 +78,6 @@ def serving_model(config: ModelConfig, qstate: Mapping[str, Any], section: Mappi
                 m.to(torch.bfloat16)
     model.load_state_dict(dense, strict=True)
     if section.get("compute_dtype") == "int8":
-        quantize.require_int8_compute_supported(config)
         records = {k: v for k, v in qstate.items() if quantize.is_record(v)}
         quant_kernels.swap_int8_layers(model, records, dense)
     return model.eval()

@@ -41,7 +41,6 @@ from tensorflowdistributedlearning_tpu_torch.parallel import mesh as tmesh
 from tensorflowdistributedlearning_tpu_torch.train.trainer import run_info
 from tensorflowdistributedlearning_tpu_torch.utils import profiling as tprofiling
 
-A14_1 = "ROADMAP queue A 14.1 (the telemetry readers)"
 A14_2 = "ROADMAP queue A 14.2 (the trainers' fault sites, preemption, the supervisor)"
 A14_4 = "ROADMAP queue A 14.4 (the fleet tier)"
 A13 = "ROADMAP queue A 13's remainder (obs/recompile.py, after CUDA graphs, B 7)"
@@ -49,9 +48,7 @@ SHARDING = "not to port: JAX sharding helpers (mesh.py's layouts and groups stan
 
 # JAX package exports the port does not export, and why
 NOT_EXPORTED = {
-    "obs": {**{n: A14_1 for n in ("compare_workdirs", "load_registry", "register_run", "run_summary",
-                                  "STRAGGLER_ALERT_EVENT", "fleet_section", "fleet_summary")},
-            "RecompileDetector": A13},
+    "obs": {"RecompileDetector": A13},
     "train": {"make_multi_train_step": "not to port: a K-step lax.scan compiled as one XLA program"},
     "parallel": {n: SHARDING for n in ("available_devices", "batch_sharding", "make_mesh", "replicate",
                                        "replicated_sharding", "shard_batch", "shard_batch_stacked",

@@ -1097,6 +1097,24 @@ def _vtp_mode(rank: int, world: int, directory: str):
     return out
 
 
+def _ledger_mode(rank: int, world: int, directory: str):
+    """One ``Trainer.train`` over the ranks, 2 folds x 4 steps, a log
+    window every 2 steps: each rank writes its own run ledger into the
+    model dir (``telemetry.jsonl``, ``telemetry-1.jsonl``) for the
+    telemetry readers' tests."""
+    from tensorflowdistributedlearning_tpu_torch.config import TrainConfig
+    from tensorflowdistributedlearning_tpu_torch.data import pipeline as pipeline_lib
+    from tensorflowdistributedlearning_tpu_torch.train.trainer import Trainer
+
+    model = {k: v for k, v in TINY.items() if k != "input_shape"}
+    tcfg = TrainConfig(n_folds=2, seed=0, checkpoint_every_steps=2, eval_throttle_secs=0, save_best=2,
+                       train_log_every_steps=2, trace_sample_rate=1.0, n_devices=world)
+    data = os.path.join(directory, "data")
+    trainer = Trainer(os.path.join(directory, "model"), data, train_config=tcfg, device="cpu", input_shape=(32, 32),
+                      **model)
+    return {"results": trainer.train(pipeline_lib.discover_ids(data), batch_size=4, steps=4)}
+
+
 def main(argv) -> int:
     mode, rank, world, store, directory = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
     torch.set_num_threads(1)
@@ -1105,7 +1123,7 @@ def main(argv) -> int:
     multihost.initialize(store, world, rank, backend="gloo", timeout=TIMEOUT_S)
     out = {"step": _step_mode, "accum": _accum_mode, "fit": _fit_mode, "trainer": _trainer_mode,
            "zero": _zero_mode, "tp": _tp_mode, "pp": _pp_mode, "moe": _moe_mode, "ep": _ep_mode,
-           "spops": _spops_mode, "ring": _ring_mode, "sp": _sp_mode, "vtp": _vtp_mode}[mode](
+           "spops": _spops_mode, "ring": _ring_mode, "sp": _sp_mode, "vtp": _vtp_mode, "ledger": _ledger_mode}[mode](
         rank, world, directory)
     multihost.barrier()
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))

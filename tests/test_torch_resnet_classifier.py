@@ -227,8 +227,10 @@ def test_init_follows_flax_initializers():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_classifier_serves_through_the_engine(name, dtype, tmp_path):
     """A bf16-compute classifier exported and served under the float32 and
-    bfloat16 specs (``{"probabilities", "class"}``); int8-compute is
-    refused, naming its queue item."""
+    bfloat16 specs (``{"probabilities", "class"}``); its int8-compute
+    artifact serves through the engine too, ``logits`` an int8 Dense, the
+    engine's answers those of the loaded closure (its parity with JAX's
+    closure: ``test_classifier_serving_spec_matches_jax``)."""
     cfg = ModelConfig(**VARIANTS[name], dtype="bfloat16")
     model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(5))
     x = np.random.default_rng(5).normal(size=(2, 32, 32, 3)).astype(np.float32)
@@ -243,8 +245,14 @@ def test_classifier_serves_through_the_engine(name, dtype, tmp_path):
     assert np.abs(out["probabilities"] - direct).max() <= tol
     serve = load_serving_artifact(os.path.dirname(manifest), device="cpu")
     np.testing.assert_allclose(serve(x)["probabilities"].numpy(), out["probabilities"], atol=1e-6)
-    with pytest.raises(NotImplementedError, match="queue A 17"):
-        quantize.quantize_state(model.state_dict(), "int8-compute", cfg)
+    qdir = str(tmp_path / f"{dtype}-int8-compute")
+    export_serving_artifact(model, cfg, qdir, serving_dtype="int8-compute")
+    qengine = InferenceEngine.from_artifact(qdir, device="cpu", buckets=(1, 4))
+    qserve = load_serving_artifact(qdir, device="cpu")
+    assert type(serving.load_model(qdir, "cpu").logits).__name__ == "QuantLinear"
+    qout = qengine.infer(x)
+    np.testing.assert_allclose(qout["probabilities"], qserve(x)["probabilities"].numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(qout["class"], qserve(x)["class"].numpy())
 
 
 def _logit_gap(p: np.ndarray, q: np.ndarray) -> float:
@@ -329,7 +337,38 @@ def test_int8_storage_serves_the_classifier(tmp_path):
 
 
 def test_bf16_segmenter_int8_compute_is_refused():
-    cfg = ModelConfig(n_blocks=(1, 1, 1), width_multiplier=0.125, base_depth=16, input_shape=(33, 33),
-                      dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="queue A 17"):
-        quantize.quantize_state(build_model(cfg, "cpu").state_dict(), "int8-compute", cfg)
+    """No longer refused: the bf16-compute segmenter's int8-compute closure
+    against JAX's (``int8_conv2d`` interpreted), probabilities within the
+    max 1e-4 and mean 1e-5 (``tests/test_torch_int8_models.py`` holds it
+    layer by layer)."""
+    import functools
+
+    from tensorflowdistributedlearning_tpu.ops import quant_kernels as jqk
+    from tensorflowdistributedlearning_tpu.train.step import SegmentationTask
+
+    kw = dict(n_blocks=(1, 1, 1), width_multiplier=0.125, base_depth=16, input_shape=(33, 33), dtype="bfloat16")
+    jm = jbuild(jconfig.ModelConfig(**kw))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 33, 33, 2)).astype(np.float32)
+    v = jax.device_get(jax.jit(lambda a: jm.init(jax.random.key(0), a, train=False))(jnp.asarray(x)))
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) + rng.normal(0, 0.05, a.shape).astype(np.float32),
+                                    v["params"])
+    stats = unflatten_dict({
+        k: (rng.uniform(0.5, 1.5, a.shape) if k[-1] == "var" else rng.normal(0, 0.2, a.shape)).astype(np.float32)
+        for k, a in flatten_dict(v["batch_stats"]).items()
+    })
+    qp, qs, _ = jquantize.quantize_state(params, stats, "int8-compute")
+    act = jquantize.compute_dtype("int8-compute")
+    variables = {"params": jquantize.dequantize_pytree(qp, act), "batch_stats": jquantize.dequantize_pytree(qs, act)}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jqk, "int8_conv2d", functools.partial(jqk.int8_conv2d, interpret=True))
+        with jqk.int8_intercept(qp, act):
+            logits = jm.apply(variables, jnp.asarray(x).astype(act), train=False)
+    want = np.asarray(jquantize.cast_outputs_float32(SegmentationTask().serve_predictions(logits))["probabilities"])
+    cfg = ModelConfig(**kw, use_pallas_depthwise=True)
+    qstate, section = quantize.quantize_state(from_flax(params, stats, cfg), "int8-compute", cfg)
+    model = serving.serving_model(cfg, qstate, section, "cpu")
+    got = serving.make_serving_fn(model, "cpu", act_dtype=quantize.compute_dtype("int8-compute"))(x)["probabilities"].numpy()
+    d = np.abs(got - want)
+    assert d.max() <= 1e-4 and d.mean() <= 1e-5, (d.max(), d.mean())
+    assert want.std() > 0.02
